@@ -1,0 +1,186 @@
+"""Generate with the flagship model on the GPU (port of
+the JAX package's examples/lm_generate.py, single-device paths).
+
+    python -m tony_tpu_torch.examples.lm_generate \
+        --vocab 32768 --d-model 1024 --n-layers 12 --n-heads 8 --d-ff 4096 \
+        --batch 8 --prompt-len 1024 --max-new 64
+
+Weights are random, drawn from ``--seed`` through a ``torch.Generator``.
+Prompts are whitespace-separated token ids (``--prompt``), or ``--batch`` x
+``--prompt-len`` random ids from the same seed. Prints the first row's
+tokens and the decode throughput; ``--metrics-out`` also gets the prefill
+time and the rates as JSON.
+
+Timing: one untimed warm-up run, then the timed full run, then a timed
+prefill-only run (``max_new_tokens=1``). So a call launches the flash
+forward kernel 3 x n_layers times and the flash-decode kernel
+2 x n_layers x (max_new - 1) times (fewer with stop tokens).
+
+Not ported yet, each raising: ``--checkpoint-dir`` (needs the checkpoint
+slice), ``--hf-checkpoint``, the draft (speculative) flags,
+``--tensor-parallel`` > 1, ``--n-experts`` > 0 and ``--weight-dtype int8``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+
+def _not_ported(flag: str, slice_name: str):
+    raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
+                     f"(it comes with the {slice_name} slice)")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--checkpoint-dir", default="",
+                        help="not yet ported; empty = random init")
+    parser.add_argument("--d-model", type=int, default=256)
+    parser.add_argument("--n-layers", type=int, default=4)
+    parser.add_argument("--n-heads", type=int, default=8)
+    parser.add_argument("--d-ff", type=int, default=1024)
+    parser.add_argument("--vocab", type=int, default=4096)
+    parser.add_argument("--n-experts", type=int, default=0)
+    parser.add_argument("--dtype", default="bfloat16")
+    parser.add_argument("--prompt", default="1 2 3 4 5 6 7 8",
+                        help="whitespace-separated token ids")
+    parser.add_argument("--batch", type=int, default=1,
+                        help="rows; more than 1 needs --prompt-len")
+    parser.add_argument("--prompt-len", type=int, default=0,
+                        help=">0: random prompts of this length from --seed "
+                             "instead of --prompt")
+    parser.add_argument("--max-new", type=int, default=64)
+    parser.add_argument("--max-len", type=int, default=0,
+                        help="cache capacity (0 = prompt + max-new)")
+    parser.add_argument("--temperature", type=float, default=0.0)
+    parser.add_argument("--top-k", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--kv-dtype", default="native",
+                        choices=("native", "int8"))
+    parser.add_argument("--weight-dtype", default="native",
+                        choices=("native", "int8"))
+    parser.add_argument("--stop-tokens", default="",
+                        help="whitespace-separated token ids that end a "
+                             "sequence (EOS)")
+    parser.add_argument("--pad-id", type=int, default=0)
+    parser.add_argument("--tensor-parallel", type=int, default=1)
+    parser.add_argument("--hf-checkpoint", default="")
+    parser.add_argument("--draft-hf-checkpoint", default="")
+    parser.add_argument("--draft-checkpoint-dir", default="")
+    parser.add_argument("--draft-d-model", type=int, default=128)
+    parser.add_argument("--draft-n-layers", type=int, default=2)
+    parser.add_argument("--draft-n-heads", type=int, default=4)
+    parser.add_argument("--draft-d-ff", type=int, default=512)
+    parser.add_argument("--device", default=None,
+                        help="default: the GPU (raises without one)")
+    parser.add_argument("--metrics-out", default="")
+    args = parser.parse_args(argv)
+
+    if args.checkpoint_dir:
+        _not_ported("--checkpoint-dir", "checkpoint")
+    if args.hf_checkpoint:
+        _not_ported("--hf-checkpoint", "HF import")
+    if args.draft_hf_checkpoint or args.draft_checkpoint_dir:
+        _not_ported("speculative decoding (--draft-*)", "speculative")
+    if args.tensor_parallel > 1:
+        _not_ported("--tensor-parallel", "mesh/TP")
+    if args.n_experts > 0:
+        _not_ported("--n-experts", "MoE")
+    if args.weight_dtype == "int8":
+        _not_ported("--weight-dtype int8", "w8a16")
+
+    import torch
+
+    from tony_tpu_torch.device import resolve_device
+    from tony_tpu_torch.models import transformer
+    from tony_tpu_torch.models.convert import torch_dtype
+    from tony_tpu_torch.models.generate import generate, prepare_decode
+
+    device = resolve_device(args.device)
+    cfg = transformer.TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
+        n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
+        dtype=torch_dtype(args.dtype),
+    )
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = transformer.init(cfg, gen, device)
+
+    if args.prompt_len > 0:
+        prompt = torch.randint(0, args.vocab, (args.batch, args.prompt_len),
+                               generator=gen, device=device,
+                               dtype=torch.int64)
+    else:
+        if args.batch != 1:
+            raise SystemExit("--batch > 1 needs --prompt-len")
+        prompt_ids = [int(t) for t in args.prompt.split()]
+        bad = [t for t in prompt_ids if not 0 <= t < args.vocab]
+        if bad:
+            raise SystemExit(f"prompt ids out of vocab range: {bad}")
+        prompt = torch.tensor([prompt_ids], dtype=torch.int64, device=device)
+    stop_tokens = tuple(int(t) for t in args.stop_tokens.split())
+    prepared = prepare_decode(params, cfg, weight_dtype=args.weight_dtype)
+    del params
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run(max_new):
+        sample_gen = torch.Generator(device=device).manual_seed(args.seed)
+        out, steps = generate(
+            prepared, cfg, prompt, max_new, temperature=args.temperature,
+            top_k=args.top_k, generator=sample_gen, kv_dtype=args.kv_dtype,
+            max_len=args.max_len or None, stop_tokens=stop_tokens,
+            pad_id=args.pad_id, return_steps=True)
+        sync()
+        return out, steps
+
+    run(args.max_new)                   # warm-up, untimed
+    t0 = time.perf_counter()
+    out, steps = run(args.max_new)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run(1)                              # prefill only
+    prefill_s = time.perf_counter() - t0
+
+    tokens = [int(t) for t in out[0].tolist()]
+    if stop_tokens:
+        # trim the pad tail (the stop token itself stays)
+        for i, t in enumerate(tokens):
+            if t in stop_tokens:
+                tokens = tokens[:i + 1]
+                break
+    # prefill emitted 1 token + `steps` decode forwards
+    n_generated = int(steps) + 1
+    decode_s = max(wall - prefill_s, 1e-9)
+    result = {
+        "tokens": tokens,
+        "decode_tokens_per_sec": n_generated / wall,
+        "generated_tokens": n_generated,
+        "batch": int(prompt.shape[0]),
+        "prompt_len": int(prompt.shape[1]),
+        "wall_s": wall,
+        "prefill_ms": prefill_s * 1e3,
+        "decode_steps": int(steps),
+        "decode_step_ms": decode_s * 1e3 / max(int(steps), 1),
+        "batch_decode_tokens_per_sec": prompt.shape[0] * int(steps) / decode_s,
+        "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else "cpu"),
+        "kv_dtype": args.kv_dtype,
+        "weight_dtype": args.weight_dtype,
+        "stop_tokens": list(stop_tokens),
+    }
+    print(" ".join(str(t) for t in tokens))
+    print(f"# {n_generated} tokens in {wall:.2f}s "
+          f"({result['decode_tokens_per_sec']:.1f} tok/s), prefill "
+          f"{result['prefill_ms']:.1f} ms")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(result, f)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,422 @@
+"""Autoregressive generation with a KV cache (port of
+the JAX package's models/generate.py, single device).
+
+- **Static cache.** The cache is allocated once at ``prompt_len +
+  max_new_tokens`` (or a pinned ``max_len``) in the head-major
+  ``[layers, B, kvH, max_len, D]`` layout. Each forward writes its new K/V
+  **in place** by slice assignment at ``cache.length`` and returns a new
+  ``KVCache`` over the same buffers with the length advanced (the JAX
+  package donates the buffers instead; the effect is the same: the cache
+  passed in is consumed).
+- **Prefill** (empty cache) runs causal attention over the prompt through
+  the model's own attention dispatch: the flash forward kernel on CUDA.
+- **Decode** runs ``_cached_attention``: on CUDA every lockstep
+  single-token step goes to the split-KV flash-decode kernel
+  (ops/decode_attention.py); the JAX package's M >= 4096 threshold was
+  measured on another chip and is not applied. Other shapes (a multi-token
+  chunk into a non-empty cache, attn_impl="ref", the CPU) take the einsum
+  formulation: scores against the whole buffer with an index mask.
+- **GQA-aware cache** at n_kv_heads; query heads are folded to
+  ``[kvH, rep]`` against the un-repeated cache.
+- ``kv_dtype="int8"`` stores per-token-per-head symmetric int8 with bf16
+  scales; the scales fold out of the attention operands.
+- Dense models run fused q/k/v and gate/up projections (concatenations of
+  the training weights, so values match the unfused path).
+
+Sampling: greedy (temperature=0), temperature and top-k, drawn from an
+explicit ``torch.Generator``. ``stop_tokens`` gives EOS semantics with an
+early exit once every row has stopped.
+
+Not ported yet: w8a16 (``weight_dtype="int8"``), MoE, the mesh
+(tensor-parallel) path and the serving slot pool's per-row lengths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..parallel.ring_attention import NEG_INF
+from . import transformer
+from .transformer import TransformerConfig, layer_params, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCache:
+    k: torch.Tensor       # [n_layers, B, n_kv_heads, max_len, head_dim]
+    v: torch.Tensor
+    length: int           # number of valid positions
+    # int8 mode only: [n_layers, B, n_kv_heads, max_len] bf16 dequant scales
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               kv_dtype: str = "native", device=None) -> KVCache:
+    """kv_dtype "native" stores cfg.dtype (exact); "int8" stores symmetric
+    int8 with per-token-per-head bf16 scales (half the bytes, within int8
+    resolution). Head-major: each head's [M, D] history is contiguous.
+    ``device`` None means the card (resolve_device)."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    if kv_dtype == "int8":
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            length=0,
+            k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+        )
+    if kv_dtype != "native":
+        raise ValueError(f"kv_dtype must be 'native' or 'int8', got {kv_dtype!r}")
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   length=0)
+
+
+def _symmetric_int8(x, axis: int):
+    """Symmetric int8 quantization over ``axis`` -> (int8 values, f32
+    scales with ``axis`` kept as size 1)."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_kv(x):
+    """[B, kvH, L, D] -> (int8 values, [B, kvH, L] bf16 scales)."""
+    q, scale = _symmetric_int8(x, axis=-1)
+    return q, scale[..., 0].to(torch.bfloat16)
+
+
+def _cached_attention(cfg, q, ck, cv, cache_len: int, l_new: int,
+                      k_scale=None, v_scale=None, allow_kernel=True,
+                      layer_idx=None):
+    """q: [B, L, H, D] for the L new positions (absolute offsets
+    cache_len..cache_len+L-1); ck/cv: the cache buffers (the full
+    [Ly, B, kvH, M, D] stack with ``layer_idx``), already holding the new
+    keys. ``cache_len`` is one int for every row (lockstep)."""
+    b, l, h, d = q.shape
+    kvh = ck.shape[1 if layer_idx is None else 2]
+    rep = h // kvh
+    if allow_kernel and l == 1 and cfg.attn_impl != "ref" and q.is_cuda:
+        from ..ops.decode_attention import flash_decode
+
+        out = flash_decode(q.reshape(b, kvh, rep, d), ck, cv, cache_len,
+                           k_scale, v_scale, window=cfg.attn_window or 0,
+                           layer=layer_idx)
+        return out.reshape(b, 1, h, d)
+    if layer_idx is not None:           # views, not copies
+        ck, cv = ck[layer_idx], cv[layer_idx]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer_idx], v_scale[layer_idx]
+    dt = cfg.dtype
+    q5 = q.reshape(b, l, kvh, rep, d)
+    # f32 scores from the storage-dtype operands (exact products, f32 sum)
+    s = torch.einsum("blgrd,bgmd->bgrlm", q5.float(),
+                     ck.to(dt).float()) * cfg.head_dim ** -0.5
+    if k_scale is not None:
+        s = s * k_scale.float()[:, :, None, None, :]
+    key_pos = torch.arange(ck.shape[2], device=q.device)
+    q_pos = cache_len + torch.arange(l_new, device=q.device)
+    mask = key_pos <= q_pos[:, None]                    # causal + validity
+    if cfg.attn_window:
+        mask &= key_pos > q_pos[:, None] - cfg.attn_window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.float()[:, :, None, None, :]
+    out = torch.einsum("bgrlm,bgmd->blgrd", p.to(dt), cv.to(dt))
+    return out.reshape(b, l, h, d)
+
+
+def _prefill_cfg(cfg: TransformerConfig) -> TransformerConfig:
+    """The prefill's attention config: sequence-parallel impls need a mesh
+    decode does not have, so they take the single-device auto dispatch."""
+    if cfg.attn_impl in ("ring", "ulysses"):
+        return dataclasses.replace(cfg, attn_impl="auto")
+    return cfg
+
+
+def _cast_params(params, dtype):
+    return {name: (_cast_params(w, dtype) if isinstance(w, dict)
+                   else (w.to(dtype) if w.dtype == torch.float32 else w))
+            for name, w in params.items()}
+
+
+def _cast_decode_params(params, cfg: TransformerConfig):
+    """Pre-cast f32 master weights to the activation dtype once per call:
+    the same rounding as the forward's per-use casts, without re-reading
+    the f32 copy every step."""
+    if cfg.dtype == torch.float32:
+        return params
+    return _cast_params(params, cfg.dtype)
+
+
+def _fuse_decode_weights(params, cfg: TransformerConfig,
+                         weight_dtype: str = "native"):
+    """Concatenate per-layer q/k/v and gate/up weights into one matrix each
+    ([L, d, h*hd + 2*kvh*hd] and [L, d, 2*f]): two skinny GEMMs per layer
+    instead of five on the weight-streaming decode step."""
+    if weight_dtype == "int8":
+        raise NotImplementedError(
+            "weight_dtype='int8' (w8a16) is not ported yet (ROADMAP queue 1, "
+            "w8a16 item)")
+    if weight_dtype != "native":
+        raise ValueError(
+            f"weight_dtype must be 'native' or 'int8', got {weight_dtype!r}")
+    if cfg.n_experts > 0:
+        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, "
+                                  "MoE item)")
+    L, d = cfg.n_layers, cfg.d_model
+    lp = params["layers"]
+    wqkv = torch.cat([lp["wq"].reshape(L, d, -1), lp["wk"].reshape(L, d, -1),
+                      lp["wv"].reshape(L, d, -1)], dim=-1)
+    w_gu = torch.cat([lp["w_gate"], lp["w_up"]], dim=-1)
+    return {"wqkv": wqkv, "w_gu": w_gu}
+
+
+def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
+                        fused: dict | None = None, prefill: bool = False,
+                        all_logits: bool = False):
+    """Run L new tokens (absolute positions cache.length..+L-1) through the
+    stack, writing their K/V into the cache IN PLACE -> (last-position
+    logits [B, V] f32, or [B, L, V] with ``all_logits``; the cache with its
+    length advanced, over the same buffers).
+
+    ``prefill=True`` requires an empty cache: attention over the block then
+    is causal attention within the block and runs through the model's own
+    dispatch (the flash kernel on CUDA), instead of scoring against the
+    whole max_len buffer. A multi-token chunk into a non-empty cache
+    passes prefill=False and takes the general cached-attention path."""
+    dt = cfg.dtype
+    b, l = tokens.shape
+    start = cache.length
+    m_cap = cache.k.shape[3]
+    if start + l > m_cap:
+        raise ValueError(f"cache capacity {m_cap} cannot hold {start} cached "
+                         f"+ {l} new positions")
+    if prefill and start != 0:
+        raise ValueError("prefill=True requires an empty cache")
+    positions = (start + torch.arange(l, device=tokens.device)).expand(b, l)
+    x = params["embed"].to(dt)[tokens]
+
+    hd = cfg.head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    p_cfg = _prefill_cfg(cfg) if prefill else None
+    ck, cv = cache.k, cache.v
+    int8_cache = ck.dtype == torch.int8
+    span = slice(start, start + l)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        if fused is not None:
+            qkv = torch.einsum("bld,de->ble", h, fused["wqkv"][i].to(dt))
+            q = qkv[..., :nq].reshape(b, l, cfg.n_heads, hd)
+            k = qkv[..., nq:nq + nkv].reshape(b, l, cfg.n_kv_heads, hd)
+            v = qkv[..., nq + nkv:].reshape(b, l, cfg.n_kv_heads, hd)
+            q = transformer.rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+            k = transformer.rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        else:
+            q, k, v = transformer._qkv(cfg, h, positions, lp)
+        k_hm = k.transpose(1, 2)    # [B, kvH, L, D] head-major
+        v_hm = v.transpose(1, 2)
+        if int8_cache:
+            k_w, ks = _quantize_kv(k_hm)
+            v_w, vs = _quantize_kv(v_hm)
+            cache.k_scale[i, :, :, span] = ks
+            cache.v_scale[i, :, :, span] = vs
+        else:
+            k_w, v_w = k_hm, v_hm
+        ck[i, :, :, span] = k_w     # in place (slice assignment casts)
+        cv[i, :, :, span] = v_w
+        if prefill:
+            kr, vr = transformer._repeat_kv(cfg, k, v)
+            attn = transformer._attention(q, kr, vr, p_cfg)
+        else:
+            attn = _cached_attention(cfg, q, ck, cv, start, l,
+                                     cache.k_scale, cache.v_scale,
+                                     layer_idx=i)
+        x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
+        hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        if fused is not None:
+            gu = torch.einsum("bld,de->ble", hh, fused["w_gu"][i].to(dt))
+            gate, up = gu[..., :cfg.d_ff], gu[..., cfg.d_ff:]
+            mlp_out = torch.einsum("blf,fd->bld", F.silu(gate) * up,
+                                   lp["w_down"].to(dt))
+        else:
+            mlp_out, _ = transformer._mlp(cfg, hh, lp)
+        x = x + mlp_out
+
+    x_out = rms_norm(x if all_logits else x[:, -1], params["final_norm"],
+                     cfg.norm_eps)
+    eq = "bld,dv->blv" if all_logits else "bd,dv->bv"
+    logits = torch.einsum(eq, x_out, params["unembed"].to(dt)).float()
+    return logits, dataclasses.replace(cache, length=start + l)
+
+
+def sample_token(logits, generator=None, temperature: float = 0.0,
+                 top_k: int = 0):
+    """logits [B, V] -> token ids [B] int32. temperature=0 => greedy;
+    otherwise a draw from ``generator`` (on logits' device) over the
+    temperature-scaled, optionally top-k-filtered distribution."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    scaled = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled >= kth, scaled, NEG_INF)
+    probs = torch.softmax(scaled, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+class DecodeWeights(NamedTuple):
+    """Decode-ready weights built once by ``prepare_decode``: pre-cast and
+    pre-fused, so repeated generate calls make no per-call weight copies.
+    Pass in place of raw params."""
+    params: dict
+    fused: dict | None
+    weight_dtype: str = "native"
+
+
+def prepare_decode(params, cfg: TransformerConfig, *,
+                   weight_dtype: str = "native") -> DecodeWeights:
+    """Cast f32 masters to cfg.dtype and fuse qkv / gate-up ONCE, outside
+    generate. A caller that then drops its f32 masters holds one copy of
+    the model."""
+    params = _cast_decode_params(params, cfg)
+    fused = _fuse_decode_weights(params, cfg, weight_dtype)
+    return DecodeWeights(params=params, fused=fused, weight_dtype=weight_dtype)
+
+
+def _check_continuation(cache: KVCache, b, lp_len, max_new_tokens, max_len,
+                        kv_dtype, return_cache):
+    if not return_cache:
+        raise ValueError(
+            "cache= requires return_cache=True: the passed cache is updated "
+            "in place, so without returning it the conversation state would "
+            "be consumed. On a final turn, pass return_cache=True and drop "
+            "the result.")
+    cap = cache.k.shape[3]
+    if cache.k.shape[1] != b:
+        raise ValueError(f"continuation batch {b} != cache batch "
+                         f"{cache.k.shape[1]}")
+    if cache.length + lp_len + max_new_tokens > cap:
+        raise ValueError(
+            f"cache capacity {cap} cannot hold {cache.length} cached + "
+            f"{lp_len} new prompt + {max_new_tokens} generated tokens — size "
+            "the first call's max_len for the whole conversation")
+    if max_len is not None and max_len != cap:
+        raise ValueError(f"max_len={max_len} conflicts with the passed "
+                         f"cache's capacity {cap} (omit max_len when "
+                         "continuing)")
+    cache_kv = "int8" if cache.k.dtype == torch.int8 else "native"
+    if kv_dtype != "native" and kv_dtype != cache_kv:
+        raise ValueError(f"kv_dtype={kv_dtype!r} conflicts with the passed "
+                         f"cache ({cache_kv})")
+    return cap, cache_kv
+
+
+@torch.no_grad()
+def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
+             max_new_tokens: int, *, temperature: float = 0.0, top_k: int = 0,
+             generator: torch.Generator | None = None,
+             kv_dtype: str = "native", max_len: int | None = None,
+             weight_dtype: str = "native", stop_tokens: tuple = (),
+             pad_id: int = 0, return_steps: bool = False,
+             cache: KVCache | None = None, return_cache: bool = False):
+    """Generate max_new_tokens continuations -> [B, max_new_tokens] int32,
+    on the device of ``prompt`` (the params must be there too).
+
+    Prefill once, then single-token decode steps against the in-place
+    cache; with ``stop_tokens`` rows that emit a listed token stop, their
+    remaining positions are ``pad_id``, and the loop exits once every row
+    has stopped. ``return_steps=True`` also returns the number of decode
+    forwards run.
+
+    ``params`` may be a raw parameter dict or a ``DecodeWeights`` from
+    ``prepare_decode``. ``generator`` draws the samples (default: a
+    generator on the prompt's device seeded with 0).
+
+    ``return_cache=True`` also returns the KV cache holding prompt + ALL
+    emitted tokens; pass it back as ``cache=`` with only the NEW tokens as
+    the prompt. The passed cache is updated IN PLACE (clone its tensors
+    first to fan several continuations out of one prefix), so ``cache=``
+    requires ``return_cache=True``."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if not cfg.causal:
+        raise ValueError("generate requires causal=True (a bidirectional "
+                         "encoder has no autoregressive decode)")
+    if weight_dtype not in ("native", "int8"):
+        raise ValueError(
+            f"weight_dtype must be 'native' or 'int8', got {weight_dtype!r}")
+    device = prompt.device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    b, lp_len = prompt.shape
+    if cache is not None:
+        max_len, kv_dtype = _check_continuation(
+            cache, b, lp_len, max_new_tokens, max_len, kv_dtype, return_cache)
+    elif max_len is None:
+        max_len = lp_len + max_new_tokens
+    elif max_len < lp_len + max_new_tokens:
+        raise ValueError(f"max_len={max_len} < prompt ({lp_len}) + "
+                         f"max_new_tokens ({max_new_tokens})")
+
+    if isinstance(params, DecodeWeights):
+        if weight_dtype != "native" and weight_dtype != params.weight_dtype:
+            raise ValueError(
+                f"weight_dtype={weight_dtype!r} requested but the prepared "
+                f"weights were built with {params.weight_dtype!r} — pass "
+                "weight_dtype to prepare_decode instead")
+        prepared = params
+    else:
+        prepared = prepare_decode(params, cfg, weight_dtype=weight_dtype)
+    w, fused = prepared.params, prepared.fused
+
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, kv_dtype, device)
+        logits, cache = _forward_with_cache(w, cfg, prompt, cache, fused,
+                                            prefill=True)
+    else:
+        logits, cache = _forward_with_cache(w, cfg, prompt, cache, fused)
+    tok = sample_token(logits, generator, temperature, top_k)
+    out = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32,
+                     device=device)
+    out[:, 0] = tok
+    stops = torch.tensor([int(t) for t in stop_tokens], dtype=torch.int32,
+                         device=device)
+    finished = torch.isin(tok, stops)
+    steps = 0
+    while steps < max_new_tokens - 1:
+        if stop_tokens and bool(finished.all()):
+            break
+        logits, cache = _forward_with_cache(w, cfg, tok[:, None], cache, fused)
+        nxt = sample_token(logits, generator, temperature, top_k)
+        if stop_tokens:
+            # finished rows emit pad and stay finished
+            nxt = torch.where(finished, torch.full_like(nxt, pad_id), nxt)
+            finished = finished | torch.isin(nxt, stops)
+        steps += 1
+        out[:, steps] = nxt
+        tok = nxt
+
+    result = (out,)
+    if return_steps:
+        result += (steps,)
+    if return_cache:
+        # ingest the final emitted token so the cache holds the whole
+        # conversation so far
+        _, cache = _forward_with_cache(w, cfg, tok[:, None], cache, fused)
+        result += (cache,)
+    return result if len(result) > 1 else out
+
+
+__all__ = ["KVCache", "init_cache", "generate", "sample_token",
+           "prepare_decode", "DecodeWeights"]
