@@ -134,14 +134,16 @@ def test_plain_version_is_differentiable():
 
 def test_kernel_envelope_and_backward_guard():
     """The port's own envelope (head_dim 64/128, f32/bf16), not the TPU's
-    % 128 rule; the kernel's autograd node refuses a backward until the
-    backward kernels are ported."""
+    % 128 rule; the backward kernels' wrapper refuses a CPU tensor (a CPU
+    tensor takes the plain backward through the same autograd node)."""
     assert A.flash_supported(torch.zeros(1, 1, 4, 64))
     assert A.flash_supported(torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16))
     assert not A.flash_supported(torch.zeros(1, 1, 4, 96))
     assert not A.flash_supported(torch.zeros(1, 1, 4, 128, dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        A._FlashFwd.backward(None, None, None)
+    x = torch.zeros(1, 1, 4, 64)
+    with pytest.raises(ValueError, match="device"):
+        A._flash_bwd_cuda(x, x, x, x, torch.zeros(1, 1, 4), x, None, True,
+                          None, None)
     # a CPU tensor never reaches the kernel wrapper's launch
     with pytest.raises(ValueError, match="device"):
         A._check_kernel_inputs(*(torch.zeros(1, 1, 4, 64),) * 3)

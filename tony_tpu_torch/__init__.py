@@ -6,9 +6,14 @@ this one runs the same functions in PyTorch with hand-written CUDA C++
 kernels (``csrc/``) where the JAX package had Pallas kernels. It imports
 ``torch`` and never ``jax`` or anything of the JAX package.
 
-Ported so far: KV-cache generation for the flagship decoder-only
-transformer (``models.generate``), with the flash forward kernel on the
-prefill and the split-KV flash-decode kernel on every decode step.
+Ported so far, for the flagship decoder-only transformer on one device:
+
+- KV-cache generation (``models.generate``, ``examples.lm_generate``), with
+  the flash forward kernel on the prefill and the split-KV flash-decode
+  kernel on every decode step;
+- training (``train``, ``data``, ``examples.lm_train``), with the flash
+  forward kernel and the two flash backward kernels in every step, and the
+  blockwise cross-entropy.
 """
 
 from .device import resolve_device

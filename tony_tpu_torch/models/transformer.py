@@ -1,5 +1,5 @@
-"""Flagship decoder-only transformer, forward pass (port of
-the JAX package's models/transformer.py).
+"""Flagship decoder-only transformer, forward pass and training loss (port
+of the JAX package's models/transformer.py).
 
 Plain functions on a parameter dict with the JAX package's layouts
 (``wq [L, d, h, k]``, ``wo [L, h, k, d]``, ...) and the same einsum
@@ -12,8 +12,12 @@ tensor; "flash" asks for the flash path (the kernel on CUDA, its plain
 version on the CPU); "ref" is the plain attention everywhere. The
 sequence-parallel impls come with the mesh slice.
 
-Training pieces (remat, token_nll, loss_fn, MoE) come with the training
-slice; their config fields are kept so a config maps one to one.
+The loss (``token_nll``, ``loss_fn``) dispatches on ``cfg.ce_impl``:
+blockwise cross-entropy (ops/cross_entropy.py) streams the vocabulary so the
+[B, L, V] logits never exist; dense materialises them. There is no mesh in
+this slice, so "auto" means blockwise at vocab >= 16384. ``remat`` and MoE
+are not ported yet and raise; their config fields are kept so a config maps
+one to one.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     # causal=False: bidirectional encoder (no KV-cache generation)
     causal: bool = True
-    # training-slice fields (not read by the forward)
+    # training fields: remat is not ported yet (loss_fn raises)
     remat: bool = False
     remat_policy: str = "full"
     ce_impl: str = "auto"
@@ -256,5 +260,54 @@ def apply(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     return logits.float(), aux
 
 
+def _use_blockwise_ce(cfg: TransformerConfig) -> bool:
+    """ce_impl dispatch. With no mesh there is no vocab-sharded unembed to
+    keep sharded, so "auto" is blockwise at large vocab."""
+    if cfg.ce_impl not in ("auto", "dense", "blockwise"):
+        raise ValueError(f"ce_impl must be 'auto', 'dense', or 'blockwise', "
+                         f"got {cfg.ce_impl!r}")
+    if cfg.ce_impl == "auto":
+        return cfg.vocab_size >= 16384
+    return cfg.ce_impl == "blockwise"
+
+
+def token_nll(x, unembed, targets, cfg: TransformerConfig,
+              reduction: str = "mean"):
+    """Masked next-token NLL from final hidden states.
+
+    x: [B, L, D] hidden (after the final norm), unembed: [D, V], targets:
+    [B, L] int with -1 = pad (masked out here). reduction "mean" -> the
+    mean over valid tokens; "sum" -> the sum (the caller divides by its own
+    count). Scalar float32."""
+    from ..ops.cross_entropy import blockwise_cross_entropy, dense_cross_entropy
+
+    if reduction not in ("mean", "sum"):
+        raise ValueError(f"reduction must be 'mean' or 'sum', got "
+                         f"{reduction!r}")
+    valid = targets >= 0
+    safe_targets = torch.where(valid, targets, 0).reshape(-1)
+    x2 = x.reshape(-1, x.shape[-1])
+    w = unembed.to(cfg.dtype)
+    if _use_blockwise_ce(cfg):
+        nll = blockwise_cross_entropy(x2, w, safe_targets, cfg.ce_block_v)
+    else:
+        nll = dense_cross_entropy(x2, w, safe_targets)
+    nll = nll.reshape(targets.shape) * valid
+    if reduction == "sum":
+        return nll.sum()
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def loss_fn(params, tokens, targets, cfg: TransformerConfig):
+    """Next-token cross-entropy (+ MoE aux, 0 for the dense model); targets
+    [B, L] with -1 = pad. With blockwise CE the [B, L, V] logits never
+    exist, forward or backward."""
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat is not ported yet (ROADMAP queue 1, remat item)")
+    x, aux = apply_hidden(params, tokens, cfg)
+    return token_nll(x, params["unembed"], targets, cfg) + aux
+
+
 __all__ = ["TransformerConfig", "init", "apply", "apply_hidden", "rms_norm",
-           "rope", "num_params", "layer_params"]
+           "rope", "num_params", "layer_params", "token_nll", "loss_fn"]

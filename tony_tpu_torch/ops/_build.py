@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_decode")
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,6 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # symbol -> (library, argtypes) of each C entry point (see the .cu sources)
 SIGNATURES = {
     "tony_flash_fwd": (
@@ -39,6 +40,10 @@ SIGNATURES = {
         "flash_decode", [_P] * 8 + [_I] * 10 + [_L] * 5 + [_F, _P]),
     "tony_flash_decode_combine": (
         "flash_decode", [_P] * 4 + [_I] * 5 + [_P]),
+    "tony_flash_bwd_dkdv": (
+        "flash_bwd", [_P] * 8 + [_I] * 6 + [_LP, _F, _I, _I, _P]),
+    "tony_flash_bwd_dq": (
+        "flash_bwd", [_P] * 7 + [_I] * 6 + [_LP, _F, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
