@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from csrc/ with nvcc, then runs these phases
 and exits non-zero if any of them fails:
 
-1. card: the GPU's name and power limit, and the kernels' build time;
+1. card: the GPU's name and power limit, the kernels' build time, ptxas's
+   registers and spills for each kernel, and a check of the compiled SASS:
+   every bf16 attention kernel must run on the tensor cores (HMMA);
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the flagship's shapes and at the edge cases, with its time beside the
    plain version's, a PyTorch library call's and the card's bound; the
@@ -37,6 +39,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -82,6 +86,22 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 # logsumexp near 10.4, which averages the rounding out
 TRAIN_PARITY_LOSS_ATOL = 0.05
 TRAIN_PARITY_GRAD_RTOL = 0.1
+# the bf16 attention kernels (the tensor-core route) and their designs
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+               "flash_bwd_dq_mma_kernel")
+DESIGNS = {
+    "flash_fwd": "bf16: mma.sync m16n8k16 bf16 (f32 accumulate), ldmatrix "
+                 "from padded bf16 tiles, cp.async x2 stages of 32-key K/V "
+                 "tiles; 128 q rows a CTA, 4 warps; P kept in registers. "
+                 "f32: FMA on the FP32 pipes",
+    "flash_bwd_dkdv": "bf16: mma.sync m16n8k16 bf16, keys as M (S^T = K Q^T, "
+                      "dP^T = V dO^T), P^T and dS^T kept in registers as A "
+                      "operands, cp.async x2 Q/dO/lse/delta stages; 64 keys "
+                      "a CTA, 4 warps. f32: FMA on the FP32 pipes",
+    "flash_bwd_dq": "bf16: mma.sync m16n8k16 bf16, dS kept in registers as "
+                    "the A operand of dS K, cp.async x2 K/V stages; 64 q rows "
+                    "a CTA, 4 warps. f32: FMA on the FP32 pipes",
+}
 
 
 def fail(msg: str):
@@ -165,16 +185,74 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 # ------------------------------------------------------------------ phases
 
-def phase_card(build) -> None:
+def _kernel_label(mangled: str) -> str:
+    """flash_fwd_mma_kernel<128>, flash_fwd_kernel<float,128> and the like
+    from a mangled kernel name."""
+    ident = re.search(r"\d+((?:flash|decode)\w*?kernel)", mangled)
+    name = ident.group(1) if ident else mangled
+    dims = re.findall(r"Li(\d+)E", mangled)
+    dtype = ("float," if "IfLi" in mangled else
+             "bf16," if "bfloat16" in mangled and "mma" not in name else "")
+    return f"{name}<{dtype}{','.join(dims)}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel label: (registers, spill stores, spill loads)} from nvcc's
+    -Xptxas -v output."""
+    out, fn, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = _kernel_label(m.group(1)), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), *spills)
+    return out
+
+
+def sass_hmma(lib: Path) -> dict:
+    """{kernel label: HMMA instructions in its SASS} for one built library,
+    by cuobjdump --dump-sass."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = _kernel_label(m.group(1))
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def phase_card(build) -> dict:
+    """Build the kernels; check that every bf16 attention kernel is on the
+    tensor cores -> {kernel label: (registers, spill stores, spill loads,
+    HMMA count)}."""
     print("== card")
     print(f"card: {nvidia_smi_line()}")
     secs = build.build_all()
     print(f"kernels built in {secs:.1f} s (nvcc, one process per source, "
           "in parallel)")
+    report = {}
     for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        regs = ptxas_report(build.build_log(name))
+        hmma = sass_hmma(build._lib_path(name))
+        for fn, (n_regs, st, ld) in sorted(regs.items()):
+            report[fn] = (n_regs, st, ld, hmma.get(fn, 0))
+            print(f"ptxas {name}: {fn}: {n_regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B; SASS HMMA {hmma.get(fn, 0)}")
+    for kern in MMA_KERNELS:
+        found = {fn: r for fn, r in report.items() if fn.startswith(kern + "<")}
+        if len(found) != 2 or not all(r[3] > 0 for r in found.values()):
+            fail(f"{kern}: expected HMMA instructions in both head dims' "
+                 f"SASS, found {found}")
+    return report
 
 
 def phase_kernels(torch, A, DA, G, T) -> dict:
@@ -310,7 +388,8 @@ def phase_kernels(torch, A, DA, G, T) -> dict:
               f"{b_ms:.4f} ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
         if (b, l) == (8, 2048):
             records.append(dict(
-                name="flash_fwd", route="cuda",
+                name="flash_fwd", route="cuda", design=DESIGNS["flash_fwd"],
+                tflops=flops / ms / 1e9,
                 source="tony_tpu_torch/csrc/flash_fwd.cu",
                 replaces="tony_tpu/ops/attention.py:241 (_fwd_kernel) and "
                          "tony_tpu/ops/attention.py:484 (_fwd_kernel_resident)",
@@ -528,22 +607,26 @@ def phase_bwd_kernels(torch, A) -> list:
           f"{b_dq:.4f} {by_dq}), whole {ms_whole:.4f} ms (plain {plain:.4f}, "
           f"sdpa backward {lib:.4f} = {lib_fb:.4f} fwd+bwd - {lib_f:.4f} fwd, "
           f"bound {b_w:.4f} {by_w}), "
-          f"{10 * d * pairs / ms_whole / 1e9:.1f} TFLOP/s of K3's work")
+          f"{10 * d * pairs / ms_whole / 1e9:.1f} TFLOP/s of K3's work; dkdv "
+          f"{8 * d * pairs / ms_kv / 1e9:.1f}, dq {6 * d * pairs / ms_dq / 1e9:.1f}"
+          " TFLOP/s of their functions' work")
     print("bwd_whole " + json.dumps(dict(
         shape=f"B{b} H{h} L{l} D{d} bf16 causal", ms=ms_whole,
         dkdv_ms=ms_kv, dq_ms=ms_dq, plain_ms=plain, library_ms=lib,
         library_fwd_bwd_ms=lib_fb, library_fwd_ms=lib_f, bound_ms=b_w,
         bound_by=by_w)))
     records = []
-    for name, ms, bms, bby, replaces in (
-            ("flash_bwd_dkdv", ms_kv, b_kv, by_kv,
+    for name, ms, bms, bby, flops, replaces in (
+            ("flash_bwd_dkdv", ms_kv, b_kv, by_kv, 8 * d * pairs,
              "tony_tpu/ops/attention.py:524 (_bwd_kernel_resident, dK/dV) and "
              "tony_tpu/ops/attention.py:342 (_kv_sweep_kernel)"),
-            ("flash_bwd_dq", ms_dq, b_dq, by_dq,
+            ("flash_bwd_dq", ms_dq, b_dq, by_dq, 6 * d * pairs,
              "tony_tpu/ops/attention.py:297 (_dq_kernel) and the dQ of "
              "tony_tpu/ops/attention.py:524 (_bwd_kernel_resident)")):
         records.append(dict(
-            name=name, route="cuda", source="tony_tpu_torch/csrc/flash_bwd.cu",
+            name=name, route="cuda", design=DESIGNS[name],
+            tflops=flops / ms / 1e9,
+            source="tony_tpu_torch/csrc/flash_bwd.cu",
             replaces=replaces, shape=f"B{b} H{h} L{l} D{d} bf16 causal",
             max_abs_err=errs[name],
             tolerance="bf16: atol 1e-2 + rtol 1e-2; f32: atol 1e-3 + rtol "
@@ -643,7 +726,7 @@ def phase_train_path(torch, ops, lm_train) -> dict:
           f"{counts}")
     print("train " + json.dumps(dict(
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
-        first_loss=losses[0], final_loss=losses[-1],
+        first_loss=losses[0], final_loss=losses[-1], losses=losses,
         steps_per_sec=m["steps_per_sec"], tokens_per_sec=m["tokens_per_sec"],
         step_ms=1e3 / m["steps_per_sec"], model_flops_per_step=flops_step,
         model_flops_share_of_bf16_peak=achieved / PEAK_BF16_FLOPS,
@@ -724,8 +807,8 @@ def _kernel_launch_total(torch) -> int:
 
 
 def _profile_rows(prof, n):
-    """(device ms per step, top kernels) from a torch.profiler run over n
-    steps; device kernels only."""
+    """(device ms per step, top kernels, the port's kernels) from a
+    torch.profiler run over n steps; device kernels only."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -737,7 +820,13 @@ def _profile_rows(prof, n):
     rows.sort(reverse=True)
     top = [dict(kernel=k[:80], ms_per_step=us / 1e3 / n, calls_per_step=c / n)
            for us, k, c in rows[:10]]
-    return sum(r[0] for r in rows) / 1e3 / n, top
+    port = {}
+    for us, k, c in rows:
+        m = re.search(r"(flash_\w+|decode_\w+)_kernel", k)
+        if m:
+            port[m.group(1)] = dict(ms_per_step=us / 1e3 / n,
+                                    calls_per_step=c / n)
+    return sum(r[0] for r in rows) / 1e3 / n, top, port
 
 
 def phase_train_profile(torch, T) -> None:
@@ -772,7 +861,7 @@ def phase_train_profile(torch, T) -> None:
                              ProfilerActivity.CUDA]) as prof:
         steps(2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    dev_ms, top = _profile_rows(prof, 2)
+    dev_ms, top, port = _profile_rows(prof, 2)
     if not top:
         print(f"profile: training step {wall_ms:.3f} ms wall; device time "
               "not measured (the profiler recorded no device activity)")
@@ -781,6 +870,7 @@ def phase_train_profile(torch, T) -> None:
           f"{wall_ms:.3f} ms wall, {dev_ms:.3f} ms on the device, busy share "
           f"{dev_ms / wall_ms:.3f}, peak memory {peak_gb:.1f} GB")
     print("train_profile_top " + json.dumps(top))
+    print("train_profile_port " + json.dumps(port))
 
 
 def phase_parity(torch, G, T) -> None:
@@ -867,7 +957,7 @@ def phase_profile(torch, G, T) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         cache = steps(n, cache)
-    dev_ms, top = _profile_rows(prof, n)
+    dev_ms, top, port = _profile_rows(prof, n)
     if not top:
         print(f"profile: decode step {wall_ms:.3f} ms wall; device time not "
               "measured (the profiler recorded no device activity)")
@@ -875,6 +965,7 @@ def phase_profile(torch, G, T) -> None:
     print(f"profile: decode step B8 with 2048 cached: {wall_ms:.3f} ms wall, "
           f"{dev_ms:.3f} ms on the device, busy share {dev_ms / wall_ms:.3f}")
     print("profile_top " + json.dumps(top))
+    print("profile_port " + json.dumps(port))
 
 
 def main() -> int:
@@ -896,7 +987,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_card(_build)
+    compiled = phase_card(_build)
     with torch.no_grad():
         records = phase_kernels(torch, A, DA, G, T)
         records += phase_bwd_kernels(torch, A)
@@ -908,6 +999,11 @@ def main() -> int:
             fail(f"the main path never launched {name}")
     for r in records:
         r["launches"] = launches[r["name"]]
+        mma = f"{r['name']}_mma_kernel<128>"
+        if mma in compiled:
+            n_regs, st, ld, hmma = compiled[mma]
+            r.update(registers_d128_bf16=n_regs, spill_bytes_d128_bf16=st + ld,
+                     hmma_d128_bf16=hmma)
     phase_parity(torch, G, T)
     phase_train_parity(torch, T)
     with torch.no_grad():
@@ -916,7 +1012,8 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+            "library_ms", "shape", "design", "tflops", "registers_d128_bf16",
+            "spill_bytes_d128_bf16", "hmma_d128_bf16")
     for r in records:
         r["kernel_ms"] = r["ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("library",)

@@ -147,3 +147,15 @@ def test_kernel_envelope_and_backward_guard():
     # a CPU tensor never reaches the kernel wrapper's launch
     with pytest.raises(ValueError, match="device"):
         A._check_kernel_inputs(*(torch.zeros(1, 1, 4, 64),) * 3)
+
+
+def test_bf16_kernel_alignment_rule():
+    """The bf16 kernels copy 16-byte chunks: a view whose data pointer or
+    (B, H, L) strides are not multiples of 16 bytes is refused by the
+    wrapper before the launch (the C entry point checks the same)."""
+    x = torch.zeros(2, 2, 9, 64, dtype=torch.bfloat16)
+    assert A._aligned16(x) and A._aligned16(x[:, :, 1:])
+    assert A._aligned16(x.transpose(1, 2))
+    assert not A._aligned16(x[..., 1:])          # pointer off by 2 bytes
+    y = torch.zeros(2, 2, 9, 68, dtype=torch.bfloat16)[..., :64]
+    assert not A._aligned16(y)                   # L stride of 136 bytes

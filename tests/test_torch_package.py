@@ -144,3 +144,17 @@ def test_launch_errors_raise():
     _build.check("k", 0)
     with pytest.raises(RuntimeError, match="cudaError 98"):
         _build.check("k", 98)
+
+
+def test_library_path_follows_every_header(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include "b.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// a\n")
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._lib_path("k")
+    assert _build._lib_path("k") == before       # stable while nothing changes
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    edited = _build._lib_path("k")
+    assert edited != before
+    (tmp_path / "c.cuh").write_text("// a new header\n")
+    assert _build._lib_path("k") not in (before, edited)

@@ -3,9 +3,10 @@
 Each source in ``tony_tpu_torch/csrc`` becomes one shared library with a
 plain C interface, compiled for ``sm_90a`` at first use into
 ``build/kernels/`` at the root of the checkout. A library's file name
-carries a hash of its source and the shared header, so an edited source is
-rebuilt and a stale library is never loaded. ``build_all`` starts one nvcc
-per source, all at once, and waits for them together.
+carries a hash of its source and of every header in ``csrc``, so an edited
+source or header is rebuilt and a stale library is never loaded.
+``build_all`` starts one nvcc per source, all at once, and waits for them
+together.
 
 Nothing here runs at import: the tests import every module on machines
 with no nvcc and no card.
@@ -63,7 +64,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

@@ -5,11 +5,16 @@ ops/attention.py).
 runs in hand-written kernels: the forward in ``csrc/flash_fwd.cu`` (one
 kernel for the TPU package's streaming and VMEM-resident tiers), the
 backward in ``csrc/flash_bwd.cu`` (a dK/dV kernel and a dQ kernel, for the
-TPU package's three backward tiers). On a CPU tensor the same autograd
-Function runs ``_flash_fwd_reference`` and ``_flash_bwd_reference``, the
-plain PyTorch versions of the same functions, so the CPU tests exercise the
-backward that the card's kernels are held against. A CUDA tensor outside the
-kernels' envelope raises: there is no fallback.
+TPU package's three backward tiers). Each source holds two routes, chosen
+by dtype inside the C entry point: bfloat16 runs on the tensor cores
+(mma.sync with bf16 operands and float32 accumulators; it needs every
+pointer and (B, H, L) stride 16-byte aligned), float32 on the FP32 pipes
+(tensor-core TF32 would round its operands). On a CPU tensor the same
+autograd Function runs ``_flash_fwd_reference`` and
+``_flash_bwd_reference``, the plain PyTorch versions of the same functions,
+so the CPU tests exercise the backward that the card's kernels are held
+against. A CUDA tensor outside the kernels' envelope raises: there is no
+fallback.
 
 The lse output is differentiable: the backward folds its cotangent into
 ``delta`` (the JAX package's ``_flash_bwd``), as ring attention needs.
@@ -87,6 +92,11 @@ def flash_supported(q: torch.Tensor) -> bool:
     return q.shape[-1] in KERNEL_HEAD_DIMS and q.dtype in KERNEL_DTYPES
 
 
+def _aligned16(t):
+    return t.data_ptr() % 16 == 0 and all(
+        x * t.element_size() % 16 == 0 for x in t.stride()[:3])
+
+
 def _check_kernel_inputs(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash attention: q, k and v must all be on the "
@@ -106,6 +116,10 @@ def _check_kernel_inputs(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride over head_dim")
+        if t.dtype == torch.bfloat16 and not _aligned16(t):
+            raise ValueError(f"{name}: the bf16 kernels copy 16-byte chunks, "
+                             "so the data pointer and the (B, H, L) strides "
+                             "must be multiples of 16 bytes")
     if b * h > 65535:
         raise ValueError(f"batch*heads={b * h} exceeds the kernel's grid")
 

@@ -1,0 +1,1 @@
+"""Developer tools of the port (run on a machine with a CUDA device)."""
