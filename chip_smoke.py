@@ -11,9 +11,12 @@ and exits non-zero if any of them fails:
    every bf16 attention kernel must run on the tensor cores (HMMA);
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the flagship's shapes and at the edge cases, with its time beside the
-   plain version's, a PyTorch library call's and the card's bound; the
-   decode kernel against the plain einsum decode path at M in {1024, 4096,
-   16384};
+   plain version's, a PyTorch library call's and the card's bound (the
+   decode kernel at four shapes: bf16 at 2081 of 4160 and 16384 positions,
+   int8 at 16384, batch 1 at 4097; its float32 partials and its in-launch
+   combine each against their own plain version, and two launches on the
+   same inputs bit-equal); the decode kernel against the plain einsum
+   decode path at M in {1024, 4096, 16384};
 3. main path, generation: tony_tpu_torch.examples.lm_generate at the
    flagship's full width (vocab 32768, d_model 1024, 12 layers, 8 heads,
    d_ff 4096, bf16, random weights from a seed) answering four requests,
@@ -63,7 +66,7 @@ REQUESTS = [(8, 1024, []), (8, 2048, []), (1, 4096, []),
 BF16_TOL = (1e-2, 1e-2)       # (atol, rtol)
 F32_TOL = (1e-4, 1e-4)        # float32: summation order over up to 8192 keys
 LSE_TOL = (1e-3, 1e-5)        # float32 lse from bf16 or f32 inputs
-PART_TOL = (1e-4, 1e-4)       # float32 partials of the decode's pass 1
+PART_TOL = (1e-4, 1e-4)       # float32 partials of the decode's chunks
 # bf16 weights and activations against float32 through 2 layers and a
 # 1024-term unembed sum, for logits of standard deviation about 1: a bf16
 # rounding is 2^-9 relative, and a 512-wide model showed 0.06
@@ -101,6 +104,11 @@ DESIGNS = {
     "flash_bwd_dq": "bf16: mma.sync m16n8k16 bf16, dS kept in registers as "
                     "the A operand of dS K, cp.async x2 K/V stages; 64 q rows "
                     "a CTA, 4 warps. f32: FMA on the FP32 pipes",
+    "flash_decode": "one launch: chunks split evenly over the SMs, one CTA "
+                    "(8 warps) each, two an SM; 2-stage ring of 16 KB K + 16 "
+                    "KB V tiles by 16-byte cp.async; online softmax "
+                    "per group of D/8 lanes (FMA, p in float32); the last "
+                    "CTA of a head combines the partials in chunk order",
 }
 
 
@@ -186,11 +194,19 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 # ------------------------------------------------------------------ phases
 
 def _kernel_label(mangled: str) -> str:
-    """flash_fwd_mma_kernel<128>, flash_fwd_kernel<float,128> and the like
-    from a mangled kernel name."""
+    """flash_fwd_mma_kernel<128>, flash_fwd_kernel<float,128>,
+    flash_decode_kernel<bf16,int8,128,1> and the like from a mangled kernel
+    name."""
     ident = re.search(r"\d+((?:flash|decode)\w*?kernel)", mangled)
     name = ident.group(1) if ident else mangled
     dims = re.findall(r"Li(\d+)E", mangled)
+    if "decode" in name:   # q's and the cache's types, then D and REP
+        types = re.search(r"kernelI(.*?)Li", mangled)
+        codes = re.findall(r"13__nv_bfloat16|S\d*_|f|a",
+                           types.group(1) if types else "")
+        names = ["int8" if c == "a" else "float" if c == "f" else "bf16"
+                 for c in codes]
+        return f"{name}<{','.join(names + dims)}>"
     dtype = ("float," if "IfLi" in mangled else
              "bf16," if "bfloat16" in mangled and "mma" not in name else "")
     return f"{name}<{dtype}{','.join(dims)}>"
@@ -255,9 +271,9 @@ def phase_card(build) -> dict:
     return report
 
 
-def phase_kernels(torch, A, DA, G, T) -> dict:
-    """Each kernel against its plain version; timings at the main path's
-    shapes -> the per-kernel records of the JSON line."""
+def phase_kernels(torch, A) -> list:
+    """The flash forward kernel against its plain version at the edge
+    cases; its timings at the main path's shapes -> its record."""
     print("== kernels")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -265,8 +281,7 @@ def phase_kernels(torch, A, DA, G, T) -> dict:
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
-    errs = {"flash_fwd": 0.0, "flash_decode_partial": 0.0,
-            "flash_decode_combine": 0.0}
+    errs = {"flash_fwd": 0.0}
 
     # ---- flash forward: out and lse against _flash_fwd_reference
     fwd_cases = [
@@ -322,54 +337,6 @@ def phase_kernels(torch, A, DA, G, T) -> dict:
     errs["flash_fwd"] = max(errs["flash_fwd"], e)
     print(f"flash_fwd attention_blhd strided views: max|err| {e:.3g}")
 
-    # ---- flash decode: whole function, and each pass on its own
-    dec_cases = [
-        # (label, Ly, B, kvH, rep, M, length, window, int8, layer)
-        ("M1024 full", 1, 8, 8, 1, 1024, 1023, 0, False, None),
-        ("M4096 full", 1, 8, 8, 1, 4096, 4095, 0, False, None),
-        ("M4000 mid", 1, 8, 8, 1, 4000, 2500, 0, False, None),
-        ("M16384 full", 1, 8, 8, 1, 16384, 16383, 0, False, None),
-        ("length 0", 1, 8, 8, 1, 4096, 0, 0, False, None),
-        ("GQA kvH2 rep4", 1, 8, 2, 4, 4096, 3000, 0, False, None),
-        ("int8 M4096", 1, 8, 8, 1, 4096, 4000, 0, True, None),
-        ("window 1000", 1, 8, 8, 1, 4096, 3000, 1000, False, None),
-        ("int8 window GQA", 1, 4, 4, 2, 4000, 3999, 700, True, None),
-        ("layer 2 of 3", 3, 8, 8, 1, 4096, 2049, 0, False, 2),
-        ("int8 layer 1 of 3", 3, 8, 8, 1, 4096, 1500, 0, True, 1),
-    ]
-    for label, ly, b, kvh, rep, m, length, window, int8, layer in dec_cases:
-        shape = (ly, b, kvh, m, 128) if layer is not None else (b, kvh, m, 128)
-        q = randn(b, kvh, rep, 128)
-        ck, cv, ks, vs = randn(*shape), randn(*shape), None, None
-        if int8:
-            (ck, ks), (cv, vs) = G._quantize_kv(ck), G._quantize_kv(cv)
-        out = DA.flash_decode(q, ck, cv, length, ks, vs, window=window,
-                              layer=layer)
-        torch.cuda.synchronize()
-        want = DA._flash_decode_reference(q, ck, cv, length, ks, vs,
-                                          window=window, layer=layer)
-        e_all = compare(f"flash_decode {label}", out, want, BF16_TOL)
-        # pass 1 and pass 2 each against their own plain version
-        lo, hi = DA._valid_range(length, window)
-        chunk, n_chunks = DA._chunking(hi - lo + 1, b * kvh, rep,
-                                       DA._sm_count(0))
-        parts = DA._decode_partial_cuda(q, ck, cv, ks, vs, lo, length, chunk,
-                                        n_chunks, layer)
-        p_parts = DA._decode_partial_reference(q, ck, cv, ks, vs, lo, length,
-                                               chunk, n_chunks, layer)
-        e_p = max(compare(f"flash_decode_partial {label} {nm}", g, w,
-                          PART_TOL)
-                  for nm, g, w in zip("oml", parts, p_parts))
-        comb = DA._decode_combine_cuda(*parts, q.dtype)
-        e_c = compare(f"flash_decode_combine {label}", comb,
-                      DA._decode_combine_reference(*parts, q.dtype), BF16_TOL)
-        errs["flash_decode_partial"] = max(errs["flash_decode_partial"], e_p)
-        errs["flash_decode_combine"] = max(errs["flash_decode_combine"],
-                                           max(e_c, e_all))
-        print(f"flash_decode {label}: chunks {n_chunks}x{chunk}, max|err| "
-              f"whole {e_all:.3g} partial {e_p:.3g} combine {e_c:.3g}")
-        del q, ck, cv, ks, vs, out, want, parts, p_parts
-
     # ---- timings at the main path's shapes
     records = []
     # prefill of the main path's second request: B8 H8 L2048 D128 causal
@@ -401,75 +368,166 @@ def phase_kernels(torch, A, DA, G, T) -> dict:
                 library_ms=lib))
         del q, k, v
 
-    # decode step in the middle of the second request: B8 kvH8 rep1 D128
-    # bf16, cache capacity MAX_LEN, 2048 + 32 positions valid, layer-indexed
-    # over a 12-layer stack as the main path reads it (the stack is 1.6 GB,
-    # so every timed call finds its layer cold in L2)
-    b, kvh, length = 8, 8, 2048 + 32
-    stack = (N_LAYERS, b, kvh, MAX_LEN, 128)
-    q = randn(b, kvh, 1, 128)
-    ck, cv = randn(*stack), randn(*stack)
-    chunk, n_chunks = DA._chunking(length + 1, b * kvh, 1, DA._sm_count(0))
-    layer_it = iter(range(10 ** 9))
+    return records
 
-    def partial():
-        return DA._decode_partial_cuda(q, ck, cv, None, None, 0, length, chunk,
-                                       n_chunks, next(layer_it) % N_LAYERS)
 
-    ms_p = cuda_ms(partial, 48)
-    plain_p = cuda_ms(lambda: DA._decode_partial_reference(
-        q, ck, cv, None, None, 0, length, chunk, n_chunks,
-        next(layer_it) % N_LAYERS), 12)
-    parts = partial()
-    ms_c = cuda_ms(lambda: DA._decode_combine_cuda(*parts, q.dtype), 48)
-    plain_c = cuda_ms(lambda: DA._decode_combine_reference(*parts, q.dtype),
-                      48)
-    ms_whole = cuda_ms(lambda: DA.flash_decode(
-        q, ck, cv, length, layer=next(layer_it) % N_LAYERS), 48)
-    plain_whole = cuda_ms(lambda: DA._flash_decode_reference(
-        q, ck, cv, length, layer=next(layer_it) % N_LAYERS), 12)
+def phase_decode(torch, DA, G, T) -> list:
+    """The decode kernel against its plain versions at the edge cases, its
+    timings at four shapes, and the crossover against the einsum decode
+    path -> its record."""
+    print("== decode kernel")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2345)
 
-    def sdpa_step():
-        i = next(layer_it) % N_LAYERS
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, ck[i, :, :, :length + 1], cv[i, :, :, :length + 1])
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
-    sdpa = cuda_ms(sdpa_step, 48)
-    n_valid = length + 1
-    kv_bytes = 2 * b * kvh * n_valid * 128 * 2
-    part_bytes = b * kvh * n_chunks * (128 + 2) * 4
-    fl = 4 * 128 * n_valid * b * kvh
-    b_p, by_p = bound(fl, kv_bytes + q.numel() * 2 + part_bytes,
-                      PEAK_BF16_FLOPS)
-    b_c, by_c = bound(b * kvh * n_chunks * 128 * 3,
-                      part_bytes + b * kvh * 128 * 2, PEAK_F32_FLOPS)
-    b_w, by_w = bound(fl, kv_bytes + 2 * q.numel() * 2, PEAK_BF16_FLOPS)
-    print(f"time flash_decode B8 kvH8 rep1 D128 bf16 length {n_valid} of "
-          f"{MAX_LEN} ({n_chunks} chunks of {chunk}): partial {ms_p:.4f} ms "
-          f"(plain {plain_p:.4f}), combine {ms_c:.4f} ms (plain "
-          f"{plain_c:.4f}), whole {ms_whole:.4f} ms (plain {plain_whole:.4f}, "
-          f"sdpa {sdpa:.4f}, bound {b_w:.4f} ms {by_w}), "
-          f"{kv_bytes / ms_whole / 1e6:.1f} GB/s of cache")
-    print("decode_whole " + json.dumps(dict(
-        shape=f"B8 kvH8 rep1 D128 bf16 length {n_valid} M {MAX_LEN}",
-        ms=ms_whole, plain_ms=plain_whole, library_ms=sdpa, bound_ms=b_w,
-        bound_by=by_w)))
-    for name, ms, plain, bms, bby, tol in (
-            ("flash_decode_partial", ms_p, plain_p, b_p, by_p,
-             "f32 partials: atol 1e-4 + rtol 1e-4"),
-            ("flash_decode_combine", ms_c, plain_c, b_c, by_c,
-             "bf16 out: atol 1e-2 + rtol 1e-2")):
-        records.append(dict(
-            name=name, route="cuda",
-            source="tony_tpu_torch/csrc/flash_decode.cu",
-            replaces="tony_tpu/ops/decode_attention.py:43 (_decode_kernel; "
-                     ":118 _kernel_no_scale)",
-            shape=f"B8 kvH8 rep1 D128 bf16 length {n_valid} M {MAX_LEN}",
-            max_abs_err=errs[name], tolerance=tol, ms=ms, plain_ms=plain,
-            bound_ms=bms, bound_by=bby, library_ms=None))
-    del ck, cv, parts
+    errs = {"flash_decode": 0.0}
+    records = []
+    # ---- flash decode: the whole function, its partials and its combine
+    dec_cases = [
+        # (label, Ly, B, kvH, rep, M, length, window, cache, layer, D)
+        ("M1024 full", 1, 8, 8, 1, 1024, 1023, 0, "bf16", None, 128),
+        ("M4096 full", 1, 8, 8, 1, 4096, 4095, 0, "bf16", None, 128),
+        ("M4000 mid", 1, 8, 8, 1, 4000, 2500, 0, "bf16", None, 128),
+        ("M16384 full", 1, 8, 8, 1, 16384, 16383, 0, "bf16", None, 128),
+        ("length 0", 1, 8, 8, 1, 4096, 0, 0, "bf16", None, 128),
+        ("GQA kvH2 rep4", 1, 8, 2, 4, 4096, 3000, 0, "bf16", None, 128),
+        ("int8 M4096", 1, 8, 8, 1, 4096, 4000, 0, "int8", None, 128),
+        ("window 1000", 1, 8, 8, 1, 4096, 3000, 1000, "bf16", None, 128),
+        ("int8 window GQA", 1, 4, 4, 2, 4000, 3999, 700, "int8", None, 128),
+        ("layer 2 of 3", 3, 8, 8, 1, 4096, 2049, 0, "bf16", 2, 128),
+        ("int8 layer 1 of 3", 3, 8, 8, 1, 4096, 1500, 0, "int8", 1, 128),
+        ("window 777 unaligned lo", 1, 8, 8, 1, 4096, 3000, 777, "bf16",
+         None, 128),
+        ("length M-1, M not a tile multiple", 1, 4, 8, 1, 4100, 4099, 0,
+         "bf16", None, 128),
+        ("rep 8", 1, 2, 2, 8, 4096, 3001, 0, "bf16", None, 128),
+        ("D64 bf16", 1, 4, 8, 2, 3000, 2999, 0, "bf16", None, 64),
+        ("float32 q and cache", 1, 2, 4, 2, 2000, 1500, 0, "f32", None, 128),
+    ]
+    for label, ly, b, kvh, rep, m, length, window, cache, layer, d in \
+            dec_cases:
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        shape = (ly, b, kvh, m, d) if layer is not None else (b, kvh, m, d)
+        q = randn(b, kvh, rep, d, dtype=dt)
+        ck, cv, ks, vs = randn(*shape, dtype=dt), randn(*shape, dtype=dt), \
+            None, None
+        if cache == "int8":
+            (ck, ks), (cv, vs) = G._quantize_kv(ck), G._quantize_kv(cv)
+        out = DA.flash_decode(q, ck, cv, length, ks, vs, window=window,
+                              layer=layer)
+        torch.cuda.synchronize()
+        want = DA._flash_decode_reference(q, ck, cv, length, ks, vs,
+                                          window=window, layer=layer)
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        e_all = compare(f"flash_decode {label}", out, want, tol)
+        # the kernel's two stages: the chunks' partials in its scratch, and
+        # its combine of them, each against its own plain version
+        lo, hi = DA._valid_range(length, window)
+        chunk, n_chunks = DA._kernel_split(hi - lo + 1, b * kvh, rep, d,
+                                           ck.dtype)
+        got, *parts = DA._decode_cuda(q, ck, cv, ks, vs, lo, length, chunk,
+                                      n_chunks, layer)
+        p_parts = DA._decode_partial_reference(q, ck, cv, ks, vs, lo, length,
+                                               chunk, n_chunks, layer)
+        e_p = max(compare(f"flash_decode {label} part_{nm}", g, w, PART_TOL)
+                  for nm, g, w in zip("oml", parts, p_parts))
+        e_c = compare(f"flash_decode {label} combine", got,
+                      DA._decode_combine_reference(*parts, q.dtype), tol)
+        # the in-kernel combine reads the partials in chunk order, whichever
+        # CTA arrives last: the same inputs give the same bits
+        again = DA._decode_cuda(q, ck, cv, ks, vs, lo, length, chunk,
+                                n_chunks, layer)[0]
+        if not torch.equal(got, again):
+            fail(f"flash_decode {label}: two launches on the same inputs "
+                 "differ")
+        errs["flash_decode"] = max(errs["flash_decode"], e_all, e_c)
+        print(f"flash_decode {label}: chunks {n_chunks}x{chunk}, max|err| "
+              f"whole {e_all:.3g} partials {e_p:.3g} combine {e_c:.3g}; "
+              "bit-equal on repeat")
+        del q, ck, cv, ks, vs, out, want, got, parts, p_parts, again
+
+    # decode timings, each over a stack of layers taken in turn, so that
+    # every timed call finds its layer cold in L2 (50 MB), as the main path
+    # does: (label, B, cached positions valid, capacity M, layers, int8)
+    dec_shapes = [
+        ("B8 kvH8 rep1 D128 bf16, 2081 of 4160", 8, 2081, MAX_LEN, N_LAYERS,
+         False),
+        ("B8 kvH8 rep1 D128 bf16, 16384 of 16384", 8, 16384, 16384, 2,
+         False),
+        ("B8 kvH8 rep1 D128 int8, 16384 of 16384", 8, 16384, 16384, 2, True),
+        ("B1 kvH8 rep1 D128 bf16, 4097 of 4160", 1, 4097, MAX_LEN, N_LAYERS,
+         False),
+    ]
+    kvh, d = 8, 128
+    dec_rows = []
+    for label, b, n_valid, m, ly, int8 in dec_shapes:
+        q = randn(b, kvh, 1, d)
+        ck, cv = randn(ly, b, kvh, m, d), randn(ly, b, kvh, m, d)
+        ks = vs = None
+        if int8:
+            (ck, ks), (cv, vs) = G._quantize_kv(ck), G._quantize_kv(cv)
+        length = n_valid - 1
+        it = iter(range(10 ** 9))
+        ms = cuda_ms(lambda: DA.flash_decode(q, ck, cv, length, ks, vs,
+                                             layer=next(it) % ly), 48)
+        plain = cuda_ms(lambda: DA._flash_decode_reference(
+            q, ck, cv, length, ks, vs, layer=next(it) % ly), 6, warmup=1)
+        lib = None
+        if not int8:   # no one PyTorch call reads an int8 cache with scales
+            def sdpa():
+                i = next(it) % ly
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, ck[i, :, :, :n_valid], cv[i, :, :, :n_valid])
+            lib = cuda_ms(sdpa, 48)
+        # each valid K and V row read once (int8: with its two bf16 scales),
+        # q read and the output written once
+        row = d + 2 if int8 else 2 * d
+        nbytes = 2 * b * kvh * n_valid * row + 2 * q.numel() * 2
+        fl = 4 * d * n_valid * b * kvh
+        b_ms, b_by = bound(fl, nbytes, PEAK_F32_FLOPS)
+        chunk, n_chunks = DA._kernel_split(n_valid, b * kvh, 1, d, ck.dtype)
+        dec_rows.append(dict(shape=label, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             bytes=nbytes, chunks=n_chunks, chunk=chunk,
+                             share_of_bound=b_ms / ms))
+        print(f"time flash_decode {label} ({n_chunks} chunks of {chunk}): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB), "
+              f"{nbytes / ms / 1e6:.1f} GB/s = {b_ms / ms:.3f} of the bound")
+        del q, ck, cv, ks, vs
+    print("decode_times " + json.dumps(dec_rows))
+    # the split's host cost: the wrapper searches it once a decode step (the
+    # step's 12 layers share it; the next step's length is new)
+    n_calls = 2000
+    t0 = time.perf_counter()
+    for n in range(2000, 2000 + n_calls):
+        DA._kernel_split(n, 64, 1, 128, torch.bfloat16)
+    split_us = (time.perf_counter() - t0) * 1e6 / n_calls
+    print(f"decode split: {split_us:.2f} us a new length on the host (B8 "
+          f"kvH8 rep1 D128 bf16); geometry (tile positions, CTAs an SM) "
+          f"bf16 D128 rep1 {DA._geometry(128, torch.bfloat16, 1)}, int8 "
+          f"{DA._geometry(128, torch.int8, 1)}, rep8 "
+          f"{DA._geometry(128, torch.bfloat16, 8)}")
+    first = dec_rows[0]
+    records.append(dict(
+        name="flash_decode", route="cuda",
+        source="tony_tpu_torch/csrc/flash_decode.cu",
+        replaces="tony_tpu/ops/decode_attention.py:43 (_decode_kernel; :118 "
+                 "_kernel_no_scale)",
+        design=DESIGNS["flash_decode"], shape=first["shape"],
+        max_abs_err=errs["flash_decode"],
+        tolerance="bf16 out: atol 1e-2 + rtol 1e-2; f32 out: 1e-4 + 1e-4; "
+                  "f32 partials: 1e-4 + 1e-4",
+        ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=first["library_ms"],
+        library="scaled_dot_product_attention over the valid positions"))
 
     # ---- decode crossover: kernel against the plain einsum decode path
+    b, kvh = 8, 8
     cfg = T.TransformerConfig(d_model=1024, n_heads=8, n_kv_heads=8,
                               n_layers=1, dtype=torch.bfloat16)
     rows = []
@@ -662,8 +720,7 @@ def phase_main_path(ops, lm_generate) -> dict:
         # lm_generate runs generate three times: warm-up, timed, and a
         # prefill-only run (max_new_tokens=1)
         want = {"flash_fwd": 3 * N_LAYERS,
-                "flash_decode_partial": 2 * N_LAYERS * (MAX_NEW - 1),
-                "flash_decode_combine": 2 * N_LAYERS * (MAX_NEW - 1),
+                "flash_decode": 2 * N_LAYERS * (MAX_NEW - 1),
                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
         if counts != want:
             fail(f"request {i}: launches {counts}, expected {want}")
@@ -705,8 +762,7 @@ def phase_train_path(torch, ops, lm_train) -> dict:
         fail(f"lm_train exited {rc}")
     per_step = TRAIN_STEPS * N_LAYERS
     want = {"flash_fwd": per_step, "flash_bwd_dkdv": per_step,
-            "flash_bwd_dq": per_step, "flash_decode_partial": 0,
-            "flash_decode_combine": 0}
+            "flash_bwd_dq": per_step, "flash_decode": 0}
     if counts != want:
         fail(f"training: launches {counts}, expected {want}")
     m = json.loads(metrics.read_text())
@@ -937,7 +993,7 @@ def phase_profile(torch, G, T) -> None:
     gen = torch.Generator(device=dev).manual_seed(11)
     w = G.prepare_decode(T.init(cfg, gen, dev), cfg)
     prompt = torch.randint(0, 32768, (8, 2048), generator=gen, device=dev)
-    cache = G.init_cache(cfg, 8, 2048 + 64, device=dev)
+    cache = G.init_cache(cfg, 8, 2048 + 128, device=dev)
     logits, cache = G._forward_with_cache(w.params, cfg, prompt, cache,
                                           w.fused, prefill=True)
     tok = logits.argmax(-1)[:, None]
@@ -950,10 +1006,14 @@ def phase_profile(torch, G, T) -> None:
         return cache
 
     cache = steps(4, cache)                     # warm
-    n = 16
-    t0 = time.perf_counter()
-    cache = steps(n, cache)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    n, walls = 16, []
+    for _ in range(5):      # host-clock times spread: five rounds of n steps
+        t0 = time.perf_counter()
+        cache = steps(n, cache)
+        walls.append((time.perf_counter() - t0) * 1e3 / n)
+    wall_ms = sorted(walls)[len(walls) // 2]
+    print("profile: decode step wall ms over 5 rounds of 16 steps: "
+          + " ".join(f"{w:.3f}" for w in walls) + f" (median {wall_ms:.3f})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         cache = steps(n, cache)
@@ -989,7 +1049,8 @@ def main() -> int:
     t0 = time.perf_counter()
     compiled = phase_card(_build)
     with torch.no_grad():
-        records = phase_kernels(torch, A, DA, G, T)
+        records = phase_kernels(torch, A)
+        records += phase_decode(torch, DA, G, T)
         records += phase_bwd_kernels(torch, A)
     gen_launches = phase_main_path(ops, lm_generate)
     train_launches = phase_train_path(torch, ops, lm_train)
@@ -999,7 +1060,8 @@ def main() -> int:
             fail(f"the main path never launched {name}")
     for r in records:
         r["launches"] = launches[r["name"]]
-        mma = f"{r['name']}_mma_kernel<128>"
+        mma = (f"{r['name']}_mma_kernel<128>" if r["name"] != "flash_decode"
+               else "flash_decode_kernel<bf16,bf16,128,1>")
         if mma in compiled:
             n_regs, st, ld, hmma = compiled[mma]
             r.update(registers_d128_bf16=n_regs, spill_bytes_d128_bf16=st + ld,

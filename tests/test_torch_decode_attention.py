@@ -3,11 +3,14 @@ against the JAX package's Pallas flash-decode kernel, run in interpret mode
 on the CPU as tests/test_ops.py runs it.
 
 On a CPU tensor the port runs its plain version; the CUDA kernel's two
-passes (per-chunk partials, then their combine) each have a plain version
-too, and the tests here check that those two compose to the whole. The
-kernels themselves are held against the plain versions on the card by
-chip_smoke.py. Tolerance: atol 2e-5 in float32, test_ops.py's tolerance
-(both sides sum in float32, in different orders)."""
+stages (per-chunk partials in its scratch, then their combine by the last
+chunk of each head) each have a plain version too, and the tests here check
+that those two compose to the whole over the kernel's split and over its
+edge cases (an unaligned window start, a tail past the last whole tile,
+rep 8, many small chunks, empty chunks). The kernel itself is held against
+the plain versions on the card by chip_smoke.py. Tolerance: atol 2e-5 in
+float32, test_ops.py's tolerance (both sides sum in float32, in different
+orders)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,14 +90,15 @@ def test_flash_decode_layer_indexed_stack(int8):
             _jax(q, ck, cv, 437, ks, vs, layer=layer), atol=ATOL)
 
 
-@pytest.mark.parametrize("length,window,int8,chunk", [
+@pytest.mark.parametrize("length,window,int8,tile", [
     (0, 0, False, 32), (437, 0, False, 32), (M - 1, 0, True, 64),
     (437, 100, True, 32), (M - 1, 0, False, 1024),
 ])
-def test_kernel_passes_compose_to_jax(length, window, int8, chunk):
-    """The plain versions of the kernel's two passes (per-chunk partials,
-    then the lse-weighted combine) give the JAX kernel's output, over
-    several chunks and with a ragged last chunk."""
+def test_kernel_passes_compose_to_jax(length, window, int8, tile):
+    """The plain versions of the kernel's two stages (per-chunk partials,
+    then the lse-weighted combine) give the JAX kernel's output over the
+    kernel's split, scaled down (tiles of ``tile`` positions, 8 SMs of two
+    CTAs): one chunk, several, and a ragged last chunk."""
     rng = np.random.default_rng(length + 3 * window + int8)
     q = _normal(rng, B, KVH, REP, D)
     ck, cv = _normal(rng, 2, B, KVH, M, D), _normal(rng, 2, B, KVH, M, D)
@@ -102,7 +106,7 @@ def test_kernel_passes_compose_to_jax(length, window, int8, chunk):
     if int8:
         (ck, ks), (cv, vs) = _quant(ck), _quant(cv)
     lo, hi = DA._valid_range(length, window)
-    n_chunks = -(-(hi - lo + 1) // chunk)
+    chunk, n_chunks = DA._split(hi - lo + 1, B * KVH, tile, 8, 2)
     parts = DA._decode_partial_reference(
         torch.from_numpy(q), torch.from_numpy(ck), torch.from_numpy(cv),
         ks, vs, lo, length, chunk, n_chunks, layer=1)
@@ -132,10 +136,93 @@ def test_combine_gives_an_empty_chunk_no_weight():
     (1, 64, 1), (700, 8, 2), (4096, 64, 1), (16384, 64, 1), (5000, 1, 8),
 ])
 def test_chunking_covers_the_valid_range(n_valid, heads, rep):
-    chunk, n_chunks = DA._chunking(n_valid, heads, rep, sms=132)
-    assert chunk % 32 == 0 and 32 <= chunk <= DA.MAX_CHUNK
-    assert rep * chunk <= 8192                     # scores fit shared memory
+    """The kernel's split covers the valid range with no empty chunk, runs
+    in one wave of the CTAs the SMs hold at once (two up to rep 2), and
+    evens the positions per SM: the busiest SM takes at most 5% more than
+    the mean, plus one tile. No score buffer bounds a chunk any more. The
+    geometry is the bf16 D128 kernel's: tiles of 64 positions, two CTAs an
+    SM up to rep 2."""
+    tile, per_sm = 64, 2 if rep <= 2 else 1
+    chunk, n_chunks = DA._split(n_valid, heads, tile, 132, per_sm)
     assert (n_chunks - 1) * chunk < n_valid <= n_chunks * chunk
+    ctas = heads * n_chunks
+    assert ctas <= 132 * per_sm or n_chunks == 1
+    assert -(-ctas // 132) * chunk <= 1.05 * heads * n_valid / 132 + tile
+
+
+def _compose(q, ck, cv, length, ks, vs, window, chunk, n_chunks, layer):
+    """The plain versions of the kernel's two stages, chained."""
+    lo, _ = DA._valid_range(length, window)
+    parts = DA._decode_partial_reference(
+        torch.from_numpy(q), torch.from_numpy(ck), torch.from_numpy(cv), ks,
+        vs, lo, length, chunk, n_chunks, layer=layer)
+    return parts, DA._decode_combine_reference(*parts, torch.float32)
+
+
+@pytest.mark.parametrize("case", [
+    "unaligned window lo", "tail tile past M", "rep 8",
+    "many small chunks", "every chunk empty but one",
+])
+def test_kernel_split_edge_cases_match_jax(case):
+    """The kernel's edge cases through the plain version and through its
+    two stages, against the JAX kernel: a window whose first position is on
+    no tile boundary; length M - 1 with M not a multiple of the tile; rep 8;
+    a split of 7-position chunks; a split whose chunks are all past length
+    but the first."""
+    rep, length, window, m = REP, 437, 0, M
+    if case == "unaligned window lo":
+        window = 77                     # lo = 361
+    elif case == "tail tile past M":
+        length = m - 1                  # 700 positions, tiles of 128
+    elif case == "rep 8":
+        rep = 8
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q = _normal(rng, B, KVH, rep, D)
+    ck, cv = _normal(rng, 2, B, KVH, m, D), _normal(rng, 2, B, KVH, m, D)
+    want = _jax(q, ck, cv, length, window=window, layer=1)
+    np.testing.assert_allclose(_port(q, ck, cv, length, window=window,
+                                     layer=1), want, atol=ATOL)
+    lo, hi = DA._valid_range(length, window)
+    n_valid = hi - lo + 1
+    if case == "many small chunks":
+        chunk, n_chunks = 7, -(-n_valid // 7)
+    elif case == "every chunk empty but one":
+        chunk, n_chunks = n_valid, 4
+    else:
+        # the kernel's split, at a tile scaled down with the sizes
+        chunk, n_chunks = DA._split(n_valid, B * KVH, 16, sms=3)
+    parts, out = _compose(q, ck, cv, length, None, None, window, chunk,
+                          n_chunks, 1)
+    if case == "every chunk empty but one":
+        assert (parts[1][:, 1:] == DA.NEG_INF).all()
+        assert (parts[2][:, 1:] == 0).all() and (parts[0][:, 1:] == 0).all()
+    else:
+        assert n_chunks > 1 and torch.isfinite(parts[1]).all()
+    np.testing.assert_allclose(out.reshape(B, KVH, rep, D).numpy(), want,
+                               atol=ATOL)
+
+
+def test_combine_order_changes_the_bits():
+    """Why the kernel's last CTA of a head combines the partials in chunk
+    order, whichever CTA arrived last: the same partials summed in another
+    order agree in value but not in their last bits, so a combine in arrival
+    order would not repeat bit for bit. The kernel's repeat is checked on
+    the card: chip_smoke.py launches it twice at every decode edge case and
+    fails unless the outputs are bit-equal."""
+    rng = np.random.default_rng(21)
+    q = _normal(rng, B, KVH, REP, D)
+    ck, cv = _normal(rng, 1, B, KVH, M, D), _normal(rng, 1, B, KVH, M, D)
+    parts, out = _compose(q, ck, cv, M - 1, None, None, 0, 9, 78, 0)
+    again = DA._decode_combine_reference(*parts, torch.float32)
+    assert torch.equal(again, out)                 # same order, same bits
+    differ = 0
+    for seed in range(3):
+        order = torch.from_numpy(np.random.default_rng(seed).permutation(78))
+        shuffled = DA._decode_combine_reference(
+            *(t[:, order] for t in parts), torch.float32)
+        np.testing.assert_allclose(shuffled.numpy(), out.numpy(), atol=1e-6)
+        differ += not torch.equal(shuffled, out)
+    assert differ == 3
 
 
 def test_kernel_input_checks():

@@ -71,7 +71,7 @@ def _to_torch(x, device, dtype) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":      # numpy holds it, torch cannot take it
         a = a.astype(np.float32)
-    # a writable copy: arrays from jax.device_get are read-only
+    # a writable copy: the arrays jax.device_get returns are read-only
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 

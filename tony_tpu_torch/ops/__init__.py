@@ -13,8 +13,7 @@ from .decode_attention import flash_decode
 def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launch_counts``, by kernel."""
     return {"flash_fwd": attention.launches,
-            "flash_decode_partial": decode_attention.partial_launches,
-            "flash_decode_combine": decode_attention.combine_launches,
+            "flash_decode": decode_attention.launches,
             "flash_bwd_dkdv": attention.bwd_dkdv_launches,
             "flash_bwd_dq": attention.bwd_dq_launches}
 

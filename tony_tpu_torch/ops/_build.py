@@ -33,14 +33,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # symbol -> (library, argtypes) of each C entry point (see the .cu sources)
 SIGNATURES = {
     "tony_flash_fwd": (
         "flash_fwd", [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _I, _P]),
-    "tony_flash_decode_partial": (
-        "flash_decode", [_P] * 8 + [_I] * 10 + [_L] * 5 + [_F, _P]),
-    "tony_flash_decode_combine": (
-        "flash_decode", [_P] * 4 + [_I] * 5 + [_P]),
+    "tony_flash_decode": (
+        "flash_decode", [_P] * 10 + [_I] * 10 + [_L] * 5 + [_F, _P]),
+    "tony_flash_decode_geometry": ("flash_decode", [_I] * 3 + [_IP]),
     "tony_flash_bwd_dkdv": (
         "flash_bwd", [_P] * 8 + [_I] * 6 + [_LP, _F, _I, _I, _P]),
     "tony_flash_bwd_dq": (

@@ -1,13 +1,17 @@
 """Flash decode: cached attention of one new token per sequence (port of
 the JAX package's ops/decode_attention.py).
 
-On a CUDA tensor the work runs in ``csrc/flash_decode.cu``: a split-KV pass
-that reads only the valid cache positions in chunks spread over the SMs,
-then a pass that combines the chunks' partial softmax states. On a CPU
-tensor it runs in ``_flash_decode_reference``, the plain PyTorch version.
-A CUDA input the kernel does not take raises. Each pass also has its own
-plain version (``_decode_partial_reference``, ``_decode_combine_reference``)
-that the kernels are held against on the card.
+On a CUDA tensor the work runs in ``csrc/flash_decode.cu``, one launch: the
+valid cache positions of each (batch, kv head) are cut into chunks spread
+evenly over the SMs, each chunk streams its tiles of K and V through a
+two-stage ring of 16-byte cp.async copies with an online softmax and
+writes its partial softmax state to a float32 scratch, and the last chunk
+of each head to finish combines the partials. On a CPU tensor it runs in ``_flash_decode_reference``, the
+plain PyTorch version. A CUDA input the kernel does not take raises. The
+kernel's two stages each have their own plain version
+(``_decode_partial_reference`` for the chunks' partials,
+``_decode_combine_reference`` for their combine) that the kernel's scratch
+and output are held against on the card.
 
 The current token's K/V must already be in the cache (write, then attend);
 masking is by absolute position, key_pos <= length, with the optional
@@ -16,6 +20,7 @@ sliding-window band key_pos > length - window.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -27,16 +32,14 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 KERNEL_HEAD_DIMS = (64, 128)
 MAX_REP = 8        # query heads per kv head the kernel holds in registers
-MAX_CHUNK = 1024   # cache positions per CTA (scores of a chunk sit in smem)
 
-# kernel launches since the last reset (see reset_launches), per pass
-partial_launches = 0
-combine_launches = 0
+# kernel launches since the last reset (see reset_launches)
+launches = 0
 
 
 def reset_launches() -> None:
-    global partial_launches, combine_launches
-    partial_launches = combine_launches = 0
+    global launches
+    launches = 0
 
 
 def _valid_range(length: int, window: int) -> tuple[int, int]:
@@ -72,14 +75,33 @@ def _flash_decode_reference(q, ck, cv, length, k_scale=None, v_scale=None, *,
     return torch.einsum("bhrm,bhmd->bhrd", p, cv.float()).to(q.dtype)
 
 
-def _chunking(n_valid: int, heads: int, rep: int, sms: int) -> tuple[int, int]:
-    """(chunk, n_chunks): split the valid range so pass 1 has about two
-    CTAs per SM, with chunks of 32..MAX_CHUNK positions."""
-    splits = max(1, -(-2 * sms // heads))
-    cap = min(MAX_CHUNK, (8192 // rep) // 32 * 32)
-    chunk = -(-n_valid // splits)
-    chunk = min(cap, max(32, -(-chunk // 32) * 32))
-    return chunk, -(-n_valid // chunk)
+@functools.lru_cache(maxsize=4096)
+def _split(n_valid: int, heads: int, tile: int, sms: int,
+           per_sm: int = 1) -> tuple[int, int]:
+    """(chunk, n_chunks): cut each head's ``n_valid`` positions into
+    n_chunks chunks of ``chunk`` (the last may be shorter), one CTA each,
+    up to ``per_sm`` CTAs at once on each of ``sms`` SMs. CTAs on one SM
+    share its bandwidth, so an SM's time goes as the positions of all its
+    CTAs, ceil(CTAs / sms) * chunk, plus about a tile of ramp (a ring
+    filling, a partial's merge) per wave of CTAs. Among the splits within
+    1% of the least such time this takes the one with the most CTAs that
+    still run in one wave: co-resident CTAs hide each other's latency,
+    which the int8 cache's conversions need. The positions per SM then
+    differ by a few percent at most."""
+    cands = []
+    for splits in range(1, min(-(-n_valid // tile),
+                               -(-4 * sms * per_sm // heads)) + 1):
+        chunk = -(-n_valid // splits)
+        n_chunks = -(-n_valid // chunk)
+        ctas = heads * n_chunks
+        cost = (-(-ctas // sms) * chunk
+                + -(-ctas // (sms * per_sm)) * tile)
+        cands.append((cost, ctas, chunk, n_chunks))
+    least = min(cands)[0]
+    near = [c for c in cands
+            if c[0] <= 1.01 * least and c[1] <= sms * per_sm] or [min(cands)]
+    _, _, chunk, n_chunks = max(near, key=lambda c: c[1])
+    return chunk, n_chunks
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,13 +109,40 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _geometry_of(fn, d: int, cache_dtype, rep: int) -> tuple[int, int]:
+    """(cache positions in one K or V tile of the kernel's ring, CTAs of the
+    kernel an SM holds at once), as a build's ``tony_flash_decode_geometry``
+    ``fn`` reports them for the kernel these inputs launch."""
+    out = (ctypes.c_int * 2)()
+    _build.check("flash_decode geometry",
+                 fn(d, _CACHE_DTYPES[cache_dtype], rep, out))
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(d: int, cache_dtype, rep: int) -> tuple[int, int]:
+    """``_geometry_of`` the package's own build."""
+    return _geometry_of(_build.kernel("tony_flash_decode_geometry"), d,
+                        cache_dtype, rep)
+
+
+def _kernel_split(n_valid, heads, rep, d, cache_dtype, device_index=0,
+                  geometry=None):
+    """The split the wrapper launches the kernel with on a device;
+    ``geometry``: (tile, CTAs an SM) of another build (a variant of
+    tools/kernel_variants.py), by default the package's own."""
+    tile, per_sm = geometry or _geometry(d, cache_dtype, rep)
+    return _split(n_valid, heads, tile, _sm_count(device_index), per_sm)
+
+
 def _decode_partial_reference(q, ck, cv, k_scale, v_scale, lo, length,
                               chunk, n_chunks, layer=None):
-    """Plain version of pass 1: the unnormalised softmax state of each
-    ``chunk``-position piece of [lo, length] -> (part_o [B*kvH, n_chunks,
-    rep, D], part_m and part_l [B*kvH, n_chunks, rep]), float32. A chunk's
-    m is its largest score, l the sum of exp(s - m), o the sum of
-    exp(s - m) * v_scale * v."""
+    """Plain version of the kernel's partials: the unnormalised softmax
+    state of each ``chunk``-position piece of [lo, length] -> (part_o
+    [B*kvH, n_chunks, rep, D], part_m and part_l [B*kvH, n_chunks, rep]),
+    float32. A chunk's m is its largest score, l the sum of exp(s - m), o
+    the sum of exp(s - m) * v_scale * v; a chunk past ``length`` is empty
+    (m = NEG_INF, l = 0, o = 0)."""
     ck, cv = _layer_view(ck, layer), _layer_view(cv, layer)
     k_scale, v_scale = _layer_view(k_scale, layer), _layer_view(v_scale, layer)
     b, kvh, rep, d = q.shape
@@ -121,9 +170,9 @@ def _decode_partial_reference(q, ck, cv, k_scale, v_scale, lo, length,
 
 
 def _decode_combine_reference(part_o, part_m, part_l, dtype):
-    """Plain version of pass 2: partials -> out [B*kvH, rep, D] in
-    ``dtype``. Each chunk weighs exp(m_c - max m); an empty chunk (l = 0)
-    adds nothing."""
+    """Plain version of the kernel's combine: partials -> out [B*kvH, rep,
+    D] in ``dtype``. Each chunk weighs exp(m_c - max m); an empty chunk
+    (l = 0) adds nothing."""
     mx = part_m.amax(dim=1, keepdim=True)
     w = torch.exp(part_m - mx)                        # [BH, C, rep]
     l = (w * part_l).sum(dim=1)
@@ -167,6 +216,9 @@ def _check_kernel_inputs(q, ck, cv, k_scale, v_scale, layer):
                          "the cache's shape without head_dim")
     if not (ck.is_contiguous() and cv.is_contiguous()):
         raise ValueError("flash_decode kernel needs a contiguous cache")
+    if ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError("flash_decode kernel needs 16-byte-aligned cache "
+                         "buffers (its 16-byte copies do)")
 
 
 def _layer_base(t, layer):
@@ -178,47 +230,54 @@ def _layer_base(t, layer):
     return t.data_ptr() + off
 
 
-def _decode_partial_cuda(q, ck, cv, k_scale, v_scale, lo, length, chunk,
-                         n_chunks, layer):
-    """Launch pass 1 of csrc/flash_decode.cu -> (part_o, part_m, part_l)."""
-    global partial_launches
+_counters: dict = {}
+
+
+def _arrival_counters(device, n: int):
+    """The kernel's per-(b, kv head) arrival counters on ``device``'s current
+    stream: zeros, which every launch leaves at zero (its last CTA of a head
+    resets them); one buffer per stream, so launches on two streams never
+    share a counter."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+def _decode_cuda(q, ck, cv, k_scale, v_scale, lo, length, chunk, n_chunks,
+                 layer, entry=None):
+    """Launch csrc/flash_decode.cu over positions [lo, length] in
+    ``n_chunks`` chunks of ``chunk`` -> (out [B*kvH, rep, D] in q's dtype,
+    and the chunks' float32 partials part_o [B*kvH, n_chunks, rep, D],
+    part_m and part_l [B*kvH, n_chunks, rep], which the launch combined
+    into out). ``entry``: another build of the C entry point (a variant
+    of tools/kernel_variants.py); by default the package's own."""
+    global launches
     b, kvh, rep, d = q.shape
-    part_o = torch.empty((b * kvh, n_chunks, rep, d), dtype=torch.float32,
-                         device=q.device)
-    part_m = torch.empty((b * kvh, n_chunks, rep), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
+    bh = b * kvh
+    # one scratch allocation for the three partials
+    part = torch.empty(bh * n_chunks * rep * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    n_o = bh * n_chunks * rep * d
+    part_o = part[:n_o].view(bh, n_chunks, rep, d)
+    part_m = part[n_o:n_o + bh * n_chunks * rep].view(bh, n_chunks, rep)
+    part_l = part[n_o + bh * n_chunks * rep:].view(bh, n_chunks, rep)
+    out = torch.empty((bh, rep, d), dtype=q.dtype, device=q.device)
     cs = ck.stride()[-4:-1]
     ss = k_scale.stride()[-3:-1] if k_scale is not None else (0, 0)
-    err = _build.kernel("tony_flash_decode_partial")(
+    err = (entry or _build.kernel("tony_flash_decode"))(
         q.data_ptr(), _layer_base(ck, layer), _layer_base(cv, layer),
         _layer_base(k_scale, layer), _layer_base(v_scale, layer),
-        part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        out.data_ptr(), part_o.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), _arrival_counters(q.device, bh).data_ptr(),
         b, kvh, rep, d, _Q_DTYPES[q.dtype], _CACHE_DTYPES[ck.dtype], lo,
         length, chunk, n_chunks, *cs, *ss, d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_decode_partial", err)
-    partial_launches += 1
-    return part_o, part_m, part_l
-
-
-def _decode_combine_cuda(part_o, part_m, part_l, dtype):
-    """Launch pass 2 of csrc/flash_decode.cu -> out [B*kvH, rep, D]."""
-    global combine_launches
-    bh, n_chunks, rep, d = part_o.shape
-    for t in (part_o, part_m, part_l):
-        if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
-            raise ValueError("partials must be contiguous float32 on the card")
-    if part_m.shape != (bh, n_chunks, rep) or part_l.shape != part_m.shape:
-        raise ValueError("partial shapes disagree")
-    out = torch.empty((bh, rep, d), dtype=dtype, device=part_o.device)
-    err = _build.kernel("tony_flash_decode_combine")(
-        part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        out.data_ptr(), bh, rep, d, _Q_DTYPES[dtype], n_chunks,
-        torch.cuda.current_stream(part_o.device).cuda_stream)
-    _build.check("flash_decode_combine", err)
-    combine_launches += 1
-    return out
+    _build.check("flash_decode", err)
+    launches += 1
+    return out, part_o, part_m, part_l
 
 
 def _flash_decode_cuda(q, ck, cv, length, k_scale, v_scale, window, layer):
@@ -230,11 +289,11 @@ def _flash_decode_cuda(q, ck, cv, length, k_scale, v_scale, window, layer):
         raise ValueError(f"length {length} outside the cache's {m_cap} "
                          "positions")
     lo, hi = _valid_range(length, window)
-    chunk, n_chunks = _chunking(hi - lo + 1, b * kvh, rep,
-                                _sm_count(q.device.index or 0))
-    parts = _decode_partial_cuda(q, ck, cv, k_scale, v_scale, lo, length,
-                                 chunk, n_chunks, layer)
-    return _decode_combine_cuda(*parts, q.dtype).reshape(b, kvh, rep, d)
+    chunk, n_chunks = _kernel_split(hi - lo + 1, b * kvh, rep, d, ck.dtype,
+                                    q.device.index or 0)
+    out = _decode_cuda(q, ck, cv, k_scale, v_scale, lo, length, chunk,
+                       n_chunks, layer)[0]
+    return out.reshape(b, kvh, rep, d)
 
 
 def flash_decode(q, ck, cv, length, k_scale=None, v_scale=None, *,
