@@ -26,10 +26,21 @@ and exits non-zero if any of them fails:
    batch 8 x 2048 tokens, TRAIN_STEPS steps on synthetic data, with the
    flash forward and both flash backward kernels launched once per layer
    per step, every loss finite and the last below the first;
-5. parity: the flagship's width at 2 layers on the card (kernels, bf16)
+5. main path, serving: tony_tpu_torch.cli.serve's own build_argparser and
+   build_app at the flagship's width with the CLI's slot-pool defaults (8
+   slots x 2048 positions, blocks of 16 steps, prefill chunks of 128),
+   answering 24 concurrent POST /generate requests on 127.0.0.1 (run A,
+   predictive mode: no kernel launched, no stream synchronisation inside a
+   decode block's dispatch, the admissions' synchronisations counted), then
+   a direct SlotServer with a stop token that fires (run B, EOS mode), and
+   one decode block's wall time against its device time;
+6. parity: the flagship width at 2 layers on the card (kernels, bf16)
    against the CPU's plain path in float32, from the same weights, for the
-   generation logits and for the training loss and every gradient;
-6. profile: a flagship decode step's and a flagship training step's host
+   generation logits and for the training loss and every gradient; and the
+   SlotServer in float32 on the card (8 requests through 3 slots, batched
+   and per-slot admission) against the port's generate run solo on the
+   card, token for token up to the first near-tie of solo's logits;
+7. profile: a flagship decode step's and a flagship training step's host
    wall time against the device time torch.profiler records.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -39,6 +50,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -82,6 +94,15 @@ BWD_BF16_TOL = (1e-2, 1e-2)
 BWD_F32_TOL = (1e-3, 1e-4)
 TRAIN_STEPS = 30
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+# serving run A: requests posted at once, prompt lengths and new tokens
+# drawn uniformly from these ranges, SERVE_SAMPLED of them at temperature
+# 0.8 and top-k 50, the others greedy
+SERVE_REQUESTS, SERVE_SAMPLED = 24, 4
+SERVE_PROMPT, SERVE_NEW = (64, 1536), (32, 128)
+# serving parity: tokens must agree up to the first step whose greedy
+# top-2 logit gap (solo, float32) is below this; past it float32 summation
+# order (the einsum path against the kernels) may pick the other token
+PARITY_NEAR_TIE = 1e-3
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -790,6 +811,320 @@ def phase_train_path(torch, ops, lm_train) -> dict:
     return counts
 
 
+def _quantiles(xs) -> dict:
+    xs = sorted(xs)
+    return dict(p50=xs[len(xs) // 2], max=xs[-1])
+
+
+def _post(url: str, payload: dict) -> tuple:
+    """(HTTP status, body, seconds) of one POST /generate; status None
+    when the connection failed."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, data=json.dumps(payload).encode(),
+                                    timeout=600) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+    except OSError as e:
+        return None, repr(e), time.perf_counter() - t0
+
+
+def phase_serving(torch, ops) -> dict:
+    """The serving path through its user entry point: the serve CLI's
+    build_argparser, build_app and make_httpd on 127.0.0.1, 24 concurrent
+    POST /generate (run A, predictive mode); a direct SlotServer with a
+    stop token (run B, EOS mode); one decode block's wall and device time.
+    Returns the kernels' launches over runs A and B (all must be 0: the
+    serving path runs the einsum attention, as the JAX package's does)."""
+    print("== main path: serving")
+    import threading
+    import warnings
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import generate as G
+    from tony_tpu_torch.models import serving as S
+
+    torch.cuda.empty_cache()
+    args = serve.build_argparser().parse_args(FLAGSHIP + ["--seed", "21"])
+    app = serve.build_app(args)
+    srv = app.server
+    print(f"serving: {srv.slots} slots x {srv.max_len} positions, blocks of "
+          f"{srv.block_size} steps, prefill chunks of {srv.prefill_chunk} "
+          f"(the CLI's defaults), on {srv.device}")
+    # a synchronisation inside a decode block's dispatch raises (and fails
+    # the run's requests); the admissions' ones are counted, by source line
+    syncs = {"admission": 0, "sites": collections.Counter()}
+    dispatch, admit = srv._dispatch_block, srv._admit
+
+    def checked_dispatch():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def counted_admit():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                admit()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for w in caught:
+            if "called a synchronizing CUDA operation" in str(w.message):
+                syncs["admission"] += 1
+                syncs["sites"][f"{Path(w.filename).name}:{w.lineno}"] += 1
+
+    srv._dispatch_block, srv._admit = checked_dispatch, counted_admit
+    rng = np.random.default_rng(21)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
+    sampled = set(rng.choice(SERVE_REQUESTS, SERVE_SAMPLED, replace=False)
+                  .tolist())
+    payloads = [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
+                     max_new_tokens=int(m), timeout_s=600.0,
+                     **(dict(temperature=0.8, top_k=50) if i in sampled
+                        else {}))
+                for i, (n, m) in enumerate(zip(lens, news))]
+    httpd = serve.make_httpd(app, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    app.start()
+    results = [None] * SERVE_REQUESTS
+    try:
+        ops.reset_launch_counts()
+        warm = _post(url, dict(prompt=list(range(1, 300)), max_new_tokens=40))
+        if warm[0] != 200:
+            fail(f"serving: warm-up request answered {warm[0]}: {warm[1]}")
+        syncs["admission"] = 0
+        syncs["sites"].clear()
+        before = (srv.admission_dispatches, srv.blocks_dispatched,
+                  len(srv.block_dispatch_s))
+
+        def post(i):
+            results[i] = _post(url, payloads[i])
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(SERVE_REQUESTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        health = app.health()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        app.shutdown()
+    del srv._dispatch_block, srv._admit
+    for i, (res, pl) in enumerate(zip(results, payloads)):
+        if res is None or res[0] != 200:
+            fail(f"serving run A: request {i} answered {res}")
+        body = res[1]
+        toks = body["tokens"]
+        if (body["finish_reason"] != "length"
+                or len(toks) != pl["max_new_tokens"]
+                or not all(0 <= t < 32768 for t in toks)):
+            fail(f"serving run A: request {i}: bad completion "
+                 f"{body['finish_reason']}, {len(toks)} tokens of "
+                 f"{pl['max_new_tokens']}")
+    if any(counts.values()):
+        fail(f"serving run A: kernels launched {counts}, expected none")
+    if app.loop_failures or not health["healthy"]:
+        fail(f"serving run A: the loop failed: {health}")
+    out_tokens = int(news.sum())
+    lat = _quantiles([r[2] for r in results])
+    disp = [s * 1e3 for s in list(srv.block_dispatch_s)[before[2]:]]
+    run_a = dict(
+        requests=SERVE_REQUESTS, sampled=sorted(sampled),
+        prompt_tokens=int(lens.sum()), output_tokens=out_tokens,
+        wall_s=wall, requests_per_s=SERVE_REQUESTS / wall,
+        output_tokens_per_s=out_tokens / wall,
+        latency_s_p50=lat["p50"], latency_s_max=lat["max"],
+        admission_dispatches=srv.admission_dispatches - before[0],
+        decode_blocks=srv.blocks_dispatched - before[1],
+        block_dispatch_ms_p50=_quantiles(disp)["p50"],
+        admission_syncs=syncs["admission"], launches=counts)
+    print(f"serving run A: {SERVE_REQUESTS} requests ({SERVE_SAMPLED} "
+          f"sampled), {run_a['prompt_tokens']} prompt and {out_tokens} output "
+          f"tokens in {wall:.3f} s: {run_a['requests_per_s']:.3f} requests/s, "
+          f"{run_a['output_tokens_per_s']:.1f} output tokens/s; latency p50 "
+          f"{lat['p50']:.3f} s, max {lat['max']:.3f} s; "
+          f"{run_a['admission_dispatches']} prefill calls, "
+          f"{run_a['decode_blocks']} decode blocks, a block's host dispatch "
+          f"{run_a['block_dispatch_ms_p50']:.2f} ms (median); "
+          f"synchronisations: 0 in the blocks' dispatch, "
+          f"{syncs['admission']} in admission "
+          f"{dict(syncs['sites'])}; launches {counts}")
+
+    # ---- one decode block: wall time against device time, 8 busy slots
+    for _ in range(8):
+        srv.submit(S.Request(prompt=rng.integers(0, 32768, 1024).tolist(),
+                             max_new_tokens=128))
+    srv.step()                      # admits all 8, dispatches a block
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        srv._dispatch_block()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv._dispatch_block()
+        torch.cuda.synchronize()
+    done = srv.run_until_drained()
+    if sorted(len(c.tokens) for c in done.values()) != [128] * 8:
+        fail("serving: the profiled requests did not complete")
+    block_ms = _quantiles(walls)["p50"]
+    dev_ms, top, _ = _profile_rows(prof, 1)
+    print("serving: decode block (8 slots, ~1030-1140 cached, 16 steps) wall "
+          "ms over 5 blocks: " + " ".join(f"{w:.2f}" for w in walls)
+          + f" (median {block_ms:.2f})")
+    if top:
+        print(f"serving: decode block {block_ms:.3f} ms wall, {dev_ms:.3f} ms "
+              f"on the device, busy share {dev_ms / block_ms:.3f}")
+        print("serving_profile_top " + json.dumps(top))
+    else:
+        print("serving: decode block device time not measured (the profiler "
+              "recorded no device activity)")
+    run_a.update(block_wall_ms=block_ms, block_walls_ms=walls,
+                 block_device_ms=dev_ms if top else None,
+                 block_busy_share=dev_ms / block_ms if top else None)
+
+    # ---- run B: EOS mode, a stop token taken from run 0's stream
+    prepared = G.DecodeWeights(srv._params, srv._fused)
+    cfg = srv.cfg
+    del app, srv
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, 8)]
+
+    def run(stop_tokens):
+        eng = S.SlotServer(prepared, cfg, stop_tokens=stop_tokens, seed=3)
+        reqs = [S.Request(prompt=p, max_new_tokens=48) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        got = eng.run_until_drained()
+        return [got[r.id] for r in reqs]
+
+    free = run(())
+    stop = free[0].tokens[3]
+    ops.reset_launch_counts()
+    eos = run((stop,))
+    counts_b = ops.launch_counts()
+    if any(counts_b.values()):
+        fail(f"serving run B: kernels launched {counts_b}, expected none")
+    n_stop = 0
+    for i, c in enumerate(eos):
+        if c.finish_reason == "stop":
+            n_stop += 1
+            ok = c.tokens[-1] == stop and stop not in c.tokens[:-1]
+        else:
+            ok = (c.finish_reason == "length" and len(c.tokens) == 48
+                  and stop not in c.tokens)
+        if not ok:
+            fail(f"serving run B: request {i} ended {c.finish_reason} with "
+                 f"{len(c.tokens)} tokens, stop token {stop}")
+    if n_stop == 0:
+        fail("serving run B: the stop token never fired")
+    same = sum(c.tokens == f.tokens[:len(c.tokens)] for c, f in zip(eos, free))
+    print(f"serving run B (EOS mode, stop token {stop}): {n_stop} of 8 ended "
+          f"on it, the others on their budget of 48; {same} of 8 streams "
+          f"equal the stop-free run's up to their end; launches {counts_b}")
+    run_b = dict(stop=stop, stopped=n_stop, prefix_of_free_run=same,
+                 launches=counts_b)
+    print("serving " + json.dumps(dict(run_a=run_a, run_b=run_b)))
+    return {k: counts[k] + counts_b[k] for k in counts}
+
+
+def _solo_greedy(torch, G, w, cfg, prompt, n):
+    """The port's greedy generation of n tokens, its prefill and decode
+    steps on the kernels, with each step's top-2 logit gap."""
+    p = torch.tensor([prompt], device="cuda")
+    cache = G.init_cache(cfg, 1, p.shape[1] + n, device="cuda")
+    logits, cache = G._forward_with_cache(w.params, cfg, p, cache, w.fused,
+                                          prefill=True)
+    toks, gaps = [], []
+    for step in range(n):
+        top2 = logits[0].topk(2).values
+        gaps.append(float(top2[0] - top2[1]))
+        tok = logits.argmax(-1)
+        toks.append(int(tok))
+        if step < n - 1:
+            logits, cache = G._forward_with_cache(w.params, cfg, tok[:, None],
+                                                  cache, w.fused)
+    return toks, gaps
+
+
+def phase_serving_parity(torch, G, T) -> None:
+    """Flagship width at 2 layers in float32 on the card: 8 requests
+    through 3 slots (re-admission), batched and per-slot admission,
+    against the port's generate run solo (its kernels) on the card."""
+    print("== parity: serving")
+    import numpy as np
+
+    from tony_tpu_torch.models import serving as S
+
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(9), dev), cfg)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, 8)]
+    n_new = 32
+    solo = []
+    for i, p in enumerate(prompts):
+        toks, gaps = _solo_greedy(torch, G, w, cfg, p, n_new)
+        ref = G.generate(w, cfg, torch.tensor([p], device=dev), n_new)
+        if ref[0].tolist() != toks:
+            fail("serving parity: the solo loop differs from generate")
+        solo.append((toks, gaps))
+        for j, g in enumerate(gaps):
+            if g < PARITY_NEAR_TIE:
+                print(f"serving parity: request {i} step {j}: solo top-2 "
+                      f"gap {g:.3g} (a near-tie)")
+    rows = []
+    for batched in (True, False):
+        eng = S.SlotServer(w, cfg, slots=3, max_len=1024,
+                           batched_admission=batched)
+        reqs = [S.Request(prompt=p, max_new_tokens=n_new) for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run_until_drained()
+        for i, (r, (toks, gaps)) in enumerate(zip(reqs, solo)):
+            got = done[r.id].tokens
+            near = [j for j, g in enumerate(gaps) if g < PARITY_NEAR_TIE]
+            first_near = near[0] if near else n_new
+            diverge = next((j for j, (a, b) in enumerate(zip(got, toks))
+                            if a != b), None)
+            rows.append(dict(batched=batched, request=i, diverge=diverge,
+                             near_ties=[(j, gaps[j]) for j in near]))
+            if len(got) != n_new or (diverge is not None
+                                     and diverge < first_near):
+                fail(f"serving parity ({'batched' if batched else 'per-slot'}"
+                     f" admission): request {i} diverges from solo at step "
+                     f"{diverge}, its first near-tie at {first_near}")
+    agree = sum(r["diverge"] is None for r in rows)
+    print(f"serving parity: {agree} of {len(rows)} streams token-identical to "
+          f"solo generate (float32, card); every other one diverges only at "
+          f"or after a near-tie (gap < {PARITY_NEAR_TIE})")
+    print("serving_parity " + json.dumps(rows))
+
+
 def _leaf_copies(torch, params, device, dtype=None):
     return {k: _leaf_copies(torch, v, device, dtype) if isinstance(v, dict)
             else v.detach().to(device, dtype).requires_grad_()
@@ -1054,7 +1389,9 @@ def main() -> int:
         records += phase_bwd_kernels(torch, A)
     gen_launches = phase_main_path(ops, lm_generate)
     train_launches = phase_train_path(torch, ops, lm_train)
-    launches = {k: gen_launches[k] + train_launches[k] for k in gen_launches}
+    serve_launches = phase_serving(torch, ops)
+    launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
+                for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")
@@ -1068,6 +1405,7 @@ def main() -> int:
                      hmma_d128_bf16=hmma)
     phase_parity(torch, G, T)
     phase_train_parity(torch, T)
+    phase_serving_parity(torch, G, T)
     with torch.no_grad():
         phase_profile(torch, G, T)
     phase_train_profile(torch, T)

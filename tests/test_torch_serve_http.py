@@ -1,0 +1,357 @@
+"""The port's ``serve`` front door (tony_tpu_torch.cli.serve) on the CPU:
+ServeApp + make_handler on an ephemeral port, mirroring the JAX package's
+HTTP tests (tests/test_serving.py, tests/test_serving_robustness.py).
+
+Completions are held against the JAX package's SlotServer on the same
+weights (converted with ``from_jax_params``) and prompts, float32 at TINY
+widths: greedy tokens identical (near-tie-free seeds, as in
+tests/test_torch_serving.py)."""
+
+import dataclasses
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tony_tpu.models import transformer as jT
+from tony_tpu.models.serving import Request as JRequest
+from tony_tpu.models.serving import SlotServer as JSlotServer
+from tony_tpu_torch.cli import serve
+from tony_tpu_torch.cli.serve import ServeApp, ServingLoopError
+from tony_tpu_torch.models.convert import config_from_fields, from_jax_params
+from tony_tpu_torch.models.serving import Completion, Request, SlotServer
+
+TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+            d_ff=128, max_seq_len=128, dtype=jnp.float32)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jT.TransformerConfig(**TINY)
+    cfg = config_from_fields(dataclasses.asdict(jcfg))
+    tree = jax.device_get(jT.init(jax.random.PRNGKey(0), jcfg))
+    return jcfg, cfg, tree, from_jax_params(tree, cfg, "cpu")
+
+
+def _prompts(n, seed, lo=2, hi=14):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, int(rng.integers(lo, hi)), dtype=np.int32)
+            for _ in range(n)]
+
+
+def _server(model, **kw):
+    _, cfg, _, params = model
+    kw = {"slots": 2, "max_len": 64, "block_size": 4, "prefill_chunk": 8,
+          **kw}
+    return SlotServer(params, cfg, device="cpu", **kw)
+
+
+class _Http:
+    """A ServeApp's handler on an ephemeral port, in a thread."""
+
+    def __init__(self, app):
+        self.httpd = serve.make_httpd(app, "127.0.0.1", 0)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def get(self, path):
+        try:
+            with urllib.request.urlopen(self.url + path, timeout=30) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def post(self, payload, raw=None):
+        data = raw if raw is not None else json.dumps(payload).encode()
+        try:
+            with urllib.request.urlopen(self.url + "/generate", data=data,
+                                        timeout=120) as r:
+                return r.status, json.loads(r.read()), r.headers
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), e.headers
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def test_serve_http_end_to_end_matches_jax(model):
+    """Four concurrent POST /generate requests through the ServeApp loop
+    return the JAX SlotServer's completions; /stats reports the pool; a
+    malformed body gets 400 and the service stays up."""
+    jcfg, _, tree, _ = model
+    app = ServeApp(_server(model))
+    app.start()
+    http = _Http(app)
+    try:
+        prompts = _prompts(4, seed=31)
+        results = {}
+
+        def post(i, p):
+            results[i] = http.post({"prompt": [int(x) for x in p],
+                                    "max_new_tokens": 5})
+
+        threads = [threading.Thread(target=post, args=(i, p))
+                   for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        jsrv = JSlotServer(tree, jcfg, slots=2, max_len=64, block_size=4,
+                           prefill_chunk=8)
+        jreqs = [JRequest(prompt=p, max_new_tokens=5) for p in prompts]
+        for r in jreqs:
+            jsrv.submit(r)
+        jdone = jsrv.run_until_drained()
+        for i, jr in enumerate(jreqs):
+            code, body, _ = results[i]
+            assert code == 200
+            assert body["finish_reason"] == "length"
+            assert body["tokens"] == jdone[jr.id].tokens
+
+        code, stats = http.get("/stats")
+        assert code == 200 and stats["slots"] == 2 and stats["active"] == 0
+        assert stats["admission_dispatches"] >= 1
+        assert stats["loop"]["status"] == "ok" and stats["device"] == "cpu"
+        assert http.get("/healthz") == (200, {
+            "healthy": True, "status": "ok", "error": None,
+            "loop_restarts": 0})
+        assert http.get("/nope")[0] == 404
+        for raw in (b'{"max_new_tokens": 5}', b"not json", b"[1, 2]",
+                    b'{"prompt": "abc"}', b'{"prompt": [1], "stream": true}',
+                    b'{"prompt": [1], "timeout_s": "NaN"}',
+                    b'{"prompt": [1], "priority": "x"}',
+                    b'{"prompt": [1], "resume_tokens": [2]}',
+                    b'{"prompt": [1, 999], "max_new_tokens": 2}'):
+            code, body, _ = http.post(None, raw=raw)
+            assert code == 400, raw
+            assert "error" in body
+        code, body, _ = http.post({"prompt": [3, 4], "max_new_tokens": 2})
+        assert code == 200 and len(body["tokens"]) == 2
+    finally:
+        http.close()
+        app.shutdown()
+
+
+def test_serve_http_429_when_the_queue_is_full(model):
+    """With the wait queue at max_queue, the next POST is shed with 429 +
+    Retry-After, while the queued request is served once admission runs."""
+    srv = _server(model, max_queue=1)
+    srv.pause_admission = True      # hold the queue seat for the probe
+    app = ServeApp(srv)
+    app.start()
+    http = _Http(app)
+    try:
+        res = {}
+        t = threading.Thread(target=lambda: res.update(first=http.post(
+            {"prompt": [1, 2, 3], "max_new_tokens": 3})))
+        t.start()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and srv.pending < 1:
+            time.sleep(0.002)
+        assert srv.pending == 1
+        code, body, headers = http.post({"prompt": [1], "max_new_tokens": 2})
+        assert code == 429 and "queue full" in body["error"]
+        assert int(headers["Retry-After"]) >= 1
+        srv.pause_admission = False
+        t.join(timeout=60)
+        assert not t.is_alive() and res["first"][0] == 200
+        assert app.stats()["shed"] == 1
+    finally:
+        http.close()
+        app.shutdown()
+
+
+class _ExplodingServer:
+    """SlotServer stand-in whose step() dies once a request is in."""
+    slots, max_len, block_size = 1, 32, 4
+    n_active, pending = 0, 0
+    admission_dispatches = blocks_dispatched = 0
+    pause_admission = False
+
+    def __init__(self):
+        self.idle = True
+
+    def submit(self, req):
+        self.idle = False
+        return req.id
+
+    def step(self):
+        raise RuntimeError("CUDA error: device lost")
+
+    def stats(self):
+        return {"slots": self.slots}
+
+    def fail_queued(self):
+        return []
+
+    def shutdown(self):
+        pass
+
+
+def test_serve_loop_failure_fails_pending_and_healthz():
+    """A failing engine with no reset(): waiters get 503 at once (not at
+    their timeouts), /healthz answers 503 with the cause, and new
+    submissions raise ServingLoopError."""
+    app = ServeApp(_ExplodingServer())
+    app.start()
+    http = _Http(app)
+    try:
+        assert http.get("/healthz")[0] == 200
+        code, body, _ = http.post({"prompt": [1], "max_new_tokens": 4})
+        assert code == 503 and "device lost" in body["error"]
+        code, body = http.get("/healthz")
+        assert code == 503 and body["status"] == "down"
+        assert "device lost" in body["error"]
+        with pytest.raises(ServingLoopError):
+            app.generate([1], 4, timeout=5)
+        code, body, _ = http.post({"prompt": [1], "max_new_tokens": 4})
+        assert code == 503
+    finally:
+        http.close()
+        app.shutdown()
+
+
+def test_loop_failure_resets_the_engine_and_recovers(model):
+    """A step failure on a real engine: reset() fails the in-flight
+    request, the loop restarts, and the next request is served."""
+    srv = _server(model)
+    real_step = srv.step
+    calls = {"n": 0}
+
+    def flaky_step():
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("injected step failure")
+        real_step()
+
+    srv.step = flaky_step
+    app = ServeApp(srv, loop_backoff_s=0.01)
+    app.start()
+    try:
+        with pytest.raises(ServingLoopError, match="injected"):
+            app.generate([5, 6, 7], 40, timeout=60)
+        comp = app.generate([5, 6, 7], 3, timeout=60)
+        assert comp.finish_reason == "length" and len(comp.tokens) == 3
+        h = app.health()
+        assert h["status"] == "ok" and h["loop_restarts"] == 1
+        assert srv.resets == 1
+    finally:
+        app.shutdown()
+
+
+def test_drain_shutdown_finishes_inflight_fails_queued(model):
+    """shutdown(drain=True): the in-flight requests finish token-identical
+    to an undisturbed server, the queued one fails with a clear error, and
+    new submissions are rejected while draining."""
+    pa, pc, pb = _prompts(3, seed=251)
+    srv = _server(model)
+    app = ServeApp(srv)            # loop NOT started yet
+    res = {}
+
+    def call(name, prompt, budget):
+        try:
+            res[name] = app.generate(prompt, budget, timeout=60)
+        except Exception as e:
+            res[name] = e
+
+    t_a = threading.Thread(target=call, args=("a", pa, 24))
+    t_c = threading.Thread(target=call, args=("c", pc, 24))
+    t_a.start()
+    t_c.start()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and srv.pending < 2:
+        time.sleep(0.002)
+    assert srv.pending == 2
+    srv.step()                     # admit both into the 2 slots, block 1
+    assert srv.n_active == 2
+    srv.pause_admission = True
+    t_b = threading.Thread(target=call, args=("b", pb, 4))
+    t_b.start()
+    while time.monotonic() < deadline and srv.pending < 1:
+        time.sleep(0.002)
+    assert srv.pending == 1
+    app.start()
+    app.shutdown(drain=True, drain_timeout_s=60)
+    for t in (t_a, t_c, t_b):
+        t.join(timeout=30)
+        assert not t.is_alive(), "drain left a hung waiter"
+    ref = _server(model)
+    want = {}
+    for name, p in (("a", pa), ("c", pc)):
+        want[name] = ref.submit(Request(prompt=p, max_new_tokens=24))
+    done = ref.run_until_drained()
+    for name in ("a", "c"):
+        assert isinstance(res[name], Completion)
+        assert res[name].tokens == done[want[name]].tokens
+    assert isinstance(res["b"], ServingLoopError)
+    assert "shutting down" in str(res["b"])
+    with pytest.raises(ServingLoopError, match="draining"):
+        app.generate(pb, 4, timeout=5)
+    h = app.health()
+    assert h["healthy"] is False and h["status"] == "draining"
+
+
+TINY_FLAGS = ["--device", "cpu", "--d-model", "32", "--n-layers", "1",
+              "--n-heads", "2", "--d-ff", "64", "--vocab", "64",
+              "--dtype", "float32", "--slots", "2", "--max-len", "32",
+              "--block-size", "4", "--prefill-chunk", "8"]
+
+
+def test_cli_builds_the_app_from_its_flags():
+    args = serve.build_argparser().parse_args(
+        TINY_FLAGS + ["--max-queue", "3", "--per-slot-admission",
+                      "--stop-tokens", "5 9", "--loop-max-restarts", "2"])
+    app = serve.build_app(args)
+    srv = app.server
+    assert (srv.slots, srv.max_len, srv.block_size, srv.prefill_chunk) == \
+        (2, 32, 4, 8)
+    assert srv.max_queue == 3 and not srv.batched_admission
+    assert srv.stop_tokens == (5, 9) and app.max_loop_restarts == 2
+    assert srv.device == torch.device("cpu")
+    app.start()
+    try:
+        comp = app.generate([1, 2, 3], 4, timeout=60)
+        assert 1 <= len(comp.tokens) <= 4
+        assert all(0 <= t < 64 for t in comp.tokens)
+    finally:
+        app.shutdown()
+    # the same seed gives the same weights
+    a = serve.load_model(args)[0]["embed"]
+    assert torch.equal(a, serve.load_model(args)[0]["embed"])
+
+
+@pytest.mark.parametrize("flags,what", [
+    (["--checkpoint-dir", "/x"], "checkpoint"),
+    (["--hf-checkpoint", "/x"], "HF import"),
+    (["--mesh", "tensor=2"], "mesh/TP"),
+    (["--prefix-cache-blocks", "4"], "the rest of serving"),
+    (["--paged-kv"], "the rest of serving"),
+    (["--role", "prefill"], "the rest of serving"),
+    (["--draft-model", "d"], "speculative"),
+    (["--model", "a=random"], "HF import"),
+    (["--trace-dir", "/x"], "the rest of serving"),
+    (["--weight-dtype", "int8"], "w8a16"),
+])
+def test_cli_flags_not_yet_ported(flags, what):
+    with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):
+        serve.main(TINY_FLAGS + flags)
+
+
+def test_serving_needs_a_card_unless_told_otherwise(model, monkeypatch):
+    _, cfg, _, params = model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlotServer(params, cfg)
+    args = serve.build_argparser().parse_args(
+        [f for f in TINY_FLAGS if f not in ("--device", "cpu")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_app(args)

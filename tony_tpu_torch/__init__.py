@@ -13,7 +13,10 @@ Ported so far, for the flagship decoder-only transformer on one device:
   kernel on every decode step;
 - training (``train``, ``data``, ``examples.lm_train``), with the flash
   forward kernel and the two flash backward kernels in every step, and the
-  blockwise cross-entropy.
+  blockwise cross-entropy;
+- serving (``models.serving`` ``SlotServer``, ``cli.serve``): the
+  continuous-batching ring engine behind an HTTP front door, which runs
+  the einsum attention path (no kernel), as the JAX package's does.
 """
 
 from .device import resolve_device

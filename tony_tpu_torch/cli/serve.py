@@ -1,0 +1,640 @@
+"""``serve``: a long-lived generation service over the continuous-batching
+slot pool (port of the JAX package's cli/serve.py: one engine, one device).
+
+    python -m tony_tpu_torch.cli.serve --port 8200 \\
+        --vocab 32768 --d-model 1024 --n-layers 12 --n-heads 8 --d-ff 4096
+
+    curl -s localhost:8200/generate -d '{"prompt": [1,2,3],
+                                         "max_new_tokens": 64}'
+    -> {"id": 0, "tokens": [...], "finish_reason": "length"}
+
+One serving thread owns the device: it admits queued requests into freed
+KV-cache slots and dispatches decode blocks (models/serving.py). HTTP
+handler threads only enqueue and wait; they make no CUDA tensor. POST
+/generate blocks until the request completes (400 on a malformed body,
+429 when the queue is full, 503 when the serving loop is down, 504 on its
+timeout); GET /healthz answers 200 or 503; GET /stats reports the slots,
+the queue and the engine's counters.
+
+Weights are random, drawn from ``--seed``, on ``--device`` (default: the
+card; the CPU only when named).
+
+Not ported yet, each raising a named error: ``--checkpoint-dir``,
+``--hf-checkpoint``, ``--mesh``, ``--prefix-cache-blocks``,
+``--paged-kv``, ``--role``, ``--draft-model``, ``--model``,
+``--trace-dir``, ``--weight-dtype int8``; streaming (``"stream": true``)
+and ``resume_tokens`` answer 400. The OpenAI routes, /metrics, /progress
+and /debug/profile are not served.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import select
+import socket
+import threading
+import time
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m tony_tpu_torch.cli.serve")
+    p.add_argument("--port", type=int, default=8200)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--device", default=None,
+                   help="default: the GPU (raises without one)")
+    p.add_argument("--checkpoint-dir", default="", help="not yet ported")
+    p.add_argument("--hf-checkpoint", default="", help="not yet ported")
+    p.add_argument("--d-model", type=int, default=256)
+    p.add_argument("--n-layers", type=int, default=4)
+    p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--d-ff", type=int, default=1024)
+    p.add_argument("--vocab", type=int, default=4096)
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--slots", type=int, default=8,
+                   help="concurrent KV-cache slots (the max in-flight batch)")
+    p.add_argument("--max-len", type=int, default=2048,
+                   help="per-slot cache capacity: prompt + generation")
+    p.add_argument("--block-size", type=int, default=16,
+                   help="decode steps per dispatched block")
+    p.add_argument("--prefill-chunk", type=int, default=128)
+    p.add_argument("--kv-dtype", default="native", choices=("native", "int8"))
+    p.add_argument("--weight-dtype", default="native",
+                   choices=("native", "int8"))
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--stop-tokens", default="",
+                   help="whitespace-separated EOS token ids")
+    p.add_argument("--pad-id", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--per-slot-admission", action="store_true",
+                   help="one prefill call per chunk per slot instead of "
+                        "one per chunk round")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help="requests beyond this many waiting are shed with "
+                        "HTTP 429 (0 = unbounded)")
+    p.add_argument("--batch-queue-frac", type=float, default=0.5,
+                   help="with --max-queue: batch-priority requests are "
+                        "shed once the queue is this fraction full")
+    p.add_argument("--loop-max-restarts", type=int, default=3,
+                   help="consecutive serving-loop failures tolerated (each "
+                        "resets the slot state and restarts after a "
+                        "backoff) before /healthz answers 503")
+    p.add_argument("--loop-backoff-s", type=float, default=0.5,
+                   help="base of the exponential restart backoff")
+    p.add_argument("--drain-timeout-s", type=float, default=30.0,
+                   help="SIGTERM/SIGINT: how long in-flight requests get "
+                        "to finish before shutdown")
+    # not ported yet: each raises in check_ported
+    p.add_argument("--mesh", default="")
+    p.add_argument("--prefix-cache-blocks", type=int, default=0)
+    p.add_argument("--paged-kv", action="store_true")
+    p.add_argument("--role", default="both")
+    p.add_argument("--draft-model", default="")
+    p.add_argument("--model", action="append", default=[])
+    p.add_argument("--trace-dir", default="")
+    return p
+
+
+# flag -> (is it set?, ROADMAP.md queue-1 item)
+_NOT_PORTED_FLAGS = {
+    "--checkpoint-dir": (lambda a: a.checkpoint_dir, "checkpoint"),
+    "--hf-checkpoint": (lambda a: a.hf_checkpoint, "HF import"),
+    "--mesh": (lambda a: a.mesh, "mesh/TP"),
+    "--prefix-cache-blocks": (lambda a: a.prefix_cache_blocks,
+                              "the rest of serving"),
+    "--paged-kv": (lambda a: a.paged_kv, "the rest of serving"),
+    "--role": (lambda a: a.role != "both", "the rest of serving"),
+    "--draft-model": (lambda a: a.draft_model, "speculative decoding"),
+    "--model": (lambda a: a.model, "HF import (the model registry)"),
+    "--trace-dir": (lambda a: a.trace_dir, "the rest of serving"),
+    "--weight-dtype int8": (lambda a: a.weight_dtype == "int8", "w8a16"),
+}
+
+
+def check_ported(args) -> None:
+    for flag, (is_set, item) in _NOT_PORTED_FLAGS.items():
+        if is_set(args):
+            raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
+                             f"(ROADMAP.md queue 1, {item})")
+
+
+def load_model(args):
+    """(params, cfg): random init at the CLI's dims from ``--seed``, on
+    ``--device``."""
+    import torch
+
+    from ..device import resolve_device
+    from ..models import transformer
+    from ..models.convert import torch_dtype
+
+    device = resolve_device(args.device)
+    cfg = transformer.TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
+        n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
+        dtype=torch_dtype(args.dtype))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    return transformer.init(cfg, gen, device), cfg
+
+
+def build_server(args):
+    """The SlotServer the flags describe, its weights prepared once (the
+    float32 masters are dropped)."""
+    from ..models.generate import prepare_decode
+    from ..models.serving import SlotServer
+
+    check_ported(args)
+    params, cfg = load_model(args)
+    prepared = prepare_decode(params, cfg, weight_dtype=args.weight_dtype)
+    del params
+    return SlotServer(
+        prepared, cfg, slots=args.slots, max_len=args.max_len,
+        block_size=args.block_size, prefill_chunk=args.prefill_chunk,
+        kv_dtype=args.kv_dtype, temperature=args.temperature,
+        top_k=args.top_k,
+        stop_tokens=tuple(int(t) for t in args.stop_tokens.split()),
+        pad_id=args.pad_id, seed=args.seed,
+        batched_admission=not args.per_slot_admission,
+        max_queue=args.max_queue, batch_queue_frac=args.batch_queue_frac,
+        device=args.device)
+
+
+def build_app(args) -> "ServeApp":
+    """The ServeApp over ``build_server(args)`` (not started)."""
+    return ServeApp(build_server(args),
+                    max_loop_restarts=args.loop_max_restarts,
+                    loop_backoff_s=args.loop_backoff_s)
+
+
+class ServingLoopError(RuntimeError):
+    """The serving loop died; the message carries the cause."""
+
+
+class ServeApp:
+    """The serving loop + request rendezvous (the JAX package's
+    cli/serve.py:339, one engine). One lock guards the engine (a
+    SlotServer is not thread-safe); HTTP threads enqueue under it and
+    block on a per-request event the loop thread sets at completion.
+
+    A step failure is not terminal: the loop fails only the requests whose
+    in-flight work died, re-arms the slot state through the engine's
+    ``reset()`` (weights untouched) and restarts after an exponential
+    backoff, up to ``max_loop_restarts`` consecutive failures (a turn that
+    dispatches to the device re-arms the streak). ``/healthz`` reports
+    ``degraded`` while a restart is pending and 503 ``down`` once the
+    budget is spent (or the engine has no ``reset()``); then every waiter
+    is failed and new submissions are rejected. ``shutdown(drain=True)``
+    stops admission, fails queued requests, and lets in-flight ones finish
+    up to a deadline. A waiter that gives up cancels its request."""
+
+    def __init__(self, server, *, max_loop_restarts: int = 3,
+                 loop_backoff_s: float = 0.5):
+        self.server = server
+        self.lock = threading.Lock()
+        self.wake = threading.Event()
+        self.stop = threading.Event()
+        self.status = "ok"              # "ok" | "degraded" | "down"
+        self.draining = False
+        self.error: str | None = None
+        self.max_loop_restarts = max_loop_restarts
+        self.loop_backoff_s = loop_backoff_s
+        self.loop_failures = 0          # step exceptions, cumulative
+        self.loop_restarts = 0          # successful reset+restart cycles
+        self._restart_streak = 0        # consecutive failures (the budget)
+        self._events: dict[int, threading.Event] = {}
+        self._results: dict[int, object] = {}
+        self.thread = threading.Thread(
+            target=self._loop, name="serve-loop", daemon=True)
+
+    @property
+    def healthy(self) -> bool:
+        """The /healthz bool: degraded still serves; down and draining
+        are out of rotation."""
+        return self.status != "down" and not self.draining
+
+    def start(self):
+        self.thread.start()
+
+    def shutdown(self, drain: bool = False, drain_timeout_s: float = 30.0):
+        """Stop the loop. ``drain=True`` first parks admission, fails
+        queued-but-unstarted requests, and waits up to
+        ``drain_timeout_s`` for every in-flight waiter to be answered."""
+        if drain and self.thread.is_alive() and self.status != "down":
+            with self.lock:
+                self.draining = True
+                self.server.pause_admission = True
+                for req in self.server.fail_queued():
+                    ev = self._events.pop(req.id, None)
+                    if ev is not None:
+                        self._results[req.id] = ServingLoopError(
+                            f"request {req.id} failed: server shutting "
+                            "down before it was admitted")
+                        ev.set()
+            deadline = time.monotonic() + drain_timeout_s
+            while time.monotonic() < deadline:
+                with self.lock:
+                    if not self._events and self.server.n_active == 0:
+                        break
+                time.sleep(0.05)
+            with self.lock:
+                if self._events:    # drain deadline exceeded: fail loudly
+                    self._fail_pending(RuntimeError(
+                        f"shutdown drain deadline ({drain_timeout_s}s) "
+                        "exceeded"))
+        self.stop.set()
+        self.wake.set()
+        self.thread.join(timeout=10)
+        self.server.shutdown()
+
+    def _fail_pending(self, exc: Exception) -> None:
+        """Fail every waiting request with the loop's error, so waiters
+        get a ServingLoopError instead of hanging to their timeouts."""
+        for rid, ev in list(self._events.items()):
+            self._results[rid] = ServingLoopError(
+                f"serving loop failed: {exc!r}")
+            self._events.pop(rid, None)
+            ev.set()
+
+    def _loop(self):
+        while not self.stop.is_set():
+            try:
+                self._serve()
+                return                  # clean stop
+            except Exception as e:
+                if not self._recover(e):
+                    return              # terminally down
+
+    def _serve(self):
+        """The inner serving loop; any exception out of here is a step
+        failure handed to _recover. A turn proves a recovery only when it
+        dispatched to the device (the engine's dispatch counters moved)."""
+        eng = self.server
+
+        def dispatches():
+            return eng.admission_dispatches, eng.blocks_dispatched
+
+        while not self.stop.is_set():
+            done = {}
+            with self.lock:
+                busy = not eng.idle
+                if busy:
+                    before = dispatches()
+                    eng.step()
+                    # in predictive mode drain_completed reads the device,
+                    # so drain only when something is known to be finished
+                    if eng.completions_ready:
+                        done = eng.drain_completed()
+                    if self.status == "degraded" and dispatches() != before:
+                        self.status = "ok"
+                        self._restart_streak = 0
+                        self.error = None
+            if done:
+                self._deliver(done)
+            if not busy:
+                self.wake.wait(0.02)
+                self.wake.clear()
+
+    def _deliver(self, done: dict) -> None:
+        with self.lock:
+            for rid, comp in done.items():
+                ev = self._events.pop(rid, None)
+                if ev is None:          # no waiter (timed out / cancelled)
+                    continue
+                if comp.finish_reason == "expired":
+                    self._results[rid] = TimeoutError(
+                        f"request {rid} expired in queue before admission")
+                else:
+                    self._results[rid] = comp
+                ev.set()
+
+    def _recover(self, exc: Exception) -> bool:
+        """Handle a serving-loop failure: reset the engine and report True
+        to restart, or flip terminally down and report False."""
+        print("serving loop failed:\n" + traceback.format_exc(), flush=True)
+        with self.lock:
+            self.loop_failures += 1
+            self._restart_streak += 1
+            self.error = f"{type(exc).__name__}: {exc}"
+            reset = getattr(self.server, "reset", None)
+            if not callable(reset):
+                self.status = "down"
+                self._fail_pending(exc)
+                return False
+            if self._restart_streak > self.max_loop_restarts:
+                self.status = "down"
+                self.error += (f" (restart budget of "
+                               f"{self.max_loop_restarts} exhausted)")
+                self._fail_pending(exc)
+                return False
+            self.status = "degraded"
+            try:
+                lost = reset()
+            except Exception as e2:
+                print("serving reset failed:\n" + traceback.format_exc(),
+                      flush=True)
+                self.status = "down"
+                self.error = f"reset failed: {type(e2).__name__}: {e2}"
+                self._fail_pending(e2)
+                return False
+            # fail ONLY the requests whose in-flight work died; queued
+            # waiters ride through the restart
+            for rid in lost:
+                ev = self._events.pop(rid, None)
+                if ev is not None:
+                    self._results[rid] = ServingLoopError(
+                        f"request {rid} lost to a serving-loop failure: "
+                        f"{self.error}")
+                    ev.set()
+            self.loop_restarts += 1
+            backoff = min(
+                self.loop_backoff_s * (2 ** (self._restart_streak - 1)),
+                10.0)
+        # back off outside the lock: waiters can time out or submit
+        return not self.stop.wait(backoff)
+
+    # ------------------------------------------------------------ requests
+
+    def submit_async(self, prompt, max_new_tokens: int,
+                     timeout: float = 600.0,
+                     temperature: float | None = None,
+                     top_k: int | None = None,
+                     stop: list | None = None, logprobs: int = 0,
+                     priority: str = "interactive",
+                     model: str | None = None):
+        """Admission half of generate(): returns (request_id, event). The
+        request carries ``timeout`` as its queue deadline."""
+        from ..models.serving import Request
+
+        req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
+                      temperature=temperature, top_k=top_k,
+                      deadline=time.monotonic() + timeout, stop=stop,
+                      logprobs=int(logprobs or 0),
+                      priority=str(priority or "interactive"), model=model)
+        ev = threading.Event()
+        # health check + registration + submit are one step against the
+        # loop's failure handler, which fails registered events under it
+        with self.lock:
+            if self.status == "down":
+                raise ServingLoopError(f"serving loop is down: {self.error}")
+            if self.draining:
+                raise ServingLoopError(
+                    "server is draining; not accepting requests")
+            self._events[req.id] = ev
+            try:
+                self.server.submit(req)     # may shed: QueueFullError
+            except Exception:
+                self._events.pop(req.id, None)
+                raise
+        self.wake.set()
+        return req.id, ev
+
+    def take_result(self, request_id: int):
+        res = self._results.pop(request_id)
+        if isinstance(res, Exception):   # the loop failed this request
+            raise res
+        return res
+
+    def cancel(self, request_id: int) -> bool:
+        """Drop the waiter and stop the request wherever it is."""
+        with self.lock:
+            self._events.pop(request_id, None)
+            self._results.pop(request_id, None)
+            srv_cancel = getattr(self.server, "cancel", None)
+            return bool(callable(srv_cancel) and srv_cancel(request_id))
+
+    def generate(self, prompt, max_new_tokens: int, timeout: float = 600.0,
+                 temperature: float | None = None,
+                 top_k: int | None = None):
+        rid, ev = self.submit_async(prompt, max_new_tokens, timeout=timeout,
+                                    temperature=temperature, top_k=top_k)
+        if not ev.wait(timeout):
+            self.cancel(rid)     # free the slot, don't decode for nobody
+            raise TimeoutError(
+                f"request {rid} timed out after {timeout}s; cancelled")
+        return self.take_result(rid)
+
+    def health(self) -> dict:
+        """The /healthz payload: ``status`` is ok/degraded/draining/down,
+        ``healthy`` the load-balancer bool."""
+        with self.lock:
+            status = ("draining" if self.draining and self.status != "down"
+                      else self.status)
+            return {"healthy": self.healthy, "status": status,
+                    "error": self.error,
+                    "loop_restarts": self.loop_restarts}
+
+    def stats(self) -> dict:
+        with self.lock:
+            out = dict(self.server.stats())
+            out["loop"] = {"status": self.status,
+                           "restarts": self.loop_restarts,
+                           "failures": self.loop_failures,
+                           "max_restarts": self.max_loop_restarts}
+            out["pid"] = os.getpid()
+            return out
+
+
+def _read_json(handler) -> dict:
+    n = int(handler.headers.get("Content-Length", "0"))
+    payload = json.loads(handler.rfile.read(n) or b"{}")
+    if not isinstance(payload, dict):
+        raise ValueError("request body must be a JSON object")
+    return payload
+
+
+def _generate_args(payload: dict, path: str) -> dict:
+    """A /generate body -> ServeApp.submit_async keywords; ValueError for
+    anything malformed (the 400 reply)."""
+    if "prompt" not in payload:
+        raise ValueError("missing 'prompt' (a list of token ids)")
+    prompt = payload["prompt"]
+    if not isinstance(prompt, list) or not all(
+            isinstance(t, int) and not isinstance(t, bool) for t in prompt):
+        raise ValueError("prompt must be a JSON list of token ids")
+    stream = payload.get("stream")
+    if stream is not None and not isinstance(stream, bool):
+        raise ValueError("stream must be a JSON boolean")
+    if stream or parse_qs(urlparse(path).query).get(
+            "stream", ["false"])[0].lower() in ("1", "true", "yes"):
+        raise ValueError("streaming is not ported to tony_tpu_torch yet "
+                         "(ROADMAP.md queue 1, the rest of serving)")
+    if payload.get("resume_tokens") is not None:
+        raise ValueError("resume_tokens (journal replay) is not ported to "
+                         "tony_tpu_torch yet (ROADMAP.md queue 1, the rest "
+                         "of serving)")
+    timeout = float(payload.get("timeout_s", 600.0))
+    # NaN and Infinity pass float(): a NaN deadline never expires
+    if not 0 < timeout < float("inf"):
+        raise ValueError("timeout_s must be a positive finite number")
+    stop = payload.get("stop")
+    if stop is not None and not isinstance(stop, list):
+        raise ValueError("stop must be a list of token ids or a list of "
+                         "token-id lists")
+    logprobs = payload.get("logprobs") or 0
+    if isinstance(logprobs, bool) or not isinstance(logprobs, int):
+        raise ValueError("logprobs must be an integer")
+    priority = payload.get("priority") or "interactive"
+    if priority not in ("interactive", "batch"):
+        raise ValueError("priority must be 'interactive' or 'batch'")
+    model = payload.get("model")
+    if model is not None and not isinstance(model, str):
+        raise ValueError("model must be a string")
+    temp, top_k = payload.get("temperature"), payload.get("top_k")
+    return dict(prompt=prompt,
+                max_new_tokens=int(payload.get("max_new_tokens", 64)),
+                timeout=timeout,
+                temperature=None if temp is None else float(temp),
+                top_k=None if top_k is None else int(top_k),
+                stop=stop, logprobs=logprobs, priority=priority, model=model)
+
+
+def make_handler(app: ServeApp):
+    """The serve HTTP surface: GET /healthz, GET /stats, POST /generate."""
+    from ..models.serving import QueueFullError
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):      # quiet; the loop is the log story
+            pass
+
+        def _send(self, code: int, obj: dict, headers: dict | None = None):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _client_gone(self) -> bool:
+            """True when the client hung up while we wait (a peeked EOF)."""
+            try:
+                r, _, _ = select.select([self.connection], [], [], 0)
+                if not r:
+                    return False
+                return self.connection.recv(1, socket.MSG_PEEK) == b""
+            except OSError:
+                return True
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                payload = app.health()
+                self._send(200 if payload["healthy"] else 503, payload)
+            elif self.path == "/stats":
+                self._send(200, app.stats())
+            else:
+                self._send(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if self.path.partition("?")[0] == "/generate":
+                self._post_generate()
+            else:
+                self._send(404, {"error": "unknown path"})
+
+        def _post_generate(self):
+            try:
+                kw = _generate_args(_read_json(self), self.path)
+                rid, ev = app.submit_async(**kw)
+            except QueueFullError as e:
+                # 429 + Retry-After: retry elsewhere or later instead of
+                # queueing into a deadline miss
+                self._send(429, {"error": str(e)},
+                           headers={"Retry-After": "1"})
+                return
+            except ServingLoopError as e:
+                self._send(503, {"error": str(e)})
+                return
+            except (KeyError, ValueError, TypeError,
+                    NotImplementedError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            # wait in short beats so a vanished client is noticed and its
+            # request cancelled
+            deadline = time.monotonic() + kw["timeout"]
+            while not ev.wait(0.25):
+                if time.monotonic() >= deadline:
+                    app.cancel(rid)
+                    self._send(504, {"error": f"request {rid} timed out "
+                                     f"after {kw['timeout']}s; cancelled"})
+                    return
+                if self._client_gone():
+                    app.cancel(rid)     # abandonment: nobody to answer
+                    self.close_connection = True
+                    return
+            try:
+                comp = app.take_result(rid)
+            except ServingLoopError as e:
+                self._send(503, {"error": str(e)})
+                return
+            except TimeoutError as e:
+                self._send(504, {"error": str(e)})
+                return
+            if comp.finish_reason == "shed":
+                self._send(429, {"error": f"request {comp.id} shed by "
+                                 "admission tiers; retry later"},
+                           headers={"Retry-After": "1"})
+                return
+            body = {"id": comp.id, "tokens": comp.tokens,
+                    "finish_reason": comp.finish_reason}
+            if comp.logprobs is not None:
+                body["logprobs"] = comp.logprobs
+            self._send(200, body)
+
+    return Handler
+
+
+class ServeHTTPServer(ThreadingHTTPServer):
+    """One thread per connection, with a listen backlog for a burst of
+    concurrent clients (socketserver's default of 5 resets the rest)."""
+    request_queue_size = 128
+
+
+def make_httpd(app: ServeApp, host: str, port: int) -> ServeHTTPServer:
+    """The HTTP server over ``app`` (port 0: an ephemeral one)."""
+    return ServeHTTPServer((host, port), make_handler(app))
+
+
+def main(argv=None) -> int:
+    import signal
+
+    args = build_argparser().parse_args(argv)
+    app = build_app(args)
+    app.start()
+    httpd = make_httpd(app, args.host, args.port)
+    # graceful drain on SIGTERM/SIGINT, on a helper thread (httpd.shutdown
+    # deadlocks from the serve_forever thread); a second signal exits now
+    draining = threading.Event()
+
+    def _drain_and_stop():
+        app.shutdown(drain=True, drain_timeout_s=args.drain_timeout_s)
+        httpd.shutdown()
+
+    def _on_signal(signum, frame):
+        if draining.is_set():
+            print("second signal: exiting immediately", flush=True)
+            os._exit(128 + signum)
+        draining.set()
+        print(f"signal {signum}: draining (finishing in-flight requests, "
+              f"up to {args.drain_timeout_s}s)", flush=True)
+        threading.Thread(target=_drain_and_stop, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    srv = app.server
+    print(f"serving {srv.cfg.n_layers}L d{srv.cfg.d_model} on "
+          f"http://{args.host}:{httpd.server_address[1]} ({srv.slots} slots "
+          f"x {srv.max_len} tokens, {srv.device})", flush=True)
+    try:
+        httpd.serve_forever()
+    finally:
+        app.shutdown()      # no-op after a completed drain
+        httpd.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

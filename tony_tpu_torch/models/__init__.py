@@ -1,6 +1,6 @@
-"""The port's models: the flagship transformer's forward and its KV-cache
-generation."""
+"""The port's models: the flagship transformer's forward, its KV-cache
+generation and the serving slot pool."""
 
-from . import convert, generate, transformer
+from . import convert, generate, serving, transformer
 
-__all__ = ["convert", "generate", "transformer"]
+__all__ = ["convert", "generate", "serving", "transformer"]

@@ -11,11 +11,18 @@ the JAX package's models/generate.py, single device).
 - **Prefill** (empty cache) runs causal attention over the prompt through
   the model's own attention dispatch: the flash forward kernel on CUDA.
 - **Decode** runs ``_cached_attention``: on CUDA every lockstep
-  single-token step goes to the split-KV flash-decode kernel
-  (ops/decode_attention.py); the JAX package's M >= 4096 threshold was
-  measured on another chip and is not applied. Other shapes (a multi-token
-  chunk into a non-empty cache, attn_impl="ref", the CPU) take the einsum
-  formulation: scores against the whole buffer with an index mask.
+  single-token step (one scalar length, no ring offsets) goes to the
+  split-KV flash-decode kernel (ops/decode_attention.py); the JAX
+  package's M >= 4096 threshold was measured on another chip and is not
+  applied. Other shapes (a multi-token chunk into a non-empty cache, the
+  serving slot pool's per-row lengths and ring offsets, attn_impl="ref",
+  the CPU) take the einsum formulation: scores against the whole buffer
+  with an index mask, as the JAX package does.
+- **Per-row lengths** (the serving slot pool, models/serving.py):
+  ``cache.length`` may be an ``[S]`` int32 tensor. Each row's buffer is
+  then a ring whose index m holds logical position ``(m - offset) mod M``,
+  with the offsets chosen so every row's next write lands at one shared
+  ``cursor`` index (``_forward_with_cache(ring=(cursor, offsets))``).
 - **GQA-aware cache** at n_kv_heads; query heads are folded to
   ``[kvH, rep]`` against the un-repeated cache.
 - ``kv_dtype="int8"`` stores per-token-per-head symmetric int8 with bf16
@@ -23,12 +30,15 @@ the JAX package's models/generate.py, single device).
 - Dense models run fused q/k/v and gate/up projections (concatenations of
   the training weights, so values match the unfused path).
 
-Sampling: greedy (temperature=0), temperature and top-k, drawn from an
-explicit ``torch.Generator``. ``stop_tokens`` gives EOS semantics with an
-early exit once every row has stopped.
+Sampling: greedy (temperature=0), temperature and top-k, scalar or one
+per row, drawn from an explicit ``torch.Generator`` by the exponential
+trick (``argmax(p / q)``, ``q ~ Exp(1)``: what ``torch.multinomial`` does
+for one sample, without its host-side validity check, which would wait
+for the card). ``stop_tokens`` gives EOS semantics with an early exit once
+every row has stopped.
 
-Not ported yet: w8a16 (``weight_dtype="int8"``), MoE, the mesh
-(tensor-parallel) path and the serving slot pool's per-row lengths.
+Not ported yet: w8a16 (``weight_dtype="int8"``), MoE and the mesh
+(tensor-parallel) path.
 """
 
 from __future__ import annotations
@@ -49,7 +59,9 @@ from .transformer import TransformerConfig, layer_params, rms_norm
 class KVCache:
     k: torch.Tensor       # [n_layers, B, n_kv_heads, max_len, head_dim]
     v: torch.Tensor
-    length: int           # number of valid positions
+    # number of valid positions: an int (lockstep), or an [S] int32 tensor
+    # of per-row logical lengths (the serving slot pool)
+    length: int | torch.Tensor
     # int8 mode only: [n_layers, B, n_kv_heads, max_len] bf16 dequant scales
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
@@ -94,17 +106,34 @@ def _quantize_kv(x):
     return q, scale[..., 0].to(torch.bfloat16)
 
 
-def _cached_attention(cfg, q, ck, cv, cache_len: int, l_new: int,
-                      k_scale=None, v_scale=None, allow_kernel=True,
-                      layer_idx=None):
+def _takes_decode_kernel(cfg, l_new: int, on_cuda: bool, cache_len,
+                         ring_offsets, allow_kernel: bool = True) -> bool:
+    """The decode kernel's gate: a lockstep single-token step on the card.
+    The kernel takes one scalar length and absolute positions, so per-row
+    lengths and ring offsets (the serving slot pool) keep the einsum path,
+    as the JAX package's gate does (its generate.py:202-205)."""
+    return (allow_kernel and l_new == 1 and on_cuda
+            and not torch.is_tensor(cache_len) and ring_offsets is None
+            and cfg.attn_impl != "ref")
+
+
+def _cached_attention(cfg, q, ck, cv, cache_len, l_new: int,
+                      k_scale=None, v_scale=None, ring_offsets=None,
+                      allow_kernel=True, layer_idx=None):
     """q: [B, L, H, D] for the L new positions (absolute offsets
     cache_len..cache_len+L-1); ck/cv: the cache buffers (the full
     [Ly, B, kvH, M, D] stack with ``layer_idx``), already holding the new
-    keys. ``cache_len`` is one int for every row (lockstep)."""
+    keys. ``cache_len`` is one int for every row (lockstep) or a [B]
+    tensor (each row at its own offset: the serving slot pool).
+
+    ``ring_offsets`` [B]: each row's buffer is a ring whose index m holds
+    logical position (m - offset_b) mod M; the mask maps indices to
+    logical positions per row (the JAX package's generate.py:237-258)."""
     b, l, h, d = q.shape
     kvh = ck.shape[1 if layer_idx is None else 2]
     rep = h // kvh
-    if allow_kernel and l == 1 and cfg.attn_impl != "ref" and q.is_cuda:
+    if _takes_decode_kernel(cfg, l, q.is_cuda, cache_len, ring_offsets,
+                            allow_kernel):
         from ..ops.decode_attention import flash_decode
 
         out = flash_decode(q.reshape(b, kvh, rep, d), ck, cv, cache_len,
@@ -116,18 +145,26 @@ def _cached_attention(cfg, q, ck, cv, cache_len: int, l_new: int,
         if k_scale is not None:
             k_scale, v_scale = k_scale[layer_idx], v_scale[layer_idx]
     dt = cfg.dtype
+    m = ck.shape[2]
     q5 = q.reshape(b, l, kvh, rep, d)
     # f32 scores from the storage-dtype operands (exact products, f32 sum)
     s = torch.einsum("blgrd,bgmd->bgrlm", q5.float(),
                      ck.to(dt).float()) * cfg.head_dim ** -0.5
     if k_scale is not None:
         s = s * k_scale.float()[:, :, None, None, :]
-    key_pos = torch.arange(ck.shape[2], device=q.device)
-    q_pos = cache_len + torch.arange(l_new, device=q.device)
-    mask = key_pos <= q_pos[:, None]                    # causal + validity
+    key_log = torch.arange(m, device=q.device)[None, :]          # [1, M]
+    if ring_offsets is not None:
+        key_log = (key_log - ring_offsets[:, None]) % m         # [B, M]
+    steps = torch.arange(l_new, device=q.device)
+    if torch.is_tensor(cache_len):
+        q_pos = cache_len[:, None] + steps                      # [B, L]
+    else:
+        q_pos = cache_len + steps                               # [L]
+    mask = key_log[:, None, :] <= q_pos[..., :, None]   # causal + validity
     if cfg.attn_window:
-        mask &= key_pos > q_pos[:, None] - cfg.attn_window
-    s = torch.where(mask, s, NEG_INF)
+        mask &= key_log[:, None, :] > q_pos[..., :, None] - cfg.attn_window
+    # mask is [1 or B, L, M]: broadcast over kv heads and their query heads
+    s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     if v_scale is not None:
         p = p * v_scale.float()[:, :, None, None, :]
@@ -141,6 +178,17 @@ def _prefill_cfg(cfg: TransformerConfig) -> TransformerConfig:
     if cfg.attn_impl in ("ring", "ulysses"):
         return dataclasses.replace(cfg, attn_impl="auto")
     return cfg
+
+
+def moe_dropfree(cfg: TransformerConfig) -> TransformerConfig:
+    """Decode routes B*1 tokens at a time; a capacity factor of at least
+    E/k keeps every token (the JAX package's generate.py:282). MoE itself
+    is not ported yet: its forward raises."""
+    if cfg.n_experts <= 0:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=max(cfg.capacity_factor,
+                                 cfg.n_experts / cfg.expert_top_k))
 
 
 def _cast_params(params, dtype):
@@ -183,11 +231,18 @@ def _fuse_decode_weights(params, cfg: TransformerConfig,
 
 def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
                         fused: dict | None = None, prefill: bool = False,
-                        all_logits: bool = False):
+                        all_logits: bool = False, ring: tuple | None = None):
     """Run L new tokens (absolute positions cache.length..+L-1) through the
     stack, writing their K/V into the cache IN PLACE -> (last-position
     logits [B, V] f32, or [B, L, V] with ``all_logits``; the cache with its
     length advanced, over the same buffers).
+
+    ``cache.length`` may be a [B] tensor: every row then decodes at its own
+    logical position (per-row rope positions and masks), the decode step of
+    the serving slot pool. That requires ``ring=(cursor, offsets)``: row
+    b's logical position p lives at index (p + offsets[b]) mod M, and every
+    row's K/V is written at the one shared host-int ``cursor`` index.
+    Single-token steps only (serving prefill has its own program).
 
     ``prefill=True`` requires an empty cache: attention over the block then
     is causal attention within the block and runs through the model's own
@@ -198,12 +253,25 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
     b, l = tokens.shape
     start = cache.length
     m_cap = cache.k.shape[3]
-    if start + l > m_cap:
-        raise ValueError(f"cache capacity {m_cap} cannot hold {start} cached "
-                         f"+ {l} new positions")
-    if prefill and start != 0:
-        raise ValueError("prefill=True requires an empty cache")
-    positions = (start + torch.arange(l, device=tokens.device)).expand(b, l)
+    if torch.is_tensor(start):
+        if ring is None or l != 1:
+            raise ValueError(
+                "per-row cache lengths require ring=(cursor, offsets) and "
+                "single-token steps (the serving decode contract)")
+        cursor, ring_offsets = ring
+        positions = start[:, None].long() + torch.arange(
+            l, device=start.device)
+        span = slice(cursor, cursor + l)
+    else:
+        if start + l > m_cap:
+            raise ValueError(f"cache capacity {m_cap} cannot hold {start} "
+                             f"cached + {l} new positions")
+        if prefill and start != 0:
+            raise ValueError("prefill=True requires an empty cache")
+        ring_offsets = None
+        positions = (start + torch.arange(
+            l, device=tokens.device)).expand(b, l)
+        span = slice(start, start + l)
     x = params["embed"].to(dt)[tokens]
 
     hd = cfg.head_dim
@@ -211,7 +279,6 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
     p_cfg = _prefill_cfg(cfg) if prefill else None
     ck, cv = cache.k, cache.v
     int8_cache = ck.dtype == torch.int8
-    span = slice(start, start + l)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -241,7 +308,7 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
         else:
             attn = _cached_attention(cfg, q, ck, cv, start, l,
                                      cache.k_scale, cache.v_scale,
-                                     layer_idx=i)
+                                     ring_offsets=ring_offsets, layer_idx=i)
         x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
         hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if fused is not None:
@@ -260,19 +327,48 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
     return logits, dataclasses.replace(cache, length=start + l)
 
 
-def sample_token(logits, generator=None, temperature: float = 0.0,
-                 top_k: int = 0):
+def _draw(probs, generator):
+    """One draw per row of ``probs`` [B, V]: argmax(p / q) with q ~ Exp(1),
+    the exponential trick torch.multinomial runs for one sample, without
+    its host-side check of the probabilities (a wait for the card)."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1).to(torch.int32)
+
+
+def sample_token(logits, generator=None, temperature=0.0, top_k=0):
     """logits [B, V] -> token ids [B] int32. temperature=0 => greedy;
     otherwise a draw from ``generator`` (on logits' device) over the
-    temperature-scaled, optionally top-k-filtered distribution."""
-    if temperature <= 0.0:
+    temperature-scaled, optionally top-k-filtered distribution.
+
+    ``temperature`` may be a [B] tensor (the serving slot pool: each row
+    at its own request's temperature): rows at 0 take the greedy argmax,
+    the others sample. ``top_k`` likewise: an int applies one threshold to
+    every row; a [B] int tensor gives each row its own k (k <= 0 keeps
+    every value) by a per-row k-th-value threshold from one full sort (the
+    JAX package's generate.py:585-622)."""
+    per_row = torch.is_tensor(temperature)
+    if per_row:
+        scaled = logits / temperature.clamp_min(1e-6)[:, None]
+    elif temperature <= 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
-    scaled = logits / temperature
-    if top_k > 0:
+    else:
+        scaled = logits / temperature
+    if torch.is_tensor(top_k):
+        v = scaled.shape[-1]
+        srt = torch.sort(scaled, dim=-1).values          # ascending
+        # row r keeps values >= its top_k[r]-th largest, srt[r, V - k]
+        idx = (v - top_k.long()).clamp(0, v - 1)
+        kth = srt.gather(-1, idx[:, None])
+        keep = (top_k[:, None] <= 0) | (scaled >= kth)
+        scaled = torch.where(keep, scaled, NEG_INF)
+    elif top_k > 0:
         kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
         scaled = torch.where(scaled >= kth, scaled, NEG_INF)
-    probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    sampled = _draw(torch.softmax(scaled, dim=-1), generator)
+    if not per_row:
+        return sampled
+    return torch.where(temperature > 0, sampled,
+                       logits.argmax(dim=-1).to(torch.int32))
 
 
 class DecodeWeights(NamedTuple):
@@ -419,4 +515,4 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
 
 
 __all__ = ["KVCache", "init_cache", "generate", "sample_token",
-           "prepare_decode", "DecodeWeights"]
+           "prepare_decode", "DecodeWeights", "moe_dropfree"]

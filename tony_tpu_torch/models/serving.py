@@ -1,0 +1,1059 @@
+"""Continuous batching: a slot-pool server over the static KV cache (port of
+the JAX package's models/serving.py, the ring engine on one device).
+
+``generate()`` serves one fixed batch to completion; a live service gets
+requests at different times with different lengths. The ``SlotServer``
+keeps S cache slots and admits each request into whichever slot frees up,
+while the other slots keep decoding.
+
+- **Fixed slot pool, ring-aligned.** The KV cache is allocated once as
+  [layers, S, kvH, max_len, D]; ``cache.length`` is an [S] int32 tensor of
+  logical lengths. Each slot's buffer is a ring: logical position p lives
+  at index (p + offset_slot) mod max_len, the offset chosen at admission
+  so that every active slot's next write lands at one shared cursor index
+  (a host int). The decode write is then one slice assignment for all
+  slots, and only the attention mask maps indices to logical positions.
+  Active rows advance one position a step exactly as the cursor does, so
+  a live row never wraps onto its own data.
+- **One decode block for all slots.** A block runs ``block_size``
+  single-token steps over all S slots, active or not; per-row masks freeze
+  finished rows (their length stops, their fed token stops changing).
+  Inactive rows compute values nobody reads.
+- **Chunked prefill.** A request's prompt (all but its last token) is fed
+  in ``prefill_chunk``-sized chunks whose K/V are written at the slot's
+  ring indices; only the valid positions of a chunk are written (the pad
+  tail is written nowhere: wrapped, it would overwrite the slot's own
+  earliest positions). The final chunk also commits the slot's decode
+  state. The prompt's last token is not prefilled: it is the slot's first
+  fed token, so the first sampled token falls out of the decode step.
+  ``batched_admission`` (default) feeds chunk round r of every admitted
+  request in one ``_prefill_batch`` call.
+- **The device never waits on the host** in predictive mode (no stop
+  tokens): the per-slot state stays on the device and each block consumes
+  the previous block's tensors in stream order; admission vectors reach
+  the card through pinned memory and asynchronous copies; the host
+  schedules from an exact model of the slots and reads a block's packed
+  result only when it needs the tokens. With stop tokens, blocks are read
+  in bursts behind a ``pipeline_depth`` lag.
+
+The attention of every program here is the einsum formulation of
+``_cached_attention`` (per-row lengths and ring offsets), as in the JAX
+package, whose decode-kernel gate excludes both: the serving path
+launches none of the port's CUDA kernels.
+
+Exactness: a request's greedy tokens equal a solo ``generate()`` run and
+the JAX package's ``SlotServer`` at float32 (tests/test_torch_serving.py).
+
+Not ported yet, each raising a named error: the mesh, the prefix cache,
+paged KV, disaggregated roles, speculative serving, the request journal
+and replay (``reset`` fails the admitted requests, as the JAX package's
+``replay=False``), request traces, the model registry, MoE and w8a16.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import transformer
+from .generate import (
+    DecodeWeights,
+    KVCache,
+    _cached_attention,
+    _forward_with_cache,
+    _quantize_kv,
+    init_cache,
+    moe_dropfree,
+    prepare_decode,
+    sample_token,
+)
+from .transformer import TransformerConfig, layer_params, rms_norm
+
+# What a delivered Completion.finish_reason can say (the JAX package's
+# serving.py:173-180); "shed" is a queued batch-tier request displaced by
+# an interactive arrival, "prefilled" belongs to disaggregated serving,
+# which is not ported. "failed" ends a request with no Completion.
+COMPLETION_FINISH_REASONS = ("stop", "length", "cancelled", "expired",
+                             "shed", "prefilled")
+FINISH_REASONS = COMPLETION_FINISH_REASONS + ("failed",)
+
+# Admission tiers, best first: "batch" sheds at a lower queue threshold
+# and is displaced by interactive arrivals under a full queue.
+PRIORITY_CLASSES = ("interactive", "batch")
+
+# per-request logprobs cap: a decode block carries this many top entries
+# whenever any busy slot asked for logprobs
+LOGPROBS_MAX = 8
+
+# The JAX package's SlotServer arguments the port does not have yet:
+# name -> (the value that means "off", what it enables, its ROADMAP.md
+# queue-1 item). Any other value raises NotImplementedError.
+_NOT_PORTED = {
+    "mesh": (None, "tensor-parallel serving", "mesh/TP"),
+    "prefix_cache_blocks": (0, "the prefix cache", "the rest of serving"),
+    "paged": (False, "paged KV", "the rest of serving"),
+    "role": ("both", "disaggregated prefill/decode roles",
+             "the rest of serving"),
+    "draft": (None, "speculative serving", "speculative decoding"),
+    "journal": (None, "the request journal", "the rest of serving"),
+    "replay": (False, "journal replay", "the rest of serving"),
+    "trace_sink": (None, "request traces", "the rest of serving"),
+    "registry": (None, "the model registry", "HF import"),
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to tony_tpu_torch yet (ROADMAP.md queue 1, "
+        f"{item})")
+
+
+def _normalize_stop(stop) -> list[tuple[int, ...]]:
+    """Validate/normalize Request.stop: a list of token-id sequences
+    (a flat int list reads as ONE sequence). Raises ValueError on
+    empty sequences or non-ints."""
+    if not isinstance(stop, (list, tuple)) or not stop:
+        raise ValueError("stop must be a non-empty list")
+    if all(isinstance(t, (int, np.integer)) for t in stop):
+        stop = [stop]
+    out = []
+    for seq in stop:
+        if not isinstance(seq, (list, tuple)) or not seq:
+            raise ValueError("each stop sequence must be a non-empty "
+                             "list of token ids")
+        out.append(tuple(int(t) for t in seq))
+    if len(out) > 16:
+        raise ValueError("at most 16 stop sequences per request")
+    return out
+
+
+def _stop_match_end(tokens, stop_seqs, start: int = 0) -> int | None:
+    """Earliest end index (exclusive) of a stop-sequence match that
+    ENDS after ``start`` — tokens before ``start`` were already
+    delivered and are never retracted, but a match may BEGIN inside
+    them (sequences span block boundaries). None = no match."""
+    best = None
+    n = len(tokens)
+    for seq in stop_seqs or ():
+        m = len(seq)
+        if m == 0 or n < m:
+            continue
+        lo = max(0, start - m + 1)
+        for i in range(lo, n - m + 1):
+            end = i + m
+            if end <= start:
+                continue
+            if tuple(int(t) for t in tokens[i:end]) == tuple(seq):
+                if best is None or end < best:
+                    best = end
+                break       # earliest match of THIS sequence found
+    return best
+
+
+@dataclass
+class Request:
+    """One generation request. ``prompt`` is a token-id sequence (>= 1
+    token); ``max_new_tokens`` bounds the emission; stop tokens end it
+    early (the stop token itself is included in the output, matching
+    generate()). ``temperature`` and ``top_k`` override the server
+    defaults per request (temperature 0 = greedy, top_k 0 = unfiltered).
+
+    ``deadline`` is an absolute ``time.monotonic()`` instant: a request
+    still queued past it is never admitted and completes "expired".
+    ``stop`` is a per-request list of stop SEQUENCES, matched on the host
+    when a block is processed; the match is included in the output.
+    ``logprobs`` (0 = off, <= LOGPROBS_MAX) asks for the top-k
+    log-probabilities of every emitted token. ``resume_tokens`` (journal
+    replay) raises NotImplementedError at submit."""
+    prompt: Any
+    max_new_tokens: int
+    temperature: float | None = None
+    top_k: int | None = None
+    deadline: float | None = None
+    resume_tokens: list | None = None
+    stop: list | None = None
+    logprobs: int = 0
+    model: str | None = None
+    priority: str = "interactive"
+    id: int = field(default_factory=itertools.count().__next__)
+
+
+@dataclass
+class Completion:
+    id: int
+    tokens: list[int]
+    finish_reason: str      # one of COMPLETION_FINISH_REASONS
+    trace: dict | None = None       # request traces are not ported: None
+    # per emitted token (Request.logprobs > 0): {"token", "logprob",
+    # "top": [[ids], [logprobs]]}, in stream order
+    logprobs: list | None = None
+
+
+class QueueFullError(RuntimeError):
+    """Admission refused: the wait queue is at ``max_queue``. The shed
+    request was never accepted; the caller should surface backpressure
+    (HTTP 429 + Retry-After)."""
+
+
+@dataclass
+class _Admission:
+    """One (slot, request) pair of an admission burst, with the layout
+    decisions made at collection time: ring offset, budget target,
+    sampling overrides and the chunk starts the prefill will feed."""
+    slot: int
+    req: Request
+    body: np.ndarray
+    offset: int
+    target: int
+    temp: float
+    topk: int
+    chunk_starts: list
+    last: int = 0               # the first fed token: the prompt's last
+
+
+@dataclass
+class _SlotState:
+    """The device-carried per-slot decode state, one [S] tensor each."""
+    tokens: torch.Tensor        # next fed token, int32
+    active: torch.Tensor        # bool
+    target: torch.Tensor        # logical length at which the slot stops
+    offsets: torch.Tensor       # ring offset, int32
+    temps: torch.Tensor         # float32
+    topks: torch.Tensor         # int32
+
+
+def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a wait for the card: through
+    pinned memory and an asynchronous copy (a copy from pageable memory
+    waits for the stream). The caching host allocator keeps the pinned
+    block until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+# ------------------------------------------------------------ device programs
+
+@torch.no_grad()
+def _prefill_batch(params, cfg: TransformerConfig, cache: KVCache,
+                   state: _SlotState, tokens, slots, starts, offsets,
+                   n_valids, last_tokens, targets, temps, topks, fin) -> None:
+    """Feed chunk tokens [K, C] into K slots' cache rows, in place: row r
+    writes slot ``slots[r]`` at logical positions ``starts[r]..`` (ring
+    index (offset + p) mod M), only its first ``n_valids[r]`` positions;
+    each row's length becomes ``starts[r] + n_valids[r]``. Rows with
+    ``fin`` (the request's last chunk, a zero-valid chunk for a 1-token
+    prompt included) also commit the slot's decode state: fed token,
+    active, budget target, ring offset, temperature and top-k.
+
+    Every argument after ``state`` is a host (numpy) array; they reach the
+    device in three asynchronous copies. Attention reads each row's own
+    slot ([kvH, M, D], gathered after this layer's writes) through the
+    per-row-length, ring-offset einsum path (the JAX package's
+    serving.py:829). The JAX package pads K to a power of two and
+    diverts the writes of padding rows and pad tails out of bounds; here
+    rows are only the requests that have a chunk this round, and only the
+    valid (row, position) pairs are written."""
+    dev, dt = cache.k.device, cfg.dtype
+    # final rows first, so the commit below is a slice of the row table
+    order = np.argsort(~np.asarray(fin, bool), kind="stable")
+    n_fin = int(np.count_nonzero(fin))
+    k_rows, l = tokens.shape
+    m_cap = cache.k.shape[3]
+    cols = [np.asarray(a, np.int64)[order] for a in
+            (slots, starts, offsets, np.asarray(starts) + n_valids,
+             last_tokens, targets, topks)]
+    table = _stage(np.concatenate(
+        [np.asarray(tokens, np.int64)[order], np.stack(cols, 1)], 1), dev)
+    n_valids = np.asarray(n_valids)[order]
+    pair_row, pair_j = np.nonzero(np.arange(l)[None, :] < n_valids[:, None])
+    slots_h, starts_h, offsets_h = cols[0], cols[1], cols[2]
+    pairs = _stage(np.stack([
+        pair_row, pair_j, slots_h[pair_row],
+        (offsets_h[pair_row] + starts_h[pair_row] + pair_j) % m_cap]), dev)
+    temps_d = _stage(np.asarray(temps, np.float32)[order], dev)
+    tok = table[:, :l]
+    slots_d, starts_d, offsets_d, new_len, lasts, targs, topks_d = \
+        table[:, l:].unbind(1)
+    p_row, p_j, p_slot, p_ring = pairs.unbind(0)
+
+    positions = starts_d[:, None] + torch.arange(l, device=dev)
+    x = params["embed"].to(dt)[tok]
+    int8_cache = cache.k.dtype == torch.int8
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = transformer._qkv(cfg, h, positions, lp)
+        k_hm, v_hm = k.transpose(1, 2), v.transpose(1, 2)   # [K, kvH, C, D]
+        ck, cv = cache.k[i], cache.v[i]
+        row_ks = row_vs = None
+        if int8_cache:
+            k_hm, ks = _quantize_kv(k_hm)
+            v_hm, vs = _quantize_kv(v_hm)
+            cache.k_scale[i][p_slot, :, p_ring] = ks[p_row, :, p_j]
+            cache.v_scale[i][p_slot, :, p_ring] = vs[p_row, :, p_j]
+            row_ks, row_vs = cache.k_scale[i][slots_d], \
+                cache.v_scale[i][slots_d]
+        ck[p_slot, :, p_ring] = k_hm[p_row, :, p_j].to(ck.dtype)
+        cv[p_slot, :, p_ring] = v_hm[p_row, :, p_j].to(cv.dtype)
+        attn = _cached_attention(cfg, q, ck[slots_d], cv[slots_d], starts_d,
+                                 l, row_ks, row_vs, ring_offsets=offsets_d)
+        x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
+        hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        mlp_out, _ = transformer._mlp(cfg, hh, lp)
+        x = x + mlp_out
+    # tensor values and index_fill_ only: a Python scalar assigned through
+    # a tensor index reaches the card by a copy that waits for it
+    cache.length[slots_d] = new_len.to(torch.int32)
+    done = slots_d[:n_fin]
+    state.tokens[done] = lasts[:n_fin].to(torch.int32)
+    state.active.index_fill_(0, done, True)
+    state.target[done] = targs[:n_fin].to(torch.int32)
+    state.offsets[done] = offsets_d[:n_fin].to(torch.int32)
+    state.temps[done] = temps_d[:n_fin]
+    state.topks[done] = topks_d[:n_fin].to(torch.int32)
+
+
+def _prefill_chunk(params, cfg: TransformerConfig, cache: KVCache,
+                   state: _SlotState, tokens, slot: int, start: int,
+                   offset: int, n_valid: int, last_token: int, target: int,
+                   temp: float, topk: int, *, finalize: bool) -> None:
+    """One slot's chunk ([C] host tokens, valid up to ``n_valid``): the
+    one-row case of ``_prefill_batch`` (the JAX package's
+    serving.py:721)."""
+    _prefill_batch(params, cfg, cache, state, np.asarray(tokens)[None],
+                   [slot], [start], [offset], [n_valid], [last_token],
+                   [target], [temp], [topk], [finalize])
+
+
+@torch.no_grad()
+def _decode_block(params, fused, cfg: TransformerConfig, cache: KVCache,
+                  state: _SlotState, cursor: int, generator, *, block: int,
+                  stop_arr, pad_id: int, top_k: int, per_row_topk: bool,
+                  all_greedy: bool, lp_k: int = 0):
+    """``block`` single-token decode steps for ALL slots -> (cache, packed).
+    The cache's K/V are written in place; ``state.tokens`` and
+    ``state.active`` are rebound to the block's final values. Per-row
+    masks freeze finished slots: their length stops advancing and their
+    fed token stops changing (the K/V an idle row writes at the cursor is
+    never read: re-admission rewrites the slot).
+
+    ``packed`` [S, block+2] int32, a fresh tensor, is the emitted token
+    matrix (pad past a slot's stop) with the final lengths and active mask
+    as its last two columns: one device-to-host copy per processed block.
+    ``lp_k`` > 0 widens it to [S, block+2+block*(2*lp_k+1)]: each step's
+    chosen-token logprob (float32 bits as int32), the top-``lp_k`` ids and
+    their logprobs (bits), read off the same logits row the token was
+    sampled from (the JAX package's serving.py:937)."""
+    m_cap = cache.k.shape[3]
+    tokens, active = state.tokens, state.active
+    emitted, chosen, top_ids, top_vals = [], [], [], []
+    for _ in range(block):
+        logits, new_cache = _forward_with_cache(
+            params, cfg, tokens[:, None], cache, fused,
+            ring=(cursor, state.offsets))
+        nxt = sample_token(logits, generator,
+                           0.0 if all_greedy else state.temps,
+                           state.topks if per_row_topk else top_k)
+        emitted.append(torch.where(active, nxt, pad_id).to(torch.int32))
+        if lp_k:
+            # the model's own distribution, before temperature and top-k
+            lp_full = torch.log_softmax(logits.float(), dim=-1)
+            vals, ids = torch.topk(lp_full, lp_k, dim=-1)
+            top_vals.append(vals)
+            top_ids.append(ids.to(torch.int32))
+            chosen.append(lp_full.gather(-1, nxt[:, None].long())[:, 0])
+        # only rows active this step advance (ring-aligned with the cursor)
+        new_len = torch.where(active, new_cache.length, cache.length)
+        cache = dataclasses.replace(new_cache, length=new_len)
+        still = active & (new_len < state.target)
+        if stop_arr is not None:
+            still &= ~(nxt[:, None] == stop_arr).any(dim=-1)
+        tokens = torch.where(still, nxt, tokens)
+        active = still
+        cursor = (cursor + 1) % m_cap
+    state.tokens, state.active = tokens, active
+    cols = [torch.stack(emitted, 1), cache.length[:, None],
+            active.to(torch.int32)[:, None]]
+    if lp_k:
+        s = tokens.shape[0]
+        cols += [torch.stack(chosen, 1).float().view(torch.int32),
+                 torch.stack(top_ids, 1).reshape(s, block * lp_k),
+                 torch.stack(top_vals, 1).float().reshape(s, block * lp_k)
+                 .view(torch.int32)]
+    return cache, torch.cat(cols, dim=1)
+
+
+def _cancel_slot(active: torch.Tensor, slot: int) -> None:
+    """Deactivate one slot's device-carried active flag, in stream order:
+    every block dispatched before still decodes the slot, every block
+    after treats it as an idle row (the JAX package's serving.py:1037).
+    A fill of a one-element view: no copy from the host, no wait."""
+    active[slot:slot + 1].fill_(False)
+
+
+# ------------------------------------------------------------------ server
+
+class SlotServer:
+    """Continuous-batching server: S cache slots, requests admitted into
+    freed slots while other slots keep decoding (the JAX package's
+    models/serving.py:1603, the ring engine on one device).
+
+    >>> srv = SlotServer(params, cfg, slots=8, max_len=2048)
+    >>> srv.submit(Request(prompt=[1, 5, 7], max_new_tokens=64))
+    >>> done = srv.run_until_drained()          # {id: Completion}
+
+    For a live service, call ``submit()`` from the request handler and
+    ``step()`` on the serving loop; ``drain_completed()`` hands back
+    finished requests. The server ``temperature`` and ``top_k`` are the
+    defaults a request's own override (sampling is per row, so greedy and
+    sampled requests share one pool).
+
+    ``params`` may be raw parameters or a ``prepare_decode`` result, on
+    ``device`` (None means the card; the CPU only when named).
+    ``batched_admission`` (default True) admits a burst of freed slots
+    with one prefill call per chunk round instead of one per chunk per
+    slot; completions are the same either way.
+    ``max_queue=N`` bounds the wait queue (0 = unbounded): ``submit``
+    raises ``QueueFullError`` past it (batch-tier requests past
+    ``batch_queue_frac`` of it). ``cancel(request_id)`` stops a request
+    wherever it is. ``reset()`` re-arms every serving buffer after a loop
+    failure, without touching the weights: queued requests survive, and
+    the admitted ones are returned as lost (there is no journal to replay
+    them from)."""
+
+    def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
+                 max_len: int = 2048, block_size: int = 16,
+                 prefill_chunk: int = 128, kv_dtype: str = "native",
+                 weight_dtype: str = "native", temperature: float = 0.0,
+                 top_k: int = 0, stop_tokens: tuple = (), pad_id: int = 0,
+                 seed: int = 0, pipeline_depth: int = 2,
+                 batched_admission: bool = True, max_queue: int = 0,
+                 batch_queue_frac: float = 0.5, model: str = "default",
+                 device=None, **not_ported):
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"SlotServer() got an unexpected keyword "
+                                f"argument {name!r}")
+            off, what, item = _NOT_PORTED[name]
+            if value != off:
+                raise _not_ported(f"{what} ({name}=)", item)
+        if not cfg.causal:
+            raise ValueError("serving requires a causal model")
+        self.device = resolve_device(device)
+        if isinstance(params, DecodeWeights):
+            prepared = params
+            weight_dtype = params.weight_dtype
+        else:
+            prepared = prepare_decode(params, cfg, weight_dtype=weight_dtype)
+        if prepared.params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"the weights are on {prepared.params['embed'].device}, the "
+                f"server on {self.device}")
+        self._params, self._fused = prepared.params, prepared.fused
+        self.model = str(model)
+        self.cfg = moe_dropfree(cfg)
+        self.slots = slots
+        self.max_len = max_len
+        self.block_size = block_size
+        self.prefill_chunk = prefill_chunk
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
+        self.temperature = temperature
+        self.top_k = top_k
+        self.stop_tokens = tuple(int(t) for t in stop_tokens)
+        self.pad_id = int(pad_id)
+        self.pipeline_depth = pipeline_depth
+        self.batched_admission = batched_admission
+        self.max_queue = int(max_queue)
+        self.batch_queue_frac = float(batch_queue_frac)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # built once: a tensor made from a list on the card waits for it
+        self._stop_arr = (torch.tensor(self.stop_tokens, dtype=torch.int32,
+                                       device=self.device)
+                          if self.stop_tokens else None)
+        # without stop tokens every completion is deterministic, so the
+        # host schedules open-loop from an exact model of the slots
+        self._predictive = not self.stop_tokens
+        self.admission_dispatches = 0   # prefill calls
+        self.prefill_tokens_computed = 0
+        self.blocks_dispatched = 0
+        self.shed_requests = 0
+        self.shed_by_class = {cls: 0 for cls in PRIORITY_CLASSES}
+        self.cancelled_requests = 0
+        self.expired_requests = 0
+        self.resets = 0
+        # host time to dispatch each decode block (the device runs later)
+        self.block_dispatch_s: collections.deque = collections.deque(
+            maxlen=4096)
+        # ServeApp.shutdown(drain=True) parks admission
+        self.pause_admission = False
+        self._init_device_state()
+        self._init_host_state()
+        self._queue: collections.deque[Request] = collections.deque()
+        self._done: dict[int, Completion] = {}
+
+    def _init_device_state(self) -> None:
+        """(Re)create the slot pool's cache and per-slot state as fresh
+        tensors (weights untouched). Called at construction and by
+        ``reset()``."""
+        s, dev = self.slots, self.device
+        cache = init_cache(self.cfg, s, self.max_len, self.kv_dtype, dev)
+        self._cache = dataclasses.replace(
+            cache, length=torch.zeros(s, dtype=torch.int32, device=dev))
+        zeros = dict(dtype=torch.int32, device=dev)
+        self._state = _SlotState(
+            tokens=torch.zeros(s, **zeros),
+            active=torch.zeros(s, dtype=torch.bool, device=dev),
+            target=torch.zeros(s, **zeros),
+            offsets=torch.zeros(s, **zeros),
+            temps=torch.zeros(s, dtype=torch.float32, device=dev),
+            topks=torch.zeros(s, **zeros))
+
+    def _init_host_state(self) -> None:
+        """(Re)zero the host-side scheduling state: sampling mirrors, the
+        exact model, the processing expectations, slot ownership and the
+        in-flight pipeline. The request queue is not touched."""
+        slots = self.slots
+        # host mirrors of the admitted temps/top-ks/logprobs: they pick the
+        # argmax-only, static-k and logprob-free block variants
+        self._np_temps = np.zeros((slots,), np.float32)
+        self._np_topks = np.full((slots,), self.top_k, np.int32)
+        self._np_lp = np.zeros((slots,), np.int32)
+        self._cursor = 0        # host-tracked, advances block per dispatch
+        # exact host model of the slots as of the NEWEST dispatched block
+        # (exact only in predictive mode)
+        self._model_len = np.zeros((slots,), np.int32)
+        self._model_active = np.zeros((slots,), bool)
+        self._model_target = np.zeros((slots,), np.int32)
+        # the device state after the newest PROCESSED block
+        self._expect_len = np.zeros((slots,), np.int32)
+        self._expect_active = np.zeros((slots,), bool)
+        # busy from admission until the completion is processed
+        self._host_busy = np.zeros((slots,), bool)
+        # dispatched-but-unprocessed blocks: packed results + the
+        # admissions/cancellations dispatched after each
+        self._pipeline: collections.deque = collections.deque()
+        # processing-side slot ownership, replayed in dispatch order
+        self._requests: list[Request | None] = [None] * slots
+        self._emitted: list[list[int]] = [[] for _ in range(slots)]
+        self._lp_acc: list[list] = [[] for _ in range(slots)]
+        # slots completed by a per-request stop match whose deactivation
+        # no processed block shows yet
+        self._stop_cancelled: set[int] = set()
+        # dispatch side: which slot serves a request id now, and every
+        # admitted id whose completion is not delivered
+        self._slot_of: dict[int, int] = {}
+        self._inflight: set[int] = set()
+
+    # ------------------------------------------------------------- intake
+
+    def submit(self, request: Request) -> int:
+        prompt = np.asarray(request.prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        if request.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if prompt.size + request.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"request needs {prompt.size} prompt + "
+                f"{request.max_new_tokens} new tokens but slots hold "
+                f"max_len={self.max_len}")
+        # an id outside the embedding would fault on the card
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            raise ValueError(f"prompt token ids must be in [0, "
+                             f"{self.cfg.vocab_size})")
+        if request.resume_tokens is not None:
+            raise _not_ported("resume_tokens (journal replay)",
+                              "the rest of serving")
+        if request.model is not None and request.model != self.model:
+            raise ValueError(
+                f"request names model {request.model!r} but this engine "
+                f"serves {self.model!r}")
+        if request.stop is not None:
+            request.stop = _normalize_stop(request.stop)
+        request.logprobs = int(request.logprobs or 0)
+        if not 0 <= request.logprobs <= LOGPROBS_MAX:
+            raise ValueError(f"logprobs must be in [0, {LOGPROBS_MAX}]")
+        cls = str(request.priority or "interactive")
+        if cls not in PRIORITY_CLASSES:
+            raise ValueError(f"unknown priority {request.priority!r} "
+                             f"(valid: {PRIORITY_CLASSES})")
+        request.priority = cls
+        if self.max_queue:
+            # the batch tier backs off at a lower threshold, so overload
+            # sheds throughput work first
+            limit = self.max_queue
+            if cls != "interactive":
+                limit = max(1, int(self.max_queue * self.batch_queue_frac))
+            if len(self._queue) >= limit:
+                self._sweep_expired()
+                if len(self._queue) >= limit and cls == "interactive":
+                    self._shed_queued_batch()
+                if len(self._queue) >= limit:
+                    self.shed_requests += 1
+                    self.shed_by_class[cls] += 1
+                    raise QueueFullError(
+                        f"queue full ({limit} {cls} waiting); request shed")
+        request.prompt = prompt
+        self._queue.append(request)
+        return request.id
+
+    def _shed_queued_batch(self) -> bool:
+        """Displace the YOUNGEST queued batch-tier request to make room
+        for an interactive arrival: it completes "shed" with no tokens."""
+        for i in range(len(self._queue) - 1, -1, -1):
+            req = self._queue[i]
+            if req.priority == "interactive":
+                continue
+            del self._queue[i]
+            self.shed_requests += 1
+            self.shed_by_class[req.priority] += 1
+            self._done[req.id] = Completion(req.id, [], "shed")
+            return True
+        return False
+
+    def _sweep_expired(self) -> None:
+        """Queued requests past their deadline complete "expired" and
+        never take a slot."""
+        now = time.monotonic()
+        if not any(r.deadline is not None and now > r.deadline
+                   for r in self._queue):
+            return
+        kept: collections.deque[Request] = collections.deque()
+        for req in self._queue:
+            if req.deadline is not None and now > req.deadline:
+                self.expired_requests += 1
+                self._done[req.id] = Completion(req.id, [], "expired")
+            else:
+                kept.append(req)
+        self._queue = kept
+
+    def cancel(self, request_id: int) -> bool:
+        """Stop a request wherever it is. Queued: dequeued. Admitted: the
+        slot's device-side active flag drops between blocks, and the
+        cancellation is logged against the newest in-flight block so the
+        bookkeeping emits Completion(finish_reason="cancelled") with the
+        tokens produced before it. False when the request is unknown or
+        already finished. In EOS mode a True can race a natural
+        completion; the delivered finish_reason is authoritative."""
+        for i, req in enumerate(self._queue):
+            if req.id == request_id:
+                del self._queue[i]
+                self.cancelled_requests += 1
+                self._done[request_id] = Completion(request_id, [],
+                                                    "cancelled")
+                return True
+        slot = self._slot_of.get(request_id)
+        if slot is None:
+            return False
+        if self._predictive and not self._model_active[slot]:
+            return False        # already decoded to completion on device
+        _cancel_slot(self._state.active, slot)
+        self._model_active[slot] = False
+        self.cancelled_requests += 1
+        ev = ("cancel", (slot, request_id))
+        if self._pipeline:
+            self._pipeline[-1]["events"].append(ev)
+        else:                   # nothing in flight: applies now
+            self._apply_cancel((slot, request_id))
+        return True
+
+    def reset(self) -> list[int]:
+        """Re-arm the serving state after a loop failure without touching
+        the weights: a fresh KV ring and slot state, the pipeline and slot
+        bookkeeping cleared. Queued requests survive (they never started);
+        the admitted-but-undelivered ids are returned as lost, so the
+        caller fails them upstream."""
+        failed = sorted(self._inflight)
+        self._init_device_state()
+        self._init_host_state()
+        self.resets += 1
+        return failed
+
+    def shutdown(self) -> None:
+        """Nothing runs in the background here; kept for ServeApp."""
+
+    def fail_queued(self) -> list[Request]:
+        """Drain the wait queue (requests never admitted): the graceful
+        shutdown path; the caller tells their waiters why."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
+
+    def _release_request(self, request_id: int) -> None:
+        self._slot_of.pop(request_id, None)
+        self._inflight.discard(request_id)
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    @property
+    def idle(self) -> bool:
+        """Nothing queued, in flight, admitted-and-unfinished, or
+        finished-but-undrained."""
+        return not (self._queue or self._pipeline
+                    or self._host_busy.any() or self._done)
+
+    @property
+    def completions_ready(self) -> bool:
+        """True when drain_completed() would return something, without
+        the forced read of predictive mode on every tick: the model knows
+        a request finished before its tokens are read."""
+        if self._done:
+            return True
+        if self._predictive:
+            return bool((self._host_busy & ~self._model_active).any())
+        return False
+
+    @property
+    def n_active(self) -> int:
+        """Slots holding an unfinished request (admission through
+        processed completion)."""
+        return int(self._host_busy.sum())
+
+    def stats(self) -> dict:
+        """Serving-load counters, one flat snapshot (the /stats payload)."""
+        disp = sorted(self.block_dispatch_s)
+        return {
+            "model": self.model,
+            "device": str(self.device),
+            "slots": self.slots,
+            "active": self.n_active,
+            "queued": self.pending,
+            "max_len": self.max_len,
+            "block_size": self.block_size,
+            "max_queue": self.max_queue,
+            "admission_dispatches": self.admission_dispatches,
+            "blocks_dispatched": self.blocks_dispatched,
+            "prefill_tokens_computed": self.prefill_tokens_computed,
+            "shed": self.shed_requests,
+            "shed_by_class": dict(self.shed_by_class),
+            "cancelled": self.cancelled_requests,
+            "expired": self.expired_requests,
+            "resets": self.resets,
+            "decode_block_dispatch_ms_p50": (
+                disp[len(disp) // 2] * 1e3 if disp else None),
+        }
+
+    # ----------------------------------------------------------- the loop
+
+    def _free_for_admission(self, slot: int) -> bool:
+        # predictive: the model knows the slot's request finished even if
+        # its blocks are unprocessed (processing keeps successive
+        # requests' streams apart). EOS mode: only a processed completion
+        # frees the slot.
+        if self._predictive:
+            return not self._model_active[slot]
+        return not self._host_busy[slot]
+
+    def _admit(self) -> None:
+        """Admit queued requests into free slots: the whole burst is
+        collected first (every ring offset derives from the same cursor),
+        then prefilled, and each admission is logged against the newest
+        in-flight block so the bookkeeping replays it in order."""
+        if self.pause_admission:
+            return
+        self._sweep_expired()
+        C = self.prefill_chunk
+        admissions: list[_Admission] = []
+        for slot in range(self.slots):
+            if not self._queue:
+                break
+            if not self._free_for_admission(slot):
+                continue
+            req = self._queue.popleft()
+            for stale in [r for r, s in self._slot_of.items() if s == slot]:
+                del self._slot_of[stale]
+            self._slot_of[req.id] = slot
+            self._inflight.add(req.id)
+            prompt = req.prompt
+            # all but the last token is prefilled; the last is the slot's
+            # first fed token
+            body = prompt[:-1]
+            # the slot's first decode write lands at the current cursor
+            offset = (self._cursor - body.size) % self.max_len
+            target = body.size + req.max_new_tokens
+            temp = (self.temperature if req.temperature is None
+                    else float(req.temperature))
+            topk = self.top_k if req.top_k is None else int(req.top_k)
+            admissions.append(_Admission(
+                slot=slot, req=req, body=body, offset=offset, target=target,
+                temp=temp, topk=topk,
+                chunk_starts=list(range(0, body.size, C)) or [0],
+                last=int(prompt[-1])))
+        if not admissions:
+            return
+        if self.batched_admission and len(admissions) > 1:
+            self._prefill_burst(admissions)
+        else:
+            for adm in admissions:
+                self._prefill_one(adm)
+        for adm in admissions:
+            slot = adm.slot
+            self._host_busy[slot] = True
+            self._np_temps[slot] = adm.temp
+            self._np_topks[slot] = adm.topk
+            self._np_lp[slot] = adm.req.logprobs
+            self._model_len[slot] = adm.body.size
+            self._model_active[slot] = True
+            self._model_target[slot] = adm.target
+            admit = (slot, adm.body.size, adm.req)
+            if self._pipeline:
+                self._pipeline[-1]["events"].append(("admit", admit))
+            else:                       # nothing in flight: applies now
+                self._apply_admit(admit)
+
+    def _chunk(self, adm: _Admission, c0: int) -> tuple[np.ndarray, int]:
+        n_valid = max(0, min(self.prefill_chunk, adm.body.size - c0))
+        chunk = np.zeros(self.prefill_chunk, np.int32)
+        chunk[:n_valid] = adm.body[c0:c0 + n_valid]
+        self.prefill_tokens_computed += n_valid
+        return chunk, n_valid
+
+    def _prefill_one(self, adm: _Admission) -> None:
+        """Per-slot admission: one prefill call per chunk."""
+        for c0 in adm.chunk_starts:
+            chunk, n_valid = self._chunk(adm, c0)
+            _prefill_chunk(self._params, self.cfg, self._cache, self._state,
+                           chunk, adm.slot, c0, adm.offset, n_valid,
+                           adm.last, adm.target, adm.temp, adm.topk,
+                           finalize=c0 == adm.chunk_starts[-1])
+            self.admission_dispatches += 1
+
+    def _prefill_burst(self, admissions) -> None:
+        """Batched admission: chunk round r of every admitted request in
+        one ``_prefill_batch`` call, max-chunks calls in all."""
+        rounds = max(len(a.chunk_starts) for a in admissions)
+        for r in range(rounds):
+            rows = [a for a in admissions if r < len(a.chunk_starts)]
+            chunks = [self._chunk(a, a.chunk_starts[r]) for a in rows]
+            _prefill_batch(
+                self._params, self.cfg, self._cache, self._state,
+                np.stack([c for c, _ in chunks]),
+                [a.slot for a in rows], [a.chunk_starts[r] for a in rows],
+                [a.offset for a in rows], [n for _, n in chunks],
+                [a.last for a in rows], [a.target for a in rows],
+                [a.temp for a in rows], [a.topk for a in rows],
+                [r == len(a.chunk_starts) - 1 for a in rows])
+            self.admission_dispatches += 1
+
+    def _apply_admit(self, admit) -> None:
+        slot, body_len, req = admit
+        # the slot belongs to a new request from this event on
+        self._stop_cancelled.discard(int(slot))
+        self._expect_len[slot] = body_len
+        self._expect_active[slot] = True
+        self._requests[slot] = req
+        self._emitted[slot] = []
+        self._lp_acc[slot] = []
+        # re-arm busy at the replay position: a predecessor processed just
+        # before this admit cleared it
+        self._host_busy[slot] = True
+
+    def _apply_cancel(self, payload) -> None:
+        """Processing-side half of cancel(), replayed at its position in
+        the event log, so the emitted tally is exactly what the device
+        produced before the deactivation. A request that finished in an
+        earlier block won the race: skip, and reconcile the counter."""
+        slot, rid = payload
+        req = self._requests[slot]
+        if req is None or req.id != rid:
+            self.cancelled_requests -= 1
+            return
+        out = self._emitted[slot]
+        self._done[rid] = Completion(
+            rid, out, "cancelled",
+            logprobs=self._lp_acc[slot] if req.logprobs else None)
+        self._requests[slot] = None
+        self._emitted[slot] = []
+        self._lp_acc[slot] = []
+        self._host_busy[slot] = False
+        self._expect_active[slot] = False
+        self._release_request(rid)
+
+    def _dispatch_block(self) -> None:
+        """Enqueue one decode block. Nothing here waits for the card: the
+        variant flags come from the host mirrors, the cursor is a host
+        int, and ``packed`` is read later by ``_process``."""
+        t0 = time.perf_counter()
+        busy = self._host_busy
+        lp_k = LOGPROBS_MAX if (self._np_lp[busy] > 0).any() else 0
+        self._cache, packed = _decode_block(
+            self._params, self._fused, self.cfg, self._cache, self._state,
+            self._cursor, self._gen, block=self.block_size,
+            stop_arr=self._stop_arr, pad_id=self.pad_id, top_k=self.top_k,
+            # _host_busy never goes False while a row is active on device
+            per_row_topk=bool((self._np_topks[busy] != self.top_k).any()),
+            all_greedy=not (self._np_temps[busy] > 0).any(), lp_k=lp_k)
+        self._cursor = (self._cursor + self.block_size) % self.max_len
+        self.blocks_dispatched += 1
+        self.block_dispatch_s.append(time.perf_counter() - t0)
+        self._pipeline.append({"packed": packed, "events": [],
+                               "lp_k": lp_k})
+        if self._predictive:            # exact: no EOS can surprise us
+            adv = np.minimum(self.block_size,
+                             self._model_target - self._model_len)
+            self._model_len = self._model_len + np.where(
+                self._model_active, adv, 0).astype(np.int32)
+            self._model_active &= self._model_len < self._model_target
+
+    def _process(self, count: int) -> None:
+        """Read + bookkeep the oldest ``count`` in-flight blocks with one
+        device-to-host copy. Emitted tokens per slot are the length delta
+        against the expectation; completions fire where a slot went
+        inactive; each block's admissions and cancellations replay after
+        it, in dispatch order."""
+        recs = [self._pipeline.popleft() for _ in range(count)]
+        flat = torch.cat([r["packed"] for r in recs], dim=1).cpu().numpy()
+        B = self.block_size
+        col = 0
+        for rec in recs:
+            lp_k = rec["lp_k"]
+            w = B + 2 + (B * (2 * lp_k + 1) if lp_k else 0)
+            packed = flat[:, col:col + w]
+            col += w
+            toks = packed[:, :B]
+            lengths, active = packed[:, B], packed[:, B + 1].astype(bool)
+            if lp_k:
+                base = B + 2
+                lp_chosen = np.ascontiguousarray(
+                    packed[:, base:base + B]).view(np.float32)
+                lp_ids = packed[:, base + B:base + B + B * lp_k].reshape(
+                    -1, B, lp_k)
+                lp_vals = np.ascontiguousarray(
+                    packed[:, base + B + B * lp_k:base + B + 2 * B * lp_k]
+                ).view(np.float32).reshape(-1, B, lp_k)
+            for slot in np.nonzero(self._expect_active)[0]:
+                if slot in self._stop_cancelled:
+                    continue
+                n = int(lengths[slot] - self._expect_len[slot])
+                req = self._requests[slot]
+                new = [int(t) for t in toks[slot, :n]]
+                stop_hit = False
+                if new and req is not None and req.stop:
+                    # a match may start in delivered tokens but must end
+                    # in this batch (delivered tokens are never retracted)
+                    prev_len = len(self._emitted[slot])
+                    cand = self._emitted[slot] + new
+                    end = _stop_match_end(cand, req.stop, start=prev_len)
+                    if end is not None:
+                        new = cand[prev_len:end]
+                        stop_hit = True
+                self._emitted[slot].extend(new)
+                if new and lp_k and req is not None and req.logprobs:
+                    k = req.logprobs
+                    for j in range(len(new)):
+                        self._lp_acc[slot].append({
+                            "token": new[j],
+                            "logprob": round(float(lp_chosen[slot, j]), 6),
+                            "top": [
+                                [int(t) for t in lp_ids[slot, j, :k]],
+                                [round(float(v), 6)
+                                 for v in lp_vals[slot, j, :k]]]})
+                if stop_hit:
+                    # complete now with "stop" and free the device slot
+                    # like a cancel; _stop_cancelled skips the slot until
+                    # a processed block shows it inactive
+                    self._complete_slot(slot, req, "stop")
+                    if active[slot]:
+                        _cancel_slot(self._state.active, int(slot))
+                        self._stop_cancelled.add(int(slot))
+                    self._model_active[slot] = False
+                    continue
+                if not active[slot]:
+                    out = self._emitted[slot]
+                    reason = ("stop" if out and out[-1] in self.stop_tokens
+                              else "length")
+                    self._complete_slot(slot, req, reason)
+            self._expect_len = np.array(lengths)
+            self._expect_active = np.array(active)
+            for slot in list(self._stop_cancelled):
+                if not active[slot]:
+                    self._stop_cancelled.discard(slot)
+                else:
+                    self._expect_active[slot] = False
+            for kind, payload in rec["events"]:
+                if kind == "admit":
+                    self._apply_admit(payload)
+                else:
+                    self._apply_cancel(payload)
+
+    def _complete_slot(self, slot: int, req: Request, reason: str) -> None:
+        """Deliver one slot's finished request and free its host state."""
+        out = self._emitted[slot]
+        lps = self._lp_acc[slot][:len(out)] if req.logprobs else None
+        self._done[req.id] = Completion(req.id, out, reason, logprobs=lps)
+        self._requests[slot] = None
+        self._emitted[slot] = []
+        self._lp_acc[slot] = []
+        self._host_busy[slot] = False
+        self._release_request(req.id)
+
+    def _device_may_be_active(self) -> bool:
+        if self._predictive:
+            return bool(self._model_active.any())
+        return bool(self._expect_active.any()) or any(
+            kind == "admit"
+            for r in self._pipeline for kind, _ in r["events"])
+
+    def step(self) -> None:
+        """One scheduling turn.
+
+        Predictive mode (no stop tokens): admission comes off the exact
+        host model, blocks dispatch open-loop, and nothing is read until
+        the results are wanted (drain) or the backlog hits its cap.
+
+        EOS mode: admit when the host's view is current, dispatch a block
+        if any slot may be running, and process the blocks beyond the
+        pipeline depth (all of them on the drain tail)."""
+        if self._predictive:
+            self._admit()
+            if self._device_may_be_active():
+                self._dispatch_block()
+            elif self._pipeline:
+                self._process(len(self._pipeline))
+            if len(self._pipeline) >= 64:      # bound host-side backlog
+                self._process(len(self._pipeline) - self.pipeline_depth)
+            return
+        if not self._pipeline:
+            self._admit()
+        dispatched = False
+        if self._device_may_be_active():
+            self._dispatch_block()
+            dispatched = True
+        depth = self.pipeline_depth if dispatched else 0
+        if len(self._pipeline) > depth:
+            self._process(len(self._pipeline) - depth)
+            self._admit()
+
+    def drain_completed(self) -> dict[int, Completion]:
+        if self._predictive and self._pipeline and not self._done:
+            self._process(len(self._pipeline))
+        done, self._done = self._done, {}
+        return done
+
+    def run_until_drained(self) -> dict[int, Completion]:
+        """Serve until the queue, every slot, and the pipeline are empty."""
+        out: dict[int, Completion] = {}
+        while not self.idle:
+            self.step()
+            if self._done:
+                out.update(self.drain_completed())
+        out.update(self.drain_completed())
+        return out
+
+
+__all__ = ["Request", "Completion", "SlotServer", "QueueFullError",
+           "COMPLETION_FINISH_REASONS", "FINISH_REASONS", "PRIORITY_CLASSES",
+           "LOGPROBS_MAX"]
