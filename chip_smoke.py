@@ -34,13 +34,29 @@ and exits non-zero if any of them fails:
    decode block's dispatch, the admissions' synchronisations counted), then
    a direct SlotServer with a stop token that fires (run B, EOS mode), and
    one decode block's wall time against its device time;
-6. parity: the flagship width at 2 layers on the card (kernels, bf16)
+6. main path, checkpoints: lm_train at the training path's width and
+   batch saving every CKPT_EVERY steps, run CKPT_STEPS steps straight and
+   again as CKPT_SPLIT steps plus a resumed run in a fresh directory (the
+   resumed losses must repeat the straight run's, to the bit when two
+   straight runs agree to the bit); lm_generate and serve's app restored
+   from that directory against generate on the parameters the run held
+   at its last step; the elastic-training drill preempted by its flag
+   file and relaunched (continuous steps, the straight run's final
+   value); the checkpoint's bytes, the loop's stall inside save_async, the
+   writer's time and the restore time;
+7. main path, prefix cache: serve's app at the flagship width with the
+   CLI's defaults and --prefix-cache-blocks PREFIX_BLOCKS, 16 requests
+   sharing a 1024-token prefix posted cold, then again (every full chunk
+   hits the second time), cold and warm TTFT and admission time; the
+   cache's completions against a server without it at float32 (2 layers,
+   native and int8 KV), up to the first near-tie of the cacheless logits;
+8. parity: the flagship width at 2 layers on the card (kernels, bf16)
    against the CPU's plain path in float32, from the same weights, for the
    generation logits and for the training loss and every gradient; and the
    SlotServer in float32 on the card (8 requests through 3 slots, batched
    and per-slot admission) against the port's generate run solo on the
    card, token for token up to the first near-tie of solo's logits;
-7. profile: a flagship decode step's and a flagship training step's host
+9. profile: a flagship decode step's and a flagship training step's host
    wall time against the device time torch.profiler records.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -54,6 +70,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -103,6 +120,16 @@ SERVE_PROMPT, SERVE_NEW = (64, 1536), (32, 128)
 # top-2 logit gap (solo, float32) is below this; past it float32 summation
 # order (the einsum path against the kernels) may pick the other token
 PARITY_NEAR_TIE = 1e-3
+# checkpoints: lm_train saves every CKPT_EVERY steps; a straight run of
+# CKPT_STEPS steps against CKPT_SPLIT steps and a resumed run of the rest
+CKPT_STEPS, CKPT_EVERY, CKPT_SPLIT = 16, 5, 11
+# the elastic drill on the card: steps, and the step after which the
+# preemption flag file is dropped
+ELASTIC_STEPS, ELASTIC_FLAG_AT = 40, 10
+# the prefix-cache cell: the pool's blocks (prefill chunks of 128), the
+# shared prefix, requests, their suffixes' length range and new tokens
+PREFIX_BLOCKS = 64
+PREFIX_LEN, PREFIX_REQUESTS, PREFIX_SUFFIX, PREFIX_NEW = 1024, 16, (32, 256), 32
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -766,9 +793,9 @@ def phase_main_path(ops, lm_generate) -> dict:
     return totals
 
 
-def phase_train_path(torch, ops, lm_train) -> dict:
+def phase_train_path(torch, ops, lm_train) -> tuple:
     """The flagship training path through its user entry point; returns the
-    launches of each kernel over the run."""
+    launches of each kernel over the run and its losses."""
     print("== main path: training")
     metrics = REPO / "build" / "chip_smoke" / "train.json"
     metrics.parent.mkdir(parents=True, exist_ok=True)
@@ -808,7 +835,7 @@ def phase_train_path(torch, ops, lm_train) -> dict:
         step_ms=1e3 / m["steps_per_sec"], model_flops_per_step=flops_step,
         model_flops_share_of_bf16_peak=achieved / PEAK_BF16_FLOPS,
         n_params=m["n_params"], launches=counts)))
-    return counts
+    return counts, losses
 
 
 def _quantiles(xs) -> dict:
@@ -1046,6 +1073,569 @@ def phase_serving(torch, ops) -> dict:
                  launches=counts_b)
     print("serving " + json.dumps(dict(run_a=run_a, run_b=run_b)))
     return {k: counts[k] + counts_b[k] for k in counts}
+
+
+def _near_tie_check(name, got, want, gaps, n) -> dict:
+    """Tokens must equal the reference's up to its first step whose top-2
+    logit gap is below PARITY_NEAR_TIE; past it float32 summation order
+    may pick the other token. -> the row for the record."""
+    near = [j for j, g in enumerate(gaps) if g < PARITY_NEAR_TIE]
+    first_near = near[0] if near else n
+    diverge = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                   None)
+    if len(got) != n or (diverge is not None and diverge < first_near):
+        fail(f"{name}: diverges from its reference at step {diverge}, the "
+             f"reference's first near-tie at {first_near}")
+    return dict(diverge=diverge, near_ties=[(j, gaps[j]) for j in near])
+
+
+def _clone_tree(torch, tree):
+    return {k: _clone_tree(torch, v) if isinstance(v, dict)
+            else v.detach().clone() for k, v in tree.items()}
+
+
+def _trees_equal(torch, a, b) -> bool:
+    return all(_trees_equal(torch, v, b[k]) if isinstance(v, dict)
+               else torch.equal(v, b[k]) for k, v in a.items())
+
+
+def _post_all(url, payloads) -> list:
+    """POST every payload at once -> (status, body, seconds) each."""
+    import threading
+
+    results = [None] * len(payloads)
+
+    def post(i):
+        results[i] = _post(url, payloads[i])
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            fail(f"request {i} answered {res}")
+    return results
+
+
+def _serve_app(serve, argv):
+    """serve's app from its own argparser on 127.0.0.1 -> (app, httpd,
+    the /generate URL), started."""
+    import threading
+
+    app = serve.build_app(serve.build_argparser().parse_args(argv))
+    httpd = serve.make_httpd(app, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    app.start()
+    return app, httpd, f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+
+
+def _stop_app(app, httpd) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    app.shutdown()
+
+
+def _elastic_drill(out_dir: Path) -> dict:
+    """The elastic-training drill on the card, each attempt a process of
+    its own: a straight run, and a run preempted by the executor's flag
+    file once its step log passes ELASTIC_FLAG_AT, then relaunched. The
+    relaunch must resume at the last kept checkpoint + 1, log every step,
+    recompute at most the save interval and end at the straight run's
+    final value."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    procs = []
+
+    def launch(name, extra_env=None):
+        env = {**os.environ, "PYTHONPATH": str(REPO),
+               "TONY_STEP_LOG": str(out_dir / f"{name}.jsonl"),
+               **(extra_env or {})}
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tony_tpu_torch.examples.elastic_train",
+             "--ckpt-dir", str(out_dir / name), "--steps",
+             str(ELASTIC_STEPS), "--save-interval", "5", "--dim", "1024"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        return proc
+
+    def finish(proc, want_rc):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != want_rc:
+            fail(f"elastic drill exited {proc.returncode}, expected "
+                 f"{want_rc}:\n{err[-2000:]}")
+        return out
+
+    def steps(name):
+        log = out_dir / f"{name}.jsonl"
+        if not log.exists():
+            return []
+        return [json.loads(x)["train_step"]
+                for x in log.read_text().splitlines() if x.strip()]
+
+    try:
+        t0 = time.perf_counter()
+        straight = launch("straight")
+        # steps of 50 ms: the flag's poll (every 0.25 s) lands well before
+        # the run's end
+        slow = {"ELASTIC_TRAIN_STEP_MS": "50"}
+        pre = launch("preempted", slow)
+        deadline = time.monotonic() + 240
+        while not any(s >= ELASTIC_FLAG_AT for s in steps("preempted")):
+            if time.monotonic() > deadline or pre.poll() is not None:
+                fail("elastic drill: the preempted run never reached step "
+                     f"{ELASTIC_FLAG_AT}")
+            time.sleep(0.01)
+        (out_dir / "preempted.jsonl.preempt").write_text("{}")
+        out = finish(pre, 79)
+        drained = int(out.split("checkpointed step ")[1].split(",")[0])
+        kept = sorted(int(p.name) for p in (out_dir / "preempted").iterdir()
+                      if p.name.isdigit())
+        want = json.loads(finish(straight, 0).strip().splitlines()[-1])
+        out = finish(launch("preempted", slow), 0)
+        got = json.loads(out.strip().splitlines()[-1])
+        wall = time.perf_counter() - t0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    logged = steps("preempted")
+    if f"resumed from checkpoint step {kept[-1]}" not in out:
+        fail(f"elastic drill: the relaunch did not resume at {kept[-1]}")
+    if (sorted(set(logged)) != list(range(ELASTIC_STEPS))
+            or len(logged) - ELASTIC_STEPS > 5):
+        fail(f"elastic drill: steps logged {logged}")
+    if got != want:
+        fail(f"elastic drill: relaunched run ended {got}, straight {want}")
+    return dict(drained_at=drained, kept=kept, resumed_at=kept[-1] + 1,
+                recomputed=len(logged) - ELASTIC_STEPS, final=got,
+                wall_s=wall)
+
+
+def phase_checkpoint(torch, ops, lm_train, lm_generate, train_losses) -> dict:
+    """Checkpoints join training to serving, at the training path's width
+    and batch: lm_train straight and split by a resume (losses equal to
+    the bit when the card repeats a run to the bit; else within the
+    run-to-run spread measured here), lm_generate and serve's app
+    restored from the resumed run's directory against generate on the
+    parameters held at its last step, the elastic drill preempted and
+    relaunched. Returns the kernels' launches over these runs."""
+    print("== main path: checkpoints")
+    import numpy as np
+
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import generate as G
+    from tony_tpu_torch.models import transformer as T
+    from tony_tpu_torch.train import checkpoint as C
+    from tony_tpu_torch.train.step import make_optimizer
+
+    root = REPO / "build" / "chip_smoke" / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    managers, stalls, held = [], [], []
+    real_save_async = C.CheckpointManager.save_async
+
+    def timed_save_async(self, step, state):
+        t0 = time.perf_counter()
+        ok = real_save_async(self, step, state)
+        stalls.append((step, time.perf_counter() - t0, ok))
+        if self not in managers:
+            managers.append(self)
+        if step == CKPT_STEPS - 1 and ok:
+            held.append(_clone_tree(torch, state["params"]))
+        return ok
+
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+
+    def train(name, steps, ckpt_dir):
+        metrics = root / f"{name}.json"
+        argv = FLAGSHIP + ["--batch-size", str(TRAIN_BATCH), "--seq-len",
+                           str(TRAIN_SEQ), "--steps", str(steps),
+                           "--checkpoint-dir", str(ckpt_dir),
+                           "--checkpoint-every", str(CKPT_EVERY),
+                           "--metrics-out", str(metrics)]
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        rc = lm_train.main(argv)
+        counts = ops.launch_counts()
+        if rc != 0:
+            fail(f"lm_train ({name}) exited {rc}")
+        want = {"flash_fwd": steps * N_LAYERS, "flash_bwd_dkdv":
+                steps * N_LAYERS, "flash_bwd_dq": steps * N_LAYERS,
+                "flash_decode": 0}
+        if counts != want:
+            fail(f"lm_train ({name}): launches {counts}, expected {want}")
+        for k, n in counts.items():
+            totals[k] += n
+        kept = sorted(int(p.name) for p in ckpt_dir.iterdir()
+                      if p.name.isdigit())
+        return json.loads(metrics.read_text())["losses"], kept
+
+    C.CheckpointManager.save_async = timed_save_async
+    try:
+        straight, kept_a = train("straight", CKPT_STEPS, root / "a")
+        shutil.rmtree(root / "a")
+        first, kept_b1 = train("first", CKPT_SPLIT, root / "b")
+        resumed, kept_b = train("resumed", CKPT_STEPS - CKPT_SPLIT,
+                                root / "b")
+    finally:
+        C.CheckpointManager.save_async = real_save_async
+    keep_want = [s for s in range(CKPT_EVERY, CKPT_STEPS, CKPT_EVERY)]
+    if (kept_a != keep_want or kept_b != keep_want
+            or kept_b1 != [s for s in keep_want if s < CKPT_SPLIT]):
+        fail(f"checkpoints kept: straight {kept_a}, split {kept_b1} then "
+             f"{kept_b}; expected {keep_want}")
+    # two straight runs: the training path's and this one
+    repeat_spread = max(abs(a - b) for a, b in zip(straight, train_losses))
+    bitwise = straight == train_losses[:CKPT_STEPS]
+    resume_err = max(abs(a - b) for a, b in
+                     zip(first + resumed, straight))
+    same_params = len(held) == 2 and _trees_equal(torch, held[0], held[1])
+    if len(resumed) != CKPT_STEPS - CKPT_SPLIT or not all(
+            map(math.isfinite, first + resumed)):
+        fail(f"checkpoints: resumed losses {resumed}")
+    if bitwise and (first + resumed != straight or not same_params):
+        fail("checkpoints: the card repeats a straight run to the bit, but "
+             f"the resumed run differs (max |loss diff| {resume_err}, "
+             f"parameters at step {CKPT_STEPS - 1} equal: {same_params})")
+    if not bitwise and resume_err > repeat_spread:
+        fail(f"checkpoints: the resumed losses differ by {resume_err}, "
+             f"beyond two straight runs' spread {repeat_spread}")
+    print(f"checkpoints: straight {CKPT_STEPS} steps kept {kept_a}; "
+          f"{CKPT_SPLIT} steps kept {kept_b1}, resumed at {CKPT_SPLIT} for "
+          f"{CKPT_STEPS - CKPT_SPLIT} steps kept {kept_b}; two straight runs "
+          f"{'agree to the bit' if bitwise else f'differ by {repeat_spread}'}"
+          f"; resumed losses against straight: max |diff| {resume_err} "
+          f"(parameters at step {CKPT_STEPS - 1} bit-equal: {same_params})")
+    saves = [dict(rec) for m in managers for rec in m.saves]
+    ckpt_bytes = saves[0]["bytes"]
+    stall_ms = [s * 1e3 for _, s, ok in stalls if ok]
+    write_s = [rec["write_s"] for rec in saves]
+    params = held[-1]
+    template = {"params": params,
+                "opt_state": make_optimizer().init(params)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = C.CheckpointManager(str(root / "b")).restore(template=template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if not _trees_equal(torch, restored["params"], params):
+        fail("checkpoints: restored parameters differ from the run's")
+    del restored, template
+    print(f"checkpoints: {ckpt_bytes} bytes a checkpoint (parameters and "
+          f"both AdamW moments, float32); {len(stall_ms)} saves, the loop "
+          f"inside save_async " + " ".join(f"{x:.1f}" for x in stall_ms)
+          + " ms; the writer " + " ".join(f"{x:.2f}" for x in write_s)
+          + f" s; restore on the card {restore_s:.2f} s; "
+          f"{nvidia_smi_line()}")
+
+    # ---- lm_generate from the checkpoint, bf16 kernels, against generate
+    # on the parameters held at the last step
+    rng = np.random.default_rng(41)
+    prompt = rng.integers(0, 32768, 300).tolist()
+    metrics = root / "generate.json"
+    n_new = 32
+    ops.reset_launch_counts()
+    rc = lm_generate.main(FLAGSHIP + [
+        "--checkpoint-dir", str(root / "b"), "--prompt",
+        " ".join(map(str, prompt)), "--max-new", str(n_new),
+        "--metrics-out", str(metrics)])
+    counts = ops.launch_counts()
+    if rc != 0:
+        fail(f"lm_generate --checkpoint-dir exited {rc}")
+    want = {"flash_fwd": 3 * N_LAYERS, "flash_decode":
+            2 * N_LAYERS * (n_new - 1), "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    if counts != want:
+        fail(f"lm_generate --checkpoint-dir: launches {counts}, expected "
+             f"{want}")
+    for k, n in counts.items():
+        totals[k] += n
+    bcfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
+                               n_heads=8, n_kv_heads=8, d_ff=4096)
+    mem = G.generate(G.prepare_decode(params, bcfg), bcfg,
+                     torch.tensor([prompt], device="cuda"), n_new)
+    gen_tokens = json.loads(metrics.read_text())["tokens"]
+    if gen_tokens != mem[0].tolist():
+        fail("lm_generate --checkpoint-dir: tokens differ from generate on "
+             "the parameters held in memory")
+    print(f"checkpoints: lm_generate --checkpoint-dir (bf16, kernels): "
+          f"{n_new} tokens equal generate on the held parameters; launches "
+          f"{counts}")
+
+    # ---- serve's app from the checkpoint, float32, against solo generate
+    # (kernels) on the held parameters, up to the first near-tie
+    fcfg = dataclasses.replace(bcfg, dtype=torch.float32)
+    w32 = G.prepare_decode(params, fcfg)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 301, 4)]
+    n_serve = 24
+    ops.reset_launch_counts()
+    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        "--dtype", "float32", "--checkpoint-dir", str(root / "b"),
+        "--slots", "4", "--max-len", "1024"])
+    try:
+        results = _post_all(url, [dict(prompt=p, max_new_tokens=n_serve)
+                                  for p in prompts])
+    finally:
+        _stop_app(app, httpd)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"serve --checkpoint-dir: kernels launched {counts}")
+    rows = []
+    for i, (p, res) in enumerate(zip(prompts, results)):
+        toks, gaps = _solo_greedy(torch, G, w32, fcfg, p, n_serve)
+        rows.append(_near_tie_check(f"serve --checkpoint-dir request {i}",
+                                    res[1]["tokens"], toks, gaps, n_serve))
+    agree = sum(r["diverge"] is None for r in rows)
+    print(f"checkpoints: serve --checkpoint-dir (float32, 4 requests over "
+          f"HTTP): {agree} of 4 token-identical to solo generate on the held "
+          f"parameters, the others only at or after a near-tie")
+    del app, w32, params, held
+    torch.cuda.empty_cache()
+
+    # ---- the elastic drill on the card
+    drill = _elastic_drill(root / "elastic")
+    print(f"checkpoints: elastic drill: drained at step "
+          f"{drill['drained_at']} (kept {drill['kept']}), relaunched at "
+          f"{drill['resumed_at']}, {drill['recomputed']} steps recomputed, "
+          f"final {drill['final']} equal to the straight run's; "
+          f"{drill['wall_s']:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    print("checkpoint " + json.dumps(dict(
+        straight_losses=straight, first_losses=first,
+        resumed_losses=resumed, kept=dict(straight=kept_a, first=kept_b1,
+                                          resumed=kept_b),
+        straight_runs_bitwise=bitwise, straight_runs_spread=repeat_spread,
+        resume_max_abs_diff=resume_err, params_bit_equal=same_params,
+        checkpoint_bytes=ckpt_bytes, save_async_stall_ms=stall_ms,
+        writer_s=write_s, snapshot_s=[r["snapshot_s"] for r in saves],
+        restore_s=restore_s, generate_tokens_equal=True,
+        serve_parity=rows, elastic=drill, launches=totals,
+        card=nvidia_smi_line())))
+    return totals
+
+
+def _prefix_prompts(seed: int) -> list:
+    """PREFIX_REQUESTS prompts: one shared PREFIX_LEN-token prefix, each
+    with its own suffix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, 32768, PREFIX_LEN)
+    lens = rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1,
+                        PREFIX_REQUESTS)
+    return [np.concatenate([prefix, rng.integers(0, 32768, int(n))]).tolist()
+            for n in lens]
+
+
+def phase_prefix_cache(torch, ops) -> dict:
+    """The serving prefix cache at the flagship width through serve's app
+    (the CLI's defaults and --prefix-cache-blocks PREFIX_BLOCKS): a cold
+    pass and a warm pass of the shared-prefix traffic, cold and warm TTFT
+    (one-token requests, a burst of 8) and an admission burst's wall time;
+    then the cache's completions against a cacheless server's at float32
+    (2 layers, native and int8 KV). Returns the kernels' launches (none:
+    the serving path runs the einsum attention)."""
+    print("== main path: prefix cache")
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import generate as G
+    from tony_tpu_torch.models import serving as S
+    from tony_tpu_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    prompts = _prefix_prompts(31)
+    chunk = 128
+    # every full chunk of a body (the prompt less its last token) is in the
+    # pool after the cold pass, so the warm pass copies them all
+    reuse_want = sum((len(p) - 1) // chunk * chunk for p in prompts)
+    ops.reset_launch_counts()
+    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "31", "--prefix-cache-blocks", str(PREFIX_BLOCKS)])
+    srv = app.server
+    pool = srv._pool
+    pool_bytes = sum(t.numel() * t.element_size() for t in (pool.k, pool.v))
+    if pool_bytes != PREFIX_BLOCKS * chunk * N_LAYERS * 8 * 128 * 2 * 2:
+        fail(f"prefix cache: pool of {pool_bytes} bytes")
+
+    def stats():
+        with app.lock:
+            return srv.stats()
+
+    def requests(n_new, subset):
+        return [dict(prompt=p, max_new_tokens=n_new) for p in subset]
+
+    try:
+        s0 = stats()
+        t0 = time.perf_counter()
+        cold = _post_all(url, requests(PREFIX_NEW, prompts))
+        cold_wall = time.perf_counter() - t0
+        s1 = stats()
+        t0 = time.perf_counter()
+        warm = _post_all(url, requests(PREFIX_NEW, prompts))
+        warm_wall = time.perf_counter() - t0
+        s2 = stats()
+        with app.lock:
+            srv.reset()                 # an empty pool and trie
+        ttft_cold = _post_all(url, requests(1, prompts[:8]))
+        ttft_warm = _post_all(url, requests(1, prompts[:8]))
+        s3 = stats()
+    finally:
+        _stop_app(app, httpd)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"prefix cache: kernels launched {counts}, expected none")
+    for name, res in (("cold", cold), ("warm", warm)):
+        for i, (_, body, _) in enumerate(res):
+            toks = body["tokens"]
+            if (body["finish_reason"] != "length" or len(toks) != PREFIX_NEW
+                    or not all(0 <= t < 32768 for t in toks)):
+                fail(f"prefix cache {name} pass: request {i}: {body}")
+
+    def delta(a, b, key):
+        return b["prefix_cache"][key] - a["prefix_cache"][key]
+
+    reused_warm = s2["prefill_tokens_reused"] - s1["prefill_tokens_reused"]
+    if (delta(s1, s2, "hits") != PREFIX_REQUESTS
+            or delta(s1, s2, "misses") != 0 or reused_warm != reuse_want):
+        fail(f"prefix cache warm pass: hits {delta(s1, s2, 'hits')}, "
+             f"misses {delta(s1, s2, 'misses')}, reused {reused_warm} "
+             f"tokens (expected {PREFIX_REQUESTS}, 0, {reuse_want})")
+    same = sum(c[1]["tokens"] == w[1]["tokens"] for c, w in zip(cold, warm))
+    lat_cold = _quantiles([r[2] for r in cold])
+    lat_warm = _quantiles([r[2] for r in warm])
+    q_cold = _quantiles([r[2] for r in ttft_cold])
+    q_warm = _quantiles([r[2] for r in ttft_warm])
+
+    # ---- one admission burst of 8, cold (every request misses, as on a
+    # cacheless server) then warm (every request hits), to the device's
+    # end; their bf16 completions, with the cold run's top-2 logit gap
+    # where they part
+    srv.reset()
+    admit, burst = {}, {}
+    for name in ("cold", "warm"):
+        before = srv.stats()
+        reqs = [S.Request(prompt=p, max_new_tokens=PREFIX_NEW,
+                          logprobs=2 if name == "cold" else 0)
+                for p in prompts[:8]]
+        for r in reqs:
+            srv.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv._admit()
+        torch.cuda.synchronize()
+        after = srv.stats()
+        admit[name] = dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            computed=after["prefill_tokens_computed"]
+            - before["prefill_tokens_computed"],
+            reused=after["prefill_tokens_reused"]
+            - before["prefill_tokens_reused"],
+            prefill_calls=after["admission_dispatches"]
+            - before["admission_dispatches"])
+        done = srv.run_until_drained()
+        burst[name] = [done[r.id] for r in reqs]
+    parted = []
+    for i, (c, w) in enumerate(zip(burst["cold"], burst["warm"])):
+        j = next((j for j, (a, b) in enumerate(zip(c.tokens, w.tokens))
+                  if a != b), None)
+        if j is not None:
+            top = c.logprobs[j]["top"][1]
+            parted.append(dict(request=i, step=j, cold_gap=top[0] - top[1]))
+    print(f"prefix cache: {PREFIX_REQUESTS} requests sharing a {PREFIX_LEN}"
+          f"-token prefix, suffixes {PREFIX_SUFFIX[0]}-{PREFIX_SUFFIX[1]}, "
+          f"{PREFIX_NEW} new each; pool {PREFIX_BLOCKS} blocks = {pool_bytes}"
+          f" bytes; cold pass {cold_wall:.3f} s (hits "
+          f"{delta(s0, s1, 'hits')}, misses {delta(s0, s1, 'misses')}, "
+          f"reused {s1['prefill_tokens_reused'] - s0['prefill_tokens_reused']}"
+          f" tokens), warm pass {warm_wall:.3f} s (hits "
+          f"{delta(s1, s2, 'hits')}, reused {reused_warm} tokens = "
+          f"{PREFIX_REQUESTS} x {PREFIX_LEN} + "
+          f"{reused_warm - PREFIX_REQUESTS * PREFIX_LEN} of the suffixes' "
+          f"full chunks); latency p50 cold {lat_cold['p50']:.3f} s, warm "
+          f"{lat_warm['p50']:.3f} s; {same} of {PREFIX_REQUESTS} warm "
+          f"completions equal the cold ones (bf16)")
+    print(f"prefix cache: TTFT (one-token requests, 8 at once) p50 cold "
+          f"{q_cold['p50'] * 1e3:.1f} ms, warm {q_warm['p50'] * 1e3:.1f} ms;"
+          f" an admission burst of 8 to the device's end: cold "
+          f"{admit['cold']['ms']:.1f} ms ({admit['cold']['computed']} tokens "
+          f"prefilled, {admit['cold']['prefill_calls']} prefill calls), warm "
+          f"{admit['warm']['ms']:.1f} ms ({admit['warm']['computed']} "
+          f"prefilled, {admit['warm']['reused']} copied, "
+          f"{admit['warm']['prefill_calls']} calls); {nvidia_smi_line()}")
+    print(f"prefix cache: the bursts' bf16 completions: "
+          f"{8 - len(parted)} of 8 warm (hit) equal the cold (miss) ones; "
+          f"the others part at (request, step, the cold stream's top-2 logit "
+          f"gap) " + ", ".join(f"({r['request']}, {r['step']}, "
+                               f"{r['cold_gap']:.4f})" for r in parted))
+    prepared = G.DecodeWeights(srv._params, srv._fused)
+    del app, srv, pool, prepared
+    torch.cuda.empty_cache()
+
+    # ---- completions with and without the cache, float32, 2 layers
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(33), dev), cfg)
+    pprompts = _prefix_prompts(33)
+    rows = []
+    for kv in ("native", "int8"):
+        ref = S.SlotServer(w, cfg, kv_dtype=kv)
+        reqs = [S.Request(prompt=p, max_new_tokens=PREFIX_NEW, logprobs=2)
+                for p in pprompts]
+        for r in reqs:
+            ref.submit(r)
+        done = ref.run_until_drained()
+        want = [done[r.id] for r in reqs]
+        hit = S.SlotServer(w, cfg, kv_dtype=kv,
+                           prefix_cache_blocks=PREFIX_BLOCKS)
+        for pass_ in ("cold", "warm"):
+            reqs = [S.Request(prompt=p, max_new_tokens=PREFIX_NEW)
+                    for p in pprompts]
+            for r in reqs:
+                hit.submit(r)
+            done = hit.run_until_drained()
+            for i, (r, c) in enumerate(zip(reqs, want)):
+                gaps = [e["top"][1][0] - e["top"][1][1] for e in c.logprobs]
+                rows.append(dict(kv=kv, pass_=pass_, request=i,
+                                 **_near_tie_check(
+                                     f"prefix cache parity ({kv}, {pass_})",
+                                     done[r.id].tokens, c.tokens, gaps,
+                                     PREFIX_NEW)))
+        st = hit.stats()
+        if st["prefix_cache"]["hits"] < PREFIX_REQUESTS:
+            fail(f"prefix cache parity ({kv}): {st['prefix_cache']}")
+        del ref, hit
+    agree = sum(r["diverge"] is None for r in rows)
+    print(f"prefix cache parity (float32, 2 layers, cold and warm passes, "
+          f"native and int8 KV): {agree} of {len(rows)} streams "
+          f"token-identical to the cacheless server, every other one only "
+          f"at or after a near-tie (gap < {PARITY_NEAR_TIE})")
+    print("prefix_cache " + json.dumps(dict(
+        requests=PREFIX_REQUESTS, prefix=PREFIX_LEN, new=PREFIX_NEW,
+        pool_blocks=PREFIX_BLOCKS, pool_bytes=pool_bytes,
+        cold=dict(wall_s=cold_wall, latency_s_p50=lat_cold["p50"],
+                  hits=delta(s0, s1, "hits"),
+                  misses=delta(s0, s1, "misses"),
+                  reused=s1["prefill_tokens_reused"]
+                  - s0["prefill_tokens_reused"]),
+        warm=dict(wall_s=warm_wall, latency_s_p50=lat_warm["p50"],
+                  hits=delta(s1, s2, "hits"),
+                  misses=delta(s1, s2, "misses"), reused=reused_warm),
+        warm_equal_cold_bf16=same, ttft_ms_p50=dict(
+            cold=q_cold["p50"] * 1e3, warm=q_warm["p50"] * 1e3),
+        ttft_stats=s3["prefix_cache"], admission=admit,
+        burst_bf16_parted=parted,
+        parity=[r for r in rows if r["diverge"] is not None or r["near_ties"]],
+        parity_identical=agree, parity_streams=len(rows), launches=counts,
+        card=nvidia_smi_line())))
+    return counts
 
 
 def _solo_greedy(torch, G, w, cfg, prompt, n):
@@ -1388,10 +1978,13 @@ def main() -> int:
         records += phase_decode(torch, DA, G, T)
         records += phase_bwd_kernels(torch, A)
     gen_launches = phase_main_path(ops, lm_generate)
-    train_launches = phase_train_path(torch, ops, lm_train)
+    train_launches, train_losses = phase_train_path(torch, ops, lm_train)
     serve_launches = phase_serving(torch, ops)
+    ckpt_launches = phase_checkpoint(torch, ops, lm_train, lm_generate,
+                                     train_losses)
+    prefix_launches = phase_prefix_cache(torch, ops)
     launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
-                for k in gen_launches}
+                + ckpt_launches[k] + prefix_launches[k] for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -27,7 +27,7 @@ import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "tony_tpu"):
+        if top in ("jax", "jaxlib", "tony_tpu", "orbax", "safetensors"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -35,9 +35,13 @@ sys.meta_path.insert(0, Block())
 import tony_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tony_tpu_torch.__path__,
                                                "tony_tpu_torch.")]
+for name in ("tony_tpu_torch.train.checkpoint",
+             "tony_tpu_torch.examples.elastic_train"):
+    assert name in names, name
 for name in names:
     importlib.import_module(name)
-assert not any(m.split(".")[0] in ("jax", "tony_tpu") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "tony_tpu", "orbax", "safetensors")
+               for m in sys.modules)
 print(len(names))
 """
 
@@ -111,7 +115,7 @@ def test_lm_generate_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--checkpoint-dir", "/nonexistent"], "checkpoint"),
+    (["--draft-hf-checkpoint", "/nonexistent"], "speculative"),
     (["--hf-checkpoint", "/nonexistent"], "HF import"),
     (["--draft-checkpoint-dir", "/nonexistent"], "speculative"),
     (["--tensor-parallel", "2"], "mesh/TP"),

@@ -9,6 +9,7 @@ tests/test_torch_serving.py)."""
 
 import dataclasses
 import json
+import re
 import threading
 import time
 import urllib.error
@@ -130,10 +131,29 @@ def test_serve_http_end_to_end_matches_jax(model):
                     b'{"prompt": [1], "timeout_s": "NaN"}',
                     b'{"prompt": [1], "priority": "x"}',
                     b'{"prompt": [1], "resume_tokens": [2]}',
-                    b'{"prompt": [1, 999], "max_new_tokens": 2}'):
+                    b'{"prompt": [1, 999], "max_new_tokens": 2}',
+                    b'{"prompt": [1], "logprobs": false}',
+                    b'{"prompt": [1], "logprobs": 0.0}',
+                    b'{"prompt": [1], "cache_prompt": "false"}',
+                    b'{"prompt": [1], "progress_key": 5}',
+                    b'{"prompt": [1], "progress_key": "k"}'):
             code, body, _ = http.post(None, raw=raw)
             assert code == 400, raw
             assert "error" in body
+        # the JAX package's messages for the bodies it rejects
+        for raw, msg in (
+                (b'{"prompt": [1], "logprobs": false}',
+                 "logprobs must be an integer"),
+                (b'{"prompt": [1], "cache_prompt": "false"}',
+                 "cache_prompt must be a JSON boolean"),
+                (b'{"prompt": [1], "progress_key": 5}',
+                 "progress_key must be a string"),
+                (b'{"prompt": [1], "progress_key": "k"}',
+                 "not ported.*journal and replay")):
+            code, body, _ = http.post(None, raw=raw)
+            assert code == 400 and re.search(msg, body["error"]), raw
+        assert http.post({"prompt": [3], "max_new_tokens": 2,
+                          "logprobs": None, "cache_prompt": True})[0] == 200
         code, body, _ = http.post({"prompt": [3, 4], "max_new_tokens": 2})
         assert code == 200 and len(body["tokens"]) == 2
     finally:
@@ -329,17 +349,64 @@ def test_cli_builds_the_app_from_its_flags():
     assert torch.equal(a, serve.load_model(args)[0]["embed"])
 
 
+def test_serve_prefix_cache_flags_and_stats():
+    """--prefix-cache-blocks: a shared prefix hits on the second request
+    and /stats reports the prefix cache; with --no-cache-prompts a prompt
+    goes into the cache only when its body sets "cache_prompt": true."""
+    prefix = list(range(1, 17))             # two chunks of 8
+    for extra, cache_first in (([], None), (["--no-cache-prompts"], True)):
+        args = serve.build_argparser().parse_args(
+            TINY_FLAGS + ["--prefix-cache-blocks", "4"] + extra)
+        app = serve.build_app(args)
+        assert app.server.cache_prompts is not bool(extra)
+        app.start()
+        http = _Http(app)
+        try:
+            if extra:       # not inserted: the next request misses
+                assert http.post({"prompt": prefix + [20],
+                                  "max_new_tokens": 3})[0] == 200
+                assert http.get("/stats")[1]["prefix_cache"][
+                    "inserted_blocks"] == 0
+            first = {"prompt": prefix + [21], "max_new_tokens": 3}
+            if cache_first is not None:
+                first["cache_prompt"] = cache_first
+            assert http.post(first)[0] == 200
+            code, body, _ = http.post({"prompt": prefix + [22],
+                                       "max_new_tokens": 3})
+            assert code == 200 and len(body["tokens"]) == 3
+            code, stats = http.get("/stats")
+            pc = stats["prefix_cache"]
+            assert code == 200 and pc["hits"] == 1 and pc["blocks_total"] == 4
+            assert pc["inserted_blocks"] == 2
+            assert stats["prefill_tokens_reused"] == 16
+        finally:
+            http.close()
+            app.shutdown()
+
+
 @pytest.mark.parametrize("flags,what", [
-    (["--checkpoint-dir", "/x"], "checkpoint"),
+    (["--kv-block", "8"], "paged KV"),
     (["--hf-checkpoint", "/x"], "HF import"),
     (["--mesh", "tensor=2"], "mesh/TP"),
-    (["--prefix-cache-blocks", "4"], "the rest of serving"),
+    (["--spec-gamma", "2"], "speculative"),
     (["--paged-kv"], "the rest of serving"),
     (["--role", "prefill"], "the rest of serving"),
     (["--draft-model", "d"], "speculative"),
     (["--model", "a=random"], "HF import"),
     (["--trace-dir", "/x"], "the rest of serving"),
     (["--weight-dtype", "int8"], "w8a16"),
+    (["--kv-pool-blocks", "4"], "paged KV"),
+    (["--prefill-interleave", "4"], "paged KV"),
+    (["--class-budget-interactive", "2"], "admission tiers"),
+    (["--class-budget-batch", "2"], "admission tiers"),
+    (["--no-replay"], "journal and replay"),
+    (["--journal-checkpoint-s", "0.5"], "journal and replay"),
+    (["--spec-gamma-max", "8"], "speculative"),
+    (["--draft-d-model", "32"], "speculative"),
+    (["--draft-n-layers", "1"], "speculative"),
+    (["--draft-n-heads", "2"], "speculative"),
+    (["--draft-d-ff", "64"], "speculative"),
+    (["--text-codec", "bytes"], "OpenAI routes"),
 ])
 def test_cli_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):

@@ -574,9 +574,12 @@ def test_submit_rejections(model):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"prefix_cache_blocks": 4}, {"paged": True},
+    {"mesh": object()}, {"kv_block": 8}, {"paged": True},
     {"role": "prefill"}, {"draft": "d"}, {"journal": object()},
-    {"replay": True}, {"trace_sink": print}, {"registry": object()},
+    {"replay": False}, {"trace_sink": print}, {"registry": object()},
+    {"rules": {}}, {"draft_cfg": object()}, {"spec_gamma": 2},
+    {"spec_gamma_max": 8}, {"kv_pool_blocks": 4},
+    {"class_budgets": {"batch": 2}}, {"prefill_interleave": 4},
 ], ids=lambda kw: next(iter(kw)))
 def test_not_ported_arguments_raise(model, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
@@ -594,4 +597,6 @@ def test_unported_model_features_raise(model):
         S.SlotServer(params, cfg, device="cpu", no_such_option=1)
     # the off values of the not-ported arguments are accepted
     S.SlotServer(params, cfg, device="cpu", max_len=16, mesh=None,
-                 replay=False, role="both", prefix_cache_blocks=0)
+                 replay=True, role="both", prefix_cache_blocks=0, rules=None,
+                 draft_cfg=None, spec_gamma=0, spec_gamma_max=4, kv_block=0,
+                 kv_pool_blocks=0, class_budgets=None, prefill_interleave=0)

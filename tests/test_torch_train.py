@@ -306,7 +306,7 @@ def test_step_timer_records(tmp_path):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--checkpoint-dir", "/nonexistent"], "checkpoint"),
+    (["--mesh", "seq=2"], "mesh/TP"),
     (["--remat"], "remat"),
     (["--n-experts", "4"], "MoE"),
     (["--mesh", "data=2"], "mesh/TP"),

@@ -14,17 +14,24 @@ handler threads only enqueue and wait; they make no CUDA tensor. POST
 /generate blocks until the request completes (400 on a malformed body,
 429 when the queue is full, 503 when the serving loop is down, 504 on its
 timeout); GET /healthz answers 200 or 503; GET /stats reports the slots,
-the queue and the engine's counters.
+the queue, the engine's counters and, with ``--prefix-cache-blocks``, the
+prefix cache's (``prefix_cache``: hits, misses, evictions, blocks).
 
-Weights are random, drawn from ``--seed``, on ``--device`` (default: the
-card; the CPU only when named).
+Weights are random, drawn from ``--seed``, or restored from an lm_train
+checkpoint (``--checkpoint-dir``: its latest step's ``params``), on
+``--device`` (default: the card; the CPU only when named).
+``--prefix-cache-blocks N`` keeps shared prompt prefixes' K/V in N
+chunk-sized blocks; ``--no-cache-prompts`` serves from that cache but
+inserts a prompt only when its request sets ``"cache_prompt": true``.
 
-Not ported yet, each raising a named error: ``--checkpoint-dir``,
-``--hf-checkpoint``, ``--mesh``, ``--prefix-cache-blocks``,
-``--paged-kv``, ``--role``, ``--draft-model``, ``--model``,
-``--trace-dir``, ``--weight-dtype int8``; streaming (``"stream": true``)
-and ``resume_tokens`` answer 400. The OpenAI routes, /metrics, /progress
-and /debug/profile are not served.
+Not ported yet, each raising a named error: ``--hf-checkpoint``,
+``--mesh``, ``--paged-kv`` and its ``--kv-*``, ``--class-budget-*`` and
+``--prefill-interleave``, ``--role``, ``--draft-model`` and the
+``--draft-*`` and ``--spec-gamma*`` flags, ``--model``, ``--trace-dir``,
+``--no-replay``, ``--journal-checkpoint-s``, ``--text-codec`` and
+``--weight-dtype int8``; streaming (``"stream": true``),
+``resume_tokens`` and ``progress_key`` answer 400. The OpenAI routes,
+/metrics, /progress and /debug/profile are not served.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--device", default=None,
                    help="default: the GPU (raises without one)")
-    p.add_argument("--checkpoint-dir", default="", help="not yet ported")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="lm_train checkpoint directory; empty = random init")
     p.add_argument("--hf-checkpoint", default="", help="not yet ported")
     p.add_argument("--d-model", type=int, default=256)
     p.add_argument("--n-layers", type=int, default=4)
@@ -74,6 +82,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--per-slot-admission", action="store_true",
                    help="one prefill call per chunk per slot instead of "
                         "one per chunk round")
+    p.add_argument("--prefix-cache-blocks", type=int, default=0,
+                   help="enable the chunk-aligned prefix KV cache with this "
+                        "many prefill-chunk-sized blocks of device memory "
+                        "(0 = off): shared prompt prefixes prefill once and "
+                        "later requests copy their cached K/V")
+    p.add_argument("--no-cache-prompts", action="store_true",
+                   help="with --prefix-cache-blocks: serve from the cache "
+                        "but insert a prompt only when its request sets "
+                        "cache_prompt=true")
     p.add_argument("--max-queue", type=int, default=0,
                    help="requests beyond this many waiting are shed with "
                         "HTTP 429 (0 = unbounded)")
@@ -89,29 +106,63 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout-s", type=float, default=30.0,
                    help="SIGTERM/SIGINT: how long in-flight requests get "
                         "to finish before shutdown")
-    # not ported yet: each raises in check_ported
+    # not ported yet: each raises in check_ported unless left at the JAX
+    # package's default
     p.add_argument("--mesh", default="")
-    p.add_argument("--prefix-cache-blocks", type=int, default=0)
     p.add_argument("--paged-kv", action="store_true")
+    p.add_argument("--kv-block", type=int, default=0)
+    p.add_argument("--kv-pool-blocks", type=int, default=0)
+    p.add_argument("--prefill-interleave", type=int, default=0)
+    p.add_argument("--class-budget-interactive", type=int, default=0)
+    p.add_argument("--class-budget-batch", type=int, default=0)
     p.add_argument("--role", default="both")
-    p.add_argument("--draft-model", default="")
-    p.add_argument("--model", action="append", default=[])
     p.add_argument("--trace-dir", default="")
+    p.add_argument("--no-replay", action="store_true")
+    p.add_argument("--journal-checkpoint-s", type=float, default=1.0)
+    p.add_argument("--model", action="append", default=[])
+    p.add_argument("--draft-model", default="")
+    p.add_argument("--spec-gamma", type=int, default=0)
+    p.add_argument("--spec-gamma-max", type=int, default=4)
+    p.add_argument("--draft-d-model", type=int, default=64)
+    p.add_argument("--draft-n-layers", type=int, default=2)
+    p.add_argument("--draft-n-heads", type=int, default=4)
+    p.add_argument("--draft-d-ff", type=int, default=256)
+    p.add_argument("--text-codec", default="ids")
     return p
 
 
-# flag -> (is it set?, ROADMAP.md queue-1 item)
+_PAGED = "the rest of serving: paged KV and admission tiers"
+_JOURNAL = "the rest of serving: journal and replay"
+_SPEC = "speculative decoding"
+# flag -> (is it set off the JAX package's default?, ROADMAP.md queue-1
+# item)
 _NOT_PORTED_FLAGS = {
-    "--checkpoint-dir": (lambda a: a.checkpoint_dir, "checkpoint"),
     "--hf-checkpoint": (lambda a: a.hf_checkpoint, "HF import"),
     "--mesh": (lambda a: a.mesh, "mesh/TP"),
-    "--prefix-cache-blocks": (lambda a: a.prefix_cache_blocks,
-                              "the rest of serving"),
-    "--paged-kv": (lambda a: a.paged_kv, "the rest of serving"),
-    "--role": (lambda a: a.role != "both", "the rest of serving"),
-    "--draft-model": (lambda a: a.draft_model, "speculative decoding"),
+    "--paged-kv": (lambda a: a.paged_kv, _PAGED),
+    "--kv-block": (lambda a: a.kv_block, _PAGED),
+    "--kv-pool-blocks": (lambda a: a.kv_pool_blocks, _PAGED),
+    "--prefill-interleave": (lambda a: a.prefill_interleave, _PAGED),
+    "--class-budget-interactive": (lambda a: a.class_budget_interactive,
+                                   _PAGED),
+    "--class-budget-batch": (lambda a: a.class_budget_batch, _PAGED),
+    "--role": (lambda a: a.role != "both",
+               "the rest of serving: disaggregated roles"),
+    "--trace-dir": (lambda a: a.trace_dir,
+                    "the rest of serving: serving telemetry"),
+    "--no-replay": (lambda a: a.no_replay, _JOURNAL),
+    "--journal-checkpoint-s": (lambda a: a.journal_checkpoint_s != 1.0,
+                               _JOURNAL),
     "--model": (lambda a: a.model, "HF import (the model registry)"),
-    "--trace-dir": (lambda a: a.trace_dir, "the rest of serving"),
+    "--draft-model": (lambda a: a.draft_model, _SPEC),
+    "--spec-gamma": (lambda a: a.spec_gamma, _SPEC),
+    "--spec-gamma-max": (lambda a: a.spec_gamma_max != 4, _SPEC),
+    "--draft-d-model": (lambda a: a.draft_d_model != 64, _SPEC),
+    "--draft-n-layers": (lambda a: a.draft_n_layers != 2, _SPEC),
+    "--draft-n-heads": (lambda a: a.draft_n_heads != 4, _SPEC),
+    "--draft-d-ff": (lambda a: a.draft_d_ff != 256, _SPEC),
+    "--text-codec": (lambda a: a.text_codec != "ids",
+                     "the rest of serving: streaming and the OpenAI routes"),
     "--weight-dtype int8": (lambda a: a.weight_dtype == "int8", "w8a16"),
 }
 
@@ -124,8 +175,10 @@ def check_ported(args) -> None:
 
 
 def load_model(args):
-    """(params, cfg): random init at the CLI's dims from ``--seed``, on
-    ``--device``."""
+    """(params, cfg) at the CLI's dims on ``--device``: a random init from
+    ``--seed``, or the latest step of the lm_train checkpoint in
+    ``--checkpoint-dir`` (the JAX package's ``ckpt:`` models; SystemExit
+    when the directory holds none)."""
     import torch
 
     from ..device import resolve_device
@@ -138,7 +191,12 @@ def load_model(args):
         n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
         dtype=torch_dtype(args.dtype))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    return transformer.init(cfg, gen, device), cfg
+    params = transformer.init(cfg, gen, device)
+    if args.checkpoint_dir:
+        from ..train.checkpoint import restore_lm_params
+
+        params = restore_lm_params(args.checkpoint_dir, params)
+    return params, cfg
 
 
 def build_server(args):
@@ -159,6 +217,8 @@ def build_server(args):
         stop_tokens=tuple(int(t) for t in args.stop_tokens.split()),
         pad_id=args.pad_id, seed=args.seed,
         batched_admission=not args.per_slot_admission,
+        prefix_cache_blocks=args.prefix_cache_blocks,
+        cache_prompts=not args.no_cache_prompts,
         max_queue=args.max_queue, batch_queue_frac=args.batch_queue_frac,
         device=args.device)
 
@@ -364,13 +424,15 @@ class ServeApp:
                      top_k: int | None = None,
                      stop: list | None = None, logprobs: int = 0,
                      priority: str = "interactive",
-                     model: str | None = None):
+                     model: str | None = None,
+                     cache_prompt: bool | None = None):
         """Admission half of generate(): returns (request_id, event). The
         request carries ``timeout`` as its queue deadline."""
         from ..models.serving import Request
 
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=temperature, top_k=top_k,
+                      cache_prompt=cache_prompt,
                       deadline=time.monotonic() + timeout, stop=stop,
                       logprobs=int(logprobs or 0),
                       priority=str(priority or "interactive"), model=model)
@@ -462,10 +524,22 @@ def _generate_args(payload: dict, path: str) -> dict:
             "stream", ["false"])[0].lower() in ("1", "true", "yes"):
         raise ValueError("streaming is not ported to tony_tpu_torch yet "
                          "(ROADMAP.md queue 1, the rest of serving)")
+    cache_prompt = payload.get("cache_prompt")
+    # bool("false") is True: coercing would turn a string opt-out into
+    # caching the prompt
+    if cache_prompt is not None and not isinstance(cache_prompt, bool):
+        raise ValueError("cache_prompt must be a JSON boolean")
     if payload.get("resume_tokens") is not None:
         raise ValueError("resume_tokens (journal replay) is not ported to "
-                         "tony_tpu_torch yet (ROADMAP.md queue 1, the rest "
-                         "of serving)")
+                         f"tony_tpu_torch yet (ROADMAP.md queue 1, "
+                         f"{_JOURNAL})")
+    progress_key = payload.get("progress_key")
+    if progress_key is not None:
+        if not isinstance(progress_key, str):
+            raise ValueError("progress_key must be a string")
+        raise ValueError("progress_key (/progress) is not ported to "
+                         f"tony_tpu_torch yet (ROADMAP.md queue 1, "
+                         f"{_JOURNAL})")
     timeout = float(payload.get("timeout_s", 600.0))
     # NaN and Infinity pass float(): a NaN deadline never expires
     if not 0 < timeout < float("inf"):
@@ -474,7 +548,11 @@ def _generate_args(payload: dict, path: str) -> dict:
     if stop is not None and not isinstance(stop, list):
         raise ValueError("stop must be a list of token ids or a list of "
                          "token-id lists")
-    logprobs = payload.get("logprobs") or 0
+    # only null means "off": false or 0.0 are malformed, as in the JAX
+    # package
+    logprobs = payload.get("logprobs", 0)
+    if logprobs is None:
+        logprobs = 0
     if isinstance(logprobs, bool) or not isinstance(logprobs, int):
         raise ValueError("logprobs must be an integer")
     priority = payload.get("priority") or "interactive"
@@ -489,7 +567,8 @@ def _generate_args(payload: dict, path: str) -> dict:
                 timeout=timeout,
                 temperature=None if temp is None else float(temp),
                 top_k=None if top_k is None else int(top_k),
-                stop=stop, logprobs=logprobs, priority=priority, model=model)
+                stop=stop, logprobs=logprobs, priority=priority, model=model,
+                cache_prompt=cache_prompt)
 
 
 def make_handler(app: ServeApp):

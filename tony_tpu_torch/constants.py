@@ -8,6 +8,7 @@ ENV_TASK_INDEX = "TONY_TASK_INDEX"
 ENV_IS_CHIEF = "TONY_IS_CHIEF"
 ENV_APP_ID = "TONY_APP_ID"
 ENV_JOB_DIR = "TONY_JOB_DIR"
+ENV_GANG_GENERATION = "TONY_GANG_GENERATION"  # which gang formation this is
 # where the training child's StepTimer writes its JSONL step records
 ENV_STEP_LOG = "TONY_STEP_LOG"
 

@@ -5,8 +5,10 @@ the JAX package's examples/lm_generate.py, single-device paths).
         --vocab 32768 --d-model 1024 --n-layers 12 --n-heads 8 --d-ff 4096 \
         --batch 8 --prompt-len 1024 --max-new 64
 
-Weights are random, drawn from ``--seed`` through a ``torch.Generator``.
-Prompts are whitespace-separated token ids (``--prompt``), or ``--batch`` x
+Weights are random, drawn from ``--seed`` through a ``torch.Generator``,
+or restored from an lm_train checkpoint (``--checkpoint-dir``: its latest
+step's ``params``; the optimizer state is dropped). Prompts are
+whitespace-separated token ids (``--prompt``), or ``--batch`` x
 ``--prompt-len`` random ids from the same seed. Prints the first row's
 tokens and the decode throughput; ``--metrics-out`` also gets the prefill
 time and the rates as JSON.
@@ -16,9 +18,9 @@ prefill-only run (``max_new_tokens=1``). So a call launches the flash
 forward kernel 3 x n_layers times and the flash-decode kernel
 2 x n_layers x (max_new - 1) times (fewer with stop tokens).
 
-Not ported yet, each raising: ``--checkpoint-dir`` (needs the checkpoint
-slice), ``--hf-checkpoint``, the draft (speculative) flags,
-``--tensor-parallel`` > 1, ``--n-experts`` > 0 and ``--weight-dtype int8``.
+Not ported yet, each raising: ``--hf-checkpoint``, the draft (speculative)
+flags, ``--tensor-parallel`` > 1, ``--n-experts`` > 0 and
+``--weight-dtype int8``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ def _not_ported(flag: str, slice_name: str):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--checkpoint-dir", default="",
-                        help="not yet ported; empty = random init")
+                        help="lm_train checkpoint directory; empty = random "
+                             "init")
     parser.add_argument("--d-model", type=int, default=256)
     parser.add_argument("--n-layers", type=int, default=4)
     parser.add_argument("--n-heads", type=int, default=8)
@@ -78,8 +81,6 @@ def main(argv=None) -> int:
     parser.add_argument("--metrics-out", default="")
     args = parser.parse_args(argv)
 
-    if args.checkpoint_dir:
-        _not_ported("--checkpoint-dir", "checkpoint")
     if args.hf_checkpoint:
         _not_ported("--hf-checkpoint", "HF import")
     if args.draft_hf_checkpoint or args.draft_checkpoint_dir:
@@ -106,6 +107,10 @@ def main(argv=None) -> int:
     )
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = transformer.init(cfg, gen, device)
+    if args.checkpoint_dir:
+        from tony_tpu_torch.train.checkpoint import restore_lm_params
+
+        params = restore_lm_params(args.checkpoint_dir, params)
 
     if args.prompt_len > 0:
         prompt = torch.randint(0, args.vocab, (args.batch, args.prompt_len),

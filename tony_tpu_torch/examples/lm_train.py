@@ -5,22 +5,29 @@ examples/lm_train.py, single-device paths).
         --vocab 32768 --d-model 1024 --n-layers 12 --n-heads 8 --d-ff 4096 \
         --seq-len 2048 --batch-size 8 --steps 30
 
-The same flags, synthetic and ``--data`` paths, held-out eval, SIGTERM drain
-to EXIT_PREEMPTED, and result JSON (``final_loss``, ``steps_per_sec``,
-``tokens_per_sec``, ``n_params``, ``mesh``) as the JAX package's script,
-plus ``losses``, every step's loss (kept on the device and read once at the
-end, so no step waits for it). ``--device`` picks the device (default: the
-GPU, raising without one).
+The same flags, synthetic and ``--data`` paths, held-out eval, checkpoints,
+SIGTERM drain to EXIT_PREEMPTED, and result JSON (``final_loss``,
+``steps_per_sec``, ``tokens_per_sec``, ``n_params``, ``mesh``) as the JAX
+package's script, plus ``losses``, every step's loss of this run (kept on
+the device and read once at the end, so no step waits for it).
+``--device`` picks the device (default: the GPU, raising without one).
 Weights are random from a ``torch.Generator`` seeded 0; synthetic batch i
-comes from a generator seeded i.
+comes from a generator seeded i, and ``--data`` batch i is the loader's
+batch i, so a resumed run sees the same stream as an uninterrupted one.
+
+``--checkpoint-dir`` (train/checkpoint.py): a run resumes from the latest
+checkpoint at ``latest_step() + 1`` and takes ``--steps`` steps from there;
+it saves ``{"params", "opt_state"}`` every ``--checkpoint-every`` steps
+(overlapped with the next steps), at its last step, and at a preemption
+drain before it exits EXIT_PREEMPTED (the keep rules drop a save off the
+interval, as the JAX package's orbax manager does).
 
 Each step runs the flash forward kernel once per layer and the two flash
 backward kernels once per layer on the card.
 
-Not ported yet, each raising: ``--checkpoint-dir`` (the checkpoint slice),
-``--remat`` (the remat slice), ``--n-experts`` > 0 (MoE) and a ``--mesh``
-wider than one device (mesh/TP); a multi-process job raises in
-``train.init``.
+Not ported yet, each raising: ``--remat`` (the remat slice),
+``--n-experts`` > 0 (MoE) and a ``--mesh`` wider than one device
+(mesh/TP); a multi-process job raises in ``train.init``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,18 @@ import time
 def _not_ported(flag: str, slice_name: str):
     raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
                      f"(it comes with the {slice_name} slice)")
+
+
+def _copy_into(dst: dict, src: dict) -> None:
+    """Copy a restored tree into the live one: tensors in place, Python
+    scalars (the optimizer's count) by assignment."""
+    for key, value in src.items():
+        if isinstance(value, dict):
+            _copy_into(dst[key], value)
+        elif hasattr(value, "copy_"):
+            dst[key].copy_(value)
+        else:
+            dst[key] = value
 
 
 def main(argv=None) -> int:
@@ -73,8 +92,6 @@ def main(argv=None) -> int:
                         help="default: the GPU (raises without one)")
     args = parser.parse_args(argv)
 
-    if args.checkpoint_dir:
-        _not_ported("--checkpoint-dir", "checkpoint")
     if args.remat:
         _not_ported("--remat", "remat")
     if args.n_experts > 0:
@@ -108,6 +125,25 @@ def main(argv=None) -> int:
     print(f"model: {n_params / 1e6:.1f}M params | mesh {mesh} | device "
           f"{device}")
 
+    start_step = 0
+    mgr = None
+    if args.checkpoint_dir:
+        from tony_tpu_torch.train.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(args.checkpoint_dir,
+                                save_interval=args.checkpoint_every)
+        latest = mgr.latest_step()
+        if latest is not None:
+            restored = mgr.restore(
+                template={"params": params, "opt_state": opt_state})
+            # in place: the step holds these tensors (the autograd leaves
+            # and the AdamW moments)
+            with torch.no_grad():
+                _copy_into({"params": params, "opt_state": opt_state},
+                           restored)
+            start_step = latest + 1
+            print(f"resumed from checkpoint step {latest}")
+
     loader = None
     if args.data:
         from tony_tpu_torch.data import (
@@ -130,7 +166,8 @@ def main(argv=None) -> int:
         if args.eval_every > 0:
             dataset, val_dataset = dataset.split(args.eval_frac)
         loader = PrefetchLoader(ShardedBatchLoader(
-            dataset, args.batch_size, args.seq_len, seed=args.data_seed))
+            dataset, args.batch_size, args.seq_len, seed=args.data_seed,
+            start_step=start_step))
         if val_dataset is not None:
             try:
                 val_loader = ShardedBatchLoader(
@@ -166,17 +203,27 @@ def main(argv=None) -> int:
     # monitor samples; standalone runs leave it off
     timer = StepTimer(os.environ.get(ENV_STEP_LOG) or None)
 
-    # preemption drain: a SIGTERM, or the executor's flag file, ends the run
-    # at the next step boundary with EXIT_PREEMPTED (checkpointing comes with
-    # the checkpoint slice)
+    # preemption drain: a SIGTERM, or the executor's flag file, checkpoints
+    # at the next step boundary and exits EXIT_PREEMPTED, so the relaunch
+    # resumes instead of restarting
     import signal
 
     preempted = {"flag": False}
     old_handler = signal.signal(
         signal.SIGTERM, lambda *_: preempted.__setitem__("flag", True))
 
+    def save(step_i: int) -> None:
+        # overlapped: the host snapshot happens here, the write behind the
+        # next steps
+        mgr.save_async(step_i, {"params": params, "opt_state": opt_state})
+        timer.note_checkpoint(step_i)
+
     def drain_exit(step_i: int) -> int:
-        print(f"preempted at step {step_i}, exiting")
+        if mgr is not None:
+            save(step_i)
+            mgr.wait()
+            mgr.close()
+        print(f"preempted: checkpointed step {step_i}, exiting")
         return EXIT_PREEMPTED
 
     metrics = None
@@ -186,7 +233,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     try:
         with trace(args.profile_dir, enabled=bool(args.profile_dir)):
-            for step_i in range(args.steps):
+            for step_i in range(start_step, start_step + args.steps):
                 tokens, targets = next_batch(step_i)
                 params, opt_state, metrics = bundle.step_fn(
                     params, opt_state, tokens, targets)
@@ -198,8 +245,12 @@ def main(argv=None) -> int:
                     loss = float(metrics["loss"])   # sync point
                     print(f"step {step_i}: loss {loss:.4f} "
                           f"({timer.steps_per_sec:.2f} steps/s)")
+                if (mgr is not None and step_i % args.checkpoint_every == 0
+                        and step_i > 0):
+                    save(step_i)
                 if (loader is not None and args.eval_every > 0
-                        and step_i > 0 and step_i % args.eval_every == 0):
+                        and step_i > start_step
+                        and step_i % args.eval_every == 0):
                     last_eval = run_eval(params)
                     last_eval_step = step_i
     finally:
@@ -210,8 +261,12 @@ def main(argv=None) -> int:
     wall = time.time() - t0
     # final eval, unless the last loop step just ran the same one
     if (loader is not None and args.eval_every > 0
-            and last_eval_step != args.steps - 1):
+            and last_eval_step != start_step + args.steps - 1):
         last_eval = run_eval(params)
+    if mgr is not None:
+        save(start_step + args.steps - 1)
+        mgr.wait()
+        mgr.close()
 
     tokens_per_step = args.batch_size * args.seq_len
     result = {

@@ -104,4 +104,28 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device,
     return convert(tree, _expected_shapes(cfg), "")
 
 
-__all__ = ["from_jax_params", "config_from_fields", "torch_dtype"]
+def from_jax_opt_state(opt_state_tree, cfg: TransformerConfig, device,
+                       dtype: torch.dtype | None = None) -> dict:
+    """The JAX package's optimizer state (numpy leaves) -> the port's AdamW
+    state ``{"count", "mu", "nu"}``. The JAX state is the optax chain's
+    ``(clip_by_global_norm state, adamw state)``: the clip keeps nothing,
+    and the adamw chain's first state is ``ScaleByAdamState(count, mu,
+    nu)``, whose moments have the parameters' tree. Raises when the tree
+    has another shape."""
+    try:
+        clip, (adam, *_) = opt_state_tree
+        count, mu, nu = adam.count, adam.mu, adam.nu
+        empty_clip = len(clip) == 0
+    except (TypeError, ValueError, AttributeError) as e:
+        raise ValueError("expected the optax chain state (clip_by_global_"
+                         "norm, adamw) with ScaleByAdamState at the head of "
+                         "the adamw chain") from e
+    if not empty_clip:
+        raise ValueError("the clip_by_global_norm state should be empty")
+    return {"count": int(np.asarray(count)),
+            "mu": from_jax_params(mu, cfg, device, dtype),
+            "nu": from_jax_params(nu, cfg, device, dtype)}
+
+
+__all__ = ["from_jax_params", "from_jax_opt_state", "config_from_fields",
+           "torch_dtype"]

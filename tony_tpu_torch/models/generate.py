@@ -90,6 +90,31 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                    length=0)
 
 
+@dataclasses.dataclass(frozen=True)
+class PrefixPool:
+    """The serving prefix cache's shared KV block pool (models/serving.py):
+    ``n_blocks`` chunk-sized blocks, each holding ``chunk`` consecutive
+    positions of some cached prompt prefix. The slot cache's layout with
+    the block axis where the slot axis sits, so a block copies to or from
+    a slot's ring by indexing alone; its dtype is the slot cache's, so an
+    int8 pool holds the quantized values and their scales and a cache hit
+    reads the bytes the cold prefill wrote."""
+    k: torch.Tensor       # [n_layers, n_blocks, n_kv_heads, chunk, head_dim]
+    v: torch.Tensor
+    # int8 mode only: [n_layers, n_blocks, n_kv_heads, chunk] bf16 scales
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def init_prefix_pool(cfg: TransformerConfig, n_blocks: int, chunk: int,
+                     kv_dtype: str = "native", device=None) -> PrefixPool:
+    """The prefix pool (device memory: n_blocks x the KV bytes of ``chunk``
+    positions over every layer); the same dtype rules as init_cache."""
+    cache = init_cache(cfg, n_blocks, chunk, kv_dtype, device)
+    return PrefixPool(k=cache.k, v=cache.v, k_scale=cache.k_scale,
+                      v_scale=cache.v_scale)
+
+
 def _symmetric_int8(x, axis: int):
     """Symmetric int8 quantization over ``axis`` -> (int8 values, f32
     scales with ``axis`` kept as size 1)."""
@@ -514,5 +539,6 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
     return result if len(result) > 1 else out
 
 
-__all__ = ["KVCache", "init_cache", "generate", "sample_token",
-           "prepare_decode", "DecodeWeights", "moe_dropfree"]
+__all__ = ["KVCache", "init_cache", "PrefixPool", "init_prefix_pool",
+           "generate", "sample_token", "prepare_decode", "DecodeWeights",
+           "moe_dropfree"]

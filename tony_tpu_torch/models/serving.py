@@ -35,6 +35,23 @@ while the other slots keep decoding.
   schedules from an exact model of the slots and reads a block's packed
   result only when it needs the tokens. With stop tokens, blocks are read
   in bursts behind a ``pipeline_depth`` lag.
+- **Chunk-aligned prefix cache** (``prefix_cache_blocks=N``): a host trie
+  keyed on ``prefill_chunk``-sized token blocks whose nodes own KV blocks
+  in a device pool (``PrefixPool``). Admission walks the trie for the
+  longest cached chunk-aligned prefix of each prompt body, copies its
+  blocks into the slot's ring (``_copy_prefix_blocks``, one call a burst),
+  prefills only the suffix, then copies the burst's new full chunks out of
+  the rings into fresh pool blocks (``_insert_prefix_blocks``, right after
+  the suffix prefill: a frozen slot's ring keeps taking the decode blocks'
+  writes at the cursor, so the prompt may be overwritten by the time its
+  completion is processed). Lookups see the trie as of the burst's start,
+  so sharing begins one burst after a prefix first appears. A request
+  holds a reference on its matched path from admission until its
+  completion (or cancellation) is processed; unreferenced leaves are
+  evicted least recently used first when the pool is full. K/V at
+  position p depends only on tokens up to p, so a copied block holds the
+  bytes a cold prefill would write (int8 values and scales included) and
+  completions are the same with the cache on or off.
 
 The attention of every program here is the einsum formulation of
 ``_cached_attention`` (per-row lengths and ring offsets), as in the JAX
@@ -44,10 +61,13 @@ launches none of the port's CUDA kernels.
 Exactness: a request's greedy tokens equal a solo ``generate()`` run and
 the JAX package's ``SlotServer`` at float32 (tests/test_torch_serving.py).
 
-Not ported yet, each raising a named error: the mesh, the prefix cache,
-paged KV, disaggregated roles, speculative serving, the request journal
-and replay (``reset`` fails the admitted requests, as the JAX package's
-``replay=False``), request traces, the model registry, MoE and w8a16.
+Not ported yet, each raising a named error: the mesh and its rule table,
+paged KV and the admission tiers, the paged prefix cache (``allocator=``),
+disaggregated roles, speculative serving, the request journal and replay
+(``reset`` fails the admitted requests, as the JAX package's
+``replay=False`` does, though ``replay`` takes only its default ``True``
+until journal replay is ported), request traces, the model registry, MoE
+and w8a16.
 """
 
 from __future__ import annotations
@@ -67,10 +87,12 @@ from . import transformer
 from .generate import (
     DecodeWeights,
     KVCache,
+    PrefixPool,
     _cached_attention,
     _forward_with_cache,
     _quantize_kv,
     init_cache,
+    init_prefix_pool,
     moe_dropfree,
     prepare_decode,
     sample_token,
@@ -94,18 +116,30 @@ PRIORITY_CLASSES = ("interactive", "batch")
 LOGPROBS_MAX = 8
 
 # The JAX package's SlotServer arguments the port does not have yet:
-# name -> (the value that means "off", what it enables, its ROADMAP.md
-# queue-1 item). Any other value raises NotImplementedError.
+# name -> (the value that means "off": the JAX package's default, what it
+# enables, its ROADMAP.md queue-1 item). Any other value raises
+# NotImplementedError.
+_PAGED = "the rest of serving: paged KV and admission tiers"
+_JOURNAL = "the rest of serving: journal and replay"
 _NOT_PORTED = {
     "mesh": (None, "tensor-parallel serving", "mesh/TP"),
-    "prefix_cache_blocks": (0, "the prefix cache", "the rest of serving"),
-    "paged": (False, "paged KV", "the rest of serving"),
+    "rules": (None, "the mesh's sharding rules", "mesh/TP"),
+    "paged": (False, "paged KV", _PAGED),
+    "kv_block": (0, "paged KV blocks", _PAGED),
+    "kv_pool_blocks": (0, "the paged KV pool", _PAGED),
+    "class_budgets": (None, "admission class budgets", _PAGED),
+    "prefill_interleave": (0, "interleaved prefill", _PAGED),
     "role": ("both", "disaggregated prefill/decode roles",
-             "the rest of serving"),
+             "the rest of serving: disaggregated roles"),
     "draft": (None, "speculative serving", "speculative decoding"),
-    "journal": (None, "the request journal", "the rest of serving"),
-    "replay": (False, "journal replay", "the rest of serving"),
-    "trace_sink": (None, "request traces", "the rest of serving"),
+    "draft_cfg": (None, "speculative serving", "speculative decoding"),
+    "spec_gamma": (0, "a pinned speculative window", "speculative decoding"),
+    "spec_gamma_max": (4, "the speculative window's ceiling",
+                       "speculative decoding"),
+    "journal": (None, "the request journal", _JOURNAL),
+    "replay": (True, "switching journal replay", _JOURNAL),
+    "trace_sink": (None, "request traces",
+                   "the rest of serving: serving telemetry"),
     "registry": (None, "the model registry", "HF import"),
 }
 
@@ -171,12 +205,16 @@ class Request:
     ``stop`` is a per-request list of stop SEQUENCES, matched on the host
     when a block is processed; the match is included in the output.
     ``logprobs`` (0 = off, <= LOGPROBS_MAX) asks for the top-k
-    log-probabilities of every emitted token. ``resume_tokens`` (journal
-    replay) raises NotImplementedError at submit."""
+    log-probabilities of every emitted token. ``cache_prompt`` overrides
+    the server's ``cache_prompts`` default: whether this prompt's body
+    chunks go into the prefix cache at admission (None = the server's
+    default). ``resume_tokens`` (journal replay) raises
+    NotImplementedError at submit."""
     prompt: Any
     max_new_tokens: int
     temperature: float | None = None
     top_k: int | None = None
+    cache_prompt: bool | None = None
     deadline: float | None = None
     resume_tokens: list | None = None
     stop: list | None = None
@@ -207,7 +245,9 @@ class QueueFullError(RuntimeError):
 class _Admission:
     """One (slot, request) pair of an admission burst, with the layout
     decisions made at collection time: ring offset, budget target,
-    sampling overrides and the chunk starts the prefill will feed."""
+    sampling overrides, the chunk starts the prefill will feed (from the
+    cached prefix's end), and the matched prefix-cache trie path ([]
+    without a hit)."""
     slot: int
     req: Request
     body: np.ndarray
@@ -217,6 +257,7 @@ class _Admission:
     topk: int
     chunk_starts: list
     last: int = 0               # the first fed token: the prompt's last
+    hit_path: list = field(default_factory=list)
 
 
 @dataclass
@@ -401,6 +442,195 @@ def _cancel_slot(active: torch.Tensor, slot: int) -> None:
     active[slot:slot + 1].fill_(False)
 
 
+# ---------------------------------------------------------- prefix cache
+
+class _PrefixNode:
+    """One trie node: one ``prefill_chunk``-sized token block owning one
+    pool block. ``refs`` counts the admitted requests whose matched path
+    runs through it (admission to processed completion), plus a transient
+    insert reference that protects a just-allocated node until its copy
+    into the pool is dispatched; ``tick`` is the LRU clock."""
+    __slots__ = ("children", "parent", "key", "block", "refs", "tick")
+
+    def __init__(self, parent, key, block):
+        self.children: dict[bytes, _PrefixNode] = {}
+        self.parent = parent
+        self.key = key
+        self.block = block
+        self.refs = 0
+        self.tick = 0
+
+
+class PrefixCache:
+    """The host side of the prefix pool (the JAX package's
+    serving.py:427): a trie keyed on chunk-sized token blocks and a block
+    allocator with LRU eviction of unreferenced leaves. A host data
+    structure only (the SlotServer dispatches the device copies), so its
+    reference counts and eviction are testable without a model.
+
+    Invariants: every trie node owns exactly one pool block and free
+    blocks are owned by nobody; eviction takes only a leaf with no
+    references (an interior node's children are unreachable without it,
+    and a referenced node's block may still be copied into an admitted
+    slot). ``alloc`` returns None when every block is taken and nothing is
+    evictable; the caller then inserts less.
+
+    ``allocator=`` (the JAX package's paged-KV mode, where the trie shares
+    the paged pool's blocks) raises: paged KV is not ported."""
+
+    def __init__(self, n_blocks: int, chunk: int, allocator=None):
+        if allocator is not None:
+            raise _not_ported("the paged prefix cache (allocator=)", _PAGED)
+        if n_blocks < 1:
+            raise ValueError(f"prefix cache needs >= 1 block, got {n_blocks}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.n_blocks = n_blocks
+        self.chunk = chunk
+        self.root = _PrefixNode(None, b"", -1)
+        self._free = list(range(n_blocks - 1, -1, -1))
+        self._owned: set[_PrefixNode] = set()
+        self._tick = 0
+        self.hits = 0           # admissions matching >= 1 chunk
+        self.misses = 0         # admissions matching none
+        self.evictions = 0
+        self.inserted_blocks = 0
+
+    @property
+    def blocks_used(self) -> int:
+        return len(self._owned)
+
+    def _touch(self, node: _PrefixNode) -> None:
+        self._tick += 1
+        node.tick = self._tick
+
+    def lookup(self, body: np.ndarray) -> list[_PrefixNode]:
+        """The longest cached chunk-aligned prefix of ``body`` -> its node
+        path (blocks in ``node.block``). Counts a hit or a miss and touches
+        the path's LRU clocks; takes no references (``acquire`` does)."""
+        node, path = self.root, []
+        c = self.chunk
+        for c0 in range(0, len(body) - c + 1, c):
+            child = node.children.get(body[c0:c0 + c].tobytes())
+            if child is None:
+                break
+            path.append(child)
+            node = child
+        for n in path:
+            self._touch(n)
+        if path:
+            self.hits += 1
+        else:
+            self.misses += 1
+        return path
+
+    def acquire(self, path) -> None:
+        for n in path:
+            n.refs += 1
+
+    def release(self, path) -> None:
+        for n in path:
+            if n.refs <= 0:
+                raise RuntimeError("prefix-cache reference underflow")
+            n.refs -= 1
+
+    def _evict_one(self) -> int | None:
+        """Free the least recently used unreferenced leaf's block (ticks
+        are unique, so the choice is deterministic)."""
+        victim = None
+        for node in self._owned:
+            if node.children or node.refs > 0:
+                continue
+            if victim is None or node.tick < victim.tick:
+                victim = node
+        if victim is None:
+            return None
+        del victim.parent.children[victim.key]
+        self._owned.discard(victim)
+        self.evictions += 1
+        return victim.block
+
+    def alloc(self) -> int | None:
+        if self._free:
+            return self._free.pop()
+        return self._evict_one()
+
+    def insert(self, body: np.ndarray) -> list[tuple[int, _PrefixNode]]:
+        """Add ``body``'s full chunks to the trie, reusing existing nodes
+        (the first writer wins: a burst-mate may have made them) and
+        allocating blocks for new ones -> the NEW (chunk index, node)
+        pairs, whose blocks need the device copy. Each new node carries an
+        insert reference the caller releases once that copy is dispatched,
+        so a later insert cannot evict a block not yet filled. Stops early
+        (still a valid prefix chain) when no block can be had."""
+        node, created = self.root, []
+        c = self.chunk
+        for c0 in range(0, len(body) - c + 1, c):
+            key = body[c0:c0 + c].tobytes()
+            child = node.children.get(key)
+            if child is None:
+                block = self.alloc()
+                if block is None:
+                    break
+                child = _PrefixNode(node, key, block)
+                node.children[key] = child
+                self._owned.add(child)
+                child.refs = 1          # insert reference
+                created.append((c0 // c, child))
+                self.inserted_blocks += 1
+            self._touch(child)
+            node = child
+        return created
+
+
+def _prefix_ring(pool: PrefixPool, cache: KVCache, rows: torch.Tensor):
+    """[4, T] rows (slot, block, chunk index, ring offset) -> slots,
+    blocks [T] and the ring indices [T, C] of each row's logical positions
+    chunk_idx*C + arange(C), mod the ring's capacity (a prefix across the
+    ring's end wraps as the prefill's writes do)."""
+    slots, blocks, chunk_idx, offsets = rows.unbind(0)
+    c = pool.k.shape[3]
+    pos = chunk_idx[:, None] * c + torch.arange(c, device=rows.device)
+    return slots, blocks, (offsets[:, None] + pos) % cache.k.shape[3]
+
+
+@torch.no_grad()
+def _copy_prefix_blocks(pool: PrefixPool, cache: KVCache,
+                        rows: torch.Tensor) -> None:
+    """The hit path, in place: row t copies pool block ``blocks[t]`` into
+    slot ``slots[t]``'s ring at its logical positions [chunk_idx[t]*C,
+    +C) (the JAX package's serving.py:622). Data movement only: the int8
+    pool's quantized values and scales are copied as they are. Rows are
+    the real (slot, block) pairs only, and no two write the same (slot,
+    ring index), so the index-put is deterministic."""
+    slots, blocks, ring = _prefix_ring(pool, cache, rows)
+    sel = (slice(None), slots[:, None], slice(None), ring)
+    # the pool's [L, T, kvH, C(, D)] -> the update's [T, C, L, kvH(, D)]
+    cache.k[sel] = pool.k[:, blocks].permute(1, 3, 0, 2, 4)
+    cache.v[sel] = pool.v[:, blocks].permute(1, 3, 0, 2, 4)
+    if pool.k_scale is not None:
+        cache.k_scale[sel] = pool.k_scale[:, blocks].permute(1, 3, 0, 2)
+        cache.v_scale[sel] = pool.v_scale[:, blocks].permute(1, 3, 0, 2)
+
+
+@torch.no_grad()
+def _insert_prefix_blocks(pool: PrefixPool, cache: KVCache,
+                          rows: torch.Tensor) -> None:
+    """The insert path, in place: row t copies slot ``slots[t]``'s ring at
+    logical [chunk_idx[t]*C, +C) into pool block ``blocks[t]`` (the JAX
+    package's serving.py:668). Dispatched right after the suffix prefill
+    that wrote those positions and before any later decode block. Blocks
+    are fresh allocations, unique within a call."""
+    slots, blocks, ring = _prefix_ring(pool, cache, rows)
+    sel = (slice(None), slots[:, None], slice(None), ring)
+    # the ring's [T, C, L, kvH(, D)] -> the pool's [L, T, kvH, C(, D)]
+    pool.k[:, blocks] = cache.k[sel].permute(2, 0, 3, 1, 4)
+    pool.v[:, blocks] = cache.v[sel].permute(2, 0, 3, 1, 4)
+    if pool.k_scale is not None:
+        pool.k_scale[:, blocks] = cache.k_scale[sel].permute(2, 0, 3, 1)
+        pool.v_scale[:, blocks] = cache.v_scale[sel].permute(2, 0, 3, 1)
+
+
 # ------------------------------------------------------------------ server
 
 class SlotServer:
@@ -426,10 +656,17 @@ class SlotServer:
     ``max_queue=N`` bounds the wait queue (0 = unbounded): ``submit``
     raises ``QueueFullError`` past it (batch-tier requests past
     ``batch_queue_frac`` of it). ``cancel(request_id)`` stops a request
-    wherever it is. ``reset()`` re-arms every serving buffer after a loop
-    failure, without touching the weights: queued requests survive, and
-    the admitted ones are returned as lost (there is no journal to replay
-    them from)."""
+    wherever it is. ``reset()`` re-arms every serving buffer (the prefix
+    pool and trie included) after a loop failure, without touching the
+    weights: queued requests survive, and the admitted ones are returned
+    as lost (there is no journal to replay them from).
+
+    ``prefix_cache_blocks=N`` enables the chunk-aligned prefix cache
+    (module docstring): N ``prefill_chunk``-sized blocks in a device pool
+    (N x layers x kvH x chunk x head_dim x the KV dtype's bytes, twice for
+    K and V). ``cache_prompts`` is the default for inserting admitted
+    prompts' chunks into it; ``Request.cache_prompt`` overrides it per
+    request. ``stats()["prefix_cache"]`` reports its counters."""
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
                  max_len: int = 2048, block_size: int = 16,
@@ -437,9 +674,10 @@ class SlotServer:
                  weight_dtype: str = "native", temperature: float = 0.0,
                  top_k: int = 0, stop_tokens: tuple = (), pad_id: int = 0,
                  seed: int = 0, pipeline_depth: int = 2,
-                 batched_admission: bool = True, max_queue: int = 0,
-                 batch_queue_frac: float = 0.5, model: str = "default",
-                 device=None, **not_ported):
+                 batched_admission: bool = True,
+                 prefix_cache_blocks: int = 0, cache_prompts: bool = True,
+                 max_queue: int = 0, batch_queue_frac: float = 0.5,
+                 model: str = "default", device=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SlotServer() got an unexpected keyword "
@@ -486,6 +724,9 @@ class SlotServer:
         self._predictive = not self.stop_tokens
         self.admission_dispatches = 0   # prefill calls
         self.prefill_tokens_computed = 0
+        self.prefill_tokens_reused = 0  # copied from the prefix pool
+        self.prefix_copy_dispatches = 0
+        self.prefix_insert_dispatches = 0
         self.blocks_dispatched = 0
         self.shed_requests = 0
         self.shed_by_class = {cls: 0 for cls in PRIORITY_CLASSES}
@@ -498,6 +739,16 @@ class SlotServer:
         # ServeApp.shutdown(drain=True) parks admission
         self.pause_admission = False
         self._init_device_state()
+        # the chunk-aligned prefix cache (module docstring); a request id ->
+        # its matched trie path, referenced until its completion is
+        # processed
+        self.cache_prompts = bool(cache_prompts)
+        self._prefix_blocks = int(prefix_cache_blocks)
+        self._prefix_cache: PrefixCache | None = None
+        self._pool: PrefixPool | None = None
+        self._prefix_refs: dict[int, list] = {}
+        if self._prefix_blocks > 0:
+            self._init_prefix_pool()
         self._init_host_state()
         self._queue: collections.deque[Request] = collections.deque()
         self._done: dict[int, Completion] = {}
@@ -518,6 +769,14 @@ class SlotServer:
             offsets=torch.zeros(s, **zeros),
             temps=torch.zeros(s, dtype=torch.float32, device=dev),
             topks=torch.zeros(s, **zeros))
+
+    def _init_prefix_pool(self) -> None:
+        """(Re)create the prefix pool's device blocks and an empty trie."""
+        self._pool = init_prefix_pool(self.cfg, self._prefix_blocks,
+                                      self.prefill_chunk, self.kv_dtype,
+                                      self.device)
+        self._prefix_cache = PrefixCache(self._prefix_blocks,
+                                         self.prefill_chunk)
 
     def _init_host_state(self) -> None:
         """(Re)zero the host-side scheduling state: sampling mirrors, the
@@ -675,7 +934,10 @@ class SlotServer:
         the admitted-but-undelivered ids are returned as lost, so the
         caller fails them upstream."""
         failed = sorted(self._inflight)
+        self._prefix_refs.clear()
         self._init_device_state()
+        if self._prefix_blocks:
+            self._init_prefix_pool()
         self._init_host_state()
         self.resets += 1
         return failed
@@ -691,8 +953,13 @@ class SlotServer:
         return out
 
     def _release_request(self, request_id: int) -> None:
+        """Drop a finished or cancelled request's dispatch-side tracking
+        and its reference on its matched prefix-cache path."""
         self._slot_of.pop(request_id, None)
         self._inflight.discard(request_id)
+        path = self._prefix_refs.pop(request_id, None)
+        if path is not None:
+            self._prefix_cache.release(path)
 
     @property
     def pending(self) -> int:
@@ -723,9 +990,11 @@ class SlotServer:
         return int(self._host_busy.sum())
 
     def stats(self) -> dict:
-        """Serving-load counters, one flat snapshot (the /stats payload)."""
+        """Serving-load and prefix-cache counters, one flat snapshot (the
+        /stats payload). ``prefill_tokens_reused`` were copied from the
+        prefix pool, ``prefill_tokens_computed`` ran the model."""
         disp = sorted(self.block_dispatch_s)
-        return {
+        out = {
             "model": self.model,
             "device": str(self.device),
             "slots": self.slots,
@@ -737,6 +1006,7 @@ class SlotServer:
             "admission_dispatches": self.admission_dispatches,
             "blocks_dispatched": self.blocks_dispatched,
             "prefill_tokens_computed": self.prefill_tokens_computed,
+            "prefill_tokens_reused": self.prefill_tokens_reused,
             "shed": self.shed_requests,
             "shed_by_class": dict(self.shed_by_class),
             "cancelled": self.cancelled_requests,
@@ -745,6 +1015,19 @@ class SlotServer:
             "decode_block_dispatch_ms_p50": (
                 disp[len(disp) // 2] * 1e3 if disp else None),
         }
+        pc = self._prefix_cache
+        if pc is not None:
+            out["prefix_cache"] = {
+                "hits": pc.hits,
+                "misses": pc.misses,
+                "evictions": pc.evictions,
+                "inserted_blocks": pc.inserted_blocks,
+                "blocks_used": pc.blocks_used,
+                "blocks_total": pc.n_blocks,
+                "copy_dispatches": self.prefix_copy_dispatches,
+                "insert_dispatches": self.prefix_insert_dispatches,
+            }
+        return out
 
     # ----------------------------------------------------------- the loop
 
@@ -760,8 +1043,12 @@ class SlotServer:
     def _admit(self) -> None:
         """Admit queued requests into free slots: the whole burst is
         collected first (every ring offset derives from the same cursor),
-        then prefilled, and each admission is logged against the newest
-        in-flight block so the bookkeeping replays it in order."""
+        then dispatched in three phases whose stream order is the
+        contract: (1) copy the matched prefix-cache blocks into the slot
+        rings, (2) prefill each request's uncached suffix, (3) copy the
+        burst's new full chunks into the pool. Each admission is logged
+        against the newest in-flight block so the bookkeeping replays it
+        in order."""
         if self.pause_admission:
             return
         self._sweep_expired()
@@ -787,18 +1074,29 @@ class SlotServer:
             temp = (self.temperature if req.temperature is None
                     else float(req.temperature))
             topk = self.top_k if req.top_k is None else int(req.top_k)
+            prefix_len, path = 0, []
+            if self._prefix_cache is not None:
+                path = self._prefix_cache.lookup(body)
+                prefix_len = len(path) * C
+                if path:
+                    # pinned (unevictable) until the completion is processed
+                    self._prefix_cache.acquire(path)
+                    self.prefill_tokens_reused += prefix_len
             admissions.append(_Admission(
                 slot=slot, req=req, body=body, offset=offset, target=target,
                 temp=temp, topk=topk,
-                chunk_starts=list(range(0, body.size, C)) or [0],
-                last=int(prompt[-1])))
+                chunk_starts=list(range(prefix_len, body.size, C))
+                or [prefix_len],
+                last=int(prompt[-1]), hit_path=path))
         if not admissions:
             return
+        self._dispatch_prefix_copy(admissions)
         if self.batched_admission and len(admissions) > 1:
             self._prefill_burst(admissions)
         else:
             for adm in admissions:
                 self._prefill_one(adm)
+        self._dispatch_prefix_insert(admissions)
         for adm in admissions:
             slot = adm.slot
             self._host_busy[slot] = True
@@ -808,11 +1106,48 @@ class SlotServer:
             self._model_len[slot] = adm.body.size
             self._model_active[slot] = True
             self._model_target[slot] = adm.target
+            if adm.hit_path:
+                self._prefix_refs[adm.req.id] = adm.hit_path
             admit = (slot, adm.body.size, adm.req)
             if self._pipeline:
                 self._pipeline[-1]["events"].append(("admit", admit))
             else:                       # nothing in flight: applies now
                 self._apply_admit(admit)
+
+    def _dispatch_prefix_copy(self, admissions) -> None:
+        """Phase 1 of admission: one ``_copy_prefix_blocks`` call moves
+        every matched pool block of the burst into its slot's ring, ahead
+        of the suffix prefill whose attention reads them."""
+        rows = [(a.slot, n.block, ci, a.offset)
+                for a in admissions for ci, n in enumerate(a.hit_path)]
+        if rows:
+            _copy_prefix_blocks(self._pool, self._cache,
+                                _stage(np.asarray(rows, np.int64).T,
+                                       self.device))
+            self.prefix_copy_dispatches += 1
+
+    def _dispatch_prefix_insert(self, admissions) -> None:
+        """Phase 3 of admission: insert the burst's new full chunks into
+        the trie and copy their just-prefilled K/V out of the slot rings
+        into the new blocks, in one ``_insert_prefix_blocks`` call."""
+        if self._prefix_cache is None:
+            return
+        rows, created = [], []
+        for a in admissions:
+            want = (self.cache_prompts if a.req.cache_prompt is None
+                    else a.req.cache_prompt)
+            if not want:
+                continue
+            for ci, node in self._prefix_cache.insert(a.body):
+                rows.append((a.slot, node.block, ci, a.offset))
+                created.append(node)
+        if rows:
+            _insert_prefix_blocks(self._pool, self._cache,
+                                  _stage(np.asarray(rows, np.int64).T,
+                                         self.device))
+            self.prefix_insert_dispatches += 1
+        # the insert references protected the new blocks until their copy
+        self._prefix_cache.release(created)
 
     def _chunk(self, adm: _Admission, c0: int) -> tuple[np.ndarray, int]:
         n_valid = max(0, min(self.prefill_chunk, adm.body.size - c0))
@@ -1055,5 +1390,6 @@ class SlotServer:
 
 
 __all__ = ["Request", "Completion", "SlotServer", "QueueFullError",
+           "PrefixCache",
            "COMPLETION_FINISH_REASONS", "FINISH_REASONS", "PRIORITY_CLASSES",
            "LOGPROBS_MAX"]

@@ -2,10 +2,10 @@
 
 ``trace`` captures a ``torch.profiler`` trace (Chrome trace JSON, viewable in
 Perfetto) into a directory. ``StepTimer`` writes the same JSONL step records
-as the JAX package's and polls the executor's preemption flag file. Not
+as the JAX package's, with its checkpoint-recency fields
+(``note_checkpoint``), and polls the executor's preemption flag file. Not
 ported yet: the XLA compile counters and the on-demand profiler capture
-(ROADMAP queue 1, observability item) and the checkpoint-recency fields
-(the checkpoint slice).
+(ROADMAP queue 1, observability item).
 """
 
 from __future__ import annotations
@@ -95,6 +95,10 @@ class StepTimer:
         # poll is time-gated (every ~0.25 s), never per step
         self.preempt_requested = False
         self._preempt_poll_t = 0.0
+        # checkpoint recency (note_checkpoint): rides the JSONL records so
+        # the job's metrics can show the checkpoint's age centrally
+        self._ckpt_step: int | None = None
+        self._ckpt_ts: float | None = None
 
     def tick(self, **extra) -> float | None:
         """Call once per training step; returns the last step's duration."""
@@ -121,6 +125,9 @@ class StepTimer:
                 "ts": time.time(),
                 **extra,
             }
+            if self._ckpt_step is not None:
+                rec["last_ckpt_step"] = self._ckpt_step
+                rec["last_ckpt_ts"] = self._ckpt_ts
             # best effort: a missing log dir or a full disk must not kill
             # the training loop
             try:
@@ -130,6 +137,13 @@ class StepTimer:
             except OSError as e:
                 log.warning("step log write failed: %s", e)
         return dt
+
+    def note_checkpoint(self, step: int) -> None:
+        """Tell the timer a checkpoint of ``step`` was written or handed to
+        the writer: the next JSONL record carries ``last_ckpt_step`` and
+        ``last_ckpt_ts``."""
+        self._ckpt_step = int(step)
+        self._ckpt_ts = time.time()
 
     def _poll_preempt_flag(self) -> None:
         """Check for the executor's ``<out>.preempt`` drain notice. Sticky
