@@ -50,13 +50,29 @@ and exits non-zero if any of them fails:
    hits the second time), cold and warm TTFT and admission time; the
    cache's completions against a server without it at float32 (2 layers,
    native and int8 KV), up to the first near-tie of the cacheless logits;
-8. parity: the flagship width at 2 layers on the card (kernels, bf16)
+8. main path, replay: the request journal through injected crashes: (a)
+   8 requests through 3 slots at float32 (2 layers) with two crashes at
+   decode-block ordinals (TONY_TEST_SERVING_CRASH_AT_BLOCKS), reset() as
+   ServeApp calls it, token-identical to the crashless server up to its
+   first near-tie (native KV; int8 KV: the journaled prefixes verbatim,
+   half the streams equal); (b) serve's app at the flagship width with the
+   CLI's defaults, 16 concurrent greedy HTTP requests without and with two
+   crashes: 16 of 16 complete, 2 loop restarts, every stream as long as
+   the crashless run's and beginning with its journaled prefixes, the
+   re-prefilled and re-decoded tokens and the burst's wall times
+   reported; (c) a serve process (python -m tony_tpu_torch.cli.serve,
+   --trace-dir under build/) SIGKILLed at a decode block
+   (TONY_TEST_SERVING_SIGKILL_AT_BLOCK) and restarted: it resumes the
+   journaled requests, finishes them and compacts the journal; (d)
+   checkpoint_progress with blocks in flight returns without waiting for
+   the newest block;
+9. parity: the flagship width at 2 layers on the card (kernels, bf16)
    against the CPU's plain path in float32, from the same weights, for the
    generation logits and for the training loss and every gradient; and the
    SlotServer in float32 on the card (8 requests through 3 slots, batched
    and per-slot admission) against the port's generate run solo on the
    card, token for token up to the first near-tie of solo's logits;
-9. profile: a flagship decode step's and a flagship training step's host
+10. profile: a flagship decode step's and a flagship training step's host
    wall time against the device time torch.profiler records.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -130,6 +146,17 @@ ELASTIC_STEPS, ELASTIC_FLAG_AT = 40, 10
 # shared prefix, requests, their suffixes' length range and new tokens
 PREFIX_BLOCKS = 64
 PREFIX_LEN, PREFIX_REQUESTS, PREFIX_SUFFIX, PREFIX_NEW = 1024, 16, (32, 256), 32
+# the replay phase: (a) REPLAY_F32 requests of REPLAY_F32_NEW new tokens
+# (6 blocks) through 3 slots at float32 (2 layers), crashes at decode
+# blocks REPLAY_F32_CRASH: the 5th is the first wave's, the 13th the
+# second's, each with two blocks journaled by checkpoint_progress; (b)
+# REPLAY_REQUESTS concurrent HTTP requests through serve's app, prompts and
+# new tokens uniform over these ranges, without and with two crashes; (c)
+# REPLAY_KILL requests of REPLAY_KILL_NEW new tokens to a serve process
+# that SIGKILLs itself REPLAY_KILL_BLOCK decode blocks after a warm-up
+REPLAY_F32, REPLAY_F32_NEW, REPLAY_F32_CRASH = 8, 96, "5,13"
+REPLAY_REQUESTS, REPLAY_PROMPT, REPLAY_NEW = 16, (64, 1536), (64, 128)
+REPLAY_KILL, REPLAY_KILL_NEW, REPLAY_KILL_BLOCK = 8, 128, 6
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -1638,6 +1665,485 @@ def phase_prefix_cache(torch, ops) -> dict:
     return counts
 
 
+def _crash_harness(srv, reqs) -> tuple:
+    """Drive a SlotServer as ServeApp's loop does (checkpoint_progress when
+    no completion is ready; reset() after a step's exception) to the end
+    -> (completions by id, the journaled prefix each replay resumed from,
+    by id). Only the chaos hook's exceptions are expected."""
+    for r in reqs:
+        srv.submit(r)
+    done, prefixes = {}, collections.defaultdict(list)
+    while not srv.idle:
+        try:
+            srv.step()
+            if srv.completions_ready:
+                done.update(srv.drain_completed())
+            else:
+                srv.checkpoint_progress()
+        except RuntimeError as e:
+            if "chaos" not in str(e):
+                raise
+            lost = srv.reset()
+            if lost:
+                fail(f"replay: reset() lost {lost}")
+            for r in srv._queue:
+                if r.resume_tokens is not None:
+                    prefixes[r.id].append(list(r.resume_tokens))
+    done.update(srv.drain_completed())
+    return done, prefixes
+
+
+def _check_prefixes(name, tokens, prefixes) -> None:
+    """Every completion begins with each journaled prefix it resumed from."""
+    for p in prefixes:
+        if tokens[:len(p)] != p:
+            fail(f"{name}: a completion does not begin with its journaled "
+                 f"prefix of {len(p)} tokens")
+
+
+def _replay_direct(torch, G, T, S) -> list:
+    """(a): the flagship widths at 2 layers in float32, REPLAY_F32 requests
+    through 3 slots, TONY_TEST_SERVING_CRASH_AT_BLOCKS at two mid-decode
+    ordinals, against the same server without a crash: token-identical up
+    to the crashless run's first near-tie (native KV); the journaled
+    prefixes verbatim and at least half the streams equal (int8 KV, the
+    reference's carve-out)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(43), dev), cfg)
+    rng = np.random.default_rng(43)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, REPLAY_F32)]
+    rows = []
+    for kv in ("native", "int8"):
+        ref = S.SlotServer(w, cfg, slots=3, max_len=1024, kv_dtype=kv)
+        reqs = [S.Request(prompt=p, max_new_tokens=REPLAY_F32_NEW,
+                          logprobs=2) for p in prompts]
+        for r in reqs:
+            ref.submit(r)
+        got = ref.run_until_drained()
+        want = [got[r.id] for r in reqs]
+        os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"] = REPLAY_F32_CRASH
+        try:
+            srv = S.SlotServer(w, cfg, slots=3, max_len=1024, kv_dtype=kv)
+        finally:
+            del os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"]
+        reqs = [S.Request(prompt=p, max_new_tokens=REPLAY_F32_NEW)
+                for p in prompts]
+        done, prefixes = _crash_harness(srv, reqs)
+        if srv.chaos_faults_injected != 2 or srv.replays < 1:
+            fail(f"replay (a, {kv}): {srv.chaos_faults_injected} crashes, "
+                 f"{srv.replays} replays")
+        equal = 0
+        for i, (r, c) in enumerate(zip(reqs, want)):
+            toks = done[r.id].tokens
+            _check_prefixes(f"replay (a, {kv})", toks, prefixes[r.id])
+            equal += toks == c.tokens
+            row = dict(kv=kv, request=i,
+                       resumed_from=[len(p) for p in prefixes[r.id]])
+            if kv == "native":
+                gaps = [e["top"][1][0] - e["top"][1][1] for e in c.logprobs]
+                row.update(_near_tie_check(f"replay (a, {kv})", toks,
+                                           c.tokens, gaps, REPLAY_F32_NEW))
+            elif len(toks) != REPLAY_F32_NEW:
+                fail(f"replay (a, {kv}): request {i} has {len(toks)} tokens")
+            rows.append(row)
+        if kv == "int8" and equal * 2 < REPLAY_F32:
+            fail(f"replay (a, int8): {equal} of {REPLAY_F32} streams equal "
+                 "the crashless run's")
+        print(f"replay (a, float32, 2 layers, {kv} KV): {REPLAY_F32} "
+              f"requests through 3 slots, crashes at decode blocks "
+              f"{REPLAY_F32_CRASH}, "
+              f"{srv.replays} replays ({srv.replayed_tokens} journaled "
+              f"tokens); {equal} of {REPLAY_F32} streams token-identical to "
+              f"the crashless server"
+              + ("" if kv == "int8" else ", every other one only at or after"
+                 f" a near-tie (gap < {PARITY_NEAR_TIE})"))
+        del ref, srv
+    del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _replay_http(torch, serve, payloads, crash_blocks) -> dict:
+    """(b), one burst: serve's app at the flagship width with the CLI's
+    defaults, a one-block warm-up request, then every payload at once;
+    with ``crash_blocks`` set, TONY_TEST_SERVING_CRASH_AT_BLOCKS is those
+    ordinals. Every block's dispatch runs under sync debug mode "error".
+    -> the burst's record (completions in payload order)."""
+    if crash_blocks:
+        os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"] = ",".join(
+            str(b) for b in crash_blocks)
+    try:
+        app, httpd, url = _serve_app(serve, FLAGSHIP + ["--seed", "41"])
+    finally:
+        os.environ.pop("TONY_TEST_SERVING_CRASH_AT_BLOCKS", None)
+    srv = app.server
+    rec = dict(decoded=0, inflight_at_crash=[], replay_bound=0, prefixes={})
+    dispatch, reset = srv._dispatch_block, srv.reset
+
+    def checked_dispatch():
+        before = srv._model_len.copy()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            rec["decoded"] += int((srv._model_len - before).sum())
+
+    def counted_reset():
+        rec["inflight_at_crash"].append(len(srv._inflight))
+        lost = reset()
+        for r in srv._queue:
+            if r.resume_tokens is not None:
+                rec["prefixes"].setdefault(r.id, []).append(
+                    list(r.resume_tokens))
+                rec["replay_bound"] += len(r.prompt) + len(
+                    r.resume_tokens) - 1
+        return lost
+
+    srv._dispatch_block, srv.reset = checked_dispatch, counted_reset
+    try:
+        warm = _post(url, dict(prompt=list(range(1, 300)), max_new_tokens=16))
+        if warm[0] != 200:
+            fail(f"replay (b): warm-up answered {warm[0]}: {warm[1]}")
+        with app.lock:
+            s0 = srv.stats()
+        rec["decoded"] = 0
+        t0 = time.perf_counter()
+        results = _post_all(url, payloads)
+        rec["wall_s"] = time.perf_counter() - t0
+        with app.lock:
+            s1 = srv.stats()
+        health = app.health()
+        rec.update(loop_restarts=app.loop_restarts,
+                   failures=app.loop_failures)
+    finally:
+        _stop_app(app, httpd)
+        del srv._dispatch_block, srv.reset
+    rec.update(
+        warm_blocks=s0["blocks_dispatched"],
+        blocks=s1["blocks_dispatched"] - s0["blocks_dispatched"],
+        prefill_computed=s1["prefill_tokens_computed"]
+        - s0["prefill_tokens_computed"],
+        replays=s1["replays"] - s0["replays"],
+        replayed_tokens=s1["replayed_tokens"] - s0["replayed_tokens"],
+        crashes=s1["chaos_faults_injected"], healthy=health["healthy"],
+        completions=[(r[1]["id"], r[1]["tokens"], r[1]["finish_reason"])
+                     for r in results])
+    del app
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _replay_sigkill(torch) -> dict:
+    """(c): ``python -m tony_tpu_torch.cli.serve`` at the flagship width
+    with --trace-dir under build/, REPLAY_KILL requests posted at once, the
+    process SIGKILLed by TONY_TEST_SERVING_SIGKILL_AT_BLOCK; then the same
+    command without the hook. It must print the resumed count (>= 1),
+    reach idle with replays >= that count, and compact the journal to no
+    live entry. -> the restart's times: to the journal line (imports and
+    the model's load), to the serving line, to idle."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from tony_tpu_torch.events import JOURNAL_FILE, read_journal
+
+    trace = REPO / "build" / "replay_trace"
+    shutil.rmtree(trace, ignore_errors=True)
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli.serve", "--port", "0",
+            *FLAGSHIP, "--seed", "51", "--trace-dir", str(trace)]
+    procs = []
+
+    def spawn(extra_env):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            argv, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env={**os.environ, "PYTHONPATH": str(REPO),
+                            **extra_env})
+        procs.append(proc)
+        return proc, t0
+
+    def read_until_port(proc, t0):
+        """-> (port, its output lines, seconds at which each line came);
+        a thread keeps appending the rest of its output to the lines."""
+        lines, at = [], []
+        while True:
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"replay (c): serve exited {proc.wait()} before "
+                     f"serving:\n{''.join(lines)[-3000:]}")
+            lines.append(line)
+            at.append(time.perf_counter() - t0)
+            m = re.search(r"http://[\d.]+:(\d+)", line)
+            if m:
+                threading.Thread(target=lambda: lines.extend(proc.stdout),
+                                 daemon=True).start()
+                return int(m.group(1)), lines, at
+
+    rng = np.random.default_rng(51)
+    payloads = [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
+                     max_new_tokens=REPLAY_KILL_NEW, timeout_s=600.0)
+                for n in rng.integers(256, 1025, REPLAY_KILL)]
+    try:
+        # a one-block warm-up request first, as in (b): the burst then
+        # meets a warm process; the kill comes REPLAY_KILL_BLOCK blocks
+        # after it
+        proc, t0 = spawn({"TONY_TEST_SERVING_SIGKILL_AT_BLOCK":
+                          str(1 + REPLAY_KILL_BLOCK)})
+        port, lines, _ = read_until_port(proc, t0)
+        url = f"http://127.0.0.1:{port}/generate"
+        warm = _post(url, dict(prompt=list(range(1, 300)), max_new_tokens=16))
+        if warm[0] != 200:
+            fail(f"replay (c): warm-up answered {warm[0]}: {warm[1]}")
+        results = [None] * REPLAY_KILL
+        threads = [threading.Thread(
+            target=lambda i=i: results.__setitem__(i, _post(url,
+                                                            payloads[i])))
+            for i in range(REPLAY_KILL)]
+        for t in threads:
+            t.start()
+        rc = proc.wait(timeout=600)
+        for t in threads:
+            t.join(timeout=60)
+        if rc != -9 or any(r is None or r[0] is not None for r in results):
+            fail(f"replay (c): serve exited {rc}, requests answered "
+                 f"{[r and r[0] for r in results]} (expected -9 and none):"
+                 f"\n{''.join(lines)[-3000:]}")
+        left = read_journal(trace / JOURNAL_FILE)
+        proc, t0 = spawn({})
+        port, lines, at = read_until_port(proc, t0)
+        m = [re.search(r"resumed (\d+) unfinished", x) for x in lines]
+        resumed = next((int(x.group(1)) for x in m if x), 0)
+        t_journal = next(a for x, a in zip(lines, at)
+                         if x.startswith("request journal ->"))
+        t_ready = at[-1]
+        st = None
+        while time.perf_counter() - t0 < 600:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                        timeout=30) as r:
+                st = json.loads(r.read())
+            if (st["replays"] >= resumed and st["journal"]["entries"] == 0
+                    and st["active"] == 0 and st["queued"] == 0):
+                break
+            time.sleep(0.05)
+        t_idle = time.perf_counter() - t0
+        proc.terminate()                # SIGTERM: serve's graceful drain
+        proc.wait(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    after = read_journal(trace / JOURNAL_FILE)
+    if (resumed < 1 or resumed != len(left) or st["replays"] < resumed
+            or st["journal"]["entries"] != 0 or after):
+        fail(f"replay (c): journal left {len(left)} entries, the restart "
+             f"resumed {resumed}, /stats {st}, {len(after)} live after")
+    shutil.rmtree(trace, ignore_errors=True)
+    return dict(killed_at_block=1 + REPLAY_KILL_BLOCK, journaled=len(left),
+                journaled_tokens=[len(e.emitted) for e in left],
+                resumed=resumed, replays=st["replays"],
+                replayed_tokens=st["replayed_tokens"],
+                restart_to_journal_s=t_journal, restart_to_ready_s=t_ready,
+                restart_to_idle_s=t_idle, recovery_s=t_idle - t_ready)
+
+
+def _replay_checkpoint(torch, S, prepared, cfg) -> dict:
+    """(d): checkpoint_progress at the flagship width (8 slots of 1024-token
+    prompts, 512 new each) with blocks in flight: its host time, and
+    whether the newest block's event was still pending when it returned,
+    as the serving loop calls it (right after a step) and with 1 s of
+    device work appended to the newest block (after its kernels, before
+    its read starts: a device-bound block), each beside the wait a read
+    queued behind the newest block would take (a stream synchronisation);
+    then the host cost of starting a block's read (pinned buffer, copy,
+    event). The delay goes after the block's kernels because the host
+    cannot enqueue far ahead of the card: a block is thousands of
+    launches, and with the card stalled its dispatch waits on the launch
+    queue."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    eng = S.SlotServer(prepared, cfg)
+    for _ in range(8):
+        eng.submit(S.Request(prompt=rng.integers(0, 32768, 1024).tolist(),
+                             max_new_tokens=512))
+    eng.step()
+    torch.cuda.synchronize()
+    decode = S._decode_block
+
+    def delayed_block(*args, **kw):
+        out = decode(*args, **kw)
+        torch.cuda._sleep(2_000_000_000)    # >= 1 s at <= 2 GHz
+        return out
+
+    rows = []
+    for delayed in (False, True) * 3:
+        S._decode_block = delayed_block if delayed else decode
+        try:
+            t0 = time.perf_counter()
+            eng.step()                      # the newest block
+            step_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            S._decode_block = decode
+        t0 = time.perf_counter()
+        eng.checkpoint_progress()
+        ckpt_ms = (time.perf_counter() - t0) * 1e3
+        pending = not eng._pipeline[-1]["ready"].query()
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        rows.append(dict(delayed=delayed, step_ms=step_ms, ckpt_ms=ckpt_ms,
+                         newest_pending=pending, in_flight=len(eng._pipeline),
+                         drain_wait_ms=(time.perf_counter() - t0) * 1e3))
+    # the same delay queued before a block: its dispatch waits for the
+    # card, since the host cannot run a whole block's launches ahead
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.perf_counter()
+    eng.step()
+    stalled_step_ms = (time.perf_counter() - t0) * 1e3
+    eng.run_until_drained()
+    packed = torch.zeros(8, 18, dtype=torch.int32, device="cuda")
+    start_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        S._start_read(packed)
+        start_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(r["newest_pending"] for r in rows if r["delayed"]):
+        fail("replay (d): checkpoint_progress waited for the newest block")
+    return dict(calls=rows, start_read_ms=start_ms,
+                stalled_step_ms=stalled_step_ms,
+                pending_at_return=sum(r["newest_pending"] for r in rows))
+
+
+def phase_replay(torch, ops) -> dict:
+    """The request journal and replay on the card: (a) float32 replay
+    through injected crashes, token-identical up to a near-tie; (b) the
+    flagship at bf16 through serve's app, REPLAY_REQUESTS HTTP requests
+    without and with two crashes, none failed; (c) a SIGKILLed serve
+    process restarted from its file journal; (d) checkpoint_progress
+    against blocks in flight. Returns the kernels' launches (none: the
+    serving path runs the einsum attention)."""
+    print("== main path: replay")
+    import numpy as np
+
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import generate as G
+    from tony_tpu_torch.models import serving as S
+    from tony_tpu_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    direct = _replay_direct(torch, G, T, S)
+
+    rng = np.random.default_rng(41)
+    lens = rng.integers(REPLAY_PROMPT[0], REPLAY_PROMPT[1] + 1,
+                        REPLAY_REQUESTS)
+    news = rng.integers(REPLAY_NEW[0], REPLAY_NEW[1] + 1, REPLAY_REQUESTS)
+    payloads = [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
+                     max_new_tokens=int(m), timeout_s=600.0)
+                for n, m in zip(lens, news)]
+    calm = _replay_http(torch, serve, payloads, ())
+    # two crashes at 30% and 65% of the crashless burst's blocks, counted
+    # after the warm-up's
+    crash_at = [calm["warm_blocks"] + max(1, round(calm["blocks"] * f))
+                for f in (0.3, 0.65)]
+    crashed = _replay_http(torch, serve, payloads, crash_at)
+    budget = int(news.sum())
+    if calm["loop_restarts"] or calm["decoded"] != budget:
+        fail(f"replay (b): the crashless burst restarted "
+             f"{calm['loop_restarts']} times, decoded {calm['decoded']} of "
+             f"{budget} tokens")
+    if (crashed["loop_restarts"] != 2 or crashed["crashes"] != 2
+            or not crashed["healthy"]
+            or crashed["replays"] < sum(crashed["inflight_at_crash"])):
+        fail(f"replay (b): {crashed['crashes']} crashes, "
+             f"{crashed['loop_restarts']} restarts, {crashed['replays']} "
+             f"replays for {crashed['inflight_at_crash']} in flight")
+    same = 0
+    for i, ((rid, toks, reason), (_, want, _)) in enumerate(
+            zip(crashed["completions"], calm["completions"])):
+        _check_prefixes("replay (b)", toks, crashed["prefixes"].get(rid, []))
+        if reason != "length" or len(toks) != len(want) \
+                or not all(0 <= t < 32768 for t in toks):
+            fail(f"replay (b): request {i} ended {reason} with {len(toks)} "
+                 f"tokens, the crashless run's {len(want)}")
+        same += toks == want
+    reprefilled = crashed["prefill_computed"] - calm["prefill_computed"]
+    redecoded = crashed["decoded"] - calm["decoded"]
+    print(f"replay (b, bf16, serve's defaults): {REPLAY_REQUESTS} requests, "
+          f"{int(lens.sum())} prompt and {budget} output tokens; crashless "
+          f"{calm['wall_s']:.3f} s ({calm['blocks']} decode blocks); with "
+          f"crashes at blocks {crash_at}: {crashed['wall_s']:.3f} s, "
+          f"{REPLAY_REQUESTS} of {REPLAY_REQUESTS} completed, 0 failed, "
+          f"{crashed['loop_restarts']} loop restarts, {crashed['replays']} "
+          f"replays for {crashed['inflight_at_crash']} in flight, "
+          f"{crashed['replayed_tokens']} journaled tokens teacher-forced; "
+          f"re-prefilled {reprefilled} tokens (bound: prompt + journaled "
+          f"prefix over the replays, {crashed['replay_bound']}); re-decoded "
+          f"{redecoded} tokens; {same} of {REPLAY_REQUESTS} streams equal "
+          f"the crashless run's (bf16); {nvidia_smi_line()}")
+    kill = _replay_sigkill(torch)
+    print(f"replay (c): serve SIGKILLed at decode block "
+          f"{kill['killed_at_block']} with {kill['journaled']} requests "
+          f"journaled ({kill['journaled_tokens']} tokens each); the restart "
+          f"resumed {kill['resumed']}, replays {kill['replays']}, journal "
+          f"compacted to 0 live entries; restart to journal line "
+          f"{kill['restart_to_journal_s']:.2f} s (imports and the model's "
+          f"load), to serving {kill['restart_to_ready_s']:.2f} s, to idle "
+          f"{kill['restart_to_idle_s']:.2f} s (recovery after serving "
+          f"{kill['recovery_s']:.2f} s)")
+    args = serve.build_argparser().parse_args(FLAGSHIP + ["--seed", "41"])
+    params, cfg = serve.load_model(args)
+    prepared = G.prepare_decode(params, cfg)
+    del params
+    ckpt = _replay_checkpoint(torch, S, prepared, cfg)
+    del prepared
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"replay: kernels launched {counts}, expected none")
+    rows = ckpt["calls"]
+    print("replay (d): checkpoint_progress host ms "
+          + " ".join(f"{r['ckpt_ms']:.2f}{'*' if r['delayed'] else ''}"
+                     for r in rows)
+          + " (* with 1 s of device work appended to the newest block); "
+          f"returned with the newest block pending {ckpt['pending_at_return']}"
+          f" of {len(rows)} calls; a read queued behind it would have waited "
+          + " ".join(f"{r['drain_wait_ms']:.2f}" for r in rows)
+          + " ms; the steps' host ms "
+          + " ".join(f"{r['step_ms']:.1f}" for r in rows)
+          + f", {ckpt['stalled_step_ms']:.1f} with the delay queued before "
+          "its block; starting a block's read "
+          + " ".join(f"{x:.3f}" for x in ckpt["start_read_ms"]) + " ms")
+    print("replay " + json.dumps(dict(
+        direct=[r for r in direct if r.get("diverge") is not None
+                or r.get("near_ties") or r["resumed_from"]],
+        http=dict(requests=REPLAY_REQUESTS, prompt_tokens=int(lens.sum()),
+                  output_tokens=budget, crash_at=crash_at,
+                  wall_s_crashless=calm["wall_s"],
+                  wall_s_crashed=crashed["wall_s"],
+                  blocks_crashless=calm["blocks"],
+                  blocks_crashed=crashed["blocks"],
+                  loop_restarts=crashed["loop_restarts"],
+                  inflight_at_crash=crashed["inflight_at_crash"],
+                  replays=crashed["replays"],
+                  replayed_tokens=crashed["replayed_tokens"],
+                  reprefilled_tokens=reprefilled,
+                  reprefill_bound=crashed["replay_bound"],
+                  redecoded_tokens=redecoded, equal_bf16=same),
+        sigkill=kill, checkpoint=ckpt, launches=counts,
+        card=nvidia_smi_line())))
+    return counts
+
+
 def _solo_greedy(torch, G, w, cfg, prompt, n):
     """The port's greedy generation of n tokens, its prefill and decode
     steps on the kernels, with each step's top-2 logit gap."""
@@ -1983,8 +2489,10 @@ def main() -> int:
     ckpt_launches = phase_checkpoint(torch, ops, lm_train, lm_generate,
                                      train_losses)
     prefix_launches = phase_prefix_cache(torch, ops)
+    replay_launches = phase_replay(torch, ops)
     launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
-                + ckpt_launches[k] + prefix_launches[k] for k in gen_launches}
+                + ckpt_launches[k] + prefix_launches[k] + replay_launches[k]
+                for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -130,13 +130,13 @@ def test_serve_http_end_to_end_matches_jax(model):
                     b'{"prompt": "abc"}', b'{"prompt": [1], "stream": true}',
                     b'{"prompt": [1], "timeout_s": "NaN"}',
                     b'{"prompt": [1], "priority": "x"}',
-                    b'{"prompt": [1], "resume_tokens": [2]}',
+                    b'{"prompt": [1], "resume_tokens": 2}',
+                    b'{"prompt": [1], "resume_tokens": ["a"]}',
                     b'{"prompt": [1, 999], "max_new_tokens": 2}',
                     b'{"prompt": [1], "logprobs": false}',
                     b'{"prompt": [1], "logprobs": 0.0}',
                     b'{"prompt": [1], "cache_prompt": "false"}',
-                    b'{"prompt": [1], "progress_key": 5}',
-                    b'{"prompt": [1], "progress_key": "k"}'):
+                    b'{"prompt": [1], "progress_key": 5}'):
             code, body, _ = http.post(None, raw=raw)
             assert code == 400, raw
             assert "error" in body
@@ -148,12 +148,20 @@ def test_serve_http_end_to_end_matches_jax(model):
                  "cache_prompt must be a JSON boolean"),
                 (b'{"prompt": [1], "progress_key": 5}',
                  "progress_key must be a string"),
-                (b'{"prompt": [1], "progress_key": "k"}',
-                 "not ported.*journal and replay")):
+                (b'{"prompt": [1], "resume_tokens": 2}',
+                 "resume_tokens must be a JSON list of ints")):
             code, body, _ = http.post(None, raw=raw)
             assert code == 400 and re.search(msg, body["error"]), raw
         assert http.post({"prompt": [3], "max_new_tokens": 2,
                           "logprobs": None, "cache_prompt": True})[0] == 200
+        # a resume prefix is part of the completion; a string progress
+        # key is accepted (GET /progress has it only while it runs)
+        code, body, _ = http.post({"prompt": [3], "max_new_tokens": 3,
+                                   "resume_tokens": [2],
+                                   "progress_key": "k"})
+        assert code == 200 and body["tokens"][0] == 2
+        assert len(body["tokens"]) == 3
+        assert http.get("/progress?key=k") == (200, {})
         code, body, _ = http.post({"prompt": [3, 4], "max_new_tokens": 2})
         assert code == 200 and len(body["tokens"]) == 2
     finally:
@@ -241,29 +249,72 @@ def test_serve_loop_failure_fails_pending_and_healthz():
 
 
 def test_loop_failure_resets_the_engine_and_recovers(model):
-    """A step failure on a real engine: reset() fails the in-flight
-    request, the loop restarts, and the next request is served."""
-    srv = _server(model)
-    real_step = srv.step
-    calls = {"n": 0}
+    """A step failure on a real engine: reset() replays the in-flight
+    request (it completes with an undisturbed run's tokens), the loop
+    restarts, and the next request is served. Under replay=False the
+    in-flight request fails instead."""
+    ref = _server(model)
+    rid = ref.submit(Request(prompt=[5, 6, 7], max_new_tokens=40))
+    want = ref.run_until_drained()[rid].tokens
+    for replay in (True, False):
+        srv = _server(model, replay=replay)
+        real_step = srv.step
+        calls = {"n": 0}
 
-    def flaky_step():
-        calls["n"] += 1
-        if calls["n"] == 2:
-            raise RuntimeError("injected step failure")
+        def flaky_step():
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("injected step failure")
+            real_step()
+
+        srv.step = flaky_step
+        app = ServeApp(srv, loop_backoff_s=0.01)
+        app.start()
+        try:
+            if replay:
+                comp = app.generate([5, 6, 7], 40, timeout=60)
+                assert comp.tokens == want and srv.replays == 1
+            else:
+                with pytest.raises(ServingLoopError, match="injected"):
+                    app.generate([5, 6, 7], 40, timeout=60)
+            comp = app.generate([5, 6, 7], 3, timeout=60)
+            assert comp.finish_reason == "length" and comp.tokens == want[:3]
+            h = app.health()
+            assert h["status"] == "ok" and h["loop_restarts"] == 1
+            assert srv.resets == 1
+        finally:
+            app.shutdown()
+
+
+def test_busy_loop_hands_the_lock_over(model):
+    """While the engine is busy, each turn's end hands the lock to the
+    threads waiting for it: a submission and /stats are served between
+    two turns, not once the engine goes idle."""
+    srv = _server(model, max_len=64)
+    real_step = srv.step
+
+    def slow_step():
+        # a turn that holds the interpreter, as an eager dispatch does
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.05:
+            pass
         real_step()
 
-    srv.step = flaky_step
-    app = ServeApp(srv, loop_backoff_s=0.01)
+    srv.step = slow_step
+    app = ServeApp(srv)
     app.start()
     try:
-        with pytest.raises(ServingLoopError, match="injected"):
-            app.generate([5, 6, 7], 40, timeout=60)
-        comp = app.generate([5, 6, 7], 3, timeout=60)
-        assert comp.finish_reason == "length" and len(comp.tokens) == 3
-        h = app.health()
-        assert h["status"] == "ok" and h["loop_restarts"] == 1
-        assert srv.resets == 1
+        rid, ev = app.submit_async([1, 2, 3], 40)   # 10 blocks: >= 0.5 s
+        assert _wait(lambda: srv.blocks_dispatched >= 1)
+        waits = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            app.stats()
+            rid2, _ = app.submit_async([4, 5], 2)
+            waits.append(time.perf_counter() - t0)
+        assert not ev.is_set(), "the probe ran after the request finished"
+        assert max(waits) < 0.3, waits
+        assert ev.wait(60) and app.take_result(rid).tokens
     finally:
         app.shutdown()
 
@@ -393,14 +444,11 @@ def test_serve_prefix_cache_flags_and_stats():
     (["--role", "prefill"], "the rest of serving"),
     (["--draft-model", "d"], "speculative"),
     (["--model", "a=random"], "HF import"),
-    (["--trace-dir", "/x"], "the rest of serving"),
     (["--weight-dtype", "int8"], "w8a16"),
     (["--kv-pool-blocks", "4"], "paged KV"),
     (["--prefill-interleave", "4"], "paged KV"),
     (["--class-budget-interactive", "2"], "admission tiers"),
     (["--class-budget-batch", "2"], "admission tiers"),
-    (["--no-replay"], "journal and replay"),
-    (["--journal-checkpoint-s", "0.5"], "journal and replay"),
     (["--spec-gamma-max", "8"], "speculative"),
     (["--draft-d-model", "32"], "speculative"),
     (["--draft-n-layers", "1"], "speculative"),
@@ -411,6 +459,225 @@ def test_serve_prefix_cache_flags_and_stats():
 def test_cli_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):
         serve.main(TINY_FLAGS + flags)
+
+
+def _wait(pred, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.01)
+    return False
+
+
+@pytest.mark.parametrize("flag", ["--trace-dir", "--no-replay",
+                                  "--journal-checkpoint-s"])
+def test_cli_journal_flags(flag, tmp_path, monkeypatch):
+    """The journal flags as the JAX package's serve has them:
+    --trace-dir puts the journal in <dir>/requests.journal.jsonl and a
+    new app recovers and finishes what an abandoned one left there;
+    --no-replay runs without a journal (a loop crash fails the in-flight
+    request; the checkpoint cadence is forced to 0); and
+    --journal-checkpoint-s sets the cadence at which /progress advances
+    while a request decodes."""
+    from tony_tpu_torch.events import JOURNAL_FILE, read_journal
+
+    extra = {"--trace-dir": ["--trace-dir", str(tmp_path)],
+             "--no-replay": ["--no-replay", "--journal-checkpoint-s", "0.5"],
+             "--journal-checkpoint-s": ["--journal-checkpoint-s", "0.01"]}
+    args = serve.build_argparser().parse_args(TINY_FLAGS + extra[flag])
+    if flag == "--journal-checkpoint-s":
+        # slow turns, so the request is still decoding between polls
+        monkeypatch.setenv("TONY_TEST_SERVING_STEP_DELAY_MS", "100")
+    app = serve.build_app(args)
+    srv = app.server
+    if flag == "--trace-dir":
+        path = tmp_path / JOURNAL_FILE
+        assert srv._journal.path == path
+        # an abandoned request: journaled, never served
+        srv.submit(Request(prompt=[1, 2, 3], max_new_tokens=6))
+        srv.step()
+        srv.checkpoint_progress()
+        left = read_journal(path)
+        assert len(left) == 1
+        app2 = serve.build_app(args)
+        assert app2.server.pending == 1
+        assert [e.id for e in read_journal(path)] != [left[0].id]
+        app2.start()
+        try:
+            assert _wait(lambda: app2.stats()["replays"] == 1
+                         and app2.server.idle)
+            st = app2.stats()
+            assert st["journal"] == {"entries": 0, "durable": True,
+                                     "write_errors": 0, "compactions": 1,
+                                     "replay": True}
+        finally:
+            app2.shutdown()
+        assert read_journal(path) == []
+        return
+    app.start()
+    http = _Http(app)
+    try:
+        if flag == "--no-replay":
+            assert not srv.replay and app.journal_checkpoint_s == 0.0
+            assert "journal" not in app.stats()
+            real_step, crashed = srv.step, []
+
+            def step_then_crash_once():
+                real_step()         # the request is admitted: in flight
+                if not crashed:
+                    crashed.append(1)
+                    raise RuntimeError("boom")
+
+            srv.step = step_then_crash_once
+            code, body, _ = http.post({"prompt": [1, 2], "max_new_tokens": 4})
+            assert code == 503 and "lost" in body["error"]
+            code, body, _ = http.post({"prompt": [1, 2], "max_new_tokens": 4})
+            assert code == 200 and len(body["tokens"]) == 4
+            assert app.health()["loop_restarts"] == 1 and srv.replays == 0
+            return
+        assert app.journal_checkpoint_s == 0.01
+        res = {}
+        t = threading.Thread(target=lambda: res.update(r=http.post(
+            {"prompt": [4, 5, 6], "max_new_tokens": 24,
+             "progress_key": "p1"})))
+        t.start()
+        seen = []
+        while t.is_alive():
+            got = http.get("/progress?keys=p1,nope")[1].get("p1")
+            if got:
+                seen.append(got["tokens"])
+            time.sleep(0.01)
+        t.join()
+        code, body, _ = res["r"]
+        assert code == 200 and len(body["tokens"]) == 24
+        mid = [s for s in seen if 0 < len(s) < 24]
+        assert mid, "the journal never advanced mid-request"
+        assert all(body["tokens"][:len(s)] == s for s in seen)
+        assert http.get("/progress?key=p1") == (200, {})
+    finally:
+        http.close()
+        app.shutdown()
+
+
+def test_progress_keys_evict_finished_requests_first(model):
+    """The key registry is capped: finished requests' keys go first, the
+    oldest first, so a long-running request keeps its key."""
+    srv = _server(model)
+    app = ServeApp(srv)
+    app._progress_keys_cap = 3
+    live, _ = app.submit_async([1, 2, 3], 8, progress_key="live")
+    for k in ("a", "b"):
+        rid, _ = app.submit_async([4, 5], 2, progress_key=k)
+        srv.cancel(rid)             # finished: its journal entry sealed
+    app.submit_async([6], 2, progress_key="c")
+    assert list(app._progress_keys) == ["live", "b", "c"]
+    assert set(app.progress(["live", "b", "c", "x"])) == {"live", "c"}
+    app.submit_async([7], 2, progress_key="d")
+    assert list(app._progress_keys) == ["live", "c", "d"]
+    assert app.progress(["live"]) == {
+        "live": {"tokens": [], "prompt_tokens": 3}}
+    srv.shutdown()
+
+
+def test_serve_cli_sigkill_restart_recovers_journal(tmp_path):
+    """A serve process on the CPU with --trace-dir SIGKILLs itself at a
+    decode block (TONY_TEST_SERVING_SIGKILL_AT_BLOCK); the same command
+    run again prints how many requests it resumed from the journal,
+    finishes them (/stats: replays, an empty journal) and compacts the
+    file to no live entry."""
+    import os
+    import re
+    import signal
+    import subprocess
+    import sys
+
+    from tony_tpu_torch.events import JOURNAL_FILE, read_journal
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli.serve", "--port", "0",
+            "--device", "cpu", "--vocab", "256", "--d-model", "64",
+            "--n-layers", "2", "--n-heads", "4", "--d-ff", "128",
+            "--dtype", "float32", "--slots", "2", "--max-len", "64",
+            "--block-size", "4", "--prefill-chunk", "8",
+            "--journal-checkpoint-s", "0", "--trace-dir", str(tmp_path)]
+
+    def spawn(extra_env):
+        return subprocess.Popen(argv, cwd=repo, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                env={**os.environ, **extra_env})
+
+    def await_port(proc, lines):
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            lines.append(line)
+            m = re.search(r"http://[\d.]+:(\d+)", line or "")
+            if m:
+                threading.Thread(target=proc.stdout.read,
+                                 daemon=True).start()
+                return int(m.group(1))
+            if not line and proc.poll() is not None:
+                break
+        raise AssertionError(f"serve never printed its port: {lines}")
+
+    lines = []
+    # slow turns, so both requests are in before block 3
+    proc = spawn({"TONY_TEST_SERVING_SIGKILL_AT_BLOCK": "3",
+                  "TONY_TEST_SERVING_STEP_DELAY_MS": "50"})
+    try:
+        port = await_port(proc, lines)
+        errors = []
+
+        def post(p):
+            try:
+                urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/generate",
+                    data=json.dumps({"prompt": p, "max_new_tokens": 20})
+                    .encode(), timeout=60).read()
+            except Exception as e:  # the process dies under the request
+                errors.append(e)
+
+        posts = [threading.Thread(target=post, args=(p,))
+                 for p in ([3, 1, 4, 1, 5], [2, 7, 1, 8])]
+        for t in posts:
+            t.start()
+        assert proc.wait(timeout=60) == -signal.SIGKILL
+        for t in posts:
+            t.join(timeout=30)
+        assert len(errors) == 2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    left = read_journal(tmp_path / JOURNAL_FILE)
+    assert 1 <= len(left) <= 2
+    lines = []
+    proc2 = spawn({})
+    try:
+        port2 = await_port(proc2, lines)
+        assert any(f"journal recovery: resumed {len(left)} unfinished "
+                   "request(s)" in x for x in lines), lines
+        st = None
+
+        def finished():
+            nonlocal st
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port2}/stats", timeout=10) as r:
+                st = json.loads(r.read())
+            return (st["replays"] >= len(left)
+                    and st["journal"]["entries"] == 0
+                    and st["active"] == 0 and st["queued"] == 0)
+
+        assert _wait(finished, timeout=60), st
+        assert st["journal"]["durable"] and st["replayed_tokens"] == sum(
+            len(e.emitted) for e in left)
+    finally:
+        proc2.send_signal(signal.SIGTERM)
+        try:
+            proc2.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc2.kill()
+    assert read_journal(tmp_path / JOURNAL_FILE) == []
 
 
 def test_serving_needs_a_card_unless_told_otherwise(model, monkeypatch):

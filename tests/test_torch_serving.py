@@ -530,7 +530,8 @@ def test_per_request_sampling_is_seeded(model):
 
 def test_stop_sequence_and_reset(model):
     """A per-request stop sequence ends the stream at its match; reset()
-    returns the admitted ids as lost and keeps the queue."""
+    keeps the queue and replays the admitted request from the journal
+    (under replay=False it returns the admitted ids as lost)."""
     p = _prompts(1, seed=17)[0]
     solo = _port_solo(model, p, 12)
     srv = _port_server(model)
@@ -542,16 +543,22 @@ def test_stop_sequence_and_reset(model):
     assert done[r.id].tokens == solo[:end]
     assert done[r.id].finish_reason == "stop"
 
-    srv = _port_server(model, slots=1)
-    first = S.Request(prompt=p, max_new_tokens=12)
-    queued = S.Request(prompt=p, max_new_tokens=3)
-    srv.submit(first)
-    srv.submit(queued)
-    srv.step()
-    assert srv.reset() == [first.id]
-    done = srv.run_until_drained()
-    assert list(done) == [queued.id] and done[queued.id].tokens == solo[:3]
-    assert srv.stats()["resets"] == 1
+    for replay in (True, False):
+        srv = _port_server(model, slots=1, replay=replay)
+        first = S.Request(prompt=p, max_new_tokens=12)
+        queued = S.Request(prompt=p, max_new_tokens=3)
+        srv.submit(first)
+        srv.submit(queued)
+        srv.step()
+        assert srv.reset() == ([] if replay else [first.id])
+        done = srv.run_until_drained()
+        assert done[queued.id].tokens == solo[:3]
+        if replay:
+            assert list(done) == [first.id, queued.id]
+            assert done[first.id].tokens == solo
+        else:
+            assert list(done) == [queued.id]
+        assert srv.stats()["resets"] == 1
 
 
 def test_submit_rejections(model):
@@ -568,15 +575,19 @@ def test_submit_rejections(model):
         srv.submit(S.Request(prompt=[1], max_new_tokens=2, logprobs=9))
     with pytest.raises(ValueError, match="priority"):
         srv.submit(S.Request(prompt=[1], max_new_tokens=2, priority="x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="resume_tokens"):
         srv.submit(S.Request(prompt=[1], max_new_tokens=2,
-                             resume_tokens=[3]))
+                             resume_tokens=[3, 256]))
+    # a resume prefix within the vocabulary is accepted
+    rid = srv.submit(S.Request(prompt=[1], max_new_tokens=2,
+                               resume_tokens=[3]))
+    assert srv.progress(rid) == {"tokens": [3], "prompt_tokens": 1}
 
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()}, {"kv_block": 8}, {"paged": True},
-    {"role": "prefill"}, {"draft": "d"}, {"journal": object()},
-    {"replay": False}, {"trace_sink": print}, {"registry": object()},
+    {"role": "prefill"}, {"draft": "d"},
+    {"trace_sink": print}, {"registry": object()},
     {"rules": {}}, {"draft_cfg": object()}, {"spec_gamma": 2},
     {"spec_gamma_max": 8}, {"kv_pool_blocks": 4},
     {"class_budgets": {"batch": 2}}, {"prefill_interleave": 4},
@@ -584,6 +595,31 @@ def test_submit_rejections(model):
 def test_not_ported_arguments_raise(model, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         _port_server(model, **kw)
+
+
+@pytest.mark.parametrize("kw", [{"journal": "file"}, {"replay": False}],
+                         ids=lambda kw: next(iter(kw)))
+def test_journal_and_replay_arguments(model, kw, tmp_path):
+    """The journal arguments: a caller's journal is the
+    one the server writes, and replay=False runs without one."""
+    from tony_tpu_torch.events import RequestJournal, read_journal
+
+    if "journal" in kw:
+        kw = {"journal": RequestJournal(tmp_path / "j.jsonl")}
+    srv = _port_server(model, **kw)
+    r = S.Request(prompt=[5, 6, 7], max_new_tokens=4)
+    srv.submit(r)
+    assert (srv.progress(r.id) is None) == ("replay" in kw)
+    assert srv.run_until_drained()[r.id].tokens == _port_solo(
+        model, np.asarray([5, 6, 7]), 4)
+    st = srv.stats()
+    assert st["replay"] is ("journal" in kw)
+    if "journal" in kw:
+        assert st["journal"]["entries"] == 0 and st["journal"]["durable"]
+        srv.shutdown()
+        assert read_journal(tmp_path / "j.jsonl") == []
+    else:
+        assert "journal" not in st
 
 
 def test_unported_model_features_raise(model):

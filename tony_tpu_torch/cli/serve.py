@@ -13,9 +13,22 @@ KV-cache slots and dispatches decode blocks (models/serving.py). HTTP
 handler threads only enqueue and wait; they make no CUDA tensor. POST
 /generate blocks until the request completes (400 on a malformed body,
 429 when the queue is full, 503 when the serving loop is down, 504 on its
-timeout); GET /healthz answers 200 or 503; GET /stats reports the slots,
-the queue, the engine's counters and, with ``--prefix-cache-blocks``, the
-prefix cache's (``prefix_cache``: hits, misses, evictions, blocks).
+timeout); ``resume_tokens`` teacher-forces an already-emitted prefix and
+``progress_key`` names the request for GET /progress?key=a (or
+?keys=a,b), which answers each live request's journaled tokens. GET
+/healthz answers 200 or 503; GET /stats reports the slots, the queue, the
+engine's counters (``replays``, ``replayed_tokens``, ``journal``) and,
+with ``--prefix-cache-blocks``, the prefix cache's (``prefix_cache``:
+hits, misses, evictions, blocks).
+
+Every accepted request is journaled; a serving-loop failure replays the
+in-flight ones (``--no-replay``: fails them instead). The loop advances
+the journal every ``--journal-checkpoint-s`` seconds. With
+``--trace-dir``, the journal is the file
+``<trace-dir>/requests.journal.jsonl``: a restarted process recovers and
+finishes the requests a killed one left (it prints how many it resumed).
+In the port ``--trace-dir`` writes only the journal: the request traces,
+``telemetry.state.json`` and ``profiles/`` are not ported yet.
 
 Weights are random, drawn from ``--seed``, or restored from an lm_train
 checkpoint (``--checkpoint-dir``: its latest step's ``params``), on
@@ -27,16 +40,15 @@ inserts a prompt only when its request sets ``"cache_prompt": true``.
 Not ported yet, each raising a named error: ``--hf-checkpoint``,
 ``--mesh``, ``--paged-kv`` and its ``--kv-*``, ``--class-budget-*`` and
 ``--prefill-interleave``, ``--role``, ``--draft-model`` and the
-``--draft-*`` and ``--spec-gamma*`` flags, ``--model``, ``--trace-dir``,
-``--no-replay``, ``--journal-checkpoint-s``, ``--text-codec`` and
-``--weight-dtype int8``; streaming (``"stream": true``),
-``resume_tokens`` and ``progress_key`` answer 400. The OpenAI routes,
-/metrics, /progress and /debug/profile are not served.
+``--draft-*`` and ``--spec-gamma*`` flags, ``--model``, ``--text-codec``
+and ``--weight-dtype int8``; streaming (``"stream": true``) answers 400.
+The OpenAI routes, /metrics and /debug/profile are not served.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import select
@@ -106,6 +118,20 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout-s", type=float, default=30.0,
                    help="SIGTERM/SIGINT: how long in-flight requests get "
                         "to finish before shutdown")
+    p.add_argument("--trace-dir", default="",
+                   help="directory of the file-backed request journal "
+                        "(requests.journal.jsonl): a killed process's "
+                        "unfinished requests are recovered and finished "
+                        "by the restarted one. Empty = in-memory journal")
+    p.add_argument("--no-replay", action="store_true",
+                   help="no request journal and no replay: a loop crash "
+                        "fails the in-flight requests and a restart "
+                        "recovers nothing")
+    p.add_argument("--journal-checkpoint-s", type=float, default=1.0,
+                   help="how often the loop processes the in-flight blocks "
+                        "down to the pipeline depth, so the journal's "
+                        "prefixes (what replay and /progress resume from) "
+                        "stay fresh; 0 = never (forced under --no-replay)")
     # not ported yet: each raises in check_ported unless left at the JAX
     # package's default
     p.add_argument("--mesh", default="")
@@ -116,9 +142,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--class-budget-interactive", type=int, default=0)
     p.add_argument("--class-budget-batch", type=int, default=0)
     p.add_argument("--role", default="both")
-    p.add_argument("--trace-dir", default="")
-    p.add_argument("--no-replay", action="store_true")
-    p.add_argument("--journal-checkpoint-s", type=float, default=1.0)
     p.add_argument("--model", action="append", default=[])
     p.add_argument("--draft-model", default="")
     p.add_argument("--spec-gamma", type=int, default=0)
@@ -132,7 +155,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 _PAGED = "the rest of serving: paged KV and admission tiers"
-_JOURNAL = "the rest of serving: journal and replay"
 _SPEC = "speculative decoding"
 # flag -> (is it set off the JAX package's default?, ROADMAP.md queue-1
 # item)
@@ -148,11 +170,6 @@ _NOT_PORTED_FLAGS = {
     "--class-budget-batch": (lambda a: a.class_budget_batch, _PAGED),
     "--role": (lambda a: a.role != "both",
                "the rest of serving: disaggregated roles"),
-    "--trace-dir": (lambda a: a.trace_dir,
-                    "the rest of serving: serving telemetry"),
-    "--no-replay": (lambda a: a.no_replay, _JOURNAL),
-    "--journal-checkpoint-s": (lambda a: a.journal_checkpoint_s != 1.0,
-                               _JOURNAL),
     "--model": (lambda a: a.model, "HF import (the model registry)"),
     "--draft-model": (lambda a: a.draft_model, _SPEC),
     "--spec-gamma": (lambda a: a.spec_gamma, _SPEC),
@@ -201,7 +218,9 @@ def load_model(args):
 
 def build_server(args):
     """The SlotServer the flags describe, its weights prepared once (the
-    float32 masters are dropped)."""
+    float32 masters are dropped). With ``--trace-dir`` (and replay on) its
+    journal is the directory's file, and the unfinished requests a
+    previous process left there are resubmitted before it serves."""
     from ..models.generate import prepare_decode
     from ..models.serving import SlotServer
 
@@ -209,7 +228,16 @@ def build_server(args):
     params, cfg = load_model(args)
     prepared = prepare_decode(params, cfg, weight_dtype=args.weight_dtype)
     del params
-    return SlotServer(
+    journal, recovered = None, []
+    if args.trace_dir and not args.no_replay:
+        from pathlib import Path
+
+        from ..events.journal import JOURNAL_FILE, RequestJournal
+
+        journal, recovered = RequestJournal.recover(
+            Path(args.trace_dir) / JOURNAL_FILE)
+        print(f"request journal -> {journal.path}", flush=True)
+    srv = SlotServer(
         prepared, cfg, slots=args.slots, max_len=args.max_len,
         block_size=args.block_size, prefill_chunk=args.prefill_chunk,
         kv_dtype=args.kv_dtype, temperature=args.temperature,
@@ -220,14 +248,21 @@ def build_server(args):
         prefix_cache_blocks=args.prefix_cache_blocks,
         cache_prompts=not args.no_cache_prompts,
         max_queue=args.max_queue, batch_queue_frac=args.batch_queue_frac,
-        device=args.device)
+        journal=journal, replay=not args.no_replay, device=args.device)
+    if recovered:
+        n = srv.recover_journal(recovered)
+        print(f"journal recovery: resumed {n} unfinished request(s) for "
+              f"model {srv.model!r} from the previous process", flush=True)
+    return srv
 
 
 def build_app(args) -> "ServeApp":
     """The ServeApp over ``build_server(args)`` (not started)."""
     return ServeApp(build_server(args),
                     max_loop_restarts=args.loop_max_restarts,
-                    loop_backoff_s=args.loop_backoff_s)
+                    loop_backoff_s=args.loop_backoff_s,
+                    journal_checkpoint_s=(0.0 if args.no_replay
+                                          else args.journal_checkpoint_s))
 
 
 class ServingLoopError(RuntimeError):
@@ -249,10 +284,18 @@ class ServeApp:
     budget is spent (or the engine has no ``reset()``); then every waiter
     is failed and new submissions are rejected. ``shutdown(drain=True)``
     stops admission, fails queued requests, and lets in-flight ones finish
-    up to a deadline. A waiter that gives up cancels its request."""
+    up to a deadline. A waiter that gives up cancels its request.
+
+    ``journal_checkpoint_s`` (0 = off): how often a busy loop turn with no
+    completion ready calls the engine's ``checkpoint_progress``, which
+    advances the journal (what a replay and /progress resume from)
+    without waiting for the blocks still running. ``progress_key``s map
+    a caller's names to request ids for ``progress()`` (GET /progress),
+    at most 4096, finished requests' keys evicted first."""
 
     def __init__(self, server, *, max_loop_restarts: int = 3,
-                 loop_backoff_s: float = 0.5):
+                 loop_backoff_s: float = 0.5,
+                 journal_checkpoint_s: float = 1.0):
         self.server = server
         self.lock = threading.Lock()
         self.wake = threading.Event()
@@ -262,11 +305,17 @@ class ServeApp:
         self.error: str | None = None
         self.max_loop_restarts = max_loop_restarts
         self.loop_backoff_s = loop_backoff_s
+        self.journal_checkpoint_s = journal_checkpoint_s
+        self._last_checkpoint = 0.0
         self.loop_failures = 0          # step exceptions, cumulative
         self.loop_restarts = 0          # successful reset+restart cycles
         self._restart_streak = 0        # consecutive failures (the budget)
         self._events: dict[int, threading.Event] = {}
         self._results: dict[int, object] = {}
+        # client progress keys -> request ids (GET /progress), bounded
+        self._progress_keys: collections.OrderedDict[str, int] = \
+            collections.OrderedDict()
+        self._progress_keys_cap = 4096
         self.thread = threading.Thread(
             target=self._loop, name="serve-loop", daemon=True)
 
@@ -312,11 +361,16 @@ class ServeApp:
 
     def _fail_pending(self, exc: Exception) -> None:
         """Fail every waiting request with the loop's error, so waiters
-        get a ServingLoopError instead of hanging to their timeouts."""
+        get a ServingLoopError instead of hanging to their timeouts, and
+        seal their journal entries: a client told "failed" must not have
+        its request resurrected by a later recovery."""
+        seal = getattr(self.server, "seal_journal", None)
         for rid, ev in list(self._events.items()):
             self._results[rid] = ServingLoopError(
                 f"serving loop failed: {exc!r}")
             self._events.pop(rid, None)
+            if callable(seal):
+                seal(rid)
             ev.set()
 
     def _loop(self):
@@ -337,17 +391,29 @@ class ServeApp:
         def dispatches():
             return eng.admission_dispatches, eng.blocks_dispatched
 
+        ckpt = getattr(eng, "checkpoint_progress", None)
         while not self.stop.is_set():
             done = {}
             with self.lock:
                 busy = not eng.idle
                 if busy:
                     before = dispatches()
+                    now = time.monotonic()
+                    ckpt_due = bool(
+                        self.journal_checkpoint_s and callable(ckpt)
+                        and now - self._last_checkpoint
+                        >= self.journal_checkpoint_s)
                     eng.step()
                     # in predictive mode drain_completed reads the device,
                     # so drain only when something is known to be finished
                     if eng.completions_ready:
                         done = eng.drain_completed()
+                    elif ckpt_due:
+                        ckpt()
+                        if eng.completions_ready:
+                            done = eng.drain_completed()
+                    if ckpt_due:
+                        self._last_checkpoint = now
                     if self.status == "degraded" and dispatches() != before:
                         self.status = "ok"
                         self._restart_streak = 0
@@ -357,6 +423,12 @@ class ServeApp:
             if not busy:
                 self.wake.wait(0.02)
                 self.wake.clear()
+            else:
+                # hand the lock over: a busy turn holds it for a whole
+                # block's dispatch, and without a yield this thread takes
+                # it back before a woken waiter runs, so submissions and
+                # /stats would wait for the engine to go idle
+                time.sleep(0)
 
     def _deliver(self, done: dict) -> None:
         with self.lock:
@@ -425,15 +497,21 @@ class ServeApp:
                      stop: list | None = None, logprobs: int = 0,
                      priority: str = "interactive",
                      model: str | None = None,
-                     cache_prompt: bool | None = None):
+                     cache_prompt: bool | None = None,
+                     resume_tokens: list | None = None,
+                     progress_key: str | None = None):
         """Admission half of generate(): returns (request_id, event). The
-        request carries ``timeout`` as its queue deadline."""
+        request carries ``timeout`` as its queue deadline.
+        ``resume_tokens`` teacher-forces an already-emitted prefix (the
+        completion's tokens include it); ``progress_key`` registers a
+        caller's name for the request with ``progress()``."""
         from ..models.serving import Request
 
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=temperature, top_k=top_k,
                       cache_prompt=cache_prompt,
-                      deadline=time.monotonic() + timeout, stop=stop,
+                      deadline=time.monotonic() + timeout,
+                      resume_tokens=resume_tokens, stop=stop,
                       logprobs=int(logprobs or 0),
                       priority=str(priority or "interactive"), model=model)
         ev = threading.Event()
@@ -451,8 +529,42 @@ class ServeApp:
             except Exception:
                 self._events.pop(req.id, None)
                 raise
+            if progress_key:
+                self._progress_keys[str(progress_key)] = req.id
+                if len(self._progress_keys) > self._progress_keys_cap:
+                    self._evict_progress_keys_locked()
         self.wake.set()
         return req.id, ev
+
+    def _evict_progress_keys_locked(self) -> None:
+        """Shrink the key map to its cap: finished requests' keys first,
+        oldest first (the journal says which ids are live), then the
+        oldest of the rest. Evicting by age alone would drop a long
+        decode's key while dead keys stayed."""
+        prog = getattr(self.server, "progress", None)
+        for key in list(self._progress_keys):
+            if len(self._progress_keys) <= self._progress_keys_cap:
+                return
+            if not callable(prog) or prog(self._progress_keys[key]) is None:
+                del self._progress_keys[key]
+        while len(self._progress_keys) > self._progress_keys_cap:
+            self._progress_keys.popitem(last=False)
+
+    def progress(self, keys) -> dict:
+        """The GET /progress payload: per key, its live request's replay
+        state ({tokens, prompt_tokens}) from the journal. Unknown keys
+        and finished requests are absent."""
+        out = {}
+        prog = getattr(self.server, "progress", None)
+        with self.lock:
+            for key in keys:
+                rid = self._progress_keys.get(key)
+                if rid is None or not callable(prog):
+                    continue
+                p = prog(rid)
+                if p is not None:
+                    out[key] = p
+        return out
 
     def take_result(self, request_id: int):
         res = self._results.pop(request_id)
@@ -529,17 +641,15 @@ def _generate_args(payload: dict, path: str) -> dict:
     # caching the prompt
     if cache_prompt is not None and not isinstance(cache_prompt, bool):
         raise ValueError("cache_prompt must be a JSON boolean")
-    if payload.get("resume_tokens") is not None:
-        raise ValueError("resume_tokens (journal replay) is not ported to "
-                         f"tony_tpu_torch yet (ROADMAP.md queue 1, "
-                         f"{_JOURNAL})")
+    resume = payload.get("resume_tokens")
+    if resume is not None:
+        if not isinstance(resume, list) or not all(
+                isinstance(t, int) and not isinstance(t, bool)
+                for t in resume):
+            raise ValueError("resume_tokens must be a JSON list of ints")
     progress_key = payload.get("progress_key")
-    if progress_key is not None:
-        if not isinstance(progress_key, str):
-            raise ValueError("progress_key must be a string")
-        raise ValueError("progress_key (/progress) is not ported to "
-                         f"tony_tpu_torch yet (ROADMAP.md queue 1, "
-                         f"{_JOURNAL})")
+    if progress_key is not None and not isinstance(progress_key, str):
+        raise ValueError("progress_key must be a string")
     timeout = float(payload.get("timeout_s", 600.0))
     # NaN and Infinity pass float(): a NaN deadline never expires
     if not 0 < timeout < float("inf"):
@@ -568,11 +678,13 @@ def _generate_args(payload: dict, path: str) -> dict:
                 temperature=None if temp is None else float(temp),
                 top_k=None if top_k is None else int(top_k),
                 stop=stop, logprobs=logprobs, priority=priority, model=model,
-                cache_prompt=cache_prompt)
+                cache_prompt=cache_prompt, resume_tokens=resume,
+                progress_key=progress_key)
 
 
 def make_handler(app: ServeApp):
-    """The serve HTTP surface: GET /healthz, GET /stats, POST /generate."""
+    """The serve HTTP surface: GET /healthz, /stats and /progress, POST
+    /generate."""
     from ..models.serving import QueueFullError
 
     class Handler(BaseHTTPRequestHandler):
@@ -605,6 +717,13 @@ def make_handler(app: ServeApp):
                 self._send(200 if payload["healthy"] else 503, payload)
             elif self.path == "/stats":
                 self._send(200, app.stats())
+            elif self.path.partition("?")[0] == "/progress":
+                # ?key=a (repeatable) and ?keys=a,b
+                qs = parse_qs(urlparse(self.path).query)
+                keys = list(qs.get("key", []))
+                for ks in qs.get("keys", []):
+                    keys.extend(k for k in ks.split(",") if k)
+                self._send(200, app.progress(keys))
             else:
                 self._send(404, {"error": "unknown path"})
 

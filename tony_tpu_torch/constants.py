@@ -1,6 +1,6 @@
-"""The env contract and exit codes the port's training path reads (its own
-copy of the JAX package's constants.py entries, which the port does not
-import)."""
+"""The env contract and exit codes the port's training path reads, and the
+serving chaos hooks (its own copy of the JAX package's constants.py
+entries, which the port does not import)."""
 
 # ---- executor -> user-process env
 ENV_JOB_NAME = "TONY_JOB_NAME"            # role, e.g. "worker"
@@ -26,3 +26,23 @@ PREEMPT_REQUEST_SUFFIX = ".preempt"
 # a training child that drained on a preemption notice; the orchestrator
 # relaunches it without spending restart budget
 EXIT_PREEMPTED = 79
+
+# serving-side chaos hooks (models/serving.py SlotServer; read once at
+# construction, seeded so a chaos run's fault sequence is reproducible):
+TEST_SERVING_DISPATCH_FAIL_RATE = "TONY_TEST_SERVING_DISPATCH_FAIL_RATE"
+#   probability in [0,1] that a scheduling turn raises like a real
+#   dispatch failure (device loss) — exercises the serve loop's
+#   reset/restart recovery path
+TEST_SERVING_STEP_DELAY_MS = "TONY_TEST_SERVING_STEP_DELAY_MS"
+#   added latency per scheduling turn: makes a fast test backend behave
+#   like a slow device so overload/shedding paths actually engage
+TEST_SERVING_CHAOS_SEED = "TONY_TEST_SERVING_CHAOS_SEED"
+TEST_SERVING_CRASH_AT_BLOCKS = "TONY_TEST_SERVING_CRASH_AT_BLOCKS"
+#   comma/space-separated decode-block ordinals at which the serving
+#   loop raises (each fires once) — a DETERMINISTIC mid-decode crash,
+#   the injection point behind the replay checks: in-flight requests
+#   must survive via journal replay
+TEST_SERVING_SIGKILL_AT_BLOCK = "TONY_TEST_SERVING_SIGKILL_AT_BLOCK"
+#   the serving PROCESS SIGKILLs itself at that decode block — the
+#   replica-death injection point for journal-recovery e2e tests
+#   (0/unset = off)

@@ -52,6 +52,22 @@ while the other slots keep decoding.
   position p depends only on tokens up to p, so a copied block holds the
   bytes a cold prefill would write (int8 values and scales included) and
   completions are the same with the cache on or off.
+- **Request journal and replay** (``journal=``, ``replay=True``): every
+  accepted request opens a ``RequestJournal`` entry (its prompt, sampling
+  parameters and the tokens processed so far, appended at each processed
+  block). ``reset()`` after a loop failure re-queues the journaled
+  in-flight requests with ``resume_tokens``: the prompt plus the journaled
+  prefix is teacher-forced through the chunked prefill and only the rest
+  of the budget decodes, so a greedy request completes with the tokens of
+  an uninterrupted run (at float32). A file-backed journal survives the
+  process: ``recover_journal`` resubmits a dead process's entries.
+- **Chaos hooks** (``TONY_TEST_SERVING_*``, constants.py): a seeded
+  per-turn failure rate and step delay, a crash at given decode-block
+  ordinals and a SIGKILL at one, read once at construction.
+- **Reading a block's result.** Right after a decode block is enqueued,
+  its packed result starts copying into pinned host memory and a CUDA
+  event is recorded; processing waits only on the events of the blocks it
+  reads, so a read of old blocks never waits for the newest ones.
 
 The attention of every program here is the einsum formulation of
 ``_cached_attention`` (per-row lengths and ring offsets), as in the JAX
@@ -61,13 +77,16 @@ launches none of the port's CUDA kernels.
 Exactness: a request's greedy tokens equal a solo ``generate()`` run and
 the JAX package's ``SlotServer`` at float32 (tests/test_torch_serving.py).
 
+A Python exception in the loop (the chaos hook, a host bug) leaves the
+CUDA context usable and ``reset()`` re-arms the engine. A sticky CUDA
+fault (an illegal address, a device-side assert) poisons the context:
+``reset()`` then raises itself, and only a new process recovers the
+requests, from a file-backed journal.
+
 Not ported yet, each raising a named error: the mesh and its rule table,
 paged KV and the admission tiers, the paged prefix cache (``allocator=``),
-disaggregated roles, speculative serving, the request journal and replay
-(``reset`` fails the admitted requests, as the JAX package's
-``replay=False`` does, though ``replay`` takes only its default ``True``
-until journal replay is ported), request traces, the model registry, MoE
-and w8a16.
+disaggregated roles, speculative serving, request traces, the model
+registry, MoE and w8a16.
 """
 
 from __future__ import annotations
@@ -75,6 +94,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import logging
+import os
+import random
+import signal
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -82,7 +105,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import constants as c
 from ..device import resolve_device
+from ..events.journal import RequestJournal
 from . import transformer
 from .generate import (
     DecodeWeights,
@@ -98,6 +123,8 @@ from .generate import (
     sample_token,
 )
 from .transformer import TransformerConfig, layer_params, rms_norm
+
+log = logging.getLogger(__name__)
 
 # What a delivered Completion.finish_reason can say (the JAX package's
 # serving.py:173-180); "shed" is a queued batch-tier request displaced by
@@ -120,7 +147,6 @@ LOGPROBS_MAX = 8
 # enables, its ROADMAP.md queue-1 item). Any other value raises
 # NotImplementedError.
 _PAGED = "the rest of serving: paged KV and admission tiers"
-_JOURNAL = "the rest of serving: journal and replay"
 _NOT_PORTED = {
     "mesh": (None, "tensor-parallel serving", "mesh/TP"),
     "rules": (None, "the mesh's sharding rules", "mesh/TP"),
@@ -136,8 +162,6 @@ _NOT_PORTED = {
     "spec_gamma": (0, "a pinned speculative window", "speculative decoding"),
     "spec_gamma_max": (4, "the speculative window's ceiling",
                        "speculative decoding"),
-    "journal": (None, "the request journal", _JOURNAL),
-    "replay": (True, "switching journal replay", _JOURNAL),
     "trace_sink": (None, "request traces",
                    "the rest of serving: serving telemetry"),
     "registry": (None, "the model registry", "HF import"),
@@ -208,8 +232,18 @@ class Request:
     log-probabilities of every emitted token. ``cache_prompt`` overrides
     the server's ``cache_prompts`` default: whether this prompt's body
     chunks go into the prefix cache at admission (None = the server's
-    default). ``resume_tokens`` (journal replay) raises
-    NotImplementedError at submit."""
+    default).
+
+    ``resume_tokens`` teacher-forces an already-emitted prefix: the server
+    admits with the effective context ``prompt + resume_tokens`` (through
+    the chunked prefill, prefix-cache lookup included), decodes only the
+    remaining ``max_new_tokens - len(resume_tokens)``, and the Completion's
+    tokens are ``resume_tokens`` + the continuation (for a greedy request,
+    the uninterrupted stream). It is what ``reset()`` replay and journal
+    recovery resubmit. A prefix that already satisfies the request (budget
+    reached, a stop token or a stop sequence) completes at submit without
+    taking a slot. With logprobs, the prefix's positions carry
+    ``logprob: None`` (they were prefilled, not decoded)."""
     prompt: Any
     max_new_tokens: int
     temperature: float | None = None
@@ -432,6 +466,22 @@ def _decode_block(params, fused, cfg: TransformerConfig, cache: KVCache,
                  torch.stack(top_vals, 1).float().reshape(s, block * lp_k)
                  .view(torch.int32)]
     return cache, torch.cat(cols, dim=1)
+
+
+def _start_read(packed: torch.Tensor):
+    """Start a decode block's packed result on its way to the host ->
+    (host tensor, CUDA event or None). On the card: a non-blocking copy
+    into pinned memory (PyTorch's host allocator caches the blocks and
+    keeps each until its copy has run) and an event behind it, so a
+    reader waits for this block only, not for the blocks enqueued after
+    it. On the CPU the result is host memory already."""
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
 
 
 def _cancel_slot(active: torch.Tensor, slot: int) -> None:
@@ -658,8 +708,10 @@ class SlotServer:
     ``batch_queue_frac`` of it). ``cancel(request_id)`` stops a request
     wherever it is. ``reset()`` re-arms every serving buffer (the prefix
     pool and trie included) after a loop failure, without touching the
-    weights: queued requests survive, and the admitted ones are returned
-    as lost (there is no journal to replay them from).
+    weights: queued requests survive, and the admitted ones replay from
+    the journal (module docstring). ``journal`` is a ``RequestJournal``
+    (None: an in-memory one); ``replay=False`` turns the journal off and
+    ``reset()`` returns the admitted ids as lost, for the caller to fail.
 
     ``prefix_cache_blocks=N`` enables the chunk-aligned prefix cache
     (module docstring): N ``prefill_chunk``-sized blocks in a device pool
@@ -677,7 +729,8 @@ class SlotServer:
                  batched_admission: bool = True,
                  prefix_cache_blocks: int = 0, cache_prompts: bool = True,
                  max_queue: int = 0, batch_queue_frac: float = 0.5,
-                 model: str = "default", device=None, **not_ported):
+                 model: str = "default", journal: RequestJournal | None = None,
+                 replay: bool = True, device=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SlotServer() got an unexpected keyword "
@@ -714,6 +767,7 @@ class SlotServer:
         self.batched_admission = batched_admission
         self.max_queue = int(max_queue)
         self.batch_queue_frac = float(batch_queue_frac)
+        self._seed = int(seed)          # journaled with every request
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # built once: a tensor made from a list on the card waits for it
         self._stop_arr = (torch.tensor(self.stop_tokens, dtype=torch.int32,
@@ -733,6 +787,32 @@ class SlotServer:
         self.cancelled_requests = 0
         self.expired_requests = 0
         self.resets = 0
+        # request durability: the journal records every accepted request's
+        # replay state, and reset() replays the journaled in-flight ones
+        self.replay = bool(replay)
+        self._journal = (journal if journal is not None
+                         else (RequestJournal() if self.replay else None))
+        self.replays = 0                # admissions with a resume prefix
+        self.replayed_tokens = 0        # teacher-forced resume tokens
+        # chaos hooks, read once at construction (a bad value is "off");
+        # their own generator, never the one sampling draws from
+        self._chaos_fail_rate = self._env_float(
+            c.TEST_SERVING_DISPATCH_FAIL_RATE)
+        self._chaos_delay_ms = self._env_float(c.TEST_SERVING_STEP_DELAY_MS)
+        self._chaos_rng = random.Random(
+            int(self._env_float(c.TEST_SERVING_CHAOS_SEED)))
+        self.chaos_faults_injected = 0
+        self._chaos_crash_blocks: set[int] = set()
+        raw = os.environ.get(c.TEST_SERVING_CRASH_AT_BLOCKS, "")
+        if raw:
+            try:
+                self._chaos_crash_blocks = {
+                    int(x) for x in raw.replace(",", " ").split()}
+            except ValueError:
+                log.error("bad %s value %r; ignoring",
+                          c.TEST_SERVING_CRASH_AT_BLOCKS, raw)
+        self._chaos_sigkill_block = int(
+            self._env_float(c.TEST_SERVING_SIGKILL_AT_BLOCK))
         # host time to dispatch each decode block (the device runs later)
         self.block_dispatch_s: collections.deque = collections.deque(
             maxlen=4096)
@@ -752,6 +832,18 @@ class SlotServer:
         self._init_host_state()
         self._queue: collections.deque[Request] = collections.deque()
         self._done: dict[int, Completion] = {}
+
+    @staticmethod
+    def _env_float(name: str) -> float:
+        """A chaos knob's value; a bad one degrades to 0 (off)."""
+        raw = os.environ.get(name, "")
+        if not raw:
+            return 0.0
+        try:
+            return float(raw)
+        except ValueError:
+            log.error("bad %s value %r; ignoring", name, raw)
+            return 0.0
 
     def _init_device_state(self) -> None:
         """(Re)create the slot pool's cache and per-slot state as fresh
@@ -831,9 +923,6 @@ class SlotServer:
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             raise ValueError(f"prompt token ids must be in [0, "
                              f"{self.cfg.vocab_size})")
-        if request.resume_tokens is not None:
-            raise _not_ported("resume_tokens (journal replay)",
-                              "the rest of serving")
         if request.model is not None and request.model != self.model:
             raise ValueError(
                 f"request names model {request.model!r} but this engine "
@@ -843,6 +932,19 @@ class SlotServer:
         request.logprobs = int(request.logprobs or 0)
         if not 0 <= request.logprobs <= LOGPROBS_MAX:
             raise ValueError(f"logprobs must be in [0, {LOGPROBS_MAX}]")
+        resume = request.resume_tokens
+        if resume is not None:
+            arr = np.asarray(resume, np.int32).reshape(-1)
+            # the prefix is prefilled: an id outside the embedding faults
+            if arr.size and (arr.min() < 0
+                             or arr.max() >= self.cfg.vocab_size):
+                raise ValueError(f"resume_tokens must be in [0, "
+                                 f"{self.cfg.vocab_size})")
+            resume = [int(t) for t in arr]
+            request.resume_tokens = resume
+        if resume and self._deliver_if_satisfied(
+                request.id, resume, request.max_new_tokens, request.stop):
+            return request.id
         cls = str(request.priority or "interactive")
         if cls not in PRIORITY_CLASSES:
             raise ValueError(f"unknown priority {request.priority!r} "
@@ -864,8 +966,44 @@ class SlotServer:
                     raise QueueFullError(
                         f"queue full ({limit} {cls} waiting); request shed")
         request.prompt = prompt
+        if self._journal is not None:
+            # the entry's prompt is the original one; a resume prefix
+            # pre-seeds its emitted record, so a second failure replays
+            # from the whole known prefix
+            self._journal.submit(
+                request.id, prompt.tolist(), request.max_new_tokens,
+                temperature=request.temperature, top_k=request.top_k,
+                cache_prompt=request.cache_prompt, seed=self._seed,
+                deadline=request.deadline, emitted=resume, model=self.model,
+                stop=[list(q) for q in request.stop] if request.stop
+                else None,
+                logprobs=request.logprobs, priority=request.priority)
         self._queue.append(request)
         return request.id
+
+    def _deliver_if_satisfied(self, rid: int, tokens: list, max_new: int,
+                              stop) -> bool:
+        """Deliver a request whose resumed or journaled prefix already
+        finishes it (budget reached, a stop token at its end, a completed
+        stop sequence), without a slot, a prefill or a decode step ->
+        whether it did."""
+        stop_end = bool(self.stop_tokens) and bool(tokens) and \
+            tokens[-1] in self.stop_tokens
+        seq_end = _stop_match_end(tokens, stop) if stop else None
+        if not (len(tokens) >= max_new or stop_end or seq_end is not None):
+            return False
+        if seq_end is not None and seq_end <= max_new:
+            tokens = tokens[:seq_end]
+            stop_end = True
+        toks = list(tokens[:max_new])
+        stopped = stop_end and toks and (
+            seq_end is not None or toks[-1] in self.stop_tokens)
+        self.replays += 1
+        self.replayed_tokens += len(toks)
+        self._done[rid] = Completion(rid, toks, "stop" if stopped
+                                     else "length")
+        self.seal_journal(rid)
+        return True
 
     def _shed_queued_batch(self) -> bool:
         """Displace the YOUNGEST queued batch-tier request to make room
@@ -878,6 +1016,7 @@ class SlotServer:
             self.shed_requests += 1
             self.shed_by_class[req.priority] += 1
             self._done[req.id] = Completion(req.id, [], "shed")
+            self.seal_journal(req.id)
             return True
         return False
 
@@ -892,7 +1031,11 @@ class SlotServer:
         for req in self._queue:
             if req.deadline is not None and now > req.deadline:
                 self.expired_requests += 1
-                self._done[req.id] = Completion(req.id, [], "expired")
+                # a queued replay keeps its emitted prefix: delivered
+                # decode work, not queue residue
+                self._done[req.id] = Completion(
+                    req.id, list(req.resume_tokens or ()), "expired")
+                self.seal_journal(req.id)
             else:
                 kept.append(req)
         self._queue = kept
@@ -909,8 +1052,10 @@ class SlotServer:
             if req.id == request_id:
                 del self._queue[i]
                 self.cancelled_requests += 1
-                self._done[request_id] = Completion(request_id, [],
-                                                    "cancelled")
+                # a queued replay keeps its emitted prefix
+                self._done[request_id] = Completion(
+                    request_id, list(req.resume_tokens or ()), "cancelled")
+                self.seal_journal(request_id)
                 return True
         slot = self._slot_of.get(request_id)
         if slot is None:
@@ -929,37 +1074,131 @@ class SlotServer:
 
     def reset(self) -> list[int]:
         """Re-arm the serving state after a loop failure without touching
-        the weights: a fresh KV ring and slot state, the pipeline and slot
-        bookkeeping cleared. Queued requests survive (they never started);
-        the admitted-but-undelivered ids are returned as lost, so the
+        the weights: a fresh KV ring and slot state, a fresh prefix pool
+        and trie, the pipeline and slot bookkeeping cleared (blocks still
+        running on the card are dropped unwaited: stream order and the
+        caching allocators keep their memory until they end). Queued
+        requests survive: they never started.
+
+        Admitted-but-undelivered requests replay when the journal is on:
+        each is re-queued, ahead of the never-started queue and in
+        admission order, under its own id, with its journaled prefix as
+        ``resume_tokens``; one whose prefix already finishes it is
+        delivered without decoding. Only ids with no journal entry (all
+        of them under ``replay=False``) are returned as lost, so the
         caller fails them upstream."""
-        failed = sorted(self._inflight)
+        failed: list[int] = []
+        replay_reqs: list[Request] = []
+        for rid in sorted(self._inflight):
+            entry = (self._journal.get(rid)
+                     if self.replay and self._journal is not None else None)
+            if entry is None:
+                failed.append(rid)
+                self.seal_journal(rid)
+                continue
+            # a crash between the finishing block's processing and the
+            # delivery: deliver the journaled stream, decode nothing more
+            if self._deliver_if_satisfied(rid, list(entry.emitted),
+                                          entry.max_new_tokens, entry.stop):
+                continue
+            replay_reqs.append(self._request_from_entry(entry, id=rid))
         self._prefix_refs.clear()
         self._init_device_state()
         if self._prefix_blocks:
             self._init_prefix_pool()
         self._init_host_state()
+        self._queue.extendleft(reversed(replay_reqs))
         self.resets += 1
         return failed
 
+    @staticmethod
+    def _request_from_entry(entry, **kw) -> Request:
+        """The Request that resumes a journal entry from its prefix (its
+        in-process deadline too; a file's entries carry none)."""
+        return Request(
+            prompt=np.asarray(entry.prompt, np.int32),
+            max_new_tokens=entry.max_new_tokens,
+            temperature=entry.temperature, top_k=entry.top_k,
+            cache_prompt=entry.cache_prompt,
+            resume_tokens=list(entry.emitted),
+            stop=[list(q) for q in entry.stop] if entry.stop else None,
+            logprobs=int(entry.logprobs or 0),
+            priority=str(entry.priority or "interactive"),
+            deadline=entry.deadline, **kw)
+
+    def recover_journal(self, entries, compact: bool = True) -> int:
+        """Resubmit another process's unfinished journal entries
+        (``RequestJournal.recover``) as fresh requests resuming from their
+        journaled prefixes: ``serve`` calls this at startup, so a killed
+        process's requests are finished by its successor. Fresh ids, in
+        the entries' order (the dead process's waiters are gone with its
+        ids). Exempt from ``max_queue``: the dead process accepted them
+        all. An entry that fails validation is dropped with an error in
+        the log, never fatal. Only once the resubmissions are journaled
+        does the file compact down to the live set (``compact=False``
+        defers that to the caller): a crash before that replays twice,
+        never loses. -> how many were resubmitted."""
+        n = 0
+        saved_max_queue, self.max_queue = self.max_queue, 0
+        try:
+            for entry in entries:
+                try:
+                    self.submit(self._request_from_entry(entry))
+                except ValueError as e:
+                    log.error("journal recovery dropped request %s "
+                              "(unservable): %s", entry.id, e)
+                    continue
+                n += 1
+        finally:
+            self.max_queue = saved_max_queue
+        if compact and self._journal is not None:
+            self._journal.compact()
+        return n
+
     def shutdown(self) -> None:
-        """Nothing runs in the background here; kept for ServeApp."""
+        """Close a file-backed journal (ServeApp calls this at the end);
+        nothing else runs in the background."""
+        if self._journal is not None:
+            self._journal.close()
+
+    def seal_journal(self, request_id: int) -> None:
+        """Seal a request's journal entry without a completion: its caller
+        delivered a terminal error upstream (``ServeApp._fail_pending``),
+        so a later recovery must not decode it again. Idempotent; a no-op
+        with the journal off."""
+        if self._journal is not None:
+            self._journal.finish(request_id)
 
     def fail_queued(self) -> list[Request]:
         """Drain the wait queue (requests never admitted): the graceful
         shutdown path; the caller tells their waiters why."""
         out = list(self._queue)
         self._queue.clear()
+        for req in out:
+            self.seal_journal(req.id)
         return out
 
     def _release_request(self, request_id: int) -> None:
-        """Drop a finished or cancelled request's dispatch-side tracking
-        and its reference on its matched prefix-cache path."""
+        """Drop a finished or cancelled request's dispatch-side tracking,
+        its reference on its matched prefix-cache path and its journal
+        entry (no replay after a delivered terminal)."""
         self._slot_of.pop(request_id, None)
         self._inflight.discard(request_id)
         path = self._prefix_refs.pop(request_id, None)
         if path is not None:
             self._prefix_cache.release(path)
+        self.seal_journal(request_id)
+
+    def progress(self, request_id: int) -> dict | None:
+        """A live request's replay state, the ``GET /progress`` payload:
+        its processed tokens and its prompt's length. None for an unknown
+        or finished id, or with the journal off."""
+        entry = (self._journal.get(request_id)
+                 if self._journal is not None else None)
+        if entry is None:
+            return None
+        return {"tokens": list(entry.emitted),
+                "prompt_tokens": len(entry.prompt)}
 
     @property
     def pending(self) -> int:
@@ -1012,9 +1251,21 @@ class SlotServer:
             "cancelled": self.cancelled_requests,
             "expired": self.expired_requests,
             "resets": self.resets,
+            "replay": self.replay,
+            "replays": self.replays,
+            "replayed_tokens": self.replayed_tokens,
+            "chaos_faults_injected": self.chaos_faults_injected,
             "decode_block_dispatch_ms_p50": (
                 disp[len(disp) // 2] * 1e3 if disp else None),
         }
+        if self._journal is not None:
+            out["journal"] = {
+                "entries": len(self._journal),
+                "durable": self._journal.path is not None,
+                "write_errors": self._journal.write_errors,
+                "compactions": self._journal.compactions,
+                "replay": self.replay,
+            }
         pc = self._prefix_cache
         if pc is not None:
             out["prefix_cache"] = {
@@ -1064,13 +1315,22 @@ class SlotServer:
                 del self._slot_of[stale]
             self._slot_of[req.id] = slot
             self._inflight.add(req.id)
-            prompt = req.prompt
+            resume = req.resume_tokens
+            if resume is not None:
+                # a replay or a resume (possibly with an empty prefix):
+                # the effective context is prompt + prefix, through the
+                # normal chunked prefill, and only the rest of the budget
+                # decodes
+                self.replays += 1
+                self.replayed_tokens += len(resume)
+            full = (np.concatenate([req.prompt, np.asarray(resume, np.int32)])
+                    if resume else req.prompt)
             # all but the last token is prefilled; the last is the slot's
             # first fed token
-            body = prompt[:-1]
+            body = full[:-1]
             # the slot's first decode write lands at the current cursor
             offset = (self._cursor - body.size) % self.max_len
-            target = body.size + req.max_new_tokens
+            target = body.size + req.max_new_tokens - len(resume or ())
             temp = (self.temperature if req.temperature is None
                     else float(req.temperature))
             topk = self.top_k if req.top_k is None else int(req.top_k)
@@ -1087,7 +1347,7 @@ class SlotServer:
                 temp=temp, topk=topk,
                 chunk_starts=list(range(prefix_len, body.size, C))
                 or [prefix_len],
-                last=int(prompt[-1]), hit_path=path))
+                last=int(full[-1]), hit_path=path))
         if not admissions:
             return
         self._dispatch_prefix_copy(admissions)
@@ -1190,8 +1450,14 @@ class SlotServer:
         self._expect_len[slot] = body_len
         self._expect_active[slot] = True
         self._requests[slot] = req
-        self._emitted[slot] = []
-        self._lp_acc[slot] = []
+        # a resumed request's completion owes the whole stream: the tally
+        # starts with the teacher-forced prefix, whose logprob rows are
+        # placeholders (those positions were prefilled, not decoded)
+        resume = req.resume_tokens or ()
+        self._emitted[slot] = [int(t) for t in resume]
+        self._lp_acc[slot] = ([{"token": int(t), "logprob": None,
+                                "top": None} for t in resume]
+                              if req.logprobs else [])
         # re-arm busy at the replay position: a predecessor processed just
         # before this admit cleared it
         self._host_busy[slot] = True
@@ -1231,10 +1497,11 @@ class SlotServer:
             # _host_busy never goes False while a row is active on device
             per_row_topk=bool((self._np_topks[busy] != self.top_k).any()),
             all_greedy=not (self._np_temps[busy] > 0).any(), lp_k=lp_k)
+        host, ready = _start_read(packed)
         self._cursor = (self._cursor + self.block_size) % self.max_len
         self.blocks_dispatched += 1
         self.block_dispatch_s.append(time.perf_counter() - t0)
-        self._pipeline.append({"packed": packed, "events": [],
+        self._pipeline.append({"host": host, "ready": ready, "events": [],
                                "lp_k": lp_k})
         if self._predictive:            # exact: no EOS can surprise us
             adv = np.minimum(self.block_size,
@@ -1242,22 +1509,38 @@ class SlotServer:
             self._model_len = self._model_len + np.where(
                 self._model_active, adv, 0).astype(np.int32)
             self._model_active &= self._model_len < self._model_target
+        self._post_dispatch_chaos()
+
+    def _post_dispatch_chaos(self) -> None:
+        """The deterministic chaos hooks (constants.py): crash the loop,
+        or SIGKILL the process, at exact decode-block ordinals, after the
+        block was really dispatched, so recovery has in-flight work to
+        replay."""
+        if (self._chaos_sigkill_block
+                and self.blocks_dispatched >= self._chaos_sigkill_block):
+            log.error("chaos: SIGKILLing this process at decode block %d",
+                      self.blocks_dispatched)
+            os.kill(os.getpid(), signal.SIGKILL)
+        if self.blocks_dispatched in self._chaos_crash_blocks:
+            self._chaos_crash_blocks.discard(self.blocks_dispatched)
+            self.chaos_faults_injected += 1
+            raise RuntimeError("chaos: injected mid-decode loop crash at "
+                               f"block {self.blocks_dispatched}")
 
     def _process(self, count: int) -> None:
-        """Read + bookkeep the oldest ``count`` in-flight blocks with one
-        device-to-host copy. Emitted tokens per slot are the length delta
-        against the expectation; completions fire where a slot went
-        inactive; each block's admissions and cancellations replay after
-        it, in dispatch order."""
+        """Read + bookkeep the oldest ``count`` in-flight blocks, each from
+        its pinned host copy once its event has passed (newer blocks keep
+        running). Emitted tokens per slot are the length delta against
+        the expectation; completions fire where a slot went inactive; each
+        block's admissions and cancellations replay after it, in dispatch
+        order."""
         recs = [self._pipeline.popleft() for _ in range(count)]
-        flat = torch.cat([r["packed"] for r in recs], dim=1).cpu().numpy()
         B = self.block_size
-        col = 0
         for rec in recs:
+            if rec["ready"] is not None:
+                rec["ready"].synchronize()
             lp_k = rec["lp_k"]
-            w = B + 2 + (B * (2 * lp_k + 1) if lp_k else 0)
-            packed = flat[:, col:col + w]
-            col += w
+            packed = rec["host"].numpy()
             toks = packed[:, :B]
             lengths, active = packed[:, B], packed[:, B + 1].astype(bool)
             if lp_k:
@@ -1296,6 +1579,11 @@ class SlotServer:
                                 [int(t) for t in lp_ids[slot, j, :k]],
                                 [round(float(v), 6)
                                  for v in lp_vals[slot, j, :k]]]})
+                if new and req is not None and self._journal is not None:
+                    # the durability point: the journaled prefix advances
+                    # with the host-processed tokens (replay from any true
+                    # prefix is exact; the lag only costs re-decoding)
+                    self._journal.emit(req.id, new)
                 if stop_hit:
                     # complete now with "stop" and free the device slot
                     # like a cancel; _stop_cancelled skips the slot until
@@ -1352,6 +1640,7 @@ class SlotServer:
         EOS mode: admit when the host's view is current, dispatch a block
         if any slot may be running, and process the blocks beyond the
         pipeline depth (all of them on the drain tail)."""
+        self._inject_chaos()
         if self._predictive:
             self._admit()
             if self._device_may_be_active():
@@ -1371,6 +1660,30 @@ class SlotServer:
         if len(self._pipeline) > depth:
             self._process(len(self._pipeline) - depth)
             self._admit()
+
+    def _inject_chaos(self) -> None:
+        """The seeded chaos hooks (constants.py): a turn's delay, and a
+        failure raised as a real dispatch failure would be, out of
+        step() into the serving loop's recovery. The n-th turn fails iff
+        the n-th draw does, whatever the timing."""
+        if self._chaos_delay_ms:
+            time.sleep(self._chaos_delay_ms / 1000)
+        if (self._chaos_fail_rate
+                and self._chaos_rng.random() < self._chaos_fail_rate):
+            self.chaos_faults_injected += 1
+            raise RuntimeError("chaos: injected serving dispatch failure "
+                               f"#{self.chaos_faults_injected}")
+
+    def checkpoint_progress(self) -> None:
+        """The durability checkpoint: process every in-flight block except
+        the newest ``pipeline_depth``, so the journal's prefixes (and
+        /progress) advance and finished completions come out, without
+        waiting for the blocks still running. Predictive mode otherwise
+        processes only at a completion or a 64-block backlog. ServeApp
+        calls it every ``journal_checkpoint_s``."""
+        n = len(self._pipeline) - self.pipeline_depth
+        if n > 0:
+            self._process(n)
 
     def drain_completed(self) -> dict[int, Completion]:
         if self._predictive and self._pipeline and not self._done:
