@@ -66,13 +66,30 @@ and exits non-zero if any of them fails:
    journaled requests, finishes them and compacts the journal; (d)
    checkpoint_progress with blocks in flight returns without waiting for
    the newest block;
-9. parity: the flagship width at 2 layers on the card (kernels, bf16)
+9. main path, streaming: serve's app (its build_argparser, build_app and
+   make_httpd, --text-codec ids) answering Server-Sent Events: (a) at
+   float32 (2 layers) 8 greedy prompts each posted buffered, streamed on
+   /generate and streamed on /v1/completions, every stream equal to its
+   own completion and, with the buffered answer, to solo generate up to
+   its first near-tie, and /v1/chat/completions streams ending in [DONE];
+   (b) serving run A's 24 requests all streamed at the flagship width
+   with serve's defaults, at journal checkpoints every 1.0 s and 0.25 s:
+   every stream done with strictly increasing cursors, the time to the
+   first frame, frames a request, tokens a frame, the gaps between
+   frames, no synchronisation in dispatch, a block's host dispatch
+   beside run A's, and a block's device time with 8 streams attached
+   within 1% of the serving phase's; (c) a float32 stream cut after its
+   first frame: cancelled within a 0.25 s wait beat and a block, then
+   resumed with Last-Event-ID, no token twice and none missing; (d) 16
+   streams across two loop crashes at float32 (equal to a crashless
+   server up to a near-tie) and at bf16 (how many equal reported);
+10. parity: the flagship width at 2 layers on the card (kernels, bf16)
    against the CPU's plain path in float32, from the same weights, for the
    generation logits and for the training loss and every gradient; and the
    SlotServer in float32 on the card (8 requests through 3 slots, batched
    and per-slot admission) against the port's generate run solo on the
    card, token for token up to the first near-tie of solo's logits;
-10. profile: a flagship decode step's and a flagship training step's host
+11. profile: a flagship decode step's and a flagship training step's host
    wall time against the device time torch.profiler records.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -157,6 +174,21 @@ PREFIX_LEN, PREFIX_REQUESTS, PREFIX_SUFFIX, PREFIX_NEW = 1024, 16, (32, 256), 32
 REPLAY_F32, REPLAY_F32_NEW, REPLAY_F32_CRASH = 8, 96, "5,13"
 REPLAY_REQUESTS, REPLAY_PROMPT, REPLAY_NEW = 16, (64, 1536), (64, 128)
 REPLAY_KILL, REPLAY_KILL_NEW, REPLAY_KILL_BLOCK = 8, 128, 6
+# the streaming phase: (a) STREAM_F32 greedy prompts of 64-512 tokens and
+# STREAM_F32_NEW new at float32 (2 layers), each posted buffered, streamed on
+# /generate and streamed on /v1/completions; (b) run A's requests buffered
+# and streamed, and STREAM_UNIFORM's streams (the same budget each, so no
+# completion comes before the last block), at each journal checkpoint
+# cadence of STREAM_CADENCES; (c) a
+# stream of STREAM_CUT_NEW new tokens cut after its first frame and resumed
+# with Last-Event-ID; (d) STREAM_CRASH greedy streams of STREAM_CRASH_NEW
+# new across crashes at decode blocks STREAM_CRASH_F32 (float32), and at
+# 30% and 65% of a crashless burst's blocks (the flagship at bf16)
+STREAM_F32, STREAM_F32_NEW = 8, 32
+STREAM_CADENCES = (1.0, 0.25)
+STREAM_UNIFORM = (8, 512, 256)      # requests, prompt tokens, new tokens
+STREAM_CUT_NEW = 384
+STREAM_CRASH, STREAM_CRASH_NEW, STREAM_CRASH_F32 = 16, 128, "5,13"
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -887,19 +919,16 @@ def _post(url: str, payload: dict) -> tuple:
         return None, repr(e), time.perf_counter() - t0
 
 
-def phase_serving(torch, ops) -> dict:
+def phase_serving(torch, ops) -> tuple:
     """The serving path through its user entry point: the serve CLI's
     build_argparser, build_app and make_httpd on 127.0.0.1, 24 concurrent
     POST /generate (run A, predictive mode); a direct SlotServer with a
     stop token (run B, EOS mode); one decode block's wall and device time.
     Returns the kernels' launches over runs A and B (all must be 0: the
-    serving path runs the einsum attention, as the JAX package's does)."""
+    serving path runs the einsum attention, as the JAX package's does) and
+    run A's record."""
     print("== main path: serving")
     import threading
-    import warnings
-
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from tony_tpu_torch.cli import serve
     from tony_tpu_torch.models import generate as G
@@ -914,40 +943,8 @@ def phase_serving(torch, ops) -> dict:
           f"(the CLI's defaults), on {srv.device}")
     # a synchronisation inside a decode block's dispatch raises (and fails
     # the run's requests); the admissions' ones are counted, by source line
-    syncs = {"admission": 0, "sites": collections.Counter()}
-    dispatch, admit = srv._dispatch_block, srv._admit
-
-    def checked_dispatch():
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            dispatch()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    def counted_admit():
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                admit()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        for w in caught:
-            if "called a synchronizing CUDA operation" in str(w.message):
-                syncs["admission"] += 1
-                syncs["sites"][f"{Path(w.filename).name}:{w.lineno}"] += 1
-
-    srv._dispatch_block, srv._admit = checked_dispatch, counted_admit
-    rng = np.random.default_rng(21)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
-    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
-    sampled = set(rng.choice(SERVE_REQUESTS, SERVE_SAMPLED, replace=False)
-                  .tolist())
-    payloads = [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
-                     max_new_tokens=int(m), timeout_s=600.0,
-                     **(dict(temperature=0.8, top_k=50) if i in sampled
-                        else {}))
-                for i, (n, m) in enumerate(zip(lens, news))]
+    syncs = _checked_dispatch(torch, srv)
+    rng, lens, news, sampled, payloads = _serve_payloads()
     httpd = serve.make_httpd(app, "127.0.0.1", 0)
     url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
@@ -1022,39 +1019,10 @@ def phase_serving(torch, ops) -> dict:
           f"{dict(syncs['sites'])}; launches {counts}")
 
     # ---- one decode block: wall time against device time, 8 busy slots
-    for _ in range(8):
-        srv.submit(S.Request(prompt=rng.integers(0, 32768, 1024).tolist(),
-                             max_new_tokens=128))
-    srv.step()                      # admits all 8, dispatches a block
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        srv._dispatch_block()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        srv._dispatch_block()
-        torch.cuda.synchronize()
-    done = srv.run_until_drained()
-    if sorted(len(c.tokens) for c in done.values()) != [128] * 8:
-        fail("serving: the profiled requests did not complete")
-    block_ms = _quantiles(walls)["p50"]
-    dev_ms, top, _ = _profile_rows(prof, 1)
-    print("serving: decode block (8 slots, ~1030-1140 cached, 16 steps) wall "
-          "ms over 5 blocks: " + " ".join(f"{w:.2f}" for w in walls)
-          + f" (median {block_ms:.2f})")
-    if top:
-        print(f"serving: decode block {block_ms:.3f} ms wall, {dev_ms:.3f} ms "
-              f"on the device, busy share {dev_ms / block_ms:.3f}")
-        print("serving_profile_top " + json.dumps(top))
-    else:
-        print("serving: decode block device time not measured (the profiler "
-              "recorded no device activity)")
-    run_a.update(block_wall_ms=block_ms, block_walls_ms=walls,
-                 block_device_ms=dev_ms if top else None,
-                 block_busy_share=dev_ms / block_ms if top else None)
+    blk = _profile_block(torch, S, srv, rng, "serving")
+    run_a.update(block_wall_ms=blk["wall_ms"], block_walls_ms=blk["walls_ms"],
+                 block_device_ms=blk["device_ms"],
+                 block_busy_share=blk["busy_share"])
 
     # ---- run B: EOS mode, a stop token taken from run 0's stream
     prepared = G.DecodeWeights(srv._params, srv._fused)
@@ -1099,7 +1067,78 @@ def phase_serving(torch, ops) -> dict:
     run_b = dict(stop=stop, stopped=n_stop, prefix_of_free_run=same,
                  launches=counts_b)
     print("serving " + json.dumps(dict(run_a=run_a, run_b=run_b)))
-    return {k: counts[k] + counts_b[k] for k in counts}
+    return {k: counts[k] + counts_b[k] for k in counts}, run_a
+
+
+def _serve_payloads():
+    """Run A's requests: (the generator, prompt lengths, new tokens, the
+    sampled ones, the POST /generate bodies), drawn from seed 21."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
+    sampled = set(rng.choice(SERVE_REQUESTS, SERVE_SAMPLED, replace=False)
+                  .tolist())
+    payloads = [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
+                     max_new_tokens=int(m), timeout_s=600.0,
+                     **(dict(temperature=0.8, top_k=50) if i in sampled
+                        else {}))
+                for i, (n, m) in enumerate(zip(lens, news))]
+    return rng, lens, news, sampled, payloads
+
+
+def _profile_block(torch, S, srv, rng, name, streams=False) -> dict:
+    """One decode block of 8 busy slots (1024-token prompts, 128 new, about
+    1030-1140 positions cached): its wall time over 5 blocks and its device
+    time under torch.profiler. With ``streams``, each request has a
+    TokenStream attached, which must deliver its completion."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.api.stream import TokenStream
+
+    reqs = [S.Request(prompt=rng.integers(0, 32768, 1024).tolist(),
+                      max_new_tokens=128) for _ in range(8)]
+    attached = {}
+    for r in reqs:
+        srv.submit(r)
+        if streams:
+            attached[r.id] = TokenStream()
+            srv.attach_stream(r.id, attached[r.id])
+    srv.step()                      # admits all 8, dispatches a block
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        srv._dispatch_block()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv._dispatch_block()
+        torch.cuda.synchronize()
+    done = srv.run_until_drained()
+    if sorted(len(done[r.id].tokens) for r in reqs) != [128] * 8:
+        fail(f"{name}: the profiled requests did not complete")
+    for rid, ts in attached.items():
+        if ts.drain_all(timeout=60) != (done[rid].tokens, "length", None):
+            fail(f"{name}: request {rid}'s stream is not its completion")
+    block_ms = _quantiles(walls)["p50"]
+    dev_ms, top, _ = _profile_rows(prof, 1)
+    print(f"{name}: decode block (8 slots, ~1030-1140 cached, 16 steps"
+          + (", 8 streams attached" if streams else "") + ") wall ms over "
+          "5 blocks: " + " ".join(f"{w:.2f}" for w in walls)
+          + f" (median {block_ms:.2f})")
+    if top:
+        print(f"{name}: decode block {block_ms:.3f} ms wall, {dev_ms:.3f} ms "
+              f"on the device, busy share {dev_ms / block_ms:.3f}")
+        print(f"{name}_profile_top " + json.dumps(top))
+    else:
+        print(f"{name}: decode block device time not measured (the profiler "
+              "recorded no device activity)")
+    return dict(wall_ms=block_ms, walls_ms=walls,
+                device_ms=dev_ms if top else None,
+                busy_share=dev_ms / block_ms if top else None)
 
 
 def _near_tie_check(name, got, want, gaps, n) -> dict:
@@ -1148,12 +1187,16 @@ def _post_all(url, payloads) -> list:
 
 
 def _serve_app(serve, argv):
-    """serve's app from its own argparser on 127.0.0.1 -> (app, httpd,
-    the /generate URL), started."""
+    """serve's app from its own argparser on 127.0.0.1, with the codec its
+    --text-codec names -> (app, httpd, the /generate URL), started."""
     import threading
 
-    app = serve.build_app(serve.build_argparser().parse_args(argv))
-    httpd = serve.make_httpd(app, "127.0.0.1", 0)
+    from tony_tpu_torch.api.openai import TokenCodec
+
+    args = serve.build_argparser().parse_args(argv)
+    app = serve.build_app(args)
+    httpd = serve.make_httpd(app, "127.0.0.1", 0,
+                             TokenCodec(args.text_codec, vocab_size=args.vocab))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     app.start()
     return app, httpd, f"http://127.0.0.1:{httpd.server_address[1]}/generate"
@@ -2144,6 +2187,606 @@ def phase_replay(torch, ops) -> dict:
     return counts
 
 
+def _sse(url: str, payload: dict, headers: dict | None = None) -> dict:
+    """One streamed POST -> {status, frames: [(id line or None, data,
+    seconds since the POST)], error}; data parsed from JSON except the
+    [DONE] sentinel."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    frames, eid = [], None
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            for raw in r:
+                line = raw.decode().rstrip("\n")
+                if line.startswith("id: "):
+                    eid = line[4:]
+                elif line.startswith("data: "):
+                    data = line[6:]
+                    frames.append((eid, data if data == "[DONE]"
+                                   else json.loads(data),
+                                   time.perf_counter() - t0))
+                    eid = None
+            return dict(status=r.status, frames=frames, error=None)
+    except urllib.error.HTTPError as e:
+        return dict(status=e.code, frames=frames, error=e.read().decode())
+    except OSError as e:
+        return dict(status=None, frames=frames, error=repr(e))
+
+
+def _sse_all(url, payloads) -> list:
+    """Stream every payload at once -> each one's ``_sse`` record."""
+    import threading
+
+    results = [None] * len(payloads)
+    threads = [threading.Thread(
+        target=lambda i=i: results.__setitem__(i, _sse(url, payloads[i])))
+        for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results
+
+
+def _stream_record(name, res, budget, skip=0) -> dict:
+    """Check one finished stream, /generate's or /v1's: answered 200, every
+    delta non-empty, each ``id:`` cursor the running count of tokens
+    delivered from ``skip`` on (none twice, none missing), the closing
+    frame at ``budget`` with finish_reason "length" (and /generate's
+    n_tokens the count delivered). -> {rid, tokens, times: each delta's
+    arrival, sizes: its tokens, trace_id}."""
+    frames = res["frames"]
+    if res["status"] != 200 or not frames:
+        fail(f"{name}: answered {res['status']}: {res['error']}")
+    v1 = frames[-1][1] == "[DONE]"
+    *deltas, (eid, closing, _) = frames[:-1] if v1 else frames
+    if "error" in closing:
+        fail(f"{name}: the stream ended in an error frame: {closing}")
+    if v1:
+        chunks = [d["choices"][0]["tokens"] for _, d, _ in deltas]
+        reason = closing["choices"][0]["finish_reason"]
+        rid, n_tokens = int(closing["id"].rsplit("-", 1)[1]), None
+    else:
+        chunks = [d["tokens"] for _, d, _ in deltas]
+        reason, rid, n_tokens = (closing["finish_reason"], closing["id"],
+                                 closing["n_tokens"])
+    cursors = [int(e.split(":")[1]) for e, _, _ in deltas]
+    running, n = [], skip
+    for c in chunks:
+        n += len(c)
+        running.append(n)
+    flat = [t for c in chunks for t in c]
+    if (not all(chunks) or cursors != running or reason != "length"
+            or int(eid.split(":")[1]) != budget or skip + len(flat) != budget
+            or n_tokens not in (None, len(flat))):
+        fail(f"{name}: request {rid}: cursors {cursors} for chunks of "
+             f"{[len(c) for c in chunks]} from {skip}, closing {closing} at "
+             f"{eid}, budget {budget}")
+    return dict(rid=rid, tokens=flat, times=[t for _, _, t in deltas],
+                sizes=[len(c) for c in chunks],
+                trace_id=closing.get("trace_id"))
+
+
+def _record_completions(srv) -> dict:
+    """Every Completion the engine hands ServeApp's loop, by request id (a
+    stream's terminal drops its completion unread)."""
+    comps, drain = {}, srv.drain_completed
+
+    def recording():
+        done = drain()
+        comps.update(done)
+        return done
+
+    srv.drain_completed = recording
+    return comps
+
+
+def _checked_dispatch(torch, srv) -> dict:
+    """Run every decode block's dispatch under sync debug mode "error" (a
+    synchronisation there fails the run) and count the admissions' syncs,
+    by source line; -> the counters."""
+    import warnings
+
+    syncs = {"admission": 0, "sites": collections.Counter()}
+    dispatch, admit = srv._dispatch_block, srv._admit
+
+    def checked_dispatch():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def counted_admit():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                admit()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for w in caught:
+            if "called a synchronizing CUDA operation" in str(w.message):
+                syncs["admission"] += 1
+                syncs["sites"][f"{Path(w.filename).name}:{w.lineno}"] += 1
+
+    srv._dispatch_block, srv._admit = checked_dispatch, counted_admit
+    return syncs
+
+
+def _first_frame_then_close(url, payload) -> tuple:
+    """A raw client that reads a stream's first frame and hangs up ->
+    (its id line, its tokens, the instant of the close)."""
+    import socket
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    sock = socket.create_connection((u.hostname, u.port), timeout=600)
+    body = json.dumps(payload).encode()
+    sock.sendall(f"POST {u.path}?{u.query} HTTP/1.1\r\nHost: x\r\n"
+                 f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    buf = b""
+    while b"data: " not in buf or not buf.endswith(b"\n\n"):
+        chunk = sock.recv(1 << 20)
+        if not chunk:
+            fail(f"streaming (c): the server closed before a frame: {buf}")
+        buf += chunk
+    sock.close()
+    closed = time.perf_counter()
+    frame = buf.split(b"\r\n\r\n", 1)[1].decode().split("\n\n")[0]
+    lines = dict(x.split(": ", 1) for x in frame.split("\n"))
+    return lines["id"], json.loads(lines["data"])["tokens"], closed
+
+
+def _stream_parity(torch, ops, G, serve) -> dict:
+    """(a), (c) and (d) at float32, 2 layers, serve's defaults otherwise
+    but a journal checkpoint every 0.25 s (so a stream's first frame comes
+    early in (c)):
+    the streams against solo generate on the card and against the
+    engine's own completions; a cut stream resumed; streams across two
+    loop crashes against a crashless server."""
+    import numpy as np
+
+    argv = FLAGSHIP + ["--n-layers", "2", "--dtype", "float32", "--seed",
+                       "71", "--text-codec", "ids", "--journal-checkpoint-s",
+                       "0.25"]
+    app, httpd, url = _serve_app(serve, argv)
+    base = url[:-len("/generate")]
+    srv = app.server
+    comps = _record_completions(srv)
+    rng = np.random.default_rng(71)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, STREAM_F32)]
+    cut_prompt = rng.integers(0, 32768, 256).tolist()
+    crash_prompts = [rng.integers(0, 32768, int(n)).tolist()
+                     for n in rng.integers(64, 513, STREAM_CRASH)]
+    crash_app = None
+    try:
+        # the references on the card (its kernels), before the counted run
+        w = G.DecodeWeights(srv._params, srv._fused)
+        solo = [_solo_greedy(torch, G, w, srv.cfg, p, STREAM_F32_NEW)
+                for p in prompts]
+        solo_cut = _solo_greedy(torch, G, w, srv.cfg, cut_prompt,
+                                STREAM_CUT_NEW)
+        del w
+        ops.reset_launch_counts()
+
+        # ---- (a) every prompt buffered, streamed, streamed on /v1
+        n = STREAM_F32_NEW
+        texts = [" ".join(map(str, p)) for p in prompts]
+        buf = _post_all(url, [dict(prompt=p, max_new_tokens=n)
+                              for p in prompts])
+        gen = _sse_all(url + "?stream=true",
+                       [dict(prompt=p, max_new_tokens=n) for p in prompts])
+        v1 = _sse_all(base + "/v1/completions",
+                      [dict(prompt=t, max_tokens=n, stream=True)
+                       for t in texts])
+        chat = _sse_all(base + "/v1/chat/completions", [dict(
+            messages=[{"role": "user", "content": t}], max_tokens=n,
+            stream=True) for t in texts[:2]])
+        rows, same_buf = [], 0
+        for i, (toks, gaps) in enumerate(solo):
+            b = buf[i][1]["tokens"]
+            row = dict(request=i, buffered=_near_tie_check(
+                f"streaming (a) buffered {i}", b, toks, gaps, n))
+            for way, res in (("generate", gen[i]), ("v1", v1[i])):
+                rec = _stream_record(f"streaming (a) {way} {i}", res, n)
+                if rec["tokens"] != comps[rec["rid"]].tokens:
+                    fail(f"streaming (a) {way} {i}: the stream is not its "
+                         "own completion")
+                row[way] = _near_tie_check(f"streaming (a) {way} {i}",
+                                           rec["tokens"], toks, gaps, n)
+                same_buf += rec["tokens"] == b
+            rows.append(row)
+        for i, res in enumerate(chat):
+            rec = _stream_record(f"streaming (a) chat {i}", res, n)
+            first = res["frames"][0][1]["choices"][0]["delta"]
+            if res["frames"][-1][1] != "[DONE]" or first.get("role") != \
+                    "assistant" or rec["tokens"] != comps[rec["rid"]].tokens:
+                fail(f"streaming (a) chat {i}: first delta {first}")
+            _near_tie_check(f"streaming (a) chat {i}", rec["tokens"],
+                            solo[i][0], solo[i][1], n)
+        print(f"streaming (a, float32, 2 layers): {STREAM_F32} greedy prompts"
+              f" of {[len(p) for p in prompts]} tokens, {n} new, each "
+              "buffered, streamed on /generate and on /v1/completions "
+              "(--text-codec ids): every stream its own completion, "
+              f"{same_buf} of {2 * STREAM_F32} streams equal the buffered "
+              "answer, and all three agree with solo generate on the card "
+              f"up to its first near-tie (gap < {PARITY_NEAR_TIE}); 2 chat "
+              "streams end in [DONE] with the role in their first delta")
+
+        # ---- (c) a stream cut after its first frame, resumed
+        payload = dict(prompt=cut_prompt, max_new_tokens=STREAM_CUT_NEW)
+        whole = _stream_record("streaming (c) uninterrupted",
+                               _sse(url + "?stream=true", payload),
+                               STREAM_CUT_NEW)
+        cancelled_at, cancel = {}, app.cancel
+
+        def timed_cancel(rid):
+            out = cancel(rid)
+            cancelled_at.setdefault(rid, time.perf_counter())
+            return out
+
+        app.cancel = timed_cancel
+        n_blocks = len(srv.block_dispatch_s)
+        st0 = app.stats()
+        eid, first, closed = _first_frame_then_close(url + "?stream=true",
+                                                     payload)
+        rid, acked = map(int, eid.split(":"))
+        if not 0 < acked < STREAM_CUT_NEW:
+            fail(f"streaming (c): the first frame carried {acked} tokens")
+        t_seen = t_free = None
+        while time.perf_counter() - closed < 60:
+            st = app.stats()
+            now = time.perf_counter()
+            if t_seen is None and st["stream_disconnects"] > \
+                    st0["stream_disconnects"]:
+                t_seen = now - closed
+            if t_seen is not None and st["active"] == 0:
+                t_free = now - closed
+                break
+            time.sleep(0.002)
+        app.cancel = cancel
+        blocks = list(srv.block_dispatch_s)[n_blocks:]
+        t_cancel = cancelled_at.get(rid, float("inf")) - closed
+        bound = 0.25 + max(blocks) + 0.05
+        if t_free is None or t_cancel > bound:
+            fail(f"streaming (c): cancelled {t_cancel:.3f} s after the close "
+                 f"(bound {bound:.3f}: a wait beat, a block, 50 ms), "
+                 f"the slot freed after {t_free}")
+        rest = _stream_record(
+            "streaming (c) resumed",
+            _sse(url + "?stream=true", payload,
+                 headers={"Last-Event-ID": eid}), STREAM_CUT_NEW, skip=acked)
+        stitched = first + rest["tokens"]
+        cut = _near_tie_check("streaming (c) stitched", stitched,
+                              solo_cut[0], solo_cut[1], STREAM_CUT_NEW)
+        _near_tie_check("streaming (c) uninterrupted", whole["tokens"],
+                        solo_cut[0], solo_cut[1], STREAM_CUT_NEW)
+        st = app.stats()
+        rec_c = dict(acked=acked, cancel_s=t_cancel, seen_s=t_seen,
+                     freed_s=t_free, bound_s=bound,
+                     block_ms_max=max(blocks) * 1e3,
+                     equal_uninterrupted=stitched == whole["tokens"],
+                     replays=st["replays"],
+                     disconnects=st["stream_disconnects"], **cut)
+        print(f"streaming (c, float32, 2 layers): a {STREAM_CUT_NEW}-token "
+              f"stream cut after its first frame ({acked} tokens): cancelled "
+              f"{t_cancel:.3f} s after the close (bound {bound:.3f} s: a "
+              f"0.25 s wait beat, the longest block {max(blocks) * 1e3:.1f} "
+              f"ms, 50 ms), seen in /stats at {t_seen:.3f} s, the slot free "
+              f"at {t_free:.3f} s; resumed with Last-Event-ID {eid}: "
+              f"{len(rest['tokens'])} more tokens, no duplicate and no gap, "
+              f"the parts {'equal' if rec_c['equal_uninterrupted'] else 'not equal'}"
+              " to the uninterrupted stream and equal to solo generate up "
+              "to its first near-tie")
+
+        # ---- (d, float32) streams across two loop crashes
+        ref = _post_all(url, [dict(prompt=p, max_new_tokens=STREAM_CRASH_NEW,
+                                   logprobs=2) for p in crash_prompts])
+        os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"] = STREAM_CRASH_F32
+        try:
+            crash_app, crash_httpd, crash_url = _serve_app(serve, argv)
+        finally:
+            del os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"]
+        crash_comps = _record_completions(crash_app.server)
+        res = _sse_all(crash_url + "?stream=true",
+                       [dict(prompt=p, max_new_tokens=STREAM_CRASH_NEW)
+                        for p in crash_prompts])
+        equal = 0
+        for i, (r, b) in enumerate(zip(res, ref)):
+            rec = _stream_record(f"streaming (d, float32) {i}", r,
+                                 STREAM_CRASH_NEW)
+            if rec["tokens"] != crash_comps[rec["rid"]].tokens:
+                fail(f"streaming (d, float32) {i}: the stream is not its "
+                     "completion")
+            gaps = [e["top"][1][0] - e["top"][1][1]
+                    for e in b[1]["logprobs"]]
+            _near_tie_check(f"streaming (d, float32) {i}", rec["tokens"],
+                            b[1]["tokens"], gaps, STREAM_CRASH_NEW)
+            equal += rec["tokens"] == b[1]["tokens"]
+        csrv = crash_app.server
+        if csrv.chaos_faults_injected != 2 or crash_app.loop_restarts != 2:
+            fail(f"streaming (d, float32): {csrv.chaos_faults_injected} "
+                 f"crashes, {crash_app.loop_restarts} restarts")
+        rec_d = dict(done=len(res), equal=equal, replays=csrv.replays,
+                     replayed_tokens=csrv.replayed_tokens)
+        print(f"streaming (d, float32, 2 layers): {STREAM_CRASH} greedy "
+              f"streams of {STREAM_CRASH_NEW} new tokens across crashes at "
+              f"decode blocks {STREAM_CRASH_F32}: {len(res)} of "
+              f"{STREAM_CRASH} done, no token twice, {csrv.replays} replays "
+              f"({csrv.replayed_tokens} journaled tokens); {equal} of "
+              f"{STREAM_CRASH} equal the crashless server's, every other "
+              f"only at or after a near-tie (gap < {PARITY_NEAR_TIE})")
+    finally:
+        _stop_app(app, httpd)
+        if crash_app is not None:
+            _stop_app(crash_app, crash_httpd)
+    return dict(parity=[r for r in rows if any(
+        v.get("diverge") is not None or v.get("near_ties")
+        for v in r.values() if isinstance(v, dict))],
+        same_as_buffered=same_buf, cut=rec_c, crash_f32=rec_d)
+
+
+def _stream_bursts(torch, serve, argv, bursts) -> tuple:
+    """Serve's app from ``argv``, a one-block warm-up request, then each
+    burst of ``bursts`` ((streamed, payloads) pairs) in turn, its payloads
+    posted at once: on /generate?stream=true, or buffered. Every block's
+    dispatch is checked for synchronisations. -> (the engine, a record a
+    burst: each stream's check or each buffered answer, the wall time,
+    the blocks' host dispatch and the engine's counters)."""
+    app, httpd, url = _serve_app(serve, argv)
+    srv = app.server
+    comps = _record_completions(srv)
+    syncs = _checked_dispatch(torch, srv)
+    out = []
+    try:
+        res = _post(url, dict(prompt=list(range(1, 300)), max_new_tokens=16))
+        if res[0] != 200:
+            fail(f"streaming: warm-up answered {res[0]}: {res[1]}")
+        for streamed, payloads in bursts:
+            syncs["admission"] = 0
+            with app.lock:
+                s0 = srv.stats()
+            n0 = len(srv.block_dispatch_s)
+            t0 = time.perf_counter()
+            results = (_sse_all(url + "?stream=true", payloads) if streamed
+                       else _post_all(url, payloads))
+            wall = time.perf_counter() - t0
+            with app.lock:
+                s1 = srv.stats()
+            out.append(dict(
+                streamed=streamed, results=results, wall_s=wall,
+                health=app.health(), restarts=app.loop_restarts,
+                syncs=syncs["admission"],
+                dispatch_ms=[x * 1e3 for x in
+                             list(srv.block_dispatch_s)[n0:]],
+                warm_blocks=s0["blocks_dispatched"],
+                blocks=s1["blocks_dispatched"] - s0["blocks_dispatched"],
+                stalls=s1["stream_stalls"] - s0["stream_stalls"],
+                opened=s1["streams_opened"] - s0["streams_opened"],
+                crashes=s1["chaos_faults_injected"],
+                replays=s1["replays"] - s0["replays"]))
+    finally:
+        _stop_app(app, httpd)
+        del srv._dispatch_block, srv._admit, srv.drain_completed
+    for rec, (streamed, payloads) in zip(out, bursts):
+        if not streamed:
+            continue
+        rec["recs"] = []
+        for i, (res, pl) in enumerate(zip(rec["results"], payloads)):
+            r = _stream_record(f"streaming request {i}", res,
+                               pl["max_new_tokens"])
+            if r["tokens"] != comps[r["rid"]].tokens:
+                fail(f"streaming request {i}: the stream is not its "
+                     "completion")
+            rec["recs"].append(r)
+    return srv, out
+
+
+def _burst_row(rec, n_tokens) -> dict:
+    """A burst's record for the output: its wall time and tokens/s, its
+    blocks' host dispatch, and a streamed burst's cadence."""
+    disp = _quantiles(rec["dispatch_ms"])
+    row = dict(wall_s=rec["wall_s"], output_tokens_per_s=n_tokens
+               / rec["wall_s"], decode_blocks=rec["blocks"],
+               block_dispatch_ms_p50=disp["p50"],
+               block_dispatch_ms_max=disp["max"],
+               admission_syncs=rec["syncs"])
+    if rec["streamed"]:
+        row.update(stream_stalls=rec["stalls"], **_cadence(rec["recs"]))
+    return row
+
+
+def _cadence(recs, burst_s=0.02) -> dict:
+    """The client-side cadence of a burst's streams: time to the first
+    frame, frames a request and tokens a frame; and deliveries: the engine
+    feeds a stream once per block it processes, and a turn that processes
+    several blocks sends their frames back to back, so frames that arrive
+    within ``burst_s`` of the one before count as one delivery (its
+    tokens, and the gap from the delivery before)."""
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+    n_del, del_tokens, gaps = [], [], []
+    for r in recs:
+        groups = []         # [first arrival, last arrival, tokens]
+        for t, n in zip(r["times"], r["sizes"]):
+            if groups and t - groups[-1][1] < burst_s:
+                groups[-1][1:] = [t, groups[-1][2] + n]
+            else:
+                groups.append([t, t, n])
+        n_del.append(len(groups))
+        del_tokens += [g[2] for g in groups]
+        gaps += [b[0] - a[0] for a, b in zip(groups, groups[1:])]
+    ttff = [r["times"][0] for r in recs]
+    frames = [len(r["times"]) for r in recs]
+    sizes = [s for r in recs for s in r["sizes"]]
+    return dict(ttff_s_p50=pct(ttff, 0.5), ttff_s_max=max(ttff),
+                frames_per_request_mean=sum(frames) / len(frames),
+                frames_per_request_min=min(frames),
+                frames_per_request_max=max(frames),
+                tokens_per_frame_mean=sum(sizes) / len(sizes),
+                tokens_per_frame_max=max(sizes),
+                deliveries_per_request_mean=sum(n_del) / len(n_del),
+                tokens_per_delivery_mean=sum(del_tokens) / len(del_tokens),
+                tokens_per_delivery_max=max(del_tokens),
+                delivery_gap_s_p50=pct(gaps, 0.5),
+                delivery_gap_s_p99=pct(gaps, 0.99))
+
+
+def phase_streaming(torch, ops, run_a) -> dict:
+    """Streaming and the OpenAI routes through serve's own build_argparser,
+    build_app and make_httpd on 127.0.0.1: (a) float32 streams against
+    their buffered answers, their completions and solo generate; (b) run
+    A's 24 requests streamed at the flagship width with serve's defaults,
+    at two journal checkpoint cadences, with a block's device time
+    against the serving phase's; (c) a stream cut and resumed with
+    Last-Event-ID; (d) streams across two loop crashes, float32 and bf16.
+    Returns the kernels' launches (none: the serving path runs the einsum
+    attention)."""
+    print("== main path: streaming")
+    import numpy as np
+
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import generate as G
+    from tony_tpu_torch.models import serving as S
+
+    torch.cuda.empty_cache()
+    parity = _stream_parity(torch, ops, G, serve)
+
+    # ---- (b) run A's requests buffered and streamed, in turns, and a
+    # burst whose streams all run to the end together, at each checkpoint
+    # cadence
+    rng, lens, news, _, payloads = _serve_payloads()
+    urng = np.random.default_rng(91)
+    n_uni, uni_len, uni_new = STREAM_UNIFORM
+    uniform = [dict(prompt=urng.integers(0, 32768, uni_len).tolist(),
+                    max_new_tokens=uni_new, timeout_s=600.0)
+               for _ in range(n_uni)]
+    cadences = {}
+    for k, cad in enumerate(STREAM_CADENCES):
+        names = ["buffered", "streamed", "uniform"][::-1 if k % 2 else 1]
+        srv, recs = _stream_bursts(
+            torch, serve, FLAGSHIP + ["--seed", "21", "--journal-checkpoint-s",
+                                      str(cad)],
+            [(n != "buffered", uniform if n == "uniform" else payloads)
+             for n in names])
+        got = dict(zip(names, recs))
+        for name, r in got.items():
+            want_streams = {"buffered": 0, "streamed": SERVE_REQUESTS,
+                            "uniform": n_uni}[name]
+            if (not r["health"]["healthy"] or r["restarts"]
+                    or r["opened"] != want_streams):
+                fail(f"streaming (b, {cad} s, {name}): health {r['health']},"
+                     f" {r['restarts']} restarts, {r['opened']} streams")
+        for res, pl in zip(got["buffered"]["results"], payloads):
+            body = res[1]
+            if body["finish_reason"] != "length" or \
+                    len(body["tokens"]) != pl["max_new_tokens"]:
+                fail(f"streaming (b, {cad} s): a buffered request ended "
+                     f"{body['finish_reason']} with {len(body['tokens'])}")
+        row = {name: _burst_row(r, int(news.sum()) if name != "uniform"
+                                else n_uni * uni_new)
+               for name, r in got.items()}
+        cadences[cad] = row
+        st, bu, un = row["streamed"], row["buffered"], row["uniform"]
+        print(f"streaming (b, bf16, serve's defaults, --journal-checkpoint-s "
+              f"{cad}): run A's {SERVE_REQUESTS} requests streamed: "
+              f"{SERVE_REQUESTS} of {SERVE_REQUESTS} done, cursors strictly "
+              f"increasing, each its completion; {int(news.sum())} tokens in "
+              f"{st['wall_s']:.3f} s ({st['output_tokens_per_s']:.1f} "
+              f"tokens/s; buffered in turn {bu['wall_s']:.3f} s, "
+              f"{bu['output_tokens_per_s']:.1f}); first frame p50 "
+              f"{st['ttff_s_p50']:.3f} s, max {st['ttff_s_max']:.3f} s; "
+              f"{st['frames_per_request_mean']:.2f} frames a request "
+              f"({st['frames_per_request_min']}-"
+              f"{st['frames_per_request_max']}), "
+              f"{st['tokens_per_frame_mean']:.1f} tokens a frame (max "
+              f"{st['tokens_per_frame_max']}); "
+              f"{st['deliveries_per_request_mean']:.2f} deliveries a request "
+              f"of {st['tokens_per_delivery_mean']:.1f} tokens (max "
+              f"{st['tokens_per_delivery_max']}), a delivery every "
+              f"{st['delivery_gap_s_p50']:.3f} s (p50; p99 "
+              f"{st['delivery_gap_s_p99']:.3f} s); a "
+              f"block's host dispatch {st['block_dispatch_ms_p50']:.2f} ms "
+              f"(median of {st['decode_blocks']}; buffered "
+              f"{bu['block_dispatch_ms_p50']:.2f} of {bu['decode_blocks']}, "
+              f"run A {run_a['block_dispatch_ms_p50']:.2f}); "
+              f"synchronisations 0 in dispatch, {st['admission_syncs']} in "
+              f"admission; {st['stream_stalls']} stream stalls")
+        print(f"streaming (b, --journal-checkpoint-s {cad}): {n_uni} streams "
+              f"of {uni_len}-token prompts and {uni_new} new, ending "
+              f"together: first frame p50 {un['ttff_s_p50']:.3f} s; "
+              f"{un['frames_per_request_mean']:.2f} frames a request of "
+              f"{un['tokens_per_frame_mean']:.1f} tokens, in "
+              f"{un['deliveries_per_request_mean']:.2f} deliveries of "
+              f"{un['tokens_per_delivery_mean']:.1f} tokens (max "
+              f"{un['tokens_per_delivery_max']}), a delivery every "
+              f"{un['delivery_gap_s_p50']:.3f} s (p50; p99 "
+              f"{un['delivery_gap_s_p99']:.3f} s); a block's host dispatch "
+              f"{un['block_dispatch_ms_p50']:.2f} ms")
+    blk = _profile_block(torch, S, srv, rng, "streaming", streams=True)
+    del srv
+    torch.cuda.empty_cache()
+    want = run_a["block_device_ms"]
+    if blk["device_ms"] is not None and want is not None and \
+            abs(blk["device_ms"] - want) > 0.01 * want:
+        fail(f"streaming: a block's device time {blk['device_ms']:.3f} ms "
+             f"with streams attached, the serving phase's {want:.3f} ms")
+
+    # ---- (d, bf16) streams across two crashes at the flagship width
+    rng = np.random.default_rng(81)
+    crash_payloads = [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
+                           max_new_tokens=STREAM_CRASH_NEW, timeout_s=600.0)
+                      for n in rng.integers(64, 1025, STREAM_CRASH)]
+    argv = FLAGSHIP + ["--seed", "81"]
+    _, (calm,) = _stream_bursts(torch, serve, argv, [(True, crash_payloads)])
+    crash_at = [calm["warm_blocks"] + max(1, round(calm["blocks"] * f))
+                for f in (0.3, 0.65)]
+    os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"] = ",".join(
+        map(str, crash_at))
+    try:
+        _, (crashed,) = _stream_bursts(torch, serve, argv,
+                                       [(True, crash_payloads)])
+    finally:
+        del os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"]
+    if crashed["crashes"] != 2 or crashed["restarts"] != 2 \
+            or not crashed["health"]["healthy"]:
+        fail(f"streaming (d, bf16): {crashed['crashes']} crashes, "
+             f"{crashed['restarts']} restarts, health {crashed['health']}")
+    equal = sum(a["tokens"] == b["tokens"]
+                for a, b in zip(calm["recs"], crashed["recs"]))
+    crash_bf16 = dict(crash_at=crash_at, done=len(crashed["recs"]),
+                      equal=equal, replays=crashed["replays"],
+                      wall_s_crashless=calm["wall_s"],
+                      wall_s_crashed=crashed["wall_s"])
+    del calm, crashed
+    torch.cuda.empty_cache()
+    print(f"streaming (d, bf16, serve's defaults): {STREAM_CRASH} greedy "
+          f"streams of {STREAM_CRASH_NEW} new tokens, crashes at blocks "
+          f"{crash_at}: {crash_bf16['done']} of {STREAM_CRASH} done, no token "
+          f"twice, {crash_bf16['replays']} replays; "
+          f"{crash_bf16['wall_s_crashless']:.3f} s crashless, "
+          f"{crash_bf16['wall_s_crashed']:.3f} s with the crashes; {equal} of "
+          f"{STREAM_CRASH} streams equal the crashless run's (bf16)")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"streaming: kernels launched {counts}, expected none")
+    print("streaming " + json.dumps(dict(
+        parity=parity, cadences=cadences,
+        block=dict(wall_ms=blk["wall_ms"], device_ms=blk["device_ms"],
+                   serving_device_ms=want), crash_bf16=crash_bf16,
+        launches=counts, card=nvidia_smi_line())))
+    return counts
+
+
 def _solo_greedy(torch, G, w, cfg, prompt, n):
     """The port's greedy generation of n tokens, its prefill and decode
     steps on the kernels, with each step's top-2 logit gap."""
@@ -2485,14 +3128,15 @@ def main() -> int:
         records += phase_bwd_kernels(torch, A)
     gen_launches = phase_main_path(ops, lm_generate)
     train_launches, train_losses = phase_train_path(torch, ops, lm_train)
-    serve_launches = phase_serving(torch, ops)
+    serve_launches, run_a = phase_serving(torch, ops)
     ckpt_launches = phase_checkpoint(torch, ops, lm_train, lm_generate,
                                      train_losses)
     prefix_launches = phase_prefix_cache(torch, ops)
     replay_launches = phase_replay(torch, ops)
+    stream_launches = phase_streaming(torch, ops, run_a)
     launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
                 + ckpt_launches[k] + prefix_launches[k] + replay_launches[k]
-                for k in gen_launches}
+                + stream_launches[k] for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -127,7 +127,7 @@ def test_serve_http_end_to_end_matches_jax(model):
             "loop_restarts": 0})
         assert http.get("/nope")[0] == 404
         for raw in (b'{"max_new_tokens": 5}', b"not json", b"[1, 2]",
-                    b'{"prompt": "abc"}', b'{"prompt": [1], "stream": true}',
+                    b'{"prompt": "abc"}', b'{"prompt": [1], "stream": "yes"}',
                     b'{"prompt": [1], "timeout_s": "NaN"}',
                     b'{"prompt": [1], "priority": "x"}',
                     b'{"prompt": [1], "resume_tokens": 2}',
@@ -454,7 +454,6 @@ def test_serve_prefix_cache_flags_and_stats():
     (["--draft-n-layers", "1"], "speculative"),
     (["--draft-n-heads", "2"], "speculative"),
     (["--draft-d-ff", "64"], "speculative"),
-    (["--text-codec", "bytes"], "OpenAI routes"),
 ])
 def test_cli_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):

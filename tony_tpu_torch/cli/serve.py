@@ -17,9 +17,26 @@ timeout); ``resume_tokens`` teacher-forces an already-emitted prefix and
 ``progress_key`` names the request for GET /progress?key=a (or
 ?keys=a,b), which answers each live request's journaled tokens. GET
 /healthz answers 200 or 503; GET /stats reports the slots, the queue, the
-engine's counters (``replays``, ``replayed_tokens``, ``journal``) and,
-with ``--prefix-cache-blocks``, the prefix cache's (``prefix_cache``:
-hits, misses, evictions, blocks).
+engine's counters (``replays``, ``replayed_tokens``, ``journal``, the
+streams') and, with ``--prefix-cache-blocks``, the prefix cache's
+(``prefix_cache``: hits, misses, evictions, blocks).
+
+Streaming: ``"stream": true`` (or ``?stream=true``) on /generate answers
+Server-Sent Events, ``{"tokens": [...]}`` deltas and one closing
+``{"id", "finish_reason", "n_tokens", "trace_id"}`` frame. POST
+/v1/completions and /v1/chat/completions speak the OpenAI shapes
+(api/openai.py), buffered or streamed (chunks, then ``data: [DONE]``);
+``--text-codec`` maps their text to token ids. Every streamed frame
+carries ``id: <rid>:<n>`` (n tokens delivered so far); a client that lost
+its stream re-POSTs with ``Last-Event-ID: <rid>:<n>`` and gets the rest,
+its delivered prefix teacher-forced. A client that vanishes mid-stream is
+cancelled. Frames come when the engine processes blocks: in predictive
+mode at a completion, at a 64-block backlog or at every journal
+checkpoint (``--journal-checkpoint-s``), so about once a checkpoint; in
+EOS mode (``--stop-tokens``) behind each block. An inbound ``X-Tony-Trace:
+<trace_id>:<span_id>`` is adopted (else a root is minted), journaled with
+the request and echoed as ``X-Tony-Trace-Id`` on buffered answers and as
+``trace_id`` on a stream's closing frame.
 
 Every accepted request is journaled; a serving-loop failure replays the
 in-flight ones (``--no-replay``: fails them instead). The loop advances
@@ -40,9 +57,9 @@ inserts a prompt only when its request sets ``"cache_prompt": true``.
 Not ported yet, each raising a named error: ``--hf-checkpoint``,
 ``--mesh``, ``--paged-kv`` and its ``--kv-*``, ``--class-budget-*`` and
 ``--prefill-interleave``, ``--role``, ``--draft-model`` and the
-``--draft-*`` and ``--spec-gamma*`` flags, ``--model``, ``--text-codec``
-and ``--weight-dtype int8``; streaming (``"stream": true``) answers 400.
-The OpenAI routes, /metrics and /debug/profile are not served.
+``--draft-*`` and ``--spec-gamma*`` flags, ``--model`` and
+``--weight-dtype int8``. /metrics, /debug/profile, /autoscale/hint and
+/kv/import are not served.
 """
 
 from __future__ import annotations
@@ -58,6 +75,8 @@ import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
+
+from ..api.stream import stream_requested
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -132,6 +151,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "down to the pipeline depth, so the journal's "
                         "prefixes (what replay and /progress resume from) "
                         "stay fresh; 0 = never (forced under --no-replay)")
+    p.add_argument("--text-codec", default="ids", choices=("ids", "bytes"),
+                   help="text <-> token mapping of the /v1 routes (no "
+                        "tokenizer ships with the repo): 'ids' = text is "
+                        "space-separated decimal token ids (an exact round "
+                        "trip), 'bytes' = UTF-8 bytes (needs --vocab >= "
+                        "256; ids >= 256 decode as U+FFFD)")
     # not ported yet: each raises in check_ported unless left at the JAX
     # package's default
     p.add_argument("--mesh", default="")
@@ -150,7 +175,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--draft-n-layers", type=int, default=2)
     p.add_argument("--draft-n-heads", type=int, default=4)
     p.add_argument("--draft-d-ff", type=int, default=256)
-    p.add_argument("--text-codec", default="ids")
     return p
 
 
@@ -178,8 +202,6 @@ _NOT_PORTED_FLAGS = {
     "--draft-n-layers": (lambda a: a.draft_n_layers != 2, _SPEC),
     "--draft-n-heads": (lambda a: a.draft_n_heads != 4, _SPEC),
     "--draft-d-ff": (lambda a: a.draft_d_ff != 256, _SPEC),
-    "--text-codec": (lambda a: a.text_codec != "ids",
-                     "the rest of serving: streaming and the OpenAI routes"),
     "--weight-dtype int8": (lambda a: a.weight_dtype == "int8", "w8a16"),
 }
 
@@ -288,8 +310,9 @@ class ServeApp:
 
     ``journal_checkpoint_s`` (0 = off): how often a busy loop turn with no
     completion ready calls the engine's ``checkpoint_progress``, which
-    advances the journal (what a replay and /progress resume from)
-    without waiting for the blocks still running. ``progress_key``s map
+    advances the journal (what a replay and /progress resume from) and
+    feeds the open token streams, without waiting for the blocks still
+    running. ``progress_key``s map
     a caller's names to request ids for ``progress()`` (GET /progress),
     at most 4096, finished requests' keys evicted first."""
 
@@ -297,6 +320,8 @@ class ServeApp:
                  loop_backoff_s: float = 0.5,
                  journal_checkpoint_s: float = 1.0):
         self.server = server
+        # the name /v1 responses carry when a request names no model
+        self.default_model = str(getattr(server, "model", None) or "default")
         self.lock = threading.Lock()
         self.wake = threading.Event()
         self.stop = threading.Event()
@@ -316,6 +341,15 @@ class ServeApp:
         self._progress_keys: collections.OrderedDict[str, int] = \
             collections.OrderedDict()
         self._progress_keys_cap = 4096
+        # clients that vanished mid-stream (only the HTTP layer sees a
+        # socket die; the handler cancels their requests)
+        self.stream_disconnects = 0
+        # SSE reconnect: a vanished stream's delivered tokens by request id
+        # (its journaled prefix: feeds advance with the journal), popped by
+        # a Last-Event-ID reconnect; single use, oldest evicted first
+        self._resume_cache: collections.OrderedDict[int, list[int]] = \
+            collections.OrderedDict()
+        self._resume_cache_cap = 256
         self.thread = threading.Thread(
             target=self._loop, name="serve-loop", daemon=True)
 
@@ -361,16 +395,20 @@ class ServeApp:
 
     def _fail_pending(self, exc: Exception) -> None:
         """Fail every waiting request with the loop's error, so waiters
-        get a ServingLoopError instead of hanging to their timeouts, and
-        seal their journal entries: a client told "failed" must not have
+        get a ServingLoopError (and open streams an error frame) instead
+        of hanging to their timeouts, and seal their journal entries: a client told "failed" must not have
         its request resurrected by a later recovery."""
         seal = getattr(self.server, "seal_journal", None)
+        fail_stream = getattr(self.server, "fail_stream", None)
         for rid, ev in list(self._events.items()):
             self._results[rid] = ServingLoopError(
                 f"serving loop failed: {exc!r}")
             self._events.pop(rid, None)
             if callable(seal):
                 seal(rid)
+            # a streamed request's consumer sees the same error, in band
+            if callable(fail_stream):
+                fail_stream(rid, f"serving loop failed: {exc!r}")
             ev.set()
 
     def _loop(self):
@@ -499,12 +537,16 @@ class ServeApp:
                      model: str | None = None,
                      cache_prompt: bool | None = None,
                      resume_tokens: list | None = None,
-                     progress_key: str | None = None):
+                     progress_key: str | None = None,
+                     stream=None, trace=None):
         """Admission half of generate(): returns (request_id, event). The
         request carries ``timeout`` as its queue deadline.
         ``resume_tokens`` teacher-forces an already-emitted prefix (the
         completion's tokens include it); ``progress_key`` registers a
-        caller's name for the request with ``progress()``."""
+        caller's name for the request with ``progress()``. ``stream`` (an
+        ``api.stream.TokenStream``) is attached in the same locked step as
+        the submit, so no token slips between them; ``trace`` (a
+        ``TraceContext``) is journaled with the request."""
         from ..models.serving import Request
 
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
@@ -513,7 +555,8 @@ class ServeApp:
                       deadline=time.monotonic() + timeout,
                       resume_tokens=resume_tokens, stop=stop,
                       logprobs=int(logprobs or 0),
-                      priority=str(priority or "interactive"), model=model)
+                      priority=str(priority or "interactive"), model=model,
+                      trace=trace)
         ev = threading.Event()
         # health check + registration + submit are one step against the
         # loop's failure handler, which fails registered events under it
@@ -529,6 +572,12 @@ class ServeApp:
             except Exception:
                 self._events.pop(req.id, None)
                 raise
+            if stream is not None:
+                attach = getattr(self.server, "attach_stream", None)
+                if callable(attach):
+                    attach(req.id, stream)
+                else:       # an engine without streams (test stand-ins)
+                    stream.fail("engine does not support streaming")
             if progress_key:
                 self._progress_keys[str(progress_key)] = req.id
                 if len(self._progress_keys) > self._progress_keys_cap:
@@ -572,6 +621,50 @@ class ServeApp:
             raise res
         return res
 
+    def discard_result(self, request_id: int) -> None:
+        """A streamed request's cleanup: its terminal went out through the
+        stream, so its waiter event and any stored result are dropped
+        unread (under the lock, against ``_deliver``)."""
+        with self.lock:
+            self._events.pop(request_id, None)
+            self._results.pop(request_id, None)
+
+    def note_stream_disconnect(self) -> None:
+        with self.lock:
+            self.stream_disconnects += 1
+
+    def save_resume_prefix(self, request_id: int, tokens) -> None:
+        """Park a vanished stream's delivered tokens for a ``Last-Event-ID``
+        reconnect (the handler collects what the stream fed it, which is
+        the journaled prefix)."""
+        toks = [int(t) for t in tokens]
+        if not toks:
+            return
+        with self.lock:
+            self._resume_cache[int(request_id)] = toks
+            self._resume_cache.move_to_end(int(request_id))
+            while len(self._resume_cache) > self._resume_cache_cap:
+                self._resume_cache.popitem(last=False)
+
+    def resume_prefix(self, request_id: int) -> list | None:
+        """The prefix a ``Last-Event-ID: <rid>:<n>`` reconnect resumes
+        from, or None for an unknown rid (the reconnect is then a fresh
+        request). The parked prefix first (single use: popped); a rid
+        still live means the client came back before the server saw the
+        old connection die: that request is cancelled (its slot goes back
+        to live traffic) and its journaled prefix resumed."""
+        rid = int(request_id)
+        with self.lock:
+            toks = self._resume_cache.pop(rid, None)
+            if toks is not None:
+                return toks
+            prog = getattr(self.server, "progress", None)
+            p = prog(rid) if callable(prog) else None
+        if p is None:
+            return None
+        self.cancel(rid)
+        return [int(t) for t in p.get("tokens", [])] or None
+
     def cancel(self, request_id: int) -> bool:
         """Drop the waiter and stop the request wherever it is."""
         with self.lock:
@@ -608,34 +701,24 @@ class ServeApp:
                            "restarts": self.loop_restarts,
                            "failures": self.loop_failures,
                            "max_restarts": self.max_loop_restarts}
+            # only the HTTP layer sees sockets die, so this counter lives
+            # here, beside the engine's stream counters
+            out["stream_disconnects"] = self.stream_disconnects
             out["pid"] = os.getpid()
             return out
 
 
-def _read_json(handler) -> dict:
-    n = int(handler.headers.get("Content-Length", "0"))
-    payload = json.loads(handler.rfile.read(n) or b"{}")
-    if not isinstance(payload, dict):
-        raise ValueError("request body must be a JSON object")
-    return payload
-
-
 def _generate_args(payload: dict, path: str) -> dict:
-    """A /generate body -> ServeApp.submit_async keywords; ValueError for
-    anything malformed (the 400 reply)."""
+    """A /generate body -> ServeApp.submit_async keywords plus ``stream``
+    (the SSE opt-in: ``"stream": true`` or ``?stream=true``); ValueError
+    for anything malformed (the 400 reply)."""
     if "prompt" not in payload:
         raise ValueError("missing 'prompt' (a list of token ids)")
     prompt = payload["prompt"]
     if not isinstance(prompt, list) or not all(
             isinstance(t, int) and not isinstance(t, bool) for t in prompt):
         raise ValueError("prompt must be a JSON list of token ids")
-    stream = payload.get("stream")
-    if stream is not None and not isinstance(stream, bool):
-        raise ValueError("stream must be a JSON boolean")
-    if stream or parse_qs(urlparse(path).query).get(
-            "stream", ["false"])[0].lower() in ("1", "true", "yes"):
-        raise ValueError("streaming is not ported to tony_tpu_torch yet "
-                         "(ROADMAP.md queue 1, the rest of serving)")
+    stream = stream_requested(payload, path)
     cache_prompt = payload.get("cache_prompt")
     # bool("false") is True: coercing would turn a string opt-out into
     # caching the prompt
@@ -665,6 +748,9 @@ def _generate_args(payload: dict, path: str) -> dict:
         logprobs = 0
     if isinstance(logprobs, bool) or not isinstance(logprobs, int):
         raise ValueError("logprobs must be an integer")
+    if stream and logprobs:
+        raise ValueError("logprobs are unavailable on streamed requests "
+                         "(buffered responses only)")
     priority = payload.get("priority") or "interactive"
     if priority not in ("interactive", "batch"):
         raise ValueError("priority must be 'interactive' or 'batch'")
@@ -679,13 +765,23 @@ def _generate_args(payload: dict, path: str) -> dict:
                 top_k=None if top_k is None else int(top_k),
                 stop=stop, logprobs=logprobs, priority=priority, model=model,
                 cache_prompt=cache_prompt, resume_tokens=resume,
-                progress_key=progress_key)
+                progress_key=progress_key, stream=stream)
 
 
-def make_handler(app: ServeApp):
+def make_handler(app: ServeApp, codec=None):
     """The serve HTTP surface: GET /healthz, /stats and /progress, POST
-    /generate."""
+    /generate (buffered or SSE), /v1/completions and /v1/chat/completions.
+    ``codec`` is the /v1 routes' ``api.openai.TokenCodec`` (default
+    "ids")."""
+    from ..api import openai as oai
+    from ..api.stream import (TokenStream, begin_sse, parse_last_event_id,
+                              read_json_body, sse_frame)
     from ..models.serving import QueueFullError
+    from ..observability import (TRACE_HEADER, TRACE_ID_RESPONSE_HEADER,
+                                 TraceContext)
+
+    if codec is None:
+        codec = oai.TokenCodec("ids")
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):      # quiet; the loop is the log story
@@ -701,8 +797,16 @@ def make_handler(app: ServeApp):
             self.end_headers()
             self.wfile.write(body)
 
+        def _trace_ctx(self) -> TraceContext:
+            """This hop's trace context: the inbound X-Tony-Trace header's,
+            else a minted root (serve is a front door too)."""
+            ctx = TraceContext.from_header(self.headers.get(TRACE_HEADER))
+            return ctx if ctx is not None else TraceContext.mint()
+
         def _client_gone(self) -> bool:
-            """True when the client hung up while we wait (a peeked EOF)."""
+            """True when the client hung up while we wait (a peeked EOF).
+            A client that half-closes its send side after the request reads
+            as gone too."""
             try:
                 r, _, _ = select.select([self.connection], [], [], 0)
                 if not r:
@@ -710,6 +814,77 @@ def make_handler(app: ServeApp):
                 return self.connection.recv(1, socket.MSG_PEEK) == b""
             except OSError:
                 return True
+
+        def _resume(self) -> tuple[list | None, int]:
+            """The ``Last-Event-ID: <rid>:<n>`` reconnect of a streamed
+            request -> (its resume prefix, the n acked tokens to withhold);
+            (None, 0) for a fresh stream."""
+            lei = parse_last_event_id(self.headers.get("Last-Event-ID"))
+            if lei is None:
+                return None, 0
+            prev = app.resume_prefix(lei[0])
+            if prev is None:
+                return None, 0
+            return prev, min(lei[1], len(prev))
+
+        def _relay_sse(self, rid, stream, deadline, frame_fn, final_fn,
+                       error_fn, on_disconnect) -> None:
+            """Drain one request's TokenStream into SSE frames (the head is
+            sent): ``frame_fn(tokens)`` per chunk, ``final_fn(reason)`` at
+            the terminal, ``error_fn(message)`` in band. A write failure or
+            a peeked EOF means the client vanished: the request is
+            cancelled, the disconnect counted and ``on_disconnect`` run
+            (it parks the prefix for a reconnect). The peek runs at every
+            wake-up, a chunk's too: a write to a closed socket can succeed,
+            and chunks may come faster than the wait beat. Past the
+            deadline the request is cancelled with an error frame."""
+            try:
+                for kind, payload in stream.events(poll_s=0.25):
+                    if kind == "tokens":
+                        if self._client_gone():
+                            raise BrokenPipeError("client went away")
+                        self.wfile.write(frame_fn(payload))
+                        self.wfile.flush()
+                    elif kind == "done":
+                        self.wfile.write(final_fn(payload))
+                        self.wfile.flush()
+                        break
+                    elif kind == "error":
+                        self.wfile.write(error_fn(payload))
+                        self.wfile.flush()
+                        break
+                    elif time.monotonic() >= deadline:
+                        app.cancel(rid)
+                        self.wfile.write(error_fn(
+                            f"request {rid} timed out; cancelled"))
+                        self.wfile.flush()
+                        break
+                    elif self._client_gone():
+                        raise BrokenPipeError("client went away")
+            except OSError:         # BrokenPipeError, ConnectionResetError
+                app.cancel(rid)     # stop decoding for nobody
+                app.note_stream_disconnect()
+                on_disconnect()
+            finally:
+                app.discard_result(rid)
+            self.close_connection = True
+
+        def _wait(self, rid, ev, timeout, on_timeout) -> bool:
+            """Wait for a buffered request in short beats, so a vanished
+            client is noticed and its request cancelled -> whether it
+            completed (else it was cancelled and answered, or abandoned)."""
+            deadline = time.monotonic() + timeout
+            while not ev.wait(0.25):
+                if time.monotonic() >= deadline:
+                    app.cancel(rid)
+                    on_timeout(f"request {rid} timed out after {timeout}s; "
+                               "cancelled")
+                    return False
+                if self._client_gone():
+                    app.cancel(rid)     # abandonment: nobody to answer
+                    self.close_connection = True
+                    return False
+            return True
 
         def do_GET(self):
             if self.path == "/healthz":
@@ -728,15 +903,27 @@ def make_handler(app: ServeApp):
                 self._send(404, {"error": "unknown path"})
 
         def do_POST(self):
-            if self.path.partition("?")[0] == "/generate":
+            path = self.path.partition("?")[0]
+            if path == "/generate":
                 self._post_generate()
+            elif path == "/v1/completions":
+                self._post_openai(chat=False)
+            elif path == "/v1/chat/completions":
+                self._post_openai(chat=True)
             else:
                 self._send(404, {"error": "unknown path"})
 
         def _post_generate(self):
+            ts, skip = None, 0
             try:
-                kw = _generate_args(_read_json(self), self.path)
-                rid, ev = app.submit_async(**kw)
+                kw = _generate_args(read_json_body(self), self.path)
+                if kw.pop("stream"):
+                    resume, skip = self._resume()
+                    if resume is not None:
+                        kw["resume_tokens"] = resume
+                    ts = TokenStream()
+                ctx = self._trace_ctx()
+                rid, ev = app.submit_async(**kw, stream=ts, trace=ctx)
             except QueueFullError as e:
                 # 429 + Retry-After: retry elsewhere or later instead of
                 # queueing into a deadline miss
@@ -750,19 +937,43 @@ def make_handler(app: ServeApp):
                     NotImplementedError) as e:
                 self._send(400, {"error": str(e)})
                 return
-            # wait in short beats so a vanished client is noticed and its
-            # request cancelled
-            deadline = time.monotonic() + kw["timeout"]
-            while not ev.wait(0.25):
-                if time.monotonic() >= deadline:
-                    app.cancel(rid)
-                    self._send(504, {"error": f"request {rid} timed out "
-                                     f"after {kw['timeout']}s; cancelled"})
-                    return
-                if self._client_gone():
-                    app.cancel(rid)     # abandonment: nobody to answer
-                    self.close_connection = True
-                    return
+            if ts is not None:
+                # {"tokens": [...]} deltas, then one closing {"id",
+                # "finish_reason", "n_tokens", "trace_id"} frame; every
+                # frame's id: line is the reconnect cursor <rid>:<abs>, and
+                # a resumed stream withholds the first ``skip`` tokens
+                seen = {"n": 0}
+                got: list = []
+
+                def frame(toks):
+                    toks = [int(t) for t in toks]
+                    got.extend(toks)
+                    start = max(0, skip - seen["n"])
+                    seen["n"] += len(toks)
+                    new = toks[start:]
+                    if not new:
+                        return b""
+                    return sse_frame({"tokens": new},
+                                     event_id=f"{rid}:{seen['n']}")
+
+                def final(reason):
+                    return sse_frame(
+                        {"id": rid, "finish_reason": reason,
+                         "n_tokens": max(0, seen["n"] - skip),
+                         "trace_id": ctx.trace_id},
+                        event_id=f"{rid}:{seen['n']}")
+
+                def err(msg):
+                    return sse_frame({"error": str(msg)})
+
+                begin_sse(self)
+                self._relay_sse(
+                    rid, ts, time.monotonic() + kw["timeout"], frame, final,
+                    err, lambda: app.save_resume_prefix(rid, got))
+                return
+            if not self._wait(rid, ev, kw["timeout"],
+                              lambda m: self._send(504, {"error": m})):
+                return
             try:
                 comp = app.take_result(rid)
             except ServingLoopError as e:
@@ -780,7 +991,85 @@ def make_handler(app: ServeApp):
                     "finish_reason": comp.finish_reason}
             if comp.logprobs is not None:
                 body["logprobs"] = comp.logprobs
-            self._send(200, body)
+            self._send(200, body,
+                       headers={TRACE_ID_RESPONSE_HEADER: ctx.trace_id})
+
+        def _oai_error(self, code: int, message: str, etype: str,
+                       headers: dict | None = None) -> None:
+            self._send(code, {"error": {"message": message, "type": etype}},
+                       headers=headers)
+
+        def _post_openai(self, chat: bool):
+            """The OpenAI-compatible routes, buffered and streamed; the
+            payload mapping is ``api.openai``'s."""
+            try:
+                req = (oai.parse_chat_request if chat
+                       else oai.parse_completion_request)(
+                    read_json_body(self), codec)
+            except (KeyError, ValueError, TypeError) as e:
+                self._oai_error(400, str(e), "invalid_request_error")
+                return
+            model_name = req["model"] or app.default_model
+            ts, skip, resume = None, 0, None
+            if req["stream"]:
+                # the same reconnect contract as /generate's
+                resume, skip = self._resume()
+                ts = TokenStream()
+            ctx = self._trace_ctx()
+            try:
+                rid, ev = app.submit_async(
+                    req["prompt_tokens"], req["max_new_tokens"],
+                    timeout=req["timeout_s"],
+                    temperature=req.get("temperature"),
+                    top_k=req.get("top_k"), resume_tokens=resume,
+                    model=req["model"], stream=ts,
+                    stop=req.get("stop_sequences"),
+                    logprobs=req.get("logprobs", 0),
+                    priority=req.get("priority") or "interactive",
+                    trace=ctx)
+            except QueueFullError as e:
+                self._oai_error(429, str(e), "rate_limit_error",
+                                headers={"Retry-After": "1"})
+                return
+            except ServingLoopError as e:
+                self._oai_error(503, str(e), "service_unavailable")
+                return
+            except (KeyError, ValueError, TypeError,
+                    NotImplementedError) as e:
+                self._oai_error(400, str(e), "invalid_request_error")
+                return
+            if ts is not None:
+                got: list = []
+                frame, final, err = oai.stream_frame_fns(
+                    rid, model_name, codec, chat, skip=skip, collect=got,
+                    trace_id=ctx.trace_id)
+                begin_sse(self)
+                self._relay_sse(
+                    rid, ts, time.monotonic() + req["timeout_s"], frame,
+                    final, err, lambda: app.save_resume_prefix(rid, got))
+                return
+            if not self._wait(rid, ev, req["timeout_s"],
+                              lambda m: self._oai_error(504, m, "timeout")):
+                return
+            try:
+                comp = app.take_result(rid)
+            except ServingLoopError as e:
+                self._oai_error(503, str(e), "service_unavailable")
+                return
+            except TimeoutError as e:
+                self._oai_error(504, str(e), "timeout")
+                return
+            if comp.finish_reason == "shed":
+                self._oai_error(429, f"request {comp.id} shed by admission "
+                                "tiers; retry later", "rate_limit_error",
+                                headers={"Retry-After": "1"})
+                return
+            build = oai.chat_response if chat else oai.completion_response
+            self._send(200, build(comp.id, model_name, comp.tokens,
+                                  comp.finish_reason,
+                                  len(req["prompt_tokens"]), codec,
+                                  logprobs=comp.logprobs),
+                       headers={TRACE_ID_RESPONSE_HEADER: ctx.trace_id})
 
     return Handler
 
@@ -791,18 +1080,23 @@ class ServeHTTPServer(ThreadingHTTPServer):
     request_queue_size = 128
 
 
-def make_httpd(app: ServeApp, host: str, port: int) -> ServeHTTPServer:
-    """The HTTP server over ``app`` (port 0: an ephemeral one)."""
-    return ServeHTTPServer((host, port), make_handler(app))
+def make_httpd(app: ServeApp, host: str, port: int,
+               codec=None) -> ServeHTTPServer:
+    """The HTTP server over ``app`` (port 0: an ephemeral one); ``codec``
+    as ``make_handler``'s."""
+    return ServeHTTPServer((host, port), make_handler(app, codec))
 
 
 def main(argv=None) -> int:
     import signal
 
+    from ..api.openai import TokenCodec
+
     args = build_argparser().parse_args(argv)
     app = build_app(args)
     app.start()
-    httpd = make_httpd(app, args.host, args.port)
+    httpd = make_httpd(app, args.host, args.port,
+                       TokenCodec(args.text_codec, vocab_size=args.vocab))
     # graceful drain on SIGTERM/SIGINT, on a helper thread (httpd.shutdown
     # deadlocks from the serve_forever thread); a second signal exits now
     draining = threading.Event()

@@ -31,7 +31,7 @@ recovers in the other::
     {"op": "emit", "id": 3, "tokens": [7, 9]}
     {"op": "end", "id": 3}
 
-``trace`` is kept as an opaque dict (request traces are not ported).
+``trace`` is the request's ``TraceContext.as_dict()`` (observability.py).
 Journal writes are best-effort on the serving hot path (a failed write is
 logged, never raised: durability must not take down the loop), but every
 failure is counted so silent non-durability is visible.
@@ -83,10 +83,8 @@ class JournalEntry:
     # request keeps its class budget/shedding behavior — every
     # pre-priority journal record reads back as interactive
     priority: str = "interactive"
-    # distributed-trace identity, kept as an opaque dict: the JAX
-    # package's recovery resubmits with the same span identity; the port
-    # carries it through the file unchanged (request traces are not
-    # ported)
+    # distributed-trace identity, ``TraceContext.as_dict()``: a recovery
+    # resubmits with the same span identity
     trace: dict | None = None
 
 

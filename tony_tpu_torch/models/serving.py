@@ -61,6 +61,13 @@ while the other slots keep decoding.
   of the budget decodes, so a greedy request completes with the tokens of
   an uninterrupted run (at float32). A file-backed journal survives the
   process: ``recover_journal`` resubmits a dead process's entries.
+- **Token streams** (``attach_stream``): a request's ``api.stream.
+  TokenStream`` is fed at every processed block, right after the journal
+  advances, and sealed at every terminal (a Completion, a loss to
+  ``reset()`` with replay off, ``fail_queued``). Predictive mode processes
+  blocks only at a completion, a 64-block backlog or ServeApp's journal
+  checkpoint, so a stream's frames come at that cadence; EOS mode
+  processes every block behind the pipeline lag.
 - **Chaos hooks** (``TONY_TEST_SERVING_*``, constants.py): a seeded
   per-turn failure rate and step delay, a crash at given decode-block
   ordinals and a SIGKILL at one, read once at construction.
@@ -108,6 +115,7 @@ import torch
 from .. import constants as c
 from ..device import resolve_device
 from ..events.journal import RequestJournal
+from ..observability import TraceContext
 from . import transformer
 from .generate import (
     DecodeWeights,
@@ -234,6 +242,9 @@ class Request:
     chunks go into the prefix cache at admission (None = the server's
     default).
 
+    ``trace`` is the request's ``TraceContext`` (or its ``as_dict()``): the
+    journal records it, so a replay or a recovery stays in its trace.
+
     ``resume_tokens`` teacher-forces an already-emitted prefix: the server
     admits with the effective context ``prompt + resume_tokens`` (through
     the chunked prefill, prefix-cache lookup included), decodes only the
@@ -255,6 +266,7 @@ class Request:
     logprobs: int = 0
     model: str | None = None
     priority: str = "interactive"
+    trace: Any = None
     id: int = field(default_factory=itertools.count().__next__)
 
 
@@ -794,6 +806,13 @@ class SlotServer:
                          else (RequestJournal() if self.replay else None))
         self.replays = 0                # admissions with a resume prefix
         self.replayed_tokens = 0        # teacher-forced resume tokens
+        # per-request token streams (api.stream.TokenStream), fed at every
+        # processed block; they outlive reset(): a replayed request keeps
+        # its stream
+        self._streams: dict[int, Any] = {}
+        self.streams_opened = 0         # streams ever attached
+        self.stream_stalls = 0          # feeds that found a stream's queue
+        #                                 full (coalesced, never dropped)
         # chaos hooks, read once at construction (a bad value is "off");
         # their own generator, never the one sampling draws from
         self._chaos_fail_rate = self._env_float(
@@ -966,6 +985,8 @@ class SlotServer:
                     raise QueueFullError(
                         f"queue full ({limit} {cls} waiting); request shed")
         request.prompt = prompt
+        ctx = (request.trace if isinstance(request.trace, TraceContext)
+               else TraceContext.from_dict(request.trace))
         if self._journal is not None:
             # the entry's prompt is the original one; a resume prefix
             # pre-seeds its emitted record, so a second failure replays
@@ -977,7 +998,8 @@ class SlotServer:
                 deadline=request.deadline, emitted=resume, model=self.model,
                 stop=[list(q) for q in request.stop] if request.stop
                 else None,
-                logprobs=request.logprobs, priority=request.priority)
+                logprobs=request.logprobs, priority=request.priority,
+                trace=ctx.as_dict() if ctx is not None else None)
         self._queue.append(request)
         return request.id
 
@@ -1002,6 +1024,7 @@ class SlotServer:
         self.replayed_tokens += len(toks)
         self._done[rid] = Completion(rid, toks, "stop" if stopped
                                      else "length")
+        self._finish_stream(rid)
         self.seal_journal(rid)
         return True
 
@@ -1016,6 +1039,7 @@ class SlotServer:
             self.shed_requests += 1
             self.shed_by_class[req.priority] += 1
             self._done[req.id] = Completion(req.id, [], "shed")
+            self._finish_stream(req.id)
             self.seal_journal(req.id)
             return True
         return False
@@ -1035,6 +1059,7 @@ class SlotServer:
                 # decode work, not queue residue
                 self._done[req.id] = Completion(
                     req.id, list(req.resume_tokens or ()), "expired")
+                self._finish_stream(req.id)
                 self.seal_journal(req.id)
             else:
                 kept.append(req)
@@ -1055,6 +1080,7 @@ class SlotServer:
                 # a queued replay keeps its emitted prefix
                 self._done[request_id] = Completion(
                     request_id, list(req.resume_tokens or ()), "cancelled")
+                self._finish_stream(request_id)
                 self.seal_journal(request_id)
                 return True
         slot = self._slot_of.get(request_id)
@@ -1094,6 +1120,9 @@ class SlotServer:
                      if self.replay and self._journal is not None else None)
             if entry is None:
                 failed.append(rid)
+                self.fail_stream(
+                    rid, f"request {rid} lost to a serving-loop failure "
+                         "(no journal entry to replay)")
                 self.seal_journal(rid)
                 continue
             # a crash between the finishing block's processing and the
@@ -1124,7 +1153,7 @@ class SlotServer:
             stop=[list(q) for q in entry.stop] if entry.stop else None,
             logprobs=int(entry.logprobs or 0),
             priority=str(entry.priority or "interactive"),
-            deadline=entry.deadline, **kw)
+            deadline=entry.deadline, trace=entry.trace, **kw)
 
     def recover_journal(self, entries, compact: bool = True) -> int:
         """Resubmit another process's unfinished journal entries
@@ -1161,6 +1190,74 @@ class SlotServer:
         if self._journal is not None:
             self._journal.close()
 
+    # ---------------------------------------------------------- streaming
+
+    def attach_stream(self, request_id: int, stream) -> None:
+        """Register a request's token channel (``api.stream.TokenStream``:
+        ``feed(emitted)``, ``finish(reason)``, ``fail(message)``). Call it
+        under the serving lock right after ``submit()`` (``ServeApp.
+        submit_async`` does): a request that completed at submit (its
+        resume prefix satisfied it) is delivered through the stream here."""
+        self.streams_opened += 1
+        comp = self._done.get(request_id)
+        if comp is not None:
+            try:
+                stream.feed(comp.tokens)
+                stream.finish(comp.finish_reason)
+            except Exception:
+                log.exception("token stream attach-finish failed")
+            return
+        self._streams[request_id] = stream
+
+    def fail_stream(self, request_id: int, message: str) -> None:
+        """End a request's stream with an error and no completion (its
+        caller delivered a failure upstream). Idempotent; an id without a
+        stream is a no-op."""
+        s = self._streams.pop(request_id, None)
+        if s is not None:
+            try:
+                s.fail(str(message))
+            except Exception:
+                log.exception("token stream fail() failed")
+
+    @property
+    def streams_active(self) -> int:
+        return len(self._streams)
+
+    def _stream_feed(self, rid: int, emitted) -> None:
+        """Push a request's absolute emitted-token list into its stream, if
+        it has one (the stream appends only what it has not seen). Called
+        at processing time, the journal's durability point; it only
+        appends: no socket I/O and no device read under the lock."""
+        s = self._streams.get(rid)
+        if s is None:
+            return
+        try:
+            n_new, stalled = s.feed(emitted)
+        except Exception:       # delivery must never kill the loop
+            log.exception("token stream feed failed")
+            return
+        if n_new:
+            s.last_feed_t = time.monotonic()
+            if stalled:
+                self.stream_stalls += 1
+
+    def _finish_stream(self, rid: int) -> None:
+        """Seal a request's stream from its Completion; every terminal that
+        builds one calls this right after storing ``_done[rid]``."""
+        s = self._streams.pop(rid, None)
+        if s is None:
+            return
+        comp = self._done.get(rid)
+        try:
+            if comp is not None:
+                s.feed(comp.tokens)
+                s.finish(comp.finish_reason)
+            else:
+                s.fail(f"request {rid} terminated without a completion")
+        except Exception:
+            log.exception("token stream finish failed")
+
     def seal_journal(self, request_id: int) -> None:
         """Seal a request's journal entry without a completion: its caller
         delivered a terminal error upstream (``ServeApp._fail_pending``),
@@ -1175,6 +1272,9 @@ class SlotServer:
         out = list(self._queue)
         self._queue.clear()
         for req in out:
+            self.fail_stream(
+                req.id, f"request {req.id} failed: server shutting down "
+                        "before it was admitted")
             self.seal_journal(req.id)
         return out
 
@@ -1255,6 +1355,9 @@ class SlotServer:
             "replays": self.replays,
             "replayed_tokens": self.replayed_tokens,
             "chaos_faults_injected": self.chaos_faults_injected,
+            "streams_active": self.streams_active,
+            "streams_opened": self.streams_opened,
+            "stream_stalls": self.stream_stalls,
             "decode_block_dispatch_ms_p50": (
                 disp[len(disp) // 2] * 1e3 if disp else None),
         }
@@ -1476,6 +1579,7 @@ class SlotServer:
         self._done[rid] = Completion(
             rid, out, "cancelled",
             logprobs=self._lp_acc[slot] if req.logprobs else None)
+        self._finish_stream(rid)
         self._requests[slot] = None
         self._emitted[slot] = []
         self._lp_acc[slot] = []
@@ -1584,6 +1688,10 @@ class SlotServer:
                     # with the host-processed tokens (replay from any true
                     # prefix is exact; the lag only costs re-decoding)
                     self._journal.emit(req.id, new)
+                if new and req is not None:
+                    # streaming delivery at the same instant: the feed is
+                    # absolute, so a replay's resume prefix is not sent twice
+                    self._stream_feed(req.id, self._emitted[slot])
                 if stop_hit:
                     # complete now with "stop" and free the device slot
                     # like a cancel; _stop_cancelled skips the slot until
@@ -1617,6 +1725,7 @@ class SlotServer:
         out = self._emitted[slot]
         lps = self._lp_acc[slot][:len(out)] if req.logprobs else None
         self._done[req.id] = Completion(req.id, out, reason, logprobs=lps)
+        self._finish_stream(req.id)
         self._requests[slot] = None
         self._emitted[slot] = []
         self._lp_acc[slot] = []
