@@ -83,13 +83,35 @@ and exits non-zero if any of them fails:
    resumed with Last-Event-ID, no token twice and none missing; (d) 16
    streams across two loop crashes at float32 (equal to a crashless
    server up to a near-tie) and at bf16 (how many equal reported);
-10. parity: the flagship width at 2 layers on the card (kernels, bf16)
+10. main path, paged KV (SlotServer(paged=True), serve's --paged-kv
+   flags): (a) at float32 and bf16 (2 layers) 8 requests through 3 slots
+   on the paged engine (blocks of 16) token-identical to the ring engine
+   admitting slot by slot, in predictive, EOS, int8-KV and prefix-cache
+   modes, and with --prefill-interleave 64 (held at float32; at bf16 its
+   ring layout is rotated by design, reported beside the ring engine
+   against itself one block on); (b) run A's 24 requests at float32 (12
+   layers) through both engines, equal up to the ring's first near-tie,
+   then at bf16 through serve's app, ring and --paged-kv in turn: every
+   request done, throughput, latency, a block's dispatch, wall and device
+   time, the gather's and the scatter's device time against their bytes
+   bound, no synchronisation in dispatch, peak device memory; (c) 16
+   slots on the same pool: deferred admissions and the pool's peak; (d)
+   --max-queue 8 with a batch budget: every shed is batch, no interactive
+   request refused while a batch one is queued; a burst of 8 prompts of
+   1536 tokens while 8 streams decode, --prefill-interleave 0 and 256:
+   the streams' delivery gaps; (e) --prefix-cache-blocks 512: a warm
+   request maps the shared prefix's trie blocks and copies none, an
+   admission burst beside the ring prefix cache's, warm against cold at
+   float32; (f) replay through two crashes at float32 against a
+   crashless paged server; the allocator's invariant after every drain
+   and no kernel launched;
+11. parity: the flagship width at 2 layers on the card (kernels, bf16)
    against the CPU's plain path in float32, from the same weights, for the
    generation logits and for the training loss and every gradient; and the
    SlotServer in float32 on the card (8 requests through 3 slots, batched
    and per-slot admission) against the port's generate run solo on the
    card, token for token up to the first near-tie of solo's logits;
-11. profile: a flagship decode step's and a flagship training step's host
+12. profile: a flagship decode step's and a flagship training step's host
    wall time against the device time torch.profiler records.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -101,6 +123,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -189,6 +212,21 @@ STREAM_CADENCES = (1.0, 0.25)
 STREAM_UNIFORM = (8, 512, 256)      # requests, prompt tokens, new tokens
 STREAM_CUT_NEW = 384
 STREAM_CRASH, STREAM_CRASH_NEW, STREAM_CRASH_F32 = 16, 128, "5,13"
+# the paged phase: (a) PAGED_ID requests of 64-512 tokens (the prefix mode:
+# the prefix-cache cell's prompts) and PAGED_ID_NEW new through 3 slots,
+# paged (kv_block PAGED_KV_BLOCK) against the ring, at 2 layers; (b) run A
+# on serve's defaults with --paged-kv; (c) the same with PAGED_OVER_SLOTS
+# slots on the ring's pool; (d) PAGED_TIER requests a class against
+# --max-queue 8 and a batch budget of PAGED_TIER_BUDGET blocks, then a
+# burst of PAGED_BURST prompts of PAGED_BURST_LEN tokens arriving while
+# PAGED_STREAMS streams decode, at each of PAGED_INTERLEAVES; (e) the
+# prefix-cache cell with --prefix-cache-blocks PAGED_TRIE_BLOCKS
+PAGED_ID, PAGED_ID_NEW, PAGED_KV_BLOCK = 8, 48, 16
+PAGED_OVER_SLOTS = 16
+PAGED_TIER, PAGED_TIER_BUDGET = 12, 256
+PAGED_BURST, PAGED_BURST_LEN, PAGED_INTERLEAVES = 8, 1536, (0, 256)
+PAGED_STREAMS, PAGED_STREAM_LEN, PAGED_STREAM_NEW = 8, 256, 384
+PAGED_TRIE_BLOCKS = 512
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -1510,7 +1548,8 @@ def phase_prefix_cache(torch, ops) -> dict:
     (one-token requests, a burst of 8) and an admission burst's wall time;
     then the cache's completions against a cacheless server's at float32
     (2 layers, native and int8 KV). Returns the kernels' launches (none:
-    the serving path runs the einsum attention)."""
+    the serving path runs the einsum attention) and the admission bursts'
+    record."""
     print("== main path: prefix cache")
     from tony_tpu_torch.cli import serve
     from tony_tpu_torch.models import generate as G
@@ -1705,7 +1744,7 @@ def phase_prefix_cache(torch, ops) -> dict:
         parity=[r for r in rows if r["diverge"] is not None or r["near_ties"]],
         parity_identical=agree, parity_streams=len(rows), launches=counts,
         card=nvidia_smi_line())))
-    return counts
+    return counts, admit
 
 
 def _crash_harness(srv, reqs) -> tuple:
@@ -2787,6 +2826,859 @@ def phase_streaming(torch, ops, run_a) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ paged KV
+
+PAGED_MODES = {           # mode -> (both engines' options, the paged one's)
+    "predictive": ({}, {}),
+    "eos": ({}, {}),      # the stop token comes from the predictive run
+    "int8": ({"kv_dtype": "int8"}, {}),
+    "prefix_cache": ({}, {}),
+    "interleave": ({}, {"prefill_interleave": 64}),
+}
+
+
+def _paged_identity(torch, G, T, S) -> list:
+    """(a): the flagship widths at 2 layers, float32 and bf16, PAGED_ID
+    requests through 3 slots on the paged engine (kv_block PAGED_KV_BLOCK)
+    and on the ring engine admitting slot by slot (the paged engine
+    prefills one slot at a time, so the two run the same programs on the
+    same ring layout), in every mode: token-identical completions, the
+    allocator's invariant after the drain.
+
+    Interleaved prefill is the exception: a slot's offset is re-derived at
+    its final chunk for the cursor of then, so its ring layout is the ring
+    engine's rotated by the blocks decoded meanwhile, and the softmax's and
+    the PV product's sums over the ring group the same terms differently.
+    That mode is held token-identical at float32; at bf16 it is reported,
+    beside a control: the ring engine against itself with its cursor
+    started one block later."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(61)
+    plain = [rng.integers(0, 32768, int(n)).tolist()
+             for n in rng.integers(64, 513, PAGED_ID)]
+    shared = _prefix_prompts(63)[:PAGED_ID]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                                  n_heads=8, n_kv_heads=8, d_ff=4096,
+                                  dtype=dtype)
+        w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                    .manual_seed(61), dev), cfg)
+        stop = None
+        for mode, (common, paged_only) in PAGED_MODES.items():
+            prompts = shared if mode == "prefix_cache" else plain
+            if mode == "eos":
+                common = {"stop_tokens": (stop,)}
+
+            def run(cursor=0, **kw):
+                eng = S.SlotServer(w, cfg, slots=3, max_len=2048, **common,
+                                   **kw)
+                eng._cursor = cursor
+                reqs = [S.Request(prompt=p, max_new_tokens=PAGED_ID_NEW,
+                                  logprobs=2) for p in prompts]
+                for r in reqs:
+                    eng.submit(r)
+                done = eng.run_until_drained()
+                return [done[r.id] for r in reqs], eng
+
+            ring, ring_eng = run(batched_admission=False,
+                                 prefix_cache_blocks=PREFIX_BLOCKS
+                                 if mode == "prefix_cache" else 0)
+            paged, eng = run(paged=True, kv_block=PAGED_KV_BLOCK,
+                             prefix_cache_blocks=PAGED_TRIE_BLOCKS
+                             if mode == "prefix_cache" else 0, **paged_only)
+            eng._allocator.check()
+            name = f"paged (a, {str(dtype)[6:]}, {mode})"
+            same = [a.tokens == b.tokens and a.finish_reason == b.finish_reason
+                    for a, b in zip(ring, paged)]
+            rotated = mode == "interleave" and dtype == torch.bfloat16
+            if not all(same) and not rotated:
+                i = same.index(False)
+                j = next((j for j, (x, y) in enumerate(
+                    zip(ring[i].tokens, paged[i].tokens)) if x != y), None)
+                fail(f"{name}: request {i} differs from the ring engine's "
+                     f"at token {j} ({ring[i].finish_reason} / "
+                     f"{paged[i].finish_reason})")
+            st = eng.stats()
+            row = dict(dtype=str(dtype)[6:], mode=mode, identical=sum(same),
+                       gathers=st["paged_kv"]["gather_dispatches"],
+                       peak_blocks=st["paged_kv"]["pool_blocks_peak"])
+            if mode == "predictive":
+                stop = ring[0].tokens[3]
+            if mode == "eos":
+                row["stopped"] = sum(c.finish_reason == "stop" for c in ring)
+                if not row["stopped"]:
+                    fail(f"{name}: the stop token {stop} never fired")
+            if mode == "prefix_cache":
+                row.update(hits=st["prefix_cache"]["hits"],
+                           ring_hits=ring_eng.stats()["prefix_cache"]["hits"],
+                           reused=st["prefill_tokens_reused"],
+                           ring_reused=ring_eng.prefill_tokens_reused)
+                if not row["hits"] or eng.prefix_copy_dispatches \
+                        or row["reused"] != row["ring_reused"]:
+                    fail(f"{name}: {row}, {eng.prefix_copy_dispatches} "
+                         "copies")
+            if mode == "interleave":
+                row["interleaved"] = st["paged_kv"][
+                    "prefill_chunks_interleaved"]
+                if not row["interleaved"]:
+                    fail(f"{name}: no prefill was interleaved")
+                # where each request parts from the ring, with the ring's
+                # top-2 logit gap there; the control: the ring engine with
+                # its cursor one block on
+                row["parted"] = [_parting(i, a, b)
+                                 for i, (a, b) in enumerate(zip(ring, paged))
+                                 if a.tokens != b.tokens]
+                shifted, _ = run(cursor=16, batched_admission=False)
+                row["ring_shifted_identical"] = sum(
+                    a.tokens == b.tokens for a, b in zip(ring, shifted))
+                row["ring_shifted_parted"] = [
+                    _parting(i, a, b)
+                    for i, (a, b) in enumerate(zip(ring, shifted))
+                    if a.tokens != b.tokens]
+            rows.append(row)
+            del ring_eng, eng
+        del w
+        torch.cuda.empty_cache()
+    print(f"paged (a, 2 layers, {PAGED_ID} requests through 3 slots, "
+          f"{PAGED_ID_NEW} new, kv_block {PAGED_KV_BLOCK}): requests "
+          "token-identical to the ring engine (interleave at bf16 reported, "
+          "every other row required): "
+          + "; ".join(f"{r['dtype']} {r['mode']} {r['identical']}/{PAGED_ID}"
+                      for r in rows))
+    for r in rows:
+        if "ring_shifted_identical" in r:
+            print(f"paged (a, {r['dtype']}, interleave): parted from the "
+                  f"ring at (request, step, the ring's top-2 gap) "
+                  f"{r['parted']}; control, the ring engine with its cursor "
+                  f"one block on: {r['ring_shifted_identical']}/{PAGED_ID} "
+                  f"identical to itself, parted at "
+                  f"{r['ring_shifted_parted']}")
+    return rows
+
+
+def _parting(i, ref, got) -> tuple:
+    """(request, the first step where ``got`` leaves ``ref``, the top-2
+    logit gap of ``ref``'s distribution there)."""
+    j = next(j for j, (a, b) in enumerate(zip(ref.tokens + [None],
+                                                 got.tokens + [None]))
+             if a != b)
+    top = ref.logprobs[j]["top"][1] if j < len(ref.logprobs) else None
+    return (i, j, round(top[0] - top[1], 5) if top else None)
+
+
+def _paged_http(torch, serve, payloads, argv, name) -> tuple:
+    """Serve's app from FLAGSHIP + ``argv``, a warm-up request, then every
+    payload at once, each block's dispatch under sync debug mode "error".
+    -> (the engine, the burst's record: completions in payload order, wall
+    time, latency, a block's host dispatch, the admissions' syncs, the
+    device memory's peak over the burst, beside what was allocated before
+    the app was built, the engine's counters)."""
+    gc.collect()                # a stopped app's cycles hold its tensors
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    app, httpd, url = _serve_app(serve, FLAGSHIP + argv)
+    srv = app.server
+    syncs = _checked_dispatch(torch, srv)
+    try:
+        warm = _post(url, dict(prompt=list(range(1, 300)), max_new_tokens=40))
+        if warm[0] != 200:
+            fail(f"{name}: warm-up answered {warm[0]}: {warm[1]}")
+        syncs["admission"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = len(srv.block_dispatch_s)
+        with app.lock:
+            s0 = srv.stats()
+        t0 = time.perf_counter()
+        results = _post_all(url, payloads)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with app.lock:
+            s1 = srv.stats()
+        health = app.health()
+    finally:
+        _stop_app(app, httpd)
+        del srv._dispatch_block, srv._admit
+    if app.loop_failures or not health["healthy"]:
+        fail(f"{name}: the loop failed: {health}")
+    for i, ((_, body, _), pl) in enumerate(zip(results, payloads)):
+        toks = body["tokens"]
+        if (body["finish_reason"] != "length"
+                or len(toks) != pl["max_new_tokens"]
+                or not all(0 <= t < 32768 for t in toks)):
+            fail(f"{name}: request {i} ended {body['finish_reason']} with "
+                 f"{len(toks)} tokens of {pl['max_new_tokens']}")
+    n_out = sum(pl["max_new_tokens"] for pl in payloads)
+    lat = _quantiles([r[2] for r in results])
+    rec = dict(wall_s=wall, output_tokens_per_s=n_out / wall,
+               latency_s_p50=lat["p50"], latency_s_max=lat["max"],
+               block_dispatch_ms_p50=_quantiles(
+                   [x * 1e3 for x in list(srv.block_dispatch_s)[n0:]])["p50"],
+               decode_blocks=s1["blocks_dispatched"] - s0["blocks_dispatched"],
+               prefill_calls=s1["admission_dispatches"]
+               - s0["admission_dispatches"],
+               admission_syncs=syncs["admission"], peak_bytes=peak,
+               base_bytes=base, tokens=[r[1]["tokens"] for r in results])
+    if "paged_kv" in s1:
+        pk = s1["paged_kv"]
+        rec.update(admission_defers=pk["admission_defers"]
+                   - s0["paged_kv"]["admission_defers"],
+                   pool_blocks_peak=pk["pool_blocks_peak"],
+                   pool_blocks_total=pk["pool_blocks_total"])
+        srv._allocator.check()
+        if pk["pool_blocks_used"] != 0:
+            fail(f"{name}: {pk['pool_blocks_used']} blocks held after the "
+                 "drain")
+    return srv, rec
+
+
+def _profiled_ms(torch, fn) -> tuple:
+    """fn's device time by torch.profiler -> (ms or None, its kernels'
+    names). The profiler can miss the first kernels of a region (the
+    paged block's profile in the full script lacked its gather and one
+    launch of each kernel of its first step), so fn's work queues behind
+    a 20 ms device sleep, whose own kernel is left out of the sum. Even
+    so, after the earlier phases' profiles it records none of the paged
+    gather's kernels: callers time the gather by CUDA events as well."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(0.02 * 2e9))
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0 \
+                and "spin" not in e.key:
+            rows.append((us, e.key))
+    rows.sort(reverse=True)
+    return (sum(r[0] for r in rows) / 1e3 if rows else None,
+            [k[:60] for _, k in rows[:6]])
+
+
+def _block_device_ms(torch, S, srv, rng) -> float | None:
+    """One decode block's device time on ``srv`` with 8 busy slots of
+    1024-token prompts, by ``_profiled_ms``."""
+    reqs = [S.Request(prompt=rng.integers(0, 32768, 1024).tolist(),
+                      max_new_tokens=64) for _ in range(8)]
+    for r in reqs:
+        srv.submit(r)
+    srv.step()
+    ms, _ = _profiled_ms(torch, srv._dispatch_block)
+    srv.run_until_drained()
+    return ms
+
+
+def _paged_block_costs(torch, S, srv, rng, name) -> dict:
+    """The gather and the scatter of one decode block on ``srv`` (paged)
+    with 8 busy slots of 1024-token prompts, on the indices the next block
+    stages: their device time by CUDA events over repeated calls and by
+    torch.profiler over one call, against their bytes bound; a block's
+    wall and device time (``_profile_block``)."""
+    import numpy as np
+
+    blk = _profile_block(torch, S, srv, rng, name)
+    blk["device_ms_warm"] = _block_device_ms(torch, S, srv, rng)
+    reqs = [S.Request(prompt=rng.integers(0, 32768, 1024).tolist(),
+                      max_new_tokens=64) for _ in range(8)]
+    for r in reqs:
+        srv.submit(r)
+    srv.step()
+    torch.cuda.synchronize()
+    pool, kvh, B, M = (srv._kv_pool, srv.cfg.n_kv_heads, srv.kv_block,
+                       srv.max_len)
+    _, b, row = S._paged_rows(srv._np_tables, srv._np_offs, B,
+                              np.arange(M)[None, :])
+    base = S._stage(b * (kvh * B) + row, srv.device)
+    view = S._gather_paged_view(pool, base, srv._d_lens)
+    window = (srv._cursor + np.arange(srv.block_size)) % M
+    ring_ids = np.broadcast_to(window, (srv.slots, srv.block_size))
+    p, b, row = S._paged_rows(srv._np_tables, srv._np_offs, B, ring_ids)
+    keep = (p >= srv._np_floor[:, None]) & (b < srv._allocator.n_blocks)
+    si, ji = np.nonzero(keep)
+    rows = S._stage(np.stack([si * (kvh * M) + ring_ids[si, ji],
+                              b[si, ji] * (kvh * B) + row[si, ji]])
+                    .astype(np.int64), srv.device)
+    def gather():
+        return S._gather_paged_view(pool, base, srv._d_lens)
+
+    def scatter():          # rewrites the pool rows with what they hold
+        S._scatter_paged_rows(pool, view, rows)
+
+    gather_ms = cuda_ms(gather, 20)
+    scatter_ms = cuda_ms(scatter, 50)
+    profiled = {label: _profiled_ms(torch, fn)
+                for label, fn in (("gather", gather), ("scatter", scatter))}
+    view_bytes = 2 * view.k.numel() * view.k.element_size()
+    row_bytes = 2 * srv.cfg.n_layers * kvh * view.k.shape[-1] \
+        * view.k.element_size()
+    gather_bytes = 2 * view_bytes + base.numel() * 8
+    scatter_bytes = 2 * len(si) * row_bytes + rows.numel() * 8
+    del view
+    done = srv.run_until_drained()
+    if sorted(len(done[r.id].tokens) for r in reqs) != [64] * 8:
+        fail(f"{name}: the timed requests did not complete")
+    srv._allocator.check()
+    out = dict(block=blk, gather_ms=gather_ms,
+               gather_bound_ms=gather_bytes / PEAK_BYTES * 1e3,
+               gather_bytes=gather_bytes, scatter_ms=scatter_ms,
+               scatter_bound_ms=scatter_bytes / PEAK_BYTES * 1e3,
+               scatter_bytes=scatter_bytes, scatter_rows=int(len(si)),
+               gather_ms_profiler=profiled["gather"][0],
+               gather_kernels=profiled["gather"][1],
+               scatter_ms_profiler=profiled["scatter"][0],
+               scatter_kernels=profiled["scatter"][1])
+    print(f"{name}: a block's gather {gather_ms:.4f} ms on the device by "
+          f"events, {out['gather_ms_profiler']} ms by torch.profiler "
+          f"({gather_bytes} bytes, bound {out['gather_bound_ms']:.4f} ms); "
+          f"scatter {scatter_ms:.4f} ms by events, "
+          f"{out['scatter_ms_profiler']} ms by torch.profiler ({len(si)} "
+          f"rows a layer and head, {scatter_bytes} bytes, bound "
+          f"{out['scatter_bound_ms']:.5f} ms); kernels "
+          f"{profiled['gather'][1]} / {profiled['scatter'][1]}")
+    return out
+
+
+def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
+    """(b) and (c): run A's requests at float32 (12 layers) through the
+    ring and the paged engine (up to the ring's first near-tie); at bf16
+    through serve's app with its defaults, ring then --paged-kv, and then
+    --paged-kv on PAGED_OVER_SLOTS slots over the same pool; each with its
+    throughput, latency, syncs and peak device memory, and the paged ones
+    with the gather's and the scatter's device time."""
+    rng, lens, news, sampled, payloads = _serve_payloads()
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(21), dev), cfg)
+    got = {}
+    for paged in (False, True):
+        eng = S.SlotServer(w, cfg, paged=paged)
+        reqs = [S.Request(prompt=pl["prompt"],
+                          max_new_tokens=pl["max_new_tokens"],
+                          temperature=pl.get("temperature"),
+                          top_k=pl.get("top_k"), logprobs=2)
+                for pl in payloads]
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run_until_drained()
+        got[paged] = [done[r.id] for r in reqs]
+        if paged:
+            eng._allocator.check()
+        del eng
+    del w
+    torch.cuda.empty_cache()
+    f32 = []
+    for i, (a, b) in enumerate(zip(got[False], got[True])):
+        gaps = [e["top"][1][0] - e["top"][1][1] for e in a.logprobs]
+        if i in sampled:
+            if len(b.tokens) != payloads[i]["max_new_tokens"]:
+                fail(f"paged (b, float32): sampled request {i} has "
+                     f"{len(b.tokens)} tokens")
+            f32.append(dict(request=i, sampled=True,
+                            equal=a.tokens == b.tokens))
+            continue
+        row = _near_tie_check(f"paged (b, float32) request {i}", b.tokens,
+                              a.tokens, gaps, payloads[i]["max_new_tokens"])
+        f32.append(dict(request=i, equal=row["diverge"] is None, **row))
+    f32_equal = sum(r["equal"] for r in f32)
+    print(f"paged (b, float32, 12 layers, serve's defaults): run A's "
+          f"{SERVE_REQUESTS} requests through the paged engine: "
+          f"{f32_equal} of {SERVE_REQUESTS} token-identical to the ring "
+          f"engine's, the {SERVE_REQUESTS - len(sampled)} greedy ones up to "
+          f"its first near-tie (gap < {PARITY_NEAR_TIE})")
+
+    ops.reset_launch_counts()
+    # each engine goes before the next is built: a burst's peak device
+    # memory is its own engine's alone
+    srv, ring = _paged_http(torch, serve, payloads, ["--seed", "21"],
+                            "paged (b, ring)")
+    ring["block_device_ms_warm"] = _block_device_ms(torch, S, srv, rng)
+    del srv
+    srv, paged = _paged_http(torch, serve, payloads,
+                             ["--seed", "21", "--paged-kv"], "paged (b)")
+    costs = _paged_block_costs(torch, S, srv, rng, "paged (b)")
+    del srv
+    srv, over = _paged_http(
+        torch, serve, payloads, ["--seed", "21", "--paged-kv", "--slots",
+                                 str(PAGED_OVER_SLOTS), "--kv-pool-blocks",
+                                 str(paged["pool_blocks_total"])],
+        "paged (c)")
+    over_costs = _paged_block_costs(torch, S, srv, rng, "paged (c)")
+    del srv
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"paged (b, c): kernels launched {counts}, expected none")
+    bf16_equal = sum(a == b for a, b in zip(ring["tokens"], paged["tokens"]))
+    for rec in (ring, paged, over):
+        del rec["tokens"]
+    print(f"paged (b, bf16, serve's defaults + --paged-kv, "
+          f"{paged['pool_blocks_total']} blocks of {PAGED_KV_BLOCK}): run "
+          f"A's {SERVE_REQUESTS} requests {SERVE_REQUESTS} of "
+          f"{SERVE_REQUESTS} done, {bf16_equal} equal the ring run's (bf16); "
+          f"{paged['output_tokens_per_s']:.1f} output tokens/s (ring in "
+          f"turn {ring['output_tokens_per_s']:.1f}, the serving phase "
+          f"{run_a['output_tokens_per_s']:.1f}); latency p50 "
+          f"{paged['latency_s_p50']:.3f} s, max {paged['latency_s_max']:.3f}"
+          f" s (ring {ring['latency_s_p50']:.3f}, "
+          f"{ring['latency_s_max']:.3f}); a block's host dispatch "
+          f"{paged['block_dispatch_ms_p50']:.2f} ms (ring "
+          f"{ring['block_dispatch_ms_p50']:.2f}, run A "
+          f"{run_a['block_dispatch_ms_p50']:.2f}); a block's wall "
+          f"{costs['block']['wall_ms']:.2f} ms and device "
+          f"{costs['block']['device_ms_warm']} ms (ring in turn "
+          f"{ring['block_device_ms_warm']}; run A "
+          f"{run_a['block_wall_ms']:.2f}, {run_a['block_device_ms']}); "
+          f"synchronisations 0 in dispatch, {paged['admission_syncs']} in "
+          f"admission (ring {ring['admission_syncs']}); peak device memory "
+          f"{paged['peak_bytes']} bytes, {paged['base_bytes']} of them "
+          f"allocated before the app (ring {ring['peak_bytes']}, "
+          f"{ring['base_bytes']}); "
+          f"{paged['prefill_calls']} prefill calls (ring "
+          f"{ring['prefill_calls']}); launches {counts}")
+    print(f"paged (c, {PAGED_OVER_SLOTS} slots on the same "
+          f"{over['pool_blocks_total']} blocks): {SERVE_REQUESTS} of "
+          f"{SERVE_REQUESTS} done, {over['admission_defers']} admissions "
+          f"deferred, {over['pool_blocks_peak']} blocks at the peak; "
+          f"{over['output_tokens_per_s']:.1f} output tokens/s ((b) "
+          f"{paged['output_tokens_per_s']:.1f}), latency p50 "
+          f"{over['latency_s_p50']:.3f} s; the {PAGED_OVER_SLOTS}-slot "
+          f"view's gather {over_costs['gather_ms']:.4f} ms (bound "
+          f"{over_costs['gather_bound_ms']:.4f}); a block's device time "
+          f"{over_costs['block']['device_ms_warm']} ms; peak device memory "
+          f"{over['peak_bytes']} bytes ({over['base_bytes']} before the "
+          f"app); {nvidia_smi_line()}")
+    return dict(float32=dict(equal=f32_equal, rows=[
+        r for r in f32 if not r["equal"] or r.get("near_ties")
+        or r.get("sampled")]), bf16_equal_ring=bf16_equal, ring=ring,
+        paged=paged, paged_costs=costs, over=over, over_costs=over_costs,
+        launches=counts)
+
+
+def _paged_tiers(torch, S, serve) -> dict:
+    """(d): serve's app with --paged-kv, --max-queue 8, --batch-queue-frac
+    0.5 and a batch budget of PAGED_TIER_BUDGET blocks; PAGED_TIER batch
+    requests, then PAGED_TIER interactive ones: every shed is batch, no
+    interactive request is refused while a batch one is queued. Then a
+    burst of PAGED_BURST long prompts while PAGED_STREAMS streams decode,
+    without and with interleaved prefill: the streams' delivery gaps."""
+    import threading
+
+    import numpy as np
+
+    rng = np.random.default_rng(71)
+    payloads = {cls: [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
+                           max_new_tokens=int(m), priority=cls,
+                           timeout_s=600.0)
+                      for n, m in zip(rng.integers(64, 1537, PAGED_TIER),
+                                      rng.integers(32, 129, PAGED_TIER))]
+                for cls in ("batch", "interactive")}
+    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "71", "--paged-kv", "--max-queue", "8",
+        "--batch-queue-frac", "0.5", "--class-budget-batch",
+        str(PAGED_TIER_BUDGET)])
+    srv = app.server
+    refusals, submit = [], srv.submit
+    alloc, peak_batch = srv._allocator, [0]
+    alloc_for = alloc.alloc_for
+
+    def checked_submit(req):        # under the app's lock
+        queued = [r.priority for r in srv._queue]
+        try:
+            return submit(req)
+        except S.QueueFullError:
+            refusals.append((req.priority, queued.count("batch")))
+            raise
+
+    def tracked_alloc(cls, n):
+        got = alloc_for(cls, n)
+        peak_batch[0] = max(peak_batch[0], alloc.class_used["batch"])
+        return got
+
+    srv.submit, alloc.alloc_for = checked_submit, tracked_alloc
+    results = {}
+    try:
+        def post(cls, i):
+            results[cls, i] = _post(url, payloads[cls][i])
+
+        # the batch requests 50 ms apart, so the loop admits some until the
+        # budget binds and the rest queue, then the interactive ones at once
+        threads = []
+        for cls in ("batch", "interactive"):
+            for i in range(PAGED_TIER):
+                threads.append(threading.Thread(target=post, args=(cls, i)))
+                threads[-1].start()
+                time.sleep(0.05 if cls == "batch" else 0)
+            time.sleep(0.3)
+        for t in threads:
+            t.join(timeout=900)
+        with app.lock:
+            st = srv.stats()
+    finally:
+        _stop_app(app, httpd)
+    count = collections.Counter()
+    for (cls, i), (status, body, _) in results.items():
+        if status == 200:
+            if body["finish_reason"] != "length" or len(body["tokens"]) != \
+                    payloads[cls][i]["max_new_tokens"]:
+                fail(f"paged (d): {cls} request {i}: {body}")
+            count[cls, "done"] += 1
+        elif status == 429:
+            kind = "shed" if "shed by" in body["error"] else "refused"
+            count[cls, kind] += 1
+        else:
+            fail(f"paged (d): {cls} request {i} answered {status}: {body}")
+    if count["interactive", "shed"]:
+        fail(f"paged (d): an interactive request was shed: {dict(count)}")
+    bad = [q for cls, q in refusals if cls == "interactive" and q]
+    if bad:
+        fail(f"paged (d): interactive refused with {bad} batch queued")
+    sh = st["shed_by_class"]
+    if (sh["interactive"] != count["interactive", "refused"]
+            or sh["batch"] != count["batch", "refused"]
+            + count["batch", "shed"]):
+        fail(f"paged (d): shed_by_class {sh} against {dict(count)}")
+    if peak_batch[0] > PAGED_TIER_BUDGET or st["paged_kv"]["class_used"] != \
+            {"interactive": 0, "batch": 0}:
+        fail(f"paged (d): batch held {peak_batch[0]} blocks, "
+             f"{st['paged_kv']['class_used']} after the drain")
+    srv._allocator.check()
+    tiers = dict(counts={f"{c}_{k}": n for (c, k), n in count.items()},
+                 shed_by_class=sh, batch_peak_blocks=peak_batch[0],
+                 admission_defers=st["paged_kv"]["admission_defers"])
+    print(f"paged (d, tiers: --max-queue 8, batch at half of it, a batch "
+          f"budget of {PAGED_TIER_BUDGET} blocks): {PAGED_TIER} batch then "
+          f"{PAGED_TIER} interactive requests: {tiers['counts']}; "
+          f"shed_by_class {sh}; every interactive refusal found no batch "
+          f"request queued; the batch class held at most {peak_batch[0]} "
+          f"blocks; {tiers['admission_defers']} admissions deferred")
+    del app, srv
+
+    streams = [dict(prompt=rng.integers(0, 32768, PAGED_STREAM_LEN).tolist(),
+                    max_new_tokens=PAGED_STREAM_NEW, timeout_s=600.0)
+               for _ in range(PAGED_STREAMS)]
+    burst = [dict(prompt=rng.integers(0, 32768, PAGED_BURST_LEN).tolist(),
+                  max_new_tokens=16, timeout_s=600.0)
+             for _ in range(PAGED_BURST)]
+    gaps = {}
+    for inter in PAGED_INTERLEAVES:
+        torch.cuda.empty_cache()
+        app, httpd, url = _serve_app(serve, FLAGSHIP + [
+            "--seed", "73", "--paged-kv", "--slots", "16",
+            "--journal-checkpoint-s", "0.25", "--prefill-interleave",
+            str(inter)])
+        srv = app.server
+        comps = _record_completions(srv)
+        out = {}
+        try:
+            if _post(url, dict(prompt=list(range(1, 300)),
+                               max_new_tokens=16))[0] != 200:
+                fail("paged (d): warm-up failed")
+            t = threading.Thread(target=lambda: out.__setitem__(
+                "streams", _sse_all(url + "?stream=true", streams)))
+            t.start()
+            deadline = time.perf_counter() + 120
+            while time.perf_counter() < deadline:
+                with app.lock:
+                    n = srv.stats()["active"]
+                if n >= PAGED_STREAMS:
+                    break
+                time.sleep(0.05)
+            time.sleep(1.0)             # a few deliveries before the burst
+            t0 = time.perf_counter()
+            res = _post_all(url, burst)
+            burst_wall = time.perf_counter() - t0
+            t.join(timeout=900)
+            with app.lock:
+                st = srv.stats()["paged_kv"]
+        finally:
+            _stop_app(app, httpd)
+            del srv.drain_completed
+        recs = []
+        for i, r in enumerate(out["streams"]):
+            rec = _stream_record(f"paged (d) stream {i}", r,
+                                 PAGED_STREAM_NEW)
+            if rec["tokens"] != comps[rec["rid"]].tokens:
+                fail(f"paged (d) stream {i}: not its completion")
+            recs.append(rec)
+        cad = _cadence(recs)
+        lat = _quantiles([r[2] for r in res])
+        gaps[inter] = dict(gap_s_p50=cad["delivery_gap_s_p50"],
+                           gap_s_p99=cad["delivery_gap_s_p99"],
+                           gap_s_max=max(b - a for r in recs for a, b in
+                                         zip(r["times"], r["times"][1:])),
+                           burst_wall_s=burst_wall,
+                           burst_latency_s_p50=lat["p50"],
+                           burst_latency_s_max=lat["max"],
+                           interleaved=st["prefill_chunks_interleaved"])
+        srv._allocator.check()
+        del app, srv
+        print(f"paged (d, --prefill-interleave {inter}): {PAGED_BURST} "
+              f"prompts of {PAGED_BURST_LEN} tokens while {PAGED_STREAMS} "
+              f"streams decode ({PAGED_STREAM_NEW} new each): the streams' "
+              f"delivery gap p50 {gaps[inter]['gap_s_p50']:.3f} s, p99 "
+              f"{gaps[inter]['gap_s_p99']:.3f} s, max "
+              f"{gaps[inter]['gap_s_max']:.3f} s; the burst's latency p50 "
+              f"{lat['p50']:.3f} s, max {lat['max']:.3f} s; "
+              f"{st['prefill_chunks_interleaved']} pumps cut by the cap")
+    return dict(tiers=tiers, interleave=gaps)
+
+
+def _paged_prefix(torch, S, G, T, serve, prefix_admit) -> dict:
+    """(e): serve's app with --paged-kv --prefix-cache-blocks
+    PAGED_TRIE_BLOCKS and the prefix-cache cell's requests, cold then warm:
+    a warm request maps at least the prefix's trie blocks and copies none;
+    an admission burst of 8, cold and warm, beside the ring prefix cache's;
+    warm completions against cold ones at float32 (2 layers)."""
+    import threading
+
+    prompts = _prefix_prompts(31)
+    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "31", "--paged-kv", "--prefix-cache-blocks",
+        str(PAGED_TRIE_BLOCKS)])
+    srv = app.server
+    mapped, try_admit = {}, srv._try_admit_paged
+
+    def recording(slot, qidx):
+        rid = srv._queue[qidx].id
+        status = try_admit(slot, qidx)
+        if status == "ok":
+            mapped[rid] = len(srv._slot_shared[slot])
+        return status
+
+    srv._try_admit_paged = recording
+    shared, stop = [0], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            with app.lock:
+                shared[0] = max(shared[0], srv.stats()["paged_kv"]
+                                ["pool_state"]["shared"])
+            time.sleep(0.005)
+
+    def requests():
+        return [dict(prompt=p, max_new_tokens=PREFIX_NEW) for p in prompts]
+
+    try:
+        cold = _post_all(url, requests())
+        n_cold = len(mapped)
+        poller = threading.Thread(target=poll)
+        poller.start()
+        warm = _post_all(url, requests())
+        stop.set()
+        poller.join()
+        with app.lock:
+            st = srv.stats()
+    finally:
+        stop.set()
+        _stop_app(app, httpd)
+    del srv._try_admit_paged
+    warm_mapped = list(mapped.values())[n_cold:]
+    want = PREFIX_LEN // PAGED_KV_BLOCK
+    if (len(warm_mapped) != PREFIX_REQUESTS or min(warm_mapped) < want
+            or st["prefix_cache"]["copy_dispatches"]
+            or st["prefix_cache"]["insert_dispatches"] or not shared[0]):
+        fail(f"paged (e): warm requests mapped {warm_mapped} trie blocks "
+             f"(want >= {want}), {st['prefix_cache']} copies, "
+             f"pool_state.shared peaked at {shared[0]}")
+    for res in cold + warm:
+        if len(res[1]["tokens"]) != PREFIX_NEW:
+            fail(f"paged (e): {res[1]}")
+    same = sum(c[1]["tokens"] == w[1]["tokens"] for c, w in zip(cold, warm))
+    lat_cold = _quantiles([r[2] for r in cold])
+    lat_warm = _quantiles([r[2] for r in warm])
+    srv.reset()
+    admit = {}
+    for name in ("cold", "warm"):
+        before = srv.stats()
+        reqs = [S.Request(prompt=p, max_new_tokens=PREFIX_NEW)
+                for p in prompts[:8]]
+        for r in reqs:
+            srv.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv._admit()
+        torch.cuda.synchronize()
+        after = srv.stats()
+        admit[name] = dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            computed=after["prefill_tokens_computed"]
+            - before["prefill_tokens_computed"],
+            reused=after["prefill_tokens_reused"]
+            - before["prefill_tokens_reused"],
+            prefill_calls=after["admission_dispatches"]
+            - before["admission_dispatches"])
+        srv.run_until_drained()
+    srv._allocator.check()
+    del app, srv
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(33), dev), cfg)
+    pprompts = _prefix_prompts(33)
+    eng = S.SlotServer(w, cfg, paged=True,
+                       prefix_cache_blocks=PAGED_TRIE_BLOCKS)
+    passes = {}
+    for name in ("cold", "warm"):
+        reqs = [S.Request(prompt=p, max_new_tokens=PREFIX_NEW, logprobs=2)
+                for p in pprompts]
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run_until_drained()
+        passes[name] = [done[r.id] for r in reqs]
+    rows = []
+    for i, (c, wm) in enumerate(zip(passes["cold"], passes["warm"])):
+        gaps = [e["top"][1][0] - e["top"][1][1] for e in c.logprobs]
+        rows.append(_near_tie_check(f"paged (e, float32) request {i}",
+                                    wm.tokens, c.tokens, gaps, PREFIX_NEW))
+    eng._allocator.check()
+    f32_same = sum(r["diverge"] is None for r in rows)
+    del eng, w
+    torch.cuda.empty_cache()
+    print(f"paged (e, --prefix-cache-blocks {PAGED_TRIE_BLOCKS} of "
+          f"{PAGED_KV_BLOCK} tokens): {PREFIX_REQUESTS} requests sharing a "
+          f"{PREFIX_LEN}-token prefix, cold then warm: every warm request "
+          f"mapped {min(warm_mapped)}-{max(warm_mapped)} trie blocks into "
+          f"its table (>= {want}), 0 copies, pool_state.shared up to "
+          f"{shared[0]}; latency p50 cold {lat_cold['p50']:.3f} s, warm "
+          f"{lat_warm['p50']:.3f} s; {same} of {PREFIX_REQUESTS} warm equal "
+          f"cold (bf16); an admission burst of 8 to the device's end: cold "
+          f"{admit['cold']['ms']:.1f} ms ({admit['cold']['prefill_calls']} "
+          f"prefill calls), warm {admit['warm']['ms']:.1f} ms "
+          f"({admit['warm']['computed']} tokens prefilled, "
+          f"{admit['warm']['reused']} mapped, "
+          f"{admit['warm']['prefill_calls']} calls); the ring prefix "
+          f"cache's: cold {prefix_admit['cold']['ms']:.1f} ms, warm "
+          f"{prefix_admit['warm']['ms']:.1f} ms "
+          f"({prefix_admit['warm']['computed']} prefilled, "
+          f"{prefix_admit['warm']['reused']} copied); float32 (2 layers) "
+          f"{f32_same} of {PREFIX_REQUESTS} warm completions equal cold, "
+          f"every other one only at or after a near-tie")
+    return dict(warm_mapped_min=min(warm_mapped), shared_peak=shared[0],
+                latency_s_p50=dict(cold=lat_cold["p50"],
+                                   warm=lat_warm["p50"]),
+                warm_equal_cold_bf16=same, admission=admit,
+                ring_admission=prefix_admit, float32_equal=f32_same,
+                float32_rows=[r for r in rows if r["diverge"] is not None
+                              or r["near_ties"]])
+
+
+def _paged_replay(torch, G, T, S) -> dict:
+    """(f): float32, 2 layers, REPLAY_F32 requests through 3 slots on the
+    paged engine with crashes at decode blocks REPLAY_F32_CRASH: every
+    completion equals the crashless paged server's up to its first
+    near-tie, and the allocator's invariant holds after."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(43), dev), cfg)
+    rng = np.random.default_rng(43)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, REPLAY_F32)]
+    ref = S.SlotServer(w, cfg, slots=3, max_len=1024, paged=True)
+    reqs = [S.Request(prompt=p, max_new_tokens=REPLAY_F32_NEW, logprobs=2)
+            for p in prompts]
+    for r in reqs:
+        ref.submit(r)
+    got = ref.run_until_drained()
+    want = [got[r.id] for r in reqs]
+    os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"] = REPLAY_F32_CRASH
+    try:
+        srv = S.SlotServer(w, cfg, slots=3, max_len=1024, paged=True)
+    finally:
+        del os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"]
+    reqs = [S.Request(prompt=p, max_new_tokens=REPLAY_F32_NEW)
+            for p in prompts]
+    done, prefixes = _crash_harness(srv, reqs)
+    if srv.chaos_faults_injected != 2 or srv.replays < 1:
+        fail(f"paged (f): {srv.chaos_faults_injected} crashes, "
+             f"{srv.replays} replays")
+    rows = []
+    for i, (r, c) in enumerate(zip(reqs, want)):
+        toks = done[r.id].tokens
+        _check_prefixes("paged (f)", toks, prefixes[r.id])
+        gaps = [e["top"][1][0] - e["top"][1][1] for e in c.logprobs]
+        rows.append(_near_tie_check(f"paged (f) request {i}", toks, c.tokens,
+                                    gaps, REPLAY_F32_NEW))
+    srv._allocator.check()
+    if srv.stats()["paged_kv"]["pool_blocks_used"]:
+        fail("paged (f): blocks held after the drain")
+    equal = sum(r["diverge"] is None for r in rows)
+    print(f"paged (f, float32, 2 layers): {REPLAY_F32} requests through 3 "
+          f"slots, crashes at decode blocks {REPLAY_F32_CRASH}, "
+          f"{srv.replays} replays ({srv.replayed_tokens} journaled tokens): "
+          f"{equal} of {REPLAY_F32} token-identical to the crashless paged "
+          f"server, every other one only at or after a near-tie; the "
+          f"allocator's invariant holds")
+    del ref, srv, w
+    torch.cuda.empty_cache()
+    return dict(resumed=len(prefixes), equal=equal,
+                rows=[r for r in rows if r["diverge"] is not None
+                      or r["near_ties"]])
+
+
+def phase_paged(torch, ops, run_a, prefix_admit) -> dict:
+    """Paged KV and the admission tiers (SlotServer(paged=True), serve's
+    --paged-kv flags): (a) token identity with the ring engine in five
+    modes at float32 and bf16; (b) run A's requests with --paged-kv
+    beside the ring; (c) PAGED_OVER_SLOTS slots on the same pool; (d) the
+    class tiers and interleaved prefill; (e) the paged prefix cache; (f)
+    replay. Returns the kernels' launches (none: the paged engine runs the
+    ring engine's einsum programs on a gathered view)."""
+    print("== main path: paged KV")
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import generate as G
+    from tony_tpu_torch.models import serving as S
+    from tony_tpu_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    identity = _paged_identity(torch, G, T, S)
+    lap("a")
+    flagship = _paged_serving(torch, ops, S, G, T, serve, run_a)
+    lap("b, c")
+    tiers = _paged_tiers(torch, S, serve)
+    lap("d")
+    prefix = _paged_prefix(torch, S, G, T, serve, prefix_admit)
+    lap("e")
+    replay = _paged_replay(torch, G, T, S)
+    lap("f")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"paged: kernels launched {counts}, expected none")
+    print("paged " + json.dumps(dict(
+        identity=identity, flagship=flagship, tiers=tiers, prefix=prefix,
+        replay=replay, launches=counts, seconds=seconds,
+        card=nvidia_smi_line())))
+    return counts
+
+
 def _solo_greedy(torch, G, w, cfg, prompt, n):
     """The port's greedy generation of n tokens, its prefill and decode
     steps on the kernels, with each step's top-2 logit gap."""
@@ -3131,12 +4023,13 @@ def main() -> int:
     serve_launches, run_a = phase_serving(torch, ops)
     ckpt_launches = phase_checkpoint(torch, ops, lm_train, lm_generate,
                                      train_losses)
-    prefix_launches = phase_prefix_cache(torch, ops)
+    prefix_launches, prefix_admit = phase_prefix_cache(torch, ops)
     replay_launches = phase_replay(torch, ops)
     stream_launches = phase_streaming(torch, ops, run_a)
+    paged_launches = phase_paged(torch, ops, run_a, prefix_admit)
     launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
                 + ckpt_launches[k] + prefix_launches[k] + replay_launches[k]
-                + stream_launches[k] for k in gen_launches}
+                + stream_launches[k] + paged_launches[k] for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -224,8 +224,10 @@ def test_prefix_cache_refcount_and_eviction_unit():
         S.PrefixCache(2, 4).release([S._PrefixNode(None, b"", 0)])
     with pytest.raises(ValueError, match=">= 1 block"):
         S.PrefixCache(0, 4)
-    with pytest.raises(NotImplementedError, match="paged KV"):
-        S.PrefixCache(2, 4, allocator=object())
+    # paged mode: the trie's blocks come from the pool's allocator
+    alloc = S.BlockAllocator(3)
+    paged = S.PrefixCache(2, 4, allocator=alloc)
+    assert paged.alloc() == 0 and alloc.refs[0] == 1 and alloc.free_blocks == 2
 
 
 def test_prefix_cache_eviction_stress_server(model):

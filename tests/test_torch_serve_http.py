@@ -436,19 +436,13 @@ def test_serve_prefix_cache_flags_and_stats():
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--kv-block", "8"], "paged KV"),
     (["--hf-checkpoint", "/x"], "HF import"),
     (["--mesh", "tensor=2"], "mesh/TP"),
     (["--spec-gamma", "2"], "speculative"),
-    (["--paged-kv"], "the rest of serving"),
     (["--role", "prefill"], "the rest of serving"),
     (["--draft-model", "d"], "speculative"),
     (["--model", "a=random"], "HF import"),
     (["--weight-dtype", "int8"], "w8a16"),
-    (["--kv-pool-blocks", "4"], "paged KV"),
-    (["--prefill-interleave", "4"], "paged KV"),
-    (["--class-budget-interactive", "2"], "admission tiers"),
-    (["--class-budget-batch", "2"], "admission tiers"),
     (["--spec-gamma-max", "8"], "speculative"),
     (["--draft-d-model", "32"], "speculative"),
     (["--draft-n-layers", "1"], "speculative"),

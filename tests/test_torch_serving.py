@@ -585,12 +585,10 @@ def test_submit_rejections(model):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"kv_block": 8}, {"paged": True},
-    {"role": "prefill"}, {"draft": "d"},
+    {"mesh": object()}, {"role": "prefill"}, {"draft": "d"},
     {"trace_sink": print}, {"registry": object()},
     {"rules": {}}, {"draft_cfg": object()}, {"spec_gamma": 2},
-    {"spec_gamma_max": 8}, {"kv_pool_blocks": 4},
-    {"class_budgets": {"batch": 2}}, {"prefill_interleave": 4},
+    {"spec_gamma_max": 8},
 ], ids=lambda kw: next(iter(kw)))
 def test_not_ported_arguments_raise(model, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

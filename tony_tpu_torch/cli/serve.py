@@ -54,9 +54,20 @@ checkpoint (``--checkpoint-dir``: its latest step's ``params``), on
 chunk-sized blocks; ``--no-cache-prompts`` serves from that cache but
 inserts a prompt only when its request sets ``"cache_prompt": true``.
 
+``--paged-kv`` swaps the slots x max-len KV ring for one pool of
+``--kv-block``-token blocks (``--kv-pool-blocks`` of them; default the
+ring's bytes) with a block table a slot: admission waits for free blocks,
+so concurrency follows the KV the requests need. With it,
+``--prefill-interleave N`` prefills at most N prompt tokens a decode
+block, ``--class-budget-interactive`` / ``--class-budget-batch`` cap the
+blocks a priority class (the body's ``"priority"``) may hold, and the
+prefix cache maps cached blocks into a slot's table instead of copying
+them (``--prefix-cache-blocks`` then counts ``--kv-block``-token nodes).
+/stats gains ``paged_kv`` (the pool's blocks, by holder, the classes'
+use, the deferred admissions).
+
 Not ported yet, each raising a named error: ``--hf-checkpoint``,
-``--mesh``, ``--paged-kv`` and its ``--kv-*``, ``--class-budget-*`` and
-``--prefill-interleave``, ``--role``, ``--draft-model`` and the
+``--mesh``, ``--role``, ``--draft-model`` and the
 ``--draft-*`` and ``--spec-gamma*`` flags, ``--model`` and
 ``--weight-dtype int8``. /metrics, /debug/profile, /autoscale/hint and
 /kv/import are not served.
@@ -157,15 +168,33 @@ def build_argparser() -> argparse.ArgumentParser:
                         "space-separated decimal token ids (an exact round "
                         "trip), 'bytes' = UTF-8 bytes (needs --vocab >= "
                         "256; ids >= 256 decode as U+FFFD)")
+    p.add_argument("--paged-kv", action="store_true",
+                   help="one paged pool of KV blocks with a block table a "
+                        "slot instead of the slots x max-len ring: "
+                        "admission waits for free blocks, so concurrency "
+                        "follows the KV the requests need")
+    p.add_argument("--kv-block", type=int, default=0,
+                   help="with --paged-kv: tokens a KV block (must divide "
+                        "--max-len and --prefill-chunk; default "
+                        "--block-size)")
+    p.add_argument("--kv-pool-blocks", type=int, default=0,
+                   help="with --paged-kv: the pool's blocks, the KV memory "
+                        "budget (default slots x max-len / kv-block, the "
+                        "ring's bytes)")
+    p.add_argument("--prefill-interleave", type=int, default=0,
+                   help="with --paged-kv: prefill at most this many prompt "
+                        "tokens a decode block, so a burst of long prompts "
+                        "does not stall running streams (0 = whole prompts "
+                        "at admission)")
+    p.add_argument("--class-budget-interactive", type=int, default=0,
+                   help="with --paged-kv: the KV blocks the interactive "
+                        "class may hold exclusively (0 = no cap)")
+    p.add_argument("--class-budget-batch", type=int, default=0,
+                   help="with --paged-kv: the KV blocks the batch class "
+                        "may hold exclusively (0 = no cap)")
     # not ported yet: each raises in check_ported unless left at the JAX
     # package's default
     p.add_argument("--mesh", default="")
-    p.add_argument("--paged-kv", action="store_true")
-    p.add_argument("--kv-block", type=int, default=0)
-    p.add_argument("--kv-pool-blocks", type=int, default=0)
-    p.add_argument("--prefill-interleave", type=int, default=0)
-    p.add_argument("--class-budget-interactive", type=int, default=0)
-    p.add_argument("--class-budget-batch", type=int, default=0)
     p.add_argument("--role", default="both")
     p.add_argument("--model", action="append", default=[])
     p.add_argument("--draft-model", default="")
@@ -178,20 +207,12 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-_PAGED = "the rest of serving: paged KV and admission tiers"
 _SPEC = "speculative decoding"
 # flag -> (is it set off the JAX package's default?, ROADMAP.md queue-1
 # item)
 _NOT_PORTED_FLAGS = {
     "--hf-checkpoint": (lambda a: a.hf_checkpoint, "HF import"),
     "--mesh": (lambda a: a.mesh, "mesh/TP"),
-    "--paged-kv": (lambda a: a.paged_kv, _PAGED),
-    "--kv-block": (lambda a: a.kv_block, _PAGED),
-    "--kv-pool-blocks": (lambda a: a.kv_pool_blocks, _PAGED),
-    "--prefill-interleave": (lambda a: a.prefill_interleave, _PAGED),
-    "--class-budget-interactive": (lambda a: a.class_budget_interactive,
-                                   _PAGED),
-    "--class-budget-batch": (lambda a: a.class_budget_batch, _PAGED),
     "--role": (lambda a: a.role != "both",
                "the rest of serving: disaggregated roles"),
     "--model": (lambda a: a.model, "HF import (the model registry)"),
@@ -259,6 +280,9 @@ def build_server(args):
         journal, recovered = RequestJournal.recover(
             Path(args.trace_dir) / JOURNAL_FILE)
         print(f"request journal -> {journal.path}", flush=True)
+    budgets = {cls: n for cls, n in (
+        ("interactive", args.class_budget_interactive),
+        ("batch", args.class_budget_batch)) if n}
     srv = SlotServer(
         prepared, cfg, slots=args.slots, max_len=args.max_len,
         block_size=args.block_size, prefill_chunk=args.prefill_chunk,
@@ -270,7 +294,10 @@ def build_server(args):
         prefix_cache_blocks=args.prefix_cache_blocks,
         cache_prompts=not args.no_cache_prompts,
         max_queue=args.max_queue, batch_queue_frac=args.batch_queue_frac,
-        journal=journal, replay=not args.no_replay, device=args.device)
+        journal=journal, replay=not args.no_replay, paged=args.paged_kv,
+        kv_block=args.kv_block, kv_pool_blocks=args.kv_pool_blocks,
+        prefill_interleave=args.prefill_interleave,
+        class_budgets=budgets or None, device=args.device)
     if recovered:
         n = srv.recover_journal(recovered)
         print(f"journal recovery: resumed {n} unfinished request(s) for "

@@ -71,6 +71,25 @@ while the other slots keep decoding.
 - **Chaos hooks** (``TONY_TEST_SERVING_*``, constants.py): a seeded
   per-turn failure rate and step delay, a crash at given decode-block
   ordinals and a SIGKILL at one, read once at construction.
+- **Paged KV** (``paged=True``): no slots x max_len ring. K/V lives in
+  one pool of ``kv_block``-row blocks (``kv_pool_blocks`` of them plus a
+  pad block that stays zero), each slot holds a table of block ids, and
+  a ``BlockAllocator`` refcounts the blocks (a slot table entry and a
+  trie node each hold one). Every dispatch gathers a transient
+  ring-ordered view of the pool (``_gather_paged_view``: the ring
+  engine's ``[L, S, kvH, M, D]`` layout, slot s's logical position p at
+  index (p + offset_s) mod M), runs the ring engine's own program on it,
+  and commits back only the rows that program wrote
+  (``_scatter_paged_rows``), so completions are the ring engine's.
+  Admission allocates every block a request can write up front, all or
+  nothing and within its priority class's budget (``class_budgets``), and
+  defers when the pool is short, after reclaiming unshared trie leaves:
+  an admitted request never fails for want of KV. Its prefill runs slot
+  by slot, chunk by chunk, through ``_pending_prefill``; with
+  ``prefill_interleave=N`` at most N prompt tokens a decode block, so a
+  burst of long prompts no longer stalls running streams. The prefix
+  trie then shares the pool's blocks (``PrefixCache(allocator=)``): a
+  hit maps the cached blocks into the slot's table and copies nothing.
 - **Reading a block's result.** Right after a decode block is enqueued,
   its packed result starts copying into pinned host memory and a CUDA
   event is recorded; processing waits only on the events of the blocks it
@@ -91,7 +110,6 @@ fault (an illegal address, a device-side assert) poisons the context:
 requests, from a file-backed journal.
 
 Not ported yet, each raising a named error: the mesh and its rule table,
-paged KV and the admission tiers, the paged prefix cache (``allocator=``),
 disaggregated roles, speculative serving, request traces, the model
 registry, MoE and w8a16.
 """
@@ -154,15 +172,9 @@ LOGPROBS_MAX = 8
 # name -> (the value that means "off": the JAX package's default, what it
 # enables, its ROADMAP.md queue-1 item). Any other value raises
 # NotImplementedError.
-_PAGED = "the rest of serving: paged KV and admission tiers"
 _NOT_PORTED = {
     "mesh": (None, "tensor-parallel serving", "mesh/TP"),
     "rules": (None, "the mesh's sharding rules", "mesh/TP"),
-    "paged": (False, "paged KV", _PAGED),
-    "kv_block": (0, "paged KV blocks", _PAGED),
-    "kv_pool_blocks": (0, "the paged KV pool", _PAGED),
-    "class_budgets": (None, "admission class budgets", _PAGED),
-    "prefill_interleave": (0, "interleaved prefill", _PAGED),
     "role": ("both", "disaggregated prefill/decode roles",
              "the rest of serving: disaggregated roles"),
     "draft": (None, "speculative serving", "speculative decoding"),
@@ -292,8 +304,8 @@ class _Admission:
     """One (slot, request) pair of an admission burst, with the layout
     decisions made at collection time: ring offset, budget target,
     sampling overrides, the chunk starts the prefill will feed (from the
-    cached prefix's end), and the matched prefix-cache trie path ([]
-    without a hit)."""
+    cached prefix's end, ``prefix_len``), and the matched prefix-cache
+    trie path ([] without a hit)."""
     slot: int
     req: Request
     body: np.ndarray
@@ -303,6 +315,7 @@ class _Admission:
     topk: int
     chunk_starts: list
     last: int = 0               # the first fed token: the prompt's last
+    prefix_len: int = 0
     hit_path: list = field(default_factory=list)
 
 
@@ -537,12 +550,16 @@ class PrefixCache:
     slot). ``alloc`` returns None when every block is taken and nothing is
     evictable; the caller then inserts less.
 
-    ``allocator=`` (the JAX package's paged-KV mode, where the trie shares
-    the paged pool's blocks) raises: paged KV is not ported."""
+    With ``allocator=`` (paged KV) the trie keeps no free list of its own:
+    its blocks are the paged pool's, each node holds one allocator
+    reference on its block, and a block is freed when its last holder (a
+    node or a slot table) lets go. A block enters the trie only once
+    fully written (``adopt``) and nothing writes it again, so sharing it
+    needs no copy. Eviction then takes only leaves the trie alone holds
+    (refcount 1): a block still in a slot's table is being read.
+    ``n_blocks`` stays as a cap on the trie's size."""
 
     def __init__(self, n_blocks: int, chunk: int, allocator=None):
-        if allocator is not None:
-            raise _not_ported("the paged prefix cache (allocator=)", _PAGED)
         if n_blocks < 1:
             raise ValueError(f"prefix cache needs >= 1 block, got {n_blocks}")
         if chunk < 1:
@@ -550,7 +567,9 @@ class PrefixCache:
         self.n_blocks = n_blocks
         self.chunk = chunk
         self.root = _PrefixNode(None, b"", -1)
-        self._free = list(range(n_blocks - 1, -1, -1))
+        self._allocator = allocator
+        self._free = ([] if allocator is not None
+                      else list(range(n_blocks - 1, -1, -1)))
         self._owned: set[_PrefixNode] = set()
         self._tick = 0
         self.hits = 0           # admissions matching >= 1 chunk
@@ -598,10 +617,16 @@ class PrefixCache:
 
     def _evict_one(self) -> int | None:
         """Free the least recently used unreferenced leaf's block (ticks
-        are unique, so the choice is deterministic)."""
+        are unique, so the choice is deterministic). With an allocator the
+        node's reference on the block passes to the caller (reuse or
+        ``reclaim``), and a leaf whose block a slot table also holds is
+        skipped."""
         victim = None
         for node in self._owned:
             if node.children or node.refs > 0:
+                continue
+            if (self._allocator is not None
+                    and self._allocator.refs[node.block] > 1):
                 continue
             if victim is None or node.tick < victim.tick:
                 victim = node
@@ -613,9 +638,59 @@ class PrefixCache:
         return victim.block
 
     def alloc(self) -> int | None:
+        if self._allocator is not None:
+            block = self._allocator.take()
+            if block is not None:
+                return block
+            return self._evict_one()
         if self._free:
             return self._free.pop()
         return self._evict_one()
+
+    def reclaim(self, n: int) -> int:
+        """Paged mode: give up to ``n`` blocks back to the allocator by
+        evicting unreferenced leaves the trie alone holds -> how many. An
+        admission short of pool blocks calls it: cached prefixes yield to
+        live requests."""
+        if self._allocator is None:
+            raise RuntimeError("reclaim needs an allocator")
+        got = 0
+        while got < n:
+            block = self._evict_one()
+            if block is None:
+                break
+            self._allocator.unref(block)
+            got += 1
+        return got
+
+    def adopt(self, body: np.ndarray, blocks: dict) -> int:
+        """Paged mode's insert, with no device copy: record a slot's own
+        freshly prefilled blocks in the trie. ``blocks`` maps a chunk
+        index to its pool block for the full chunks the slot prefilled
+        itself; each new node takes an allocator reference, so the block
+        is shared by the slot's table and the trie. Existing nodes win (a
+        burst-mate adopted the chunk first); the walk stops at the size
+        cap or at a chunk with no block -> the nodes added."""
+        if self._allocator is None:
+            raise RuntimeError("adopt needs an allocator")
+        node, adopted = self.root, 0
+        c = self.chunk
+        for c0 in range(0, len(body) - c + 1, c):
+            key = body[c0:c0 + c].tobytes()
+            child = node.children.get(key)
+            if child is None:
+                block = blocks.get(c0 // c)
+                if block is None or len(self._owned) >= self.n_blocks:
+                    break
+                child = _PrefixNode(node, key, block)
+                node.children[key] = child
+                self._owned.add(child)
+                self._allocator.ref(block)
+                self.inserted_blocks += 1
+                adopted += 1
+            self._touch(child)
+            node = child
+        return adopted
 
     def insert(self, body: np.ndarray) -> list[tuple[int, _PrefixNode]]:
         """Add ``body``'s full chunks to the trie, reusing existing nodes
@@ -693,6 +768,190 @@ def _insert_prefix_blocks(pool: PrefixPool, cache: KVCache,
         pool.v_scale[:, blocks] = cache.v_scale[sel].permute(2, 0, 3, 1)
 
 
+# ------------------------------------------------------------ paged KV
+
+class BlockAllocator:
+    """The host's authority over the paged-KV pool (the JAX package's
+    serving.py:1239): a free list, a refcount a block and the blocks each
+    priority class holds. Host bookkeeping only (the device sees block
+    tables), so its invariants are testable without a model.
+
+    A block's refcount counts its holders: each slot table entry that
+    points at it and each trie node that owns it; it is freed when the
+    last one lets go. Shared blocks are never written again (a prefill
+    chunk is immutable once complete, and decode writes only a slot's own
+    tail blocks), so sharing is refcounting alone.
+
+    ``class_budgets`` caps the blocks a class may hold exclusively at once
+    (``alloc_for`` debits, ``credit`` returns); blocks shared through the
+    trie are free to every class. A class over its budget defers at
+    admission instead of starving the other tier of blocks."""
+
+    def __init__(self, n_blocks: int, class_budgets: dict | None = None):
+        if n_blocks < 1:
+            raise ValueError(f"paged KV pool needs >= 1 block, "
+                             f"got {n_blocks}")
+        self.n_blocks = n_blocks
+        self._free = list(range(n_blocks - 1, -1, -1))
+        self.refs = np.zeros(n_blocks, np.int32)
+        self.class_budgets: dict[str, int] = {}
+        for cls, cap in (class_budgets or {}).items():
+            if cls not in PRIORITY_CLASSES:
+                raise ValueError(
+                    f"unknown priority class {cls!r} in class_budgets "
+                    f"(valid: {PRIORITY_CLASSES})")
+            self.class_budgets[cls] = int(cap)
+        self.class_used = {cls: 0 for cls in PRIORITY_CLASSES}
+        self.peak_used = 0
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.n_blocks - len(self._free)
+
+    def take(self) -> int | None:
+        """One block debited to no class (the trie's growth), refcount 1."""
+        if not self._free:
+            return None
+        block = self._free.pop()
+        self.refs[block] = 1
+        self.peak_used = max(self.peak_used, self.used_blocks)
+        return block
+
+    def alloc_for(self, cls: str, n: int) -> list | None:
+        """``n`` fresh blocks (refcount 1 each) debited to class ``cls``,
+        all or nothing: None when the free list or the class's budget is
+        short (the caller defers the admission; nothing is half-admitted)."""
+        budget = self.class_budgets.get(cls)
+        if budget is not None and self.class_used.get(cls, 0) + n > budget:
+            return None
+        if len(self._free) < n:
+            return None
+        blocks = [self._free.pop() for _ in range(n)]
+        for block in blocks:
+            self.refs[block] = 1
+        if cls in self.class_used:
+            self.class_used[cls] += n
+        self.peak_used = max(self.peak_used, self.used_blocks)
+        return blocks
+
+    def ref(self, block: int) -> None:
+        if self.refs[block] < 1:
+            raise RuntimeError(f"ref on free paged-KV block {block}")
+        self.refs[block] += 1
+
+    def unref(self, block: int) -> None:
+        if self.refs[block] < 1:
+            raise RuntimeError("paged-KV block refcount underflow")
+        self.refs[block] -= 1
+        if self.refs[block] == 0:
+            self._free.append(block)
+
+    def credit(self, cls: str, n: int) -> None:
+        """Give ``n`` exclusively held blocks back to ``cls``'s budget (the
+        refcounts are separate: a credited block may live on in the
+        trie)."""
+        if cls in self.class_used:
+            self.class_used[cls] = max(0, self.class_used[cls] - n)
+
+    def check(self) -> None:
+        """Raise unless every block is either free with refcount 0 or
+        held with refcount >= 1: no orphan, no double free, no free block
+        still referenced."""
+        free = set(self._free)
+        if len(free) != len(self._free):
+            raise RuntimeError("duplicate blocks on the free list")
+        for block in range(self.n_blocks):
+            if (block in free) != (self.refs[block] == 0) \
+                    or self.refs[block] < 0:
+                raise RuntimeError(
+                    f"block {block}: refcount {self.refs[block]}, "
+                    f"{'free' if block in free else 'allocated'}")
+
+
+def _paged_rows(tables: np.ndarray, offsets: np.ndarray, kv_block: int,
+                ring_ids: np.ndarray) -> tuple:
+    """Host: where ring index ``ring_ids[s, j]`` of slot s lives in the
+    pool -> (logical positions, blocks, rows within the block), each
+    shaped like ``ring_ids``. Ring index i holds logical position
+    (i - offsets[s]) mod M, which is row p % B of table entry p // B."""
+    m_cap = tables.shape[1] * kv_block
+    p = (ring_ids - offsets[:, None].astype(np.int64)) % m_cap
+    blk = np.take_along_axis(tables.astype(np.int64), p // kv_block, axis=1)
+    return p, blk, p % kv_block
+
+
+def _pool_row_index(pool: PrefixPool, base: torch.Tensor,
+                    n_rows: int) -> torch.Tensor:
+    """Flat row indices [L, *base.shape[:-1], kvH, base.shape[-1]] into a
+    [L, N, kvH, R(, D)] tensor viewed as rows of D (R = ``n_rows``, the
+    rows a block or a ring holds): row (l, ..., h, i) is l*N*kvH*R + h*R +
+    base[..., i], where ``base`` already holds the block (or slot) term."""
+    n_layers, n, kvh = pool.k.shape[:3]
+    dev = base.device
+    lay = torch.arange(n_layers, device=dev) * (n * kvh * n_rows)
+    head = torch.arange(kvh, device=dev) * n_rows
+    lead = (n_layers,) + (1,) * (base.dim() - 1) + (1, 1)
+    return (lay.view(lead) + head.view(-1, 1)
+            + base.unsqueeze(-2).unsqueeze(0))
+
+
+@torch.no_grad()
+def _gather_paged_view(pool: PrefixPool, base: torch.Tensor,
+                       lens) -> KVCache:
+    """The pool as a ring-ordered slot-pool view (the JAX package's
+    serving.py:1343): ``base`` [S, M] int64, from the host, is
+    block * kvH * B + row of the pool row that holds view index (s, i),
+    slot s's logical position (i - offset_s) mod M (``_paged_rows``). The
+    result is the ring engine's ``KVCache`` layout [L, S, kvH, M, D] with
+    length ``lens``, made in one pass: one ``index_select`` of D-wide rows
+    straight into that order (int8 scales alike), so the ring engine's
+    programs run on it unchanged. Table entries at the pad block read its
+    zeros, where a ring holds stale values: positions the attention mask
+    weighs 0 either way. The view is transient (gather, program,
+    scatter)."""
+    n_layers, _, kvh, b_rows, d = pool.k.shape
+    s, m = base.shape
+    idx = _pool_row_index(pool, base, b_rows).reshape(-1)
+    shape = (n_layers, s, kvh, m)
+    k = pool.k.view(-1, d).index_select(0, idx).view(*shape, d)
+    v = pool.v.view(-1, d).index_select(0, idx).view(*shape, d)
+    ks = vs = None
+    if pool.k_scale is not None:
+        ks = pool.k_scale.view(-1).index_select(0, idx).view(shape)
+        vs = pool.v_scale.view(-1).index_select(0, idx).view(shape)
+    return KVCache(k=k, v=v, length=lens, k_scale=ks, v_scale=vs)
+
+
+@torch.no_grad()
+def _scatter_paged_rows(pool: PrefixPool, view: KVCache,
+                        rows: torch.Tensor) -> None:
+    """Commit a program's written view rows into the pool, in place (the
+    JAX package's serving.py:1382). ``rows`` [2, T] int64, from the host,
+    is the exact commit list: view row s * kvH * M + ring index, and pool
+    row block * kvH * B + row. The host drops every write the reference
+    diverts out of bounds (a column past the slot's ``n_valid``, a
+    logical position below its floor, a pad-block target), so no index is
+    out of range and no target repeats: one ``index_copy_`` a tensor,
+    deterministic."""
+    n_layers, s, kvh, m, d = view.k.shape
+    b_rows = pool.k.shape[3]
+    view_rows = PrefixPool(k=view.k, v=view.v)
+    src = _pool_row_index(view_rows, rows[0], m).reshape(-1)
+    dst = _pool_row_index(pool, rows[1], b_rows).reshape(-1)
+    for dst_t, src_t in ((pool.k, view.k), (pool.v, view.v)):
+        dst_t.view(-1, d).index_copy_(
+            0, dst, src_t.view(-1, d).index_select(0, src))
+    if pool.k_scale is not None:
+        for dst_t, src_t in ((pool.k_scale, view.k_scale),
+                             (pool.v_scale, view.v_scale)):
+            dst_t.view(-1).index_copy_(0, dst, src_t.view(-1)
+                                       .index_select(0, src))
+
+
 # ------------------------------------------------------------------ server
 
 class SlotServer:
@@ -730,7 +989,19 @@ class SlotServer:
     (N x layers x kvH x chunk x head_dim x the KV dtype's bytes, twice for
     K and V). ``cache_prompts`` is the default for inserting admitted
     prompts' chunks into it; ``Request.cache_prompt`` overrides it per
-    request. ``stats()["prefix_cache"]`` reports its counters."""
+    request. ``stats()["prefix_cache"]`` reports its counters.
+
+    ``paged=True`` swaps the slots x max_len ring for one pool of
+    ``kv_block``-row blocks (default: ``block_size`` rows) and a block
+    table a slot (module docstring): ``kv_pool_blocks`` blocks (default:
+    the ring's bytes, slots x max_len / kv_block) plus the pad block.
+    ``max_len`` and ``prefill_chunk`` must be multiples of ``kv_block``.
+    Admission is gated on free pool blocks; ``class_budgets`` (a priority
+    class -> the blocks it may hold exclusively) and ``prefill_interleave``
+    (prompt tokens prefilled a decode block, 0 = whole prompts at
+    admission) need ``paged``. With the prefix cache on, the trie shares
+    the pool's blocks (``prefix_cache_blocks`` caps its nodes, each
+    ``kv_block`` tokens). ``stats()["paged_kv"]`` reports the pool."""
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
                  max_len: int = 2048, block_size: int = 16,
@@ -742,7 +1013,9 @@ class SlotServer:
                  prefix_cache_blocks: int = 0, cache_prompts: bool = True,
                  max_queue: int = 0, batch_queue_frac: float = 0.5,
                  model: str = "default", journal: RequestJournal | None = None,
-                 replay: bool = True, device=None, **not_ported):
+                 replay: bool = True, paged: bool = False, kv_block: int = 0,
+                 kv_pool_blocks: int = 0, class_budgets: dict | None = None,
+                 prefill_interleave: int = 0, device=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SlotServer() got an unexpected keyword "
@@ -779,6 +1052,33 @@ class SlotServer:
         self.batched_admission = batched_admission
         self.max_queue = int(max_queue)
         self.batch_queue_frac = float(batch_queue_frac)
+        self._paged = bool(paged)
+        self.kv_block = int(kv_block or 0)
+        self.kv_pool_blocks = int(kv_pool_blocks or 0)
+        self.prefill_interleave = max(0, int(prefill_interleave))
+        self._class_budgets = dict(class_budgets or {})
+        if self._paged:
+            if not self.kv_block:
+                self.kv_block = int(block_size)
+            if max_len % self.kv_block:
+                raise ValueError(
+                    f"max_len={max_len} must be a multiple of "
+                    f"kv_block={self.kv_block} (a slot's table has "
+                    f"max_len/kv_block entries)")
+            if prefill_chunk % self.kv_block:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be a multiple of "
+                    f"kv_block={self.kv_block} (chunk boundaries land on "
+                    f"block boundaries, so the trie adopts whole blocks)")
+            if not self.kv_pool_blocks:
+                # the ring's device bytes
+                self.kv_pool_blocks = slots * (max_len // self.kv_block)
+        elif self.prefill_interleave:
+            raise ValueError("prefill_interleave requires paged=True (the "
+                             "ring engine prefills whole admissions)")
+        elif self._class_budgets:
+            raise ValueError("class_budgets requires paged=True (budgets "
+                             "count pool blocks)")
         self._seed = int(seed)          # journaled with every request
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # built once: a tensor made from a list on the card waits for it
@@ -799,6 +1099,10 @@ class SlotServer:
         self.cancelled_requests = 0
         self.expired_requests = 0
         self.resets = 0
+        self.admission_defers = 0       # paged: short of blocks or budget
+        self.paged_gather_dispatches = 0
+        self.paged_scatter_dispatches = 0
+        self.prefill_chunks_interleaved = 0     # pumps cut by the interleave
         # request durability: the journal records every accepted request's
         # replay state, and reset() replays the journaled in-flight ones
         self.replay = bool(replay)
@@ -846,7 +1150,9 @@ class SlotServer:
         self._prefix_cache: PrefixCache | None = None
         self._pool: PrefixPool | None = None
         self._prefix_refs: dict[int, list] = {}
-        if self._prefix_blocks > 0:
+        if self._paged:
+            self._init_paged_state()
+        elif self._prefix_blocks > 0:
             self._init_prefix_pool()
         self._init_host_state()
         self._queue: collections.deque[Request] = collections.deque()
@@ -867,11 +1173,17 @@ class SlotServer:
     def _init_device_state(self) -> None:
         """(Re)create the slot pool's cache and per-slot state as fresh
         tensors (weights untouched). Called at construction and by
-        ``reset()``."""
+        ``reset()``. Paged mode allocates no ring: only the [S] lengths,
+        which each dispatch's view carries (the pool is
+        ``_init_paged_state``'s)."""
         s, dev = self.slots, self.device
-        cache = init_cache(self.cfg, s, self.max_len, self.kv_dtype, dev)
-        self._cache = dataclasses.replace(
-            cache, length=torch.zeros(s, dtype=torch.int32, device=dev))
+        lens = torch.zeros(s, dtype=torch.int32, device=dev)
+        if self._paged:
+            self._cache = None
+            self._d_lens = lens
+        else:
+            cache = init_cache(self.cfg, s, self.max_len, self.kv_dtype, dev)
+            self._cache = dataclasses.replace(cache, length=lens)
         zeros = dict(dtype=torch.int32, device=dev)
         self._state = _SlotState(
             tokens=torch.zeros(s, **zeros),
@@ -888,6 +1200,37 @@ class SlotServer:
                                       self.device)
         self._prefix_cache = PrefixCache(self._prefix_blocks,
                                          self.prefill_chunk)
+
+    def _init_paged_state(self) -> None:
+        """(Re)create the paged pool (``kv_pool_blocks`` blocks and the pad
+        block, the last, which unmapped table entries point at and which
+        stays zero), its allocator, the slots' tables, offsets and floors,
+        and the trie on the allocator."""
+        n = self.kv_pool_blocks
+        self._kv_pool = init_prefix_pool(self.cfg, n + 1, self.kv_block,
+                                         self.kv_dtype, self.device)
+        self._allocator = BlockAllocator(n, self._class_budgets)
+        self._np_tables = np.full(
+            (self.slots, self.max_len // self.kv_block), n, np.int32)
+        # host mirrors of the ring offsets, and each slot's floor: the
+        # lowest logical position a scatter may commit for it. max_len
+        # (never) while the slot is idle or mid-prefill, the body's length
+        # once active: the decode program writes rows for every slot, and
+        # an inactive one's must never reach a block the trie may share
+        self._np_offs = np.zeros((self.slots,), np.int32)
+        self._np_floor = np.full((self.slots,), self.max_len, np.int32)
+        # a slot's blocks: its own (refcount-1 holders unless the trie
+        # adopted them) and the trie's it maps (prefix hits)
+        self._slot_blocks: list[list] = [[] for _ in range(self.slots)]
+        self._slot_shared: list[list] = [[] for _ in range(self.slots)]
+        self._slot_class = ["interactive"] * self.slots
+        # admitted requests whose prefill is unfinished: [admission, index
+        # of the next chunk], drained by _pump_prefill
+        self._pending_prefill: collections.deque = collections.deque()
+        if self._prefix_blocks > 0:
+            self._prefix_cache = PrefixCache(self._prefix_blocks,
+                                             self.kv_block,
+                                             allocator=self._allocator)
 
     def _init_host_state(self) -> None:
         """(Re)zero the host-side scheduling state: sampling mirrors, the
@@ -1083,6 +1426,22 @@ class SlotServer:
                 self._finish_stream(request_id)
                 self.seal_journal(request_id)
                 return True
+        if self._paged:
+            # mid-prefill (interleaved): the request holds a slot and
+            # blocks but decodes nothing yet; its pending chunks go and its
+            # blocks free at once
+            for i, (adm, _) in enumerate(self._pending_prefill):
+                if adm.req.id != request_id:
+                    continue
+                del self._pending_prefill[i]
+                self.cancelled_requests += 1
+                self._host_busy[adm.slot] = False
+                self._done[request_id] = Completion(
+                    request_id, list(adm.req.resume_tokens or ()),
+                    "cancelled")
+                self._finish_stream(request_id)
+                self._release_request(request_id)
+                return True
         slot = self._slot_of.get(request_id)
         if slot is None:
             return False
@@ -1100,11 +1459,12 @@ class SlotServer:
 
     def reset(self) -> list[int]:
         """Re-arm the serving state after a loop failure without touching
-        the weights: a fresh KV ring and slot state, a fresh prefix pool
-        and trie, the pipeline and slot bookkeeping cleared (blocks still
-        running on the card are dropped unwaited: stream order and the
-        caching allocators keep their memory until they end). Queued
-        requests survive: they never started.
+        the weights: a fresh KV ring (or paged pool, allocator and tables)
+        and slot state, a fresh prefix pool and trie, the pipeline and
+        slot bookkeeping cleared (blocks still running on the card are
+        dropped unwaited: stream order and the caching allocators keep
+        their memory until they end). Queued requests survive: they never
+        started.
 
         Admitted-but-undelivered requests replay when the journal is on:
         each is re-queued, ahead of the never-started queue and in
@@ -1112,7 +1472,8 @@ class SlotServer:
         ``resume_tokens``; one whose prefix already finishes it is
         delivered without decoding. Only ids with no journal entry (all
         of them under ``replay=False``) are returned as lost, so the
-        caller fails them upstream."""
+        caller fails them upstream. A request still mid-prefill in paged
+        mode is in flight too, and replays with the rest."""
         failed: list[int] = []
         replay_reqs: list[Request] = []
         for rid in sorted(self._inflight):
@@ -1133,7 +1494,9 @@ class SlotServer:
             replay_reqs.append(self._request_from_entry(entry, id=rid))
         self._prefix_refs.clear()
         self._init_device_state()
-        if self._prefix_blocks:
+        if self._paged:
+            self._init_paged_state()
+        elif self._prefix_blocks:
             self._init_prefix_pool()
         self._init_host_state()
         self._queue.extendleft(reversed(replay_reqs))
@@ -1280,10 +1643,14 @@ class SlotServer:
 
     def _release_request(self, request_id: int) -> None:
         """Drop a finished or cancelled request's dispatch-side tracking,
-        its reference on its matched prefix-cache path and its journal
-        entry (no replay after a delivered terminal)."""
-        self._slot_of.pop(request_id, None)
+        its paged blocks, its reference on its matched prefix-cache path
+        and its journal entry (no replay after a delivered terminal)."""
+        slot = self._slot_of.pop(request_id, None)
         self._inflight.discard(request_id)
+        if self._paged and slot is not None:
+            # the id still owned the slot: a predictive re-admission drops
+            # the predecessor's mapping (and frees its blocks) itself
+            self._free_slot_blocks(slot)
         path = self._prefix_refs.pop(request_id, None)
         if path is not None:
             self._prefix_cache.release(path)
@@ -1381,7 +1748,44 @@ class SlotServer:
                 "copy_dispatches": self.prefix_copy_dispatches,
                 "insert_dispatches": self.prefix_insert_dispatches,
             }
+        if self._paged:
+            alloc = self._allocator
+            out["paged_kv"] = {
+                "kv_block": self.kv_block,
+                "pool_blocks_total": alloc.n_blocks,
+                "pool_blocks_free": alloc.free_blocks,
+                "pool_blocks_used": alloc.used_blocks,
+                "pool_blocks_peak": alloc.peak_used,
+                "pool_state": self._pool_state_counts(),
+                # block transfer (disaggregated roles) is not ported
+                "kv_exports": 0,
+                "kv_imports": 0,
+                "kv_import_rejects": 0,
+                "class_used": dict(alloc.class_used),
+                "class_budgets": dict(self._class_budgets),
+                "admission_defers": self.admission_defers,
+                "gather_dispatches": self.paged_gather_dispatches,
+                "scatter_dispatches": self.paged_scatter_dispatches,
+                "prefill_chunks_interleaved":
+                    self.prefill_chunks_interleaved,
+                "prefill_interleave": self.prefill_interleave,
+                "pending_prefill": len(self._pending_prefill),
+            }
         return out
+
+    def _pool_state_counts(self) -> dict:
+        """The pool's blocks by holder: ``slot`` (slot tables only),
+        ``trie`` (the trie only), ``shared`` (both: the zero-copy prefix
+        hits) and ``free``; the four partition the pool."""
+        held: set[int] = set()
+        for s in range(self.slots):
+            held.update(int(b) for b in self._slot_blocks[s])
+            held.update(int(b) for b in self._slot_shared[s])
+        pc = self._prefix_cache
+        trie = {int(n.block) for n in pc._owned} if pc is not None else set()
+        return {"free": self._allocator.free_blocks,
+                "slot": len(held - trie), "trie": len(trie - held),
+                "shared": len(held & trie)}
 
     # ----------------------------------------------------------- the loop
 
@@ -1389,7 +1793,10 @@ class SlotServer:
         # predictive: the model knows the slot's request finished even if
         # its blocks are unprocessed (processing keeps successive
         # requests' streams apart). EOS mode: only a processed completion
-        # frees the slot.
+        # frees the slot. A slot mid-prefill is not even model-active yet.
+        if self._paged and any(a.slot == slot
+                               for a, _ in self._pending_prefill):
+            return False
         if self._predictive:
             return not self._model_active[slot]
         return not self._host_busy[slot]
@@ -1404,6 +1811,9 @@ class SlotServer:
         against the newest in-flight block so the bookkeeping replays it
         in order."""
         if self.pause_admission:
+            return
+        if self._paged:
+            self._admit_paged()
             return
         self._sweep_expired()
         C = self.prefill_chunk
@@ -1450,7 +1860,7 @@ class SlotServer:
                 temp=temp, topk=topk,
                 chunk_starts=list(range(prefix_len, body.size, C))
                 or [prefix_len],
-                last=int(full[-1]), hit_path=path))
+                last=int(full[-1]), prefix_len=prefix_len, hit_path=path))
         if not admissions:
             return
         self._dispatch_prefix_copy(admissions)
@@ -1583,24 +1993,292 @@ class SlotServer:
         self._requests[slot] = None
         self._emitted[slot] = []
         self._lp_acc[slot] = []
-        self._host_busy[slot] = False
+        self._host_busy[slot] = self._taken_over(slot, rid)
         self._expect_active[slot] = False
         self._release_request(rid)
+
+    # ------------------------------------------------------- paged KV
+    # (the JAX package's serving.py:3483-3811 and :4093). Every admitted
+    # request holds every block it can write from admission on, so no
+    # admitted request fails for want of KV: overload defers admission.
+
+    def _free_slot_blocks(self, slot: int) -> None:
+        """Return a slot's table to all-pad: unref every block it holds
+        (its own free unless the trie adopted them; shared ones lose this
+        slot's reference), credit its class's budget for its own, and
+        floor the slot so no decode row of a block in flight lands in a
+        freed block. Blocks already dispatched keep the tables they
+        staged, and stream order puts their scatters before any write of
+        a block's next holder."""
+        own, shared = self._slot_blocks[slot], self._slot_shared[slot]
+        if own or shared:
+            self._allocator.credit(self._slot_class[slot], len(own))
+            for block in own + shared:
+                self._allocator.unref(block)
+            self._slot_blocks[slot] = []
+            self._slot_shared[slot] = []
+            self._np_tables[slot, :] = self._allocator.n_blocks   # pad
+        self._np_floor[slot] = self.max_len
+
+    def _gather_view(self) -> KVCache:
+        """The pool as the ring view for the next program, from this
+        instant's host tables and offsets (``_stage`` copies them, so a
+        later table change never reaches a dispatch already queued)."""
+        ring = np.arange(self.max_len)[None, :]
+        _, blk, row = _paged_rows(self._np_tables, self._np_offs,
+                                  self.kv_block, ring)
+        base = blk * (self.cfg.n_kv_heads * self.kv_block) + row
+        self.paged_gather_dispatches += 1
+        return _gather_paged_view(self._kv_pool, _stage(base, self.device),
+                                  self._d_lens)
+
+    def _scatter_view(self, view: KVCache, ring_ids: np.ndarray,
+                      n_valids: np.ndarray, floors: np.ndarray) -> None:
+        """Commit the rows a program wrote: ``ring_ids`` [S, W] are the
+        ring indices each slot's program wrote (decode: the cursor window
+        for every slot; prefill: one slot's chunk). The host drops column
+        j of slot s where j >= ``n_valids[s]``, its logical position is
+        below ``floors[s]`` or its table entry is the pad block (the
+        reference's three guards), and stages the rest, each target once
+        (``_scatter_paged_rows``). The tables and offsets are the ones the
+        gather staged: nothing changes them between the two."""
+        p, blk, row = _paged_rows(self._np_tables, self._np_offs,
+                                  self.kv_block, ring_ids)
+        col = np.arange(ring_ids.shape[1])[None, :]
+        keep = ((col < n_valids[:, None]) & (p >= floors[:, None])
+                & (blk < self._allocator.n_blocks))
+        s_idx, j_idx = np.nonzero(keep)
+        kvh = self.cfg.n_kv_heads
+        rows = np.stack([
+            s_idx * (kvh * self.max_len) + ring_ids[s_idx, j_idx],
+            blk[s_idx, j_idx] * (kvh * self.kv_block) + row[s_idx, j_idx]])
+        if np.unique(rows[1]).size != rows.shape[1]:
+            # two slots' writes to one block: a host bookkeeping fault,
+            # raised before the card sees a racy index_copy_
+            raise RuntimeError("paged KV scatter: a pool row targeted twice")
+        if rows.shape[1]:
+            _scatter_paged_rows(self._kv_pool, view,
+                                _stage(rows.astype(np.int64), self.device))
+        self.paged_scatter_dispatches += 1
+
+    def _admit_paged(self) -> None:
+        """Paged admission, gated on free pool blocks and the class's
+        budget as well as on free slots. Allocation is all or nothing a
+        request and FIFO, with one reordering: past a head-of-line request
+        whose class is over budget to the first queued request of the
+        other class (a budget would otherwise block the very tier it
+        protects). Admitted requests join ``_pending_prefill``, which
+        ``_pump_prefill`` drains (whole here without interleaving)."""
+        self._sweep_expired()
+        for slot in range(self.slots):
+            if not self._queue:
+                break
+            if not self._free_for_admission(slot):
+                continue
+            status = self._try_admit_paged(slot, 0)
+            if status == "ok":
+                continue
+            self.admission_defers += 1
+            if status == "budget":
+                head_cls = self._queue[0].priority
+                alt = next((i for i in range(1, len(self._queue))
+                            if self._queue[i].priority != head_cls), None)
+                if alt is not None and \
+                        self._try_admit_paged(slot, alt) == "ok":
+                    continue
+            break       # the pool is short: FIFO holds, retry next turn
+        self._pump_prefill(self.prefill_interleave or None)
+
+    def _try_admit_paged(self, slot: int, qidx: int) -> str:
+        """Admit queued request ``qidx`` into ``slot`` -> "ok" (dequeued,
+        its prefill pending), "budget" (its class is over its block
+        budget) or "pool" (blocks short even after reclaiming trie
+        leaves)."""
+        B = self.kv_block
+        req = self._queue[qidx]
+        resume = req.resume_tokens
+        full = (np.concatenate([req.prompt, np.asarray(resume, np.int32)])
+                if resume else req.prompt)
+        body = full[:-1]
+        target = body.size + req.max_new_tokens - len(resume or ())
+        # every logical position the request can write, up front
+        cap_blocks = max(1, -(-target // B))
+        path = (self._prefix_cache.lookup(body)
+                if self._prefix_cache is not None else [])
+        n_new = cap_blocks - len(path)
+        cls = req.priority
+        alloc = self._allocator
+        blocks = alloc.alloc_for(cls, n_new)
+        if blocks is None:
+            budget = alloc.class_budgets.get(cls)
+            if budget is not None and \
+                    alloc.class_used.get(cls, 0) + n_new > budget:
+                return "budget"
+            short = n_new - alloc.free_blocks
+            if self._prefix_cache is not None and short > 0:
+                # cached prefixes yield to live admissions; a reclaim may
+                # evict nodes of the matched path, so look it up again
+                self._prefix_cache.reclaim(short)
+                path = self._prefix_cache.lookup(body) if path else []
+                n_new = cap_blocks - len(path)
+                blocks = alloc.alloc_for(cls, n_new)
+            if blocks is None:
+                return "pool"
+        del self._queue[qidx]
+        prefix_len = len(path) * B
+        if resume is not None:
+            self.replays += 1
+            self.replayed_tokens += len(resume)
+        for stale in [r for r, s in self._slot_of.items() if s == slot]:
+            del self._slot_of[stale]
+        # a predictive re-admission: the predecessor's decode is done on
+        # the card though its completion is unprocessed; its blocks free
+        # now (its mapping is gone, so _release_request cannot free twice)
+        self._free_slot_blocks(slot)
+        self._slot_of[req.id] = slot
+        self._inflight.add(req.id)
+        offset = (self._cursor - body.size) % self.max_len
+        temp = (self.temperature if req.temperature is None
+                else float(req.temperature))
+        topk = self.top_k if req.top_k is None else int(req.top_k)
+        if path:
+            self._prefix_cache.acquire(path)
+            self.prefill_tokens_reused += prefix_len
+            self._prefix_refs[req.id] = path
+        # the table: the trie's hit blocks first (one reference each, no
+        # copy: the hit is the block), then the slot's own fresh ones
+        shared = [n.block for n in path]
+        for block in shared:
+            alloc.ref(block)
+        row = self._np_tables[slot]
+        row[:] = alloc.n_blocks                             # pad
+        row[:len(shared) + len(blocks)] = shared + blocks
+        self._slot_blocks[slot] = list(blocks)
+        self._slot_shared[slot] = shared
+        self._slot_class[slot] = cls
+        self._np_offs[slot] = offset
+        self._np_floor[slot] = self.max_len     # until the final chunk
+        self._host_busy[slot] = True
+        self._np_temps[slot] = temp
+        self._np_topks[slot] = topk
+        self._np_lp[slot] = req.logprobs
+        self._pending_prefill.append([_Admission(
+            slot=slot, req=req, body=body, offset=offset, target=target,
+            temp=temp, topk=topk,
+            chunk_starts=list(range(prefix_len, body.size,
+                                    self.prefill_chunk)) or [prefix_len],
+            last=int(full[-1]), prefix_len=prefix_len, hit_path=path), 0])
+        return "ok"
+
+    def _pump_prefill(self, budget: int | None) -> None:
+        """Dispatch pending prefill chunks, oldest admission first, until
+        ``budget`` prompt tokens are spent (None: all of them, the ring
+        engine's behaviour). A decode block dispatches between capped
+        pumps, so a burst of long prompts stretches over blocks instead
+        of stalling every running stream."""
+        spent = 0
+        while self._pending_prefill:
+            if budget is not None and spent >= budget:
+                self.prefill_chunks_interleaved += 1
+                break
+            pend = self._pending_prefill[0]
+            adm, idx = pend
+            c0 = adm.chunk_starts[idx]
+            final = idx == len(adm.chunk_starts) - 1
+            n_valid = max(0, min(self.prefill_chunk, adm.body.size - c0))
+            if final:
+                # the admission-time offset put the first decode write at
+                # the cursor of then; blocks interleaved since moved it.
+                # The pool is logical, so the offset may change between
+                # dispatches: re-derive it for the cursor of now (a no-op
+                # when nothing interleaved)
+                adm.offset = (self._cursor - adm.body.size) % self.max_len
+                self._np_offs[adm.slot] = adm.offset
+            self._dispatch_paged_prefill(adm, c0, n_valid, final)
+            spent += max(1, n_valid)
+            if final:
+                self._pending_prefill.popleft()
+                self._finalize_admit_paged(adm)
+            else:
+                pend[1] = idx + 1
+
+    def _dispatch_paged_prefill(self, adm: _Admission, c0: int,
+                                n_valid: int, final: bool) -> None:
+        """One slot's chunk: gather the view, run ``_prefill_chunk`` (the
+        ring engine's program) on it, commit the chunk's rows."""
+        C = self.prefill_chunk
+        chunk = np.zeros(C, np.int32)
+        chunk[:n_valid] = adm.body[c0:c0 + n_valid]
+        view = self._gather_view()
+        _prefill_chunk(self._params, self.cfg, view, self._state, chunk,
+                       adm.slot, c0, adm.offset, n_valid, adm.last,
+                       adm.target, adm.temp, adm.topk, finalize=final)
+        ring_ids = np.zeros((self.slots, C), np.int64)
+        ring_ids[adm.slot] = (adm.offset + c0 + np.arange(C)) % self.max_len
+        n_valids = np.zeros((self.slots,), np.int64)
+        n_valids[adm.slot] = n_valid
+        # floor 0: this is the prefill writing what the floor will guard
+        self._scatter_view(view, ring_ids, n_valids,
+                           np.zeros((self.slots,), np.int64))
+        self.admission_dispatches += 1
+        self.prefill_tokens_computed += n_valid
+
+    def _finalize_admit_paged(self, adm: _Admission) -> None:
+        """The final chunk is dispatched: the trie adopts the slot's
+        freshly filled full blocks (no copy: it references them), the slot
+        takes decode writes from the body's end on, and the admit event is
+        logged at this point of the dispatch order."""
+        slot, req, body = adm.slot, adm.req, adm.body
+        want = (self.cache_prompts if req.cache_prompt is None
+                else req.cache_prompt)
+        if self._prefix_cache is not None and want:
+            B = self.kv_block
+            row = self._np_tables[slot]
+            offer = {i: int(row[i])
+                     for i in range(adm.prefix_len // B, body.size // B)}
+            if offer:
+                self._prefix_cache.adopt(body, offer)
+        self._np_floor[slot] = body.size
+        self._model_len[slot] = body.size
+        self._model_active[slot] = True
+        self._model_target[slot] = adm.target
+        admit = (slot, body.size, req)
+        if self._pipeline:
+            self._pipeline[-1]["events"].append(("admit", admit))
+        else:                           # nothing in flight: applies now
+            self._apply_admit(admit)
+
+    # ------------------------------------------------------------ decode
 
     def _dispatch_block(self) -> None:
         """Enqueue one decode block. Nothing here waits for the card: the
         variant flags come from the host mirrors, the cursor is a host
-        int, and ``packed`` is read later by ``_process``."""
+        int, and ``packed`` is read later by ``_process``. Paged mode
+        first pumps up to ``prefill_interleave`` pending prefill tokens,
+        then runs the block on a gathered view and commits the cursor
+        window of each slot at or above its floor."""
+        if self._paged and self._pending_prefill and self.prefill_interleave:
+            self._pump_prefill(self.prefill_interleave)
         t0 = time.perf_counter()
         busy = self._host_busy
         lp_k = LOGPROBS_MAX if (self._np_lp[busy] > 0).any() else 0
-        self._cache, packed = _decode_block(
-            self._params, self._fused, self.cfg, self._cache, self._state,
+        cache = self._gather_view() if self._paged else self._cache
+        cache, packed = _decode_block(
+            self._params, self._fused, self.cfg, cache, self._state,
             self._cursor, self._gen, block=self.block_size,
             stop_arr=self._stop_arr, pad_id=self.pad_id, top_k=self.top_k,
             # _host_busy never goes False while a row is active on device
             per_row_topk=bool((self._np_topks[busy] != self.top_k).any()),
             all_greedy=not (self._np_temps[busy] > 0).any(), lp_k=lp_k)
+        if self._paged:
+            self._d_lens = cache.length
+            window = (self._cursor + np.arange(self.block_size)) % self.max_len
+            self._scatter_view(
+                cache, np.broadcast_to(window, (self.slots, self.block_size)),
+                np.full((self.slots,), self.block_size),
+                self._np_floor.copy())
+        else:
+            self._cache = cache
         host, ready = _start_read(packed)
         self._cursor = (self._cursor + self.block_size) % self.max_len
         self.blocks_dispatched += 1
@@ -1729,8 +2407,19 @@ class SlotServer:
         self._requests[slot] = None
         self._emitted[slot] = []
         self._lp_acc[slot] = []
-        self._host_busy[slot] = False
+        self._host_busy[slot] = self._taken_over(slot, req.id)
         self._release_request(req.id)
+
+    def _taken_over(self, slot: int, rid: int) -> bool:
+        """Whether the dispatch side already admitted another request into
+        ``slot`` (a predictive re-admission), so that it stays busy when
+        ``rid``'s completion is processed. The successor's admit event
+        re-arms busy when it is replayed, but processing may stop between
+        the two blocks (``checkpoint_progress``, the backlog cap), and a
+        paged admission logs its event only at its final prefill chunk:
+        in between, the decode blocks' variant flags read ``_host_busy``
+        and must see the successor's sampling and logprobs."""
+        return any(s == slot and r != rid for r, s in self._slot_of.items())
 
     def _device_may_be_active(self) -> bool:
         if self._predictive:
@@ -1812,6 +2501,6 @@ class SlotServer:
 
 
 __all__ = ["Request", "Completion", "SlotServer", "QueueFullError",
-           "PrefixCache",
+           "PrefixCache", "BlockAllocator",
            "COMPLETION_FINISH_REASONS", "FINISH_REASONS", "PRIORITY_CLASSES",
            "LOGPROBS_MAX"]
