@@ -105,13 +105,30 @@ and exits non-zero if any of them fails:
    float32; (f) replay through two crashes at float32 against a
    crashless paged server; the allocator's invariant after every drain
    and no kernel launched;
-11. parity: the flagship width at 2 layers on the card (kernels, bf16)
+11. main path, telemetry (serve's app at the flagship width with its
+   defaults, bf16): (a) run A's 24 requests with --trace-dir, without a
+   scrape and then with GET /metrics scraped every TELEMETRY_SCRAPE_S,
+   each scrape through a small exposition check written here (the line
+   grammar, cumulative buckets, +Inf equal to _count); then /metrics
+   against /stats, the TTFT count,
+   requests.trace.jsonl's 24 records with one terminal each, no
+   synchronisation in dispatch or admission, a block's host dispatch
+   beside the serving phase's and its device time within 1% of it; (b)
+   --max-queue 8 under a burst of 48 (every third request batch): every
+   429's Retry-After the estimate its shed carried, the estimator's value
+   for the queue's depth and EWMA at the shed, never falling with the
+   depth, reported against the measured service time; after POST
+   /autoscale/hint of 20 s the next 429s say at least 19; (c) serve
+   --paged-kv on run A: the serving_kv_pool_* families equal /stats'
+   paged_kv; (d) serve restarted on (a)'s --trace-dir resumes its
+   histograms from telemetry.state.json;
+12. parity: the flagship width at 2 layers on the card (kernels, bf16)
    against the CPU's plain path in float32, from the same weights, for the
    generation logits and for the training loss and every gradient; and the
    SlotServer in float32 on the card (8 requests through 3 slots, batched
    and per-slot admission) against the port's generate run solo on the
    card, token for token up to the first near-tie of solo's logits;
-12. profile: a flagship decode step's and a flagship training step's host
+13. profile: a flagship decode step's and a flagship training step's host
    wall time against the device time torch.profiler records.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -227,6 +244,11 @@ PAGED_TIER, PAGED_TIER_BUDGET = 12, 256
 PAGED_BURST, PAGED_BURST_LEN, PAGED_INTERLEAVES = 8, 1536, (0, 256)
 PAGED_STREAMS, PAGED_STREAM_LEN, PAGED_STREAM_NEW = 8, 256, 384
 PAGED_TRIE_BLOCKS = 512
+# telemetry: /metrics scraped every TELEMETRY_SCRAPE_S seconds during run A;
+# a burst of TELEMETRY_BURST against --max-queue TELEMETRY_MAX_QUEUE; an
+# autoscale hint of TELEMETRY_HINT_S seconds
+TELEMETRY_SCRAPE_S, TELEMETRY_BURST = 0.5, 48
+TELEMETRY_MAX_QUEUE, TELEMETRY_HINT_S = 8, 20
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -3679,6 +3701,498 @@ def phase_paged(torch, ops, run_a, prefix_admit) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ telemetry
+
+_PROM_META = re.compile(
+    r"^# (HELP|TYPE) ([a-zA-Z_:][a-zA-Z0-9_:]*)(?: (.*))?$")
+_PROM_SAMPLE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$")
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"(,|$)')
+
+
+def _exposition(text: str) -> tuple:
+    """A small check of Prometheus text (format 0.0.4), standing alone:
+    every line a HELP or TYPE comment or a sample, a family's TYPE once
+    and before its samples, no series twice, label blocks well formed;
+    per histogram and label set, cumulative buckets ending at +Inf and
+    +Inf equal to _count. -> ({family: type}, {series: value}), a series
+    being the sample's line up to its value; raises ValueError."""
+    types, samples, buckets, counts = {}, {}, {}, {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        m = _PROM_META.match(line)
+        if m:
+            if m.group(1) == "TYPE":
+                if m.group(2) in types or m.group(3) not in (
+                        "counter", "gauge", "histogram"):
+                    raise ValueError(f"bad TYPE line {line!r}")
+                types[m.group(2)] = m.group(3)
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if not m:
+            raise ValueError(f"malformed line {line!r}")
+        name, block, value = m.group(1), m.group(2) or "", float(m.group(3))
+        labels, pos = {}, 0
+        while pos < len(block):
+            lm = _PROM_LABEL.match(block, pos)
+            if not lm:
+                raise ValueError(f"malformed labels {line!r}")
+            labels[lm.group(1)] = lm.group(2)
+            pos = lm.end()
+        series = line.rsplit(" ", 1)[0]
+        if series in samples:
+            raise ValueError(f"series twice: {series!r}")
+        samples[series] = value
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        fam = base if types.get(base) == "histogram" else name
+        if fam not in types:
+            raise ValueError(f"sample before its TYPE: {line!r}")
+        if fam != name:
+            key = (fam, tuple(sorted((k, v) for k, v in labels.items()
+                                     if k != "le")))
+            if name.endswith("_bucket"):
+                le = labels["le"]
+                buckets.setdefault(key, []).append(
+                    (math.inf if le == "+Inf" else float(le), value))
+            elif name.endswith("_count"):
+                counts[key] = value
+    for key, bs in buckets.items():
+        les = [le for le, _ in bs]
+        vals = [v for _, v in bs]
+        if les != sorted(les) or les[-1] != math.inf \
+                or vals != sorted(vals) or counts.get(key) != vals[-1]:
+            raise ValueError(f"histogram {key} is not cumulative to _count")
+    return types, samples
+
+
+def _get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def _scraper(base: str, every_s: float):
+    """GET /metrics every ``every_s`` on a thread, each scrape through
+    ``_exposition`` -> (stop(), the scrapes' record)."""
+    import threading
+
+    rec = {"n": 0, "errors": [], "ms": []}
+    halt = threading.Event()
+
+    def run():
+        while not halt.wait(every_s):
+            t0 = time.perf_counter()
+            try:
+                _exposition(_get(base + "/metrics"))
+                rec["n"] += 1
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:
+                rec["errors"].append(repr(e))
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def stop():
+        halt.set()
+        t.join(timeout=60)
+        return rec
+
+    return stop
+
+
+def _scrape_pair(base: str) -> tuple:
+    """/metrics and /stats of an idle app -> (samples, stats)."""
+    _, samples = _exposition(_get(base + "/metrics"))
+    return samples, json.loads(_get(base + "/stats"))
+
+
+def _quiet_run_a(torch, serve, payloads, trace_dir) -> dict:
+    """Run A through serve's app with --trace-dir and no scrape: the
+    configuration (a) runs, less its scrapes, in turn with it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "21", "--trace-dir", str(trace_dir)])
+    try:
+        t0 = time.perf_counter()
+        _post_all(url, payloads)
+        wall = time.perf_counter() - t0
+        disp = [x * 1e3 for x in app.server.block_dispatch_s]
+    finally:
+        _stop_app(app, httpd)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    n_out = sum(pl["max_new_tokens"] for pl in payloads)
+    return dict(output_tokens_per_s=n_out / wall,
+                block_dispatch_ms_p50=_quantiles(disp)["p50"])
+
+
+def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
+    """(a) run A's 24 requests with /metrics scraped every
+    TELEMETRY_SCRAPE_S, then the idle scrape against /stats and the trace
+    file, a block's device time against the serving phase's, and (d) a
+    restart on the same --trace-dir. Run A without the scrapes goes
+    first, in turn."""
+    from tony_tpu_torch.events.trace import TRACE_FILE, read_traces
+    from tony_tpu_torch.observability import TERMINAL_SPANS
+
+    rng, _, news, _, payloads = _serve_payloads()
+    quiet = _quiet_run_a(torch, serve, payloads,
+                         trace_dir.with_name(trace_dir.name + "_quiet"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = FLAGSHIP + ["--seed", "21", "--trace-dir", str(trace_dir)]
+    app, httpd, url = _serve_app(serve, argv)
+    base = url.rsplit("/", 1)[0]
+    srv = app.server
+    syncs = _checked_dispatch(torch, srv)
+    try:
+        ops.reset_launch_counts()
+        stop = _scraper(base, TELEMETRY_SCRAPE_S)
+        t0 = time.perf_counter()
+        results = _post_all(url, payloads)
+        wall = time.perf_counter() - t0
+        scrapes = stop()
+        counts = ops.launch_counts()
+        samples, stats = _scrape_pair(base)
+        health = app.health()
+        records = read_traces(trace_dir / TRACE_FILE)
+        disp = [x * 1e3 for x in srv.block_dispatch_s]
+        tel_blocks = srv.telemetry.hist["decode_block_s"].count
+        with app.lock:
+            state = json.loads(json.dumps(srv.telemetry.state()))
+    finally:
+        _stop_app(app, httpd)
+        del srv._dispatch_block, srv._admit
+    # the loop is stopped: the engine is this thread's
+    blk = _profile_block(torch, S, srv, rng, "telemetry")
+    del srv
+    if app.loop_failures or not health["healthy"]:
+        fail(f"telemetry (a): the loop failed: {health}")
+    for i, ((_, body, _), pl) in enumerate(zip(results, payloads)):
+        if body["finish_reason"] != "length" or \
+                len(body["tokens"]) != pl["max_new_tokens"]:
+            fail(f"telemetry (a): request {i} ended {body['finish_reason']} "
+                 f"with {len(body['tokens'])} tokens")
+    if any(counts.values()):
+        fail(f"telemetry (a): kernels launched {counts}, expected none")
+    if syncs["admission"]:
+        fail(f"telemetry (a): {syncs['admission']} synchronisations in "
+             f"admission {dict(syncs['sites'])}")
+    if scrapes["errors"] or scrapes["n"] < 2:
+        fail(f"telemetry (a): {scrapes['n']} scrapes, errors "
+             f"{scrapes['errors'][:3]}")
+    lat = stats["latency"]
+    pairs = {"serving_queue_depth": stats["queued"],
+             "serving_active_slots": stats["active"],
+             "serving_slots": stats["slots"],
+             "serving_shed_total": stats["shed"],
+             "serving_retry_after_s": stats["retry_after_s"],
+             "serving_blocks_dispatched_total": stats["blocks_dispatched"],
+             "serving_admission_dispatches_total":
+                 stats["admission_dispatches"],
+             "serving_prefill_tokens_computed_total":
+                 stats["prefill_tokens_computed"],
+             "serving_ttft_seconds_count": lat["ttft_s"]["count"],
+             "serving_e2e_seconds_count": lat["e2e_s"]["count"],
+             "serving_decode_block_seconds_count":
+                 lat["decode_block_s"]["count"]}
+    wrong = {k: (samples.get(k), v) for k, v in pairs.items()
+             if samples.get(k) != v}
+    if wrong:
+        fail(f"telemetry (a): /metrics against /stats {wrong}")
+    if lat["ttft_s"]["count"] != SERVE_REQUESTS or \
+            samples["serving_device_lag_seconds_count"] != 0 or \
+            tel_blocks != stats["blocks_dispatched"]:
+        fail(f"telemetry (a): TTFT count {lat['ttft_s']['count']}, device "
+             f"lag {samples['serving_device_lag_seconds_count']}, "
+             f"{tel_blocks} of {stats['blocks_dispatched']} blocks timed")
+    if len(records) != SERVE_REQUESTS or any(
+            [n for n, _ in r["spans"]][-1] != "finished"
+            or sum(n in TERMINAL_SPANS for n, _ in r["spans"]) != 1
+            for r in records):
+        fail(f"telemetry (a): {len(records)} trace records, or a record "
+             "without exactly one terminal")
+    want = run_a["block_device_ms"]
+    if blk["device_ms"] is not None and want is not None and \
+            abs(blk["device_ms"] - want) > 0.01 * want:
+        fail(f"telemetry (a): a block's device time {blk['device_ms']:.3f} "
+             f"ms, the serving phase's {want:.3f} ms")
+
+    # ---- (d) a new serve on the same --trace-dir resumes the dump
+    dump = json.loads((trace_dir / serve.TELEMETRY_STATE_FILE).read_text())
+    if dump != state:
+        fail("telemetry (d): the dump is not the histograms at shutdown")
+    gc.collect()
+    torch.cuda.empty_cache()
+    app, httpd, url = _serve_app(serve, argv)
+    try:
+        resumed = json.loads(json.dumps(app.server.telemetry.state()))
+        again = _post(url, payloads[0])
+        after = app.server.telemetry.hist["e2e_s"].count
+    finally:
+        _stop_app(app, httpd)
+    if resumed != dump or again[0] != 200 or \
+            after != dump["e2e_s"]["count"] + 1:
+        fail(f"telemetry (d): restored {resumed == dump}, request "
+             f"{again[0]}, e2e count {after} after "
+             f"{dump['e2e_s']['count']}")
+    out_tokens = int(news.sum())
+    svc = sorted(r["spans"][-1][1] - dict(r["spans"])["admitted"]
+                 for r in records)
+    return dict(
+        wall_s=wall, output_tokens_per_s=out_tokens / wall,
+        scrapes=scrapes["n"], scrape_ms_p50=_quantiles(scrapes["ms"])["p50"],
+        scrape_ms_max=_quantiles(scrapes["ms"])["max"],
+        block_dispatch_ms_p50=_quantiles(disp)["p50"],
+        block_dispatch_ms_serving=run_a["block_dispatch_ms_p50"],
+        block_dispatch_ms_unscraped=quiet["block_dispatch_ms_p50"],
+        output_tokens_per_s_unscraped=quiet["output_tokens_per_s"],
+        block_device_ms=blk["device_ms"], block_wall_ms=blk["wall_ms"],
+        block_device_ms_serving=want, admission_syncs=syncs["admission"],
+        ttft_s=lat["ttft_s"], tpot_s=lat["tpot_s"],
+        queue_wait_s=lat["queue_wait_s"], e2e_s=lat["e2e_s"],
+        loop_turn_s=lat["loop_turn_s"],
+        service_s_p50=svc[len(svc) // 2], trace_records=len(records),
+        resumed_e2e_count=dump["e2e_s"]["count"], launches=counts)
+
+
+def _telemetry_shed(torch, ops, serve) -> dict:
+    """(b) --max-queue TELEMETRY_MAX_QUEUE: a wave of 8 requests, then a
+    burst of TELEMETRY_BURST (every third batch), every 429 against the
+    estimate its shed carried (recorded with the queue's depth and the
+    EWMA at the shed), then /autoscale/hint and a second burst."""
+    from tony_tpu_torch.models import serving as S
+
+    _, _, _, _, payloads = _serve_payloads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "21", "--max-queue", str(TELEMETRY_MAX_QUEUE)])
+    base = url.rsplit("/", 1)[0]
+    srv = app.server
+    traces = []
+    srv.trace_sink = traces.append
+    sheds, submit = [], srv.submit
+
+    def recording_submit(req):
+        try:
+            return submit(req)
+        except S.QueueFullError as e:
+            sheds.append(dict(cls=req.priority, depth=len(srv._queue),
+                              ewma_s=srv._rate.service_time_s,
+                              retry_after_s=e.retry_after_s))
+            raise
+
+    srv.submit = recording_submit
+    syncs = _checked_dispatch(torch, srv)
+    burst = [dict(payloads[i % SERVE_REQUESTS],
+                  priority="batch" if i % 3 == 2 else "interactive")
+             for i in range(TELEMETRY_BURST)]
+    try:
+        ops.reset_launch_counts()
+        _post_all(url, payloads[:8])            # a service history
+        results = _post_many(url, burst)
+        n_burst_sheds = len(sheds)
+        with app.lock:
+            ewma = srv._rate.service_time_s
+        _post(base + "/autoscale/hint", {"cooldown_s": TELEMETRY_HINT_S})
+        hinted = _post_many(url, [dict(payloads[i], max_new_tokens=16)
+                                  for i in range(20)])
+        counts = ops.launch_counts()
+        health = app.health()
+    finally:
+        _stop_app(app, httpd)
+        del srv._dispatch_block, srv._admit
+    if app.loop_failures or not health["healthy"] or any(counts.values()):
+        fail(f"telemetry (b): health {health}, launches {counts}")
+    if syncs["admission"]:
+        fail(f"telemetry (b): {syncs['admission']} synchronisations in "
+             "admission")
+    engine_429 = [int(r[2]) for r in results if r[0] == 429
+                  and "queue full" in str(r[1])]
+    tier_429 = [int(r[2]) for r in results if r[0] == 429
+                and "admission tiers" in str(r[1])]
+    served = [r for r in results if r[0] == 200]
+    if len(served) + len(engine_429) + len(tier_429) != TELEMETRY_BURST \
+            or not engine_429:
+        fail(f"telemetry (b): {len(served)} served, {len(engine_429)} + "
+             f"{len(tier_429)} shed of {TELEMETRY_BURST}")
+    burst_sheds = sheds[:n_burst_sheds]
+    for s in burst_sheds:
+        want = int(min(60, max(1, math.ceil(
+            s["ewma_s"] * (s["depth"] + 1) / srv.slots))))
+        if s["retry_after_s"] != want:
+            fail(f"telemetry (b): a shed carried {s['retry_after_s']}, the "
+                 f"estimator says {want} for {s}")
+    carried = sorted(s["retry_after_s"] for s in burst_sheds)
+    if sorted(engine_429) != carried:
+        fail(f"telemetry (b): the 429s said {sorted(engine_429)}, the "
+             f"sheds carried {carried}")
+    by_ewma = collections.defaultdict(list)
+    for s in burst_sheds:
+        by_ewma[s["ewma_s"]].append((s["depth"], s["retry_after_s"]))
+    for rows in by_ewma.values():
+        vals = [ra for _, ra in sorted(rows)]
+        if vals != sorted(vals):
+            fail(f"telemetry (b): Retry-After fell with depth: {rows}")
+    hint_429 = [int(r[2]) for r in hinted if r[0] == 429]
+    if not hint_429 or min(hint_429) < TELEMETRY_HINT_S - 1:
+        fail(f"telemetry (b): after a hint of {TELEMETRY_HINT_S} s the "
+             f"429s said {hint_429}")
+    svc = sorted(t["spans"][-1][1] - dict(t["spans"])["admitted"]
+                 for t in traces if t["attrs"]["finish_reason"] == "length")
+    depths = collections.Counter((s["cls"], s["depth"]) for s in burst_sheds)
+    return dict(
+        served=len(served), shed_queue_full=len(engine_429),
+        shed_displaced=len(tier_429),
+        retry_after_values=sorted(collections.Counter(engine_429).items()),
+        displaced_retry_after=sorted(collections.Counter(tier_429).items()),
+        depths={f"{c}@{d}": n for (c, d), n in sorted(depths.items())},
+        ewma_service_s=ewma, ewma_at_sheds=sorted(by_ewma),
+        measured_service_s_p50=svc[len(svc) // 2],
+        measured_service_s_max=svc[-1],
+        predicted_drain_s=ewma * (TELEMETRY_MAX_QUEUE + 1) / srv.slots,
+        hint_s=TELEMETRY_HINT_S, after_hint=sorted(hint_429),
+        admission_syncs=syncs["admission"], launches=counts)
+
+
+def _post_many(url, payloads) -> list:
+    """POST every payload at once -> (status, body, Retry-After) each,
+    refusals included."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    out = [None] * len(payloads)
+
+    def post(i):
+        try:
+            with urllib.request.urlopen(
+                    url, data=json.dumps(payloads[i]).encode(),
+                    timeout=600) as r:
+                out[i] = (r.status, json.loads(r.read()), None)
+        except urllib.error.HTTPError as e:
+            out[i] = (e.code, json.loads(e.read()),
+                      e.headers.get("Retry-After"))
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return out
+
+
+def _telemetry_paged(torch, ops, serve) -> dict:
+    """(c) serve --paged-kv on run A's requests: the pool's families on
+    /metrics against /stats' paged_kv, the exposition checked."""
+    _, _, _, _, payloads = _serve_payloads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    app, httpd, url = _serve_app(serve, FLAGSHIP + ["--seed", "21",
+                                                    "--paged-kv"])
+    base = url.rsplit("/", 1)[0]
+    srv = app.server
+    syncs = _checked_dispatch(torch, srv)
+    try:
+        ops.reset_launch_counts()
+        stop = _scraper(base, TELEMETRY_SCRAPE_S)
+        t0 = time.perf_counter()
+        _post_all(url, payloads)
+        wall = time.perf_counter() - t0
+        scrapes = stop()
+        samples, stats = _scrape_pair(base)
+        counts = ops.launch_counts()
+    finally:
+        _stop_app(app, httpd)
+        del srv._dispatch_block, srv._admit
+    pk = stats["paged_kv"]
+    pairs = {f"serving_kv_pool_blocks_{k}": pk[f"pool_blocks_{k}"]
+             for k in ("total", "free", "used", "peak")}
+    pairs.update({f'serving_kv_pool_blocks{{state="{s}"}}': n
+                  for s, n in pk["pool_state"].items()})
+    pairs["serving_kv_admission_defers_total"] = pk["admission_defers"]
+    wrong = {k: (samples.get(k), v) for k, v in pairs.items()
+             if samples.get(k) != v}
+    if wrong or scrapes["errors"] or any(counts.values()) \
+            or syncs["admission"]:
+        fail(f"telemetry (c): /metrics against paged_kv {wrong}, scrape "
+             f"errors {scrapes['errors'][:3]}, launches {counts}, "
+             f"{syncs['admission']} admission syncs")
+    return dict(wall_s=wall, scrapes=scrapes["n"],
+                pool_blocks_peak=pk["pool_blocks_peak"],
+                pool_blocks_total=pk["pool_blocks_total"],
+                admission_syncs=syncs["admission"], launches=counts)
+
+
+def phase_telemetry(torch, ops, run_a) -> dict:
+    """Serving telemetry through serve's app at the flagship width with
+    its defaults, bf16: (a) run A scraped every TELEMETRY_SCRAPE_S, /metrics
+    against /stats and the trace file, a block's host dispatch and device
+    time against the serving phase's, no synchronisation in dispatch or
+    admission; (b) --max-queue 8 under a burst: every 429's Retry-After
+    the estimator's, never falling with the queue's depth, then the
+    autoscale hint; (c) --paged-kv: the pool's families; (d) a restart on
+    the same --trace-dir resumes the histograms. Returns the kernels'
+    launches (none)."""
+    print("== main path: telemetry")
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import serving as S
+
+    t0 = time.perf_counter()
+    trace_dir = REPO / "build" / "telemetry_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    ops.reset_launch_counts()
+    a = _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    b = _telemetry_shed(torch, ops, serve)
+    c = _telemetry_paged(torch, ops, serve)
+    counts = {k: a["launches"][k] + b["launches"][k] + c["launches"][k]
+              for k in a["launches"]}
+    seconds = time.perf_counter() - t0
+    print(f"telemetry (a, bf16, serve's defaults, --trace-dir): run A's "
+          f"{SERVE_REQUESTS} requests with /metrics scraped every "
+          f"{TELEMETRY_SCRAPE_S} s: {a['scrapes']} scrapes, each through "
+          f"the exposition check (p50 {a['scrape_ms_p50']:.2f} ms, max "
+          f"{a['scrape_ms_max']:.2f} ms); {a['output_tokens_per_s']:.1f} "
+          f"output tokens/s (the serving phase "
+          f"{run_a['output_tokens_per_s']:.1f}); gauges equal /stats, TTFT "
+          f"count {SERVE_REQUESTS}, {a['trace_records']} trace records with "
+          f"one terminal each; TTFT p50 {a['ttft_s']['p50_s']} s, p99 "
+          f"{a['ttft_s']['p99_s']} s; TPOT p50 {a['tpot_s']['p50_s']} s; "
+          f"a block's host dispatch {a['block_dispatch_ms_p50']:.2f} ms "
+          f"(without the scrapes in turn "
+          f"{a['block_dispatch_ms_unscraped']:.2f}, at "
+          f"{a['output_tokens_per_s_unscraped']:.1f} tokens/s; the serving "
+          f"phase {a['block_dispatch_ms_serving']:.2f}); "
+          f"device {a['block_device_ms']} ms (the serving phase "
+          f"{a['block_device_ms_serving']}); synchronisations 0 in dispatch"
+          f", {a['admission_syncs']} in admission")
+    print(f"telemetry (b, --max-queue {TELEMETRY_MAX_QUEUE}, a burst of "
+          f"{TELEMETRY_BURST}): {b['served']} served, {b['shed_queue_full']} "
+          f"shed at the door with Retry-After {b['retry_after_values']} "
+          f"(value, count), {b['shed_displaced']} batch displaced "
+          f"{b['displaced_retry_after']}; depths at the shed "
+          f"{b['depths']}; EWMA service {b['ewma_service_s']:.3f} s, "
+          f"measured p50 {b['measured_service_s_p50']:.3f} s (max "
+          f"{b['measured_service_s_max']:.3f}), predicted drain of a full "
+          f"queue {b['predicted_drain_s']:.3f} s; after a hint of "
+          f"{TELEMETRY_HINT_S} s the 429s said {b['after_hint']}")
+    print(f"telemetry (c, --paged-kv): run A in {c['wall_s']:.3f} s, "
+          f"{c['scrapes']} scrapes; the pool's families equal /stats' "
+          f"paged_kv (peak {c['pool_blocks_peak']} of "
+          f"{c['pool_blocks_total']} blocks); (d) a restart resumed "
+          f"{a['resumed_e2e_count']} e2e observations; the phase "
+          f"{seconds:.1f} s; {nvidia_smi_line()}")
+    print("telemetry " + json.dumps(dict(
+        run_a=a, shed=b, paged=c, seconds=seconds, launches=counts,
+        card=nvidia_smi_line())))
+    return counts
+
+
 def _solo_greedy(torch, G, w, cfg, prompt, n):
     """The port's greedy generation of n tokens, its prefill and decode
     steps on the kernels, with each step's top-2 logit gap."""
@@ -4027,9 +4541,11 @@ def main() -> int:
     replay_launches = phase_replay(torch, ops)
     stream_launches = phase_streaming(torch, ops, run_a)
     paged_launches = phase_paged(torch, ops, run_a, prefix_admit)
+    telemetry_launches = phase_telemetry(torch, ops, run_a)
     launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
                 + ckpt_launches[k] + prefix_launches[k] + replay_launches[k]
-                + stream_launches[k] + paged_launches[k] for k in gen_launches}
+                + stream_launches[k] + paged_launches[k]
+                + telemetry_launches[k] for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -36,7 +36,10 @@ import tony_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tony_tpu_torch.__path__,
                                                "tony_tpu_torch.")]
 for name in ("tony_tpu_torch.train.checkpoint",
-             "tony_tpu_torch.examples.elastic_train"):
+             "tony_tpu_torch.examples.elastic_train",
+             "tony_tpu_torch.observability", "tony_tpu_torch.metrics",
+             "tony_tpu_torch.events.trace",
+             "tony_tpu_torch.tools.serving_ab"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

@@ -18,8 +18,8 @@ Parameters come from JAX ``transformer.init`` through ``from_jax_params``
 - The gather and the scatter are held against a plain loop over slots,
   positions and layers.
 - The unit tests of tests/test_paged_kv.py are repeated on the port's
-  classes (an underflow raises RuntimeError here, AssertionError there),
-  without the Retry-After estimate, which is not ported."""
+  classes (an underflow raises RuntimeError here, AssertionError there);
+  the tiers' Retry-After is tests/test_torch_serving_telemetry.py's."""
 
 import dataclasses
 import json

@@ -586,7 +586,7 @@ def test_submit_rejections(model):
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()}, {"role": "prefill"}, {"draft": "d"},
-    {"trace_sink": print}, {"registry": object()},
+    {"registry": object()},
     {"rules": {}}, {"draft_cfg": object()}, {"spec_gamma": 2},
     {"spec_gamma_max": 8},
 ], ids=lambda kw: next(iter(kw)))

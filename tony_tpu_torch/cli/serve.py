@@ -18,8 +18,20 @@ timeout); ``resume_tokens`` teacher-forces an already-emitted prefix and
 ?keys=a,b), which answers each live request's journaled tokens. GET
 /healthz answers 200 or 503; GET /stats reports the slots, the queue, the
 engine's counters (``replays``, ``replayed_tokens``, ``journal``, the
-streams') and, with ``--prefix-cache-blocks``, the prefix cache's
-(``prefix_cache``: hits, misses, evictions, blocks).
+streams'), ``latency`` (each latency histogram's count, mean, p50, p90
+and p99), ``retry_after_s``, ``metrics`` (the serving-load gauges' max
+and average over scheduling turns) and, with ``--prefix-cache-blocks``,
+the prefix cache's (``prefix_cache``: hits, misses, evictions, blocks).
+
+Telemetry: GET /metrics renders the /stats numbers and the latency
+histograms (TTFT, TPOT, queue wait, end to end, prefill and decode-block
+dispatch, the loop's turn, replay catch-up, the streams' inter-token gap)
+in Prometheus's text format. A 429's ``Retry-After`` is the engine's
+estimate of the seconds until a queue seat frees (an EWMA of served
+requests' service time times the queue's depth over the slots), or the
+fleet autoscaler's remaining cooldown when that is longer: POST
+/autoscale/hint ``{"cooldown_s": s}`` sets it, and it decays with the
+wall clock.
 
 Streaming: ``"stream": true`` (or ``?stream=true``) on /generate answers
 Server-Sent Events, ``{"tokens": [...]}`` deltas and one closing
@@ -44,8 +56,11 @@ the journal every ``--journal-checkpoint-s`` seconds. With
 ``--trace-dir``, the journal is the file
 ``<trace-dir>/requests.journal.jsonl``: a restarted process recovers and
 finishes the requests a killed one left (it prints how many it resumed).
-In the port ``--trace-dir`` writes only the journal: the request traces,
-``telemetry.state.json`` and ``profiles/`` are not ported yet.
+The directory also takes every terminated request's lifecycle trace
+(``requests.trace.jsonl``) and, at shutdown, the latency histograms
+(``telemetry.state.json``, written through a temporary file and a
+rename), which the next process on the directory resumes; a dump that is
+unreadable or of the wrong shape is reported and ignored.
 
 Weights are random, drawn from ``--seed``, or restored from an lm_train
 checkpoint (``--checkpoint-dir``: its latest step's ``params``), on
@@ -69,8 +84,9 @@ use, the deferred admissions).
 Not ported yet, each raising a named error: ``--hf-checkpoint``,
 ``--mesh``, ``--role``, ``--draft-model`` and the
 ``--draft-*`` and ``--spec-gamma*`` flags, ``--model`` and
-``--weight-dtype int8``. /metrics, /debug/profile, /autoscale/hint and
-/kv/import are not served.
+``--weight-dtype int8``. /debug/profile and /kv/import are not served;
+/metrics has no device-time, compile, model or speculative families
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import os
 import select
 import socket
@@ -87,6 +104,7 @@ import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from .. import metrics as _metrics
 from ..api.stream import stream_requested
 
 
@@ -150,9 +168,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "to finish before shutdown")
     p.add_argument("--trace-dir", default="",
                    help="directory of the file-backed request journal "
-                        "(requests.journal.jsonl): a killed process's "
+                        "(requests.journal.jsonl: a killed process's "
                         "unfinished requests are recovered and finished "
-                        "by the restarted one. Empty = in-memory journal")
+                        "by the restarted one), the request traces "
+                        "(requests.trace.jsonl) and the latency histograms "
+                        "(telemetry.state.json, resumed at startup). "
+                        "Empty = in-memory journal, no files")
     p.add_argument("--no-replay", action="store_true",
                    help="no request journal and no replay: a loop crash "
                         "fails the in-flight requests and a restart "
@@ -310,8 +331,14 @@ def build_app(args) -> "ServeApp":
     return ServeApp(build_server(args),
                     max_loop_restarts=args.loop_max_restarts,
                     loop_backoff_s=args.loop_backoff_s,
+                    trace_dir=args.trace_dir,
                     journal_checkpoint_s=(0.0 if args.no_replay
                                           else args.journal_checkpoint_s))
+
+
+# beside requests.trace.jsonl under --trace-dir: the latency histograms'
+# bucket state, written at shutdown and restored at startup
+TELEMETRY_STATE_FILE = "telemetry.state.json"
 
 
 class ServingLoopError(RuntimeError):
@@ -341,11 +368,20 @@ class ServeApp:
     feeds the open token streams, without waiting for the blocks still
     running. ``progress_key``s map
     a caller's names to request ids for ``progress()`` (GET /progress),
-    at most 4096, finished requests' keys evicted first."""
+    at most 4096, finished requests' keys evicted first.
+
+    Every busy turn feeds ``metrics`` (a ``MetricsAccumulator`` of the
+    serving-load gauges, /stats' ``metrics``) and the turn's length into
+    the engine's ``loop_turn_s`` histogram. ``trace_dir`` (``serve
+    --trace-dir``) makes the engine's trace sink the directory's
+    ``requests.trace.jsonl`` and its telemetry persistent across processes
+    (``TELEMETRY_STATE_FILE``: restored here, written at ``shutdown``)."""
 
     def __init__(self, server, *, max_loop_restarts: int = 3,
-                 loop_backoff_s: float = 0.5,
+                 loop_backoff_s: float = 0.5, trace_dir: str = "",
                  journal_checkpoint_s: float = 1.0):
+        from ..train.profiling import StepTimer
+
         self.server = server
         # the name /v1 responses carry when a request names no model
         self.default_model = str(getattr(server, "model", None) or "default")
@@ -377,8 +413,58 @@ class ServeApp:
         self._resume_cache: collections.OrderedDict[int, list[int]] = \
             collections.OrderedDict()
         self._resume_cache_cap = 256
+        # the fleet autoscaler's remaining scale-up cooldown and the
+        # monotonic instant it was set: a 429's Retry-After is at least
+        # what is left of it
+        self._autoscale_hint: tuple[float, float] = (0.0, 0.0)
+        self.metrics = _metrics.MetricsAccumulator()
+        self._turn_timer = StepTimer()
+        self.trace_dir = trace_dir
+        self._trace_writer = None
+        if trace_dir:
+            self._open_trace_dir()
         self.thread = threading.Thread(
             target=self._loop, name="serve-loop", daemon=True)
+
+    def _open_trace_dir(self) -> None:
+        """Point the engine's trace sink at ``requests.trace.jsonl`` and
+        resume its histograms from the directory's dump, if any."""
+        from pathlib import Path
+
+        from ..events.trace import TraceWriter
+
+        self._trace_writer = TraceWriter(self.trace_dir)
+        self.server.trace_sink = self._trace_writer.write
+        print(f"request traces -> {self._trace_writer.path}", flush=True)
+        path = Path(self.trace_dir) / TELEMETRY_STATE_FILE
+        if path.exists():
+            try:
+                self.server.telemetry.restore(json.loads(path.read_text()))
+                print(f"telemetry restored from {path}", flush=True)
+            except (ValueError, KeyError, TypeError, AttributeError,
+                    OSError) as e:
+                # a stale or foreign dump, valid JSON of the wrong shape
+                # included, must not block startup
+                print(f"telemetry state not restored: {e}", flush=True)
+
+    def _close_trace_dir(self) -> None:
+        """Persist the histograms (through a temporary file and a rename:
+        a crash mid-write leaves the previous dump) and close the trace
+        file."""
+        from pathlib import Path
+
+        path = Path(self.trace_dir) / TELEMETRY_STATE_FILE
+        try:
+            with self.lock:
+                state = self.server.telemetry.state()
+            tmp = path.with_suffix(".json.tmp")
+            tmp.write_text(json.dumps(state))
+            tmp.rename(path)
+        except OSError as e:
+            print(f"telemetry state not persisted: {e}", flush=True)
+        self.server.trace_sink = None
+        self._trace_writer.close()
+        self._trace_writer = None
 
     @property
     def healthy(self) -> bool:
@@ -419,6 +505,8 @@ class ServeApp:
         self.wake.set()
         self.thread.join(timeout=10)
         self.server.shutdown()
+        if self._trace_writer is not None:
+            self._close_trace_dir()
 
     def _fail_pending(self, exc: Exception) -> None:
         """Fail every waiting request with the loop's error, so waiters
@@ -479,6 +567,7 @@ class ServeApp:
                             done = eng.drain_completed()
                     if ckpt_due:
                         self._last_checkpoint = now
+                    self._observe_load()
                     if self.status == "degraded" and dispatches() != before:
                         self.status = "ok"
                         self._restart_streak = 0
@@ -486,6 +575,8 @@ class ServeApp:
             if done:
                 self._deliver(done)
             if not busy:
+                # the next busy turn must not book this idle gap
+                self._turn_timer.reset_interval()
                 self.wake.wait(0.02)
                 self.wake.clear()
             else:
@@ -512,6 +603,8 @@ class ServeApp:
         """Handle a serving-loop failure: reset the engine and report True
         to restart, or flip terminally down and report False."""
         print("serving loop failed:\n" + traceback.format_exc(), flush=True)
+        # the failed turn and the backoff are not a scheduling turn
+        self._turn_timer.reset_interval()
         with self.lock:
             self.loop_failures += 1
             self._restart_streak += 1
@@ -711,6 +804,237 @@ class ServeApp:
                 f"request {rid} timed out after {timeout}s; cancelled")
         return self.take_result(rid)
 
+    # ------------------------------------------------------- observability
+
+    def _observe_load(self) -> None:
+        """Feed the serving-load gauges (under the lock, once a busy
+        turn), the turn's length into ``loop_turn_s``, and the TTFT and
+        TPOT quantiles back into the accumulator as gauges."""
+        m, eng = self.metrics, self.server
+
+        def total(attr):
+            return float(getattr(eng, attr, 0))
+
+        m.observe(_metrics.SERVING_ACTIVE_SLOTS, total("n_active"))
+        m.observe(_metrics.SERVING_QUEUE_DEPTH, total("pending"))
+        computed = total("prefill_tokens_computed")
+        reused = total("prefill_tokens_reused")
+        if computed + reused > 0:
+            m.observe(_metrics.SERVING_PREFILL_REUSED_FRAC,
+                      reused / (computed + reused))
+        m.observe(_metrics.SERVING_SHED_TOTAL, total("shed_requests"))
+        m.observe(_metrics.SERVING_CANCELLED_TOTAL,
+                  total("cancelled_requests"))
+        m.observe(_metrics.SERVING_EXPIRED_TOTAL, total("expired_requests"))
+        m.observe(_metrics.SERVING_LOOP_RESTARTS, float(self.loop_restarts))
+        tel = getattr(eng, "telemetry", None)
+        if tel is not None:
+            dt = self._turn_timer.tick()
+            if dt is not None:
+                tel.observe("loop_turn_s", dt)
+            ttft, tpot = tel.hist["ttft_s"], tel.hist["tpot_s"]
+            if ttft.count:
+                m.observe(_metrics.SERVING_TTFT_P50_S, ttft.quantile(0.5))
+                m.observe(_metrics.SERVING_TTFT_P99_S, ttft.quantile(0.99))
+            if tpot.count:
+                m.observe(_metrics.SERVING_TPOT_P50_S, tpot.quantile(0.5))
+                m.observe(_metrics.SERVING_TPOT_P99_S, tpot.quantile(0.99))
+        est = getattr(eng, "estimate_retry_after", None)
+        if callable(est):
+            m.observe(_metrics.SERVING_RETRY_AFTER_S, float(est()))
+
+    def set_autoscale_hint(self, cooldown_s: float) -> None:
+        """Record the fleet autoscaler's remaining scale-up cooldown: every
+        429's Retry-After advertises at least what is left of it (it
+        decays with the wall clock); 0 clears it."""
+        with self.lock:
+            self._autoscale_hint = (max(0.0, float(cooldown_s)),
+                                    time.monotonic())
+
+    def _autoscale_hint_remaining_locked(self) -> float:
+        hint, t0 = self._autoscale_hint
+        if hint <= 0.0:
+            return 0.0
+        return max(0.0, hint - (time.monotonic() - t0))
+
+    def retry_after_s(self, engine_estimate: float | None = None) -> int:
+        """A 429's Retry-After: the larger of the engine's estimate (the
+        one a shed carried, else asked now) and the autoscaler's remaining
+        cooldown, in [1, 60]; 1 when the engine has no estimator or it
+        fails."""
+        est = 0.0
+        if engine_estimate is not None:
+            try:
+                est = float(engine_estimate)
+            except (TypeError, ValueError):
+                est = 0.0
+        else:
+            fn = getattr(self.server, "estimate_retry_after", None)
+            if callable(fn):
+                try:
+                    with self.lock:
+                        est = float(fn())
+                except Exception:
+                    est = 0.0
+        with self.lock:
+            cooldown = self._autoscale_hint_remaining_locked()
+        return max(1, min(60, int(math.ceil(max(est, cooldown, 1.0)))))
+
+    def prometheus_metrics(self) -> str:
+        """The GET /metrics payload: the /stats numbers as gauges and
+        counters, the paged pool's families under ``--paged-kv``, the
+        latency histograms and the ``metrics`` snapshot. The numbers and
+        copies of the histograms are taken in one hold of the serving
+        lock (the loop feeds the histograms under it, and a busy turn
+        holds it for a block's dispatch: a second hold would wait for a
+        second turn); the text is rendered after it is released."""
+        from ..observability import (
+            TELEMETRY_HISTOGRAMS,
+            Histogram,
+            PromRenderer,
+        )
+
+        tel = getattr(self.server, "telemetry", None)
+        hists = {}
+        with self.lock:
+            st = self._stats_locked()
+            if tel is not None:
+                for name in TELEMETRY_HISTOGRAMS:
+                    hists[name] = Histogram()
+                    hists[name].merge(tel.hist[name])
+        r = PromRenderer()
+        r.gauge("serving_slots", st.get("slots", 0),
+                "configured KV-cache slots")
+        r.gauge(_metrics.SERVING_ACTIVE_SLOTS, st.get("active", 0),
+                "slots holding an unfinished request")
+        r.gauge(_metrics.SERVING_QUEUE_DEPTH, st.get("queued", 0),
+                "requests waiting for a slot")
+        computed = st.get("prefill_tokens_computed", 0)
+        reused = st.get("prefill_tokens_reused", 0)
+        if computed + reused > 0:
+            r.gauge(_metrics.SERVING_PREFILL_REUSED_FRAC,
+                    reused / (computed + reused),
+                    "fraction of prefill tokens served from the prefix "
+                    "cache")
+        r.gauge(_metrics.SERVING_RETRY_AFTER_S,
+                st.get("retry_after_s", 1),
+                "current 429 Retry-After estimate (seconds until a "
+                "queue seat frees)")
+        for name, key, help_text in (
+                (_metrics.SERVING_SHED_TOTAL, "shed",
+                 "requests refused with queue full (HTTP 429)"),
+                (_metrics.SERVING_CANCELLED_TOTAL, "cancelled",
+                 "requests cancelled by their waiter"),
+                (_metrics.SERVING_EXPIRED_TOTAL, "expired",
+                 "requests whose deadline passed while queued"),
+                ("serving_engine_resets_total", "resets",
+                 "SlotServer.reset() recoveries"),
+                (_metrics.SERVING_REPLAYS_TOTAL, "replays",
+                 "requests resumed from a journaled/teacher-forced "
+                 "prefix instead of failing (reset replay, journal "
+                 "recovery, router-failover resume)"),
+                (_metrics.SERVING_REPLAYED_TOKENS_TOTAL,
+                 "replayed_tokens",
+                 "emitted tokens carried across a death boundary by "
+                 "replay (teacher-forced, re-prefilled not re-decoded)"),
+                ("serving_blocks_dispatched_total", "blocks_dispatched",
+                 "decode blocks dispatched to the device"),
+                ("serving_admission_dispatches_total",
+                 "admission_dispatches", "prefill programs dispatched"),
+                ("serving_prefill_tokens_computed_total",
+                 "prefill_tokens_computed",
+                 "prompt tokens prefilled through the model"),
+                ("serving_prefill_tokens_reused_total",
+                 "prefill_tokens_reused",
+                 "prompt tokens copied from the prefix cache"),
+        ):
+            if key in st:
+                r.counter(name, st[key], help_text)
+        # the streaming families render even at zero: a zero is a fact
+        r.gauge(_metrics.SERVING_STREAMS_ACTIVE,
+                st.get("streams_active", 0),
+                "live per-request SSE token streams")
+        r.counter(_metrics.SERVING_STREAMS_OPENED_TOTAL,
+                  st.get("streams_opened", 0),
+                  "token streams ever attached")
+        r.counter(_metrics.SERVING_STREAM_STALLS_TOTAL,
+                  st.get("stream_stalls", 0),
+                  "stream feeds that found the consumer's chunk queue "
+                  "full (backpressure: coalesced, accounted, never "
+                  "dropped)")
+        r.counter(_metrics.SERVING_STREAM_DISCONNECTS_TOTAL,
+                  st.get("stream_disconnects", 0),
+                  "clients that vanished mid-stream (mapped onto "
+                  "cancel(): the slot returns to live traffic)")
+        pk = st.get("paged_kv")
+        if pk:
+            r.gauge("serving_kv_pool_blocks_total",
+                    pk.get("pool_blocks_total", 0),
+                    "allocatable KV blocks in the paged pool")
+            r.gauge("serving_kv_pool_blocks_free",
+                    pk.get("pool_blocks_free", 0),
+                    "KV blocks on the free list")
+            r.gauge("serving_kv_pool_blocks_used",
+                    pk.get("pool_blocks_used", 0),
+                    "KV blocks held by slots, the prefix trie, or the "
+                    "draft mirror (refcounted)")
+            r.gauge("serving_kv_pool_blocks_peak",
+                    pk.get("pool_blocks_peak", 0),
+                    "high-water mark of used KV blocks")
+            r.counter("serving_kv_admission_defers_total",
+                      pk.get("admission_defers", 0),
+                      "admissions deferred for pool blocks or a class "
+                      "budget (the request stays queued, never fails)")
+            r.counter("serving_prefill_chunks_interleaved_total",
+                      pk.get("prefill_chunks_interleaved", 0),
+                      "prefill chunks dispatched between decode blocks "
+                      "(chunked-prefill interleaving)")
+            # the pool by owner: slot + trie + shared + free == total
+            for state, n in sorted((pk.get("pool_state") or {}).items()):
+                r.gauge(_metrics.SERVING_KV_POOL_BLOCKS, n,
+                        "KV pool blocks by owner: free list, slot "
+                        "tables only, prefix trie only, or shared "
+                        "(slot+trie at once)", labels={"state": state})
+            r.counter(_metrics.SERVING_KV_EXPORTS_TOTAL,
+                      pk.get("kv_exports", 0),
+                      "finished prefills serialized for handoff")
+            r.counter(_metrics.SERVING_KV_IMPORTS_TOTAL,
+                      pk.get("kv_imports", 0),
+                      "transfer payloads installed into the local pool")
+            r.counter(_metrics.SERVING_KV_IMPORT_REJECTS_TOTAL,
+                      pk.get("kv_import_rejects", 0),
+                      "transfer payloads rejected (version/geometry/"
+                      "checksum damage; the router re-prefills via "
+                      "journal replay)")
+            for cls, used in sorted((pk.get("class_used") or {}).items()):
+                r.gauge("serving_kv_class_blocks_used", used,
+                        "KV blocks exclusively held per admission tier "
+                        "(COW/shared blocks are unattributed)",
+                        labels={"class": cls})
+        for cls, n in sorted((st.get("shed_by_class") or {}).items()):
+            r.counter("serving_shed_by_class_total", n,
+                      "requests shed per admission tier (queue-full "
+                      "429s plus batch displacements by interactive "
+                      "arrivals)", labels={"class": cls})
+        loop = st.get("loop", {})
+        r.counter(_metrics.SERVING_LOOP_RESTARTS,
+                  loop.get("restarts", self.loop_restarts),
+                  "successful serving-loop recoveries")
+        r.counter("serving_loop_failures_total",
+                  loop.get("failures", self.loop_failures),
+                  "serving-loop step failures")
+        r.gauge("serving_loop_up",
+                0 if loop.get("status", self.status) == "down" else 1,
+                "1 unless the serving loop is terminally down")
+        for name, h in hists.items():
+            r.histogram("serving_" + name[:-2] + "_seconds", h,
+                        TELEMETRY_HISTOGRAMS[name])
+        for entry in st.get("metrics", []):
+            r.gauge("serving_task_metric", entry["value"],
+                    "MetricsAccumulator snapshot (max_/avg_ per gauge)",
+                    labels={"name": entry["name"]})
+        return r.render()
+
     def health(self) -> dict:
         """The /healthz payload: ``status`` is ok/degraded/draining/down,
         ``healthy`` the load-balancer bool."""
@@ -723,16 +1047,20 @@ class ServeApp:
 
     def stats(self) -> dict:
         with self.lock:
-            out = dict(self.server.stats())
-            out["loop"] = {"status": self.status,
-                           "restarts": self.loop_restarts,
-                           "failures": self.loop_failures,
-                           "max_restarts": self.max_loop_restarts}
-            # only the HTTP layer sees sockets die, so this counter lives
-            # here, beside the engine's stream counters
-            out["stream_disconnects"] = self.stream_disconnects
-            out["pid"] = os.getpid()
-            return out
+            return self._stats_locked()
+
+    def _stats_locked(self) -> dict:
+        out = dict(self.server.stats())
+        out["loop"] = {"status": self.status,
+                       "restarts": self.loop_restarts,
+                       "failures": self.loop_failures,
+                       "max_restarts": self.max_loop_restarts}
+        # only the HTTP layer sees sockets die, so this counter lives here,
+        # beside the engine's stream counters
+        out["stream_disconnects"] = self.stream_disconnects
+        out["pid"] = os.getpid()
+        out["metrics"] = self.metrics.snapshot()
+        return out
 
 
 def _generate_args(payload: dict, path: str) -> dict:
@@ -796,16 +1124,17 @@ def _generate_args(payload: dict, path: str) -> dict:
 
 
 def make_handler(app: ServeApp, codec=None):
-    """The serve HTTP surface: GET /healthz, /stats and /progress, POST
-    /generate (buffered or SSE), /v1/completions and /v1/chat/completions.
+    """The serve HTTP surface: GET /healthz, /stats, /metrics and
+    /progress, POST /generate (buffered or SSE), /v1/completions,
+    /v1/chat/completions and /autoscale/hint.
     ``codec`` is the /v1 routes' ``api.openai.TokenCodec`` (default
     "ids")."""
     from ..api import openai as oai
     from ..api.stream import (TokenStream, begin_sse, parse_last_event_id,
                               read_json_body, sse_frame)
     from ..models.serving import QueueFullError
-    from ..observability import (TRACE_HEADER, TRACE_ID_RESPONSE_HEADER,
-                                 TraceContext)
+    from ..observability import (PROM_CONTENT_TYPE, TRACE_HEADER,
+                                 TRACE_ID_RESPONSE_HEADER, TraceContext)
 
     if codec is None:
         codec = oai.TokenCodec("ids")
@@ -823,6 +1152,14 @@ def make_handler(app: ServeApp, codec=None):
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
+
+        def _retry_after(self, exc=None) -> dict:
+            """A 429's Retry-After header: the estimate a shed carried
+            (else the engine's now), with the autoscaler's hint folded
+            in."""
+            ra = getattr(exc, "retry_after_s", 0)
+            return {"Retry-After": str(app.retry_after_s(
+                engine_estimate=ra or None))}
 
         def _trace_ctx(self) -> TraceContext:
             """This hop's trace context: the inbound X-Tony-Trace header's,
@@ -890,8 +1227,10 @@ def make_handler(app: ServeApp, codec=None):
                         raise BrokenPipeError("client went away")
             except OSError:         # BrokenPipeError, ConnectionResetError
                 app.cancel(rid)     # stop decoding for nobody
-                app.note_stream_disconnect()
+                # park the prefix before counting the disconnect: a client
+                # that sees the count can reconnect at once
                 on_disconnect()
+                app.note_stream_disconnect()
             finally:
                 app.discard_result(rid)
             self.close_connection = True
@@ -919,6 +1258,13 @@ def make_handler(app: ServeApp, codec=None):
                 self._send(200 if payload["healthy"] else 503, payload)
             elif self.path == "/stats":
                 self._send(200, app.stats())
+            elif self.path == "/metrics":
+                body = app.prometheus_metrics().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", PROM_CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
             elif self.path.partition("?")[0] == "/progress":
                 # ?key=a (repeatable) and ?keys=a,b
                 qs = parse_qs(urlparse(self.path).query)
@@ -937,8 +1283,23 @@ def make_handler(app: ServeApp, codec=None):
                 self._post_openai(chat=False)
             elif path == "/v1/chat/completions":
                 self._post_openai(chat=True)
+            elif path == "/autoscale/hint":
+                self._post_autoscale_hint()
             else:
                 self._send(404, {"error": "unknown path"})
+
+        def _post_autoscale_hint(self):
+            """The autoscaler's remaining cooldown, ``{"cooldown_s": s}``:
+            every 429's Retry-After says at least what is left of it."""
+            try:
+                cd = float(read_json_body(self).get("cooldown_s", 0.0))
+                if not 0 <= cd < float("inf"):
+                    raise ValueError("cooldown_s must be a finite number >= 0")
+            except (KeyError, ValueError, TypeError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            app.set_autoscale_hint(cd)
+            self._send(200, {"ok": True, "cooldown_s": cd})
 
         def _post_generate(self):
             ts, skip = None, 0
@@ -955,7 +1316,7 @@ def make_handler(app: ServeApp, codec=None):
                 # 429 + Retry-After: retry elsewhere or later instead of
                 # queueing into a deadline miss
                 self._send(429, {"error": str(e)},
-                           headers={"Retry-After": "1"})
+                           headers=self._retry_after(e))
                 return
             except ServingLoopError as e:
                 self._send(503, {"error": str(e)})
@@ -1012,7 +1373,7 @@ def make_handler(app: ServeApp, codec=None):
             if comp.finish_reason == "shed":
                 self._send(429, {"error": f"request {comp.id} shed by "
                                  "admission tiers; retry later"},
-                           headers={"Retry-After": "1"})
+                           headers=self._retry_after())
                 return
             body = {"id": comp.id, "tokens": comp.tokens,
                     "finish_reason": comp.finish_reason}
@@ -1056,7 +1417,7 @@ def make_handler(app: ServeApp, codec=None):
                     trace=ctx)
             except QueueFullError as e:
                 self._oai_error(429, str(e), "rate_limit_error",
-                                headers={"Retry-After": "1"})
+                                headers=self._retry_after(e))
                 return
             except ServingLoopError as e:
                 self._oai_error(503, str(e), "service_unavailable")
@@ -1089,7 +1450,7 @@ def make_handler(app: ServeApp, codec=None):
             if comp.finish_reason == "shed":
                 self._oai_error(429, f"request {comp.id} shed by admission "
                                 "tiers; retry later", "rate_limit_error",
-                                headers={"Retry-After": "1"})
+                                headers=self._retry_after())
                 return
             build = oai.chat_response if chat else oai.completion_response
             self._send(200, build(comp.id, model_name, comp.tokens,

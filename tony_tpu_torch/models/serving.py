@@ -109,9 +109,20 @@ fault (an illegal address, a device-side assert) poisons the context:
 ``reset()`` then raises itself, and only a new process recovers the
 requests, from a file-backed journal.
 
+- **Telemetry** (``telemetry``, ``trace_sink=``): every request gets a
+  ``RequestTrace`` at submit, marked ``admitted`` and ``prefill_done``
+  where admission dispatches its prefill, ``first_token`` where a
+  processed block first shows its tokens (after that block's pinned read,
+  never in dispatch), ``replayed`` when ``reset()`` re-queues it, and one
+  terminal. The sealed trace feeds ``ServingTelemetry``'s histograms,
+  rides ``Completion.trace`` and goes to ``trace_sink`` (a failing sink
+  is logged, never raised). A slot-freeing terminal feeds the service-time
+  EWMA behind ``estimate_retry_after()``, which every ``QueueFullError``
+  carries. Every mark is a host clock reading: nothing waits for the card.
+
 Not ported yet, each raising a named error: the mesh and its rule table,
-disaggregated roles, speculative serving, request traces, the model
-registry, MoE and w8a16.
+disaggregated roles, speculative serving, device time (the dispatch
+tracker), the model registry, MoE and w8a16.
 """
 
 from __future__ import annotations
@@ -133,7 +144,12 @@ import torch
 from .. import constants as c
 from ..device import resolve_device
 from ..events.journal import RequestJournal
-from ..observability import TraceContext
+from ..observability import (
+    RequestTrace,
+    ServiceRateEstimator,
+    ServingTelemetry,
+    TraceContext,
+)
 from . import transformer
 from .generate import (
     DecodeWeights,
@@ -182,8 +198,6 @@ _NOT_PORTED = {
     "spec_gamma": (0, "a pinned speculative window", "speculative decoding"),
     "spec_gamma_max": (4, "the speculative window's ceiling",
                        "speculative decoding"),
-    "trace_sink": (None, "request traces",
-                   "the rest of serving: serving telemetry"),
     "registry": (None, "the model registry", "HF import"),
 }
 
@@ -287,7 +301,8 @@ class Completion:
     id: int
     tokens: list[int]
     finish_reason: str      # one of COMPLETION_FINISH_REASONS
-    trace: dict | None = None       # request traces are not ported: None
+    # the request's sealed lifecycle trace (RequestTrace.to_dict())
+    trace: dict | None = None
     # per emitted token (Request.logprobs > 0): {"token", "logprob",
     # "top": [[ids], [logprobs]]}, in stream order
     logprobs: list | None = None
@@ -296,7 +311,9 @@ class Completion:
 class QueueFullError(RuntimeError):
     """Admission refused: the wait queue is at ``max_queue``. The shed
     request was never accepted; the caller should surface backpressure
-    (HTTP 429 + Retry-After)."""
+    (HTTP 429 + Retry-After). ``submit`` sets ``retry_after_s``, the
+    engine's estimate at the shed, and ``priority``, the refused request's
+    class."""
 
 
 @dataclass
@@ -1001,7 +1018,12 @@ class SlotServer:
     (prompt tokens prefilled a decode block, 0 = whole prompts at
     admission) need ``paged``. With the prefix cache on, the trie shares
     the pool's blocks (``prefix_cache_blocks`` caps its nodes, each
-    ``kv_block`` tokens). ``stats()["paged_kv"]`` reports the pool."""
+    ``kv_block`` tokens). ``stats()["paged_kv"]`` reports the pool.
+
+    ``trace_sink`` (a callable) gets every sealed trace's dict (``serve
+    --trace-dir`` passes ``events.trace.TraceWriter.write``);
+    ``telemetry`` holds the latency histograms (``stats()["latency"]``),
+    which ``reset()`` keeps."""
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
                  max_len: int = 2048, block_size: int = 16,
@@ -1015,7 +1037,8 @@ class SlotServer:
                  model: str = "default", journal: RequestJournal | None = None,
                  replay: bool = True, paged: bool = False, kv_block: int = 0,
                  kv_pool_blocks: int = 0, class_budgets: dict | None = None,
-                 prefill_interleave: int = 0, device=None, **not_ported):
+                 prefill_interleave: int = 0, trace_sink=None, device=None,
+                 **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SlotServer() got an unexpected keyword "
@@ -1139,6 +1162,12 @@ class SlotServer:
         # host time to dispatch each decode block (the device runs later)
         self.block_dispatch_s: collections.deque = collections.deque(
             maxlen=4096)
+        # request telemetry (module docstring): live traces by request id,
+        # sealed at their terminal; all of it host bookkeeping
+        self.telemetry = ServingTelemetry()
+        self.trace_sink = trace_sink
+        self._traces: dict[int, RequestTrace] = {}
+        self._rate = ServiceRateEstimator()
         # ServeApp.shutdown(drain=True) parks admission
         self.pause_admission = False
         self._init_device_state()
@@ -1304,9 +1333,23 @@ class SlotServer:
                                  f"{self.cfg.vocab_size})")
             resume = [int(t) for t in arr]
             request.resume_tokens = resume
-        if resume and self._deliver_if_satisfied(
-                request.id, resume, request.max_new_tokens, request.stop):
-            return request.id
+        tr = RequestTrace(request.id)
+        tr.mark("submitted")
+        # bound before any early exit: a shed or resume-satisfied request
+        # stays in its originating trace too
+        ctx = (request.trace if isinstance(request.trace, TraceContext)
+               else TraceContext.from_dict(request.trace))
+        if ctx is not None:
+            tr.bind(ctx)
+            tr.attrs["service"] = "serve"
+        if resume:
+            tr.attrs["resume_tokens"] = len(resume)
+            self._traces[request.id] = tr
+            if self._deliver_if_satisfied(request.id, resume,
+                                          request.max_new_tokens,
+                                          request.stop):
+                return request.id
+            del self._traces[request.id]
         cls = str(request.priority or "interactive")
         if cls not in PRIORITY_CLASSES:
             raise ValueError(f"unknown priority {request.priority!r} "
@@ -1325,11 +1368,17 @@ class SlotServer:
                 if len(self._queue) >= limit:
                     self.shed_requests += 1
                     self.shed_by_class[cls] += 1
-                    raise QueueFullError(
+                    # a shed request leaves a two-span trace
+                    self._seal_trace(tr, "shed")
+                    err = QueueFullError(
                         f"queue full ({limit} {cls} waiting); request shed")
+                    # the estimate rides the error: the 429 handler needs
+                    # no second trip through the serving lock
+                    err.retry_after_s = self.estimate_retry_after()
+                    err.priority = cls
+                    raise err
         request.prompt = prompt
-        ctx = (request.trace if isinstance(request.trace, TraceContext)
-               else TraceContext.from_dict(request.trace))
+        self._traces[request.id] = tr
         if self._journal is not None:
             # the entry's prompt is the original one; a resume prefix
             # pre-seeds its emitted record, so a second failure replays
@@ -1365,8 +1414,11 @@ class SlotServer:
             seq_end is not None or toks[-1] in self.stop_tokens)
         self.replays += 1
         self.replayed_tokens += len(toks)
-        self._done[rid] = Completion(rid, toks, "stop" if stopped
-                                     else "length")
+        reason = "stop" if stopped else "length"
+        self._done[rid] = Completion(
+            rid, toks, reason,
+            trace=self._finish_trace(rid, "finished", n_tokens=len(toks),
+                                     reason=reason))
         self._finish_stream(rid)
         self.seal_journal(rid)
         return True
@@ -1381,7 +1433,8 @@ class SlotServer:
             del self._queue[i]
             self.shed_requests += 1
             self.shed_by_class[req.priority] += 1
-            self._done[req.id] = Completion(req.id, [], "shed")
+            self._done[req.id] = Completion(
+                req.id, [], "shed", trace=self._finish_trace(req.id, "shed"))
             self._finish_stream(req.id)
             self.seal_journal(req.id)
             return True
@@ -1400,8 +1453,11 @@ class SlotServer:
                 self.expired_requests += 1
                 # a queued replay keeps its emitted prefix: delivered
                 # decode work, not queue residue
+                out = list(req.resume_tokens or ())
                 self._done[req.id] = Completion(
-                    req.id, list(req.resume_tokens or ()), "expired")
+                    req.id, out, "expired",
+                    trace=self._finish_trace(req.id, "expired",
+                                             n_tokens=len(out)))
                 self._finish_stream(req.id)
                 self.seal_journal(req.id)
             else:
@@ -1421,8 +1477,11 @@ class SlotServer:
                 del self._queue[i]
                 self.cancelled_requests += 1
                 # a queued replay keeps its emitted prefix
+                out = list(req.resume_tokens or ())
                 self._done[request_id] = Completion(
-                    request_id, list(req.resume_tokens or ()), "cancelled")
+                    request_id, out, "cancelled",
+                    trace=self._finish_trace(request_id, "cancelled",
+                                             n_tokens=len(out)))
                 self._finish_stream(request_id)
                 self.seal_journal(request_id)
                 return True
@@ -1436,9 +1495,11 @@ class SlotServer:
                 del self._pending_prefill[i]
                 self.cancelled_requests += 1
                 self._host_busy[adm.slot] = False
+                out = list(adm.req.resume_tokens or ())
                 self._done[request_id] = Completion(
-                    request_id, list(adm.req.resume_tokens or ()),
-                    "cancelled")
+                    request_id, out, "cancelled",
+                    trace=self._finish_trace(request_id, "cancelled",
+                                             n_tokens=len(out)))
                 self._finish_stream(request_id)
                 self._release_request(request_id)
                 return True
@@ -1466,14 +1527,17 @@ class SlotServer:
         their memory until they end). Queued requests survive: they never
         started.
 
-        Admitted-but-undelivered requests replay when the journal is on:
+        The telemetry and the queued requests' traces survive. Admitted-
+        but-undelivered requests replay when the journal is on:
         each is re-queued, ahead of the never-started queue and in
         admission order, under its own id, with its journaled prefix as
         ``resume_tokens``; one whose prefix already finishes it is
         delivered without decoding. Only ids with no journal entry (all
         of them under ``replay=False``) are returned as lost, so the
-        caller fails them upstream. A request still mid-prefill in paged
-        mode is in flight too, and replays with the rest."""
+        caller fails them upstream (their traces end ``failed``); a
+        replayed request's trace gains a ``replayed`` mark and goes on. A
+        request still mid-prefill in paged mode is in flight too, and
+        replays with the rest."""
         failed: list[int] = []
         replay_reqs: list[Request] = []
         for rid in sorted(self._inflight):
@@ -1481,6 +1545,7 @@ class SlotServer:
                      if self.replay and self._journal is not None else None)
             if entry is None:
                 failed.append(rid)
+                self._finish_trace(rid, "failed")
                 self.fail_stream(
                     rid, f"request {rid} lost to a serving-loop failure "
                          "(no journal entry to replay)")
@@ -1491,6 +1556,13 @@ class SlotServer:
             if self._deliver_if_satisfied(rid, list(entry.emitted),
                                           entry.max_new_tokens, entry.stop):
                 continue
+            # the trace goes on: a replayed mark, then a second admission
+            # chain and one terminal
+            tr = self._traces.get(rid)
+            if tr is not None:
+                tr.mark("replayed")
+                tr.attrs["replays"] = int(tr.attrs.get("replays", 0)) + 1
+                tr.attrs["replayed_tokens"] = len(entry.emitted)
             replay_reqs.append(self._request_from_entry(entry, id=rid))
         self._prefix_refs.clear()
         self._init_device_state()
@@ -1535,11 +1607,14 @@ class SlotServer:
         try:
             for entry in entries:
                 try:
-                    self.submit(self._request_from_entry(entry))
+                    rid = self.submit(self._request_from_entry(entry))
                 except ValueError as e:
                     log.error("journal recovery dropped request %s "
                               "(unservable): %s", entry.id, e)
                     continue
+                tr = self._traces.get(rid)
+                if tr is not None:      # the dead process's id: lineage
+                    tr.attrs["recovered_from"] = entry.id
                 n += 1
         finally:
             self.max_queue = saved_max_queue
@@ -1601,7 +1676,11 @@ class SlotServer:
             log.exception("token stream feed failed")
             return
         if n_new:
-            s.last_feed_t = time.monotonic()
+            now = time.monotonic()
+            if s.last_feed_t is not None:
+                self.telemetry.observe("stream_itl_s",
+                                       max(0.0, now - s.last_feed_t))
+            s.last_feed_t = now
             if stalled:
                 self.stream_stalls += 1
 
@@ -1635,6 +1714,7 @@ class SlotServer:
         out = list(self._queue)
         self._queue.clear()
         for req in out:
+            self._finish_trace(req.id, "failed")
             self.fail_stream(
                 req.id, f"request {req.id} failed: server shutting down "
                         "before it was admitted")
@@ -1655,6 +1735,43 @@ class SlotServer:
         if path is not None:
             self._prefix_cache.release(path)
         self.seal_journal(request_id)
+
+    # ------------------------------------------------------------ tracing
+
+    def _seal_trace(self, tr: RequestTrace, terminal: str, *,
+                    n_tokens: int = 0, reason: str | None = None) -> dict:
+        """Close a trace with its terminal span, feed the histograms and
+        (for a request that held a slot) the service-time EWMA, and hand
+        the record to the sink. -> the dict ``Completion.trace`` carries."""
+        tr.attrs["n_tokens"] = n_tokens
+        tr.attrs["finish_reason"] = reason if reason is not None else terminal
+        tr.mark(terminal)
+        self.telemetry.observe_trace(tr)
+        svc = tr.dur("admitted", terminal)
+        if svc is not None and svc >= 0:
+            self._rate.observe(svc)
+        record = tr.to_dict()
+        if self.trace_sink is not None:
+            try:        # telemetry must never take down the serving loop
+                self.trace_sink(record)
+            except Exception:
+                log.exception("trace sink failed")
+        return record
+
+    def _finish_trace(self, request_id: int, terminal: str, *,
+                      n_tokens: int = 0,
+                      reason: str | None = None) -> dict | None:
+        tr = self._traces.pop(request_id, None)
+        if tr is None:
+            return None
+        return self._seal_trace(tr, terminal, n_tokens=n_tokens,
+                                reason=reason)
+
+    def estimate_retry_after(self) -> int:
+        """The data-driven ``Retry-After``: seconds until a queue seat
+        frees, from the EWMA service time of served requests and the
+        queue's depth, in [1, 60] and monotone in the depth."""
+        return self._rate.retry_after_s(len(self._queue), self.slots)
 
     def progress(self, request_id: int) -> dict | None:
         """A live request's replay state, the ``GET /progress`` payload:
@@ -1727,6 +1844,9 @@ class SlotServer:
             "stream_stalls": self.stream_stalls,
             "decode_block_dispatch_ms_p50": (
                 disp[len(disp) // 2] * 1e3 if disp else None),
+            # count and quantiles of each histogram (host monotonic clock)
+            "latency": self.telemetry.snapshot(),
+            "retry_after_s": self.estimate_retry_after(),
         }
         if self._journal is not None:
             out["journal"] = {
@@ -1855,6 +1975,7 @@ class SlotServer:
                     # pinned (unevictable) until the completion is processed
                     self._prefix_cache.acquire(path)
                     self.prefill_tokens_reused += prefix_len
+            self._mark_admitted(req, len(path))
             admissions.append(_Admission(
                 slot=slot, req=req, body=body, offset=offset, target=target,
                 temp=temp, topk=topk,
@@ -1872,6 +1993,9 @@ class SlotServer:
         self._dispatch_prefix_insert(admissions)
         for adm in admissions:
             slot = adm.slot
+            # the prefill's host dispatch is done (the card runs it later):
+            # the span is what admission cost the scheduling loop
+            self._mark(adm.req.id, "prefill_done")
             self._host_busy[slot] = True
             self._np_temps[slot] = adm.temp
             self._np_topks[slot] = adm.topk
@@ -1886,6 +2010,18 @@ class SlotServer:
                 self._pipeline[-1]["events"].append(("admit", admit))
             else:                       # nothing in flight: applies now
                 self._apply_admit(admit)
+
+    def _mark_admitted(self, req: Request, hit_blocks: int) -> None:
+        tr = self._traces.get(req.id)
+        if tr is not None:
+            tr.attrs["prompt_tokens"] = int(req.prompt.size)
+            tr.attrs["prefix_hit_blocks"] = hit_blocks
+            tr.mark("admitted")
+
+    def _mark(self, request_id: int, span: str) -> None:
+        tr = self._traces.get(request_id)
+        if tr is not None:
+            tr.mark(span)
 
     def _dispatch_prefix_copy(self, admissions) -> None:
         """Phase 1 of admission: one ``_copy_prefix_blocks`` call moves
@@ -1988,6 +2124,7 @@ class SlotServer:
         out = self._emitted[slot]
         self._done[rid] = Completion(
             rid, out, "cancelled",
+            trace=self._finish_trace(rid, "cancelled", n_tokens=len(out)),
             logprobs=self._lp_acc[slot] if req.logprobs else None)
         self._finish_stream(rid)
         self._requests[slot] = None
@@ -2145,6 +2282,7 @@ class SlotServer:
             self._prefix_cache.acquire(path)
             self.prefill_tokens_reused += prefix_len
             self._prefix_refs[req.id] = path
+        self._mark_admitted(req, len(path))
         # the table: the trie's hit blocks first (one reference each, no
         # copy: the hit is the block), then the slot's own fresh ones
         shared = [n.block for n in path]
@@ -2229,6 +2367,7 @@ class SlotServer:
         takes decode writes from the body's end on, and the admit event is
         logged at this point of the dispatch order."""
         slot, req, body = adm.slot, adm.req, adm.body
+        self._mark(req.id, "prefill_done")
         want = (self.cache_prompts if req.cache_prompt is None
                 else req.cache_prompt)
         if self._prefix_cache is not None and want:
@@ -2282,7 +2421,9 @@ class SlotServer:
         host, ready = _start_read(packed)
         self._cursor = (self._cursor + self.block_size) % self.max_len
         self.blocks_dispatched += 1
-        self.block_dispatch_s.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.block_dispatch_s.append(dt)
+        self.telemetry.observe("decode_block_s", dt)
         self._pipeline.append({"host": host, "ready": ready, "events": [],
                                "lp_k": lp_k})
         if self._predictive:            # exact: no EOS can surprise us
@@ -2350,6 +2491,7 @@ class SlotServer:
                     if end is not None:
                         new = cand[prev_len:end]
                         stop_hit = True
+                had_tokens = bool(self._emitted[slot])
                 self._emitted[slot].extend(new)
                 if new and lp_k and req is not None and req.logprobs:
                     k = req.logprobs
@@ -2370,6 +2512,12 @@ class SlotServer:
                     # streaming delivery at the same instant: the feed is
                     # absolute, so a replay's resume prefix is not sent twice
                     self._stream_feed(req.id, self._emitted[slot])
+                if new and not had_tokens and req is not None:
+                    # the host first sees this request's tokens: TTFT's
+                    # span (behind the block's read, so it lags the card)
+                    tr = self._traces.get(req.id)
+                    if tr is not None and tr.t("first_token") is None:
+                        tr.mark("first_token")
                 if stop_hit:
                     # complete now with "stop" and free the device slot
                     # like a cancel; _stop_cancelled skips the slot until
@@ -2402,7 +2550,11 @@ class SlotServer:
         """Deliver one slot's finished request and free its host state."""
         out = self._emitted[slot]
         lps = self._lp_acc[slot][:len(out)] if req.logprobs else None
-        self._done[req.id] = Completion(req.id, out, reason, logprobs=lps)
+        self._done[req.id] = Completion(
+            req.id, out, reason,
+            trace=self._finish_trace(req.id, "finished", n_tokens=len(out),
+                                     reason=reason),
+            logprobs=lps)
         self._finish_stream(req.id)
         self._requests[slot] = None
         self._emitted[slot] = []

@@ -3,18 +3,18 @@
 ``trace`` captures a ``torch.profiler`` trace (Chrome trace JSON, viewable in
 Perfetto) into a directory. ``StepTimer`` writes the same JSONL step records
 as the JAX package's, with its checkpoint-recency fields
-(``note_checkpoint``), and polls the executor's preemption flag file. Not
-ported yet: the XLA compile counters and the on-demand profiler capture
-(ROADMAP queue 1, observability item).
+(``note_checkpoint``), and polls the executor's preemption flag file; its
+histogram is observability.py's. ``serve``'s loop times its scheduling
+turns with it too (``reset_interval`` skips the idle gaps). Not ported
+yet: the XLA compile counters and the on-demand profiler capture (ROADMAP
+queue 1, observability item).
 """
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import json
 import logging
-import math
 import os
 import time
 from pathlib import Path
@@ -22,6 +22,7 @@ from pathlib import Path
 import torch
 
 from .. import constants as c
+from ..observability import Histogram
 
 log = logging.getLogger(__name__)
 
@@ -43,40 +44,6 @@ def trace(log_dir: str | Path, enabled: bool = True):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(Path(log_dir) / f"trace.{os.getpid()}.json"))
-
-
-class Histogram:
-    """Fixed log-spaced-bucket histogram of non-negative values (the JAX
-    package's observability.Histogram, observe and quantile only).
-    ``quantile`` interpolates linearly inside the containing bucket."""
-
-    def __init__(self, lo: float = 1e-3, hi: float = 120.0,
-                 per_decade: int = 5):
-        n = int(math.ceil(math.log10(hi / lo) * per_decade)) + 1
-        bounds = [lo * 10 ** (i / per_decade) for i in range(n)]
-        self.bounds = [b for b in bounds if b < hi] + [float(hi)]
-        self.counts = [0] * (n + 1)         # +1: the +Inf overflow bucket
-        self.count = 0
-
-    def observe(self, value: float) -> None:
-        self.counts[bisect.bisect_left(self.bounds, value)] += 1
-        self.count += 1
-
-    def quantile(self, q: float) -> float:
-        """q in [0, 1] -> estimated value; 0.0 on an empty histogram."""
-        if self.count == 0:
-            return 0.0
-        rank = q * self.count
-        seen = 0
-        for i, n in enumerate(self.counts):
-            if seen + n >= rank and n > 0:
-                lo = self.bounds[i - 1] if i > 0 else 0.0
-                hi = self.bounds[i] if i < len(self.bounds) else self.bounds[-1]
-                if hi <= lo:                # overflow bucket: lower edge
-                    return lo
-                return lo + (hi - lo) * max(0.0, rank - seen) / n
-            seen += n
-        return self.bounds[-1]
 
 
 class StepTimer:
@@ -166,6 +133,12 @@ class StepTimer:
         log.warning("preemption notice received: exit at this step boundary")
         self.preempt_requested = True
 
+    def reset_interval(self) -> None:
+        """Forget the last tick's instant (the rolling window stays): a
+        serving loop that idles between requests must not record the gap
+        as one giant step when work resumes."""
+        self._t_last = None
+
     @property
     def steps_per_sec(self) -> float:
         if not self._times:
@@ -173,4 +146,4 @@ class StepTimer:
         return len(self._times) / sum(self._times)
 
 
-__all__ = ["trace", "StepTimer", "Histogram"]
+__all__ = ["trace", "StepTimer"]
