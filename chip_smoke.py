@@ -89,7 +89,7 @@ and exits non-zero if any of them fails:
    admitting slot by slot, in predictive, EOS, int8-KV and prefix-cache
    modes, and with --prefill-interleave 64 (held at float32; at bf16 its
    ring layout is rotated by design, reported beside the ring engine
-   against itself one block on); (b) run A's 24 requests at float32 (12
+   against itself one block on); (b) run A's 24 requests at float32 (4
    layers) through both engines, equal up to the ring's first near-tie,
    then at bf16 through serve's app, ring and --paged-kv in turn: every
    request done, throughput, latency, a block's dispatch, wall and device
@@ -121,14 +121,38 @@ and exits non-zero if any of them fails:
    /autoscale/hint of 20 s the next 429s say at least 19; (c) serve
    --paged-kv on run A: the serving_kv_pool_* families equal /stats'
    paged_kv; (d) serve restarted on (a)'s --trace-dir resumes its
-   histograms from telemetry.state.json;
-12. parity: the flagship width at 2 layers on the card (kernels, bf16)
+   histograms from telemetry.state.json. Device time in (a) and (c): the
+   dispatch tracker counted every dispatch the engine made, by kind,
+   dropped none, raised no reap error and had none in flight after its
+   drain; the five dispatch families equal /stats' device; a device lag
+   for every decode block (p50 and p99 printed, and a block's dispatch ->
+   ready beside its device time); in (c) a GET /debug/profile?seconds=2
+   during the run, its Chrome-trace JSON parsed (its CUDA kernel events
+   counted, the serving loop's gemv, direct_copy and paged-gather kernels
+   looked for). Then the reaper's cost to the host: a Python loop timed
+   while the reaper waits on a second-long kernel against the loop alone,
+   and the process's CPU share while it waits (beside a spinning event);
+12. main path, disaggregated serving: (a) at float32 (2 layers) 8
+   requests of 64-512 tokens, 48 new, from a prefill-role engine (one
+   slot on one request's blocks, so every prefill reuses the blocks the
+   one before freed, and the whole pool overwritten before any payload is
+   encoded) to a decode-role engine, token-identical to a solo paged
+   engine up to its first near-tie with native KV (int8 KV reported);
+   (b) serve's apps at the flagship width: run A's first 8 prompts, 48
+   greedy new tokens, POST /generate on --role prefill and its handoff
+   verbatim to /kv/import on --role decode (half streamed), beside
+   --role both in turn: payload MB, the export's encoding, the import's
+   decode and verify and its hold of the serving lock, TTFT of the legs
+   against --role both, tokens equal (bf16, reported), a torn payload
+   answered 400, a full decode pool 429, the transfer counters equal on
+   /stats and /metrics, no synchronisation in any role's dispatch;
+13. parity: the flagship width at 2 layers on the card (kernels, bf16)
    against the CPU's plain path in float32, from the same weights, for the
    generation logits and for the training loss and every gradient; and the
    SlotServer in float32 on the card (8 requests through 3 slots, batched
    and per-slot admission) against the port's generate run solo on the
    card, token for token up to the first near-tie of solo's logits;
-13. profile: a flagship decode step's and a flagship training step's host
+14. profile: a flagship decode step's and a flagship training step's host
    wall time against the device time torch.profiler records.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -244,11 +268,27 @@ PAGED_TIER, PAGED_TIER_BUDGET = 12, 256
 PAGED_BURST, PAGED_BURST_LEN, PAGED_INTERLEAVES = 8, 1536, (0, 256)
 PAGED_STREAMS, PAGED_STREAM_LEN, PAGED_STREAM_NEW = 8, 256, 384
 PAGED_TRIE_BLOCKS = 512
+# (b)'s float32 run A through both engines: the flagship's widths at this
+# depth (12 until the disaggregation phase needed the time)
+PAGED_F32_LAYERS = 4
 # telemetry: /metrics scraped every TELEMETRY_SCRAPE_S seconds during run A;
 # a burst of TELEMETRY_BURST against --max-queue TELEMETRY_MAX_QUEUE; an
 # autoscale hint of TELEMETRY_HINT_S seconds
 TELEMETRY_SCRAPE_S, TELEMETRY_BURST = 0.5, 48
 TELEMETRY_MAX_QUEUE, TELEMETRY_HINT_S = 8, 20
+# a GET /debug/profile of TELEMETRY_PROFILE_S seconds, sent
+# TELEMETRY_PROFILE_AT_S seconds into (c)'s run A
+TELEMETRY_PROFILE_S, TELEMETRY_PROFILE_AT_S = 2, 1.5
+# the disaggregation phase: (a) DISAGG_F32 requests of 64-512 tokens and
+# DISAGG_NEW new at float32 (2 layers) from a prefill replica to a decode
+# replica, against a solo paged engine, native and int8 KV; (b) run A's
+# first DISAGG_HTTP prompts with DISAGG_NEW greedy new tokens through
+# serve's apps at the flagship width, --role prefill then /kv/import on
+# --role decode (a pool of DISAGG_DECODE_BLOCKS blocks: DISAGG_FULL
+# imports of a 1536-token prompt with DISAGG_FULL_NEW new fill it), beside
+# --role both in turn
+DISAGG_F32, DISAGG_HTTP, DISAGG_NEW = 8, 8, 48
+DISAGG_DECODE_BLOCKS, DISAGG_FULL, DISAGG_FULL_NEW = 896, 7, 512
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -1151,8 +1191,11 @@ def _serve_payloads():
 def _profile_block(torch, S, srv, rng, name, streams=False) -> dict:
     """One decode block of 8 busy slots (1024-token prompts, 128 new, about
     1030-1140 positions cached): its wall time over 5 blocks and its device
-    time under torch.profiler. With ``streams``, each request has a
-    TokenStream attached, which must deliver its completion."""
+    time under torch.profiler, the profiled block queued behind a 20 ms
+    device sleep (left out of the sum), as ``_profiled_ms`` does: the
+    profiler can miss the first kernels of a region. With ``streams``,
+    each request has a TokenStream attached, which must deliver its
+    completion."""
     from torch.profiler import ProfilerActivity, profile
 
     from tony_tpu_torch.api.stream import TokenStream
@@ -1175,6 +1218,7 @@ def _profile_block(torch, S, srv, rng, name, streams=False) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(0.02 * 2e9))
         srv._dispatch_block()
         torch.cuda.synchronize()
     done = srv.run_until_drained()
@@ -3170,7 +3214,8 @@ def _paged_block_costs(torch, S, srv, rng, name) -> dict:
 
 
 def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
-    """(b) and (c): run A's requests at float32 (12 layers) through the
+    """(b) and (c): run A's requests at float32 (PAGED_F32_LAYERS layers)
+    through the
     ring and the paged engine (up to the ring's first near-tie); at bf16
     through serve's app with its defaults, ring then --paged-kv, and then
     --paged-kv on PAGED_OVER_SLOTS slots over the same pool; each with its
@@ -3178,9 +3223,9 @@ def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
     with the gather's and the scatter's device time."""
     rng, lens, news, sampled, payloads = _serve_payloads()
     dev = torch.device("cuda")
-    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
-                              n_heads=8, n_kv_heads=8, d_ff=4096,
-                              dtype=torch.float32)
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
+                              n_layers=PAGED_F32_LAYERS, n_heads=8,
+                              n_kv_heads=8, d_ff=4096, dtype=torch.float32)
     w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
                                 .manual_seed(21), dev), cfg)
     got = {}
@@ -3214,7 +3259,8 @@ def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
                               a.tokens, gaps, payloads[i]["max_new_tokens"])
         f32.append(dict(request=i, equal=row["diverge"] is None, **row))
     f32_equal = sum(r["equal"] for r in f32)
-    print(f"paged (b, float32, 12 layers, serve's defaults): run A's "
+    print(f"paged (b, float32, {PAGED_F32_LAYERS} layers, serve's "
+          f"defaults): run A's "
           f"{SERVE_REQUESTS} requests through the paged engine: "
           f"{f32_equal} of {SERVE_REQUESTS} token-identical to the ring "
           f"engine's, the {SERVE_REQUESTS - len(sampled)} greedy ones up to "
@@ -3855,6 +3901,7 @@ def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
         wall = time.perf_counter() - t0
         scrapes = stop()
         counts = ops.launch_counts()
+        drained = srv.dispatch_tracker.drain(timeout=60)
         samples, stats = _scrape_pair(base)
         health = app.health()
         records = read_traces(trace_dir / TRACE_FILE)
@@ -3903,11 +3950,10 @@ def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
     if wrong:
         fail(f"telemetry (a): /metrics against /stats {wrong}")
     if lat["ttft_s"]["count"] != SERVE_REQUESTS or \
-            samples["serving_device_lag_seconds_count"] != 0 or \
             tel_blocks != stats["blocks_dispatched"]:
-        fail(f"telemetry (a): TTFT count {lat['ttft_s']['count']}, device "
-             f"lag {samples['serving_device_lag_seconds_count']}, "
+        fail(f"telemetry (a): TTFT count {lat['ttft_s']['count']}, "
              f"{tel_blocks} of {stats['blocks_dispatched']} blocks timed")
+    device = _device_time_checks("telemetry (a)", stats, samples, drained)
     if len(records) != SERVE_REQUESTS or any(
             [n for n, _ in r["spans"]][-1] != "finished"
             or sum(n in TERMINAL_SPANS for n, _ in r["spans"]) != 1
@@ -3951,11 +3997,167 @@ def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
         output_tokens_per_s_unscraped=quiet["output_tokens_per_s"],
         block_device_ms=blk["device_ms"], block_wall_ms=blk["wall_ms"],
         block_device_ms_serving=want, admission_syncs=syncs["admission"],
-        ttft_s=lat["ttft_s"], tpot_s=lat["tpot_s"],
+        device=device, ttft_s=lat["ttft_s"], tpot_s=lat["tpot_s"],
         queue_wait_s=lat["queue_wait_s"], e2e_s=lat["e2e_s"],
         loop_turn_s=lat["loop_turn_s"],
         service_s_p50=svc[len(svc) // 2], trace_records=len(records),
         resumed_e2e_count=dump["e2e_s"]["count"], launches=counts)
+
+
+def _device_time_checks(name, stats, samples, drained) -> dict:
+    """The dispatch tracker against the engine, on an idle app's /stats
+    and /metrics after the tracker drained: each kind tracked as often as
+    the engine dispatched it (prefill calls, decode blocks, paged
+    scatters, prefix copies and inserts), nothing dropped, no reap error,
+    nothing in flight; the five dispatch families equal /stats' device;
+    a device lag for every decode block. -> the record."""
+    dev = stats["device"]
+    pk, pc = stats.get("paged_kv") or {}, stats.get("prefix_cache") or {}
+    want = {"prefill": stats["admission_dispatches"],
+            "decode_block": stats["blocks_dispatched"],
+            "paged_scatter": pk.get("scatter_dispatches", 0),
+            "prefix_copy": pc.get("copy_dispatches", 0),
+            "prefix_insert": pc.get("insert_dispatches", 0)}
+    want = {k: n for k, n in want.items() if n}
+    got = {k: h["count"] for k, h in dev["dispatch_ready"].items()}
+    lag = stats["latency"].get("device_lag_s", {"count": 0})
+    pairs = {"serving_dispatches_tracked_total": dev["tracked"],
+             "serving_dispatch_track_dropped_total": dev["dropped"],
+             "serving_dispatch_reap_errors_total": dev["reap_errors"],
+             "serving_inflight_dispatches": dev["in_flight"],
+             "serving_device_lag_seconds_count": lag["count"]}
+    pairs.update({f'serving_dispatch_ready_seconds_count{{kind="{k}"}}': n
+                  for k, n in got.items()})
+    wrong = {k: (samples.get(k), v) for k, v in pairs.items()
+             if samples.get(k) != v}
+    if not drained or got != want or dev["tracked"] != sum(want.values()) \
+            or dev["dropped"] or dev["reap_errors"] or dev["in_flight"] \
+            or wrong or lag["count"] != stats["blocks_dispatched"]:
+        fail(f"{name}: device time: drained {drained}, tracked {got} "
+             f"against the engine's dispatches {want} (total "
+             f"{dev['tracked']}), dropped {dev['dropped']}, reap errors "
+             f"{dev['reap_errors']}, in flight {dev['in_flight']}, "
+             f"/metrics against /stats {wrong}, device lag count "
+             f"{lag['count']} of {stats['blocks_dispatched']} blocks")
+    return dict(tracked=dev["tracked"], by_kind=got, device_lag_s=lag,
+                dispatch_ready={k: {q: h[q] for q in ("p50_s", "p99_s")}
+                                for k, h in dev["dispatch_ready"].items()})
+
+
+def _reaper_host_cost(torch) -> dict:
+    """What the tracker's wait costs the host, on a kernel that keeps the
+    card busy about a second (``torch.cuda._sleep``): a pure-Python loop's
+    time while the reaper waits, against the same loop with the reaper
+    idle (the wait must release the interpreter lock), and the process's
+    CPU seconds a wall second while this thread sleeps and the reaper
+    waits (a blocking event's wait sleeps; a spinning one burns a core).
+    A default, spinning CUDA event's wait is measured beside it."""
+    from tony_tpu_torch.models.serving import _Fence
+    from tony_tpu_torch.observability import DispatchTracker
+
+    def loop():
+        t0 = time.perf_counter()
+        x = 0
+        for i in range(3_000_000):
+            x += i
+        return time.perf_counter() - t0
+
+    def during(blocking):
+        tr = DispatchTracker()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(1.2 * 2e9))
+            ev = torch.cuda.Event(blocking=blocking)
+            ev.record()
+            tr.track("sleep", _Fence(ev))
+            time.sleep(0.05)
+            if tr.in_flight != 1:
+                fail("reaper cost: the reaper is not waiting")
+            loop_s = loop()
+            c0, w0 = time.process_time(), time.perf_counter()
+            time.sleep(0.2)
+            cpu_share = (time.process_time() - c0) / (time.perf_counter()
+                                                      - w0)
+            still = tr.in_flight == 1
+            if not tr.drain(timeout=30):
+                fail("reaper cost: the sleep kernel never became ready")
+            return loop_s, cpu_share, still
+        finally:
+            tr.shutdown()
+
+    idle = min(loop() for _ in range(3))
+    loop_b, cpu_b, still_b = during(True)
+    loop_s, cpu_s, still_s = during(False)
+    out = dict(loop_idle_s=idle, loop_waiting_s=loop_b,
+               loop_ratio=loop_b / idle, cpu_share_blocking=cpu_b,
+               cpu_share_spinning=cpu_s, loop_ratio_spinning=loop_s / idle,
+               measured_while_waiting=still_b and still_s)
+    print(f"reaper cost: a Python loop {loop_b * 1e3:.1f} ms while the "
+          f"reaper waits on a blocking event, {idle * 1e3:.1f} ms idle "
+          f"(ratio {out['loop_ratio']:.3f}; beside a spinning event "
+          f"{out['loop_ratio_spinning']:.3f}); process CPU a wall second "
+          f"while the reaper waits: {cpu_b:.3f} (spinning event "
+          f"{cpu_s:.3f}); waits still pending at the end "
+          f"{out['measured_while_waiting']}")
+    if not out["measured_while_waiting"] or out["loop_ratio"] > 1.3 \
+            or cpu_b > 0.5:
+        fail(f"reaper cost: {out}")
+    return out
+
+
+def _capture_profile(base: str, delay_s: float, seconds: float):
+    """GET /debug/profile?seconds=N on a thread after ``delay_s`` ->
+    join(), which returns the capture's summary: its files, the events
+    by category, the CUDA kernels (count, and whether the serving loop's
+    gemv, direct_copy and paged-gather kernels are among them), and the
+    host threads whose operations it holds. The gather is one
+    ``index_select`` a tensor, whose CUDA kernel is
+    ``vectorized_gather_kernel``; the kernels named for a gather or an
+    index are listed."""
+    import threading
+
+    out = {}
+
+    def run():
+        time.sleep(delay_s)
+        t0 = time.perf_counter()
+        try:
+            res = json.loads(_get(f"{base}/debug/profile?seconds={seconds}"))
+        except Exception as e:
+            out["error"] = repr(e)
+            return
+        out["request_s"] = time.perf_counter() - t0
+        out["files"] = res["files"]
+        events = []
+        for f in res["files"]:
+            with open(Path(res["dir"]) / f) as fh:
+                events += json.load(fh)["traceEvents"]
+        cats = collections.Counter(e.get("cat") for e in events)
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        out.update(
+            events=len(events), categories=dict(cats.most_common(8)),
+            kernels=len(kernels),
+            has={"gemv": any("gemv" in k for k in kernels),
+                 "direct_copy": any("direct_copy" in k for k in kernels),
+                 "paged_gather": any("gather_kernel" in k
+                                     for k in kernels)},
+            index_kernels=sorted({k[:60] for k in kernels
+                                  if "index" in k.lower()
+                                  or "gather" in k}),
+            cpu_op_threads=len({e.get("tid") for e in events
+                                if e.get("cat") == "cpu_op"}),
+            top_kernels=collections.Counter(
+                k[:50] for k in kernels).most_common(5))
+        shutil.rmtree(res["dir"], ignore_errors=True)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join():
+        t.join(timeout=300)
+        return out
+
+    return join
 
 
 def _telemetry_shed(torch, ops, serve) -> dict:
@@ -4092,23 +4294,33 @@ def _telemetry_paged(torch, ops, serve) -> dict:
     _, _, _, _, payloads = _serve_payloads()
     gc.collect()
     torch.cuda.empty_cache()
-    app, httpd, url = _serve_app(serve, FLAGSHIP + ["--seed", "21",
-                                                    "--paged-kv"])
+    trace_dir = REPO / "build" / "telemetry_paged_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "21", "--paged-kv", "--trace-dir", str(trace_dir)])
     base = url.rsplit("/", 1)[0]
     srv = app.server
     syncs = _checked_dispatch(torch, srv)
     try:
         ops.reset_launch_counts()
         stop = _scraper(base, TELEMETRY_SCRAPE_S)
+        profile = _capture_profile(base, TELEMETRY_PROFILE_AT_S,
+                                   TELEMETRY_PROFILE_S)
         t0 = time.perf_counter()
         _post_all(url, payloads)
         wall = time.perf_counter() - t0
         scrapes = stop()
+        capture = profile()
+        drained = srv.dispatch_tracker.drain(timeout=60)
         samples, stats = _scrape_pair(base)
         counts = ops.launch_counts()
     finally:
         _stop_app(app, httpd)
         del srv._dispatch_block, srv._admit
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    device = _device_time_checks("telemetry (c)", stats, samples, drained)
+    if "error" in capture or not capture.get("events"):
+        fail(f"telemetry (c): /debug/profile capture {capture}")
     pk = stats["paged_kv"]
     pairs = {f"serving_kv_pool_blocks_{k}": pk[f"pool_blocks_{k}"]
              for k in ("total", "free", "used", "peak")}
@@ -4125,7 +4337,8 @@ def _telemetry_paged(torch, ops, serve) -> dict:
     return dict(wall_s=wall, scrapes=scrapes["n"],
                 pool_blocks_peak=pk["pool_blocks_peak"],
                 pool_blocks_total=pk["pool_blocks_total"],
-                admission_syncs=syncs["admission"], launches=counts)
+                admission_syncs=syncs["admission"], device=device,
+                profile=capture, launches=counts)
 
 
 def phase_telemetry(torch, ops, run_a) -> dict:
@@ -4150,6 +4363,7 @@ def phase_telemetry(torch, ops, run_a) -> dict:
     shutil.rmtree(trace_dir, ignore_errors=True)
     b = _telemetry_shed(torch, ops, serve)
     c = _telemetry_paged(torch, ops, serve)
+    reaper = _reaper_host_cost(torch)
     counts = {k: a["launches"][k] + b["launches"][k] + c["launches"][k]
               for k in a["launches"]}
     seconds = time.perf_counter() - t0
@@ -4187,9 +4401,373 @@ def phase_telemetry(torch, ops, run_a) -> dict:
           f"{c['pool_blocks_total']} blocks); (d) a restart resumed "
           f"{a['resumed_e2e_count']} e2e observations; the phase "
           f"{seconds:.1f} s; {nvidia_smi_line()}")
+    for name, rec in (("a", a), ("c, --paged-kv", c)):
+        dev = rec["device"]
+        print(f"telemetry ({name}) device time: {dev['tracked']} dispatches "
+              f"tracked, by kind {dev['by_kind']} (each the engine's own "
+              "count), 0 dropped, 0 reap errors, 0 in flight after the "
+              f"drain; device lag p50 {dev['device_lag_s'].get('p50_s')} s"
+              f", p99 {dev['device_lag_s'].get('p99_s')} s over "
+              f"{dev['device_lag_s']['count']} blocks; dispatch -> ready "
+              f"p50/p99 by kind {dev['dispatch_ready']}")
+    print(f"telemetry (a) a decode block's dispatch -> ready p50 "
+          f"{a['device']['dispatch_ready']['decode_block']['p50_s']} s "
+          f"beside its device time {a['block_device_ms']} ms (CUDA "
+          f"events under torch.profiler) and host dispatch "
+          f"{a['block_dispatch_ms_p50']:.2f} ms")
+    cap = c["profile"]
+    print(f"telemetry (c) /debug/profile?seconds={TELEMETRY_PROFILE_S} "
+          f"during run A: {cap['files']} in {cap['request_s']:.2f} s, "
+          f"{cap['events']} events {cap['categories']}, {cap['kernels']} "
+          f"CUDA kernel events, the serving loop's kernels {cap['has']} "
+          f"(index kernels {cap['index_kernels']}), host operations from "
+          f"{cap['cpu_op_threads']} thread(s); top {cap['top_kernels']}")
     print("telemetry " + json.dumps(dict(
-        run_a=a, shed=b, paged=c, seconds=seconds, launches=counts,
-        card=nvidia_smi_line())))
+        run_a=a, shed=b, paged=c, reaper=reaper, seconds=seconds,
+        launches=counts, card=nvidia_smi_line())))
+    return counts
+
+
+def _disagg_identity(torch, G, T, S) -> list:
+    """(a): the flagship widths at 2 layers, float32, DISAGG_F32 requests
+    through a prefill replica (one slot on a pool of one request's
+    blocks, so each prefill reuses the blocks the one before freed; then
+    every pool block is overwritten before any payload is encoded: the
+    export-overwrite check) and a decode replica (3 slots), against a
+    solo paged engine (3 slots): token-identical up to the solo's first
+    near-tie with native KV; with int8 KV how many are equal is reported
+    (the carve-out). Every decode block's dispatch runs under sync debug
+    mode "error"."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(71)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, DISAGG_F32)]
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(71), dev), cfg)
+    need = max(-(-(len(p) - 1 + DISAGG_NEW) // PAGED_KV_BLOCK)
+               for p in prompts)
+    rows = []
+    for kv in ("native", "int8"):
+        name = f"disagg (a, float32, {kv})"
+        kw = dict(paged=True, kv_block=PAGED_KV_BLOCK, kv_dtype=kv,
+                  max_len=2048)
+
+        def requests():
+            return [S.Request(prompt=p, max_new_tokens=DISAGG_NEW,
+                              logprobs=2) for p in prompts]
+
+        solo = S.SlotServer(w, cfg, slots=3, **kw)
+        reqs = requests()
+        for r in reqs:
+            solo.submit(r)
+        done = solo.run_until_drained()
+        want = [done[r.id] for r in reqs]
+        solo.shutdown()
+        pre = S.SlotServer(w, cfg, slots=1, role="prefill",
+                           kv_pool_blocks=need, **kw)
+        pre_syncs = _checked_dispatch(torch, pre)
+        reqs = requests()
+        for r in reqs:
+            pre.submit(r)
+        done = pre.run_until_drained()
+        if any(done[r.id].finish_reason != "prefilled" or done[r.id].tokens
+               for r in reqs):
+            fail(f"{name}: a prefill-role request did not end prefilled")
+        pool = pre._kv_pool
+        for t in (pool.k, pool.v, pool.k_scale, pool.v_scale):
+            if t is not None:
+                t.fill_(7)      # stream-ordered after every snapshot
+        payloads = [pre.export_blocks(r.id) for r in reqs]
+        pre._allocator.check()
+        exports = pre.kv_exports
+        pre.shutdown()
+        del pre, pool
+        dec = S.SlotServer(w, cfg, slots=3, role="decode", **kw)
+        dec_syncs = _checked_dispatch(torch, dec)
+        got = []
+        for i in range(0, len(payloads), 3):
+            rids = [dec.import_blocks(pl) for pl in payloads[i:i + 3]]
+            done = dec.run_until_drained()
+            got += [done[r] for r in rids]
+        dec._allocator.check()
+        imports = dec.kv_imports
+        dec.shutdown()
+        del dec
+        row = dict(kv=kv, equal=sum(a.tokens == b.tokens
+                                    for a, b in zip(want, got)),
+                   exports=exports, imports=imports,
+                   admission_syncs=pre_syncs["admission"]
+                   + dec_syncs["admission"],
+                   payload_bytes=sum(len(json.dumps(pl)) for pl in payloads))
+        if kv == "native":
+            for i, (a, b) in enumerate(zip(want, got)):
+                gaps = [e["top"][1][0] - e["top"][1][1] for e in a.logprobs]
+                _near_tie_check(f"{name} request {i}", b.tokens, a.tokens,
+                                gaps, DISAGG_NEW)
+        row["parted"] = [_parting(i, a, b) for i, (a, b)
+                         in enumerate(zip(want, got)) if a.tokens != b.tokens]
+        if exports != imports or exports != DISAGG_F32 or any(
+                len(b.tokens) != DISAGG_NEW for b in got):
+            fail(f"{name}: {row}")
+        rows.append(row)
+    del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _disagg_http(torch, ops, serve) -> dict:
+    """(b): run A's first DISAGG_HTTP prompts, DISAGG_NEW greedy new
+    tokens, at the flagship width, one request at a time: through serve
+    --paged-kv (--role both) first, then POST /generate on --role prefill
+    and its "handoff" verbatim to /kv/import on --role decode, every
+    other one ?stream=true. One at a time, so each request's transfer is
+    timed alone: the clients and both apps share this process, and a
+    payload of tens of MB is JSON that holds the interpreter lock while it
+    is encoded and parsed. Every decode block's dispatch under sync debug
+    mode "error"; the export (encoding), the decode and verify before the
+    lock and the install under it timed; then a torn payload (400) and a
+    decode pool filled by DISAGG_FULL imports (429)."""
+    _, _, _, _, payloads = _serve_payloads()
+    bodies = [dict(prompt=pl["prompt"], max_new_tokens=DISAGG_NEW,
+                   timeout_s=600.0) for pl in payloads[:DISAGG_HTTP]]
+    ops.reset_launch_counts()
+
+    def ttfts(comps):
+        return sorted(c.trace["spans"][[n for n, _ in c.trace["spans"]]
+                                       .index("first_token")][1]
+                      - c.trace["spans"][0][1] for c in comps.values()
+                      if c.trace and c.tokens)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    app, httpd, url = _serve_app(serve, FLAGSHIP + ["--seed", "21",
+                                                    "--paged-kv"])
+    both_comps = _record_completions(app.server)
+    both_syncs = _checked_dispatch(torch, app.server)
+    try:
+        t0 = time.perf_counter()
+        solo = [_post(url, body) for body in bodies]
+        solo_wall = time.perf_counter() - t0
+    finally:
+        _stop_app(app, httpd)
+    solo_ttft = ttfts(both_comps)
+    del app, httpd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre_app, pre_httpd, pre_url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "21", "--paged-kv", "--role", "prefill"])
+    dec_app, dec_httpd, dec_url = _serve_app(serve, FLAGSHIP + [
+        "--seed", "21", "--paged-kv", "--role", "decode", "--kv-pool-blocks",
+        str(DISAGG_DECODE_BLOCKS)])
+    dec_base = dec_url.rsplit("/", 1)[0]
+    pre_srv, dec_srv = pre_app.server, dec_app.server
+    pre_syncs = _checked_dispatch(torch, pre_srv)
+    dec_syncs = _checked_dispatch(torch, dec_srv)
+    dec_comps = _record_completions(dec_srv)
+    timed = {"export_ms": [], "prepare_ms": [], "install_ms": []}
+
+    def timing(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                timed[key].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    install = dec_srv.import_blocks
+    pre_srv.export_blocks = timing(pre_srv.export_blocks, "export_ms")
+    dec_srv.prepare_import = timing(dec_srv.prepare_import, "prepare_ms")
+    dec_srv.import_blocks = timing(install, "install_ms")
+    legs = [None] * len(bodies)
+
+    def two_legs(i):
+        status, body, leg1_s = _post(pre_url, bodies[i])
+        if status != 200 or body.get("finish_reason") != "prefilled" \
+                or body.get("tokens") or "handoff" not in body:
+            legs[i] = dict(error=f"leg 1: {status} {str(body)[:200]}")
+            return
+        handoff = body["handoff"]
+        rec = dict(leg1_s=leg1_s, payload_bytes=len(json.dumps(handoff)),
+                   kv_bytes=3 * len(handoff["blocks_k"]) // 2)
+        if i % 2:
+            res = _sse(dec_base + "/kv/import?stream=true", handoff)
+            data = [f for _, f, _ in res["frames"]]
+            rec.update(status=res["status"], streamed=True,
+                       tokens=[t for f in data[:-1] for t in f["tokens"]],
+                       finish=data[-1].get("finish_reason") if data else None,
+                       first_frame_s=res["frames"][0][2]
+                       if res["frames"] else None)
+        else:
+            status, body, leg2_s = _post(dec_base + "/kv/import", handoff)
+            rec.update(status=status, streamed=False, leg2_s=leg2_s,
+                       tokens=body.get("tokens"),
+                       finish=body.get("finish_reason"))
+        legs[i] = rec
+
+    try:
+        t0 = time.perf_counter()
+        for i in range(len(bodies)):
+            two_legs(i)
+        wall = time.perf_counter() - t0
+        bad = [(i, r) for i, r in enumerate(legs) if r is None or "error"
+               in r or r["status"] != 200 or r["finish"] != "length"
+               or len(r["tokens"]) != DISAGG_NEW]
+        if bad:
+            fail(f"disagg (b): requests failed: {str(bad)[:600]}")
+        # a torn payload: 400, counted, the pool untouched
+        import numpy as np
+
+        long_prompt = np.random.default_rng(72).integers(
+            0, 32768, 1536).tolist()
+        status, body, _ = _post(pre_url, dict(
+            prompt=long_prompt, max_new_tokens=DISAGG_FULL_NEW))
+        full = body["handoff"]
+        free0 = dec_srv.stats()["paged_kv"]["pool_blocks_free"]
+        torn = dict(full, blocks_k=full["blocks_k"][:-24])
+        torn_status = _post(dec_base + "/kv/import", torn)[0]
+        free_torn = dec_srv.stats()["paged_kv"]["pool_blocks_free"]
+        # the decode pool filled: DISAGG_FULL imports of the long prompt
+        # under the lock, then one more over HTTP
+        held = []
+        with dec_app.lock:
+            for _ in range(DISAGG_FULL):
+                held.append(install(dec_srv.prepare_import(full)))
+        free_full = dec_srv.stats()["paged_kv"]["pool_blocks_free"]
+        full_status, full_body, _ = _post(dec_base + "/kv/import", full)
+        for rid in held:
+            dec_app.cancel(rid)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with dec_app.lock:
+                if dec_srv.idle:
+                    break
+            time.sleep(0.05)
+        drained = dec_srv.dispatch_tracker.drain(timeout=60)
+        pre_samples, pre_stats = _scrape_pair(pre_url.rsplit("/", 1)[0])
+        dec_samples, dec_stats = _scrape_pair(dec_base)
+    finally:
+        _stop_app(pre_app, pre_httpd)
+        _stop_app(dec_app, dec_httpd)
+    counts = ops.launch_counts()
+    lag = _device_time_checks("disagg (b, decode)", dec_stats, dec_samples,
+                              drained)
+    pk_pre, pk_dec = pre_stats["paged_kv"], dec_stats["paged_kv"]
+    wrong = {}
+    for pk, smp in ((pk_pre, pre_samples), (pk_dec, dec_samples)):
+        for key in ("kv_exports", "kv_imports", "kv_import_rejects"):
+            if smp.get(f"serving_{key}_total") != pk[key]:
+                wrong[key] = (smp.get(f"serving_{key}_total"), pk[key])
+    n = len(bodies)
+    if torn_status != 400 or full_status != 429 or wrong \
+            or pk_pre["kv_exports"] != n + 1 \
+            or pk_dec["kv_imports"] != n + DISAGG_FULL \
+            or pk_dec["kv_import_rejects"] != 1 or free_torn != free0 \
+            or any(counts.values()) or dec_syncs["admission"] \
+            or pk_dec["pool_blocks_free"] != DISAGG_DECODE_BLOCKS:
+        fail(f"disagg (b): torn {torn_status}, full pool {full_status} "
+             f"{str(full_body)[:200]}, /metrics against /stats {wrong}, "
+             f"{pk_pre['kv_exports']} exports, {pk_dec['kv_imports']} "
+             f"imports, {pk_dec['kv_import_rejects']} rejects, pool free "
+             f"{pk_dec['pool_blocks_free']}, launches {counts}, decode "
+             f"admission syncs {dec_syncs['admission']}")
+    if any(status != 200 for status, _, _ in solo):
+        fail(f"disagg (b): --role both answered {[x[0] for x in solo]}")
+    solo_tokens = [body["tokens"] for _, body, _ in solo]
+    equal = sum(r["tokens"] == t for r, t in zip(legs, solo_tokens))
+    parted = [next(j for j, (x, y) in enumerate(zip(r["tokens"], t))
+                   if x != y)
+              for r, t in zip(legs, solo_tokens) if r["tokens"] != t]
+    leg2_ttft = ttfts({k: v for k, v in dec_comps.items() if k not in held})
+    return dict(
+        requests=n, equal_solo=equal, parted_at=parted, wall_s=wall,
+        solo_wall_s=solo_wall,
+        payload_mb=[round(r["payload_bytes"] / 1e6, 3) for r in legs],
+        kv_mb=[round(r["kv_bytes"] / 1e6, 3) for r in legs],
+        export_ms=timed["export_ms"][:n], prepare_ms=timed["prepare_ms"][:n],
+        install_ms=timed["install_ms"][:n],
+        leg1_s=[r["leg1_s"] for r in legs],
+        leg2_ttft_s=leg2_ttft, solo_ttft_s=solo_ttft,
+        first_frame_s=[r["first_frame_s"] for r in legs if r["streamed"]],
+        torn_status=torn_status, full_status=full_status,
+        full_pool_free=free_full, full_error=str(full_body)[:120],
+        counters=dict(exports=pk_pre["kv_exports"],
+                      imports=pk_dec["kv_imports"],
+                      rejects=pk_dec["kv_import_rejects"]),
+        admission_syncs=dict(both=both_syncs["admission"],
+                             prefill=pre_syncs["admission"],
+                             decode=dec_syncs["admission"]),
+        device=lag, launches=counts)
+
+
+def phase_disagg(torch, ops) -> dict:
+    """Disaggregated prefill/decode serving: (a) at float32, a prefill
+    replica's exports decode on a decode replica token-identical to a
+    solo paged engine, and payloads survive the overwrite of their
+    blocks; (b) at the flagship width through serve's apps, the two legs
+    over HTTP beside --role both. Returns the kernels' launches (none:
+    the serving path runs no kernel)."""
+    print("== main path: disaggregated serving")
+    from tony_tpu_torch.cli import serve
+    from tony_tpu_torch.models import generate as G
+    from tony_tpu_torch.models import serving as S
+    from tony_tpu_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rows = _disagg_identity(torch, G, T, S)
+    counts_a = ops.launch_counts()
+    b = _disagg_http(torch, ops, serve)
+    seconds = time.perf_counter() - t0
+    for r in rows:
+        print(f"disagg (a, float32, 2 layers, {r['kv']} KV, {DISAGG_F32} "
+              f"requests of 64-512 tokens, {DISAGG_NEW} new): prefill "
+              f"replica -> decode replica, every payload encoded after its "
+              f"blocks were reused and overwritten: {r['equal']}/"
+              f"{DISAGG_F32} token-identical to a solo paged engine"
+              + (" (up to its first near-tie, required)"
+                 if r["kv"] == "native" else " (reported)")
+              + f", parted at {r['parted']}; {r['exports']} exports, "
+              f"{r['imports']} imports, {r['payload_bytes']} payload bytes; "
+              f"0 syncs in dispatch, {r['admission_syncs']} in admission")
+
+    def q(xs):
+        return (f"p50 {_quantiles(xs)['p50']:.3f} max "
+                f"{_quantiles(xs)['max']:.3f}") if xs else "n/a"
+
+    print(f"disagg (b, bf16, flagship, run A's first {b['requests']} "
+          f"prompts, {DISAGG_NEW} greedy new, one at a time): two legs over "
+          f"HTTP in {b['wall_s']:.3f} s (--role both in turn "
+          f"{b['solo_wall_s']:.3f} s); {b['equal_solo']}/{b['requests']} "
+          f"token-identical to --role both (bf16, reported; the others part "
+          f"at tokens {b['parted_at']}); payload MB {b['payload_mb']} (KV "
+          f"{b['kv_mb']}); export (encode) ms {q(b['export_ms'])}; import: "
+          f"decode and verify before the lock ms {q(b['prepare_ms'])}, "
+          f"install under the serving lock ms {q(b['install_ms'])}; leg 1 "
+          f"(/generate to the handoff) s {q(b['leg1_s'])}; leg 2 TTFT "
+          f"(import to first token) s {q(b['leg2_ttft_s'])}, streamed "
+          f"first frames s {q(b['first_frame_s'])}; --role both TTFT s "
+          f"{q(b['solo_ttft_s'])}")
+    print(f"disagg (b): a torn payload answered {b['torn_status']}; "
+          f"{DISAGG_FULL} imports of a 1536-token prompt with "
+          f"{DISAGG_FULL_NEW} new left {b['full_pool_free']} of "
+          f"{DISAGG_DECODE_BLOCKS} blocks and the next answered "
+          f"{b['full_status']} ({b['full_error']}); counters on /stats and "
+          f"/metrics alike {b['counters']}; the decode replica's tracker "
+          f"{b['device']['by_kind']}, device lag p50 "
+          f"{b['device']['device_lag_s'].get('p50_s')} s; synchronisations "
+          f"0 in dispatch, in admission {b['admission_syncs']}; the phase "
+          f"{seconds:.1f} s; {nvidia_smi_line()}")
+    counts = {k: counts_a[k] + b["launches"][k] for k in counts_a}
+    print("disagg " + json.dumps(dict(identity=rows, http=b,
+                                      seconds=seconds, launches=counts,
+                                      card=nvidia_smi_line())))
     return counts
 
 
@@ -4344,14 +4922,16 @@ def _kernel_launch_total(torch) -> int:
 
 def _profile_rows(prof, n):
     """(device ms per step, top kernels, the port's kernels) from a
-    torch.profiler run over n steps; device kernels only."""
+    torch.profiler run over n steps; device kernels only, less a device
+    sleep queued ahead of the steps."""
     from torch.autograd import DeviceType
 
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and us > 0:
+        if e.device_type == DeviceType.CUDA and us > 0 \
+                and "spin" not in e.key:
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     top = [dict(kernel=k[:80], ms_per_step=us / 1e3 / n, calls_per_step=c / n)
@@ -4542,10 +5122,12 @@ def main() -> int:
     stream_launches = phase_streaming(torch, ops, run_a)
     paged_launches = phase_paged(torch, ops, run_a, prefix_admit)
     telemetry_launches = phase_telemetry(torch, ops, run_a)
+    disagg_launches = phase_disagg(torch, ops)
     launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
                 + ckpt_launches[k] + prefix_launches[k] + replay_launches[k]
                 + stream_launches[k] + paged_launches[k]
-                + telemetry_launches[k] for k in gen_launches}
+                + telemetry_launches[k] + disagg_launches[k]
+                for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -37,10 +37,6 @@ from tony_tpu_torch.observability import (
 # each with the ROADMAP.md queue-1 item that brings it (README.md names
 # the same set):
 LEFT_OUT_FAMILIES = {
-    # 1.2b, device time: the dispatch tracker on CUDA events
-    "serving_dispatch_ready_seconds", "serving_inflight_dispatches",
-    "serving_dispatches_tracked_total", "serving_dispatch_track_dropped_total",
-    "serving_dispatch_reap_errors_total",
     # item 9, observability hooks: compile counters as CUDA-graph captures
     "serving_xla_compile_seconds", "serving_xla_compiles_total",
     "serving_xla_recompiles_post_warm_total",
@@ -447,8 +443,7 @@ def test_finish_reason_vocabulary_pinned():
         serving_src))
     assert not produced - set(serving_mod.FINISH_REASONS) - {"finished"}
     assert {"cancelled", "expired", "failed", "shed", "finished"} <= produced
-    # "prefilled" belongs to disaggregated roles, which the port lacks
-    for reason in set(serving_mod.FINISH_REASONS) - {"prefilled"}:
+    for reason in serving_mod.FINISH_REASONS:
         assert f'"{reason}"' in serving_src, reason
     assert "QueueFullError" in serve_src and "429" in serve_src
     assert "ServingLoopError" in serve_src and "503" in serve_src

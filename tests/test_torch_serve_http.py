@@ -121,7 +121,13 @@ def test_serve_http_end_to_end_matches_jax(model):
         code, stats = http.get("/stats")
         assert code == 200 and stats["slots"] == 2 and stats["active"] == 0
         assert stats["admission_dispatches"] >= 1
-        assert stats["loop"]["status"] == "ok" and stats["device"] == "cpu"
+        # "device" is the dispatch tracker's snapshot, as in the JAX
+        # package; the torch device's name is "torch_device"
+        assert stats["loop"]["status"] == "ok"
+        assert stats["torch_device"] == "cpu" and stats["role"] == "both"
+        assert set(stats["device"]) == {"in_flight", "tracked", "dropped",
+                                        "reap_errors", "dispatch_ready"}
+        assert stats["device"]["tracked"] > 0
         assert http.get("/healthz") == (200, {
             "healthy": True, "status": "ok", "error": None,
             "loop_restarts": 0})
@@ -439,7 +445,6 @@ def test_serve_prefix_cache_flags_and_stats():
     (["--hf-checkpoint", "/x"], "HF import"),
     (["--mesh", "tensor=2"], "mesh/TP"),
     (["--spec-gamma", "2"], "speculative"),
-    (["--role", "prefill"], "the rest of serving"),
     (["--draft-model", "d"], "speculative"),
     (["--model", "a=random"], "HF import"),
     (["--weight-dtype", "int8"], "w8a16"),

@@ -315,21 +315,51 @@ def test_sample_token_per_row():
 
 # ------------------------------------------------------------- the SlotServer
 
+def _mixed_requests():
+    """12 mixed-length prompts, a 1-token one among them, and their
+    budgets."""
+    prompts = _prompts(12, seed=3, lo=2, hi=22)
+    prompts[4] = prompts[4][:1]
+    return prompts, [6 + i % 5 for i in range(12)]
+
+
+@pytest.fixture(scope="module")
+def mixed_reference(model):
+    """The JAX side of test_slot_server_matches_jax_server_and_solo,
+    computed once for both cases (its first compiles dominate): the JAX
+    SlotServer's completions for each admission mode, and JAX solo
+    generate's tokens for each prompt."""
+    jcfg, _, tree, _ = model
+    prompts, max_news = _mixed_requests()
+    servers = {}
+    for batched in (True, False):
+        jsrv = JSlotServer(tree, jcfg, slots=3, max_len=64, block_size=4,
+                           prefill_chunk=8, batched_admission=batched)
+        jreqs = [JRequest(prompt=p, max_new_tokens=m)
+                 for p, m in zip(prompts, max_news)]
+        for r in jreqs:
+            jsrv.submit(r)
+        jdone = jsrv.run_until_drained()
+        servers[batched] = [jdone[r.id] for r in jreqs]
+    solo = [_jax_solo(model, p, n) for p, n in zip(prompts, max_news)]
+    return servers, solo
+
+
 @pytest.mark.parametrize("batched", [True, False],
                          ids=["batched", "per_slot"])
-def test_slot_server_matches_jax_server_and_solo(model, batched):
+def test_slot_server_matches_jax_server_and_solo(model, mixed_reference,
+                                                 batched):
     """12 mixed-length requests through 3 slots (re-admission into freed
     slots mid-flight), with a 1-token prompt among them: token-identical
     to the JAX SlotServer and to JAX solo generate."""
-    prompts = _prompts(12, seed=3, lo=2, hi=22)
-    prompts[4] = prompts[4][:1]
-    max_news = [6 + i % 5 for i in range(12)]
-    got, want, srv = _serve(model, prompts, max_news, slots=3, max_len=64,
-                            block_size=4, prefill_chunk=8,
-                            batched_admission=batched)
-    for g, w, p, n in zip(got, want, prompts, max_news):
+    prompts, max_news = _mixed_requests()
+    got, _, srv = _serve(model, prompts, max_news, jax_too=False, slots=3,
+                         max_len=64, block_size=4, prefill_chunk=8,
+                         batched_admission=batched)
+    servers, solo = mixed_reference
+    for g, w, p, ref in zip(got, servers[batched], prompts, solo):
         assert g.finish_reason == w.finish_reason == "length"
-        assert g.tokens == w.tokens == _jax_solo(model, p, n), (
+        assert g.tokens == w.tokens == ref, (
             f"prompt of {p.size} tokens diverged")
     if not batched:         # one prefill call per chunk of each body
         assert srv.admission_dispatches == sum(
@@ -585,7 +615,7 @@ def test_submit_rejections(model):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"role": "prefill"}, {"draft": "d"},
+    {"mesh": object()}, {"draft": "d"},
     {"registry": object()},
     {"rules": {}}, {"draft_cfg": object()}, {"spec_gamma": 2},
     {"spec_gamma_max": 8},

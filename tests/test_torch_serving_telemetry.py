@@ -307,8 +307,11 @@ def test_metrics_endpoint_matches_stats(model):
     parser of the JAX package accepts it, the TTFT/TPOT/queue/e2e
     histograms and every SERVING_* series but the paged and left-out ones
     are there, buckets are cumulative with +Inf == _count, the gauges
-    agree with GET /stats, device_lag renders with count 0 and no
-    left-out family appears."""
+    agree with GET /stats and no left-out family appears. Device time
+    (the device assertions of tests/test_observability.py:427-456): the
+    dispatch families render per kind, the tracker counted dispatches,
+    dropped none and raised no reap error, nothing is in flight once it
+    drained, and device_lag's count is the same on /metrics and /stats."""
     from tony_tpu_torch import metrics as pmetrics
 
     srv = _srv(model)
@@ -318,6 +321,8 @@ def test_metrics_endpoint_matches_stats(model):
     try:
         comp = app.generate(_prompt(5, seed=13), 5, timeout=120)
         assert len(comp.tokens) == 5
+        # the reaper catches up, so both scrapes see the same device time
+        assert srv.dispatch_tracker.drain(timeout=10)
         code, headers, text = http.get("/metrics")
         assert code == 200
         assert headers["Content-Type"].startswith("text/plain")
@@ -342,7 +347,16 @@ def test_metrics_endpoint_matches_stats(model):
               if nl.startswith('serving_ttft_seconds_bucket{le=')]
     assert counts and counts == sorted(counts)
     assert counts[-1] == s["serving_ttft_seconds_count"] == 1
-    assert s["serving_device_lag_seconds_count"] == 0
+    assert 'serving_dispatch_ready_seconds_bucket{kind="decode_block"' in text
+    assert 'serving_dispatch_ready_seconds_count{kind="prefill"}' in text
+    assert "# TYPE serving_inflight_dispatches gauge" in text
+    assert s["serving_inflight_dispatches"] == 0
+    assert s["serving_dispatches_tracked_total"] == \
+        stats["device"]["tracked"] > 0
+    assert s["serving_dispatch_track_dropped_total"] == 0
+    assert s["serving_dispatch_reap_errors_total"] == 0
+    assert s["serving_device_lag_seconds_count"] == \
+        stats["latency"]["device_lag_s"]["count"] > 0
     assert s["serving_queue_depth"] == stats["queued"]
     assert s["serving_active_slots"] == stats["active"]
     assert s["serving_shed_total"] == stats["shed"]
@@ -391,6 +405,82 @@ def test_metrics_families_equal_jax_serve(model, paged):
             assert s[f'serving_kv_pool_blocks{{state="{state}"}}'] == n
         assert s["serving_kv_admission_defers_total"] == \
             pk["admission_defers"]
+
+
+# /stats keys of one side only, each with why (a dotted path names a
+# nested key); every other key is on both sides with the same JSON type
+PORT_ONLY_STATS = {
+    "torch_device",         # the torch device's name ("device" is the
+    #                         tracker's snapshot, as in the JAX package)
+    "replay",               # replay on or off, also under "journal"
+    "decode_block_dispatch_ms_p50",     # a block's host dispatch
+    "journal.compactions",  # the journal file's rewrites
+}
+JAX_ONLY_STATS = {
+    "registry", "models",   # ROADMAP queue 1 item 4, the model registry
+    "compile",              # item 9, compile counters
+}
+
+
+def _stats_shape(v, path="", out=None):
+    """{dotted key: JSON type} of a /stats payload; a list is typed by
+    its first element, the histogram snapshots under ``latency`` and
+    ``device.dispatch_ready`` by their shared shape."""
+    out = {} if out is None else out
+    if isinstance(v, dict):
+        for k, x in v.items():
+            key = f"{path}.{k}" if path else k
+            if path in ("latency", "device.dispatch_ready"):
+                key = f"{path}.*"
+            _stats_shape(x, key, out)
+    elif isinstance(v, list):
+        out[path] = "list"
+        if v:
+            _stats_shape(v[0], path + "[]", out)
+    else:
+        out[path] = type(v).__name__
+    return out
+
+
+def _stats_after_one_request(app, prompt):
+    app.start()
+    try:
+        comp = app.generate(prompt, 5, timeout=120)
+        assert len(comp.tokens) == 5
+        tracker = getattr(app.server, "dispatch_tracker", None)
+        assert tracker is None or tracker.drain(timeout=10)
+        return json.loads(json.dumps(app.stats()))
+    finally:
+        app.shutdown()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+def test_stats_keys_and_types_equal_jax_serve(model, paged):
+    """One request through the port's ServeApp and through the JAX
+    package's, for the same engine mode: /stats has the same keys, nested
+    ones included, with the same JSON types, less exactly the keys one
+    side alone has. ``device`` is the dispatch tracker's snapshot on both
+    and ``role`` is ``"both"``."""
+    kw = dict(paged=True, kv_block=4) if paged else {}
+    prompt = _prompt(7, seed=17)
+    ours = _stats_after_one_request(ServeApp(_srv(model, **kw)), prompt)
+    ref = _stats_after_one_request(JServeApp(_jsrv(model, **kw)), prompt)
+    assert ours["role"] == ref["role"] == "both"
+    assert set(ours["device"]) == set(ref["device"]) == {
+        "in_flight", "tracked", "dropped", "reap_errors", "dispatch_ready"}
+    assert set(ours["device"]["dispatch_ready"]) == \
+        set(ref["device"]["dispatch_ready"])
+    a, b = _stats_shape(ours), _stats_shape(ref)
+
+    def roots(keys, declared):
+        """Each key as the declared key it lies under, else itself."""
+        return {next((r for r in declared if k == r or k.startswith(
+            (r + ".", r + "["))), k) for k in keys}
+
+    assert roots(set(a) - set(b), PORT_ONLY_STATS) == PORT_ONLY_STATS
+    assert roots(set(b) - set(a), JAX_ONLY_STATS) == JAX_ONLY_STATS
+    wrong = {k: (a[k], b[k]) for k in set(a) & set(b) if a[k] != b[k]}
+    assert not wrong, f"/stats types differ from the JAX serve's: {wrong}"
 
 
 def test_metrics_scrapes_keep_the_lock_handoff(model):

@@ -25,8 +25,15 @@ the prefix cache's (``prefix_cache``: hits, misses, evictions, blocks).
 
 Telemetry: GET /metrics renders the /stats numbers and the latency
 histograms (TTFT, TPOT, queue wait, end to end, prefill and decode-block
-dispatch, the loop's turn, replay catch-up, the streams' inter-token gap)
-in Prometheus's text format. A 429's ``Retry-After`` is the engine's
+dispatch, the loop's turn, device lag, replay catch-up, the streams'
+inter-token gap) in Prometheus's text format, with the device time of
+each dispatched program kind (``serving_dispatch_ready_seconds{kind=}``:
+dispatch to ready on the card, measured off the serving thread on CUDA
+events; /stats' ``device``). GET /debug/profile?seconds=N (N in (0,
+120]; one capture at a time, 409 otherwise) records a ``torch.profiler``
+trace of the live traffic into ``<trace-dir>/profiles/serve_<unix
+time>_<N>s/`` as Chrome-trace JSON (not an xplane dump; needs
+``--trace-dir``). A 429's ``Retry-After`` is the engine's
 estimate of the seconds until a queue seat frees (an EWMA of served
 requests' service time times the queue's depth over the slots), or the
 fleet autoscaler's remaining cooldown when that is longer: POST
@@ -69,6 +76,15 @@ checkpoint (``--checkpoint-dir``: its latest step's ``params``), on
 chunk-sized blocks; ``--no-cache-prompts`` serves from that cache but
 inserts a prompt only when its request sets ``"cache_prompt": true``.
 
+Disaggregated serving: ``--role prefill`` (needs ``--paged-kv``) prefills
+only: /generate answers ``finish_reason: "prefilled"``, no tokens, and
+the KV handoff payload as ``"handoff"``; POST that body verbatim to
+/kv/import on a ``--role decode`` (or ``both``) replica, which decodes
+the rest as the /generate of a local request would (``?stream=true``
+for SSE, ``?timeout_s=``). A damaged payload answers 400, a replica with
+no free slot or pool blocks 429 with ``Retry-After``. /stats says the
+``role``.
+
 ``--paged-kv`` swaps the slots x max-len KV ring for one pool of
 ``--kv-block``-token blocks (``--kv-pool-blocks`` of them; default the
 ring's bytes) with a block table a slot: admission waits for free blocks,
@@ -82,11 +98,9 @@ them (``--prefix-cache-blocks`` then counts ``--kv-block``-token nodes).
 use, the deferred admissions).
 
 Not ported yet, each raising a named error: ``--hf-checkpoint``,
-``--mesh``, ``--role``, ``--draft-model`` and the
-``--draft-*`` and ``--spec-gamma*`` flags, ``--model`` and
-``--weight-dtype int8``. /debug/profile and /kv/import are not served;
-/metrics has no device-time, compile, model or speculative families
-(ROADMAP.md queue 1).
+``--mesh``, ``--draft-model`` and the ``--draft-*`` and ``--spec-gamma*``
+flags, ``--model`` and ``--weight-dtype int8``. /metrics has no compile,
+model or speculative families (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -213,10 +227,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--class-budget-batch", type=int, default=0,
                    help="with --paged-kv: the KV blocks the batch class "
                         "may hold exclusively (0 = no cap)")
+    p.add_argument("--role", default="both",
+                   choices=("prefill", "decode", "both"),
+                   help="disaggregated serving: 'prefill' (needs "
+                        "--paged-kv) prefills only and answers /generate "
+                        "with finish_reason 'prefilled' and the KV handoff "
+                        "payload; 'decode' and 'both' serve in full and "
+                        "take POST /kv/import")
     # not ported yet: each raises in check_ported unless left at the JAX
     # package's default
     p.add_argument("--mesh", default="")
-    p.add_argument("--role", default="both")
     p.add_argument("--model", action="append", default=[])
     p.add_argument("--draft-model", default="")
     p.add_argument("--spec-gamma", type=int, default=0)
@@ -234,8 +254,6 @@ _SPEC = "speculative decoding"
 _NOT_PORTED_FLAGS = {
     "--hf-checkpoint": (lambda a: a.hf_checkpoint, "HF import"),
     "--mesh": (lambda a: a.mesh, "mesh/TP"),
-    "--role": (lambda a: a.role != "both",
-               "the rest of serving: disaggregated roles"),
     "--model": (lambda a: a.model, "HF import (the model registry)"),
     "--draft-model": (lambda a: a.draft_model, _SPEC),
     "--spec-gamma": (lambda a: a.spec_gamma, _SPEC),
@@ -318,7 +336,7 @@ def build_server(args):
         journal=journal, replay=not args.no_replay, paged=args.paged_kv,
         kv_block=args.kv_block, kv_pool_blocks=args.kv_pool_blocks,
         prefill_interleave=args.prefill_interleave,
-        class_budgets=budgets or None, device=args.device)
+        class_budgets=budgets or None, role=args.role, device=args.device)
     if recovered:
         n = srv.recover_journal(recovered)
         print(f"journal recovery: resumed {n} unfinished request(s) for "
@@ -375,7 +393,8 @@ class ServeApp:
     the engine's ``loop_turn_s`` histogram. ``trace_dir`` (``serve
     --trace-dir``) makes the engine's trace sink the directory's
     ``requests.trace.jsonl`` and its telemetry persistent across processes
-    (``TELEMETRY_STATE_FILE``: restored here, written at ``shutdown``)."""
+    (``TELEMETRY_STATE_FILE``: restored here, written at ``shutdown``),
+    and holds ``capture_profile``'s traces."""
 
     def __init__(self, server, *, max_loop_restarts: int = 3,
                  loop_backoff_s: float = 0.5, trace_dir: str = "",
@@ -421,6 +440,8 @@ class ServeApp:
         self._turn_timer = StepTimer()
         self.trace_dir = trace_dir
         self._trace_writer = None
+        # one profiler capture at a time (torch.profiler is process-wide)
+        self._profile_lock = threading.Lock()
         if trace_dir:
             self._open_trace_dir()
         self.thread = threading.Thread(
@@ -785,6 +806,47 @@ class ServeApp:
         self.cancel(rid)
         return [int(t) for t in p.get("tokens", [])] or None
 
+    def import_async(self, payload, timeout: float = 600.0, stream=None,
+                     trace=None):
+        """The decode leg of a KV transfer (POST /kv/import): install a
+        prefill replica's exported payload in the engine and register a
+        waiter as ``submit_async`` does -> (request_id, event). The
+        payload is decoded and verified before the serving lock is taken
+        (the engine's ``prepare_import``: a long prompt's payload is tens
+        of MB to hash). ValueError on damage (the caller re-prefills from
+        the prompt instead), QueueFullError when no slot or pool blocks
+        are free now. ``timeout`` is the caller's wait; an imported request
+        has no queue deadline (it never queues)."""
+        prep = getattr(self.server, "prepare_import", None)
+        imp = getattr(self.server, "import_blocks", None)
+        if not callable(prep) or not callable(imp):
+            raise ValueError("this engine does not support KV import")
+        prepared = prep(payload)        # ValueError propagates
+        with self.lock:
+            if self.status == "down":
+                raise ServingLoopError(f"serving loop is down: {self.error}")
+            if self.draining:
+                raise ServingLoopError(
+                    "server is draining; not accepting requests")
+            rid = imp(prepared, trace=trace)    # QueueFullError propagates
+            ev = threading.Event()
+            self._events[rid] = ev
+            if stream is not None:
+                self.server.attach_stream(rid, stream)
+        self.wake.set()
+        return rid, ev
+
+    def export_payload(self, request_id: int) -> dict:
+        """Pop a prefilled request's KV handoff payload (it rides the
+        /generate answer of a prefill-role replica). Encoded outside the
+        serving lock: the engine's stash has its own. KeyError when there
+        is none (the bounded stash aged it out): the router then
+        re-prefills on a decode replica."""
+        exp = getattr(self.server, "export_blocks", None)
+        if not callable(exp):
+            raise KeyError(f"no KV export payload for request {request_id}")
+        return exp(request_id)
+
     def cancel(self, request_id: int) -> bool:
         """Drop the waiter and stop the request wherever it is."""
         with self.lock:
@@ -895,6 +957,7 @@ class ServeApp:
         )
 
         tel = getattr(self.server, "telemetry", None)
+        tracker = getattr(self.server, "dispatch_tracker", None)
         hists = {}
         with self.lock:
             st = self._stats_locked()
@@ -902,6 +965,9 @@ class ServeApp:
                 for name in TELEMETRY_HISTOGRAMS:
                     hists[name] = Histogram()
                     hists[name].merge(tel.hist[name])
+        # the tracker's reaper feeds its histograms outside the serving
+        # lock: copies under the tracker's own
+        ready = tracker.histograms() if tracker is not None else {}
         r = PromRenderer()
         r.gauge("serving_slots", st.get("slots", 0),
                 "configured KV-cache slots")
@@ -1029,6 +1095,29 @@ class ServeApp:
         for name, h in hists.items():
             r.histogram("serving_" + name[:-2] + "_seconds", h,
                         TELEMETRY_HISTOGRAMS[name])
+        # device time: dispatch -> ready a program kind, and the tracker's
+        # counters (the /stats device snapshot taken with the numbers)
+        if tracker is not None:
+            dev = st["device"]
+            for kind, h in sorted(ready.items()):
+                r.histogram("serving_dispatch_ready_seconds", h,
+                            "dispatch -> device-ready latency per program "
+                            "kind (reaper-measured on CUDA events, off the "
+                            "serving thread)", labels={"kind": kind})
+            r.gauge("serving_inflight_dispatches", dev.get("in_flight", 0),
+                    "device programs dispatched but not yet observed ready "
+                    "(the measured pipeline depth)")
+            r.counter("serving_dispatches_tracked_total",
+                      dev.get("tracked", 0),
+                      "dispatches registered with the tracker")
+            r.counter("serving_dispatch_track_dropped_total",
+                      dev.get("dropped", 0),
+                      "dispatches untracked because the reaper fell behind "
+                      "(telemetry loss, not request loss)")
+            r.counter("serving_dispatch_reap_errors_total",
+                      dev.get("reap_errors", 0),
+                      "tracked fences whose wait raised (died with a "
+                      "failed dispatch)")
         for entry in st.get("metrics", []):
             r.gauge("serving_task_metric", entry["value"],
                     "MetricsAccumulator snapshot (max_/avg_ per gauge)",
@@ -1059,8 +1148,43 @@ class ServeApp:
         # beside the engine's stream counters
         out["stream_disconnects"] = self.stream_disconnects
         out["pid"] = os.getpid()
+        # the disaggregation role the fleet router reads; an engine without
+        # one (a test stand-in) serves both
+        out["role"] = out.get("role") or getattr(self.server, "role", "both")
         out["metrics"] = self.metrics.snapshot()
         return out
+
+    def capture_profile(self, seconds: float) -> dict:
+        """GET /debug/profile?seconds=N: record a ``torch.profiler`` trace
+        (Chrome-trace JSON) of whatever runs for ``seconds`` into
+        ``<trace_dir>/profiles/serve_<unix time>_<N>s/``. Runs on the HTTP
+        handler's thread while the serving loop keeps dispatching: the
+        card's kernels are recorded process-wide, host operations only on
+        the threads the profiler sees. One capture at a time
+        (BlockingIOError otherwise); RuntimeError without a trace
+        directory; ValueError outside (0, 120]."""
+        from pathlib import Path
+
+        from .. import constants as c
+        from ..train.profiling import trace
+
+        if not self.trace_dir:
+            raise RuntimeError("profiling needs --trace-dir (nowhere to "
+                               "write the trace)")
+        if not 0 < seconds <= 120:
+            raise ValueError("seconds must be in (0, 120]")
+        if not self._profile_lock.acquire(blocking=False):
+            raise BlockingIOError("a profile capture is already running")
+        try:
+            out_dir = (Path(self.trace_dir) / c.PROFILE_DIR_NAME
+                       / f"serve_{int(time.time())}_{seconds:g}s")
+            with trace(out_dir):
+                time.sleep(seconds)
+            files = sorted(str(f.relative_to(out_dir))
+                           for f in out_dir.rglob("*") if f.is_file())
+            return {"dir": str(out_dir), "seconds": seconds, "files": files}
+        finally:
+            self._profile_lock.release()
 
 
 def _generate_args(payload: dict, path: str) -> dict:
@@ -1124,9 +1248,10 @@ def _generate_args(payload: dict, path: str) -> dict:
 
 
 def make_handler(app: ServeApp, codec=None):
-    """The serve HTTP surface: GET /healthz, /stats, /metrics and
-    /progress, POST /generate (buffered or SSE), /v1/completions,
-    /v1/chat/completions and /autoscale/hint.
+    """The serve HTTP surface: GET /healthz, /stats, /metrics, /progress
+    and /debug/profile, POST /generate (buffered or SSE), /kv/import
+    (buffered or SSE), /v1/completions, /v1/chat/completions and
+    /autoscale/hint.
     ``codec`` is the /v1 routes' ``api.openai.TokenCodec`` (default
     "ids")."""
     from ..api import openai as oai
@@ -1272,6 +1397,24 @@ def make_handler(app: ServeApp, codec=None):
                 for ks in qs.get("keys", []):
                     keys.extend(k for k in ks.split(",") if k)
                 self._send(200, app.progress(keys))
+            elif self.path.partition("?")[0] == "/debug/profile":
+                # blocks this handler's thread for the capture while the
+                # loop keeps dispatching
+                qs = parse_qs(urlparse(self.path).query)
+                try:
+                    seconds = float(qs.get("seconds", ["2"])[0])
+                    result = app.capture_profile(seconds)
+                except ValueError as e:
+                    self._send(400, {"error": str(e)})
+                    return
+                except (BlockingIOError, RuntimeError) as e:
+                    # a capture running, or no --trace-dir
+                    self._send(409, {"error": str(e)})
+                    return
+                except Exception as e:      # the profiler failed
+                    self._send(500, {"error": f"capture failed: {e}"})
+                    return
+                self._send(200, result)
             else:
                 self._send(404, {"error": "unknown path"})
 
@@ -1285,8 +1428,82 @@ def make_handler(app: ServeApp, codec=None):
                 self._post_openai(chat=True)
             elif path == "/autoscale/hint":
                 self._post_autoscale_hint()
+            elif path == "/kv/import":
+                self._post_kv_import()
             else:
                 self._send(404, {"error": "unknown path"})
+
+        def _post_kv_import(self):
+            """The decode leg of a KV transfer: the body is a prefill
+            replica's ``"handoff"`` payload verbatim (its keys are the
+            pinned ``KV_IMPORT_KEYS``), so ``stream`` and ``timeout_s``
+            ride the query string. Then it answers as /generate does:
+            buffered, or SSE with ``?stream=true``. A damaged payload is a
+            400 (the router re-prefills from the prompt instead), a full
+            replica a 429 with Retry-After."""
+            qs = parse_qs(urlparse(self.path).query)
+            ts = None
+            try:
+                timeout = float((qs.get("timeout_s") or ["600"])[0])
+                if not 0 < timeout < float("inf"):
+                    raise ValueError(
+                        "timeout_s must be a positive finite number")
+                if (qs.get("stream") or ["false"])[0].lower() in (
+                        "1", "true", "yes"):
+                    ts = TokenStream()
+                payload = read_json_body(self)
+                ctx = self._trace_ctx()
+                rid, ev = app.import_async(payload, timeout=timeout,
+                                           stream=ts, trace=ctx)
+            except QueueFullError as e:
+                self._send(429, {"error": str(e)},
+                           headers=self._retry_after(e))
+                return
+            except ServingLoopError as e:
+                self._send(503, {"error": str(e)})
+                return
+            except (KeyError, ValueError, TypeError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            if ts is not None:
+                seen = {"n": 0}
+                got: list = []
+
+                def frame(toks):
+                    toks = [int(t) for t in toks]
+                    got.extend(toks)
+                    seen["n"] += len(toks)
+                    return sse_frame({"tokens": toks},
+                                     event_id=f"{rid}:{seen['n']}")
+
+                def final(reason):
+                    return sse_frame(
+                        {"id": rid, "finish_reason": reason,
+                         "n_tokens": seen["n"], "trace_id": ctx.trace_id},
+                        event_id=f"{rid}:{seen['n']}")
+
+                def err(msg):
+                    return sse_frame({"error": str(msg)})
+
+                begin_sse(self)
+                self._relay_sse(
+                    rid, ts, time.monotonic() + timeout, frame, final, err,
+                    lambda: app.save_resume_prefix(rid, got))
+                return
+            if not self._wait(rid, ev, timeout,
+                              lambda m: self._send(504, {"error": m})):
+                return
+            try:
+                comp = app.take_result(rid)
+            except ServingLoopError as e:
+                self._send(503, {"error": str(e)})
+                return
+            except TimeoutError as e:
+                self._send(504, {"error": str(e)})
+                return
+            self._send(200, {"id": comp.id, "tokens": comp.tokens,
+                             "finish_reason": comp.finish_reason},
+                       headers={TRACE_ID_RESPONSE_HEADER: ctx.trace_id})
 
         def _post_autoscale_hint(self):
             """The autoscaler's remaining cooldown, ``{"cooldown_s": s}``:
@@ -1379,6 +1596,14 @@ def make_handler(app: ServeApp, codec=None):
                     "finish_reason": comp.finish_reason}
             if comp.logprobs is not None:
                 body["logprobs"] = comp.logprobs
+            if comp.finish_reason == "prefilled":
+                # a prefill role's handoff rides the answer the router
+                # already waits for; an aged-out stash omits it (the
+                # router then re-prefills on a decode replica)
+                try:
+                    body["handoff"] = app.export_payload(comp.id)
+                except KeyError:
+                    pass
             self._send(200, body,
                        headers={TRACE_ID_RESPONSE_HEADER: ctx.trace_id})
 

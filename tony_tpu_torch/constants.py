@@ -1,6 +1,6 @@
-"""The env contract and exit codes the port's training path reads, and the
-serving chaos hooks (its own copy of the JAX package's constants.py
-entries, which the port does not import)."""
+"""The env contract and exit codes the port's training path reads, the
+serving chaos hooks and serve's profile directory (its own copy of the
+JAX package's constants.py entries, which the port does not import)."""
 
 # ---- executor -> user-process env
 ENV_JOB_NAME = "TONY_JOB_NAME"            # role, e.g. "worker"
@@ -46,3 +46,7 @@ TEST_SERVING_SIGKILL_AT_BLOCK = "TONY_TEST_SERVING_SIGKILL_AT_BLOCK"
 #   the serving PROCESS SIGKILLs itself at that decode block — the
 #   replica-death injection point for journal-recovery e2e tests
 #   (0/unset = off)
+
+# serve's GET /debug/profile writes its captures under
+# <trace-dir>/<PROFILE_DIR_NAME>/
+PROFILE_DIR_NAME = "profiles"

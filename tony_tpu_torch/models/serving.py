@@ -119,22 +119,45 @@ requests, from a file-backed journal.
   is logged, never raised). A slot-freeing terminal feeds the service-time
   EWMA behind ``estimate_retry_after()``, which every ``QueueFullError``
   carries. Every mark is a host clock reading: nothing waits for the card.
+- **Device time** (``dispatch_tracker``, an ``observability.
+  DispatchTracker``): every device program the engine enqueues (prefill
+  chunks and rounds, decode blocks, prefix copies and inserts, paged
+  scatters) registers a fence, a CUDA event recorded right behind it (a
+  decode block's is the event behind its pinned read). The tracker's
+  reaper thread waits on them in dispatch order, off the serving thread,
+  and ``_process`` subtracts a block's ready instant from the instant the
+  host reads it: ``device_lag_s`` (the histogram, and the traces'
+  ``device_lag_s`` and ``device_lag_first_token_s``). ``stats()["device"]``
+  is the tracker's snapshot. Recording an event waits for nothing.
+- **Disaggregated roles** (``role=``): ``"prefill"`` (paged only) runs
+  admission and the chunked prefill, then completes the request
+  ``"prefilled"`` with no tokens, frees its slot and blocks, and keeps a
+  transfer payload for ``export_blocks``; ``"decode"`` and ``"both"`` serve
+  normally and ``import_blocks`` installs another replica's payload into
+  this pool and resumes the decode, as a local final prefill chunk would.
+  The wire format (``serialize_kv_blocks``) is the JAX package's, byte for
+  byte, so a payload crosses frameworks. The export enqueues a copy of the
+  blocks into pinned memory behind a CUDA event and serializes only when
+  the payload is asked for, so nothing in dispatch waits for the card.
 
 Not ported yet, each raising a named error: the mesh and its rule table,
-disaggregated roles, speculative serving, device time (the dispatch
-tracker), the model registry, MoE and w8a16.
+speculative serving, the model registry, MoE and w8a16.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import dataclasses
+import hashlib
 import itertools
 import logging
 import os
 import random
 import signal
+import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -145,6 +168,7 @@ from .. import constants as c
 from ..device import resolve_device
 from ..events.journal import RequestJournal
 from ..observability import (
+    DispatchTracker,
     RequestTrace,
     ServiceRateEstimator,
     ServingTelemetry,
@@ -170,8 +194,9 @@ log = logging.getLogger(__name__)
 
 # What a delivered Completion.finish_reason can say (the JAX package's
 # serving.py:173-180); "shed" is a queued batch-tier request displaced by
-# an interactive arrival, "prefilled" belongs to disaggregated serving,
-# which is not ported. "failed" ends a request with no Completion.
+# an interactive arrival, "prefilled" ends a prefill-role request whose
+# KV went out for another replica to decode. "failed" ends a request with
+# no Completion.
 COMPLETION_FINISH_REASONS = ("stop", "length", "cancelled", "expired",
                              "shed", "prefilled")
 FINISH_REASONS = COMPLETION_FINISH_REASONS + ("failed",)
@@ -191,8 +216,6 @@ LOGPROBS_MAX = 8
 _NOT_PORTED = {
     "mesh": (None, "tensor-parallel serving", "mesh/TP"),
     "rules": (None, "the mesh's sharding rules", "mesh/TP"),
-    "role": ("both", "disaggregated prefill/decode roles",
-             "the rest of serving: disaggregated roles"),
     "draft": (None, "speculative serving", "speculative decoding"),
     "draft_cfg": (None, "speculative serving", "speculative decoding"),
     "spec_gamma": (0, "a pinned speculative window", "speculative decoding"),
@@ -510,20 +533,46 @@ def _decode_block(params, fused, cfg: TransformerConfig, cache: KVCache,
     return cache, torch.cat(cols, dim=1)
 
 
+class _Fence:
+    """What ``DispatchTracker`` waits on for one dispatch: a CUDA event
+    recorded right behind it, or nothing on the CPU, where the work is
+    done when the call returns. The event is made with ``blocking=True``:
+    a thread waiting on it sleeps (PyTorch releases the interpreter lock
+    around the wait) instead of spinning on a core the host-bound serving
+    loop needs."""
+    __slots__ = ("event",)
+
+    def __init__(self, event=None):
+        self.event = event
+
+    def block_until_ready(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
+def _event(device: torch.device):
+    """A blocking CUDA event recorded now on the current stream, or None
+    off the card. Recording waits for nothing."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(blocking=True)
+    ev.record()
+    return ev
+
+
 def _start_read(packed: torch.Tensor):
     """Start a decode block's packed result on its way to the host ->
     (host tensor, CUDA event or None). On the card: a non-blocking copy
     into pinned memory (PyTorch's host allocator caches the blocks and
     keeps each until its copy has run) and an event behind it, so a
     reader waits for this block only, not for the blocks enqueued after
-    it. On the CPU the result is host memory already."""
+    it (the event is also the block's fence for the dispatch tracker). On
+    the CPU the result is host memory already."""
     if packed.device.type != "cuda":
         return packed, None
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
     host.copy_(packed, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record()
-    return host, ready
+    return host, _event(packed.device)
 
 
 def _cancel_slot(active: torch.Tensor, slot: int) -> None:
@@ -532,6 +581,43 @@ def _cancel_slot(active: torch.Tensor, slot: int) -> None:
     after treats it as an idle row (the JAX package's serving.py:1037).
     A fill of a one-element view: no copy from the host, no wait."""
     active[slot:slot + 1].fill_(False)
+
+
+@torch.no_grad()
+def _write_pool_blocks(pool: PrefixPool, ids, k, v, ks, vs) -> None:
+    """Install imported blocks (host tensors in the pool's layout, pinned
+    on the card: the copies wait for nothing) at the pool's block ids
+    ``ids``, in place: one ``index_copy_`` a tensor."""
+    dev = pool.k.device
+    idx = _stage(np.asarray(ids, np.int64), dev)
+    pairs = [(pool.k, k), (pool.v, v)]
+    if pool.k_scale is not None:
+        pairs += [(pool.k_scale, ks), (pool.v_scale, vs)]
+    for dst, src in pairs:
+        dst.index_copy_(1, idx, src.to(dev, non_blocking=True))
+
+
+@torch.no_grad()
+def _activate_slot(state: _SlotState, lens: torch.Tensor, slot: int,
+                   token: int, target: int, offset: int, length: int,
+                   temp: float, topk: int) -> None:
+    """Write one slot's decode state as a final prefill chunk's commit
+    does (fed token, active, budget target, ring offset, length,
+    temperature, top-k), from one staged host row: a Python scalar
+    assigned through a tensor index would reach the card by a copy that
+    waits for it."""
+    dev = lens.device
+    row = _stage(np.asarray([slot, token, target, offset, length, topk],
+                            np.int64), dev)
+    temp_d = _stage(np.asarray([temp], np.float32), dev)
+    at = row[0:1]
+    state.tokens[at] = row[1:2].to(torch.int32)
+    state.active.index_fill_(0, at, True)
+    state.target[at] = row[2:3].to(torch.int32)
+    state.offsets[at] = row[3:4].to(torch.int32)
+    lens[at] = row[4:5].to(torch.int32)
+    state.temps[at] = temp_d
+    state.topks[at] = row[5:6].to(torch.int32)
 
 
 # ---------------------------------------------------------- prefix cache
@@ -969,6 +1055,204 @@ def _scatter_paged_rows(pool: PrefixPool, view: KVCache,
                                        .index_select(0, src))
 
 
+# ------------------------------------------------------------ KV transfer
+# (the JAX package's serving.py:1436-1575). Pool blocks hold KV rows in
+# logical order: position p lives at table entry p // B, row p % B,
+# whatever the slot's ring offset, so a block's bytes mean the same in any
+# replica. A prefill-role replica exports the blocks covering [0,
+# body_len) with the request's journal entry (if the transfer dies, the
+# prompt re-prefills anywhere); a decode replica writes them into blocks
+# of its own pool and decodes as if it had prefilled them. The bytes are
+# the JAX package's: the pool layout [L, n, kvH, B, D] (int8 scales [L,
+# n, kvH, B]), C order, base64, and a sha256 over K, V, then the scales,
+# with the dtypes spelled as numpy spells them.
+
+KV_TRANSFER_VERSION = 1
+
+# every key a /kv/import payload carries
+KV_IMPORT_KEYS = (
+    "version", "model", "kv_block", "kv_dtype", "body_len", "n_blocks",
+    "block_shape", "dtype", "scale_dtype", "blocks_k", "blocks_v",
+    "scales_k", "scales_v", "checksum", "entry",
+)
+
+# the journal fields inside payload["entry"]: the replay state minus the
+# process-local deadline; "trace" is the prefill leg's TraceContext dict
+KV_ENTRY_KEYS = (
+    "id", "prompt", "max_new_tokens", "temperature", "top_k",
+    "cache_prompt", "seed", "emitted", "model", "stop", "logprobs",
+    "priority", "trace",
+)
+
+# numpy's dtype names (what the JAX package writes) <-> torch dtypes;
+# numpy has no bfloat16 without ml_dtypes, so bytes decode in torch
+_WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "int8": torch.int8}
+_WIRE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def _wire_bytes(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's C-order bytes, as a uint8 array (no copy for a
+    contiguous tensor)."""
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+def _b64(buf) -> str:
+    return base64.b64encode(buf).decode("ascii")
+
+
+def _transfer_checksum(*bufs) -> str:
+    h = hashlib.sha256()
+    for b in bufs:
+        h.update(b)
+    return h.hexdigest()
+
+
+@dataclass
+class _KVSnapshot:
+    """Pool blocks on their way to the host: [k, v] (+ [k_scale,
+    v_scale]) gathered in table order and copied into pinned memory
+    behind ``ready`` (None on the CPU: already there)."""
+    host: list
+    ready: Any = None
+
+    def wait(self) -> list:
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self.host
+
+
+def _snapshot_kv_blocks(pool: PrefixPool, ids) -> _KVSnapshot:
+    """Enqueue a copy of pool blocks ``ids`` (table order) to the host,
+    waiting for nothing: one ``index_select`` a tensor into a fresh
+    buffer, then a non-blocking copy into pinned memory and an event.
+    The caller may free and reuse the blocks at once: every later write
+    to them is enqueued after this copy, so stream order runs it on the
+    bytes as they are now."""
+    dev = pool.k.device
+    idx = _stage(np.asarray(ids, np.int64), dev)
+    parts = [pool.k, pool.v]
+    if pool.k_scale is not None:
+        parts += [pool.k_scale, pool.v_scale]
+    host = []
+    for t in parts:
+        g = t.index_select(1, idx)
+        if dev.type == "cuda":
+            h = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+            h.copy_(g, non_blocking=True)
+            g = h
+        host.append(g)
+    return _KVSnapshot(host, _event(dev))
+
+
+def _payload(host: list, *, model, kv_block, kv_dtype, body_len,
+             entry) -> dict:
+    """The transfer payload of host blocks [k, v(, ks, vs)]."""
+    k = host[0]
+    bufs = [_wire_bytes(t) for t in host]
+    scaled = len(host) == 4
+    return {
+        "version": KV_TRANSFER_VERSION,
+        "model": model,
+        "kv_block": int(kv_block),
+        "kv_dtype": str(kv_dtype),
+        "body_len": int(body_len),
+        "n_blocks": int(k.shape[1]),
+        "block_shape": [int(d) for d in k.shape],
+        "dtype": _WIRE_NAMES[k.dtype],
+        "scale_dtype": _WIRE_NAMES[host[2].dtype] if scaled else None,
+        "blocks_k": _b64(bufs[0]),
+        "blocks_v": _b64(bufs[1]),
+        "scales_k": _b64(bufs[2]) if scaled else None,
+        "scales_v": _b64(bufs[3]) if scaled else None,
+        "checksum": _transfer_checksum(*bufs),
+        "entry": dict(entry),
+    }
+
+
+def serialize_kv_blocks(pool: PrefixPool, ids, *, model, kv_block,
+                        kv_dtype, body_len, entry) -> dict:
+    """Snapshot pool blocks ``ids`` (table order) into a JSON-able
+    transfer payload, waiting for the copy (the JAX package's
+    serving.py:1493). ``entry`` is the request's journal replay state,
+    which the receiver resubmits from if the KV is unusable. The engine
+    splits this in two: the copy at the prefill's end
+    (``_snapshot_kv_blocks``), the encoding in ``export_blocks``."""
+    return _payload(_snapshot_kv_blocks(pool, ids).wait(), model=model,
+                    kv_block=kv_block, kv_dtype=kv_dtype,
+                    body_len=body_len, entry=entry)
+
+
+def _from_wire(raw: bytes, dtype: torch.dtype, shape) -> torch.Tensor:
+    """Decoded bytes as a CPU tensor of ``shape`` (read-only memory: the
+    tensor is copied before anything writes)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # "buffer is not writable"
+        return torch.frombuffer(raw, dtype=dtype).reshape(shape)
+
+
+def deserialize_kv_blocks(payload: dict) -> tuple:
+    """Decode and verify a transfer payload -> CPU tensors (k, v, k_scale,
+    v_scale), the scales None for a native pool (the JAX package's
+    serving.py:1533). Any damage raises ValueError: a wrong version,
+    missing keys, truncated buffers, a checksum mismatch."""
+    try:
+        version = int(payload["version"])
+        shape = tuple(int(d) for d in payload["block_shape"])
+        dtype = _WIRE_DTYPES[payload["dtype"]]
+        raw_k = base64.b64decode(payload["blocks_k"], validate=True)
+        raw_v = base64.b64decode(payload["blocks_v"], validate=True)
+        checksum = payload["checksum"]
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"malformed KV transfer payload: {e}") from None
+    if version != KV_TRANSFER_VERSION:
+        raise ValueError(
+            f"KV transfer version {version} != {KV_TRANSFER_VERSION}")
+    if len(shape) != 5 or shape[1] != int(payload.get("n_blocks", -1)):
+        raise ValueError("KV transfer block_shape/n_blocks mismatch")
+    expect = int(np.prod(shape)) * dtype.itemsize
+    if len(raw_k) != expect or len(raw_v) != expect:
+        raise ValueError(
+            f"truncated KV transfer payload: expected {expect} bytes "
+            f"per buffer, got k={len(raw_k)} v={len(raw_v)}")
+    bufs = [raw_k, raw_v]
+    ks = vs = None
+    if payload.get("scales_k") is not None:
+        try:
+            sdtype = _WIRE_DTYPES[payload["scale_dtype"]]
+            raw_ks = base64.b64decode(payload["scales_k"], validate=True)
+            raw_vs = base64.b64decode(payload["scales_v"], validate=True)
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(
+                f"malformed KV transfer scales: {e}") from None
+        s_expect = int(np.prod(shape[:4])) * sdtype.itemsize
+        if len(raw_ks) != s_expect or len(raw_vs) != s_expect:
+            raise ValueError("truncated KV transfer scale payload")
+        bufs += [raw_ks, raw_vs]
+        ks = _from_wire(raw_ks, sdtype, shape[:4])
+        vs = _from_wire(raw_vs, sdtype, shape[:4])
+    if _transfer_checksum(*bufs) != checksum:
+        raise ValueError("KV transfer payload checksum mismatch")
+    return (_from_wire(raw_k, dtype, shape), _from_wire(raw_v, dtype, shape),
+            ks, vs)
+
+
+@dataclass
+class _KVImport:
+    """A payload decoded, verified against an engine and staged in host
+    memory (pinned on the card), ready for ``import_blocks`` to install
+    under the serving lock without touching its bytes again."""
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor | None
+    vs: torch.Tensor | None
+    entry: dict
+    prompt: list
+    max_new: int
+    emitted: list
+    n_blocks: int
+
+
 # ------------------------------------------------------------------ server
 
 class SlotServer:
@@ -1023,7 +1307,15 @@ class SlotServer:
     ``trace_sink`` (a callable) gets every sealed trace's dict (``serve
     --trace-dir`` passes ``events.trace.TraceWriter.write``);
     ``telemetry`` holds the latency histograms (``stats()["latency"]``),
-    which ``reset()`` keeps."""
+    which ``reset()`` keeps; ``dispatch_tracker`` the device time
+    (``stats()["device"]``; its thread stops at ``shutdown()``).
+
+    ``role`` is ``"both"`` (default), ``"prefill"`` (needs ``paged``: each
+    request ends ``"prefilled"`` once its prompt is in the pool, and
+    ``export_blocks(id)`` pops its transfer payload, kept for the newest
+    64) or ``"decode"`` (advisory, as ``"both"``; the router sends it the
+    payloads). ``import_blocks(payload)`` resumes another replica's
+    prefilled request here."""
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
                  max_len: int = 2048, block_size: int = 16,
@@ -1037,8 +1329,8 @@ class SlotServer:
                  model: str = "default", journal: RequestJournal | None = None,
                  replay: bool = True, paged: bool = False, kv_block: int = 0,
                  kv_pool_blocks: int = 0, class_budgets: dict | None = None,
-                 prefill_interleave: int = 0, trace_sink=None, device=None,
-                 **not_ported):
+                 prefill_interleave: int = 0, trace_sink=None,
+                 role: str = "both", device=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SlotServer() got an unexpected keyword "
@@ -1102,6 +1394,24 @@ class SlotServer:
         elif self._class_budgets:
             raise ValueError("class_budgets requires paged=True (budgets "
                              "count pool blocks)")
+        self.role = str(role or "both")
+        if self.role not in ("prefill", "decode", "both"):
+            raise ValueError(f"unknown serving role {role!r} (expected "
+                             "'prefill', 'decode' or 'both')")
+        if self.role == "prefill" and not self._paged:
+            raise ValueError("role='prefill' requires paged=True (the "
+                             "transfer unit is the paged KV block)")
+        # a prefill role's finished payloads awaiting pickup, oldest
+        # evicted first (an unclaimed one costs the decode side a
+        # re-prefill, never a request); the stash and the counters are
+        # shared with the HTTP threads that export and import
+        self._exports: collections.OrderedDict[int, tuple] = \
+            collections.OrderedDict()
+        self._exports_cap = 64
+        self._transfer_lock = threading.Lock()
+        self.kv_exports = 0             # payloads snapshot
+        self.kv_imports = 0             # payloads installed
+        self.kv_import_rejects = 0      # damaged or unfit payloads refused
         self._seed = int(seed)          # journaled with every request
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # built once: a tensor made from a list on the card waits for it
@@ -1168,6 +1478,9 @@ class SlotServer:
         self.trace_sink = trace_sink
         self._traces: dict[int, RequestTrace] = {}
         self._rate = ServiceRateEstimator()
+        # device time (module docstring): each dispatch's fence, waited on
+        # by the tracker's thread; reset() re-arms it, shutdown() stops it
+        self.dispatch_tracker = DispatchTracker()
         # ServeApp.shutdown(drain=True) parks admission
         self.pause_admission = False
         self._init_device_state()
@@ -1565,6 +1878,10 @@ class SlotServer:
                 tr.attrs["replayed_tokens"] = len(entry.emitted)
             replay_reqs.append(self._request_from_entry(entry, id=rid))
         self._prefix_refs.clear()
+        # the pending fences are dropped unwaited (a failed dispatch's may
+        # never complete) and no ready instant crosses the reset; the
+        # histograms are kept
+        self.dispatch_tracker.reset()
         self._init_device_state()
         if self._paged:
             self._init_paged_state()
@@ -1623,8 +1940,10 @@ class SlotServer:
         return n
 
     def shutdown(self) -> None:
-        """Close a file-backed journal (ServeApp calls this at the end);
-        nothing else runs in the background."""
+        """Stop the dispatch tracker's thread (no device time is recorded
+        after) and close a file-backed journal; ServeApp calls this at
+        the end. Idempotent."""
+        self.dispatch_tracker.shutdown()
         if self._journal is not None:
             self._journal.close()
 
@@ -1819,7 +2138,8 @@ class SlotServer:
         disp = sorted(self.block_dispatch_s)
         out = {
             "model": self.model,
-            "device": str(self.device),
+            "role": self.role,
+            "torch_device": str(self.device),
             "slots": self.slots,
             "active": self.n_active,
             "queued": self.pending,
@@ -1847,6 +2167,9 @@ class SlotServer:
             # count and quantiles of each histogram (host monotonic clock)
             "latency": self.telemetry.snapshot(),
             "retry_after_s": self.estimate_retry_after(),
+            # dispatch -> ready quantiles a program kind and the tracker's
+            # counters (in_flight, tracked, dropped, reap_errors)
+            "device": self.dispatch_tracker.snapshot(),
         }
         if self._journal is not None:
             out["journal"] = {
@@ -1877,10 +2200,9 @@ class SlotServer:
                 "pool_blocks_used": alloc.used_blocks,
                 "pool_blocks_peak": alloc.peak_used,
                 "pool_state": self._pool_state_counts(),
-                # block transfer (disaggregated roles) is not ported
-                "kv_exports": 0,
-                "kv_imports": 0,
-                "kv_import_rejects": 0,
+                "kv_exports": self.kv_exports,
+                "kv_imports": self.kv_imports,
+                "kv_import_rejects": self.kv_import_rejects,
                 "class_used": dict(alloc.class_used),
                 "class_budgets": dict(self._class_budgets),
                 "admission_defers": self.admission_defers,
@@ -2023,6 +2345,14 @@ class SlotServer:
         if tr is not None:
             tr.mark(span)
 
+    def _track(self, kind: str, event=None) -> int:
+        """Register the dispatch just enqueued with the tracker: behind
+        ``event`` when the caller has one recorded there, else behind a
+        new one. -> its sequence number."""
+        if event is None:
+            event = _event(self.device)
+        return self.dispatch_tracker.track(kind, _Fence(event))
+
     def _dispatch_prefix_copy(self, admissions) -> None:
         """Phase 1 of admission: one ``_copy_prefix_blocks`` call moves
         every matched pool block of the burst into its slot's ring, ahead
@@ -2034,6 +2364,7 @@ class SlotServer:
                                 _stage(np.asarray(rows, np.int64).T,
                                        self.device))
             self.prefix_copy_dispatches += 1
+            self._track("prefix_copy")
 
     def _dispatch_prefix_insert(self, admissions) -> None:
         """Phase 3 of admission: insert the burst's new full chunks into
@@ -2055,6 +2386,7 @@ class SlotServer:
                                   _stage(np.asarray(rows, np.int64).T,
                                          self.device))
             self.prefix_insert_dispatches += 1
+            self._track("prefix_insert")
         # the insert references protected the new blocks until their copy
         self._prefix_cache.release(created)
 
@@ -2074,6 +2406,7 @@ class SlotServer:
                            adm.last, adm.target, adm.temp, adm.topk,
                            finalize=c0 == adm.chunk_starts[-1])
             self.admission_dispatches += 1
+            self._track("prefill")
 
     def _prefill_burst(self, admissions) -> None:
         """Batched admission: chunk round r of every admitted request in
@@ -2091,6 +2424,7 @@ class SlotServer:
                 [a.temp for a in rows], [a.topk for a in rows],
                 [r == len(a.chunk_starts) - 1 for a in rows])
             self.admission_dispatches += 1
+            self._track("prefill")
 
     def _apply_admit(self, admit) -> None:
         slot, body_len, req = admit
@@ -2197,6 +2531,7 @@ class SlotServer:
             _scatter_paged_rows(self._kv_pool, view,
                                 _stage(rows.astype(np.int64), self.device))
         self.paged_scatter_dispatches += 1
+        self._track("paged_scatter")
 
     def _admit_paged(self) -> None:
         """Paged admission, gated on free pool blocks and the class's
@@ -2324,12 +2659,13 @@ class SlotServer:
             c0 = adm.chunk_starts[idx]
             final = idx == len(adm.chunk_starts) - 1
             n_valid = max(0, min(self.prefill_chunk, adm.body.size - c0))
-            if final:
+            if final and self.role != "prefill":
                 # the admission-time offset put the first decode write at
                 # the cursor of then; blocks interleaved since moved it.
                 # The pool is logical, so the offset may change between
                 # dispatches: re-derive it for the cursor of now (a no-op
-                # when nothing interleaved)
+                # when nothing interleaved; a prefill role's slot never
+                # decodes)
                 adm.offset = (self._cursor - adm.body.size) % self.max_len
                 self._np_offs[adm.slot] = adm.offset
             self._dispatch_paged_prefill(adm, c0, n_valid, final)
@@ -2348,9 +2684,13 @@ class SlotServer:
         chunk = np.zeros(C, np.int32)
         chunk[:n_valid] = adm.body[c0:c0 + n_valid]
         view = self._gather_view()
+        # a prefill role writes the final chunk's KV but never activates
+        # the slot: it does not decode
         _prefill_chunk(self._params, self.cfg, view, self._state, chunk,
                        adm.slot, c0, adm.offset, n_valid, adm.last,
-                       adm.target, adm.temp, adm.topk, finalize=final)
+                       adm.target, adm.temp, adm.topk,
+                       finalize=final and self.role != "prefill")
+        self._track("prefill")
         ring_ids = np.zeros((self.slots, C), np.int64)
         ring_ids[adm.slot] = (adm.offset + c0 + np.arange(C)) % self.max_len
         n_valids = np.zeros((self.slots,), np.int64)
@@ -2377,6 +2717,18 @@ class SlotServer:
                      for i in range(adm.prefix_len // B, body.size // B)}
             if offer:
                 self._prefix_cache.adopt(body, offer)
+        if self.role == "prefill":
+            # the KV leaves for another replica: snapshot it, complete
+            # the request with no tokens, free the slot and its blocks
+            self._stash_export(adm)
+            self._done[req.id] = Completion(
+                req.id, [], "prefilled",
+                trace=self._finish_trace(req.id, "finished", n_tokens=0,
+                                         reason="prefilled"))
+            self._finish_stream(req.id)
+            self._host_busy[slot] = False
+            self._release_request(req.id)
+            return
         self._np_floor[slot] = body.size
         self._model_len[slot] = body.size
         self._model_active[slot] = True
@@ -2386,6 +2738,283 @@ class SlotServer:
             self._pipeline[-1]["events"].append(("admit", admit))
         else:                           # nothing in flight: applies now
             self._apply_admit(admit)
+
+    # ------------------------------------------- KV transfer (disaggregation)
+    # (the JAX package's serving.py:3819-4090)
+
+    def _stash_export(self, adm: _Admission) -> None:
+        """Start a finished prefill's blocks on their way to the host and
+        keep them, with the request's replay state, for ``export_blocks``.
+        Nothing waits for the card here: the copy and its event are
+        enqueued, and the encoding happens when the payload is asked
+        for. The blocks free right after (``_snapshot_kv_blocks``)."""
+        req, slot, body = adm.req, adm.slot, adm.body
+        B = self.kv_block
+        n_blocks = max(1, -(-int(body.size) // B))
+        ids = [int(b) for b in self._np_tables[slot][:n_blocks]]
+        tr = self._traces.get(req.id)
+        entry = {
+            "id": int(req.id),
+            "prompt": [int(t) for t in req.prompt],
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": req.temperature,
+            "top_k": req.top_k,
+            "cache_prompt": req.cache_prompt,
+            "seed": self._seed,
+            "emitted": [int(t) for t in (req.resume_tokens or ())],
+            "model": req.model,
+            "stop": ([list(map(int, q)) for q in req.stop]
+                     if req.stop else None),
+            "logprobs": int(req.logprobs or 0),
+            "priority": req.priority,
+            # the decode replica lands in this trace even header-less
+            "trace": (tr.ctx.as_dict()
+                      if tr is not None and tr.ctx is not None else None),
+        }
+        meta = dict(model=self.model, kv_block=B, kv_dtype=self.kv_dtype,
+                    body_len=int(body.size), entry=entry)
+        snap = _snapshot_kv_blocks(self._kv_pool, ids)
+        with self._transfer_lock:
+            self._exports[int(req.id)] = (snap, meta)
+            self.kv_exports += 1
+            while len(self._exports) > self._exports_cap:
+                self._exports.popitem(last=False)
+        if tr is not None:
+            tr.attrs["exported_blocks"] = n_blocks
+
+    def export_blocks(self, request_id: int) -> dict:
+        """Pop a prefilled request's transfer payload, encoded now (base64
+        and the checksum, after waiting for its copy to the host). Safe
+        from another thread than the serving loop's, without the serving
+        lock. KeyError when the request never finished its prefill here or
+        the stash aged it out: the caller re-prefills from the prompt on
+        a decode replica instead."""
+        with self._transfer_lock:
+            item = self._exports.pop(int(request_id), None)
+        if item is None:
+            raise KeyError(
+                f"no KV export payload for request {int(request_id)}")
+        snap, meta = item
+        return _payload(snap.wait(), **meta)
+
+    def prepare_import(self, payload) -> _KVImport:
+        """Decode and verify a transfer payload against this engine, and
+        stage its blocks in host memory (pinned on the card). Reads only
+        the engine's configuration, so it runs outside the serving lock:
+        hashing a long prompt's payload there would stall the loop.
+        ValueError (counted in ``kv_import_rejects``) on any damage or
+        mismatch."""
+        try:
+            return self._prepare_import(payload)
+        except ValueError:
+            with self._transfer_lock:
+                self.kv_import_rejects += 1
+            raise
+
+    def _prepare_import(self, payload) -> _KVImport:
+        if not self._paged:
+            raise ValueError("import_blocks requires paged=True (the "
+                             "transfer unit is the paged KV block)")
+        if self.role == "prefill":
+            raise ValueError("a prefill-role replica cannot import KV "
+                             "blocks (nothing here decodes them)")
+        B = self.kv_block
+        if not isinstance(payload, dict):
+            raise ValueError("KV transfer payload must be an object")
+        if payload.get("model") != self.model:
+            raise ValueError(
+                f"KV transfer is for model {payload.get('model')!r} but "
+                f"this engine serves {self.model!r}")
+        if int(payload.get("kv_block", 0)) != B:
+            raise ValueError(f"KV transfer kv_block="
+                             f"{payload.get('kv_block')} != this engine's {B}")
+        if str(payload.get("kv_dtype")) != str(self.kv_dtype):
+            raise ValueError(
+                f"KV transfer kv_dtype={payload.get('kv_dtype')!r} != this "
+                f"engine's {self.kv_dtype!r}")
+        k, v, ks, vs = deserialize_kv_blocks(payload)
+        pk = self._kv_pool.k
+        if k.shape[0] != pk.shape[0] or k.shape[2:] != pk.shape[2:] \
+                or k.dtype != pk.dtype:
+            raise ValueError(
+                f"KV transfer block shape {tuple(k.shape[0:1] + k.shape[2:])}"
+                f"/{_WIRE_NAMES.get(k.dtype)} does not match this pool's "
+                f"{tuple(pk.shape[0:1] + pk.shape[2:])}/"
+                f"{_WIRE_NAMES.get(pk.dtype)}")
+        if (ks is None) != (self._kv_pool.k_scale is None):
+            raise ValueError("KV transfer scales do not match this pool")
+        entry = payload.get("entry")
+        if not isinstance(entry, dict):
+            raise ValueError("KV transfer payload has no journal entry")
+        try:
+            prompt = [int(t) for t in entry["prompt"]]
+            max_new = int(entry["max_new_tokens"])
+            emitted = [int(t) for t in (entry.get("emitted") or ())]
+            body_len = int(payload["body_len"])
+            n_blocks = int(payload["n_blocks"])
+            logprobs = int(entry.get("logprobs") or 0)
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"malformed KV transfer entry: {e}") from None
+        if body_len != len(prompt) + len(emitted) - 1:
+            raise ValueError(
+                f"KV transfer body_len={body_len} does not match the "
+                f"entry's {len(prompt)} prompt + {len(emitted)} emitted "
+                "tokens")
+        if n_blocks != max(1, -(-body_len // B)):
+            raise ValueError("KV transfer n_blocks/body_len mismatch")
+        if len(prompt) < 1 or max_new < 1:
+            raise ValueError("KV transfer entry has an empty request")
+        if len(emitted) >= max_new:
+            raise ValueError(
+                "KV transfer entry is already satisfied (nothing left to "
+                "decode); deliver it from the journal instead")
+        if len(prompt) + max_new > self.max_len:
+            raise ValueError(
+                f"KV transfer request needs {len(prompt)} prompt + "
+                f"{max_new} new tokens but slots hold max_len="
+                f"{self.max_len}")
+        # the fed token indexes the embedding: out of range faults the card
+        if min(prompt + emitted) < 0 or \
+                max(prompt + emitted) >= self.cfg.vocab_size:
+            raise ValueError(f"KV transfer token ids must be in [0, "
+                             f"{self.cfg.vocab_size})")
+        if not 0 <= logprobs <= LOGPROBS_MAX:
+            raise ValueError(f"logprobs must be in [0, {LOGPROBS_MAX}]")
+        if self.device.type == "cuda":
+            k, v = k.pin_memory(), v.pin_memory()
+            if ks is not None:
+                ks, vs = ks.pin_memory(), vs.pin_memory()
+        return _KVImport(k=k, v=v, ks=ks, vs=vs, entry=entry, prompt=prompt,
+                         max_new=max_new, emitted=emitted, n_blocks=n_blocks)
+
+    def import_blocks(self, payload, trace=None) -> int:
+        """Install a prefill replica's exported blocks and resume the
+        request here, decode only: fresh blocks from this pool, the
+        payload written in (``_write_pool_blocks``), the table row
+        installed and the slot activated as a local final prefill chunk
+        would, so the gather view cannot tell the blocks from ones
+        prefilled here. ``payload`` is the wire dict or a
+        ``prepare_import`` result (``ServeApp`` decodes outside the
+        serving lock). ValueError on damage (``prepare_import``);
+        QueueFullError, with ``retry_after_s``, when no slot or pool
+        blocks are free now: a handoff is never queued. ``trace`` (a
+        ``TraceContext`` or its dict, from the transport's header) puts
+        the decode leg in the caller's trace; without it the entry's
+        ``"trace"`` is the parent. -> the new request id."""
+        prep = (payload if isinstance(payload, _KVImport)
+                else self.prepare_import(payload))
+        entry, emitted, max_new = prep.entry, prep.emitted, prep.max_new
+        stop = entry.get("stop")
+        req = Request(
+            prompt=np.asarray(prep.prompt, np.int32),
+            max_new_tokens=max_new, temperature=entry.get("temperature"),
+            top_k=entry.get("top_k"), cache_prompt=entry.get("cache_prompt"),
+            resume_tokens=emitted or None,
+            stop=_normalize_stop(stop) if stop else None,
+            logprobs=int(entry.get("logprobs") or 0),
+            priority=(entry.get("priority")
+                      if entry.get("priority") in PRIORITY_CLASSES
+                      else "interactive"))
+        slot = next((s for s in range(self.slots)
+                     if self._free_for_admission(s)), None)
+        if slot is None:
+            err = QueueFullError("no free slot for KV import")
+            err.retry_after_s = self.estimate_retry_after()
+            err.priority = req.priority
+            raise err
+        B = self.kv_block
+        full = (np.concatenate([req.prompt, np.asarray(emitted, np.int32)])
+                if emitted else req.prompt)
+        body = full[:-1]
+        target = body.size + max_new - len(emitted)
+        cap_blocks = max(1, -(-target // B))
+        cls = req.priority
+        alloc = self._allocator
+        blocks = alloc.alloc_for(cls, cap_blocks)
+        if blocks is None:
+            short = cap_blocks - alloc.free_blocks
+            if self._prefix_cache is not None and short > 0:
+                self._prefix_cache.reclaim(short)
+                blocks = alloc.alloc_for(cls, cap_blocks)
+            if blocks is None:
+                self.admission_defers += 1
+                err = QueueFullError(f"pool blocks short for KV import "
+                                     f"({cap_blocks} needed)")
+                err.retry_after_s = self.estimate_retry_after()
+                err.priority = cls
+                raise err
+        # validated and funded: install
+        tr = RequestTrace(req.id)
+        tr.mark("submitted")
+        ctx = (trace if isinstance(trace, TraceContext)
+               else TraceContext.from_dict(trace))
+        if ctx is None:
+            # a header-less import: the prefill leg's identity is the
+            # parent, a new span for this leg
+            stashed = TraceContext.from_dict(entry.get("trace"))
+            if stashed is not None:
+                ctx = stashed.child()
+        if ctx is not None:
+            tr.bind(ctx)
+            tr.attrs["service"] = "serve"
+        tr.attrs["imported_blocks"] = prep.n_blocks
+        if emitted:
+            tr.attrs["resume_tokens"] = len(emitted)
+        self._traces[req.id] = tr
+        _write_pool_blocks(self._kv_pool, blocks[:prep.n_blocks], prep.k,
+                           prep.v, prep.ks, prep.vs)
+        for stale in [r for r, s in self._slot_of.items() if s == slot]:
+            del self._slot_of[stale]
+        self._free_slot_blocks(slot)
+        self._slot_of[req.id] = slot
+        self._inflight.add(req.id)
+        offset = (self._cursor - body.size) % self.max_len
+        temp = (self.temperature if req.temperature is None
+                else float(req.temperature))
+        topk = self.top_k if req.top_k is None else int(req.top_k)
+        row = self._np_tables[slot]
+        row[:] = alloc.n_blocks                             # pad
+        row[:len(blocks)] = blocks
+        self._slot_blocks[slot] = list(blocks)
+        self._slot_shared[slot] = []
+        self._slot_class[slot] = cls
+        self._np_offs[slot] = offset
+        self._np_floor[slot] = body.size
+        self._host_busy[slot] = True
+        self._np_temps[slot] = temp
+        self._np_topks[slot] = topk
+        self._np_lp[slot] = req.logprobs
+        _activate_slot(self._state, self._d_lens, slot, int(full[-1]),
+                       target, offset, body.size, temp, topk)
+        self._model_len[slot] = body.size
+        self._model_active[slot] = True
+        self._model_target[slot] = target
+        tr.mark("admitted")
+        tr.mark("prefill_done")
+        # the imported prefix seeds the trie with no copy, as a local
+        # finalize does
+        want = (self.cache_prompts if req.cache_prompt is None
+                else req.cache_prompt)
+        if self._prefix_cache is not None and want:
+            offer = {i: int(row[i]) for i in range(body.size // B)}
+            if offer:
+                self._prefix_cache.adopt(body, offer)
+        if self._journal is not None:
+            self._journal.submit(
+                req.id, prep.prompt, max_new, temperature=req.temperature,
+                top_k=req.top_k, cache_prompt=req.cache_prompt,
+                seed=self._seed, emitted=emitted, model=self.model,
+                stop=[list(q) for q in req.stop] if req.stop else None,
+                logprobs=req.logprobs, priority=req.priority,
+                trace=ctx.as_dict() if ctx is not None else None)
+        admit = (slot, int(body.size), req)
+        if self._pipeline:
+            self._pipeline[-1]["events"].append(("admit", admit))
+        else:
+            self._apply_admit(admit)
+        with self._transfer_lock:
+            self.kv_imports += 1
+        return req.id
 
     # ------------------------------------------------------------ decode
 
@@ -2419,13 +3048,14 @@ class SlotServer:
         else:
             self._cache = cache
         host, ready = _start_read(packed)
+        seq = self._track("decode_block", ready)    # the read's event
         self._cursor = (self._cursor + self.block_size) % self.max_len
         self.blocks_dispatched += 1
         dt = time.perf_counter() - t0
         self.block_dispatch_s.append(dt)
         self.telemetry.observe("decode_block_s", dt)
         self._pipeline.append({"host": host, "ready": ready, "events": [],
-                               "lp_k": lp_k})
+                               "lp_k": lp_k, "seq": seq})
         if self._predictive:            # exact: no EOS can surprise us
             adv = np.minimum(self.block_size,
                              self._model_target - self._model_len)
@@ -2456,12 +3086,27 @@ class SlotServer:
         running). Emitted tokens per slot are the length delta against
         the expectation; completions fire where a slot went inactive; each
         block's admissions and cancellations replay after it, in dispatch
-        order."""
+        order.
+
+        Device lag: the newest of these blocks is waited for first (stream
+        order makes the older ones ready too), then one host observation
+        instant less each block's ready instant, as the tracker's reaper
+        recorded it, is its ``device_lag_s``."""
         recs = [self._pipeline.popleft() for _ in range(count)]
         B = self.block_size
+        if recs[-1]["ready"] is not None:
+            recs[-1]["ready"].synchronize()
+        t_obs = time.monotonic()
+        tracker = self.dispatch_tracker
+        # the reaper's walk up to the newest seq returns at once now
+        tracker.ready_time(recs[-1]["seq"], timeout=0.25)
         for rec in recs:
-            if rec["ready"] is not None:
-                rec["ready"].synchronize()
+            rt = tracker.ready_time(rec["seq"])
+            rec["lag"] = max(0.0, t_obs - rt) if rt is not None else None
+            if rec["lag"] is not None:
+                self.telemetry.observe("device_lag_s", rec["lag"])
+        for rec in recs:
+            lag = rec["lag"]
             lp_k = rec["lp_k"]
             packed = rec["host"].numpy()
             toks = packed[:, :B]
@@ -2518,11 +3163,14 @@ class SlotServer:
                     tr = self._traces.get(req.id)
                     if tr is not None and tr.t("first_token") is None:
                         tr.mark("first_token")
+                        if lag is not None:
+                            tr.attrs["device_lag_first_token_s"] = round(
+                                lag, 6)
                 if stop_hit:
                     # complete now with "stop" and free the device slot
                     # like a cancel; _stop_cancelled skips the slot until
                     # a processed block shows it inactive
-                    self._complete_slot(slot, req, "stop")
+                    self._complete_slot(slot, req, "stop", lag)
                     if active[slot]:
                         _cancel_slot(self._state.active, int(slot))
                         self._stop_cancelled.add(int(slot))
@@ -2532,7 +3180,7 @@ class SlotServer:
                     out = self._emitted[slot]
                     reason = ("stop" if out and out[-1] in self.stop_tokens
                               else "length")
-                    self._complete_slot(slot, req, reason)
+                    self._complete_slot(slot, req, reason, lag)
             self._expect_len = np.array(lengths)
             self._expect_active = np.array(active)
             for slot in list(self._stop_cancelled):
@@ -2546,9 +3194,15 @@ class SlotServer:
                 else:
                     self._apply_cancel(payload)
 
-    def _complete_slot(self, slot: int, req: Request, reason: str) -> None:
-        """Deliver one slot's finished request and free its host state."""
+    def _complete_slot(self, slot: int, req: Request, reason: str,
+                       lag: float | None = None) -> None:
+        """Deliver one slot's finished request and free its host state;
+        ``lag`` is its last block's device lag, for the trace."""
         out = self._emitted[slot]
+        if lag is not None:
+            tr = self._traces.get(req.id)
+            if tr is not None:
+                tr.attrs["device_lag_s"] = round(lag, 6)
         lps = self._lp_acc[slot][:len(out)] if req.logprobs else None
         self._done[req.id] = Completion(
             req.id, out, reason,
@@ -2655,4 +3309,5 @@ class SlotServer:
 __all__ = ["Request", "Completion", "SlotServer", "QueueFullError",
            "PrefixCache", "BlockAllocator",
            "COMPLETION_FINISH_REASONS", "FINISH_REASONS", "PRIORITY_CLASSES",
-           "LOGPROBS_MAX"]
+           "LOGPROBS_MAX", "KV_TRANSFER_VERSION", "KV_IMPORT_KEYS",
+           "KV_ENTRY_KEYS", "serialize_kv_blocks", "deserialize_kv_blocks"]

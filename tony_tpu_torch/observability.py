@@ -25,25 +25,31 @@ classes, with its semantics and bucket bounds).
 - ``ServiceRateEstimator``: an EWMA of per-request service time, turned
   into a 429's ``Retry-After`` (seconds until a queue seat frees).
 - ``PromRenderer``: Prometheus text exposition (format 0.0.4).
+- ``DispatchTracker``: dispatch -> ready per device program kind, off the
+  hot path. A tracked object only needs ``block_until_ready()``; the
+  serving engine hands it a fence over a CUDA event recorded behind the
+  dispatch (models/serving.py ``_Fence``).
 
-Device time (the JAX package's ``DispatchTracker``) and compile counters
-(``CompileTelemetry``) are not ported (ROADMAP.md queue 1: serving
-telemetry, device time; observability hooks).
+Compile counters (the JAX package's ``CompileTelemetry``) are not ported
+(ROADMAP.md queue 1: observability hooks).
 """
 
 from __future__ import annotations
 
 import bisect
+import collections
 import hashlib
 import math
 import os
 import re
+import threading
 import time
 
 __all__ = ["TRACE_HEADER", "TRACE_ID_RESPONSE_HEADER", "TraceContext",
            "TERMINAL_SPANS", "Histogram", "RequestTrace",
            "TELEMETRY_HISTOGRAMS", "ServingTelemetry",
-           "ServiceRateEstimator", "PromRenderer", "PROM_CONTENT_TYPE"]
+           "ServiceRateEstimator", "PromRenderer", "PROM_CONTENT_TYPE",
+           "DispatchTracker"]
 
 # terminal span names: exactly one ends every trace
 TERMINAL_SPANS = ("finished", "cancelled", "expired", "shed", "failed")
@@ -405,6 +411,201 @@ class ServiceRateEstimator:
 
 
 # ------------------------------------------------------------- exposition
+
+
+class DispatchTracker:
+    """Dispatch -> ready attribution for device programs enqueued without
+    a wait (the JAX package's observability.py:510, with its API, bounds
+    and counters).
+
+    Every dispatch registers one object whose ``block_until_ready()``
+    returns once the dispatch has run (``track``); one background thread,
+    ``dispatch-reaper``, waits on them in dispatch order and records each
+    ready instant. Dispatch order is stream order, so when entry N is
+    ready every earlier one is too, and the serial walk never waits on
+    anything the card has passed. That gives, off the hot path:
+
+    - a dispatch -> ready Histogram per program ``kind`` (prefill,
+      decode_block, prefix_copy, ...): how long the card spent behind
+      each dispatch, which the host's dispatch timing cannot see;
+    - ``in_flight``: dispatched, not yet observed ready (the measured
+      pipeline depth);
+    - ``ready_time(seq)``: one dispatch's ready instant, which the serving
+      engine subtracts from its observation instant (``device_lag_s``).
+
+    Host-side only: no torch here. The wait must release the interpreter
+    lock and must not spin (the engine's fences wait on CUDA events made
+    with ``blocking=True``), or the reaper would compete with the serving
+    loop for the host. ``reset()`` drops pending entries and recorded
+    instants without waiting on them (after a failed dispatch they may
+    never complete) and re-arms the same thread; ``shutdown()`` stops it
+    for good."""
+
+    # reaped ready instants kept for ready_time(): callers ask about the
+    # few blocks of the processing pipeline, so a small ring bounds memory
+    READY_KEEP = 512
+
+    def __init__(self, max_pending: int = 1024):
+        self.max_pending = max_pending
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._queue: collections.deque = collections.deque()
+        self._ready: collections.OrderedDict[int, float] = \
+            collections.OrderedDict()
+        self.hist: dict[str, Histogram] = {}
+        self._seq = 0
+        self._gen = 0               # bumped by reset(): stale entries drop
+        self._busy = False          # the reaper is waiting on an entry
+        self._busy_seq = -1         # which one
+        self.tracked_total = 0
+        self.dropped = 0            # queue full: the reaper fell behind
+        self.reap_errors = 0        # block_until_ready raised
+        self._stop = False
+        self._thread = threading.Thread(
+            target=self._reap, name="dispatch-reaper", daemon=True)
+        self._thread.start()
+
+    def track(self, kind: str, buf) -> int:
+        """Register one dispatch's fence -> its sequence number
+        (monotonic). The hot path pays a lock and an append; the wait is
+        the reaper's."""
+        with self._cv:
+            self._seq += 1
+            seq = self._seq
+            if self._stop:
+                return seq
+            if len(self._queue) >= self.max_pending:
+                # a wedged reaper must not grow host memory: the dispatch
+                # loses its telemetry, nothing else
+                self.dropped += 1
+                return seq
+            self.tracked_total += 1
+            self._queue.append((seq, kind, time.monotonic(), buf,
+                                self._gen))
+            self._cv.notify_all()
+        return seq
+
+    def _reap(self) -> None:
+        while True:
+            with self._cv:
+                while not self._queue and not self._stop:
+                    self._cv.wait()
+                if self._stop:
+                    return
+                seq, kind, t0, buf, gen = self._queue.popleft()
+                self._busy, self._busy_seq = True, seq
+            try:
+                buf.block_until_ready()
+                t_ready = time.monotonic()
+            except Exception:
+                # a fence that cannot be waited on (a stub without the
+                # method, a failed dispatch's event): counted, and the
+                # tracker outlives it
+                t_ready = None
+                with self._lock:
+                    self.reap_errors += 1
+            with self._cv:
+                if t_ready is not None and gen == self._gen:
+                    h = self.hist.get(kind)
+                    if h is None:
+                        h = self.hist[kind] = Histogram()
+                    h.observe(max(0.0, t_ready - t0))
+                    self._ready[seq] = t_ready
+                    while len(self._ready) > self.READY_KEEP:
+                        self._ready.popitem(last=False)
+                self._busy = False
+                self._cv.notify_all()
+
+    def ready_time(self, seq: int, timeout: float = 0.0) -> float | None:
+        """The recorded ready instant of dispatch ``seq``, or None when it
+        was never tracked, was evicted or is not reaped within
+        ``timeout`` seconds. Callers ask right after waiting for that
+        dispatch themselves, so the reaper's walk up to it returns at
+        once and the wait is short unless the reaper is wedged."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                t = self._ready.get(seq)
+                if t is not None or seq > self._seq:
+                    return t
+                pending = (self._busy and self._busy_seq == seq) or any(
+                    s == seq for s, *_ in self._queue)
+                if not pending:
+                    return None
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                self._cv.wait(remaining)
+
+    @property
+    def in_flight(self) -> int:
+        """Dispatches registered and not yet observed ready."""
+        with self._lock:
+            return len(self._queue) + (1 if self._busy else 0)
+
+    def drain(self, timeout: float = 5.0) -> bool:
+        """Wait until every tracked dispatch is reaped (or ``timeout``
+        passes) -> whether it is."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._queue or self._busy:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cv.wait(remaining)
+        return True
+
+    def reset(self) -> None:
+        """Drop pending entries and recorded instants without waiting on
+        them; the same thread serves the next generation. The histograms
+        are cumulative and survive, as ``ServingTelemetry``'s do across
+        ``SlotServer.reset()``."""
+        with self._cv:
+            self._gen += 1
+            self._queue.clear()
+            self._ready.clear()
+            self._cv.notify_all()
+
+    def shutdown(self, timeout: float = 5.0) -> None:
+        """Stop the reaper (idempotent); pending entries are dropped
+        unwaited."""
+        with self._cv:
+            self._stop = True
+            self._queue.clear()
+            self._cv.notify_all()
+        if self._thread.is_alive():
+            self._thread.join(timeout)
+
+    @property
+    def alive(self) -> bool:
+        return self._thread.is_alive() and not self._stop
+
+    def snapshot(self) -> dict:
+        """``SlotServer.stats()["device"]``: the counters and each kind's
+        dispatch -> ready quantiles."""
+        with self._lock:
+            return {
+                "in_flight": len(self._queue) + (1 if self._busy else 0),
+                "tracked": self.tracked_total,
+                "dropped": self.dropped,
+                "reap_errors": self.reap_errors,
+                "dispatch_ready": {k: h.snapshot()
+                                   for k, h in self.hist.items()},
+            }
+
+    def histograms(self) -> dict[str, Histogram]:
+        """Copies of the per-kind histograms taken under the tracker's
+        lock, safe to render while the reaper observes into the
+        originals."""
+        with self._lock:
+            states = {k: h.state() for k, h in self.hist.items()}
+        out = {}
+        for k, st in states.items():
+            h = Histogram()
+            h.restore(st)
+            out[k] = h
+        return out
+
 
 _NAME_OK = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
