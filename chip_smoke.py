@@ -19,13 +19,20 @@ and exits non-zero if any of them fails:
    decode path at M in {1024, 4096, 16384};
 3. main path, generation: tony_tpu_torch.examples.lm_generate at the
    flagship's full width (vocab 32768, d_model 1024, 12 layers, 8 heads,
-   d_ff 4096, bf16, random weights from a seed) answering four requests,
-   with every kernel's launch count checked against the count the requests
-   need;
+   d_ff 4096, bf16, random weights from a seed) answering five requests,
+   the fifth on int8 decode weights (--weight-dtype int8), with every
+   kernel's launch count checked against the count the requests need;
+   then w8a16's resident weights and decode step's device time against
+   native, and one step's logits against native (reported);
 4. main path, training: tony_tpu_torch.examples.lm_train at the same width,
    batch 8 x 2048 tokens, TRAIN_STEPS steps on synthetic data, with the
    flash forward and both flash backward kernels launched once per layer
-   per step, every loss finite and the last below the first;
+   per step, every loss finite and the last below the first; then remat:
+   lm_train --remat for REMAT_STEPS steps under each policy, losses
+   bit-equal to the training run's first steps, the flash forward
+   launched twice a layer a step under "full" and "dots" and once under
+   "attn", peak memory; chunked_reference_attention against the plain
+   attention at float32;
 5. main path, serving: tony_tpu_torch.cli.serve's own build_argparser and
    build_app at the flagship's width with the CLI's slot-pool defaults (8
    slots x 2048 positions, blocks of 16 steps, prefill chunks of 128),
@@ -152,12 +159,26 @@ and exits non-zero if any of them fails:
    SlotServer in float32 on the card (8 requests through 3 slots, batched
    and per-slot admission) against the port's generate run solo on the
    card, token for token up to the first near-tie of solo's logits;
-14. profile: a flagship decode step's and a flagship training step's host
-   wall time against the device time torch.profiler records.
+14. HF checkpoint: HF_CONFIG (meta-llama/Llama-3.1-8B's published widths,
+   cut to HF_LAYERS layers) written in HF's layout as two safetensors
+   shards and an index from a seeded generator, then lm_generate
+   --hf-checkpoint native and --weight-dtype int8; at float32 the kernels
+   against the plain path up to its first near-tie; serve --hf-checkpoint
+   --weight-dtype int8 at float32 on the ring and --paged-kv against solo
+   int8 decoding in the server's order up to its first near-tie; a bf16
+   engine reported;
+15. profile: a flagship decode step's and a flagship training step's
+   (remat off and under each policy) host wall time against the device
+   time torch.profiler records.
 
-The last three lines of standard output are the kernels' JSON record, the
-card's name and power limit as nvidia-smi gives them, and the result line.
-Without a CUDA device it exits with code 2 and prints no result.
+The serve apps of phases 8-12 (replay's HTTP and SIGKILL parts,
+streaming's (b) and (d), paged (b)-(d), telemetry, disaggregation (b))
+run the flagship's widths at SERVE_CUT_LAYERS layers: they check the
+engine and the host, and the script's budget is 700 s (every phase prints
+its seconds; a "phase_seconds" JSON line gathers them). The last four
+lines of standard output are the kernels' JSON record, that line, the
+card's name and power limit as nvidia-smi gives them, and the result
+line. Without a CUDA device it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -170,6 +191,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -182,11 +204,18 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bandwidth
 FLAGSHIP = ["--vocab", "32768", "--d-model", "1024", "--n-layers", "12",
             "--n-heads", "8", "--d-ff", "4096", "--dtype", "bfloat16"]
 N_LAYERS = 12
+# the serve apps of the replay, streaming, paged (b)-(d), telemetry and
+# disaggregation phases: the flagship's widths at SERVE_CUT_LAYERS layers.
+# They check the engine and the host (replay, streams, the pool, the
+# counters), not the model's depth; the serving phase keeps all 12
+SERVE_CUT_LAYERS = 4
 MAX_NEW = 64
 MAX_LEN = 4160                # the longest prompt (4096) + MAX_NEW
+SHALLOW = FLAGSHIP + ["--n-layers", str(SERVE_CUT_LAYERS)]
 # (batch, prompt_len, extra flags) of the main path's requests
 REQUESTS = [(8, 1024, []), (8, 2048, []), (1, 4096, []),
-            (8, 1024, ["--kv-dtype", "int8"])]
+            (8, 1024, ["--kv-dtype", "int8"]),
+            (8, 1024, ["--weight-dtype", "int8"])]
 # bf16 outputs: the kernel and the plain version both sum in float32 and
 # round once to bf16, so they may differ by one bf16 ulp (2^-8 relative)
 BF16_TOL = (1e-2, 1e-2)       # (atol, rtol)
@@ -208,6 +237,9 @@ BWD_BF16_TOL = (1e-2, 1e-2)
 BWD_F32_TOL = (1e-3, 1e-4)
 TRAIN_STEPS = 30
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+# remat: lm_train --remat under each policy for REMAT_STEPS steps at the
+# training path's shape, against the training phase's first steps
+REMAT_STEPS, REMAT_POLICIES = 5, ("full", "dots", "attn")
 # serving run A: requests posted at once, prompt lengths and new tokens
 # drawn uniformly from these ranges, SERVE_SAMPLED of them at temperature
 # 0.8 and top-k 50, the others greedy
@@ -289,6 +321,22 @@ TELEMETRY_PROFILE_S, TELEMETRY_PROFILE_AT_S = 2, 1.5
 # --role both in turn
 DISAGG_F32, DISAGG_HTTP, DISAGG_NEW = 8, 8, 48
 DISAGG_DECODE_BLOCKS, DISAGG_FULL, DISAGG_FULL_NEW = 896, 7, 512
+# the HF phase: meta-llama/Llama-3.1-8B's published config.json widths,
+# depth cut from 32 layers to HF_LAYERS; written as two safetensors shards
+# and an index from a seeded generator. HF_REQUESTS prompts of 64-512
+# tokens, HF_NEW greedy new tokens each
+HF_CONFIG = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama",
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=131072, rope_theta=500000.0,
+    rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                      high_freq_factor=4.0,
+                      original_max_position_embeddings=8192),
+    rms_norm_eps=1e-5, tie_word_embeddings=False, attention_bias=False,
+    mlp_bias=False, hidden_act="silu", torch_dtype="bfloat16",
+    bos_token_id=128000, eos_token_id=128001)
+HF_LAYERS, HF_REQUESTS, HF_NEW = 4, 8, 32
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -323,6 +371,20 @@ def fail(msg: str):
     raise RuntimeError(msg)
 
 
+# seconds of each phase of main(), in order, printed as phase_seconds
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its wall seconds printed and kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    secs = time.perf_counter() - t0
+    PHASE_SECONDS[name] = round(secs, 1)
+    print(f"{name}: the phase {secs:.1f} s", flush=True)
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -338,11 +400,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     ctypes) leaves no gaps on the device inside the timed window."""
     import torch
 
-    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    host_s = (time.perf_counter() - t0) / warmup * iters
+    # the enqueue of one warm call (the warm-up's first calls pay one-time
+    # costs that would size the sleep far beyond the timed calls)
+    t0 = time.perf_counter()
+    fn()
+    host_s = (time.perf_counter() - t0) * iters
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     # cycles at 2 GHz, above the H100's boost clock: the sleep lasts at
@@ -460,6 +526,7 @@ def phase_card(build) -> dict:
     print("== card")
     print(f"card: {nvidia_smi_line()}")
     secs = build.build_all()
+    PHASE_SECONDS["build"] = round(secs, 1)
     print(f"kernels built in {secs:.1f} s (nvcc, one process per source, "
           "in parallel)")
     report = {}
@@ -905,9 +972,68 @@ def phase_bwd_kernels(torch, A) -> list:
     return records
 
 
-def phase_main_path(ops, lm_generate) -> dict:
+def _tree_bytes(tree) -> int:
+    """Bytes of the distinct storages under a (nested) dict of tensors."""
+    seen, total = set(), 0
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif node.untyped_storage().data_ptr() not in seen:
+            seen.add(node.untyped_storage().data_ptr())
+            total += node.untyped_storage().nbytes()
+    return total
+
+
+def _w8a16_costs(torch, G, T) -> dict:
+    """w8a16 at the flagship width: the weights a decode holds (cast params
+    and fused matrices, the float32 masters dropped), native against int8;
+    a decode step's device time at B8 with 1024 cached; the logits of one
+    decode step from the same cache and token, int8 against native."""
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
+                              n_layers=N_LAYERS, n_heads=8, n_kv_heads=8,
+                              d_ff=4096)
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(4), dev)
+    prompt = torch.randint(0, 32768, (8, 1024), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    native = G.prepare_decode(params, cfg)
+    cache = G.init_cache(cfg, 8, 1024 + MAX_NEW, device=dev)
+    logits, cache = G._forward_with_cache(native.params, cfg, prompt, cache,
+                                          native.fused, prefill=True)
+    tok = logits.argmax(-1)[:, None]
+    out = {"masters_gb": _tree_bytes(params) / 1e9}
+    step_logits = {}
+    for name in ("native", "int8"):
+        w = native if name == "native" else G.prepare_decode(
+            params, cfg, weight_dtype="int8")
+        c = dataclasses.replace(cache, k=cache.k.clone(), v=cache.v.clone())
+        step_logits[name] = G._forward_with_cache(w.params, cfg, tok, c,
+                                                  w.fused)[0]
+        # a step is hundreds of launches, enqueued slower than the card
+        # runs them: its device time is the profiler's sum of its kernels
+        ms, _ = _profiled_ms(torch, lambda: [G._forward_with_cache(
+            w.params, cfg, tok, c, w.fused) for _ in range(4)])
+        if ms is None:
+            fail("w8a16: the profiler recorded no device time")
+        ms /= 4
+        out[name] = dict(resident_gb=(_tree_bytes(w.params)
+                                      + _tree_bytes(w.fused)) / 1e9,
+                         decode_step_device_ms=ms)
+        del c
+    diff = (step_logits["int8"] - step_logits["native"]).abs().max()
+    ref = step_logits["native"]
+    out.update(step_logits_max_diff=float(diff),
+               native_logits_range=float(ref.max() - ref.min()))
+    return out
+
+
+def phase_main_path(torch, ops, lm_generate, G, T) -> dict:
     """The flagship generation path through its user entry point; returns
-    the launches of each kernel over all requests."""
+    the launches of each kernel over all requests. The last request decodes
+    on int8 weights (w8a16); its costs against native are measured in
+    process after the requests."""
     print("== main path: generation")
     out_dir = REPO / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -938,23 +1064,38 @@ def phase_main_path(ops, lm_generate) -> dict:
         for name, n in counts.items():
             totals[name] += n
         print(f"request {i}: batch {b} prompt {lp} "
-              f"{m['kv_dtype']} kv: prefill {m['prefill_ms']:.2f} ms, decode "
+              f"{m['kv_dtype']} kv, {m['weight_dtype']} weights: prefill {m['prefill_ms']:.2f} ms, decode "
               f"{m['decode_step_ms']:.3f} ms/step, "
               f"{m['batch_decode_tokens_per_sec']:.1f} tok/s "
               f"(batch), {m['decode_tokens_per_sec']:.1f} tok/s (per row, "
               f"with prefill); launches {counts}")
         print("request " + json.dumps(dict(
             request=i, batch=b, prompt_len=lp, kv_dtype=m["kv_dtype"],
+            weight_dtype=m["weight_dtype"],
             prefill_ms=m["prefill_ms"], decode_step_ms=m["decode_step_ms"],
             batch_decode_tokens_per_sec=m["batch_decode_tokens_per_sec"],
             decode_tokens_per_sec=m["decode_tokens_per_sec"],
             launches=counts)))
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        w8 = _w8a16_costs(torch, G, T)
+    torch.cuda.empty_cache()
+    print(f"w8a16: resident weights {w8['int8']['resident_gb']:.3f} GB "
+          f"against native {w8['native']['resident_gb']:.3f} (float32 "
+          f"masters {w8['masters_gb']:.3f}, dropped); a decode step B8 with "
+          f"1024 cached {w8['int8']['decode_step_device_ms']:.4f} ms on the "
+          f"device against native {w8['native']['decode_step_device_ms']:.4f}"
+          f"; the step's logits max |int8 - native| "
+          f"{w8['step_logits_max_diff']:.4f} (native range "
+          f"{w8['native_logits_range']:.3f}); {nvidia_smi_line()}")
+    print("w8a16 " + json.dumps(w8))
     return totals
 
 
 def phase_train_path(torch, ops, lm_train) -> tuple:
     """The flagship training path through its user entry point; returns the
-    launches of each kernel over the run and its losses."""
+    launches of each kernel over the run, its losses, its peak device
+    memory (GB) and its step's wall ms."""
     print("== main path: training")
     metrics = REPO / "build" / "chip_smoke" / "train.json"
     metrics.parent.mkdir(parents=True, exist_ok=True)
@@ -962,9 +1103,11 @@ def phase_train_path(torch, ops, lm_train) -> tuple:
                        str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
                        "--metrics-out", str(metrics)]
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     rc = lm_train.main(argv)
     counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
         fail(f"lm_train exited {rc}")
     per_step = TRAIN_STEPS * N_LAYERS
@@ -993,8 +1136,88 @@ def phase_train_path(torch, ops, lm_train) -> tuple:
         steps_per_sec=m["steps_per_sec"], tokens_per_sec=m["tokens_per_sec"],
         step_ms=1e3 / m["steps_per_sec"], model_flops_per_step=flops_step,
         model_flops_share_of_bf16_peak=achieved / PEAK_BF16_FLOPS,
-        n_params=m["n_params"], launches=counts)))
-    return counts, losses
+        n_params=m["n_params"], peak_gb=peak_gb, launches=counts)))
+    return counts, losses, peak_gb, 1e3 / m["steps_per_sec"]
+
+
+def phase_remat(torch, ops, lm_train, A, train) -> dict:
+    """lm_train --remat at the training path's shape, REMAT_STEPS steps
+    under each policy: losses bit-equal to the training phase's first
+    steps (remat off), the flash forward launched twice a layer a step
+    under "full" and "dots" and once under "attn", the backward kernels
+    once; peak device memory. Then chunked_reference_attention against the
+    plain attention at float32. -> the launches over the runs."""
+    print("== remat")
+    from tony_tpu_torch.parallel.ring_attention import reference_attention
+
+    losses_off, peak_off, step_ms_off = train
+    rows = {"off": dict(losses=losses_off[:REMAT_STEPS], peak_gb=peak_off,
+                        step_ms_wall=step_ms_off)}
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    per_step = REMAT_STEPS * N_LAYERS
+    for policy in REMAT_POLICIES:
+        metrics = REPO / "build" / "chip_smoke" / f"remat_{policy}.json"
+        argv = FLAGSHIP + ["--batch-size", str(TRAIN_BATCH), "--seq-len",
+                           str(TRAIN_SEQ), "--steps", str(REMAT_STEPS),
+                           "--remat", "--remat-policy", policy,
+                           "--metrics-out", str(metrics)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        rc = lm_train.main(argv)
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if rc != 0:
+            fail(f"remat {policy}: lm_train exited {rc}")
+        forwards = 1 if policy == "attn" else 2
+        want = {"flash_fwd": forwards * per_step, "flash_bwd_dkdv": per_step,
+                "flash_bwd_dq": per_step, "flash_decode": 0}
+        if counts != want:
+            fail(f"remat {policy}: launches {counts}, expected {want}")
+        m = json.loads(metrics.read_text())
+        if m["losses"] != losses_off[:REMAT_STEPS]:
+            fail(f"remat {policy}: losses {m['losses']} differ from remat "
+                 f"off's {losses_off[:REMAT_STEPS]}")
+        rows[policy] = dict(losses=m["losses"], losses_bit_equal_to_off=True,
+                            peak_gb=peak_gb,
+                            step_ms_wall=1e3 / m["steps_per_sec"],
+                            flash_fwd_a_step=counts["flash_fwd"]
+                            / REMAT_STEPS,
+                            flash_bwd_a_step=counts["flash_bwd_dq"]
+                            / REMAT_STEPS)
+        for name, n in counts.items():
+            totals[name] += n
+        print(f"remat {policy}: {REMAT_STEPS} steps, losses bit-equal to "
+              f"remat off's; peak {peak_gb:.2f} GB (off {peak_off:.2f}); "
+              f"{rows[policy]['step_ms_wall']:.1f} ms a step wall (off "
+              f"{step_ms_off:.1f}); flash forward {counts['flash_fwd']} "
+              f"launches, backward {counts['flash_bwd_dq']} + "
+              f"{counts['flash_bwd_dkdv']}")
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(1, 8, TRAIN_SEQ, 128, device="cuda", generator=g,
+                           requires_grad=True) for _ in range(3))
+    t0 = time.perf_counter()
+    out = A.chunked_reference_attention(q, k, v, causal=True, q_block=512)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    want = reference_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                               causal=True).transpose(1, 2)
+    want_grads = torch.autograd.grad(want.sum(), (q, k, v))
+    err = compare("chunked_reference_attention", out, want, F32_TOL)
+    grad_err = max(compare(f"chunked_reference_attention d{n}", a, b,
+                           BWD_F32_TOL)
+                   for n, a, b in zip("qkv", grads, want_grads))
+    rows["chunked_reference_attention"] = dict(
+        shape=f"B1 H8 L{TRAIN_SEQ} D128 float32 causal, q_block 512",
+        max_abs_err=err, grad_max_abs_err=grad_err, seconds=chunked_s)
+    print(f"remat: chunked_reference_attention B1 H8 L{TRAIN_SEQ} D128 "
+          f"float32 against the plain attention: max |diff| {err:.3g} "
+          f"(tolerance {F32_TOL}), gradients {grad_err:.3g} "
+          f"({BWD_F32_TOL}); {nvidia_smi_line()}")
+    print("remat " + json.dumps(dict(rows=rows, launches=totals)))
+    return totals
 
 
 def _quantiles(xs) -> dict:
@@ -1186,6 +1409,24 @@ def _serve_payloads():
                         else {}))
                 for i, (n, m) in enumerate(zip(lens, news))]
     return rng, lens, news, sampled, payloads
+
+
+def _device_time_check(name, got, base, base_name):
+    """Streams and telemetry may add no device time: a block's device time
+    fails when it is more than 1% above its baseline block's, at the same
+    depth; a faster block breaks no promise. The signed difference is
+    printed either way -> it (None when either time was not measured)."""
+    if got is None or base is None:
+        print(f"{name}: a block's device time against {base_name}: not "
+              "measured (the profiler recorded no device activity)")
+        return None
+    diff = (got - base) / base
+    print(f"{name}: a block's device time {got:.3f} ms against {base_name} "
+          f"{base:.3f} ms: {diff:+.2%} (limit +1%)")
+    if got > 1.01 * base:
+        fail(f"{name}: a block's device time {got:.3f} ms, more than 1% "
+             f"above {base_name} {base:.3f} ms")
+    return diff
 
 
 def _profile_block(torch, S, srv, rng, name, streams=False) -> dict:
@@ -1928,7 +2169,7 @@ def _replay_http(torch, serve, payloads, crash_blocks) -> dict:
         os.environ["TONY_TEST_SERVING_CRASH_AT_BLOCKS"] = ",".join(
             str(b) for b in crash_blocks)
     try:
-        app, httpd, url = _serve_app(serve, FLAGSHIP + ["--seed", "41"])
+        app, httpd, url = _serve_app(serve, SHALLOW + ["--seed", "41"])
     finally:
         os.environ.pop("TONY_TEST_SERVING_CRASH_AT_BLOCKS", None)
     srv = app.server
@@ -2007,7 +2248,7 @@ def _replay_sigkill(torch) -> dict:
     trace = REPO / "build" / "replay_trace"
     shutil.rmtree(trace, ignore_errors=True)
     argv = [sys.executable, "-m", "tony_tpu_torch.cli.serve", "--port", "0",
-            *FLAGSHIP, "--seed", "51", "--trace-dir", str(trace)]
+            *SHALLOW, "--seed", "51", "--trace-dir", str(trace)]
     procs = []
 
     def spawn(extra_env):
@@ -2248,7 +2489,7 @@ def phase_replay(torch, ops) -> dict:
           f"load), to serving {kill['restart_to_ready_s']:.2f} s, to idle "
           f"{kill['restart_to_idle_s']:.2f} s (recovery after serving "
           f"{kill['recovery_s']:.2f} s)")
-    args = serve.build_argparser().parse_args(FLAGSHIP + ["--seed", "41"])
+    args = serve.build_argparser().parse_args(SHALLOW + ["--seed", "41"])
     params, cfg = serve.load_model(args)
     prepared = G.prepare_decode(params, cfg)
     del params
@@ -2746,16 +2987,18 @@ def _cadence(recs, burst_s=0.02) -> dict:
                 delivery_gap_s_p99=pct(gaps, 0.99))
 
 
-def phase_streaming(torch, ops, run_a) -> dict:
+def phase_streaming(torch, ops, run_a) -> tuple:
     """Streaming and the OpenAI routes through serve's own build_argparser,
     build_app and make_httpd on 127.0.0.1: (a) float32 streams against
     their buffered answers, their completions and solo generate; (b) run
-    A's 24 requests streamed at the flagship width with serve's defaults,
-    at two journal checkpoint cadences, with a block's device time
-    against the serving phase's; (c) a stream cut and resumed with
-    Last-Event-ID; (d) streams across two loop crashes, float32 and bf16.
-    Returns the kernels' launches (none: the serving path runs the einsum
-    attention)."""
+    A's 24 requests streamed at the flagship width (SERVE_CUT_LAYERS
+    layers) with serve's defaults, at two journal checkpoint cadences
+    beside one buffered run, with a block's device time with streams
+    attached against a block without on the same engine; (c) a stream cut
+    and resumed with Last-Event-ID; (d) streams across two loop crashes,
+    float32 and bf16. Returns the kernels' launches (none: the serving
+    path runs the einsum attention) and the block without streams (the
+    telemetry phase's baseline at this depth)."""
     print("== main path: streaming")
     import numpy as np
 
@@ -2775,15 +3018,18 @@ def phase_streaming(torch, ops, run_a) -> dict:
     uniform = [dict(prompt=urng.integers(0, 32768, uni_len).tolist(),
                     max_new_tokens=uni_new, timeout_s=600.0)
                for _ in range(n_uni)]
-    cadences = {}
+    cadences, buffered = {}, None
     for k, cad in enumerate(STREAM_CADENCES):
-        names = ["buffered", "streamed", "uniform"][::-1 if k % 2 else 1]
+        # one buffered run, with the first cadence, serves both
+        names = (["buffered"] if k == 0 else []) + ["streamed", "uniform"]
+        names = names[::-1 if k % 2 else 1]
         srv, recs = _stream_bursts(
-            torch, serve, FLAGSHIP + ["--seed", "21", "--journal-checkpoint-s",
-                                      str(cad)],
+            torch, serve, SHALLOW + ["--seed", "21", "--journal-checkpoint-s",
+                                     str(cad)],
             [(n != "buffered", uniform if n == "uniform" else payloads)
              for n in names])
         got = dict(zip(names, recs))
+        buffered = got.setdefault("buffered", buffered)
         for name, r in got.items():
             want_streams = {"buffered": 0, "streamed": SERVE_REQUESTS,
                             "uniform": n_uni}[name]
@@ -2802,8 +3048,8 @@ def phase_streaming(torch, ops, run_a) -> dict:
                for name, r in got.items()}
         cadences[cad] = row
         st, bu, un = row["streamed"], row["buffered"], row["uniform"]
-        print(f"streaming (b, bf16, serve's defaults, --journal-checkpoint-s "
-              f"{cad}): run A's {SERVE_REQUESTS} requests streamed: "
+        print(f"streaming (b, bf16, {SERVE_CUT_LAYERS} layers, serve's "
+              f"defaults, --journal-checkpoint-s {cad}): run A's {SERVE_REQUESTS} requests streamed: "
               f"{SERVE_REQUESTS} of {SERVE_REQUESTS} done, cursors strictly "
               f"increasing, each its completion; {int(news.sum())} tokens in "
               f"{st['wall_s']:.3f} s ({st['output_tokens_per_s']:.1f} "
@@ -2823,7 +3069,8 @@ def phase_streaming(torch, ops, run_a) -> dict:
               f"block's host dispatch {st['block_dispatch_ms_p50']:.2f} ms "
               f"(median of {st['decode_blocks']}; buffered "
               f"{bu['block_dispatch_ms_p50']:.2f} of {bu['decode_blocks']}, "
-              f"run A {run_a['block_dispatch_ms_p50']:.2f}); "
+              f"run A at {N_LAYERS} layers "
+              f"{run_a['block_dispatch_ms_p50']:.2f}); "
               f"synchronisations 0 in dispatch, {st['admission_syncs']} in "
               f"admission; {st['stream_stalls']} stream stalls")
         print(f"streaming (b, --journal-checkpoint-s {cad}): {n_uni} streams "
@@ -2837,21 +3084,21 @@ def phase_streaming(torch, ops, run_a) -> dict:
               f"{un['delivery_gap_s_p50']:.3f} s (p50; p99 "
               f"{un['delivery_gap_s_p99']:.3f} s); a block's host dispatch "
               f"{un['block_dispatch_ms_p50']:.2f} ms")
+    base = _profile_block(torch, S, srv, rng, "streaming (no streams)")
     blk = _profile_block(torch, S, srv, rng, "streaming", streams=True)
     del srv
     torch.cuda.empty_cache()
-    want = run_a["block_device_ms"]
-    if blk["device_ms"] is not None and want is not None and \
-            abs(blk["device_ms"] - want) > 0.01 * want:
-        fail(f"streaming: a block's device time {blk['device_ms']:.3f} ms "
-             f"with streams attached, the serving phase's {want:.3f} ms")
+    want = base["device_ms"]
+    diff = _device_time_check("streaming (8 streams attached)",
+                              blk["device_ms"], want,
+                              "a block without streams")
 
     # ---- (d, bf16) streams across two crashes at the flagship width
     rng = np.random.default_rng(81)
     crash_payloads = [dict(prompt=rng.integers(0, 32768, int(n)).tolist(),
                            max_new_tokens=STREAM_CRASH_NEW, timeout_s=600.0)
                       for n in rng.integers(64, 1025, STREAM_CRASH)]
-    argv = FLAGSHIP + ["--seed", "81"]
+    argv = SHALLOW + ["--seed", "81"]
     _, (calm,) = _stream_bursts(torch, serve, argv, [(True, crash_payloads)])
     crash_at = [calm["warm_blocks"] + max(1, round(calm["blocks"] * f))
                 for f in (0.3, 0.65)]
@@ -2887,9 +3134,10 @@ def phase_streaming(torch, ops, run_a) -> dict:
     print("streaming " + json.dumps(dict(
         parity=parity, cadences=cadences,
         block=dict(wall_ms=blk["wall_ms"], device_ms=blk["device_ms"],
-                   serving_device_ms=want), crash_bf16=crash_bf16,
+                   device_ms_without_streams=want,
+                   device_time_diff=diff), crash_bf16=crash_bf16,
         launches=counts, card=nvidia_smi_line())))
-    return counts
+    return counts, base
 
 
 # ------------------------------------------------------------ paged KV
@@ -3036,7 +3284,7 @@ def _parting(i, ref, got) -> tuple:
 
 
 def _paged_http(torch, serve, payloads, argv, name) -> tuple:
-    """Serve's app from FLAGSHIP + ``argv``, a warm-up request, then every
+    """Serve's app from SHALLOW + ``argv``, a warm-up request, then every
     payload at once, each block's dispatch under sync debug mode "error".
     -> (the engine, the burst's record: completions in payload order, wall
     time, latency, a block's host dispatch, the admissions' syncs, the
@@ -3045,7 +3293,7 @@ def _paged_http(torch, serve, payloads, argv, name) -> tuple:
     gc.collect()                # a stopped app's cycles hold its tensors
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    app, httpd, url = _serve_app(serve, FLAGSHIP + argv)
+    app, httpd, url = _serve_app(serve, SHALLOW + argv)
     srv = app.server
     syncs = _checked_dispatch(torch, srv)
     try:
@@ -3291,18 +3539,19 @@ def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
     bf16_equal = sum(a == b for a, b in zip(ring["tokens"], paged["tokens"]))
     for rec in (ring, paged, over):
         del rec["tokens"]
-    print(f"paged (b, bf16, serve's defaults + --paged-kv, "
+    print(f"paged (b, bf16, {SERVE_CUT_LAYERS} layers, serve's defaults + "
+          f"--paged-kv, "
           f"{paged['pool_blocks_total']} blocks of {PAGED_KV_BLOCK}): run "
           f"A's {SERVE_REQUESTS} requests {SERVE_REQUESTS} of "
           f"{SERVE_REQUESTS} done, {bf16_equal} equal the ring run's (bf16); "
           f"{paged['output_tokens_per_s']:.1f} output tokens/s (ring in "
-          f"turn {ring['output_tokens_per_s']:.1f}, the serving phase "
-          f"{run_a['output_tokens_per_s']:.1f}); latency p50 "
+          f"turn {ring['output_tokens_per_s']:.1f}, the serving phase at "
+          f"{N_LAYERS} layers {run_a['output_tokens_per_s']:.1f}); latency p50 "
           f"{paged['latency_s_p50']:.3f} s, max {paged['latency_s_max']:.3f}"
           f" s (ring {ring['latency_s_p50']:.3f}, "
           f"{ring['latency_s_max']:.3f}); a block's host dispatch "
           f"{paged['block_dispatch_ms_p50']:.2f} ms (ring "
-          f"{ring['block_dispatch_ms_p50']:.2f}, run A "
+          f"{ring['block_dispatch_ms_p50']:.2f}, run A at {N_LAYERS} layers "
           f"{run_a['block_dispatch_ms_p50']:.2f}); a block's wall "
           f"{costs['block']['wall_ms']:.2f} ms and device "
           f"{costs['block']['device_ms_warm']} ms (ring in turn "
@@ -3352,7 +3601,7 @@ def _paged_tiers(torch, S, serve) -> dict:
                       for n, m in zip(rng.integers(64, 1537, PAGED_TIER),
                                       rng.integers(32, 129, PAGED_TIER))]
                 for cls in ("batch", "interactive")}
-    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+    app, httpd, url = _serve_app(serve, SHALLOW + [
         "--seed", "71", "--paged-kv", "--max-queue", "8",
         "--batch-queue-frac", "0.5", "--class-budget-batch",
         str(PAGED_TIER_BUDGET)])
@@ -3442,7 +3691,7 @@ def _paged_tiers(torch, S, serve) -> dict:
     gaps = {}
     for inter in PAGED_INTERLEAVES:
         torch.cuda.empty_cache()
-        app, httpd, url = _serve_app(serve, FLAGSHIP + [
+        app, httpd, url = _serve_app(serve, SHALLOW + [
             "--seed", "73", "--paged-kv", "--slots", "16",
             "--journal-checkpoint-s", "0.25", "--prefill-interleave",
             str(inter)])
@@ -3859,7 +4108,7 @@ def _quiet_run_a(torch, serve, payloads, trace_dir) -> dict:
     configuration (a) runs, less its scrapes, in turn with it."""
     gc.collect()
     torch.cuda.empty_cache()
-    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+    app, httpd, url = _serve_app(serve, SHALLOW + [
         "--seed", "21", "--trace-dir", str(trace_dir)])
     try:
         t0 = time.perf_counter()
@@ -3874,12 +4123,14 @@ def _quiet_run_a(torch, serve, payloads, trace_dir) -> dict:
                 block_dispatch_ms_p50=_quantiles(disp)["p50"])
 
 
-def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
+def _telemetry_run_a(torch, ops, S, serve, run_a, base_block,
+                     trace_dir) -> dict:
     """(a) run A's 24 requests with /metrics scraped every
     TELEMETRY_SCRAPE_S, then the idle scrape against /stats and the trace
-    file, a block's device time against the serving phase's, and (d) a
-    restart on the same --trace-dir. Run A without the scrapes goes
-    first, in turn."""
+    file, a block's device time against ``base_block``'s (a block of an
+    engine without --trace-dir at the same depth), and (d) a restart on
+    the same --trace-dir. Run A without the scrapes goes first, in
+    turn."""
     from tony_tpu_torch.events.trace import TRACE_FILE, read_traces
     from tony_tpu_torch.observability import TERMINAL_SPANS
 
@@ -3888,7 +4139,7 @@ def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
                          trace_dir.with_name(trace_dir.name + "_quiet"))
     gc.collect()
     torch.cuda.empty_cache()
-    argv = FLAGSHIP + ["--seed", "21", "--trace-dir", str(trace_dir)]
+    argv = SHALLOW + ["--seed", "21", "--trace-dir", str(trace_dir)]
     app, httpd, url = _serve_app(serve, argv)
     base = url.rsplit("/", 1)[0]
     srv = app.server
@@ -3960,11 +4211,9 @@ def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
             for r in records):
         fail(f"telemetry (a): {len(records)} trace records, or a record "
              "without exactly one terminal")
-    want = run_a["block_device_ms"]
-    if blk["device_ms"] is not None and want is not None and \
-            abs(blk["device_ms"] - want) > 0.01 * want:
-        fail(f"telemetry (a): a block's device time {blk['device_ms']:.3f} "
-             f"ms, the serving phase's {want:.3f} ms")
+    want = base_block["device_ms"]
+    diff = _device_time_check("telemetry (a)", blk["device_ms"], want,
+                              "a block without --trace-dir (streaming)")
 
     # ---- (d) a new serve on the same --trace-dir resumes the dump
     dump = json.loads((trace_dir / serve.TELEMETRY_STATE_FILE).read_text())
@@ -3996,7 +4245,8 @@ def _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir) -> dict:
         block_dispatch_ms_unscraped=quiet["block_dispatch_ms_p50"],
         output_tokens_per_s_unscraped=quiet["output_tokens_per_s"],
         block_device_ms=blk["device_ms"], block_wall_ms=blk["wall_ms"],
-        block_device_ms_serving=want, admission_syncs=syncs["admission"],
+        block_device_ms_baseline=want, block_device_time_diff=diff,
+        admission_syncs=syncs["admission"],
         device=device, ttft_s=lat["ttft_s"], tpot_s=lat["tpot_s"],
         queue_wait_s=lat["queue_wait_s"], e2e_s=lat["e2e_s"],
         loop_turn_s=lat["loop_turn_s"],
@@ -4170,7 +4420,7 @@ def _telemetry_shed(torch, ops, serve) -> dict:
     _, _, _, _, payloads = _serve_payloads()
     gc.collect()
     torch.cuda.empty_cache()
-    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+    app, httpd, url = _serve_app(serve, SHALLOW + [
         "--seed", "21", "--max-queue", str(TELEMETRY_MAX_QUEUE)])
     base = url.rsplit("/", 1)[0]
     srv = app.server
@@ -4296,7 +4546,7 @@ def _telemetry_paged(torch, ops, serve) -> dict:
     torch.cuda.empty_cache()
     trace_dir = REPO / "build" / "telemetry_paged_trace"
     shutil.rmtree(trace_dir, ignore_errors=True)
-    app, httpd, url = _serve_app(serve, FLAGSHIP + [
+    app, httpd, url = _serve_app(serve, SHALLOW + [
         "--seed", "21", "--paged-kv", "--trace-dir", str(trace_dir)])
     base = url.rsplit("/", 1)[0]
     srv = app.server
@@ -4341,11 +4591,13 @@ def _telemetry_paged(torch, ops, serve) -> dict:
                 profile=capture, launches=counts)
 
 
-def phase_telemetry(torch, ops, run_a) -> dict:
-    """Serving telemetry through serve's app at the flagship width with
-    its defaults, bf16: (a) run A scraped every TELEMETRY_SCRAPE_S, /metrics
-    against /stats and the trace file, a block's host dispatch and device
-    time against the serving phase's, no synchronisation in dispatch or
+def phase_telemetry(torch, ops, run_a, base_block) -> dict:
+    """Serving telemetry through serve's app at the flagship width
+    (SERVE_CUT_LAYERS layers) with its defaults, bf16: (a) run A scraped
+    every TELEMETRY_SCRAPE_S, /metrics against /stats and the trace file,
+    a block's host dispatch beside the serving phase's and its device time
+    against ``base_block``'s (no --trace-dir, the same depth), no
+    synchronisation in dispatch or
     admission; (b) --max-queue 8 under a burst: every 429's Retry-After
     the estimator's, never falling with the queue's depth, then the
     autoscale hint; (c) --paged-kv: the pool's families; (d) a restart on
@@ -4359,7 +4611,8 @@ def phase_telemetry(torch, ops, run_a) -> dict:
     trace_dir = REPO / "build" / "telemetry_trace"
     shutil.rmtree(trace_dir, ignore_errors=True)
     ops.reset_launch_counts()
-    a = _telemetry_run_a(torch, ops, S, serve, run_a, trace_dir)
+    a = _telemetry_run_a(torch, ops, S, serve, run_a, base_block,
+                         trace_dir)
     shutil.rmtree(trace_dir, ignore_errors=True)
     b = _telemetry_shed(torch, ops, serve)
     c = _telemetry_paged(torch, ops, serve)
@@ -4367,12 +4620,13 @@ def phase_telemetry(torch, ops, run_a) -> dict:
     counts = {k: a["launches"][k] + b["launches"][k] + c["launches"][k]
               for k in a["launches"]}
     seconds = time.perf_counter() - t0
-    print(f"telemetry (a, bf16, serve's defaults, --trace-dir): run A's "
+    print(f"telemetry (a, bf16, {SERVE_CUT_LAYERS} layers, serve's "
+          f"defaults, --trace-dir): run A's "
           f"{SERVE_REQUESTS} requests with /metrics scraped every "
           f"{TELEMETRY_SCRAPE_S} s: {a['scrapes']} scrapes, each through "
           f"the exposition check (p50 {a['scrape_ms_p50']:.2f} ms, max "
           f"{a['scrape_ms_max']:.2f} ms); {a['output_tokens_per_s']:.1f} "
-          f"output tokens/s (the serving phase "
+          f"output tokens/s (the serving phase at {N_LAYERS} layers "
           f"{run_a['output_tokens_per_s']:.1f}); gauges equal /stats, TTFT "
           f"count {SERVE_REQUESTS}, {a['trace_records']} trace records with "
           f"one terminal each; TTFT p50 {a['ttft_s']['p50_s']} s, p99 "
@@ -4381,9 +4635,10 @@ def phase_telemetry(torch, ops, run_a) -> dict:
           f"(without the scrapes in turn "
           f"{a['block_dispatch_ms_unscraped']:.2f}, at "
           f"{a['output_tokens_per_s_unscraped']:.1f} tokens/s; the serving "
-          f"phase {a['block_dispatch_ms_serving']:.2f}); "
-          f"device {a['block_device_ms']} ms (the serving phase "
-          f"{a['block_device_ms_serving']}); synchronisations 0 in dispatch"
+          f"phase's at {N_LAYERS} layers {a['block_dispatch_ms_serving']:.2f}"
+          f"); device {a['block_device_ms']} ms (a block without "
+          f"--trace-dir at {SERVE_CUT_LAYERS} layers "
+          f"{a['block_device_ms_baseline']}); synchronisations 0 in dispatch"
           f", {a['admission_syncs']} in admission")
     print(f"telemetry (b, --max-queue {TELEMETRY_MAX_QUEUE}, a burst of "
           f"{TELEMETRY_BURST}): {b['served']} served, {b['shed_queue_full']} "
@@ -4545,8 +4800,8 @@ def _disagg_http(torch, ops, serve) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    app, httpd, url = _serve_app(serve, FLAGSHIP + ["--seed", "21",
-                                                    "--paged-kv"])
+    app, httpd, url = _serve_app(serve, SHALLOW + ["--seed", "21",
+                                                   "--paged-kv"])
     both_comps = _record_completions(app.server)
     both_syncs = _checked_dispatch(torch, app.server)
     try:
@@ -4560,9 +4815,9 @@ def _disagg_http(torch, ops, serve) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    pre_app, pre_httpd, pre_url = _serve_app(serve, FLAGSHIP + [
+    pre_app, pre_httpd, pre_url = _serve_app(serve, SHALLOW + [
         "--seed", "21", "--paged-kv", "--role", "prefill"])
-    dec_app, dec_httpd, dec_url = _serve_app(serve, FLAGSHIP + [
+    dec_app, dec_httpd, dec_url = _serve_app(serve, SHALLOW + [
         "--seed", "21", "--paged-kv", "--role", "decode", "--kv-pool-blocks",
         str(DISAGG_DECODE_BLOCKS)])
     dec_base = dec_url.rsplit("/", 1)[0]
@@ -4771,13 +5026,22 @@ def phase_disagg(torch, ops) -> dict:
     return counts
 
 
-def _solo_greedy(torch, G, w, cfg, prompt, n):
+def _solo_greedy(torch, G, w, cfg, prompt, n, server_order=False):
     """The port's greedy generation of n tokens, its prefill and decode
-    steps on the kernels, with each step's top-2 logit gap."""
+    steps on the kernels, with each step's top-2 logit gap.
+    ``server_order``: as the serving engines run it, the prompt but its
+    last token prefilled on the cast weights, the last token fed to the
+    first decode step (on the fused, int8, weights)."""
     p = torch.tensor([prompt], device="cuda")
     cache = G.init_cache(cfg, 1, p.shape[1] + n, device="cuda")
-    logits, cache = G._forward_with_cache(w.params, cfg, p, cache, w.fused,
-                                          prefill=True)
+    if server_order:
+        _, cache = G._forward_with_cache(w.params, cfg, p[:, :-1], cache,
+                                         None, prefill=True)
+        logits, cache = G._forward_with_cache(w.params, cfg, p[:, -1:],
+                                              cache, w.fused)
+    else:
+        logits, cache = G._forward_with_cache(w.params, cfg, p, cache,
+                                              w.fused, prefill=True)
     toks, gaps = [], []
     for step in range(n):
         top2 = logits[0].topk(2).values
@@ -4788,6 +5052,198 @@ def _solo_greedy(torch, G, w, cfg, prompt, n):
             logits, cache = G._forward_with_cache(w.params, cfg, tok[:, None],
                                                   cache, w.fused)
     return toks, gaps
+
+
+def _write_hf_checkpoint(torch, path: Path) -> int:
+    """HF_CONFIG at HF_LAYERS layers in HF's layout: config.json, two
+    safetensors shards (the embedding and the first half of the layers;
+    the rest, the final norm and lm_head) and their index; random bf16
+    weights (standard deviation 0.02, norms 1) drawn on the card from a
+    seeded generator. -> the bytes of weights written."""
+    cfg = dict(HF_CONFIG, num_hidden_layers=HF_LAYERS)
+    d, f, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    kv = cfg["num_key_value_heads"] * d // cfg["num_attention_heads"]
+    shapes = {"model.embed_tokens.weight": (v, d)}
+    for i in range(HF_LAYERS):
+        pre = f"model.layers.{i}."
+        shapes.update({
+            pre + "input_layernorm.weight": (d,),
+            pre + "self_attn.q_proj.weight": (d, d),
+            pre + "self_attn.k_proj.weight": (kv, d),
+            pre + "self_attn.v_proj.weight": (kv, d),
+            pre + "self_attn.o_proj.weight": (d, d),
+            pre + "post_attention_layernorm.weight": (d,),
+            pre + "mlp.gate_proj.weight": (f, d),
+            pre + "mlp.up_proj.weight": (f, d),
+            pre + "mlp.down_proj.weight": (d, f)})
+    shapes.update({"model.norm.weight": (d,), "lm_head.weight": (v, d)})
+    names = list(shapes)
+    half = names.index(f"model.layers.{HF_LAYERS // 2}.input_layernorm.weight")
+    shards = {"model-00001-of-00002.safetensors": names[:half],
+              "model-00002-of-00002.safetensors": names[half:]}
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(cfg))
+    g = torch.Generator(device="cuda").manual_seed(21)
+    weight_map, total = {}, 0
+    for shard, keys in shards.items():
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for key in keys:
+            n = math.prod(shapes[key]) * 2
+            header[key] = dict(dtype="BF16", shape=list(shapes[key]),
+                               data_offsets=[offset, offset + n])
+            weight_map[key] = shard
+            offset += n
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(path / shard, "wb") as fh:
+            fh.write(struct.pack("<Q", len(blob)) + blob)
+            for key in keys:
+                if key.endswith("norm.weight"):
+                    t = torch.ones(shapes[key], device="cuda")
+                else:
+                    t = torch.randn(shapes[key], device="cuda",
+                                    generator=g) * 0.02
+                fh.write(t.to(torch.bfloat16).cpu().view(torch.uint8)
+                         .numpy())
+                del t
+        total += offset
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def phase_hf(torch, ops, lm_generate, G, serve) -> dict:
+    """A checkpoint in HF's layout at Llama-3.1-8B's widths (HF_CONFIG,
+    HF_LAYERS layers, bf16, two shards), written here and read by the
+    port's own reader: lm_generate --hf-checkpoint native and with
+    --weight-dtype int8; at float32 the kernels (K1 at H32 on kvH8, K6 at
+    rep 4) against the plain path, token-identical up to the plain path's
+    first near-tie; serve --hf-checkpoint --weight-dtype int8 at float32
+    on the ring and --paged-kv against solo int8 decoding in the server's
+    order (the prompt but its last token prefilled on the cast weights,
+    every token after on the int8 ones), under the near-tie rule; one bf16 engine, reported. -> the launches of the
+    entry points' runs."""
+    print("== HF checkpoint (Llama-3.1-8B widths)")
+    import numpy as np
+
+    from tony_tpu_torch.models.hf_import import load_hf
+
+    out_dir = REPO / "build" / "chip_smoke"
+    ckpt = out_dir / "hf_llama"
+    t0 = time.perf_counter()
+    nbytes = _write_hf_checkpoint(torch, ckpt)
+    rec = dict(wrote=dict(bytes=nbytes, seconds=time.perf_counter() - t0))
+    print(f"hf: wrote {nbytes / 1e9:.3f} GB of bf16 weights in two shards "
+          f"in {rec['wrote']['seconds']:.2f} s")
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    rec["lm_generate"] = {}
+    for wd in ("native", "int8"):
+        metrics = out_dir / f"hf_{wd}.json"
+        argv = ["--hf-checkpoint", str(ckpt), "--batch", "4", "--prompt-len",
+                "512", "--max-new", str(HF_NEW), "--seed", "3",
+                "--weight-dtype", wd, "--metrics-out", str(metrics)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        rc = lm_generate.main(argv)
+        counts = ops.launch_counts()
+        if rc != 0:
+            fail(f"hf: lm_generate --weight-dtype {wd} exited {rc}")
+        want = {"flash_fwd": 3 * HF_LAYERS,
+                "flash_decode": 2 * HF_LAYERS * (HF_NEW - 1),
+                "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+        if counts != want:
+            fail(f"hf lm_generate {wd}: launches {counts}, expected {want}")
+        m = json.loads(metrics.read_text())
+        if len(m["tokens"]) != HF_NEW or not all(
+                0 <= t < HF_CONFIG["vocab_size"] for t in m["tokens"]):
+            fail(f"hf lm_generate {wd}: bad output {m['tokens']}")
+        for name, n in counts.items():
+            totals[name] += n
+        rec["lm_generate"][wd] = dict(
+            prefill_ms=m["prefill_ms"], decode_step_ms=m["decode_step_ms"],
+            batch_decode_tokens_per_sec=m["batch_decode_tokens_per_sec"],
+            load_s=m["hf_load_s"], load_gb_per_s=nbytes / m["hf_load_s"] / 1e9)
+        print(f"hf lm_generate {wd} weights: B4 prompt 512, load "
+              f"{m['hf_load_s']:.2f} s ({nbytes / m['hf_load_s'] / 1e9:.2f} "
+              f"GB/s), prefill {m['prefill_ms']:.2f} ms, decode "
+              f"{m['decode_step_ms']:.3f} ms/step; launches {counts}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, cfg = load_hf(ckpt, torch.float32)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, HF_REQUESTS)]
+    w = G.prepare_decode(params, cfg)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    rec["float32_kernels"] = []
+    with torch.no_grad():
+        for i, p in enumerate(prompts[:4]):
+            ops.reset_launch_counts()
+            got, _ = _solo_greedy(torch, G, w, cfg, p, HF_NEW)
+            kern = ops.launch_counts()
+            want_toks, gaps = _solo_greedy(torch, G, w, ref_cfg, p, HF_NEW)
+            if (kern["flash_fwd"] != HF_LAYERS or kern["flash_decode"]
+                    != HF_LAYERS * (HF_NEW - 1)
+                    or ops.launch_counts() != kern):
+                fail(f"hf float32 request {i}: kernel launches {kern}, then "
+                     f"{ops.launch_counts()} after the plain path")
+            rec["float32_kernels"].append(_near_tie_check(
+                f"hf float32 kernels, request {i}", got, want_toks, gaps,
+                HF_NEW))
+        del w
+        w8 = G.prepare_decode(params, cfg, weight_dtype="int8")
+        solo = [_solo_greedy(torch, G, w8, cfg, p, HF_NEW,
+                             server_order=True) for p in prompts]
+    del w8, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    payloads = [{"prompt": p, "max_new_tokens": HF_NEW} for p in prompts]
+    rec["serve"] = {}
+    for dtype, engine, extra in (("float32", "ring", []),
+                                 ("float32", "paged", ["--paged-kv"]),
+                                 ("bfloat16", "ring", [])):
+        argv = ["--hf-checkpoint", str(ckpt), "--dtype", dtype,
+                "--weight-dtype", "int8", "--vocab",
+                str(HF_CONFIG["vocab_size"])] + extra
+        t0 = time.perf_counter()
+        app, httpd, url = _serve_app(serve, argv)
+        ready_s = time.perf_counter() - t0
+        try:
+            ops.reset_launch_counts()
+            res = _post_all(url, payloads)
+            counts = ops.launch_counts()
+        finally:
+            _stop_app(app, httpd)
+        for name, n in counts.items():
+            totals[name] += n
+        toks = [body["tokens"] for _, body, _ in res]
+        row = dict(ready_s=ready_s, wall_s=max(r[2] for r in res),
+                   launches=counts,
+                   equal_solo=sum(t == s for t, (s, _) in zip(toks, solo)))
+        if dtype == "float32":
+            row["near_tie"] = [
+                _near_tie_check(f"hf serve {engine} request {i}", t, s, g,
+                                HF_NEW)
+                for i, (t, (s, g)) in enumerate(zip(toks, solo))]
+        else:
+            row["shared_with_float32_solo"] = [
+                next((j for j, (a, b) in enumerate(zip(t, s)) if a != b),
+                     len(t)) for t, (s, _) in zip(toks, solo)]
+        rec["serve"][f"{dtype} {engine}"] = row
+        held = ("every one up to its first near-tie" if dtype == "float32"
+                else "reported: bf16 against the float32 solo")
+        print(f"hf serve --hf-checkpoint --weight-dtype int8 ({dtype}, "
+              f"{engine}): {len(res)} requests answered, {row['equal_solo']} "
+              f"of {len(res)} equal to float32 solo int8 decoding in the "
+              f"server's order ({held}); ready in {ready_s:.2f} s; launches "
+              f"{counts}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rec.update(launches=totals, card=nvidia_smi_line())
+    print("hf " + json.dumps(rec))
+    return totals
 
 
 def phase_serving_parity(torch, G, T) -> None:
@@ -4947,16 +5403,31 @@ def _profile_rows(prof, n):
 
 def phase_train_profile(torch, T) -> None:
     """Where a flagship training step's time goes (batch 8 x 2048): host
-    wall time against the device time the profiler records."""
-    print("== profile: training step")
+    wall time against the device time the profiler records, with remat
+    off and under each policy (the flash forward's calls a step read from
+    the profile)."""
+    import dataclasses
+
+    base = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
+                               n_heads=8, n_kv_heads=8, d_ff=4096,
+                               max_seq_len=TRAIN_SEQ)
+    rows = {}
+    for policy in (None,) + REMAT_POLICIES:
+        cfg = dataclasses.replace(base, remat=policy is not None,
+                                  remat_policy=policy or "full")
+        rows[policy or "off"] = _train_step_profile(torch, cfg, policy)
+    print("remat_profile " + json.dumps(rows))
+
+
+def _train_step_profile(torch, cfg, policy) -> dict:
+    name = f"training step (remat {policy or 'off'})"
+    print(f"== profile: {name}")
     from torch.profiler import ProfilerActivity, profile
 
     from tony_tpu_torch import train
 
+    gc.collect()
     torch.cuda.empty_cache()
-    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
-                              n_heads=8, n_kv_heads=8, d_ff=4096,
-                              max_seq_len=TRAIN_SEQ)
     bundle = train.create_train_step(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     tokens, targets = train.synthetic_lm_batch(gen, TRAIN_BATCH, TRAIN_SEQ,
@@ -4978,15 +5449,19 @@ def phase_train_profile(torch, T) -> None:
         steps(2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dev_ms, top, port = _profile_rows(prof, 2)
+    del bundle
     if not top:
-        print(f"profile: training step {wall_ms:.3f} ms wall; device time "
-              "not measured (the profiler recorded no device activity)")
-        return
-    print(f"profile: training step B{TRAIN_BATCH} L{TRAIN_SEQ}: "
-          f"{wall_ms:.3f} ms wall, {dev_ms:.3f} ms on the device, busy share "
+        print(f"profile: {name} {wall_ms:.3f} ms wall; device time not "
+              "measured (the profiler recorded no device activity)")
+        return dict(wall_ms=wall_ms, device_ms=None, peak_gb=peak_gb)
+    print(f"profile: {name} B{TRAIN_BATCH} L{TRAIN_SEQ}: {wall_ms:.3f} ms "
+          f"wall, {dev_ms:.3f} ms on the device, busy share "
           f"{dev_ms / wall_ms:.3f}, peak memory {peak_gb:.1f} GB")
-    print("train_profile_top " + json.dumps(top))
-    print("train_profile_port " + json.dumps(port))
+    if policy is None:
+        print("train_profile_top " + json.dumps(top))
+        print("train_profile_port " + json.dumps(port))
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, peak_gb=peak_gb,
+                port_kernels=port)
 
 
 def phase_parity(torch, G, T) -> None:
@@ -5097,6 +5572,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from tony_tpu_torch import ops
+    from tony_tpu_torch.cli import serve
     from tony_tpu_torch.examples import lm_generate, lm_train
     from tony_tpu_torch.models import generate as G
     from tony_tpu_torch.models import transformer as T
@@ -5107,26 +5583,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    compiled = phase_card(_build)
+    compiled = timed("card", phase_card, _build)
+
     with torch.no_grad():
-        records = phase_kernels(torch, A)
-        records += phase_decode(torch, DA, G, T)
-        records += phase_bwd_kernels(torch, A)
-    gen_launches = phase_main_path(ops, lm_generate)
-    train_launches, train_losses = phase_train_path(torch, ops, lm_train)
-    serve_launches, run_a = phase_serving(torch, ops)
-    ckpt_launches = phase_checkpoint(torch, ops, lm_train, lm_generate,
-                                     train_losses)
-    prefix_launches, prefix_admit = phase_prefix_cache(torch, ops)
-    replay_launches = phase_replay(torch, ops)
-    stream_launches = phase_streaming(torch, ops, run_a)
-    paged_launches = phase_paged(torch, ops, run_a, prefix_admit)
-    telemetry_launches = phase_telemetry(torch, ops, run_a)
-    disagg_launches = phase_disagg(torch, ops)
-    launches = {k: gen_launches[k] + train_launches[k] + serve_launches[k]
-                + ckpt_launches[k] + prefix_launches[k] + replay_launches[k]
-                + stream_launches[k] + paged_launches[k]
-                + telemetry_launches[k] + disagg_launches[k]
+        records = timed("kernels", phase_kernels, torch, A)
+        records += timed("decode_kernel", phase_decode, torch, DA, G, T)
+        records += timed("bwd_kernels", phase_bwd_kernels, torch, A)
+    gen_launches = timed("generation", phase_main_path, torch, ops,
+                         lm_generate, G, T)
+    train_launches, train_losses, *train_costs = timed(
+        "training", phase_train_path, torch, ops, lm_train)
+    remat_launches = timed("remat", phase_remat, torch, ops, lm_train, A,
+                           (train_losses, *train_costs))
+    serve_launches, run_a = timed("serving", phase_serving, torch, ops)
+    ckpt_launches = timed("checkpoint", phase_checkpoint, torch, ops,
+                          lm_train, lm_generate, train_losses)
+    prefix_launches, prefix_admit = timed("prefix_cache", phase_prefix_cache,
+                                          torch, ops)
+    replay_launches = timed("replay", phase_replay, torch, ops)
+    stream_launches, base_block = timed("streaming", phase_streaming, torch,
+                                        ops, run_a)
+    paged_launches = timed("paged", phase_paged, torch, ops, run_a,
+                           prefix_admit)
+    telemetry_launches = timed("telemetry", phase_telemetry, torch, ops,
+                               run_a, base_block)
+    disagg_launches = timed("disagg", phase_disagg, torch, ops)
+    hf_launches = timed("hf", phase_hf, torch, ops, lm_generate, G, serve)
+    launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
+                + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
+                + replay_launches[k] + stream_launches[k]
+                + paged_launches[k] + telemetry_launches[k]
+                + disagg_launches[k] + hf_launches[k]
                 for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
@@ -5139,12 +5626,13 @@ def main() -> int:
             n_regs, st, ld, hmma = compiled[mma]
             r.update(registers_d128_bf16=n_regs, spill_bytes_d128_bf16=st + ld,
                      hmma_d128_bf16=hmma)
-    phase_parity(torch, G, T)
-    phase_train_parity(torch, T)
-    phase_serving_parity(torch, G, T)
+    timed("parity", phase_parity, torch, G, T)
+    timed("train_parity", phase_train_parity, torch, T)
+    timed("serving_parity", phase_serving_parity, torch, G, T)
     with torch.no_grad():
-        phase_profile(torch, G, T)
-    phase_train_profile(torch, T)
+        timed("profile", phase_profile, torch, G, T)
+    timed("train_profile", phase_train_profile, torch, T)
+    PHASE_SECONDS["total"] = round(time.perf_counter() - t0, 1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -5154,6 +5642,7 @@ def main() -> int:
         r["kernel_ms"] = r["ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("library",)
                                    if k in r} for r in records]}))
+    print("phase_seconds " + json.dumps(PHASE_SECONDS))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

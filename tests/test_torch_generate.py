@@ -216,8 +216,6 @@ def test_generate_rejections():
         G.generate(params, dataclasses.replace(cfg, causal=False), p, 2)
     with pytest.raises(ValueError, match="weight_dtype"):
         G.generate(params, cfg, p, 2, weight_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="w8a16"):
-        G.generate(params, cfg, p, 2, weight_dtype="int8")
     with pytest.raises(ValueError, match="max_len"):
         G.generate(params, cfg, p, 4, max_len=6)
     prepared = G.prepare_decode(params, cfg)

@@ -27,7 +27,8 @@ import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "tony_tpu", "orbax", "safetensors"):
+        if top in ("jax", "jaxlib", "tony_tpu", "orbax", "safetensors",
+                   "transformers"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -39,12 +40,13 @@ for name in ("tony_tpu_torch.train.checkpoint",
              "tony_tpu_torch.examples.elastic_train",
              "tony_tpu_torch.observability", "tony_tpu_torch.metrics",
              "tony_tpu_torch.events.trace",
-             "tony_tpu_torch.tools.serving_ab"):
+             "tony_tpu_torch.tools.serving_ab",
+             "tony_tpu_torch.models.hf_import"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
-assert not any(m.split(".")[0] in ("jax", "tony_tpu", "orbax", "safetensors")
-               for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "tony_tpu", "orbax", "safetensors",
+                                  "transformers") for m in sys.modules)
 print(len(names))
 """
 
@@ -119,11 +121,9 @@ def test_lm_generate_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,what", [
     (["--draft-hf-checkpoint", "/nonexistent"], "speculative"),
-    (["--hf-checkpoint", "/nonexistent"], "HF import"),
     (["--draft-checkpoint-dir", "/nonexistent"], "speculative"),
     (["--tensor-parallel", "2"], "mesh/TP"),
     (["--n-experts", "4"], "MoE"),
-    (["--weight-dtype", "int8"], "w8a16"),
 ])
 def test_lm_generate_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):

@@ -442,12 +442,10 @@ def test_serve_prefix_cache_flags_and_stats():
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--hf-checkpoint", "/x"], "HF import"),
     (["--mesh", "tensor=2"], "mesh/TP"),
     (["--spec-gamma", "2"], "speculative"),
     (["--draft-model", "d"], "speculative"),
     (["--model", "a=random"], "HF import"),
-    (["--weight-dtype", "int8"], "w8a16"),
     (["--spec-gamma-max", "8"], "speculative"),
     (["--draft-d-model", "32"], "speculative"),
     (["--draft-n-layers", "1"], "speculative"),

@@ -652,8 +652,6 @@ def test_journal_and_replay_arguments(model, kw, tmp_path):
 
 def test_unported_model_features_raise(model):
     _, cfg, _, params = model
-    with pytest.raises(NotImplementedError, match="w8a16"):
-        S.SlotServer(params, cfg, device="cpu", weight_dtype="int8")
     with pytest.raises(NotImplementedError, match="MoE"):
         S.SlotServer(params, dataclasses.replace(cfg, n_experts=4),
                      device="cpu")

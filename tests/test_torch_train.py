@@ -102,8 +102,6 @@ def test_token_nll_reductions_and_dispatch():
     assert not T._use_blockwise_ce(dataclasses.replace(big, ce_impl="dense"))
     with pytest.raises(ValueError, match="ce_impl"):
         T._use_blockwise_ce(dataclasses.replace(big, ce_impl="fused"))
-    with pytest.raises(NotImplementedError, match="remat"):
-        T.loss_fn({}, None, None, dataclasses.replace(cfg, remat=True))
 
 
 def _adam_state(opt_state):
@@ -307,7 +305,6 @@ def test_step_timer_records(tmp_path):
 
 @pytest.mark.parametrize("flags,what", [
     (["--mesh", "seq=2"], "mesh/TP"),
-    (["--remat"], "remat"),
     (["--n-experts", "4"], "MoE"),
     (["--mesh", "data=2"], "mesh/TP"),
 ])

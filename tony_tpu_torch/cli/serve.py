@@ -97,10 +97,14 @@ them (``--prefix-cache-blocks`` then counts ``--kv-block``-token nodes).
 /stats gains ``paged_kv`` (the pool's blocks, by holder, the classes'
 use, the deferred admissions).
 
-Not ported yet, each raising a named error: ``--hf-checkpoint``,
-``--mesh``, ``--draft-model`` and the ``--draft-*`` and ``--spec-gamma*``
-flags, ``--model`` and ``--weight-dtype int8``. /metrics has no compile,
-model or speculative families (ROADMAP.md queue 1).
+``--hf-checkpoint DIR`` serves a HuggingFace Llama or Mistral checkpoint
+(models/hf_import.py, no ``transformers`` needed; its config sets the
+dims), exclusive with ``--checkpoint-dir``; ``--weight-dtype int8``
+decodes on int8 weights (w8a16) while prefill reads the cast ones.
+
+Not ported yet, each raising a named error: ``--mesh``, ``--draft-model``
+and the ``--draft-*`` and ``--spec-gamma*`` flags, and ``--model``. /metrics
+has no compile, model or speculative families (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -130,7 +134,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="default: the GPU (raises without one)")
     p.add_argument("--checkpoint-dir", default="",
                    help="lm_train checkpoint directory; empty = random init")
-    p.add_argument("--hf-checkpoint", default="", help="not yet ported")
+    p.add_argument("--hf-checkpoint", default="",
+                   help="HuggingFace Llama/Mistral checkpoint directory "
+                        "(its config sets the model dims)")
     p.add_argument("--d-model", type=int, default=256)
     p.add_argument("--n-layers", type=int, default=4)
     p.add_argument("--n-heads", type=int, default=8)
@@ -252,7 +258,6 @@ _SPEC = "speculative decoding"
 # flag -> (is it set off the JAX package's default?, ROADMAP.md queue-1
 # item)
 _NOT_PORTED_FLAGS = {
-    "--hf-checkpoint": (lambda a: a.hf_checkpoint, "HF import"),
     "--mesh": (lambda a: a.mesh, "mesh/TP"),
     "--model": (lambda a: a.model, "HF import (the model registry)"),
     "--draft-model": (lambda a: a.draft_model, _SPEC),
@@ -262,7 +267,6 @@ _NOT_PORTED_FLAGS = {
     "--draft-n-layers": (lambda a: a.draft_n_layers != 2, _SPEC),
     "--draft-n-heads": (lambda a: a.draft_n_heads != 4, _SPEC),
     "--draft-d-ff": (lambda a: a.draft_d_ff != 256, _SPEC),
-    "--weight-dtype int8": (lambda a: a.weight_dtype == "int8", "w8a16"),
 }
 
 
@@ -274,8 +278,9 @@ def check_ported(args) -> None:
 
 
 def load_model(args):
-    """(params, cfg) at the CLI's dims on ``--device``: a random init from
-    ``--seed``, or the latest step of the lm_train checkpoint in
+    """(params, cfg) on ``--device``: the HF checkpoint in
+    ``--hf-checkpoint`` at its own dims, or at the CLI's dims a random init
+    from ``--seed`` or the latest step of the lm_train checkpoint in
     ``--checkpoint-dir`` (the JAX package's ``ckpt:`` models; SystemExit
     when the directory holds none)."""
     import torch
@@ -284,7 +289,13 @@ def load_model(args):
     from ..models import transformer
     from ..models.convert import torch_dtype
 
+    if args.hf_checkpoint and args.checkpoint_dir:
+        raise SystemExit("--hf-checkpoint and --checkpoint-dir are exclusive")
     device = resolve_device(args.device)
+    if args.hf_checkpoint:
+        from ..models.hf_import import load_hf
+
+        return load_hf(args.hf_checkpoint, torch_dtype(args.dtype), device)
     cfg = transformer.TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
@@ -1709,7 +1720,8 @@ def main(argv=None) -> int:
     app = build_app(args)
     app.start()
     httpd = make_httpd(app, args.host, args.port,
-                       TokenCodec(args.text_codec, vocab_size=args.vocab))
+                       TokenCodec(args.text_codec,
+                                  vocab_size=app.server.cfg.vocab_size))
     # graceful drain on SIGTERM/SIGINT, on a helper thread (httpd.shutdown
     # deadlocks from the serve_forever thread); a second signal exits now
     draining = threading.Event()

@@ -6,8 +6,12 @@ the JAX package's examples/lm_generate.py, single-device paths).
         --batch 8 --prompt-len 1024 --max-new 64
 
 Weights are random, drawn from ``--seed`` through a ``torch.Generator``,
-or restored from an lm_train checkpoint (``--checkpoint-dir``: its latest
-step's ``params``; the optimizer state is dropped). Prompts are
+restored from an lm_train checkpoint (``--checkpoint-dir``: its latest
+step's ``params``; the optimizer state is dropped), or imported from a
+HuggingFace Llama or Mistral checkpoint directory (``--hf-checkpoint``,
+read without ``transformers``: models/hf_import.py; its config sets the
+model's dims and vocabulary). ``--weight-dtype int8`` decodes on int8
+weights (w8a16, models/generate.py). Prompts are
 whitespace-separated token ids (``--prompt``), or ``--batch`` x
 ``--prompt-len`` random ids from the same seed. Prints the first row's
 tokens and the decode throughput; ``--metrics-out`` also gets the prefill
@@ -18,9 +22,8 @@ prefill-only run (``max_new_tokens=1``). So a call launches the flash
 forward kernel 3 x n_layers times and the flash-decode kernel
 2 x n_layers x (max_new - 1) times (fewer with stop tokens).
 
-Not ported yet, each raising: ``--hf-checkpoint``, the draft (speculative)
-flags, ``--tensor-parallel`` > 1, ``--n-experts`` > 0 and
-``--weight-dtype int8``.
+Not ported yet, each raising: the draft (speculative) flags,
+``--tensor-parallel`` > 1 and ``--n-experts`` > 0.
 """
 
 from __future__ import annotations
@@ -81,16 +84,14 @@ def main(argv=None) -> int:
     parser.add_argument("--metrics-out", default="")
     args = parser.parse_args(argv)
 
-    if args.hf_checkpoint:
-        _not_ported("--hf-checkpoint", "HF import")
+    if args.hf_checkpoint and args.checkpoint_dir:
+        raise SystemExit("--hf-checkpoint and --checkpoint-dir are exclusive")
     if args.draft_hf_checkpoint or args.draft_checkpoint_dir:
         _not_ported("speculative decoding (--draft-*)", "speculative")
     if args.tensor_parallel > 1:
         _not_ported("--tensor-parallel", "mesh/TP")
     if args.n_experts > 0:
         _not_ported("--n-experts", "MoE")
-    if args.weight_dtype == "int8":
-        _not_ported("--weight-dtype int8", "w8a16")
 
     import torch
 
@@ -100,13 +101,30 @@ def main(argv=None) -> int:
     from tony_tpu_torch.models.generate import generate, prepare_decode
 
     device = resolve_device(args.device)
-    cfg = transformer.TransformerConfig(
-        vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
-        n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
-        dtype=torch_dtype(args.dtype),
-    )
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = transformer.init(cfg, gen, device)
+    hf_load_s = None
+    if args.hf_checkpoint:
+        from tony_tpu_torch.models.hf_import import load_hf, weight_files
+
+        t0 = time.perf_counter()
+        params, cfg = load_hf(args.hf_checkpoint, torch_dtype(args.dtype),
+                              device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        hf_load_s = time.perf_counter() - t0
+        hf_bytes = sum(f.stat().st_size
+                       for f in weight_files(args.hf_checkpoint))
+        args.vocab = cfg.vocab_size
+        print(f"imported HF checkpoint: {cfg.n_layers}L d{cfg.d_model} "
+              f"{cfg.n_heads}h/{cfg.n_kv_heads}kv vocab {cfg.vocab_size} in "
+              f"{hf_load_s:.2f} s ({hf_bytes / hf_load_s / 1e9:.2f} GB/s)")
+    else:
+        cfg = transformer.TransformerConfig(
+            vocab_size=args.vocab, d_model=args.d_model,
+            n_layers=args.n_layers, n_heads=args.n_heads,
+            n_kv_heads=args.n_heads, d_ff=args.d_ff,
+            dtype=torch_dtype(args.dtype))
+        params = transformer.init(cfg, gen, device)
     if args.checkpoint_dir:
         from tony_tpu_torch.train.checkpoint import restore_lm_params
 
@@ -176,6 +194,7 @@ def main(argv=None) -> int:
         "kv_dtype": args.kv_dtype,
         "weight_dtype": args.weight_dtype,
         "stop_tokens": list(stop_tokens),
+        "hf_load_s": hf_load_s,
     }
     print(" ".join(str(t) for t in tokens))
     print(f"# {n_generated} tokens in {wall:.2f}s "

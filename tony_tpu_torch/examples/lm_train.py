@@ -23,11 +23,14 @@ drain before it exits EXIT_PREEMPTED (the keep rules drop a save off the
 interval, as the JAX package's orbax manager does).
 
 Each step runs the flash forward kernel once per layer and the two flash
-backward kernels once per layer on the card.
+backward kernels once per layer on the card. ``--remat`` checkpoints each
+layer (models/transformer.py): under ``--remat-policy full`` or ``dots``
+the backward runs the flash forward again (twice a layer a step), under
+``attn`` it keeps the forward's out and lse (once a layer a step).
 
-Not ported yet, each raising: ``--remat`` (the remat slice),
-``--n-experts`` > 0 (MoE) and a ``--mesh`` wider than one device
-(mesh/TP); a multi-process job raises in ``train.init``.
+Not ported yet, each raising: ``--n-experts`` > 0 (MoE) and a ``--mesh``
+wider than one device (mesh/TP); a multi-process job raises in
+``train.init``.
 """
 
 from __future__ import annotations
@@ -73,7 +76,10 @@ def main(argv=None) -> int:
     parser.add_argument("--dtype", default="bfloat16")
     parser.add_argument("--remat", action="store_true")
     parser.add_argument("--remat-policy", default="full",
-                        choices=("full", "dots", "attn"))
+                        choices=("full", "dots", "attn"),
+                        help="with --remat: 'full' recomputes everything; "
+                             "'dots' saves the matrix products; 'attn' "
+                             "saves only the flash forward's out and lse")
     parser.add_argument("--checkpoint-dir", default="")
     parser.add_argument("--checkpoint-every", type=int, default=50)
     parser.add_argument("--profile-dir", default="")
@@ -92,8 +98,6 @@ def main(argv=None) -> int:
                         help="default: the GPU (raises without one)")
     args = parser.parse_args(argv)
 
-    if args.remat:
-        _not_ported("--remat", "remat")
     if args.n_experts > 0:
         _not_ported("--n-experts", "MoE")
 
@@ -117,7 +121,7 @@ def main(argv=None) -> int:
         vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
         max_seq_len=args.seq_len, dtype=torch_dtype(args.dtype),
-        remat_policy=args.remat_policy,
+        remat=args.remat, remat_policy=args.remat_policy,
     )
     bundle = train.create_train_step(cfg, mesh, device=device)
     params, opt_state = bundle.params, bundle.opt_state

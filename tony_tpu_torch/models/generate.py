@@ -29,6 +29,12 @@ the JAX package's models/generate.py, single device).
   scales; the scales fold out of the attention operands.
 - Dense models run fused q/k/v and gate/up projections (concatenations of
   the training weights, so values match the unfused path).
+- ``weight_dtype="int8"`` (w8a16) quantizes the fused qkv, gate/up, wo,
+  w_down and the unembed per output channel; each product is
+  ``(x @ W_int8) * s``, the scale folded out of it. The int8 matrix is
+  converted to the activation dtype for ``torch.matmul`` (exact: every
+  int8 value is a bf16 value), so it halves the resident bytes of those
+  matrices, not the bytes a step streams.
 
 Sampling: greedy (temperature=0), temperature and top-k, scalar or one
 per row, drawn from an explicit ``torch.Generator`` by the exponential
@@ -37,8 +43,7 @@ for one sample, without its host-side validity check, which would wait
 for the card). ``stop_tokens`` gives EOS semantics with an early exit once
 every row has stopped.
 
-Not ported yet: w8a16 (``weight_dtype="int8"``), MoE and the mesh
-(tensor-parallel) path.
+Not ported yet: MoE and the mesh (tensor-parallel) path.
 """
 
 from __future__ import annotations
@@ -231,16 +236,25 @@ def _cast_decode_params(params, cfg: TransformerConfig):
     return _cast_params(params, cfg.dtype)
 
 
+def _quantize_weight(w):
+    """[..., d_in, d_out] -> (int8, float32 scales [..., 1, d_out]):
+    symmetric per-output-channel quantization over the contraction axis, so
+    the scale folds out of the product: y = (x @ W_int8) * s."""
+    return _symmetric_int8(w, axis=-2)
+
+
 def _fuse_decode_weights(params, cfg: TransformerConfig,
                          weight_dtype: str = "native"):
     """Concatenate per-layer q/k/v and gate/up weights into one matrix each
     ([L, d, h*hd + 2*kvh*hd] and [L, d, 2*f]): two skinny GEMMs per layer
-    instead of five on the weight-streaming decode step."""
-    if weight_dtype == "int8":
-        raise NotImplementedError(
-            "weight_dtype='int8' (w8a16) is not ported yet (ROADMAP queue 1, "
-            "w8a16 item)")
-    if weight_dtype != "native":
+    instead of five on the weight-streaming decode step.
+
+    ``weight_dtype="int8"`` also quantizes every large decode matrix (the
+    fused qkv and gate/up, wo as [L, h*hd, d], w_down and the unembed), each
+    beside its ``<name>_s`` scales in cfg.dtype (the JAX package's
+    generate.py:331-383). These live beside the cast params, which the
+    serving prefill reads."""
+    if weight_dtype not in ("native", "int8"):
         raise ValueError(
             f"weight_dtype must be 'native' or 'int8', got {weight_dtype!r}")
     if cfg.n_experts > 0:
@@ -251,7 +265,16 @@ def _fuse_decode_weights(params, cfg: TransformerConfig,
     wqkv = torch.cat([lp["wq"].reshape(L, d, -1), lp["wk"].reshape(L, d, -1),
                       lp["wv"].reshape(L, d, -1)], dim=-1)
     w_gu = torch.cat([lp["w_gate"], lp["w_up"]], dim=-1)
-    return {"wqkv": wqkv, "w_gu": w_gu}
+    if weight_dtype != "int8":
+        return {"wqkv": wqkv, "w_gu": w_gu}
+    out = {}
+    for name, w in (("wqkv", wqkv),
+                    ("wo", lp["wo"].reshape(L, cfg.n_heads * cfg.head_dim, d)),
+                    ("unembed", params["unembed"]), ("w_gu", w_gu),
+                    ("w_down", lp["w_down"])):
+        out[name], scale = _quantize_weight(w)
+        out[name + "_s"] = scale.to(cfg.dtype)
+    return out
 
 
 def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
@@ -302,6 +325,7 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
     hd = cfg.head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     p_cfg = _prefill_cfg(cfg) if prefill else None
+    w8 = fused is not None and "wqkv_s" in fused    # int8 decode weights
     ck, cv = cache.k, cache.v
     int8_cache = ck.dtype == torch.int8
     for i in range(cfg.n_layers):
@@ -309,6 +333,8 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         if fused is not None:
             qkv = torch.einsum("bld,de->ble", h, fused["wqkv"][i].to(dt))
+            if w8:
+                qkv = qkv * fused["wqkv_s"][i]
             q = qkv[..., :nq].reshape(b, l, cfg.n_heads, hd)
             k = qkv[..., nq:nq + nkv].reshape(b, l, cfg.n_kv_heads, hd)
             v = qkv[..., nq + nkv:].reshape(b, l, cfg.n_kv_heads, hd)
@@ -334,13 +360,22 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
             attn = _cached_attention(cfg, q, ck, cv, start, l,
                                      cache.k_scale, cache.v_scale,
                                      ring_offsets=ring_offsets, layer_idx=i)
-        x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
+        if w8:
+            proj = torch.einsum("ble,ed->bld", attn.reshape(b, l, nq),
+                                fused["wo"][i].to(dt)) * fused["wo_s"][i]
+        else:
+            proj = torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
+        x = x + proj
         hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if fused is not None:
             gu = torch.einsum("bld,de->ble", hh, fused["w_gu"][i].to(dt))
+            if w8:
+                gu = gu * fused["w_gu_s"][i]
             gate, up = gu[..., :cfg.d_ff], gu[..., cfg.d_ff:]
-            mlp_out = torch.einsum("blf,fd->bld", F.silu(gate) * up,
-                                   lp["w_down"].to(dt))
+            down = (fused["w_down"][i] if w8 else lp["w_down"]).to(dt)
+            mlp_out = torch.einsum("blf,fd->bld", F.silu(gate) * up, down)
+            if w8:
+                mlp_out = mlp_out * fused["w_down_s"][i]
         else:
             mlp_out, _ = transformer._mlp(cfg, hh, lp)
         x = x + mlp_out
@@ -348,7 +383,11 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
     x_out = rms_norm(x if all_logits else x[:, -1], params["final_norm"],
                      cfg.norm_eps)
     eq = "bld,dv->blv" if all_logits else "bd,dv->bv"
-    logits = torch.einsum(eq, x_out, params["unembed"].to(dt)).float()
+    if w8:
+        logits = (torch.einsum(eq, x_out, fused["unembed"].to(dt))
+                  * fused["unembed_s"][0]).float()
+    else:
+        logits = torch.einsum(eq, x_out, params["unembed"].to(dt)).float()
     return logits, dataclasses.replace(cache, length=start + l)
 
 
@@ -408,8 +447,9 @@ class DecodeWeights(NamedTuple):
 def prepare_decode(params, cfg: TransformerConfig, *,
                    weight_dtype: str = "native") -> DecodeWeights:
     """Cast f32 masters to cfg.dtype and fuse qkv / gate-up ONCE, outside
-    generate. A caller that then drops its f32 masters holds one copy of
-    the model."""
+    generate (``weight_dtype="int8"``: also quantize the decode matrices).
+    A caller that then drops its f32 masters holds the cast params and the
+    fused (or quantized) matrices."""
     params = _cast_decode_params(params, cfg)
     fused = _fuse_decode_weights(params, cfg, weight_dtype)
     return DecodeWeights(params=params, fused=fused, weight_dtype=weight_dtype)

@@ -140,8 +140,12 @@ requests, from a file-backed journal.
   blocks into pinned memory behind a CUDA event and serializes only when
   the payload is asked for, so nothing in dispatch waits for the card.
 
+``weight_dtype="int8"`` (w8a16): the decode blocks run the int8 fused
+matrices (models/generate.py), the prefill programs the cast weights, as
+the JAX package's engines do.
+
 Not ported yet, each raising a named error: the mesh and its rule table,
-speculative serving, the model registry, MoE and w8a16.
+speculative serving, the model registry and MoE.
 """
 
 from __future__ import annotations

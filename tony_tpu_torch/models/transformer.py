@@ -15,18 +15,29 @@ sequence-parallel impls come with the mesh slice.
 The loss (``token_nll``, ``loss_fn``) dispatches on ``cfg.ce_impl``:
 blockwise cross-entropy (ops/cross_entropy.py) streams the vocabulary so the
 [B, L, V] logits never exist; dense materialises them. There is no mesh in
-this slice, so "auto" means blockwise at vocab >= 16384. ``remat`` and MoE
-are not ported yet and raise; their config fields are kept so a config maps
-one to one.
+this slice, so "auto" means blockwise at vocab >= 16384. MoE is not ported
+yet and raises; its config fields are kept so a config maps one to one.
+
+``remat=True`` runs each layer under ``torch.utils.checkpoint``
+(non-reentrant), with the JAX package's policies (``remat_policy``):
+"full" saves nothing inside a layer; "dots" saves the matrix products'
+outputs (the flash forward is not one, so it runs again in the backward);
+"attn" saves only the flash forward's out and lse (selective checkpointing
+sees it as the ``tony_tpu_torch::flash_fwd`` operator), so the backward
+never runs the kernel twice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ..parallel.ring_attention import reference_attention
 
@@ -60,7 +71,8 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     # causal=False: bidirectional encoder (no KV-cache generation)
     causal: bool = True
-    # training fields: remat is not ported yet (loss_fn raises)
+    # training fields: remat = checkpoint each layer under remat_policy
+    # ("full", "dots" or "attn"; see the module docstring)
     remat: bool = False
     remat_policy: str = "full"
     ce_impl: str = "auto"
@@ -233,6 +245,42 @@ def _layer(cfg: TransformerConfig, x, positions, lp):
     return x + mlp_out, aux
 
 
+# the matrix products remat_policy="dots" saves (an einsum reaches the
+# dispatcher as one of these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _remat(layer_fn, policy: str):
+    """layer_fn under torch.utils.checkpoint with the JAX package's policy
+    of that name (its transformer.py:335-350)."""
+    if policy == "full":
+        context_fn = None
+    elif policy in ("dots", "attn"):
+        if policy == "dots":
+            saved = _DOTS
+        else:
+            from ..ops import attention  # noqa: F401 (defines the operator)
+
+            saved = (torch.ops.tony_tpu_torch.flash_fwd.default,)
+
+        def choose(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       choose)
+    else:
+        raise ValueError(f"remat_policy must be 'full', 'dots', or 'attn', "
+                         f"got {policy!r}")
+    extra = {} if context_fn is None else {"context_fn": context_fn}
+
+    def run(*args):
+        return checkpoint(layer_fn, *args, use_reentrant=False, **extra)
+
+    return run
+
+
 def layer_params(params: dict, i: int) -> dict:
     """Layer i's params (the stack dim indexed away; views, no copies)."""
     return {name: w[i] for name, w in params["layers"].items()}
@@ -246,8 +294,11 @@ def apply_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     positions = torch.arange(l, device=tokens.device).expand(b, l)
     x = params["embed"].to(dt)[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    layer_fn = functools.partial(_layer, cfg)
+    if cfg.remat:
+        layer_fn = _remat(layer_fn, cfg.remat_policy)
     for i in range(cfg.n_layers):
-        x, a = _layer(cfg, x, positions, layer_params(params, i))
+        x, a = layer_fn(x, positions, layer_params(params, i))
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux * cfg.aux_loss_weight
@@ -302,9 +353,6 @@ def loss_fn(params, tokens, targets, cfg: TransformerConfig):
     """Next-token cross-entropy (+ MoE aux, 0 for the dense model); targets
     [B, L] with -1 = pad. With blockwise CE the [B, L, V] logits never
     exist, forward or backward."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP queue 1, remat item)")
     x, aux = apply_hidden(params, tokens, cfg)
     return token_nll(x, params["unembed"], targets, cfg) + aux
 

@@ -4,7 +4,8 @@ PyTorch block products, as the JAX package leaves them to XLA."""
 
 from . import attention, decode_attention
 from .attention import (
-    attention_blhd, flash_attention, flash_attention_with_lse, flash_supported,
+    attention_blhd, chunked_reference_attention, flash_attention,
+    flash_attention_with_lse, flash_supported,
 )
 from .cross_entropy import blockwise_cross_entropy, dense_cross_entropy
 from .decode_attention import flash_decode
@@ -23,6 +24,6 @@ def reset_launch_counts() -> None:
     decode_attention.reset_launches()
 
 
-__all__ = ["attention_blhd", "flash_attention", "flash_attention_with_lse",
+__all__ = ["attention_blhd", "chunked_reference_attention", "flash_attention", "flash_attention_with_lse",
            "flash_supported", "flash_decode", "blockwise_cross_entropy",
            "dense_cross_entropy", "launch_counts", "reset_launch_counts"]

@@ -10,11 +10,11 @@ by dtype inside the C entry point: bfloat16 runs on the tensor cores
 (mma.sync with bf16 operands and float32 accumulators; it needs every
 pointer and (B, H, L) stride 16-byte aligned), float32 on the FP32 pipes
 (tensor-core TF32 would round its operands). On a CPU tensor the same
-autograd Function runs ``_flash_fwd_reference`` and
-``_flash_bwd_reference``, the plain PyTorch versions of the same functions,
-so the CPU tests exercise the backward that the card's kernels are held
-against. A CUDA tensor outside the kernels' envelope raises: there is no
-fallback.
+operator (``flash_fwd``, a ``torch.library`` custom op with its backward
+registered) runs ``_flash_fwd_reference`` and ``_flash_bwd_reference``,
+the plain PyTorch versions of the same functions, so the CPU tests
+exercise the backward that the card's kernels are held against. A CUDA
+tensor outside the kernels' envelope raises: there is no fallback.
 
 The lse output is differentiable: the backward folds its cotangent into
 ``delta`` (the JAX package's ``_flash_bwd``), as ring attention needs.
@@ -23,6 +23,7 @@ The lse output is differentiable: the backward folds its cotangent into
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -243,38 +244,46 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, g_lse, causal, scale, window):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Flash attention as one autograd node: the CUDA kernels for a CUDA
-    tensor, the plain versions for a CPU tensor, forward and backward. Saves
-    q, k, v, out and lse; the backward never re-runs the forward."""
+@torch.library.custom_op("tony_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: Optional[float],
+              window: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as one operator -> (out, lse): the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor. An operator, so that
+    selective checkpointing (models/transformer.py, remat_policy="attn")
+    can save its outputs and skip it in the recomputation; the backward
+    (registered below) saves q, k, v, out and lse and never re-runs it."""
+    fwd = _flash_fwd_cuda if q.is_cuda else _flash_fwd_reference
+    return fwd(q, k, v, causal, scale, window)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window):
-        fwd = _flash_fwd_cuda if q.is_cuda else _flash_fwd_reference
-        out, lse = fwd(q, k, v, causal, scale, window)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.window = causal, scale, window
-        # a cotangent that never arrives stays None (only out, or only lse,
-        # was used) instead of being materialised as zeros
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g_out, g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if g_out is None:
-            g_out = torch.zeros_like(out)
-        bwd = _flash_bwd_cuda if q.is_cuda else _flash_bwd_reference
-        dq, dk, dv = bwd(q, k, v, out, lse, g_out, g_lse, ctx.causal,
-                         ctx.scale, ctx.window)
-        return dq, dk, dv, None, None, None
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, scale, window = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale, ctx.window = causal, scale, window
+
+
+def _flash_backward(ctx, g_out, g_lse):
+    """The flash backward kernels for a CUDA tensor, the plain version for a
+    CPU tensor. A cotangent that never arrives (only out, or only lse, was
+    used) comes as None or zeros."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if g_out is None:
+        g_out = torch.zeros_like(out)
+    bwd = _flash_bwd_cuda if q.is_cuda else _flash_bwd_reference
+    dq, dk, dv = bwd(q, k, v, out, lse, g_out, g_lse, ctx.causal, ctx.scale,
+                     ctx.window)
+    return dq, dk, dv, None, None, None
+
+
+flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention_with_lse(q, k, v, causal=True, scale=None, window=None):
     """[B, H, L, D] -> (out [B,H,L,D], lse [B,H,L] f32), both differentiable.
     The CUDA kernels on a CUDA tensor, the plain versions on a CPU tensor."""
     _validate_window(causal, window)
-    return _FlashAttention.apply(q, k, v, causal, scale, window)
+    return flash_fwd(q, k, v, causal, scale, window)
 
 
 def flash_attention(q, k, v, causal=True, scale=None, window=None):
@@ -291,8 +300,7 @@ def attention_blhd(q, k, v, causal=True, scale=None, window=None):
     _validate_window(causal, window)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(qt, kt, vt, causal, scale, window)[0] \
-            .transpose(1, 2)
+        return flash_fwd(qt, kt, vt, causal, scale, window)[0].transpose(1, 2)
     if not q.is_cuda:
         return _flash_fwd_reference(qt, kt, vt, causal, scale, window)[0] \
             .transpose(1, 2)
@@ -301,6 +309,35 @@ def attention_blhd(q, k, v, causal=True, scale=None, window=None):
     return out
 
 
+def chunked_reference_attention(q, k, v, causal=True, q_block: int = 512):
+    """Plain attention without the [L, L] score matrix: queries in blocks of
+    ``q_block``, each block's body under ``torch.utils.checkpoint``, so the
+    forward keeps and the backward recomputes only one block's [B, H,
+    q_block, L] scores. q/k/v: [B, H, L, D] -> [B, H, L, D] in q's dtype;
+    scores and softmax in float32."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, h, L, d = q.shape
+    nb = L // q_block
+    if nb * q_block != L:
+        raise ValueError(f"L={L} not divisible by q_block={q_block}")
+    scale = d ** -0.5
+    keys = torch.arange(L, device=q.device)
+
+    def block(qb, offset: int):
+        s = torch.einsum("bhqd,bhkd->bhqk", qb.float(), k.float()) * scale
+        if causal:
+            qpos = offset + torch.arange(q_block, device=q.device)
+            s = torch.where(keys[None, :] <= qpos[:, None], s, -1e30)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+    return torch.cat([
+        checkpoint(block, q[:, :, i * q_block:(i + 1) * q_block], i * q_block,
+                   use_reentrant=False)
+        for i in range(nb)], dim=2)
+
+
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
-           "attention_blhd", "launches", "bwd_dkdv_launches",
+           "attention_blhd", "chunked_reference_attention", "flash_fwd", "launches", "bwd_dkdv_launches",
            "bwd_dq_launches", "reset_launches"]
