@@ -252,6 +252,19 @@ PARITY_NEAR_TIE = 1e-3
 # checkpoints: lm_train saves every CKPT_EVERY steps; a straight run of
 # CKPT_STEPS steps against CKPT_SPLIT steps and a resumed run of the rest
 CKPT_STEPS, CKPT_EVERY, CKPT_SPLIT = 16, 5, 11
+CKPT_ROOT = REPO / "build" / "chip_smoke" / "checkpoints"
+# speculative decoding: solo at the flagship's full width, float32, batch 1,
+# a SPEC_PROMPT-token prompt and SPEC_NEW new tokens, gamma SPEC_GAMMA;
+# lm_generate's default draft dims (head_dim 32: K1 and K6 at D = 32)
+SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 1024, 64, 4
+SPEC_DRAFT = dict(d_model=128, n_layers=2, n_heads=4, d_ff=512)
+# the CLI's own-trained draft (head_dim 64: the backward has no D = 32)
+SPEC_TRAIN_DRAFT = ["--d-model", "128", "--n-layers", "2", "--n-heads", "2",
+                    "--d-ff", "512"]
+SPEC_CLI_NEW = 32
+# spec serving: the paged (a) cell's prompts at SERVE_CUT_LAYERS, 48 new;
+# multi-model at the checkpoint's depth, 24 new
+SPEC_SERVE_NEW, MULTI_NEW = 48, 24
 # the elastic drill on the card: steps, and the step after which the
 # preemption flag file is dropped
 ELASTIC_STEPS, ELASTIC_FLAG_AT = 40, 10
@@ -539,9 +552,11 @@ def phase_card(build) -> dict:
                   f"{st} B, spill loads {ld} B; SASS HMMA {hmma.get(fn, 0)}")
     for kern in MMA_KERNELS:
         found = {fn: r for fn, r in report.items() if fn.startswith(kern + "<")}
-        if len(found) != 2 or not all(r[3] > 0 for r in found.values()):
-            fail(f"{kern}: expected HMMA instructions in both head dims' "
-                 f"SASS, found {found}")
+        # the forward has a head_dim-32 instantiation too (a draft's heads)
+        n_dims = 3 if kern == "flash_fwd_mma_kernel" else 2
+        if len(found) != n_dims or not all(r[3] > 0 for r in found.values()):
+            fail(f"{kern}: expected HMMA instructions in all {n_dims} head "
+                 f"dims' SASS, found {found}")
     return report
 
 
@@ -578,6 +593,15 @@ def phase_kernels(torch, A) -> list:
          None, 2),
         ("bf16 D64 causal L512", 2, 4, 512, 512, 64, torch.bfloat16, True,
          None, 2),
+        # head_dim 32: a draft model's (lm_generate's default draft dims)
+        ("bf16 D32 causal L1024", 1, 4, 1024, 1024, 32, torch.bfloat16, True,
+         None, 1),
+        ("bf16 D32 window 128 ragged L300", 2, 4, 300, 300, 32,
+         torch.bfloat16, True, 128, 2),
+        ("f32 D32 causal L1024", 1, 4, 1024, 1024, 32, torch.float32, True,
+         None, 1),
+        ("f32 D32 cross ragged Lq777 Lk500", 2, 4, 777, 500, 32,
+         torch.float32, False, None, 2),
     ]
     for label, b, h, lq, lk, d, dt, causal, window, rows in fwd_cases:
         q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), \
@@ -630,6 +654,7 @@ def phase_kernels(torch, A) -> list:
         if (b, l) == (8, 2048):
             records.append(dict(
                 name="flash_fwd", route="cuda", design=DESIGNS["flash_fwd"],
+                d32=_fwd_d32_times(torch, A, randn),
                 tflops=flops / ms / 1e9,
                 source="tony_tpu_torch/csrc/flash_fwd.cu",
                 replaces="tony_tpu/ops/attention.py:241 (_fwd_kernel) and "
@@ -643,6 +668,33 @@ def phase_kernels(torch, A) -> list:
         del q, k, v
 
     return records
+
+
+def _fwd_d32_times(torch, A, randn) -> dict:
+    """K1 at head_dim 32, the speculative phase's draft prefill shape (B1
+    H4 L1024 causal, bf16 and float32): kernel, plain, SDPA, bound."""
+    out = {}
+    for dt, peak in ((torch.bfloat16, PEAK_BF16_FLOPS),
+                     (torch.float32, PEAK_F32_FLOPS)):
+        b, h, l, d = 1, 4, 1024, 32
+        q, k, v = (randn(b, h, l, d, dtype=dt) for _ in range(3))
+        ms = cuda_ms(lambda: A.flash_attention_with_lse(q, k, v, True), 20)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 20)
+        plain = cuda_ms(lambda: A._flash_fwd_reference(q, k, v, True, None,
+                                                       None), 5, warmup=1)
+        flops = 4 * d * visible_pairs(l, l, True, None) * b * h
+        nbytes = 4 * b * h * l * d * q.element_size() + b * h * l * 4
+        b_ms, b_by = bound(flops, nbytes, peak)
+        name = str(dt)[6:]
+        out[name] = dict(shape=f"B{b} H{h} L{l} D{d} {name} causal", ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by)
+        print(f"time flash_fwd B{b} H{h} L{l} D{d} {name} causal: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        del q, k, v
+    return out
 
 
 def phase_decode(torch, DA, G, T) -> list:
@@ -679,6 +731,12 @@ def phase_decode(torch, DA, G, T) -> list:
         ("rep 8", 1, 2, 2, 8, 4096, 3001, 0, "bf16", None, 128),
         ("D64 bf16", 1, 4, 8, 2, 3000, 2999, 0, "bf16", None, 64),
         ("float32 q and cache", 1, 2, 4, 2, 2000, 1500, 0, "f32", None, 128),
+        # head_dim 32: the speculative phase's draft (B1 kvH4)
+        ("D32 bf16 draft layer 1 of 2", 2, 1, 4, 1, 1093, 1060, 0, "bf16",
+         1, 32),
+        ("D32 f32 draft", 1, 1, 4, 1, 1093, 1087, 0, "f32", None, 32),
+        ("D32 int8 GQA rep4", 1, 2, 2, 4, 3000, 2999, 0, "int8", None, 32),
+        ("D32 f32 window 300", 1, 2, 4, 2, 2000, 1999, 300, "f32", None, 32),
     ]
     for label, ly, b, kvh, rep, m, length, window, cache, layer, d in \
             dec_cases:
@@ -798,7 +856,8 @@ def phase_decode(torch, DA, G, T) -> list:
         ms=first["ms"], plain_ms=first["plain_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"],
         library_ms=first["library_ms"],
-        library="scaled_dot_product_attention over the valid positions"))
+        library="scaled_dot_product_attention over the valid positions",
+        d32=_decode_d32_times(torch, DA, randn)))
 
     # ---- decode crossover: kernel against the plain einsum decode path
     b, kvh = 8, 8
@@ -820,6 +879,42 @@ def phase_decode(torch, DA, G, T) -> list:
         del ck, cv
     print("decode_crossover " + json.dumps(rows))
     return records
+
+
+def _decode_d32_times(torch, DA, randn) -> dict:
+    """K6 at head_dim 32, the speculative phase's draft steps (B1 kvH4
+    rep1, 1057 of 1093 positions: mid-decode, a 1024-token prompt, 64 new
+    and gamma 4), bf16 and float32, over the draft's 2 layers in turn (the
+    cache is 0.56 MB: it stays in L2, as on the main path)."""
+    out = {}
+    b, kvh, d, m, n_valid, ly = 1, 4, 32, 1093, 1057, 2
+    for dt in (torch.bfloat16, torch.float32):
+        q = randn(b, kvh, 1, d, dtype=dt)
+        ck, cv = randn(ly, b, kvh, m, d, dtype=dt), randn(ly, b, kvh, m, d,
+                                                          dtype=dt)
+        it = iter(range(10 ** 9))
+        ms = cuda_ms(lambda: DA.flash_decode(q, ck, cv, n_valid - 1,
+                                             layer=next(it) % ly), 48)
+        plain = cuda_ms(lambda: DA._flash_decode_reference(
+            q, ck, cv, n_valid - 1, layer=next(it) % ly), 12, warmup=1)
+
+        def sdpa():
+            i = next(it) % ly
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, ck[i, :, :, :n_valid], cv[i, :, :, :n_valid])
+        lib = cuda_ms(sdpa, 48)
+        nbytes = 2 * b * kvh * n_valid * d * q.element_size() \
+            + 2 * q.numel() * q.element_size()
+        b_ms, b_by = bound(4 * d * n_valid * b * kvh, nbytes, PEAK_F32_FLOPS)
+        name = str(dt)[6:]
+        out[name] = dict(shape=f"B{b} kvH{kvh} rep1 D{d} {name}, {n_valid} "
+                         f"of {m}", ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"time flash_decode B{b} kvH{kvh} rep1 D{d} {name}, {n_valid} "
+              f"of {m} (L2 warm): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del q, ck, cv
+    return out
 
 
 def phase_bwd_kernels(torch, A) -> list:
@@ -1648,7 +1743,7 @@ def phase_checkpoint(torch, ops, lm_train, lm_generate, train_losses) -> dict:
     from tony_tpu_torch.train import checkpoint as C
     from tony_tpu_torch.train.step import make_optimizer
 
-    root = REPO / "build" / "chip_smoke" / "checkpoints"
+    root = CKPT_ROOT
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     managers, stalls, held = [], [], []
@@ -1820,7 +1915,11 @@ def phase_checkpoint(torch, ops, lm_train, lm_generate, train_losses) -> dict:
           f"{drill['resumed_at']}, {drill['recomputed']} steps recomputed, "
           f"final {drill['final']} equal to the straight run's; "
           f"{drill['wall_s']:.1f} s")
-    shutil.rmtree(root, ignore_errors=True)
+    # the resumed run's directory stays for the speculative phase, which
+    # serves and drafts against it and then deletes the tree
+    for sub in root.iterdir():
+        if sub.name != "b":
+            shutil.rmtree(sub) if sub.is_dir() else sub.unlink()
     print("checkpoint " + json.dumps(dict(
         straight_losses=straight, first_losses=first,
         resumed_losses=resumed, kept=dict(straight=kept_a, first=kept_b1,
@@ -2640,13 +2739,20 @@ def _checked_dispatch(torch, srv) -> dict:
 
     syncs = {"admission": 0, "sites": collections.Counter()}
     dispatch, admit = srv._dispatch_block, srv._admit
+    spec_round = srv._dispatch_spec_round
 
-    def checked_dispatch():
+    def checked(fn):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            dispatch()
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+    def checked_dispatch():
+        checked(dispatch)
+
+    def checked_spec_round():
+        checked(spec_round)
 
     def counted_admit():
         with warnings.catch_warnings(record=True) as caught:
@@ -2662,6 +2768,7 @@ def _checked_dispatch(torch, srv) -> dict:
                 syncs["sites"][f"{Path(w.filename).name}:{w.lineno}"] += 1
 
     srv._dispatch_block, srv._admit = checked_dispatch, counted_admit
+    srv._dispatch_spec_round = checked_spec_round
     return syncs
 
 
@@ -5113,6 +5220,366 @@ def _write_hf_checkpoint(torch, path: Path) -> int:
     return total
 
 
+def _spec_solo(torch, ops, G, T, totals) -> dict:
+    """(a): solo speculative_generate at the flagship's full width, float32,
+    batch 1, against generate: a random draft at lm_generate's default
+    draft dims (head_dim 32: its prefill on K1 and its steps on K6 at
+    D = 32) and the target as its own draft; host-clock ms a token, spec
+    and plain in turns; a bf16 run reported as a count."""
+    import numpy as np
+
+    from tony_tpu_torch.models.speculative import speculative_generate
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
+                                  n_heads=8, n_kv_heads=8, d_ff=4096,
+                                  dtype=dtype)
+        dcfg = T.TransformerConfig(vocab_size=32768, n_kv_heads=4,
+                                   dtype=dtype, **SPEC_DRAFT)
+        if dtype == torch.float32:
+            raw, draw = T.init(cfg, gen, dev), T.init(dcfg, gen, dev)
+        w, dw = G.prepare_decode(raw, cfg), G.prepare_decode(draw, dcfg)
+        prompt = np.random.default_rng(71).integers(
+            0, 32768, SPEC_PROMPT).tolist()
+        p = torch.tensor([prompt], device=dev)
+
+        def plain():
+            return G.generate(w, cfg, p, SPEC_NEW)[0].tolist(), None
+
+        def spec(draft, draft_cfg):
+            def run():
+                o, st = speculative_generate(w, cfg, draft, draft_cfg, p,
+                                             SPEC_NEW, gamma=SPEC_GAMMA,
+                                             return_stats=True)
+                return o[0].tolist(), st
+            return run
+
+        runs = {"plain": plain, "random_draft": spec(dw, dcfg),
+                "self_draft": spec(w, cfg)}
+        if dtype == torch.bfloat16:
+            # reported: bf16 tokens against bf16 generate, counted
+            want = plain()[0]
+            got, st = runs["random_draft"]()
+            eq = sum(a == b for a, b in zip(got, want))
+            out["bf16_random_draft_equal_tokens"] = eq
+            print(f"speculative (a) bf16: random draft {eq} of {SPEC_NEW} "
+                  f"tokens equal to bf16 generate (reported, not required)")
+            break
+        want, gaps = _solo_greedy(torch, G, w, cfg, prompt, SPEC_NEW)
+        for name, fn in runs.items():     # one warm call each, counted
+            ops.reset_launch_counts()
+            toks, st = fn()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            for k, n in counts.items():
+                totals[k] += n
+            row = _near_tie_check(f"speculative (a) {name}", toks, want, gaps,
+                                  SPEC_NEW)
+            row.update(launches=counts)
+            if st is not None:
+                d_layers = (dcfg if name == "random_draft" else cfg).n_layers
+                want_k = {"flash_fwd": cfg.n_layers + d_layers,
+                          "flash_decode": st["rounds"] * (SPEC_GAMMA + 1)
+                          * d_layers, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+                if counts != want_k:
+                    fail(f"speculative (a) {name}: launches {counts}, "
+                         f"expected {want_k}")
+                row.update(st, target_forwards=st["rounds"] + 1)
+            out[name] = row
+        # host-clock ms a token, in turns: plain, random, self, self,
+        # random, plain (each ends in a synchronize)
+        ms = {k: [] for k in runs}
+        for name in ("plain", "random_draft", "self_draft", "self_draft",
+                     "random_draft", "plain"):
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / SPEC_NEW)
+        for name, xs in ms.items():
+            out[name]["ms_per_token"] = xs
+        r, sd = out["random_draft"], out["self_draft"]
+        if r["acceptance_rate"] > 0.3 or sd["acceptance_rate"] < 0.99:
+            fail(f"speculative (a): acceptance {r['acceptance_rate']} (random "
+                 f"draft), {sd['acceptance_rate']} (self-draft)")
+        print(f"speculative (a) float32 B1 prompt {SPEC_PROMPT}, {SPEC_NEW} "
+              f"new, gamma {SPEC_GAMMA}: random draft (d{dcfg.d_model} "
+              f"{dcfg.n_layers}L {dcfg.n_heads}h, head_dim {dcfg.head_dim}) "
+              f"{r['rounds']} rounds, acceptance {r['acceptance_rate']:.3f}, "
+              f"{r['target_forwards']} target forwards, launches "
+              f"{r['launches']}; self-draft {sd['rounds']} rounds, "
+              f"acceptance {sd['acceptance_rate']:.3f}, "
+              f"{sd['target_forwards']} target forwards; tokens equal to "
+              f"generate up to a near-tie (diverge {r['diverge']}, "
+              f"{sd['diverge']}); host ms a token plain "
+              + " ".join(f"{x:.2f}" for x in ms["plain"]) + ", random "
+              + " ".join(f"{x:.2f}" for x in ms["random_draft"]) + ", self "
+              + " ".join(f"{x:.2f}" for x in ms["self_draft"]))
+    del w, dw, raw, draw
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_cli(torch, ops, G, T, lm_train, lm_generate, ckpt, totals) -> dict:
+    """(b): lm_train trains a draft for 3 steps (head_dim 64); lm_generate
+    on the checkpoint phase's directory at float32 with and without
+    --draft-checkpoint-dir: the same tokens, up to a near-tie."""
+    import numpy as np
+
+    from tony_tpu_torch.train.checkpoint import restore_lm_params
+
+    root = CKPT_ROOT / "spec_cli"
+    root.mkdir(parents=True, exist_ok=True)
+    ops.reset_launch_counts()
+    rc = lm_train.main(["--vocab", "32768"] + SPEC_TRAIN_DRAFT + [
+        "--batch-size", "8", "--seq-len", "512", "--steps", "3",
+        "--checkpoint-dir", str(root / "draft"), "--checkpoint-every", "3"])
+    counts = ops.launch_counts()
+    if rc != 0 or counts["flash_fwd"] != 6 or counts["flash_bwd_dq"] != 6:
+        fail(f"speculative (b): lm_train of the draft exited {rc}, launches "
+             f"{counts}")
+    for k, n in counts.items():
+        totals[k] += n
+    prompt = np.random.default_rng(73).integers(0, 32768, 256).tolist()
+    base = FLAGSHIP + ["--dtype", "float32", "--checkpoint-dir", str(ckpt),
+                       "--prompt", " ".join(map(str, prompt)),
+                       "--max-new", str(SPEC_CLI_NEW)]
+    res = {}
+    for name, extra in (("plain", []), ("spec", [
+            "--draft-checkpoint-dir", str(root / "draft"),
+            "--draft-d-model", "128", "--draft-n-layers", "2",
+            "--draft-n-heads", "2", "--draft-d-ff", "512"])):
+        metrics = root / f"{name}.json"
+        ops.reset_launch_counts()
+        rc = lm_generate.main(base + extra + ["--metrics-out", str(metrics)])
+        counts = ops.launch_counts()
+        if rc != 0:
+            fail(f"speculative (b): lm_generate ({name}) exited {rc}")
+        for k, n in counts.items():
+            totals[k] += n
+        res[name] = dict(json.loads(metrics.read_text()), launches=counts)
+    plain, spec = res["plain"]["tokens"], res["spec"]["tokens"]
+    row = dict(equal=spec == plain, diverge=None)
+    if spec != plain:
+        cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
+                                  n_heads=8, n_kv_heads=8, d_ff=4096,
+                                  dtype=torch.float32)
+        w = G.prepare_decode(restore_lm_params(str(ckpt), T.init(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")), cfg)
+        _, gaps = _solo_greedy(torch, G, w, cfg, prompt, SPEC_CLI_NEW)
+        row = _near_tie_check("speculative (b) lm_generate", spec, plain,
+                              gaps, SPEC_CLI_NEW)
+        del w
+    st = res["spec"]["speculative"]
+    row.update(speculative=st, launches=res["spec"]["launches"],
+               plain_tokens_per_s=res["plain"]["decode_tokens_per_sec"],
+               spec_tokens_per_s=res["spec"]["decode_tokens_per_sec"])
+    print(f"speculative (b): lm_generate --checkpoint-dir float32 with "
+          f"--draft-checkpoint-dir (a 3-step lm_train draft, d128 2L 2h): "
+          f"tokens equal to the plain run's: {row['equal']}"
+          + ("" if row["equal"] else f" (diverge {row['diverge']}, at or "
+             "after a near-tie)")
+          + f"; {st['rounds']} rounds, acceptance "
+          f"{st['acceptance_rate']:.3f}; launches {row['launches']}; "
+          f"{row['spec_tokens_per_s']:.1f} against "
+          f"{row['plain_tokens_per_s']:.1f} tokens/s")
+    shutil.rmtree(root)
+    return row
+
+
+def _spec_serve_run(torch, ops, serve, argv, prompts, passes=1) -> dict:
+    """One serve app on ``argv``: a warm-up, then ``prompts`` posted at once
+    (``passes`` times), every spec round's dispatch under sync debug mode
+    "error" and the admissions' syncs counted -> tokens and stats."""
+    app, httpd, url = _serve_app(serve, argv)
+    srv = app.server
+    try:
+        with app.lock:
+            syncs = _checked_dispatch(torch, srv)
+        warm = _post(url, dict(prompt=list(range(1, 300)), max_new_tokens=8))
+        if warm[0] != 200:
+            fail(f"spec serving: warm-up answered {warm[0]}: {warm[1]}")
+        syncs["admission"] = 0
+        ops.reset_launch_counts()
+        toks, walls = [], []
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            res = _post_all(url, [dict(prompt=p,
+                                       max_new_tokens=SPEC_SERVE_NEW)
+                                  for p in prompts])
+            walls.append(time.perf_counter() - t0)
+            toks.append([r[1]["tokens"] for r in res])
+        counts = ops.launch_counts()
+        with app.lock:
+            st = app._stats_locked()
+        health = app.health()
+    finally:
+        _stop_app(app, httpd)
+    if any(counts.values()):
+        fail(f"spec serving {argv[-2:]}: kernels launched {counts}")
+    if app.loop_failures or not health["healthy"]:
+        fail(f"spec serving: the loop failed: {health}")
+    if syncs["admission"]:
+        fail(f"spec serving: {syncs['admission']} synchronisations in "
+             f"admission {dict(syncs['sites'])}")
+    return dict(tokens=toks, stats=st, walls=walls)
+
+
+def _spec_serving(torch, ops, serve, G, T) -> dict:
+    """(c): serve at SERVE_CUT_LAYERS, float32, the paged (a) cell's 8
+    prompts of 64-512 tokens, 48 new: spec-off, a random draft (--draft-
+    model random), a self-draft (--model main=random:7 --model
+    twin=random:7 --draft-model twin), and the self-draft on --paged-kv and
+    with --prefix-cache-blocks 64 (two passes, the second on the trie):
+    each equal to spec-off up to a near-tie."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, PAGED_ID)]
+    base = SHALLOW + ["--dtype", "float32", "--model", "main=random:7"]
+    self_draft = base + ["--model", "twin=random:7", "--draft-model", "twin"]
+    cells = {"off": (base, 1), "random_draft": (base + ["--draft-model",
+                                                        "random"], 1),
+             "self_draft": (self_draft, 1),
+             "self_draft_paged": (self_draft + ["--paged-kv"], 1),
+             "self_draft_prefix": (self_draft + ["--prefix-cache-blocks",
+                                                 "64"], 2)}
+    runs = {name: _spec_serve_run(torch, ops, serve, argv, prompts, passes)
+            for name, (argv, passes) in cells.items()}
+    args = serve.build_argparser().parse_args(base)
+    params, cfg = serve.load_named_model("random:7", args)
+    w = G.prepare_decode(params, cfg)
+    gaps = [_solo_greedy(torch, G, w, cfg, p, SPEC_SERVE_NEW)[1]
+            for p in prompts]
+    del params, w
+    off = runs["off"]["tokens"][0]
+    out = {}
+    for name, run in runs.items():
+        spec = run["stats"].get("speculative")
+        rows = [_near_tie_check(f"spec serving {name} request {i}", got,
+                                off[i], gaps[i], SPEC_SERVE_NEW)
+                for toks in run["tokens"] for i, got in enumerate(toks)]
+        agree = sum(r["diverge"] is None for r in rows)
+        out[name] = dict(agree=agree, of=len(rows), walls_s=run["walls"],
+                         speculative=spec)
+        if name == "off":
+            continue
+        ewma = spec["acceptance_ewma"]
+        if (name == "random_draft") != (ewma < 0.3) or (
+                name != "random_draft" and ewma <= 0.8):
+            fail(f"spec serving {name}: acceptance EWMA {ewma}")
+        if name == "self_draft_prefix" and \
+                not spec["draft_prefill_tokens_reused"]:
+            fail("spec serving: the prefix cache reused no draft prefill")
+        print(f"spec serving {name}: {agree} of {len(rows)} token-identical "
+              f"to spec-off (the others at or after a near-tie); rounds "
+              f"{spec['rounds']}, proposed {spec['proposed_tokens']}, "
+              f"accepted {spec['accepted_tokens']}, EWMA {ewma}, gamma "
+              f"{spec['gamma']}, draft prefill reused "
+              f"{spec['draft_prefill_tokens_reused']}; wall "
+              + " ".join(f"{x:.2f}" for x in run["walls"]) + " s against "
+              f"spec-off {runs['off']['walls'][0]:.2f} s; 0 syncs in "
+              "dispatch and admission")
+    return out
+
+
+def _multi_model(torch, ops, serve, G, T, ckpt) -> dict:
+    """(d): serve --model a=random:0 --model b=ckpt:<checkpoint phase dir>
+    at the checkpoint's depth, float32: 8 requests alternating the models,
+    each equal (up to a near-tie) to a single-model serve of its weights;
+    an unknown name's 400, /stats' models and /metrics' serving_models and
+    model labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(77)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, 8)]
+    names = ["a" if i % 2 == 0 else "b" for i in range(8)]
+    f32 = FLAGSHIP + ["--dtype", "float32"]
+    app, httpd, url = _serve_app(serve, f32 + [
+        "--model", "a=random:0", "--model", f"b=ckpt:{ckpt}"])
+    try:
+        ops.reset_launch_counts()
+        res = _post_all(url, [dict(prompt=p, max_new_tokens=MULTI_NEW,
+                                   model=m) for p, m in zip(prompts, names)])
+        ghost = _post(url, dict(prompt=[1, 2, 3], model="ghost"))
+        base = url.rsplit("/", 1)[0]
+        stats = json.loads(_get(base + "/stats"))
+        text = _get(base + "/metrics")
+        counts = ops.launch_counts()
+    finally:
+        _stop_app(app, httpd)
+    if any(counts.values()):
+        fail(f"multi-model serve: kernels launched {counts}")
+    if ghost[0] != 400 or "ghost" not in ghost[1].get("error", ""):
+        fail(f"multi-model serve: an unknown model answered {ghost}")
+    if set(stats["models"]) != {"a", "b"} or stats["registry"] != ["a", "b"]:
+        fail(f"multi-model serve: /stats models {list(stats['models'])}, "
+             f"registry {stats['registry']}")
+    for needle in ('serving_models{model="a"} 1', 'serving_models{model="b"} 1',
+                   'serving_active_slots{model="b"}',
+                   'serving_ttft_seconds_bucket{model="a"'):
+        if needle not in text:
+            fail(f"multi-model serve: /metrics lacks {needle}")
+    single = {}
+    for m, extra in (("a", ["--model", "a=random:0"]),
+                     ("b", ["--checkpoint-dir", str(ckpt)])):
+        idx = [i for i, n in enumerate(names) if n == m]
+        app, httpd, url = _serve_app(serve, f32 + extra)
+        try:
+            out = _post_all(url, [dict(prompt=prompts[i],
+                                       max_new_tokens=MULTI_NEW)
+                                  for i in idx])
+        finally:
+            _stop_app(app, httpd)
+        single.update({i: r[1]["tokens"] for i, r in zip(idx, out)})
+    rows = []
+    for m, spec in (("a", "random:0"), ("b", f"ckpt:{ckpt}")):
+        params, cfg = serve.load_named_model(
+            spec, serve.build_argparser().parse_args(f32))
+        w = G.prepare_decode(params, cfg)
+        for i in (i for i, n in enumerate(names) if n == m):
+            _, gaps = _solo_greedy(torch, G, w, cfg, prompts[i], MULTI_NEW)
+            rows.append(_near_tie_check(
+                f"multi-model request {i} (model {m})", res[i][1]["tokens"],
+                single[i], gaps, MULTI_NEW))
+        del params, w
+    agree = sum(r["diverge"] is None for r in rows)
+    print(f"multi-model serve (a=random:0, b=ckpt, {N_LAYERS} layers, "
+          f"float32): {agree} of 8 token-identical to a single-model serve "
+          f"of their weights (the others at or after a near-tie); unknown "
+          f"model 400; /stats models {sorted(stats['models'])}; /metrics "
+          f"serving_models and model labels present")
+    return dict(agree=agree, rows=rows)
+
+
+def phase_speculative(torch, ops, lm_train, lm_generate, serve, G, T) -> dict:
+    """Speculative decoding and the model registry on the card: (a) solo,
+    (b) the lm_generate CLI with an own-trained draft, (c) spec serving,
+    (d) multi-model serving. Returns the kernels' launches on the main
+    paths ((a)'s three runs, (b)'s training and generation)."""
+    print("== main path: speculative decoding and the model registry")
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    ckpt = CKPT_ROOT / "b"
+    try:
+        with torch.no_grad():
+            solo = _spec_solo(torch, ops, G, T, totals)
+        cli = _spec_cli(torch, ops, G, T, lm_train, lm_generate, ckpt,
+                        totals)
+        serving = _spec_serving(torch, ops, serve, G, T)
+        multi = _multi_model(torch, ops, serve, G, T, ckpt)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print("speculative " + json.dumps(dict(
+        solo=solo, cli=cli, serving=serving, multi_model=multi,
+        launches=totals, card=nvidia_smi_line())))
+    return totals
+
+
 def phase_hf(torch, ops, lm_generate, G, serve) -> dict:
     """A checkpoint in HF's layout at Llama-3.1-8B's widths (HF_CONFIG,
     HF_LAYERS layers, bf16, two shards), written here and read by the
@@ -5609,11 +6076,13 @@ def main() -> int:
                                run_a, base_block)
     disagg_launches = timed("disagg", phase_disagg, torch, ops)
     hf_launches = timed("hf", phase_hf, torch, ops, lm_generate, G, serve)
+    spec_launches = timed("speculative", phase_speculative, torch, ops,
+                          lm_train, lm_generate, serve, G, T)
     launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
                 + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
                 + replay_launches[k] + stream_launches[k]
                 + paged_launches[k] + telemetry_launches[k]
-                + disagg_launches[k] + hf_launches[k]
+                + disagg_launches[k] + hf_launches[k] + spec_launches[k]
                 for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
@@ -5637,7 +6106,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "design", "tflops", "registers_d128_bf16",
-            "spill_bytes_d128_bf16", "hmma_d128_bf16")
+            "spill_bytes_d128_bf16", "hmma_d128_bf16", "d32")
     for r in records:
         r["kernel_ms"] = r["ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("library",)

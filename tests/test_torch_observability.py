@@ -40,12 +40,6 @@ LEFT_OUT_FAMILIES = {
     # item 9, observability hooks: compile counters as CUDA-graph captures
     "serving_xla_compile_seconds", "serving_xla_compiles_total",
     "serving_xla_recompiles_post_warm_total",
-    # item 4, the model registry (and the {model=...} partition)
-    "serving_models",
-    # item 5, speculative decoding
-    "serving_spec_rounds_total", "serving_spec_proposed_tokens_total",
-    "serving_spec_accepted_tokens_total", "serving_spec_gamma",
-    "serving_spec_acceptance_rate", "serving_spec_verify_rounds",
 }
 
 # one exposition line: a comment, or name{labels} value

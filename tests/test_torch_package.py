@@ -120,8 +120,6 @@ def test_lm_generate_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--draft-hf-checkpoint", "/nonexistent"], "speculative"),
-    (["--draft-checkpoint-dir", "/nonexistent"], "speculative"),
     (["--tensor-parallel", "2"], "mesh/TP"),
     (["--n-experts", "4"], "MoE"),
 ])

@@ -443,14 +443,6 @@ def test_serve_prefix_cache_flags_and_stats():
 
 @pytest.mark.parametrize("flags,what", [
     (["--mesh", "tensor=2"], "mesh/TP"),
-    (["--spec-gamma", "2"], "speculative"),
-    (["--draft-model", "d"], "speculative"),
-    (["--model", "a=random"], "HF import"),
-    (["--spec-gamma-max", "8"], "speculative"),
-    (["--draft-d-model", "32"], "speculative"),
-    (["--draft-n-layers", "1"], "speculative"),
-    (["--draft-n-heads", "2"], "speculative"),
-    (["--draft-d-ff", "64"], "speculative"),
 ])
 def test_cli_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):

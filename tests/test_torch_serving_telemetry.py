@@ -17,6 +17,7 @@ a JAX ``telemetry.state.json`` resumes in a port ``serve``."""
 
 import dataclasses
 import json
+import re
 import threading
 import time
 import urllib.error
@@ -334,9 +335,20 @@ def test_metrics_endpoint_matches_stats(model):
         assert _PROM_LINE.match(line), f"unparseable line: {line!r}"
     fams = jobs.parse_prom_text(text, strict=True)
     assert not set(fams) & LEFT_OUT_FAMILIES
+    # the speculative families are an engine with a draft's (as in the
+    # JAX package): a self-draft serve renders them, each model-labeled
+    spec_app = ServeApp(_srv(model, draft=model[3], draft_cfg=model[1],
+                             spec_gamma=2))
+    spec_text, spec_fams = _family_set(spec_app, _prompt(5, seed=13))
     for attr in dir(pmetrics):
         if attr.startswith("SERVING_") and not attr.startswith("SERVING_KV_"):
-            assert getattr(pmetrics, attr) in text, attr
+            name = getattr(pmetrics, attr)
+            if attr.startswith("SERVING_SPEC_"):
+                assert name not in text and name in spec_fams, attr
+                assert any(line.startswith(name) and 'model="default"'
+                           in line for line in spec_text.splitlines())
+            else:
+                assert name in text, attr
     for fam in ("serving_ttft_seconds", "serving_tpot_seconds",
                 "serving_queue_wait_seconds", "serving_e2e_seconds",
                 "serving_device_lag_seconds", "serving_stream_itl_seconds",
@@ -417,8 +429,7 @@ PORT_ONLY_STATS = {
     "journal.compactions",  # the journal file's rewrites
 }
 JAX_ONLY_STATS = {
-    "registry", "models",   # ROADMAP queue 1 item 4, the model registry
-    "compile",              # item 9, compile counters
+    "compile",              # ROADMAP queue 1 item 9, compile counters
 }
 
 
@@ -473,7 +484,10 @@ def test_stats_keys_and_types_equal_jax_serve(model, paged):
     a, b = _stats_shape(ours), _stats_shape(ref)
 
     def roots(keys, declared):
-        """Each key as the declared key it lies under, else itself."""
+        """Each key as the declared key it lies under, else itself; a key
+        of an engine's own payload under ``models.<name>`` counts as the
+        top-level key it repeats."""
+        keys = {re.sub(r"^models\.[^.]+\.", "", k) for k in keys}
         return {next((r for r in declared if k == r or k.startswith(
             (r + ".", r + "["))), k) for k in keys}
 

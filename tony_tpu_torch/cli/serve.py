@@ -102,15 +102,29 @@ use, the deferred admissions).
 dims), exclusive with ``--checkpoint-dir``; ``--weight-dtype int8``
 decodes on int8 weights (w8a16) while prefill reads the cast ones.
 
-Not ported yet, each raising a named error: ``--mesh``, ``--draft-model``
-and the ``--draft-*`` and ``--spec-gamma*`` flags, and ``--model``. /metrics
-has no compile, model or speculative families (ROADMAP.md queue 1).
+Several models: ``--model NAME=SPEC`` (repeatable; SPEC ``random[:seed]``,
+``ckpt:<dir>`` or ``hf:<dir>``) serves each from its own engine, the first
+the default; a body's ``"model"`` (or /v1's) picks one, an unknown name
+answers 400. /stats gains ``models`` (each engine's payload) and
+``registry`` (the names), and /metrics the ``serving_models`` info gauge
+and ``{model="..."}`` series. One journal serves every engine; a restart
+resubmits each entry to its model's engine.
+
+Speculative serving (greedy): ``--draft-model NAME|SPEC`` (a SPEC loads
+at the ``--draft-*`` dims as the entry "draft"), ``--spec-gamma`` pins the
+draft window, else it is autotuned up to ``--spec-gamma-max``. Every
+request's tokens are the spec-off server's; /stats' ``speculative`` and
+the ``serving_spec_*`` families count the rounds and the acceptance.
+
+Not ported yet, raising a named error: ``--mesh``. /metrics has no
+compile families (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
 import math
 import os
@@ -240,33 +254,37 @@ def build_argparser() -> argparse.ArgumentParser:
                         "with finish_reason 'prefilled' and the KV handoff "
                         "payload; 'decode' and 'both' serve in full and "
                         "take POST /kv/import")
-    # not ported yet: each raises in check_ported unless left at the JAX
-    # package's default
-    p.add_argument("--mesh", default="")
-    p.add_argument("--model", action="append", default=[])
-    p.add_argument("--draft-model", default="")
-    p.add_argument("--spec-gamma", type=int, default=0)
-    p.add_argument("--spec-gamma-max", type=int, default=4)
+    p.add_argument("--model", action="append", default=[],
+                   help="NAME=SPEC, repeatable: serve several models, one "
+                        "engine (slot pool) each, requests routed by their "
+                        "'model' field (the first is the default). SPEC: "
+                        "random[:seed] at the CLI dims, ckpt:<lm_train "
+                        "dir>, or hf:<HF dir>. Exclusive with "
+                        "--checkpoint-dir/--hf-checkpoint")
+    p.add_argument("--draft-model", default="",
+                   help="speculative serving (greedy only): a --model NAME "
+                        "or a SPEC (random[:seed], ckpt:<dir> at the "
+                        "--draft-* dims, hf:<dir>) registered as 'draft'; "
+                        "the default model speculates with it")
+    p.add_argument("--spec-gamma", type=int, default=0,
+                   help="pin the draft window (0 = autotune from the "
+                        "acceptance rate)")
+    p.add_argument("--spec-gamma-max", type=int, default=4,
+                   help="the autotuned draft window's ceiling")
     p.add_argument("--draft-d-model", type=int, default=64)
     p.add_argument("--draft-n-layers", type=int, default=2)
     p.add_argument("--draft-n-heads", type=int, default=4)
     p.add_argument("--draft-d-ff", type=int, default=256)
+    # not ported yet: raises in check_ported unless left at the JAX
+    # package's default
+    p.add_argument("--mesh", default="")
     return p
 
 
-_SPEC = "speculative decoding"
 # flag -> (is it set off the JAX package's default?, ROADMAP.md queue-1
 # item)
 _NOT_PORTED_FLAGS = {
     "--mesh": (lambda a: a.mesh, "mesh/TP"),
-    "--model": (lambda a: a.model, "HF import (the model registry)"),
-    "--draft-model": (lambda a: a.draft_model, _SPEC),
-    "--spec-gamma": (lambda a: a.spec_gamma, _SPEC),
-    "--spec-gamma-max": (lambda a: a.spec_gamma_max != 4, _SPEC),
-    "--draft-d-model": (lambda a: a.draft_d_model != 64, _SPEC),
-    "--draft-n-layers": (lambda a: a.draft_n_layers != 2, _SPEC),
-    "--draft-n-heads": (lambda a: a.draft_n_heads != 4, _SPEC),
-    "--draft-d-ff": (lambda a: a.draft_d_ff != 256, _SPEC),
 }
 
 
@@ -281,46 +299,128 @@ def load_model(args):
     """(params, cfg) on ``--device``: the HF checkpoint in
     ``--hf-checkpoint`` at its own dims, or at the CLI's dims a random init
     from ``--seed`` or the latest step of the lm_train checkpoint in
-    ``--checkpoint-dir`` (the JAX package's ``ckpt:`` models; SystemExit
-    when the directory holds none)."""
+    ``--checkpoint-dir`` (SystemExit when the directory holds none). One
+    path with ``--model``'s loader."""
+    if args.hf_checkpoint and args.checkpoint_dir:
+        raise SystemExit("--hf-checkpoint and --checkpoint-dir are exclusive")
+    if args.hf_checkpoint:
+        return load_named_model("hf:" + args.hf_checkpoint, args)
+    if args.checkpoint_dir:
+        return load_named_model("ckpt:" + args.checkpoint_dir, args)
+    return load_named_model("random", args)
+
+
+def load_named_model(spec: str, args, dims: dict | None = None):
+    """(params, cfg) on ``--device`` for one ``--model NAME=SPEC`` or
+    ``--draft-model`` entry (the JAX package's cli/serve.py:281). SPEC:
+    ``random[:seed]`` (a random init at the CLI dims; default seed
+    ``--seed``), ``hf:<dir>`` (a HuggingFace Llama or Mistral checkpoint
+    at its own dims) or an lm_train checkpoint directory, optionally
+    ``ckpt:<dir>`` (its latest step's params). ``dims`` overrides the CLI
+    dims (a draft's smaller shape)."""
     import torch
 
     from ..device import resolve_device
     from ..models import transformer
     from ..models.convert import torch_dtype
 
-    if args.hf_checkpoint and args.checkpoint_dir:
-        raise SystemExit("--hf-checkpoint and --checkpoint-dir are exclusive")
     device = resolve_device(args.device)
-    if args.hf_checkpoint:
+    if spec.startswith("hf:"):
         from ..models.hf_import import load_hf
 
-        return load_hf(args.hf_checkpoint, torch_dtype(args.dtype), device)
+        return load_hf(spec[3:], torch_dtype(args.dtype), device)
+    d = dict(d_model=args.d_model, n_layers=args.n_layers,
+             n_heads=args.n_heads, d_ff=args.d_ff)
+    d.update(dims or {})
     cfg = transformer.TransformerConfig(
-        vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
-        n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
+        vocab_size=args.vocab, d_model=d["d_model"], n_layers=d["n_layers"],
+        n_heads=d["n_heads"], n_kv_heads=d["n_heads"], d_ff=d["d_ff"],
         dtype=torch_dtype(args.dtype))
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    random_spec = spec == "random" or spec.startswith("random:")
+    seed = (int(spec.partition(":")[2]) if random_spec and ":" in spec
+            else args.seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     params = transformer.init(cfg, gen, device)
-    if args.checkpoint_dir:
-        from ..train.checkpoint import restore_lm_params
+    if random_spec:
+        return params, cfg
+    from ..train.checkpoint import restore_lm_params
 
-        params = restore_lm_params(args.checkpoint_dir, params)
-    return params, cfg
+    return restore_lm_params(spec[5:] if spec.startswith("ckpt:") else spec,
+                             params), cfg
 
 
-def build_server(args):
-    """The SlotServer the flags describe, its weights prepared once (the
-    float32 masters are dropped). With ``--trace-dir`` (and replay on) its
-    journal is the directory's file, and the unfinished requests a
-    previous process left there are resubmitted before it serves."""
+def build_registry(args):
+    """The model registry the flags describe (the JAX package's
+    cli/serve.py:2159) -> (registry, the names that get an engine, the
+    draft's name or None). Every served model is a named entry: the
+    classic flags register "default"; ``--model NAME=SPEC`` entries
+    register in order, the first the default. ``--draft-model`` names an
+    entry or loads a SPEC as "draft", which the default model speculates
+    with; the draft gets no engine of its own."""
+    from ..models.registry import ModelRegistry
+
+    registry = ModelRegistry()
+    if args.model:
+        if args.hf_checkpoint or args.checkpoint_dir:
+            raise SystemExit(
+                "--model and the classic --hf-checkpoint/--checkpoint-dir "
+                "flags are exclusive: with --model the classic flags would "
+                "be ignored; name the checkpoint as a --model entry")
+        for item in args.model:
+            name, sep, spec = item.partition("=")
+            if not sep or not name:
+                raise SystemExit(f"--model expects NAME=SPEC, got {item!r}")
+            registry.register(name, *load_named_model(spec, args),
+                              source=spec)
+    else:
+        registry.register(
+            "default", *load_model(args),
+            source=args.hf_checkpoint or args.checkpoint_dir or "random")
+    default_name = registry.default.name
+    draft_name = None
+    if args.draft_model:
+        if args.draft_model in registry:
+            draft_name = args.draft_model
+        else:
+            if "draft" in registry:
+                raise SystemExit(
+                    "--draft-model SPEC registers under the reserved name "
+                    "'draft', which --model already claimed: reference that "
+                    "entry by name (--draft-model draft) or rename it")
+            registry.register("draft", *load_named_model(
+                args.draft_model, args, dims=dict(
+                    d_model=args.draft_d_model, n_layers=args.draft_n_layers,
+                    n_heads=args.draft_n_heads, d_ff=args.draft_d_ff)),
+                source=args.draft_model)
+            draft_name = "draft"
+        if draft_name == default_name:
+            raise SystemExit(
+                f"--draft-model {args.draft_model!r} names the default "
+                "serving model itself: a model cannot be its own draft "
+                "(register the draft as a separate --model entry or give "
+                "a SPEC)")
+        registry.get(default_name).draft = draft_name
+    return registry, [n for n in registry.names() if n != draft_name], \
+        draft_name
+
+
+def build_engines(args) -> dict:
+    """{name: SlotServer} over the flags' registry, each entry's weights
+    prepared once (the float32 masters are dropped), the default model's
+    first. One request journal serves every engine (request ids are
+    process-wide, and each entry carries its model's name): with
+    ``--trace-dir`` (and replay on) it is the directory's file, and the
+    unfinished requests a previous process left there are resubmitted,
+    each to its model's engine, before serving."""
     from ..models.generate import prepare_decode
     from ..models.serving import SlotServer
 
     check_ported(args)
-    params, cfg = load_model(args)
-    prepared = prepare_decode(params, cfg, weight_dtype=args.weight_dtype)
-    del params
+    registry, names, _ = build_registry(args)
+    for entry in registry:
+        if entry.name in names:     # a draft stays raw: its engine casts it
+            entry.weights = prepare_decode(entry.weights, entry.cfg,
+                                           weight_dtype=args.weight_dtype)
     journal, recovered = None, []
     if args.trace_dir and not args.no_replay:
         from pathlib import Path
@@ -333,8 +433,8 @@ def build_server(args):
     budgets = {cls: n for cls, n in (
         ("interactive", args.class_budget_interactive),
         ("batch", args.class_budget_batch)) if n}
-    srv = SlotServer(
-        prepared, cfg, slots=args.slots, max_len=args.max_len,
+    engines = {n: SlotServer(
+        registry=registry, model=n, slots=args.slots, max_len=args.max_len,
         block_size=args.block_size, prefill_chunk=args.prefill_chunk,
         kv_dtype=args.kv_dtype, temperature=args.temperature,
         top_k=args.top_k,
@@ -347,17 +447,39 @@ def build_server(args):
         journal=journal, replay=not args.no_replay, paged=args.paged_kv,
         kv_block=args.kv_block, kv_pool_blocks=args.kv_pool_blocks,
         prefill_interleave=args.prefill_interleave,
-        class_budgets=budgets or None, role=args.role, device=args.device)
+        class_budgets=budgets or None, role=args.role,
+        spec_gamma=args.spec_gamma, spec_gamma_max=args.spec_gamma_max,
+        device=args.device) for n in names}
     if recovered:
-        n = srv.recover_journal(recovered)
-        print(f"journal recovery: resumed {n} unfinished request(s) for "
-              f"model {srv.model!r} from the previous process", flush=True)
-    return srv
+        # an entry without a model name is the default engine's; one naming
+        # a model this process does not serve is dropped, loudly. The
+        # engines share the file, so it is compacted once, after every
+        # engine journaled its resubmissions
+        default = names[0]
+        for n, eng in engines.items():
+            mine = [e for e in recovered if (e.model or default) == n]
+            if mine:
+                cnt = eng.recover_journal(mine, compact=False)
+                print(f"journal recovery: resumed {cnt} unfinished "
+                      f"request(s) for model {n!r} from the previous "
+                      "process", flush=True)
+        orphans = sorted({e.model for e in recovered
+                          if (e.model or default) not in engines})
+        if orphans:
+            print(f"journal recovery: dropped the entries of models this "
+                  f"process does not serve ({orphans})", flush=True)
+        journal.compact()
+    return engines
+
+
+def build_server(args):
+    """The default model's SlotServer of ``build_engines(args)``."""
+    return next(iter(build_engines(args).values()))
 
 
 def build_app(args) -> "ServeApp":
-    """The ServeApp over ``build_server(args)`` (not started)."""
-    return ServeApp(build_server(args),
+    """The ServeApp over ``build_engines(args)`` (not started)."""
+    return ServeApp(build_engines(args),
                     max_loop_restarts=args.loop_max_restarts,
                     loop_backoff_s=args.loop_backoff_s,
                     trace_dir=args.trace_dir,
@@ -374,11 +496,25 @@ class ServingLoopError(RuntimeError):
     """The serving loop died; the message carries the cause."""
 
 
+class UnknownModelError(ValueError):
+    """The request names a model this process does not serve (HTTP 400:
+    never a silent fallback to other weights)."""
+
+
 class ServeApp:
     """The serving loop + request rendezvous (the JAX package's
-    cli/serve.py:339, one engine). One lock guards the engine (a
-    SlotServer is not thread-safe); HTTP threads enqueue under it and
-    block on a per-request event the loop thread sets at completion.
+    cli/serve.py:339). One lock guards the engines (a SlotServer is not
+    thread-safe); HTTP threads enqueue under it and block on a per-request
+    event the loop thread sets at completion.
+
+    Multi-model serving: ``server`` is a ``{name: SlotServer}`` dict (one
+    engine, one slot pool, a registry entry) or one engine (under its
+    model's name). Requests route by their ``model`` (none: the first
+    engine, ``server``; an unknown name: ``UnknownModelError``, a 400),
+    and the one loop thread steps every busy engine round-robin. Cancel,
+    progress and journal sealing follow a request to its engine. /stats
+    is the default engine's payload with the load counters summed over
+    the engines and ``models``, each engine's own.
 
     A step failure is not terminal: the loop fails only the requests whose
     in-flight work died, re-arms the slot state through the engine's
@@ -412,9 +548,21 @@ class ServeApp:
                  journal_checkpoint_s: float = 1.0):
         from ..train.profiling import StepTimer
 
-        self.server = server
-        # the name /v1 responses carry when a request names no model
-        self.default_model = str(getattr(server, "model", None) or "default")
+        if isinstance(server, dict):
+            if not server:
+                raise ValueError("ServeApp needs at least one engine")
+            self.engines = dict(server)
+        else:
+            self.engines = {
+                str(getattr(server, "model", None) or "default"): server}
+        # the default model (a nameless request's, and the name /v1
+        # responses carry then) and its engine
+        self.default_model = next(iter(self.engines))
+        self.server = self.engines[self.default_model]
+        # the engine of each live request id (cancel, progress, journal
+        # seal), dropped at its delivery or failure
+        self._rid_engine: dict[int, object] = {}
+        self._stepping = None           # the engine inside step()
         self.lock = threading.Lock()
         self.wake = threading.Event()
         self.stop = threading.Event()
@@ -466,7 +614,8 @@ class ServeApp:
         from ..events.trace import TraceWriter
 
         self._trace_writer = TraceWriter(self.trace_dir)
-        self.server.trace_sink = self._trace_writer.write
+        for eng in self.engines.values():
+            eng.trace_sink = self._trace_writer.write
         print(f"request traces -> {self._trace_writer.path}", flush=True)
         path = Path(self.trace_dir) / TELEMETRY_STATE_FILE
         if path.exists():
@@ -494,7 +643,8 @@ class ServeApp:
             tmp.rename(path)
         except OSError as e:
             print(f"telemetry state not persisted: {e}", flush=True)
-        self.server.trace_sink = None
+        for eng in self.engines.values():
+            eng.trace_sink = None
         self._trace_writer.close()
         self._trace_writer = None
 
@@ -514,18 +664,21 @@ class ServeApp:
         if drain and self.thread.is_alive() and self.status != "down":
             with self.lock:
                 self.draining = True
-                self.server.pause_admission = True
-                for req in self.server.fail_queued():
-                    ev = self._events.pop(req.id, None)
-                    if ev is not None:
-                        self._results[req.id] = ServingLoopError(
-                            f"request {req.id} failed: server shutting "
-                            "down before it was admitted")
-                        ev.set()
+                for eng in self.engines.values():
+                    eng.pause_admission = True
+                    for req in eng.fail_queued():
+                        ev = self._events.pop(req.id, None)
+                        self._rid_engine.pop(req.id, None)
+                        if ev is not None:
+                            self._results[req.id] = ServingLoopError(
+                                f"request {req.id} failed: server shutting "
+                                "down before it was admitted")
+                            ev.set()
             deadline = time.monotonic() + drain_timeout_s
             while time.monotonic() < deadline:
                 with self.lock:
-                    if not self._events and self.server.n_active == 0:
+                    if not self._events and all(
+                            e.n_active == 0 for e in self.engines.values()):
                         break
                 time.sleep(0.05)
             with self.lock:
@@ -536,7 +689,8 @@ class ServeApp:
         self.stop.set()
         self.wake.set()
         self.thread.join(timeout=10)
-        self.server.shutdown()
+        for eng in self.engines.values():
+            eng.shutdown()
         if self._trace_writer is not None:
             self._close_trace_dir()
 
@@ -545,12 +699,13 @@ class ServeApp:
         get a ServingLoopError (and open streams an error frame) instead
         of hanging to their timeouts, and seal their journal entries: a client told "failed" must not have
         its request resurrected by a later recovery."""
-        seal = getattr(self.server, "seal_journal", None)
-        fail_stream = getattr(self.server, "fail_stream", None)
         for rid, ev in list(self._events.items()):
             self._results[rid] = ServingLoopError(
                 f"serving loop failed: {exc!r}")
             self._events.pop(rid, None)
+            eng = self._rid_engine.pop(rid, self.server)
+            seal = getattr(eng, "seal_journal", None)
+            fail_stream = getattr(eng, "fail_stream", None)
             if callable(seal):
                 seal(rid)
             # a streamed request's consumer sees the same error, in band
@@ -570,42 +725,62 @@ class ServeApp:
     def _serve(self):
         """The inner serving loop; any exception out of here is a step
         failure handed to _recover. A turn proves a recovery only when it
-        dispatched to the device (the engine's dispatch counters moved)."""
-        eng = self.server
+        dispatched to the device (the engines' dispatch counters moved).
 
+        Each turn steps every busy engine. One engine's failure neither
+        drops the completions another engine drained this turn (they are
+        delivered first) nor starves the engines after it: they still
+        step, then the first failure goes to _recover, which resets that
+        engine alone."""
         def dispatches():
-            return eng.admission_dispatches, eng.blocks_dispatched
+            return tuple((e.admission_dispatches, e.blocks_dispatched)
+                         for e in self.engines.values())
 
-        ckpt = getattr(eng, "checkpoint_progress", None)
         while not self.stop.is_set():
             done = {}
+            step_exc = failed_eng = None
             with self.lock:
-                busy = not eng.idle
-                if busy:
-                    before = dispatches()
-                    now = time.monotonic()
-                    ckpt_due = bool(
-                        self.journal_checkpoint_s and callable(ckpt)
-                        and now - self._last_checkpoint
-                        >= self.journal_checkpoint_s)
-                    eng.step()
-                    # in predictive mode drain_completed reads the device,
-                    # so drain only when something is known to be finished
-                    if eng.completions_ready:
-                        done = eng.drain_completed()
-                    elif ckpt_due:
-                        ckpt()
+                busy = False
+                before = dispatches()
+                now = time.monotonic()
+                ckpt_due = bool(self.journal_checkpoint_s and now
+                                - self._last_checkpoint
+                                >= self.journal_checkpoint_s)
+                for eng in self.engines.values():
+                    if eng.idle:
+                        continue
+                    busy = True
+                    self._stepping = eng
+                    try:
+                        eng.step()
+                        # in predictive mode drain_completed reads the
+                        # device, so drain only when something is known
+                        # to be finished
                         if eng.completions_ready:
-                            done = eng.drain_completed()
-                    if ckpt_due:
-                        self._last_checkpoint = now
-                    self._observe_load()
-                    if self.status == "degraded" and dispatches() != before:
-                        self.status = "ok"
-                        self._restart_streak = 0
-                        self.error = None
+                            done.update(eng.drain_completed())
+                        elif ckpt_due:
+                            eng.checkpoint_progress()
+                            if eng.completions_ready:
+                                done.update(eng.drain_completed())
+                    except Exception as e:
+                        if step_exc is None:
+                            step_exc, failed_eng = e, eng
+                if step_exc is None:
+                    self._stepping = None
+                    if busy:
+                        if ckpt_due:
+                            self._last_checkpoint = now
+                        self._observe_load()
+                        if (self.status == "degraded"
+                                and dispatches() != before):
+                            self.status = "ok"
+                            self._restart_streak = 0
+                            self.error = None
             if done:
                 self._deliver(done)
+            if step_exc is not None:
+                self._stepping = failed_eng     # _recover resets this one
+                raise step_exc
             if not busy:
                 # the next busy turn must not book this idle gap
                 self._turn_timer.reset_interval()
@@ -622,6 +797,7 @@ class ServeApp:
         with self.lock:
             for rid, comp in done.items():
                 ev = self._events.pop(rid, None)
+                self._rid_engine.pop(rid, None)
                 if ev is None:          # no waiter (timed out / cancelled)
                     continue
                 if comp.finish_reason == "expired":
@@ -641,7 +817,8 @@ class ServeApp:
             self.loop_failures += 1
             self._restart_streak += 1
             self.error = f"{type(exc).__name__}: {exc}"
-            reset = getattr(self.server, "reset", None)
+            # reset the engine whose step died; the others' state is intact
+            reset = getattr(self._stepping or self.server, "reset", None)
             if not callable(reset):
                 self.status = "down"
                 self._fail_pending(exc)
@@ -666,6 +843,7 @@ class ServeApp:
             # waiters ride through the restart
             for rid in lost:
                 ev = self._events.pop(rid, None)
+                self._rid_engine.pop(rid, None)
                 if ev is not None:
                     self._results[rid] = ServingLoopError(
                         f"request {rid} lost to a serving-loop failure: "
@@ -679,6 +857,23 @@ class ServeApp:
         return not self.stop.wait(backoff)
 
     # ------------------------------------------------------------ requests
+
+    def _engine_for(self, model: str | None):
+        """A request's engine by its ``model`` (None: the default)."""
+        if model is None:
+            return self.server
+        eng = self.engines.get(str(model))
+        if eng is None:
+            raise UnknownModelError(
+                f"unknown model {model!r}; this process serves "
+                f"{sorted(self.engines)}")
+        return eng
+
+    def _progress_of(self, rid: int):
+        """A live request's journaled progress from its engine, or None."""
+        prog = getattr(self._rid_engine.get(rid, self.server), "progress",
+                       None)
+        return prog(rid) if callable(prog) else None
 
     def submit_async(self, prompt, max_new_tokens: int,
                      timeout: float = 600.0,
@@ -710,6 +905,7 @@ class ServeApp:
                       priority=str(priority or "interactive"), model=model,
                       trace=trace)
         ev = threading.Event()
+        engine = self._engine_for(model)
         # health check + registration + submit are one step against the
         # loop's failure handler, which fails registered events under it
         with self.lock:
@@ -720,12 +916,13 @@ class ServeApp:
                     "server is draining; not accepting requests")
             self._events[req.id] = ev
             try:
-                self.server.submit(req)     # may shed: QueueFullError
+                engine.submit(req)          # may shed: QueueFullError
             except Exception:
                 self._events.pop(req.id, None)
                 raise
+            self._rid_engine[req.id] = engine
             if stream is not None:
-                attach = getattr(self.server, "attach_stream", None)
+                attach = getattr(engine, "attach_stream", None)
                 if callable(attach):
                     attach(req.id, stream)
                 else:       # an engine without streams (test stand-ins)
@@ -742,11 +939,10 @@ class ServeApp:
         oldest first (the journal says which ids are live), then the
         oldest of the rest. Evicting by age alone would drop a long
         decode's key while dead keys stayed."""
-        prog = getattr(self.server, "progress", None)
         for key in list(self._progress_keys):
             if len(self._progress_keys) <= self._progress_keys_cap:
                 return
-            if not callable(prog) or prog(self._progress_keys[key]) is None:
+            if self._progress_of(self._progress_keys[key]) is None:
                 del self._progress_keys[key]
         while len(self._progress_keys) > self._progress_keys_cap:
             self._progress_keys.popitem(last=False)
@@ -756,13 +952,10 @@ class ServeApp:
         state ({tokens, prompt_tokens}) from the journal. Unknown keys
         and finished requests are absent."""
         out = {}
-        prog = getattr(self.server, "progress", None)
         with self.lock:
             for key in keys:
                 rid = self._progress_keys.get(key)
-                if rid is None or not callable(prog):
-                    continue
-                p = prog(rid)
+                p = None if rid is None else self._progress_of(rid)
                 if p is not None:
                     out[key] = p
         return out
@@ -810,8 +1003,7 @@ class ServeApp:
             toks = self._resume_cache.pop(rid, None)
             if toks is not None:
                 return toks
-            prog = getattr(self.server, "progress", None)
-            p = prog(rid) if callable(prog) else None
+            p = self._progress_of(rid)
         if p is None:
             return None
         self.cancel(rid)
@@ -828,8 +1020,10 @@ class ServeApp:
         the prompt instead), QueueFullError when no slot or pool blocks
         are free now. ``timeout`` is the caller's wait; an imported request
         has no queue deadline (it never queues)."""
-        prep = getattr(self.server, "prepare_import", None)
-        imp = getattr(self.server, "import_blocks", None)
+        engine = self._engine_for(
+            payload.get("model") if isinstance(payload, dict) else None)
+        prep = getattr(engine, "prepare_import", None)
+        imp = getattr(engine, "import_blocks", None)
         if not callable(prep) or not callable(imp):
             raise ValueError("this engine does not support KV import")
         prepared = prep(payload)        # ValueError propagates
@@ -842,8 +1036,9 @@ class ServeApp:
             rid = imp(prepared, trace=trace)    # QueueFullError propagates
             ev = threading.Event()
             self._events[rid] = ev
+            self._rid_engine[rid] = engine
             if stream is not None:
-                self.server.attach_stream(rid, stream)
+                engine.attach_stream(rid, stream)
         self.wake.set()
         return rid, ev
 
@@ -853,24 +1048,30 @@ class ServeApp:
         serving lock: the engine's stash has its own. KeyError when there
         is none (the bounded stash aged it out): the router then
         re-prefills on a decode replica."""
-        exp = getattr(self.server, "export_blocks", None)
-        if not callable(exp):
-            raise KeyError(f"no KV export payload for request {request_id}")
-        return exp(request_id)
+        for eng in self.engines.values():
+            exp = getattr(eng, "export_blocks", None)
+            if callable(exp):
+                try:
+                    return exp(request_id)
+                except KeyError:
+                    continue
+        raise KeyError(f"no KV export payload for request {request_id}")
 
     def cancel(self, request_id: int) -> bool:
         """Drop the waiter and stop the request wherever it is."""
         with self.lock:
             self._events.pop(request_id, None)
             self._results.pop(request_id, None)
-            srv_cancel = getattr(self.server, "cancel", None)
+            eng = self._rid_engine.pop(request_id, self.server)
+            srv_cancel = getattr(eng, "cancel", None)
             return bool(callable(srv_cancel) and srv_cancel(request_id))
 
     def generate(self, prompt, max_new_tokens: int, timeout: float = 600.0,
                  temperature: float | None = None,
-                 top_k: int | None = None):
+                 top_k: int | None = None, model: str | None = None):
         rid, ev = self.submit_async(prompt, max_new_tokens, timeout=timeout,
-                                    temperature=temperature, top_k=top_k)
+                                    temperature=temperature, top_k=top_k,
+                                    model=model)
         if not ev.wait(timeout):
             self.cancel(rid)     # free the slot, don't decode for nobody
             raise TimeoutError(
@@ -884,9 +1085,10 @@ class ServeApp:
         turn), the turn's length into ``loop_turn_s``, and the TTFT and
         TPOT quantiles back into the accumulator as gauges."""
         m, eng = self.metrics, self.server
+        engines = list(self.engines.values())
 
         def total(attr):
-            return float(getattr(eng, attr, 0))
+            return float(sum(getattr(e, attr, 0) for e in engines))
 
         m.observe(_metrics.SERVING_ACTIVE_SLOTS, total("n_active"))
         m.observe(_metrics.SERVING_QUEUE_DEPTH, total("pending"))
@@ -902,10 +1104,13 @@ class ServeApp:
         m.observe(_metrics.SERVING_LOOP_RESTARTS, float(self.loop_restarts))
         tel = getattr(eng, "telemetry", None)
         if tel is not None:
+            # the turn is the process's (one thread steps every engine):
+            # it goes into the default engine's loop_turn_s
             dt = self._turn_timer.tick()
             if dt is not None:
                 tel.observe("loop_turn_s", dt)
-            ttft, tpot = tel.hist["ttft_s"], tel.hist["tpot_s"]
+            ttft, tpot = (self._merged_hist(name) for name in
+                          ("ttft_s", "tpot_s"))
             if ttft.count:
                 m.observe(_metrics.SERVING_TTFT_P50_S, ttft.quantile(0.5))
                 m.observe(_metrics.SERVING_TTFT_P99_S, ttft.quantile(0.99))
@@ -915,6 +1120,19 @@ class ServeApp:
         est = getattr(eng, "estimate_retry_after", None)
         if callable(est):
             m.observe(_metrics.SERVING_RETRY_AFTER_S, float(est()))
+
+    def _merged_hist(self, name: str):
+        """One telemetry histogram over every engine (the engine's own
+        with one engine); the buckets are shared, so they merge."""
+        from ..observability import Histogram
+
+        hists = [e.telemetry.hist[name] for e in self.engines.values()]
+        if len(hists) == 1:
+            return hists[0]
+        out = Histogram()
+        for h in hists:
+            out.merge(h)
+        return out
 
     def set_autoscale_hint(self, cooldown_s: float) -> None:
         """Record the fleet autoscaler's remaining scale-up cooldown: every
@@ -970,12 +1188,24 @@ class ServeApp:
         tel = getattr(self.server, "telemetry", None)
         tracker = getattr(self.server, "dispatch_tracker", None)
         hists = {}
+        # each engine's own latency histograms and speculative ones,
+        # copied for its {model=...} series
+        per_model: dict = {name: {} for name in self.engines}
         with self.lock:
             st = self._stats_locked()
             if tel is not None:
                 for name in TELEMETRY_HISTOGRAMS:
                     hists[name] = Histogram()
-                    hists[name].merge(tel.hist[name])
+                    hists[name].merge(self._merged_hist(name))
+                for mname, eng in self.engines.items():
+                    copies = per_model[mname]
+                    for name in ("ttft_s", "tpot_s", "queue_wait_s",
+                                 "e2e_s"):
+                        copies[name] = copy.deepcopy(
+                            eng.telemetry.hist[name])
+                    if getattr(eng, "_spec", False):
+                        copies["accept"] = copy.deepcopy(eng.spec_accept_hist)
+                        copies["rounds"] = copy.deepcopy(eng.spec_rounds_hist)
         # the tracker's reaper feeds its histograms outside the serving
         # lock: copies under the tracker's own
         ready = tracker.histograms() if tracker is not None else {}
@@ -1133,7 +1363,64 @@ class ServeApp:
             r.gauge("serving_task_metric", entry["value"],
                     "MetricsAccumulator snapshot (max_/avg_ per gauge)",
                     labels={"name": entry["name"]})
+        self._render_models(r, st, per_model)
         return r.render()
+
+    def _render_models(self, r, st: dict, per_model: dict) -> None:
+        """The {model=...} partition (the JAX package's cli/serve.py:1340):
+        an info gauge a registered serving model, its load and latency
+        families, and a speculative engine's families."""
+        for name in self.engines:
+            lab = {"model": name}
+            r.gauge(_metrics.SERVING_MODELS, 1,
+                    "registered serving models (info gauge: one series "
+                    "per model, value 1)", labels=lab)
+            est = st["models"].get(name) or {}
+            r.gauge(_metrics.SERVING_ACTIVE_SLOTS, est.get("active", 0),
+                    "slots holding an unfinished request", labels=lab)
+            r.gauge(_metrics.SERVING_QUEUE_DEPTH, est.get("queued", 0),
+                    "requests waiting for a slot", labels=lab)
+            for fam, key in (
+                    (_metrics.SERVING_SHED_TOTAL, "shed"),
+                    (_metrics.SERVING_CANCELLED_TOTAL, "cancelled"),
+                    (_metrics.SERVING_EXPIRED_TOTAL, "expired"),
+                    (_metrics.SERVING_REPLAYS_TOTAL, "replays"),
+                    (_metrics.SERVING_REPLAYED_TOKENS_TOTAL,
+                     "replayed_tokens"),
+                    ("serving_blocks_dispatched_total",
+                     "blocks_dispatched")):
+                if key in est:
+                    r.counter(fam, est[key], labels=lab)
+            copies = per_model.get(name, {})
+            for hname in ("ttft_s", "tpot_s", "queue_wait_s", "e2e_s"):
+                if hname in copies:
+                    r.histogram("serving_" + hname[:-2] + "_seconds",
+                                copies[hname], labels=lab)
+            spec = est.get("speculative")
+            if not spec:
+                continue
+            r.counter(_metrics.SERVING_SPEC_ROUNDS_TOTAL,
+                      spec.get("rounds", 0),
+                      "speculative verify rounds dispatched", labels=lab)
+            r.counter(_metrics.SERVING_SPEC_PROPOSED_TOKENS_TOTAL,
+                      spec.get("proposed_tokens", 0),
+                      "draft tokens proposed for verification", labels=lab)
+            r.counter(_metrics.SERVING_SPEC_ACCEPTED_TOKENS_TOTAL,
+                      spec.get("accepted_tokens", 0),
+                      "draft tokens the target accepted", labels=lab)
+            r.gauge(_metrics.SERVING_SPEC_GAMMA, spec.get("gamma", 0),
+                    "the next verify round's draft window (autotuned from "
+                    "the acceptance EWMA, or pinned)", labels=lab)
+            if "accept" in copies:
+                r.histogram(_metrics.SERVING_SPEC_ACCEPTANCE_RATE,
+                            copies["accept"],
+                            "per-round draft acceptance rate "
+                            "(accepted/gamma, before the budget and stop "
+                            "clamps)", labels=lab)
+                r.histogram(_metrics.SERVING_SPEC_VERIFY_ROUNDS,
+                            copies["rounds"],
+                            "verify rounds per completed request",
+                            labels=lab)
 
     def health(self) -> dict:
         """The /healthz payload: ``status`` is ok/degraded/draining/down,
@@ -1145,12 +1432,30 @@ class ServeApp:
                     "error": self.error,
                     "loop_restarts": self.loop_restarts}
 
+    # the /stats keys a multi-model process sums over its engines, so the
+    # top-level payload (and /metrics' unlabeled series) is the process's
+    _AGGREGATE_STAT_KEYS = (
+        "slots", "active", "queued", "shed", "cancelled", "expired",
+        "resets", "replays", "replayed_tokens", "blocks_dispatched",
+        "admission_dispatches", "prefill_tokens_computed",
+        "prefill_tokens_reused", "chaos_faults_injected",
+        "streams_active", "streams_opened", "stream_stalls")
+
     def stats(self) -> dict:
         with self.lock:
             return self._stats_locked()
 
     def _stats_locked(self) -> dict:
-        out = dict(self.server.stats())
+        # one payload an engine, by model name (a router reads the keys as
+        # the models this replica serves); the top level is the default
+        # engine's, its load counters summed over the engines
+        per = {name: eng.stats() for name, eng in self.engines.items()}
+        out = dict(per[self.default_model])
+        out["models"] = per
+        if len(per) > 1:
+            for k in self._AGGREGATE_STAT_KEYS:
+                if k in out:
+                    out[k] = sum(int(p.get(k, 0) or 0) for p in per.values())
         out["loop"] = {"status": self.status,
                        "restarts": self.loop_restarts,
                        "failures": self.loop_failures,
@@ -1742,7 +2047,10 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
     srv = app.server
-    print(f"serving {srv.cfg.n_layers}L d{srv.cfg.d_model} on "
+    models = ", ".join(f"{n}={e.cfg.n_layers}L d{e.cfg.d_model}"
+                       for n, e in app.engines.items())
+    draft = f" +draft {srv.draft_model}" if srv.draft_model else ""
+    print(f"serving {models}{draft} on "
           f"http://{args.host}:{httpd.server_address[1]} ({srv.slots} slots "
           f"x {srv.max_len} tokens, {srv.device})", flush=True)
     try:

@@ -51,6 +51,9 @@
 //   its (b, kv head)'s arrival counter; the last to arrive merges the
 //   partials in chunk order (so the result does not depend on which CTA was
 //   last), writes the output and resets the counter to 0 for the next launch.
+// - Head dims 32, 64 and 128: at D = 32 a row is 4 lanes (64 groups a CTA),
+//   a bf16 tile 256 positions, and the groups' merge (70 KB) is larger than
+//   the ring (64 KB), so the launch asks for the merge's shared memory.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -415,6 +418,10 @@ extern "C" int tony_flash_decode(
   TONY_DECODE_CASE(1, 2, 64, __nv_bfloat16, int8_t)
   TONY_DECODE_CASE(0, 0, 64, float, float)
   TONY_DECODE_CASE(0, 2, 64, float, int8_t)
+  TONY_DECODE_CASE(1, 1, 32, __nv_bfloat16, __nv_bfloat16)
+  TONY_DECODE_CASE(1, 2, 32, __nv_bfloat16, int8_t)
+  TONY_DECODE_CASE(0, 0, 32, float, float)
+  TONY_DECODE_CASE(0, 2, 32, float, int8_t)
 #undef TONY_DECODE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -424,7 +431,7 @@ extern "C" int tony_flash_decode(
 // geometry[0] = cache positions in one K (or V) tile of the ring,
 // geometry[1] = CTAs an SM holds at once. Returns 0, or cudaErrorInvalidValue.
 extern "C" int tony_flash_decode_geometry(int D, int c_dtype, int rep, int* geometry) {
-  if ((D != 64 && D != 128) || c_dtype < 0 || c_dtype > 2 || rep < 1 || rep > MAXREP)
+  if ((D != 32 && D != 64 && D != 128) || c_dtype < 0 || c_dtype > 2 || rep < 1 || rep > MAXREP)
     return static_cast<int>(cudaErrorInvalidValue);
   const int elem = c_dtype == 0 ? 4 : c_dtype == 1 ? 2 : 1;
   geometry[0] = TILE_BYTES / (D * elem);

@@ -46,6 +46,10 @@
 // is slower on the H100, so the spill stays. PERF.md has ptxas's report and
 // each alternative's time (tony_tpu_torch/tools/kernel_variants.py).
 // Shared memory: 70 KB at D = 128 (Q 35 KB, two K/V stages 35 KB).
+// D = 32 (a small draft model's heads) is the same kernel: a bf16 row is
+// 64 bytes (4 16-byte chunks, so a 32-row K/V tile is one cp.async a
+// thread), the padded row stride of 80 bytes keeps ldmatrix's 8 rows on
+// distinct banks, Q K^T is 2 k16 steps and the O accumulator 16 floats.
 //
 // float32 (flash_fwd_kernel): the products on the FP32 pipes (tensor-core
 // TF32 would round the operands beyond the float32 tolerance). One CTA of 256
@@ -54,7 +58,8 @@
 // rows in both, so the online-softmax state stays in registers; row max/sum
 // reduce over the 16 lanes that share the rows. Q, K, V tiles sit in shared
 // memory in float32 with a padded row stride; P reuses the K tile once the
-// scores are computed (about 99 KB at D = 128).
+// scores are computed (about 99 KB at D = 128); below D = 64 the K region
+// is sized for P, which is then the larger of the two.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -64,6 +69,13 @@ namespace {
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
+
+// floats of the f32 kernel's K region: the K tile [BK][D + 1], which P
+// [BQ][BK + 1] reuses after the scores (P is the larger below D = 64)
+template <int D>
+__host__ __device__ constexpr int k_region() {
+  return BK * (D + 1) > BQ * (BK + 1) ? BK * (D + 1) : BQ * (BK + 1);
+}
 
 struct FwdArgs {
   const void* q;
@@ -89,7 +101,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;           // [BQ][DS]
   float* ks = qs + BQ * DS;   // [BK][DS]
-  float* vs = ks + BK * DS;   // [BK][D]
+  float* vs = ks + k_region<D>();  // [BK][D]
   float* ps = ks;             // [BQ][PS], aliases K after the score pass
 
   const int tid = threadIdx.x;
@@ -223,7 +235,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(FwdArgs a) {
 
 template <typename T, int D>
 int launch(const FwdArgs& a, int B, cudaStream_t stream) {
-  const int smem = (BQ * (D + 1) + BK * (D + 1) + BK * D) * sizeof(float);
+  const int smem = (BQ * (D + 1) + k_region<D>() + BK * D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -483,8 +495,10 @@ extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v, void*
     if (!aligned16(ptrs, 4, st, 12)) return static_cast<int>(cudaErrorMisalignedAddress);
     if (D == 128) return launch_mma<128>(a, B, s);
     if (D == 64) return launch_mma<64>(a, B, s);
+    if (D == 32) return launch_mma<32>(a, B, s);
   }
   if (dtype == 0 && D == 128) return launch<float, 128>(a, B, s);
   if (dtype == 0 && D == 64) return launch<float, 64>(a, B, s);
+  if (dtype == 0 && D == 32) return launch<float, 32>(a, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

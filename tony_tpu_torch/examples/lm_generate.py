@@ -11,7 +11,12 @@ step's ``params``; the optimizer state is dropped), or imported from a
 HuggingFace Llama or Mistral checkpoint directory (``--hf-checkpoint``,
 read without ``transformers``: models/hf_import.py; its config sets the
 model's dims and vocabulary). ``--weight-dtype int8`` decodes on int8
-weights (w8a16, models/generate.py). Prompts are
+weights (w8a16, models/generate.py). A draft model (``--draft-checkpoint-dir``,
+an lm_train checkpoint shaped by the ``--draft-*`` flags, or
+``--draft-hf-checkpoint``) decodes speculatively: greedy, batch 1, the
+same tokens as the plain decode (models/speculative.py); the metrics then
+carry the rounds and the acceptance. The default draft dims (d_model 128,
+4 heads) give head_dim 32, which the flash kernels take. Prompts are
 whitespace-separated token ids (``--prompt``), or ``--batch`` x
 ``--prompt-len`` random ids from the same seed. Prints the first row's
 tokens and the decode throughput; ``--metrics-out`` also gets the prefill
@@ -20,10 +25,13 @@ time and the rates as JSON.
 Timing: one untimed warm-up run, then the timed full run, then a timed
 prefill-only run (``max_new_tokens=1``). So a call launches the flash
 forward kernel 3 x n_layers times and the flash-decode kernel
-2 x n_layers x (max_new - 1) times (fewer with stop tokens).
+2 x n_layers x (max_new - 1) times (fewer with stop tokens); a
+speculative call prefills target and draft (3 x (n_layers +
+draft_n_layers) flash forwards) and runs (gamma + 1) draft steps a round
+(flash-decode launches: draft_n_layers each).
 
-Not ported yet, each raising: the draft (speculative) flags,
-``--tensor-parallel`` > 1 and ``--n-experts`` > 0.
+Not ported yet, each raising: ``--tensor-parallel`` > 1 and
+``--n-experts`` > 0.
 """
 
 from __future__ import annotations
@@ -31,6 +39,33 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+
+SPEC_GAMMA = 4          # drafts a round (speculative_generate's default)
+
+
+def _load_draft(args, dtype, device, gen):
+    """The draft model -> (DecodeWeights, cfg): an HF checkpoint (its
+    config sets the dims), or an lm_train checkpoint shaped by the
+    ``--draft-*`` flags on the target's vocabulary (the draft proposes the
+    target's token ids)."""
+    from tony_tpu_torch.models import transformer
+    from tony_tpu_torch.models.generate import prepare_decode
+
+    if args.draft_hf_checkpoint:
+        from tony_tpu_torch.models.hf_import import load_hf
+
+        d_params, d_cfg = load_hf(args.draft_hf_checkpoint, dtype, device)
+    else:
+        from tony_tpu_torch.train.checkpoint import restore_lm_params
+
+        d_cfg = transformer.TransformerConfig(
+            vocab_size=args.vocab, d_model=args.draft_d_model,
+            n_layers=args.draft_n_layers, n_heads=args.draft_n_heads,
+            n_kv_heads=args.draft_n_heads, d_ff=args.draft_d_ff, dtype=dtype)
+        d_params = restore_lm_params(args.draft_checkpoint_dir,
+                                     transformer.init(d_cfg, gen, device))
+    return prepare_decode(d_params, d_cfg), d_cfg
 
 
 def _not_ported(flag: str, slice_name: str):
@@ -86,8 +121,13 @@ def main(argv=None) -> int:
 
     if args.hf_checkpoint and args.checkpoint_dir:
         raise SystemExit("--hf-checkpoint and --checkpoint-dir are exclusive")
-    if args.draft_hf_checkpoint or args.draft_checkpoint_dir:
-        _not_ported("speculative decoding (--draft-*)", "speculative")
+    if args.draft_hf_checkpoint and args.draft_checkpoint_dir:
+        raise SystemExit("--draft-hf-checkpoint and --draft-checkpoint-dir "
+                         "are exclusive")
+    speculative = bool(args.draft_hf_checkpoint or args.draft_checkpoint_dir)
+    if speculative and (args.temperature > 0 or args.tensor_parallel > 1):
+        raise SystemExit("speculative decode is single-device greedy "
+                         "(drop --tensor-parallel / --temperature)")
     if args.tensor_parallel > 1:
         _not_ported("--tensor-parallel", "mesh/TP")
     if args.n_experts > 0:
@@ -145,12 +185,29 @@ def main(argv=None) -> int:
     stop_tokens = tuple(int(t) for t in args.stop_tokens.split())
     prepared = prepare_decode(params, cfg, weight_dtype=args.weight_dtype)
     del params
+    draft = None
+    if speculative:
+        draft = _load_draft(args, torch_dtype(args.dtype), device, gen)
+        d_cfg = draft[1]
+        print(f"speculative draft: {d_cfg.n_layers}L d{d_cfg.d_model} "
+              f"{d_cfg.n_heads}h (head_dim {d_cfg.head_dim})")
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     def run(max_new):
+        if draft is not None:
+            from tony_tpu_torch.models.speculative import speculative_generate
+
+            out, stats = speculative_generate(
+                prepared, cfg, draft[0], draft[1], prompt, max_new,
+                kv_dtype=args.kv_dtype, stop_tokens=stop_tokens,
+                pad_id=args.pad_id, return_stats=True)
+            sync()
+            spec_stats.update(stats)
+            # rounds = verify forwards; emitted = accepted + rounds (+ 1)
+            return out, stats["accepted"] + stats["rounds"]
         sample_gen = torch.Generator(device=device).manual_seed(args.seed)
         out, steps = generate(
             prepared, cfg, prompt, max_new, temperature=args.temperature,
@@ -160,10 +217,12 @@ def main(argv=None) -> int:
         sync()
         return out, steps
 
+    spec_stats: dict = {}
     run(args.max_new)                   # warm-up, untimed
     t0 = time.perf_counter()
     out, steps = run(args.max_new)
     wall = time.perf_counter() - t0
+    timed_stats = dict(spec_stats)
     t0 = time.perf_counter()
     run(1)                              # prefill only
     prefill_s = time.perf_counter() - t0
@@ -175,8 +234,13 @@ def main(argv=None) -> int:
             if t in stop_tokens:
                 tokens = tokens[:i + 1]
                 break
-    # prefill emitted 1 token + `steps` decode forwards
-    n_generated = int(steps) + 1
+    if draft is not None:
+        # rounds can overshoot max_new and draft past a stop: count the
+        # tokens delivered
+        n_generated = len(tokens)
+    else:
+        # prefill emitted 1 token + `steps` decode forwards
+        n_generated = int(steps) + 1
     decode_s = max(wall - prefill_s, 1e-9)
     result = {
         "tokens": tokens,
@@ -196,6 +260,14 @@ def main(argv=None) -> int:
         "stop_tokens": list(stop_tokens),
         "hf_load_s": hf_load_s,
     }
+    if draft is not None:
+        d_cfg = draft[1]
+        result["speculative"] = {
+            **timed_stats, "gamma": SPEC_GAMMA,
+            "target_forwards": timed_stats["rounds"] + 1,
+            "draft": {"d_model": d_cfg.d_model, "n_layers": d_cfg.n_layers,
+                      "n_heads": d_cfg.n_heads, "d_ff": d_cfg.d_ff,
+                      "head_dim": d_cfg.head_dim}}
     print(" ".join(str(t) for t in tokens))
     print(f"# {n_generated} tokens in {wall:.2f}s "
           f"({result['decode_tokens_per_sec']:.1f} tok/s), prefill "

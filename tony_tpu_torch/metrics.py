@@ -5,9 +5,7 @@ copies of the JAX package's metrics.py constants and
 The names are one contract between ``serve``'s /stats ``metrics``
 snapshot, its GET /metrics families and the tests. The *_total names are
 cumulative counters sampled as gauges: their max_ snapshot is the running
-total. The JAX package's ``SERVING_MODELS`` and ``SERVING_SPEC_*`` names
-are not copied: the port renders neither family yet (ROADMAP.md queue 1:
-HF import and the model registry, speculative decoding).
+total.
 """
 
 from __future__ import annotations
@@ -46,6 +44,20 @@ SERVING_KV_POOL_BLOCKS = "serving_kv_pool_blocks"
 SERVING_KV_EXPORTS_TOTAL = "serving_kv_exports_total"
 SERVING_KV_IMPORTS_TOTAL = "serving_kv_imports_total"
 SERVING_KV_IMPORT_REJECTS_TOTAL = "serving_kv_import_rejects_total"
+# multi-model serving (models/registry.py): the info gauge, one series a
+# registered serving model (value 1); the serving families repeat with a
+# {model="..."} label beside the unlabeled process aggregates
+SERVING_MODELS = "serving_models"
+# speculative serving (models/serving.py _spec_block), per model: verify
+# rounds, draft proposals verified and accepted (host-observed, behind
+# the pipeline), the next round's gamma, and the acceptance-rate and
+# verify-rounds-per-request histograms
+SERVING_SPEC_ROUNDS_TOTAL = "serving_spec_rounds_total"
+SERVING_SPEC_PROPOSED_TOKENS_TOTAL = "serving_spec_proposed_tokens_total"
+SERVING_SPEC_ACCEPTED_TOKENS_TOTAL = "serving_spec_accepted_tokens_total"
+SERVING_SPEC_GAMMA = "serving_spec_gamma"
+SERVING_SPEC_ACCEPTANCE_RATE = "serving_spec_acceptance_rate"
+SERVING_SPEC_VERIFY_ROUNDS = "serving_spec_verify_rounds"
 
 
 class MetricsAccumulator:

@@ -144,8 +144,26 @@ requests, from a file-backed journal.
 matrices (models/generate.py), the prefill programs the cast weights, as
 the JAX package's engines do.
 
+- **Model registry** (``registry=``, ``model=``; models/registry.py):
+  the server serves one named entry; a (params, cfg) pair is registered
+  under ``model``. ``stats()["registry"]`` lists the names.
+- **Speculative serving** (``draft=``: a registry entry's name, or
+  weights with ``draft_cfg=``; greedy only): the draft keeps its own ring
+  (or, paged, a mirror pool on the same tables) at the target's per-row
+  lengths, admission prefills both (the prefix trie's blocks mirrored into
+  a draft-shaped pool), and every dispatch is one round for all slots
+  (``_spec_block``): gamma+1 draft steps, one gamma+1-wide verify
+  forward, the longest agreeing prefix plus the target's correction. Each
+  request's tokens are the spec-off server's. Speculative rings sit at
+  offset 0 (a round advances each slot by its own count, so there is no
+  shared cursor) and each row's writes stop at its target. The window
+  gamma is the ``spec_gamma`` pin or autotuned from each slot's acceptance
+  EWMA to a power of two up to ``spec_gamma_max``; ``stats()
+  ["speculative"]`` has the counters. A round's result is read as a
+  decode block's is: dispatch and admission wait for nothing.
+
 Not ported yet, each raising a named error: the mesh and its rule table,
-speculative serving, the model registry and MoE.
+and MoE.
 """
 
 from __future__ import annotations
@@ -156,6 +174,7 @@ import dataclasses
 import hashlib
 import itertools
 import logging
+import math
 import os
 import random
 import signal
@@ -173,6 +192,7 @@ from ..device import resolve_device
 from ..events.journal import RequestJournal
 from ..observability import (
     DispatchTracker,
+    Histogram,
     RequestTrace,
     ServiceRateEstimator,
     ServingTelemetry,
@@ -184,6 +204,7 @@ from .generate import (
     KVCache,
     PrefixPool,
     _cached_attention,
+    _cast_decode_params,
     _forward_with_cache,
     _quantize_kv,
     init_cache,
@@ -192,6 +213,7 @@ from .generate import (
     prepare_decode,
     sample_token,
 )
+from .registry import ModelRegistry
 from .transformer import TransformerConfig, layer_params, rms_norm
 
 log = logging.getLogger(__name__)
@@ -220,12 +242,6 @@ LOGPROBS_MAX = 8
 _NOT_PORTED = {
     "mesh": (None, "tensor-parallel serving", "mesh/TP"),
     "rules": (None, "the mesh's sharding rules", "mesh/TP"),
-    "draft": (None, "speculative serving", "speculative decoding"),
-    "draft_cfg": (None, "speculative serving", "speculative decoding"),
-    "spec_gamma": (0, "a pinned speculative window", "speculative decoding"),
-    "spec_gamma_max": (4, "the speculative window's ceiling",
-                       "speculative decoding"),
-    "registry": (None, "the model registry", "HF import"),
 }
 
 
@@ -535,6 +551,144 @@ def _decode_block(params, fused, cfg: TransformerConfig, cache: KVCache,
                  torch.stack(top_vals, 1).float().reshape(s, block * lp_k)
                  .view(torch.int32)]
     return cache, torch.cat(cols, dim=1)
+
+
+def _spec_rows_forward(params, cfg: TransformerConfig, tokens, cache: KVCache,
+                       lens, offsets, active, cap):
+    """Forward L new tokens a row (rows = slots) at per-row logical
+    positions ``lens[r]..lens[r]+L-1``, each row's K/V written into its own
+    ring in place -> all-position logits [S, L, V] float32 (the JAX
+    package's serving.py:1052). The building block of a speculative round.
+
+    Writes land only for ``active`` rows at positions below ``cap[r]``
+    (the row's target): a verify window past the target would otherwise
+    wrap onto the row's own earliest prompt K/V, and no delivered token
+    needs K/V at or past the target. The JAX package diverts those writes
+    out of bounds and drops them; here each row's L ring indices are
+    distinct (L <= max_len), so every (row, index) pair is written once,
+    with the new value where the write lands and the value read back where
+    it is dropped: no index leaves the buffer and nothing races.
+
+    Raw (cast) weights, as the prefill programs use: exactness against the
+    plain decode path needs the prefill's numerics."""
+    dt = cfg.dtype
+    s, l = tokens.shape
+    m_cap = cache.k.shape[3]
+    dev = tokens.device
+    positions = lens[:, None].long() + torch.arange(l, device=dev)  # [S, L]
+    ok = (active[:, None] & (positions < cap[:, None]))[:, None, :]
+    ring_idx = (offsets[:, None].long() + positions) % m_cap
+    rows = torch.arange(s, device=dev)[:, None]
+    int8_cache = cache.k.dtype == torch.int8
+
+    def put(buf, new):
+        # buf [S, kvH, M(, D)], new [S, kvH, L(, D)]: keep what is there
+        # where the write drops
+        old = buf[rows, :, ring_idx].transpose(1, 2)     # [S, kvH, L(, D)]
+        keep = ok if new.dim() == 3 else ok[..., None]
+        buf[rows, :, ring_idx] = torch.where(keep, new.to(buf.dtype),
+                                             old).transpose(1, 2)
+
+    x = params["embed"].to(dt)[tokens]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = transformer._qkv(cfg, h, positions, lp)
+        k_hm, v_hm = k.transpose(1, 2), v.transpose(1, 2)    # [S, kvH, L, D]
+        if int8_cache:
+            k_hm, ks = _quantize_kv(k_hm)
+            v_hm, vs = _quantize_kv(v_hm)
+            put(cache.k_scale[i], ks)
+            put(cache.v_scale[i], vs)
+        put(cache.k[i], k_hm)
+        put(cache.v[i], v_hm)
+        attn = _cached_attention(cfg, q, cache.k, cache.v, lens, l,
+                                 cache.k_scale, cache.v_scale,
+                                 ring_offsets=offsets, layer_idx=i)
+        x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
+        hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        mlp_out, _ = transformer._mlp(cfg, hh, lp)
+        x = x + mlp_out
+    x_out = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bld,dv->blv", x_out,
+                        params["unembed"].to(dt)).float()
+
+
+@torch.no_grad()
+def _spec_block(params, draft_params, cfg: TransformerConfig,
+                draft_cfg: TransformerConfig, cache: KVCache,
+                draft_cache: KVCache, state: _SlotState, *, gamma: int,
+                stop_arr, pad_id: int):
+    """One speculative round for ALL slots -> (cache, draft_cache, packed)
+    (the JAX package's serving.py:1131). The draft proposes ``gamma``
+    tokens a row in gamma+1 single-token steps (the extra step ingests the
+    last proposal, so the draft cache is one ahead when all are accepted),
+    the target verifies every row's gamma+1 positions in one forward, and
+    each row accepts its longest matching draft prefix plus the target's
+    own correction (or bonus) token, clamped by its remaining budget and
+    cut after its first stop token: where the plain decode block freezes
+    the row. So each request's tokens are the plain path's, for any
+    draft.
+
+    Rollback is a length write: both caches' entries past the accepted
+    prefix are overwritten by the next round's fed tokens before any query
+    reads them. ``state.tokens`` and ``state.active`` are rebound to the
+    round's results; both caches come back with the new lengths.
+
+    ``packed`` [S, gamma+4] int32, a fresh tensor: the emitted tokens (pad
+    past each row's count), the raw acceptance count, the final length and
+    the active flag; the host slices it by length delta as it does a
+    decode block's."""
+    s = cache.k.shape[1]
+    dev = cache.k.device
+    len0, active, tok = cache.length, state.active, state.tokens
+    cap = state.target
+    dlen = draft_cache.length
+    fed = [tok]
+    for _ in range(gamma + 1):
+        lg = _spec_rows_forward(draft_params, draft_cfg, fed[-1][:, None],
+                                draft_cache, dlen, state.offsets, active,
+                                cap)
+        fed.append(lg[:, 0].argmax(dim=-1).to(torch.int32))
+        dlen = dlen + 1
+    d = torch.stack(fed[1:gamma + 1], dim=1)                # [S, gamma]
+    lg = _spec_rows_forward(params, cfg, torch.cat([tok[:, None], d], 1),
+                            cache, len0, state.offsets, active, cap)
+    t_pred = lg.argmax(dim=-1).to(torch.int32)              # [S, gamma+1]
+    n_acc = torch.cumprod((d == t_pred[:, :gamma]).to(torch.int32),
+                          dim=1).sum(dim=1).to(torch.int32)
+    idx = torch.arange(gamma + 1, device=dev)[None, :]
+    correction = t_pred.gather(1, n_acc[:, None].long())
+    d_ext = torch.cat([d, torch.zeros((s, 1), dtype=torch.int32,
+                                      device=dev)], dim=1)
+    # the row's next n_acc + 1 greedy tokens: accepted drafts, then the
+    # target's correction (a mismatch) or bonus (all accepted)
+    cand = torch.where(idx == n_acc[:, None], correction, d_ext)
+    room = (cap - len0).clamp_min(0)
+    n_budget = torch.minimum(n_acc + 1, room)
+    if stop_arr is not None:
+        hit = (cand[..., None] == stop_arr).any(dim=-1)
+        stop_idx = torch.where(hit & (idx < n_budget[:, None]), idx,
+                               gamma + 1).amin(dim=1)
+        stop_hit = active & (stop_idx < n_budget)
+        n_emit = torch.where(stop_hit, stop_idx + 1, n_budget)
+    else:
+        stop_hit = torch.zeros_like(active)
+        n_emit = n_budget
+    n_emit = torch.where(active, n_emit, 0).to(torch.int32)
+    new_len = (len0 + n_emit).to(torch.int32)
+    still = active & ~stop_hit & (new_len < cap)
+    # the next fed token: the last emitted one (read only while the row
+    # is still active, when it is the unwritten correction or bonus)
+    nxt = cand.gather(1, (n_emit - 1).clamp_min(0)[:, None].long())[:, 0]
+    state.tokens = torch.where(still, nxt, tok)
+    state.active = still
+    emitted = torch.where(idx < n_emit[:, None], cand, pad_id)
+    packed = torch.cat([emitted.to(torch.int32), n_acc[:, None],
+                        new_len[:, None], still.to(torch.int32)[:, None]],
+                       dim=1)
+    return (dataclasses.replace(cache, length=new_len),
+            dataclasses.replace(draft_cache, length=new_len.clone()), packed)
 
 
 class _Fence:
@@ -1059,6 +1213,48 @@ def _scatter_paged_rows(pool: PrefixPool, view: KVCache,
                                        .index_select(0, src))
 
 
+@torch.no_grad()
+def _commit_spec_window(pool: PrefixPool, view: KVCache, len0: torch.Tensor,
+                        tables: torch.Tensor, floors: torch.Tensor,
+                        width: int) -> None:
+    """A paged speculative round's commit, in place: each slot's ``width``
+    view rows from its length before the round, ``len0`` (a device tensor:
+    the host does not know it until the round is read), into the pool.
+    Speculation's rings are offset 0, so ring index == logical position p,
+    which is row p % B of table entry p // B. A row past the ring, below
+    the slot's floor or at the pad block is not committed: it writes zeros
+    into the pad block, which stays zero (those rows may repeat; every
+    committed row is a distinct row of a block its slot holds alone).
+    ``tables`` [S, M/B] and ``floors`` [S] are the host's, staged with
+    this round."""
+    n_layers, s, kvh, m, d = view.k.shape
+    b_rows = pool.k.shape[3]
+    pad = pool.k.shape[1] - 1
+    dev = len0.device
+    p = len0[:, None].long() + torch.arange(width, device=dev)     # [S, W]
+    inside = p < m
+    p = torch.where(inside, p, 0)
+    blk = tables.gather(1, p // b_rows)
+    keep = inside & (p >= floors[:, None]) & (blk < pad)
+    row = p % b_rows
+    src = torch.arange(s, device=dev)[:, None] * (kvh * m) + p
+    dst = torch.where(keep, blk, pad) * (kvh * b_rows) + row
+    src_i = _pool_row_index(PrefixPool(k=view.k, v=view.v), src.reshape(-1),
+                            m).reshape(-1)
+    dst_i = _pool_row_index(pool, dst.reshape(-1), b_rows).reshape(-1)
+    keep_i = keep.reshape(1, 1, -1).expand(n_layers, kvh, -1).reshape(-1)
+    pairs = [(pool.k, view.k), (pool.v, view.v)]
+    if pool.k_scale is not None:
+        pairs += [(pool.k_scale, view.k_scale), (pool.v_scale, view.v_scale)]
+    for dst_t, src_t in pairs:
+        flat = src_t.reshape(-1, d) if src_t.dim() == 5 else src_t.reshape(-1)
+        vals = flat.index_select(0, src_i)
+        mask = keep_i if vals.dim() == 1 else keep_i[:, None]
+        out = dst_t.view(-1, d) if dst_t.dim() == 5 else dst_t.view(-1)
+        out.index_copy_(0, dst_i, torch.where(mask, vals,
+                                              torch.zeros_like(vals)))
+
+
 # ------------------------------------------------------------ KV transfer
 # (the JAX package's serving.py:1436-1575). Pool blocks hold KV rows in
 # logical order: position p lives at table entry p // B, row p % B,
@@ -1321,7 +1517,8 @@ class SlotServer:
     payloads). ``import_blocks(payload)`` resumes another replica's
     prefilled request here."""
 
-    def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
+    def __init__(self, params=None, cfg: TransformerConfig | None = None, *,
+                 slots: int = 8,
                  max_len: int = 2048, block_size: int = 16,
                  prefill_chunk: int = 128, kv_dtype: str = "native",
                  weight_dtype: str = "native", temperature: float = 0.0,
@@ -1334,7 +1531,10 @@ class SlotServer:
                  replay: bool = True, paged: bool = False, kv_block: int = 0,
                  kv_pool_blocks: int = 0, class_budgets: dict | None = None,
                  prefill_interleave: int = 0, trace_sink=None,
-                 role: str = "both", device=None, **not_ported):
+                 role: str = "both", registry: ModelRegistry | None = None,
+                 draft=None, draft_cfg: TransformerConfig | None = None,
+                 spec_gamma: int = 0, spec_gamma_max: int = 4, device=None,
+                 **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SlotServer() got an unexpected keyword "
@@ -1342,6 +1542,29 @@ class SlotServer:
             off, what, item = _NOT_PORTED[name]
             if value != off:
                 raise _not_ported(f"{what} ({name}=)", item)
+        # the model registry (models/registry.py): this server serves one
+        # named entry (its slot pool has that entry's shapes), and a
+        # speculative pair is two entries. A (params, cfg) pair is
+        # registered under ``model``, so every server has a registry.
+        if registry is not None:
+            self.registry = registry
+            # the default name means "the registry's first entry"; any
+            # other unregistered name raises, naming the entries
+            if model in registry or model != "default":
+                entry = registry.get(model)
+            else:
+                entry = registry.default
+            self.model = entry.name
+            params, cfg = entry.weights, entry.cfg
+            if draft is None and entry.draft is not None:
+                draft = entry.draft
+        else:
+            if params is None or cfg is None:
+                raise ValueError(
+                    "SlotServer needs (params, cfg) or registry=/model=")
+            self.registry = ModelRegistry()
+            self.registry.register(str(model), params, cfg)
+            self.model = str(model)
         if not cfg.causal:
             raise ValueError("serving requires a causal model")
         self.device = resolve_device(device)
@@ -1355,8 +1578,8 @@ class SlotServer:
                 f"the weights are on {prepared.params['embed'].device}, the "
                 f"server on {self.device}")
         self._params, self._fused = prepared.params, prepared.fused
-        self.model = str(model)
         self.cfg = moe_dropfree(cfg)
+        self._init_draft(draft, draft_cfg, weight_dtype, temperature)
         self.slots = slots
         self.max_len = max_len
         self.block_size = block_size
@@ -1405,6 +1628,11 @@ class SlotServer:
         if self.role == "prefill" and not self._paged:
             raise ValueError("role='prefill' requires paged=True (the "
                              "transfer unit is the paged KV block)")
+        if self.role == "prefill" and self._spec:
+            raise ValueError(
+                "role='prefill' is incompatible with speculative serving (a "
+                "prefill replica never decodes, so a draft has nothing to "
+                "propose against)")
         # a prefill role's finished payloads awaiting pickup, oldest
         # evicted first (an unclaimed one costs the decode side a
         # re-prefill, never a request); the stash and the counters are
@@ -1423,8 +1651,27 @@ class SlotServer:
                                        device=self.device)
                           if self.stop_tokens else None)
         # without stop tokens every completion is deterministic, so the
-        # host schedules open-loop from an exact model of the slots
-        self._predictive = not self.stop_tokens
+        # host schedules open-loop from an exact model of the slots. A
+        # speculative round advances each slot by an accepted count only
+        # its packed result shows, so speculation runs the EOS mode's
+        # pipelined reads
+        self._predictive = not self.stop_tokens and not self._spec
+        # the speculative window: pinned by spec_gamma, else autotuned
+        # from each slot's acceptance EWMA (_current_gamma)
+        self._spec_gamma_pin = max(0, int(spec_gamma))
+        self.spec_gamma_max = max(1, int(spec_gamma_max))
+        if self._spec_gamma_pin:
+            self.spec_gamma_max = max(self.spec_gamma_max,
+                                      self._spec_gamma_pin)
+        self._spec_ewma_alpha = 0.2
+        self._accept_ewma = np.full((slots,), 0.6, np.float64)
+        self.spec_rounds = 0            # verify rounds dispatched
+        self.spec_proposed_tokens = 0   # proposals verified (processed)
+        self.spec_accepted_tokens = 0   # ... that the target accepted
+        self.draft_prefill_tokens_reused = 0    # draft prefill skipped by
+        #                                         prefix hits
+        self.spec_accept_hist = Histogram(lo=0.01, hi=1.0)
+        self.spec_rounds_hist = Histogram(lo=1.0, hi=512.0, per_decade=4)
         self.admission_dispatches = 0   # prefill calls
         self.prefill_tokens_computed = 0
         self.prefill_tokens_reused = 0  # copied from the prefix pool
@@ -1495,6 +1742,7 @@ class SlotServer:
         self._prefix_blocks = int(prefix_cache_blocks)
         self._prefix_cache: PrefixCache | None = None
         self._pool: PrefixPool | None = None
+        self._draft_pool: PrefixPool | None = None
         self._prefix_refs: dict[int, list] = {}
         if self._paged:
             self._init_paged_state()
@@ -1503,6 +1751,58 @@ class SlotServer:
         self._init_host_state()
         self._queue: collections.deque[Request] = collections.deque()
         self._done: dict[int, Completion] = {}
+
+    def _init_draft(self, draft, draft_cfg, weight_dtype: str,
+                    temperature: float) -> None:
+        """Speculative serving (the JAX package's serving.py:1781-1836):
+        ``draft`` is a registry entry's name, or weights (raw or
+        ``DecodeWeights``) with ``draft_cfg``, registered as "draft".
+        Greedy only (the acceptance rule is the greedy match), native
+        weights (the verify forward runs the prefill's numerics, which a
+        w8a16 decode path would not match), one vocabulary, a causal
+        draft."""
+        self._spec = False
+        self.draft_model: str | None = None
+        self._draft_params = self._draft_cfg = None
+        if draft is None:
+            return
+        if isinstance(draft, str):
+            dentry = self.registry.get(draft)
+            draft_w, draft_cfg = dentry.weights, dentry.cfg
+            self.draft_model = dentry.name
+        else:
+            if draft_cfg is None:
+                raise ValueError("draft weights need draft_cfg (or pass a "
+                                 "registry entry name)")
+            draft_w = draft
+            self.draft_model = "draft"
+            self.registry.register(self.draft_model, draft, draft_cfg,
+                                   source="inline")
+        self.registry.get(self.model).draft = self.draft_model
+        if isinstance(draft_w, DecodeWeights):
+            draft_w = draft_w.params
+        if weight_dtype != "native":
+            raise ValueError(
+                "speculative serving requires weight_dtype='native': the "
+                "verify forward runs the prefill's numerics, which a w8a16 "
+                "decode path would not match")
+        if temperature != 0.0:
+            raise ValueError(
+                "speculative serving is greedy-only (temperature 0): the "
+                "greedy-match acceptance rule has no sampled counterpart")
+        if draft_cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft and target must share a vocabulary "
+                f"({draft_cfg.vocab_size} != {self.cfg.vocab_size})")
+        if not draft_cfg.causal:
+            raise ValueError("speculative decode requires a causal draft")
+        if draft_w["embed"].device.type != self.device.type:
+            raise ValueError(f"the draft's weights are on "
+                             f"{draft_w['embed'].device}, the server on "
+                             f"{self.device}")
+        self._draft_cfg = moe_dropfree(draft_cfg)
+        self._draft_params = _cast_decode_params(draft_w, self._draft_cfg)
+        self._spec = True
 
     @staticmethod
     def _env_float(name: str) -> float:
@@ -1530,6 +1830,20 @@ class SlotServer:
         else:
             cache = init_cache(self.cfg, s, self.max_len, self.kv_dtype, dev)
             self._cache = dataclasses.replace(cache, length=lens)
+        # speculative serving: the draft mirrors the slot pool with its own
+        # cache (its config's shapes), at the target's per-row lengths:
+        # admission prefills both, every round moves both to the same
+        # lengths. The paged engine keeps the draft's K/V in a mirror pool
+        # (_init_paged_state) and only its lengths here.
+        self._draft_cache = None
+        if self._spec:
+            dlens = torch.zeros(s, dtype=torch.int32, device=dev)
+            if self._paged:
+                self._d_draft_lens = dlens
+            else:
+                dcache = init_cache(self._draft_cfg, s, self.max_len,
+                                    self.kv_dtype, dev)
+                self._draft_cache = dataclasses.replace(dcache, length=dlens)
         zeros = dict(dtype=torch.int32, device=dev)
         self._state = _SlotState(
             tokens=torch.zeros(s, **zeros),
@@ -1546,6 +1860,14 @@ class SlotServer:
                                       self.device)
         self._prefix_cache = PrefixCache(self._prefix_blocks,
                                          self.prefill_chunk)
+        # speculative serving: the draft's K/V rides the same trie, each
+        # node's block id indexing a target-pool block and a draft-pool
+        # block, so a hit seeds both caches and the draft prefills only
+        # the suffix too
+        self._draft_pool = (
+            init_prefix_pool(self._draft_cfg, self._prefix_blocks,
+                             self.prefill_chunk, self.kv_dtype, self.device)
+            if self._spec else None)
 
     def _init_paged_state(self) -> None:
         """(Re)create the paged pool (``kv_pool_blocks`` blocks and the pad
@@ -1555,6 +1877,13 @@ class SlotServer:
         n = self.kv_pool_blocks
         self._kv_pool = init_prefix_pool(self.cfg, n + 1, self.kv_block,
                                          self.kv_dtype, self.device)
+        # speculative serving: the draft's K/V in a mirror pool of the same
+        # block geometry: one allocator owns both, a slot's table indexes
+        # both, and a trie node's block is valid in both
+        self._draft_kv_pool = (
+            init_prefix_pool(self._draft_cfg, n + 1, self.kv_block,
+                             self.kv_dtype, self.device)
+            if self._spec else None)
         self._allocator = BlockAllocator(n, self._class_budgets)
         self._np_tables = np.full(
             (self.slots, self.max_len // self.kv_block), n, np.int32)
@@ -1613,6 +1942,11 @@ class SlotServer:
         # admitted id whose completion is not delivered
         self._slot_of: dict[int, int] = {}
         self._inflight: set[int] = set()
+        # per-request speculative tallies (verify rounds, accepted tokens),
+        # zeroed at each admission, read at the completion into
+        # spec_rounds_hist and the trace's attrs
+        self._spec_round_counts = np.zeros((slots,), np.int64)
+        self._spec_accepted_counts = np.zeros((slots,), np.int64)
 
     # ------------------------------------------------------------- intake
 
@@ -1631,6 +1965,12 @@ class SlotServer:
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             raise ValueError(f"prompt token ids must be in [0, "
                              f"{self.cfg.vocab_size})")
+        if self._spec and request.temperature is not None \
+                and float(request.temperature) > 0:
+            raise ValueError(
+                "speculative serving is greedy-only: a per-request "
+                "temperature above 0 is refused (the greedy-match "
+                "acceptance rule has no sampled counterpart)")
         if request.model is not None and request.model != self.model:
             raise ValueError(
                 f"request names model {request.model!r} but this engine "
@@ -1640,6 +1980,10 @@ class SlotServer:
         request.logprobs = int(request.logprobs or 0)
         if not 0 <= request.logprobs <= LOGPROBS_MAX:
             raise ValueError(f"logprobs must be in [0, {LOGPROBS_MAX}]")
+        if request.logprobs and self._spec:
+            raise ValueError(
+                "logprobs are unavailable under speculative serving "
+                "(rejected drafts have no per-token logits rows)")
         resume = request.resume_tokens
         if resume is not None:
             arr = np.asarray(resume, np.int32).reshape(-1)
@@ -2143,6 +2487,7 @@ class SlotServer:
         out = {
             "model": self.model,
             "role": self.role,
+            "registry": self.registry.names(),
             "torch_device": str(self.device),
             "slots": self.slots,
             "active": self.n_active,
@@ -2175,6 +2520,21 @@ class SlotServer:
             # counters (in_flight, tracked, dropped, reap_errors)
             "device": self.dispatch_tracker.snapshot(),
         }
+        if self._spec:
+            out["speculative"] = {
+                "draft_model": self.draft_model,
+                "gamma": self._current_gamma(),
+                "gamma_pinned": bool(self._spec_gamma_pin),
+                "gamma_max": self.spec_gamma_max,
+                "rounds": self.spec_rounds,
+                "proposed_tokens": self.spec_proposed_tokens,
+                "accepted_tokens": self.spec_accepted_tokens,
+                "draft_prefill_tokens_reused":
+                    self.draft_prefill_tokens_reused,
+                "acceptance_ewma": round(float(self._accept_ewma.mean()), 4),
+                "acceptance": self.spec_accept_hist.snapshot(),
+                "verify_rounds_per_request": self.spec_rounds_hist.snapshot(),
+            }
         if self._journal is not None:
             out["journal"] = {
                 "entries": len(self._journal),
@@ -2287,8 +2647,13 @@ class SlotServer:
             # all but the last token is prefilled; the last is the slot's
             # first fed token
             body = full[:-1]
-            # the slot's first decode write lands at the current cursor
-            offset = (self._cursor - body.size) % self.max_len
+            # the slot's first decode write lands at the current cursor.
+            # Speculation has no shared cursor (a round advances each slot
+            # by its own accepted count, written per row with a guard at
+            # the target), so its ring is offset 0: logical position ==
+            # index, within max_len by submit's check
+            offset = (0 if self._spec
+                      else (self._cursor - body.size) % self.max_len)
             target = body.size + req.max_new_tokens - len(resume or ())
             temp = (self.temperature if req.temperature is None
                     else float(req.temperature))
@@ -2316,6 +2681,10 @@ class SlotServer:
         else:
             for adm in admissions:
                 self._prefill_one(adm)
+        # the draft's prefill before the trie insert, which mirrors each
+        # new chunk into the draft pool from the draft cache
+        if self._spec:
+            self._prefill_draft(admissions)
         self._dispatch_prefix_insert(admissions)
         for adm in admissions:
             slot = adm.slot
@@ -2364,11 +2733,17 @@ class SlotServer:
         rows = [(a.slot, n.block, ci, a.offset)
                 for a in admissions for ci, n in enumerate(a.hit_path)]
         if rows:
-            _copy_prefix_blocks(self._pool, self._cache,
-                                _stage(np.asarray(rows, np.int64).T,
-                                       self.device))
+            staged = _stage(np.asarray(rows, np.int64).T, self.device)
+            _copy_prefix_blocks(self._pool, self._cache, staged)
             self.prefix_copy_dispatches += 1
             self._track("prefix_copy")
+            if self._draft_pool is not None:
+                # the same path is valid in the draft-shaped pool (inserts
+                # mirror every block into both), so the hit seeds the
+                # draft's ring too and the draft prefills only the suffix
+                _copy_prefix_blocks(self._draft_pool, self._draft_cache,
+                                    staged)
+                self._track("draft_prefix_copy")
 
     def _dispatch_prefix_insert(self, admissions) -> None:
         """Phase 3 of admission: insert the burst's new full chunks into
@@ -2386,11 +2761,15 @@ class SlotServer:
                 rows.append((a.slot, node.block, ci, a.offset))
                 created.append(node)
         if rows:
-            _insert_prefix_blocks(self._pool, self._cache,
-                                  _stage(np.asarray(rows, np.int64).T,
-                                         self.device))
+            staged = _stage(np.asarray(rows, np.int64).T, self.device)
+            _insert_prefix_blocks(self._pool, self._cache, staged)
             self.prefix_insert_dispatches += 1
             self._track("prefix_insert")
+            if self._draft_pool is not None:
+                # one trie node, two pools, one refcount
+                _insert_prefix_blocks(self._draft_pool, self._draft_cache,
+                                      staged)
+                self._track("draft_prefix_insert")
         # the insert references protected the new blocks until their copy
         self._prefix_cache.release(created)
 
@@ -2430,10 +2809,45 @@ class SlotServer:
             self.admission_dispatches += 1
             self._track("prefill")
 
+    def _prefill_draft(self, admissions) -> None:
+        """Speculative serving: the draft's own ring gets the same context.
+        A prefix hit covers the draft too (``_dispatch_prefix_copy``
+        seeded its ring), so only the suffix prefills, with the target's
+        chunk starts: one ``_prefill_batch`` call a chunk round, every row
+        non-final, so the slot state the target's prefill committed is
+        left alone while the draft's lengths land at each body's size.
+        Every admission has a round-0 row, an empty one for a fully
+        cached or 1-token prompt, which still resets the draft slot's
+        length from its previous occupant."""
+        C = self.prefill_chunk
+        for adm in admissions:
+            self.draft_prefill_tokens_reused += adm.prefix_len
+        rounds = max(len(a.chunk_starts) for a in admissions)
+        for r in range(rounds):
+            rows = [a for a in admissions if r < len(a.chunk_starts)]
+            chunks, n_valids = [], []
+            for a in rows:
+                c0 = a.chunk_starts[r]
+                n_valid = max(0, min(C, a.body.size - c0))
+                chunk = np.zeros(C, np.int32)
+                chunk[:n_valid] = a.body[c0:c0 + n_valid]
+                chunks.append(chunk)
+                n_valids.append(n_valid)
+            k = len(rows)
+            _prefill_batch(
+                self._draft_params, self._draft_cfg, self._draft_cache,
+                self._state, np.stack(chunks), [a.slot for a in rows],
+                [a.chunk_starts[r] for a in rows], [a.offset for a in rows],
+                n_valids, [0] * k, [0] * k, [0.0] * k, [0] * k, [False] * k)
+            self.admission_dispatches += 1
+            self._track("draft_prefill")
+
     def _apply_admit(self, admit) -> None:
         slot, body_len, req = admit
         # the slot belongs to a new request from this event on
         self._stop_cancelled.discard(int(slot))
+        self._spec_round_counts[slot] = 0
+        self._spec_accepted_counts[slot] = 0
         self._expect_len[slot] = body_len
         self._expect_active[slot] = True
         self._requests[slot] = req
@@ -2495,20 +2909,25 @@ class SlotServer:
             self._np_tables[slot, :] = self._allocator.n_blocks   # pad
         self._np_floor[slot] = self.max_len
 
-    def _gather_view(self) -> KVCache:
+    def _gather_view(self, draft: bool = False) -> KVCache:
         """The pool as the ring view for the next program, from this
         instant's host tables and offsets (``_stage`` copies them, so a
-        later table change never reaches a dispatch already queued)."""
+        later table change never reaches a dispatch already queued).
+        ``draft``: the draft's mirror pool at the draft's lengths (the same
+        tables and offsets)."""
         ring = np.arange(self.max_len)[None, :]
         _, blk, row = _paged_rows(self._np_tables, self._np_offs,
                                   self.kv_block, ring)
-        base = blk * (self.cfg.n_kv_heads * self.kv_block) + row
+        pool = self._draft_kv_pool if draft else self._kv_pool
+        base = blk * (pool.k.shape[2] * self.kv_block) + row
         self.paged_gather_dispatches += 1
-        return _gather_paged_view(self._kv_pool, _stage(base, self.device),
-                                  self._d_lens)
+        return _gather_paged_view(pool, _stage(base, self.device),
+                                  self._d_draft_lens if draft
+                                  else self._d_lens)
 
     def _scatter_view(self, view: KVCache, ring_ids: np.ndarray,
-                      n_valids: np.ndarray, floors: np.ndarray) -> None:
+                      n_valids: np.ndarray, floors: np.ndarray,
+                      draft: bool = False) -> None:
         """Commit the rows a program wrote: ``ring_ids`` [S, W] are the
         ring indices each slot's program wrote (decode: the cursor window
         for every slot; prefill: one slot's chunk). The host drops column
@@ -2516,14 +2935,16 @@ class SlotServer:
         below ``floors[s]`` or its table entry is the pad block (the
         reference's three guards), and stages the rest, each target once
         (``_scatter_paged_rows``). The tables and offsets are the ones the
-        gather staged: nothing changes them between the two."""
+        gather staged: nothing changes them between the two. ``draft``
+        commits into the draft's mirror pool."""
+        pool = self._draft_kv_pool if draft else self._kv_pool
         p, blk, row = _paged_rows(self._np_tables, self._np_offs,
                                   self.kv_block, ring_ids)
         col = np.arange(ring_ids.shape[1])[None, :]
         keep = ((col < n_valids[:, None]) & (p >= floors[:, None])
                 & (blk < self._allocator.n_blocks))
         s_idx, j_idx = np.nonzero(keep)
-        kvh = self.cfg.n_kv_heads
+        kvh = pool.k.shape[2]
         rows = np.stack([
             s_idx * (kvh * self.max_len) + ring_ids[s_idx, j_idx],
             blk[s_idx, j_idx] * (kvh * self.kv_block) + row[s_idx, j_idx]])
@@ -2532,7 +2953,7 @@ class SlotServer:
             # raised before the card sees a racy index_copy_
             raise RuntimeError("paged KV scatter: a pool row targeted twice")
         if rows.shape[1]:
-            _scatter_paged_rows(self._kv_pool, view,
+            _scatter_paged_rows(pool, view,
                                 _stage(rows.astype(np.int64), self.device))
         self.paged_scatter_dispatches += 1
         self._track("paged_scatter")
@@ -2613,7 +3034,9 @@ class SlotServer:
         self._free_slot_blocks(slot)
         self._slot_of[req.id] = slot
         self._inflight.add(req.id)
-        offset = (self._cursor - body.size) % self.max_len
+        # speculation has no shared cursor: offset 0, as on the ring
+        offset = (0 if self._spec
+                  else (self._cursor - body.size) % self.max_len)
         temp = (self.temperature if req.temperature is None
                 else float(req.temperature))
         topk = self.top_k if req.top_k is None else int(req.top_k)
@@ -2663,7 +3086,7 @@ class SlotServer:
             c0 = adm.chunk_starts[idx]
             final = idx == len(adm.chunk_starts) - 1
             n_valid = max(0, min(self.prefill_chunk, adm.body.size - c0))
-            if final and self.role != "prefill":
+            if final and not self._spec and self.role != "prefill":
                 # the admission-time offset put the first decode write at
                 # the cursor of then; blocks interleaved since moved it.
                 # The pool is logical, so the offset may change between
@@ -2700,10 +3123,23 @@ class SlotServer:
         n_valids = np.zeros((self.slots,), np.int64)
         n_valids[adm.slot] = n_valid
         # floor 0: this is the prefill writing what the floor will guard
-        self._scatter_view(view, ring_ids, n_valids,
-                           np.zeros((self.slots,), np.int64))
+        floors = np.zeros((self.slots,), np.int64)
+        self._scatter_view(view, ring_ids, n_valids, floors)
         self.admission_dispatches += 1
         self.prefill_tokens_computed += n_valid
+        if self._spec:
+            # the draft's mirror pool takes the same span at its own
+            # lengths; it never finalizes (the target's commit owns the
+            # slot state)
+            dview = self._gather_view(draft=True)
+            _prefill_chunk(self._draft_params, self._draft_cfg, dview,
+                           self._state, chunk, adm.slot, c0, adm.offset,
+                           n_valid, adm.last, adm.target, adm.temp, adm.topk,
+                           finalize=False)
+            self._track("draft_prefill")
+            self._scatter_view(dview, ring_ids, n_valids, floors,
+                               draft=True)
+            self.admission_dispatches += 1
 
     def _finalize_admit_paged(self, adm: _Admission) -> None:
         """The final chunk is dispatched: the trie adopts the slot's
@@ -2712,6 +3148,8 @@ class SlotServer:
         logged at this point of the dispatch order."""
         slot, req, body = adm.slot, adm.req, adm.body
         self._mark(req.id, "prefill_done")
+        if self._spec:
+            self.draft_prefill_tokens_reused += adm.prefix_len
         want = (self.cache_prompts if req.cache_prompt is None
                 else req.cache_prompt)
         if self._prefix_cache is not None and want:
@@ -2822,6 +3260,10 @@ class SlotServer:
         if self.role == "prefill":
             raise ValueError("a prefill-role replica cannot import KV "
                              "blocks (nothing here decodes them)")
+        if self._spec:
+            raise ValueError("KV import into a speculative server is "
+                             "unsupported (the transfer carries no draft "
+                             "pool payload)")
         B = self.kv_block
         if not isinstance(payload, dict):
             raise ValueError("KV transfer payload must be an object")
@@ -3068,6 +3510,82 @@ class SlotServer:
             self._model_active &= self._model_len < self._model_target
         self._post_dispatch_chaos()
 
+    def _current_gamma(self) -> int:
+        """The next speculative round's draft window: the ``spec_gamma``
+        pin, or the busy slots' mean acceptance EWMA a mapped through the
+        expected accepted run length a/(1-a), clamped to [1,
+        spec_gamma_max] and snapped to a power of two (the JAX package's
+        serving.py:4279; there it bounds the compiled programs, here it
+        keeps the port's windows the same)."""
+        if self._spec_gamma_pin:
+            return self._spec_gamma_pin
+        busy = self._host_busy
+        a = float(self._accept_ewma[busy].mean() if busy.any()
+                  else self._accept_ewma.mean())
+        a = min(max(a, 0.0), 0.99)
+        raw = max(1.0, min(a / max(1e-6, 1.0 - a),
+                           float(self.spec_gamma_max)))
+        g = 1 << int(round(math.log2(raw)))
+        # the largest power of two <= spec_gamma_max, so a max off the
+        # ladder is never returned itself
+        return max(1, min(g, 1 << (self.spec_gamma_max.bit_length() - 1)))
+
+    def _dispatch_spec_round(self) -> None:
+        """Speculative decode dispatch: one propose/verify round for all
+        slots (``_spec_block``), logged in the pipeline the decode blocks
+        use, so admissions and cancels replay at their dispatch positions
+        and the packed result is sliced by length delta. Its result comes
+        back as a decode block's does (``_start_read``: a pinned copy and
+        an event), so nothing here waits for the card.
+
+        Paged: both pools are gathered into ring views (the same tables,
+        each at its own lengths), the round runs on them, and each slot's
+        window, the gamma+1 positions from its length before the round, is
+        committed back to both pools (``_commit_spec_window``). The JAX
+        package computes that window from host lengths, so it processes
+        the round at once; here the window is indexed on the card from
+        the lengths the round started from, so the round joins the
+        pipeline like a ring round and dispatch waits for nothing.
+        Committing all gamma+1 rows is safe though the verify may roll
+        back: those rows lie past the slot's new length, in blocks it
+        holds alone, and the next round overwrites them."""
+        t0 = time.perf_counter()
+        gamma = self._current_gamma()
+        if self._paged:
+            cache = self._gather_view()
+            dcache = self._gather_view(draft=True)
+            len0 = cache.length
+            staged = _stage(np.concatenate(
+                [self._np_tables, self._np_floor[:, None]], 1).astype(
+                    np.int64), self.device)
+        else:
+            cache, dcache = self._cache, self._draft_cache
+        cache, dcache, packed = _spec_block(
+            self._params, self._draft_params, self.cfg, self._draft_cfg,
+            cache, dcache, self._state, gamma=gamma, stop_arr=self._stop_arr,
+            pad_id=self.pad_id)
+        if self._paged:
+            self._d_lens, self._d_draft_lens = cache.length, dcache.length
+            tables, floors = staged[:, :-1], staged[:, -1]
+            for pool, view in ((self._kv_pool, cache),
+                               (self._draft_kv_pool, dcache)):
+                _commit_spec_window(pool, view, len0, tables, floors,
+                                    gamma + 1)
+                self.paged_scatter_dispatches += 1
+                self._track("paged_scatter")
+        else:
+            self._cache, self._draft_cache = cache, dcache
+        host, ready = _start_read(packed)
+        seq = self._track("spec_round", ready)
+        self.blocks_dispatched += 1
+        self.spec_rounds += 1
+        dt = time.perf_counter() - t0
+        self.block_dispatch_s.append(dt)
+        self.telemetry.observe("decode_block_s", dt)
+        self._pipeline.append({"host": host, "ready": ready, "events": [],
+                               "lp_k": 0, "seq": seq, "spec_gamma": gamma})
+        self._post_dispatch_chaos()
+
     def _post_dispatch_chaos(self) -> None:
         """The deterministic chaos hooks (constants.py): crash the loop,
         or SIGKILL the process, at exact decode-block ordinals, after the
@@ -3113,8 +3631,16 @@ class SlotServer:
             lag = rec["lag"]
             lp_k = rec["lp_k"]
             packed = rec["host"].numpy()
-            toks = packed[:, :B]
-            lengths, active = packed[:, B], packed[:, B + 1].astype(bool)
+            gamma = rec.get("spec_gamma")
+            if gamma is not None:
+                # a speculative round: emissions, the raw acceptance
+                # count, the length and the active flag
+                toks, n_accs = packed[:, :gamma + 1], packed[:, gamma + 1]
+                lengths = packed[:, gamma + 2]
+                active = packed[:, gamma + 3].astype(bool)
+            else:
+                toks = packed[:, :B]
+                lengths, active = packed[:, B], packed[:, B + 1].astype(bool)
             if lp_k:
                 base = B + 2
                 lp_chosen = np.ascontiguousarray(
@@ -3127,6 +3653,19 @@ class SlotServer:
             for slot in np.nonzero(self._expect_active)[0]:
                 if slot in self._stop_cancelled:
                     continue
+                if gamma is not None:
+                    # the raw acceptance count (the draft's agreement,
+                    # before the budget and stop clamps) feeds the slot's
+                    # EWMA that steers gamma, the histogram and counters
+                    acc = int(n_accs[slot])
+                    rate = acc / gamma
+                    self.spec_proposed_tokens += gamma
+                    self.spec_accepted_tokens += acc
+                    self._accept_ewma[slot] += self._spec_ewma_alpha * (
+                        rate - self._accept_ewma[slot])
+                    self.spec_accept_hist.observe(rate)
+                    self._spec_round_counts[slot] += 1
+                    self._spec_accepted_counts[slot] += acc
                 n = int(lengths[slot] - self._expect_len[slot])
                 req = self._requests[slot]
                 new = [int(t) for t in toks[slot, :n]]
@@ -3203,10 +3742,19 @@ class SlotServer:
         """Deliver one slot's finished request and free its host state;
         ``lag`` is its last block's device lag, for the trace."""
         out = self._emitted[slot]
-        if lag is not None:
-            tr = self._traces.get(req.id)
+        tr = self._traces.get(req.id)
+        if lag is not None and tr is not None:
+            tr.attrs["device_lag_s"] = round(lag, 6)
+        if self._spec:
             if tr is not None:
-                tr.attrs["device_lag_s"] = round(lag, 6)
+                tr.attrs["spec_rounds"] = int(self._spec_round_counts[slot])
+                tr.attrs["spec_accepted_tokens"] = int(
+                    self._spec_accepted_counts[slot])
+            if self._spec_round_counts[slot]:
+                self.spec_rounds_hist.observe(
+                    float(self._spec_round_counts[slot]))
+            self._spec_round_counts[slot] = 0
+            self._spec_accepted_counts[slot] = 0
         lps = self._lp_acc[slot][:len(out)] if req.logprobs else None
         self._done[req.id] = Completion(
             req.id, out, reason,
@@ -3262,7 +3810,10 @@ class SlotServer:
             self._admit()
         dispatched = False
         if self._device_may_be_active():
-            self._dispatch_block()
+            if self._spec:
+                self._dispatch_spec_round()
+            else:
+                self._dispatch_block()
             dispatched = True
         depth = self.pipeline_depth if dispatched else 0
         if len(self._pipeline) > depth:

@@ -30,9 +30,11 @@ import torch
 from ..parallel.ring_attention import NEG_INF
 from . import _build
 
-# dtypes and head dims the CUDA kernel is compiled for
+# dtypes and head dims the CUDA kernels are compiled for: the forward
+# takes head_dim 32 too (a small draft model's), the backward 64 and 128
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128)
+BWD_KERNEL_HEAD_DIMS = (64, 128)
 
 # kernel launches since the last reset (see reset_launches)
 launches = 0              # flash_fwd
@@ -86,11 +88,12 @@ def _flash_fwd_reference(q, k, v, causal, scale, window):
     return out.to(q.dtype), lse
 
 
-def flash_supported(q: torch.Tensor) -> bool:
-    """The CUDA kernel's envelope, [B, H, L, D] layout: head dim 64 or 128,
-    float32 or bfloat16. (The TPU package's `% 128` rule is a Mosaic tiling
-    rule and does not apply here.)"""
-    return q.shape[-1] in KERNEL_HEAD_DIMS and q.dtype in KERNEL_DTYPES
+def flash_supported(q: torch.Tensor, backward: bool = False) -> bool:
+    """The CUDA kernels' envelope, [B, H, L, D] layout: head dim 32, 64 or
+    128 (the backward: 64 or 128), float32 or bfloat16. (The TPU package's
+    `% 128` rule is a Mosaic tiling rule and does not apply here.)"""
+    dims = BWD_KERNEL_HEAD_DIMS if backward else KERNEL_HEAD_DIMS
+    return q.shape[-1] in dims and q.dtype in KERNEL_DTYPES
 
 
 def _aligned16(t):
@@ -98,15 +101,18 @@ def _aligned16(t):
         x * t.element_size() % 16 == 0 for x in t.stride()[:3])
 
 
-def _check_kernel_inputs(q, k, v):
+def _check_kernel_inputs(q, k, v, backward: bool = False):
+    """Raise on what the kernels do not take, the envelope first (so the
+    check reads the same with or without a card)."""
+    if not flash_supported(q, backward):
+        dims = BWD_KERNEL_HEAD_DIMS if backward else KERNEL_HEAD_DIMS
+        raise ValueError(
+            f"flash attention {'backward' if backward else 'forward'} "
+            f"kernel takes head_dim in {dims} and dtype float32 or "
+            f"bfloat16, got head_dim={q.shape[-1]} dtype={q.dtype}")
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash attention: q, k and v must all be on the "
                          "same device")
-    if not flash_supported(q):
-        raise ValueError(
-            f"flash attention kernel takes head_dim in {KERNEL_HEAD_DIMS} "
-            f"and dtype float32 or bfloat16, got head_dim={q.shape[-1]} "
-            f"dtype={q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
@@ -229,7 +235,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, g_lse, causal, scale, window):
     """csrc/flash_bwd.cu: the dK/dV kernel, then the dQ kernel. delta is
     computed here with PyTorch ops, as the TPU package computes it outside
     its kernels."""
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(q, k, v, backward=True)
     if g.dtype != q.dtype or g.shape != q.shape:
         raise ValueError(f"dO must match q: got {g.dtype} {tuple(g.shape)}, "
                          f"q {q.dtype} {tuple(q.shape)}")

@@ -30,7 +30,7 @@ from . import _build
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128)
 MAX_REP = 8        # query heads per kv head the kernel holds in registers
 
 # kernel launches since the last reset (see reset_launches)
@@ -181,24 +181,26 @@ def _decode_combine_reference(part_o, part_m, part_l, dtype):
 
 
 def _check_kernel_inputs(q, ck, cv, k_scale, v_scale, layer):
+    """Raise on what the kernel does not take, the envelope first (so the
+    check reads the same with or without a card)."""
+    b, kvh, rep, d = q.shape
+    if q.dtype not in _Q_DTYPES or d not in KERNEL_HEAD_DIMS or rep > MAX_REP:
+        raise ValueError(
+            f"flash_decode kernel takes q in float32/bfloat16, head_dim in "
+            f"{KERNEL_HEAD_DIMS} and at most {MAX_REP} query heads per kv "
+            f"head; got {q.dtype}, head_dim={d}, rep={rep}")
     want = 5 if layer is not None else 4
     if ck.dim() != want or cv.shape != ck.shape:
         raise ValueError(f"cache must be {want}-d (layer={layer}), got "
                          f"{tuple(ck.shape)} and {tuple(cv.shape)}")
     if not (ck.is_cuda and cv.is_cuda):
         raise ValueError("flash_decode: q and the cache must be on one device")
-    b, kvh, rep, d = q.shape
     if ck.shape[-4:-2] != (b, kvh) or ck.shape[-1] != d:
         raise ValueError(f"q {tuple(q.shape)} does not match cache "
                          f"{tuple(ck.shape)}")
     if layer is not None and not 0 <= layer < ck.shape[0]:
         raise ValueError(f"layer {layer} outside the {ck.shape[0]}-layer "
                          "stack")
-    if q.dtype not in _Q_DTYPES or d not in KERNEL_HEAD_DIMS or rep > MAX_REP:
-        raise ValueError(
-            f"flash_decode kernel takes q in float32/bfloat16, head_dim in "
-            f"{KERNEL_HEAD_DIMS} and at most {MAX_REP} query heads per kv "
-            f"head; got {q.dtype}, head_dim={d}, rep={rep}")
     int8 = ck.dtype == torch.int8
     if ck.dtype not in _CACHE_DTYPES or cv.dtype != ck.dtype or (
             not int8 and ck.dtype != q.dtype):
