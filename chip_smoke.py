@@ -16,7 +16,9 @@ and exits non-zero if any of them fails:
    int8 at 16384, batch 1 at 4097; its float32 partials and its in-launch
    combine each against their own plain version, and two launches on the
    same inputs bit-equal); the decode kernel against the plain einsum
-   decode path at M in {1024, 4096, 16384};
+   decode path at M in {1024, 4096, 16384}; every attention kernel at
+   head_dim 32 too (a draft model's: K1, K3-K5 and K6), timed at the
+   draft's shapes;
 3. main path, generation: tony_tpu_torch.examples.lm_generate at the
    flagship's full width (vocab 32768, d_model 1024, 12 layers, 8 heads,
    d_ff 4096, bf16, random weights from a seed) answering five requests,
@@ -167,7 +169,17 @@ and exits non-zero if any of them fails:
    --weight-dtype int8 at float32 on the ring and --paged-kv against solo
    int8 decoding in the server's order up to its first near-tie; a bf16
    engine reported;
-15. profile: a flagship decode step's and a flagship training step's
+15. Mixture-of-Experts: the flagship's widths with MOE_EXPERTS experts
+   (top-2, capacity factor 1.25): (a) lm_train --n-experts, the flash
+   kernels once a layer a step, one step profiled and a layer's forward
+   split into routing, dispatch, experts, combine and attention; (b) at
+   float32 the kernels against the plain path on the loss, every
+   gradient and each layer's dispatch and combine; (c) lm_generate
+   --n-experts native and with int8 experts, the prefill's and a decode
+   step's device time, and at float32 generate's tokens against the
+   plain path's up to a near-tie; (d) the SlotServer on the ring, the
+   paged engine and the ring with a self-draft against solo generate;
+16. profile: a flagship decode step's and a flagship training step's
    (remat off and under each policy) host wall time against the device
    time torch.profiler records.
 
@@ -258,13 +270,30 @@ CKPT_ROOT = REPO / "build" / "chip_smoke" / "checkpoints"
 # lm_generate's default draft dims (head_dim 32: K1 and K6 at D = 32)
 SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 1024, 64, 4
 SPEC_DRAFT = dict(d_model=128, n_layers=2, n_heads=4, d_ff=512)
-# the CLI's own-trained draft (head_dim 64: the backward has no D = 32)
-SPEC_TRAIN_DRAFT = ["--d-model", "128", "--n-layers", "2", "--n-heads", "2",
+# the CLI's own-trained draft at lm_generate's default draft dims (head_dim
+# 32: its training runs K3-K5 at D = 32)
+SPEC_TRAIN_DRAFT = ["--d-model", "128", "--n-layers", "2", "--n-heads", "4",
                     "--d-ff", "512"]
 SPEC_CLI_NEW = 32
 # spec serving: the paged (a) cell's prompts at SERVE_CUT_LAYERS, 48 new;
 # multi-model at the checkpoint's depth, 24 new
 SPEC_SERVE_NEW, MULTI_NEW = 48, 24
+# the MoE phase: the flagship's widths with MOE_EXPERTS experts (top-2,
+# capacity factor 1.25: the JAX package's defaults, transformer.py:50-53).
+# (a) lm_train at MOE_TRAIN_LAYERS layers, batch MOE_BATCH x MOE_SEQ,
+# MOE_STEPS steps; (b) float32 parity at 2 layers; (c) lm_generate at
+# MOE_GEN_LAYERS layers, then float32 at MOE_GEN_F32_LAYERS; (d) serving at
+# SERVE_CUT_LAYERS. MOE_CUTS lists the depth cuts made for the script's
+# budget: widths, shapes and checks are the flagship's
+MOE_EXPERTS = 8
+MOE_FLAGS = FLAGSHIP + ["--n-experts", str(MOE_EXPERTS)]
+MOE_TRAIN_LAYERS, MOE_BATCH, MOE_SEQ, MOE_STEPS = 6, 4, 1024, 6
+MOE_GEN_LAYERS, MOE_GEN_F32_LAYERS = 6, 4
+MOE_CUTS = ["(a) training: 12 -> 6 layers", "(c) generation: 12 -> 6 layers"]
+# (b): a token whose top-3 router probabilities lie closer than this may
+# route differently on the two paths (float32 summation order)
+MOE_ROUTE_NEAR_TIE = 1e-4
+MOE_PARITY_LOSS_ATOL, MOE_PARITY_GRAD_RTOL = 1e-4, 1e-4
 # the elastic drill on the card: steps, and the step after which the
 # preemption flag file is dropped
 ELASTIC_STEPS, ELASTIC_FLAG_AT = 40, 10
@@ -552,8 +581,8 @@ def phase_card(build) -> dict:
                   f"{st} B, spill loads {ld} B; SASS HMMA {hmma.get(fn, 0)}")
     for kern in MMA_KERNELS:
         found = {fn: r for fn, r in report.items() if fn.startswith(kern + "<")}
-        # the forward has a head_dim-32 instantiation too (a draft's heads)
-        n_dims = 3 if kern == "flash_fwd_mma_kernel" else 2
+        # every one at head_dim 32 (a draft's heads), 64 and 128
+        n_dims = 3
         if len(found) != n_dims or not all(r[3] > 0 for r in found.values()):
             fail(f"{kern}: expected HMMA instructions in all {n_dims} head "
                  f"dims' SASS, found {found}")
@@ -948,6 +977,11 @@ def phase_bwd_kernels(torch, A) -> list:
          2),
         ("bf16 D64 causal L512", 2, 4, 512, 512, 64, bf16, True, None, False,
          2),
+        # head_dim 32: lm_generate's default draft (d128, 4 heads)
+        ("bf16 D32 causal L1024", 1, 4, 1024, 1024, 32, bf16, True, None,
+         False, 1),
+        ("f32 D32 non-causal ragged L777", 2, 4, 777, 777, 32, torch.float32,
+         False, None, False, 2),
     ]
     for label, b, h, lq, lk, d, dt, causal, window, with_glse, rows in cases:
         q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), \
@@ -1042,6 +1076,8 @@ def phase_bwd_kernels(torch, A) -> list:
         dkdv_ms=ms_kv, dq_ms=ms_dq, plain_ms=plain, library_ms=lib,
         library_fwd_bwd_ms=lib_fb, library_fwd_ms=lib_f, bound_ms=b_w,
         bound_by=by_w)))
+    del q, k, v, g, out, lse, delta, qg, kg, vg
+    d32 = _bwd_d32_times(torch, A, randn)
     records = []
     for name, ms, bms, bby, flops, replaces in (
             ("flash_bwd_dkdv", ms_kv, b_kv, by_kv, 8 * d * pairs,
@@ -1052,7 +1088,7 @@ def phase_bwd_kernels(torch, A) -> list:
              "tony_tpu/ops/attention.py:524 (_bwd_kernel_resident)")):
         records.append(dict(
             name=name, route="cuda", design=DESIGNS[name],
-            tflops=flops / ms / 1e9,
+            tflops=flops / ms / 1e9, d32=d32[name],
             source="tony_tpu_torch/csrc/flash_bwd.cu",
             replaces=replaces, shape=f"B{b} H{h} L{l} D{d} bf16 causal",
             max_abs_err=errs[name],
@@ -1063,8 +1099,53 @@ def phase_bwd_kernels(torch, A) -> list:
             library="scaled_dot_product_attention backward (forward+backward "
                     "minus forward), the whole backward; plain_ms is the "
                     "whole plain backward too"))
-    del q, k, v, g, out, lse, delta, qg, kg, vg
     return records
+
+
+def _bwd_d32_times(torch, A, randn) -> dict:
+    """K3-K5 at head_dim 32, the draft-training shape (B8 H4 L512 bf16
+    causal: lm_train at lm_generate's default draft dims, batch 8 x 512):
+    each kernel and the whole backward against the bound (worked out as at
+    D = 128), the plain backward and SDPA's (fwd+bwd - fwd) ->
+    {kernel name: its row}."""
+    b, h, l, d = 8, 4, 512, 32
+    q, k, v, g = (randn(b, h, l, d) for _ in range(4))
+    out, lse = A._flash_fwd_cuda(q, k, v, True, None, None)
+    delta = A._delta(out, g, None).contiguous()
+    ms_kv = cuda_ms(lambda: A._flash_bwd_dkdv_cuda(q, k, v, g, lse, delta,
+                                                   True, None, None), 20)
+    ms_dq = cuda_ms(lambda: A._flash_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                                 True, None, None), 20)
+    ms_whole = cuda_ms(lambda: A._flash_bwd_cuda(q, k, v, out, lse, g, None,
+                                                 True, None, None), 20)
+    plain = cuda_ms(lambda: A._flash_bwd_reference(q, k, v, out, lse, g, None,
+                                                   True, None, None), 5,
+                    warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_fb = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), g), 20)
+        lib_f = cuda_ms(lambda: sdpa(qg, kg, vg, is_causal=True), 20)
+    lib = lib_fb - lib_f
+    pairs = visible_pairs(l, l, True, None) * b * h
+    x, rowf = b * h * l * d * 2, b * h * l * 4
+    b_kv, by_kv = bound(8 * d * pairs, 4 * x + 2 * rowf + 2 * x,
+                        PEAK_BF16_FLOPS)
+    b_dq, by_dq = bound(6 * d * pairs, 4 * x + 2 * rowf + x, PEAK_BF16_FLOPS)
+    b_w, by_w = bound(10 * d * pairs, 5 * x + rowf + 3 * x, PEAK_BF16_FLOPS)
+    shape = f"B{b} H{h} L{l} D{d} bf16 causal"
+    print(f"time flash_bwd {shape}: dkdv {ms_kv:.4f} ms (bound {b_kv:.4f} "
+          f"{by_kv}), dq {ms_dq:.4f} ms (bound {b_dq:.4f} {by_dq}), whole "
+          f"{ms_whole:.4f} ms (plain {plain:.4f}, sdpa backward {lib:.4f} = "
+          f"{lib_fb:.4f} fwd+bwd - {lib_f:.4f} fwd, bound {b_w:.4f} {by_w})")
+    common = dict(shape=shape, whole_ms=ms_whole, whole_bound_ms=b_w,
+                  whole_bound_by=by_w, plain_ms=plain, library_ms=lib,
+                  library_fwd_bwd_ms=lib_fb, library_fwd_ms=lib_f)
+    return {"flash_bwd_dkdv": dict(common, ms=ms_kv, bound_ms=b_kv,
+                                   bound_by=by_kv),
+            "flash_bwd_dq": dict(common, ms=ms_dq, bound_ms=b_dq,
+                                 bound_by=by_dq)}
 
 
 def _tree_bytes(tree) -> int:
@@ -1081,21 +1162,24 @@ def _tree_bytes(tree) -> int:
     return total
 
 
-def _w8a16_costs(torch, G, T) -> dict:
-    """w8a16 at the flagship width: the weights a decode holds (cast params
-    and fused matrices, the float32 masters dropped), native against int8;
-    a decode step's device time at B8 with 1024 cached; the logits of one
-    decode step from the same cache and token, int8 against native."""
+def _w8a16_costs(torch, G, T, n_experts: int = 0,
+                 n_layers: int = N_LAYERS) -> dict:
+    """w8a16 at the flagship width (``n_experts`` > 0: its MoE model, routed
+    drop-free as generate routes it): the weights a decode holds (cast
+    params and fused matrices, the float32 masters dropped), native
+    against int8; a decode step's device time at B8 with 1024 cached; the
+    logits of one decode step from the same cache and token, int8 against
+    native; for MoE also the B8 x 1024 prefill's device time."""
     dev = torch.device("cuda")
-    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
-                              n_layers=N_LAYERS, n_heads=8, n_kv_heads=8,
-                              d_ff=4096)
+    cfg = G.moe_dropfree(T.TransformerConfig(
+        vocab_size=32768, d_model=1024, n_layers=n_layers, n_heads=8,
+        n_kv_heads=8, d_ff=4096, n_experts=n_experts))
     params = T.init(cfg, torch.Generator(device=dev).manual_seed(4), dev)
     prompt = torch.randint(0, 32768, (8, 1024), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(5))
     native = G.prepare_decode(params, cfg)
-    cache = G.init_cache(cfg, 8, 1024 + MAX_NEW, device=dev)
-    logits, cache = G._forward_with_cache(native.params, cfg, prompt, cache,
+    cache0 = G.init_cache(cfg, 8, 1024 + MAX_NEW, device=dev)
+    logits, cache = G._forward_with_cache(native.params, cfg, prompt, cache0,
                                           native.fused, prefill=True)
     tok = logits.argmax(-1)[:, None]
     out = {"masters_gb": _tree_bytes(params) / 1e9}
@@ -1116,6 +1200,11 @@ def _w8a16_costs(torch, G, T) -> dict:
         out[name] = dict(resident_gb=(_tree_bytes(w.params)
                                       + _tree_bytes(w.fused)) / 1e9,
                          decode_step_device_ms=ms)
+        if n_experts:
+            out[name]["prefill_device_ms"] = cuda_ms(
+                lambda: G._forward_with_cache(w.params, cfg, prompt, cache0,
+                                              w.fused, prefill=True), 2,
+                warmup=1)
         del c
     diff = (step_logits["int8"] - step_logits["native"]).abs().max()
     ref = step_logits["native"]
@@ -5134,31 +5223,12 @@ def phase_disagg(torch, ops) -> dict:
 
 
 def _solo_greedy(torch, G, w, cfg, prompt, n, server_order=False):
-    """The port's greedy generation of n tokens, its prefill and decode
-    steps on the kernels, with each step's top-2 logit gap.
-    ``server_order``: as the serving engines run it, the prompt but its
-    last token prefilled on the cast weights, the last token fed to the
-    first decode step (on the fused, int8, weights)."""
-    p = torch.tensor([prompt], device="cuda")
-    cache = G.init_cache(cfg, 1, p.shape[1] + n, device="cuda")
-    if server_order:
-        _, cache = G._forward_with_cache(w.params, cfg, p[:, :-1], cache,
-                                         None, prefill=True)
-        logits, cache = G._forward_with_cache(w.params, cfg, p[:, -1:],
-                                              cache, w.fused)
-    else:
-        logits, cache = G._forward_with_cache(w.params, cfg, p, cache,
-                                              w.fused, prefill=True)
-    toks, gaps = [], []
-    for step in range(n):
-        top2 = logits[0].topk(2).values
-        gaps.append(float(top2[0] - top2[1]))
-        tok = logits.argmax(-1)
-        toks.append(int(tok))
-        if step < n - 1:
-            logits, cache = G._forward_with_cache(w.params, cfg, tok[:, None],
-                                                  cache, w.fused)
-    return toks, gaps
+    """The port's greedy generation of n tokens for one prompt, its
+    prefill and decode steps on the kernels, with each step's top-2 logit
+    gap (``_greedy_rows`` of one row)."""
+    toks, gaps = _greedy_rows(torch, G, w, cfg, torch.tensor(
+        [prompt], device="cuda"), n, server_order)
+    return toks[0], gaps[0]
 
 
 def _write_hf_checkpoint(torch, path: Path) -> int:
@@ -5323,7 +5393,8 @@ def _spec_solo(torch, ops, G, T, totals) -> dict:
 
 
 def _spec_cli(torch, ops, G, T, lm_train, lm_generate, ckpt, totals) -> dict:
-    """(b): lm_train trains a draft for 3 steps (head_dim 64); lm_generate
+    """(b): lm_train trains a draft for 3 steps at lm_generate's default
+    draft dims (head_dim 32: the backward kernels at D = 32); lm_generate
     on the checkpoint phase's directory at float32 with and without
     --draft-checkpoint-dir: the same tokens, up to a near-tie."""
     import numpy as np
@@ -5348,9 +5419,9 @@ def _spec_cli(torch, ops, G, T, lm_train, lm_generate, ckpt, totals) -> dict:
                        "--max-new", str(SPEC_CLI_NEW)]
     res = {}
     for name, extra in (("plain", []), ("spec", [
-            "--draft-checkpoint-dir", str(root / "draft"),
-            "--draft-d-model", "128", "--draft-n-layers", "2",
-            "--draft-n-heads", "2", "--draft-d-ff", "512"])):
+            "--draft-checkpoint-dir", str(root / "draft")] + [
+                f.replace("--", "--draft-", 1) if f.startswith("--") else f
+                for f in SPEC_TRAIN_DRAFT])):
         metrics = root / f"{name}.json"
         ops.reset_launch_counts()
         rc = lm_generate.main(base + extra + ["--metrics-out", str(metrics)])
@@ -5377,7 +5448,8 @@ def _spec_cli(torch, ops, G, T, lm_train, lm_generate, ckpt, totals) -> dict:
                plain_tokens_per_s=res["plain"]["decode_tokens_per_sec"],
                spec_tokens_per_s=res["spec"]["decode_tokens_per_sec"])
     print(f"speculative (b): lm_generate --checkpoint-dir float32 with "
-          f"--draft-checkpoint-dir (a 3-step lm_train draft, d128 2L 2h): "
+          f"--draft-checkpoint-dir (a 3-step lm_train draft, d128 2L 4h, "
+          f"head_dim 32): "
           f"tokens equal to the plain run's: {row['equal']}"
           + ("" if row["equal"] else f" (diverge {row['diverge']}, at or "
              "after a near-tie)")
@@ -5577,6 +5649,405 @@ def phase_speculative(torch, ops, lm_train, lm_generate, serve, G, T) -> dict:
     print("speculative " + json.dumps(dict(
         solo=solo, cli=cli, serving=serving, multi_model=multi,
         launches=totals, card=nvidia_smi_line())))
+    return totals
+
+
+def _moe_layer_costs(torch, A, E) -> dict:
+    """Where an MoE layer's forward time goes at the training step's shape
+    (B4 x 1024 tokens, bf16): routing, the dispatch product, the expert
+    products (with silu), the combine product and K1, each by CUDA events
+    against its operations' time at the bf16 peak -> {piece: row}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(83)
+    t, d, f, e = MOE_BATCH * MOE_SEQ, 1024, 4096, MOE_EXPERTS
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf16)
+
+    x, router = randn(t, d), randn(d, e, scale=d ** -0.5)
+    w_in, w_out = randn(e, d, f, scale=d ** -0.5), randn(e, f, d,
+                                                         scale=f ** -0.5)
+    cap = E.capacity_for(t, 2, e, 1.25)
+    logits = x.float() @ router.float()
+    dispatch, combine = (z.to(bf16) for z in E.top_k_routing(logits, 2, cap))
+    xs = torch.einsum("td,tec->ecd", x, dispatch)
+    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", xs, w_in))
+    ys = torch.einsum("ecf,efd->ecd", h, w_out)
+    q, k, v = (randn(MOE_BATCH, MOE_SEQ, 8, 128) for _ in range(3))
+    pieces = {
+        "routing": (lambda: E.top_k_routing(logits, 2, cap), 0),
+        "dispatch": (lambda: torch.einsum("td,tec->ecd", x, dispatch),
+                     2 * t * d * e * cap),
+        "experts": (lambda: torch.einsum("ecf,efd->ecd", torch.nn.functional
+                                         .silu(torch.einsum("ecd,edf->ecf",
+                                                            xs, w_in)),
+                                         w_out), 4 * e * cap * d * f),
+        "combine": (lambda: torch.einsum("ecd,tec->td", ys, combine),
+                    2 * t * d * e * cap),
+        "moe_ffn": (lambda: E.moe_ffn(x, router, w_in, w_out, k=2,
+                                      capacity_factor=1.25,
+                                      activation=torch.nn.functional.silu),
+                    2 * t * d * e * cap * 2 + 4 * e * cap * d * f),
+        "attention_k1": (lambda: A.attention_blhd(q, k, v, causal=True),
+                         4 * 128 * visible_pairs(MOE_SEQ, MOE_SEQ, True, None)
+                         * MOE_BATCH * 8),
+    }
+    out = {}
+    for name, (fn, flops) in pieces.items():
+        ms = cuda_ms(fn, 5)
+        out[name] = dict(ms=ms, flops=flops,
+                         peak_ms=flops / PEAK_BF16_FLOPS * 1e3)
+    print(f"moe layer forward B{MOE_BATCH} x {MOE_SEQ} tokens, {e} experts, "
+          f"capacity {cap}: " + ", ".join(
+              f"{n} {r['ms']:.3f} ms"
+              + (f" ({r['flops'] / r['ms'] / 1e9:.0f} TFLOP/s)" if r["flops"]
+                 else "") for n, r in out.items()))
+    del x, router, w_in, w_out, logits, dispatch, combine, xs, h, ys, q, k, v
+    return out
+
+
+def _moe_train(torch, ops, lm_train, A, E, T, totals) -> dict:
+    """(a): lm_train --n-experts MOE_EXPERTS at the flagship width,
+    MOE_TRAIN_LAYERS layers, batch MOE_BATCH x MOE_SEQ, MOE_STEPS steps:
+    losses finite, the flash kernels once a layer a step; then one step
+    profiled in process (device ms, busy share, peak memory, the top
+    kernels) and a layer's forward broken into its pieces."""
+    metrics = REPO / "build" / "chip_smoke" / "moe_train.json"
+    metrics.parent.mkdir(parents=True, exist_ok=True)
+    argv = MOE_FLAGS + ["--n-layers", str(MOE_TRAIN_LAYERS), "--batch-size",
+                        str(MOE_BATCH), "--seq-len", str(MOE_SEQ), "--steps",
+                        str(MOE_STEPS), "--metrics-out", str(metrics)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rc = lm_train.main(argv)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        fail(f"moe (a): lm_train --n-experts exited {rc}")
+    per = MOE_STEPS * MOE_TRAIN_LAYERS
+    want = {"flash_fwd": per, "flash_bwd_dkdv": per, "flash_bwd_dq": per,
+            "flash_decode": 0}
+    if counts != want:
+        fail(f"moe (a): launches {counts}, expected {want}")
+    for k, n in counts.items():
+        totals[k] += n
+    m = json.loads(metrics.read_text())
+    losses = m["losses"]
+    if len(losses) != MOE_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"moe (a): losses not all finite: {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
+                              n_layers=MOE_TRAIN_LAYERS, n_heads=8,
+                              n_kv_heads=8, d_ff=4096, n_experts=MOE_EXPERTS,
+                              max_seq_len=MOE_SEQ)
+    prof = _train_step_profile(torch, cfg, None, MOE_BATCH, MOE_SEQ,
+                               name="moe training step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pieces = _moe_layer_costs(torch, A, E)
+    row = dict(layers=MOE_TRAIN_LAYERS, batch=MOE_BATCH, seq=MOE_SEQ,
+               steps=MOE_STEPS, losses=losses, n_params=m["n_params"],
+               steps_per_sec=m["steps_per_sec"],
+               tokens_per_sec=m["tokens_per_sec"], lm_train_peak_gb=peak_gb,
+               step=prof, layer_forward=pieces, launches=counts)
+    print(f"moe (a) lm_train --n-experts {MOE_EXPERTS}, {MOE_TRAIN_LAYERS} "
+          f"layers, {m['n_params'] / 1e6:.1f}M parameters, B{MOE_BATCH} x "
+          f"{MOE_SEQ}, {MOE_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {m['tokens_per_sec']:.1f} tokens/s over the "
+          f"run (first step included), peak {peak_gb:.2f} GB; a step "
+          f"{prof['wall_ms']:.2f} ms wall, "
+          + ("not measured" if prof["device_ms"] is None
+             else f"{prof['device_ms']:.2f}") + " ms on the device; launches "
+          f"{counts}")
+    return row
+
+
+def _moe_parity(torch, ops, T, E) -> dict:
+    """(b): float32, MOE_EXPERTS experts at full width, 2 layers, batch
+    2 x 512: one loss and every gradient on the kernels (K1, K3-K5 float32)
+    against the plain path (attn_impl "ref") from the same parameters, and
+    each layer's dispatch and combine tensors. The routing must agree
+    except where a token's top-3 router probabilities lie within
+    MOE_ROUTE_NEAR_TIE (then the gradients are reported, not held)."""
+    from tony_tpu_torch.train.step import _leaves
+
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
+                              n_heads=8, n_kv_heads=8, d_ff=4096,
+                              n_experts=MOE_EXPERTS, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(81)
+    params = T.init(cfg, gen, dev)
+    tokens = torch.randint(0, 32768, (2, 512), generator=gen, device=dev)
+    targets = torch.randint(0, 32768, (2, 512), generator=gen, device=dev)
+    route = E.top_k_routing
+
+    def run(c):
+        calls = []
+
+        def recorded(logits, k, cap):
+            d, cb = route(logits, k, cap)
+            calls.append((logits.detach(), d.detach(), cb.detach()))
+            return d, cb
+
+        E.top_k_routing = recorded
+        try:
+            p = _leaf_copies(torch, params, dev)
+            names, leaves = zip(*_leaves(p))
+            loss = T.loss_fn(p, tokens, targets, c)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            E.top_k_routing = route
+        return float(loss.detach()), names, grads, calls
+
+    before = _kernel_launch_total(torch)
+    k_loss, names, k_grads, k_calls = run(cfg)
+    if _kernel_launch_total(torch) - before != 3 * cfg.n_layers:
+        fail("moe (b): the kernel path did not run the flash kernels")
+    p_loss, _, p_grads, p_calls = run(dataclasses.replace(cfg,
+                                                          attn_impl="ref"))
+    flips, combine_err = 0, 0.0
+    for layer, ((lk, dk, ck), (_, dp, cp)) in enumerate(zip(k_calls,
+                                                            p_calls)):
+        if torch.equal(dk, dp):
+            combine_err = max(combine_err, compare(
+                f"moe (b) layer {layer} combine", ck, cp, (1e-6, 1e-5)))
+            continue
+        probs = torch.softmax(lk, dim=-1).sort(dim=-1, descending=True).values
+        gap = (probs[:, :2] - probs[:, 1:3]).min(dim=-1).values
+        differ = (dk != dp).any(dim=(1, 2)) | (ck != cp).any(dim=(1, 2))
+        # a token routed elsewhere moves the later claims on its experts;
+        # the first token that differs must sit at a near-tie
+        first = int(differ.nonzero()[0])
+        if float(gap[first]) >= MOE_ROUTE_NEAR_TIE:
+            fail(f"moe (b) layer {layer}: dispatch differs at token {first}, "
+                 f"whose top-3 gap is {float(gap[first]):.3g}")
+        flips += 1
+    g_err = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+             for n, a, b in zip(names, k_grads, p_grads)}
+    worst = max(g_err.values())
+    row = dict(loss_kernels=k_loss, loss_plain=p_loss,
+               loss_diff=abs(k_loss - p_loss), grad_rel_err=g_err,
+               worst_grad_rel_err=worst, dispatch_equal_layers=(
+                   cfg.n_layers - flips), combine_max_err=combine_err)
+    print(f"moe (b) float32, 2 layers, B2 x 512: loss kernels {k_loss:.6f} "
+          f"plain {p_loss:.6f}; worst gradient relative norm error "
+          f"{worst:.3g} ({max(g_err, key=g_err.get)}); dispatch equal in "
+          f"{cfg.n_layers - flips} of {cfg.n_layers} layers, combine max "
+          f"|diff| {combine_err:.3g}")
+    if not all(map(math.isfinite, g_err.values())):
+        fail("moe (b): non-finite gradients")
+    if not flips and (abs(k_loss - p_loss) > MOE_PARITY_LOSS_ATOL
+                      or worst > MOE_PARITY_GRAD_RTOL):
+        fail("moe (b): the kernel path's loss or gradients differ from the "
+             "plain path's")
+    del params, k_grads, p_grads, k_calls, p_calls
+    return row
+
+
+def _greedy_rows(torch, G, w, cfg, prompt, n, server_order=False) -> tuple:
+    """Greedy decoding of a [B, L] prompt on ``cfg`` as given (no
+    moe_dropfree of its own) -> (tokens [B][n], top-2 logit gaps [B][n]).
+    ``server_order``: as the serving engines run it, the prompt but its
+    last token prefilled on the cast weights, the last token fed to the
+    first decode step (on the fused, int8, weights)."""
+    cache = G.init_cache(cfg, prompt.shape[0], prompt.shape[1] + n,
+                         device=prompt.device)
+    if server_order:
+        _, cache = G._forward_with_cache(w.params, cfg, prompt[:, :-1], cache,
+                                         None, prefill=True)
+        logits, cache = G._forward_with_cache(w.params, cfg, prompt[:, -1:],
+                                              cache, w.fused)
+    else:
+        logits, cache = G._forward_with_cache(w.params, cfg, prompt, cache,
+                                              w.fused, prefill=True)
+    toks, gaps = [], []
+    for step in range(n):
+        top2 = logits.topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).tolist())
+        tok = logits.argmax(-1)
+        toks.append(tok.tolist())
+        if step < n - 1:
+            logits, cache = G._forward_with_cache(w.params, cfg, tok[:, None],
+                                                  cache, w.fused)
+    return [list(r) for r in zip(*toks)], [list(r) for r in zip(*gaps)]
+
+
+def _moe_generate(torch, ops, lm_generate, G, T, totals) -> dict:
+    """(c): lm_generate --n-experts MOE_EXPERTS at MOE_GEN_LAYERS layers,
+    random weights, B8 x prompt 1024 + 64 new, native and --weight-dtype
+    int8 (their launches
+    checked); the prefill's and a decode step's device time, native
+    against int8; then at MOE_GEN_F32_LAYERS layers in float32 generate on
+    the kernels against the plain path's greedy tokens, under the near-tie
+    rule."""
+    out_dir = REPO / "build" / "chip_smoke"
+    runs = {}
+    for wd in ("native", "int8"):
+        metrics = out_dir / f"moe_generate_{wd}.json"
+        argv = MOE_FLAGS + ["--n-layers", str(MOE_GEN_LAYERS), "--batch",
+                            "8", "--prompt-len", "1024",
+                            "--max-new", str(MAX_NEW), "--seed", "21",
+                            "--weight-dtype", wd, "--metrics-out",
+                            str(metrics)]
+        ops.reset_launch_counts()
+        rc = lm_generate.main(argv)
+        counts = ops.launch_counts()
+        if rc != 0:
+            fail(f"moe (c): lm_generate --n-experts ({wd}) exited {rc}")
+        want = {"flash_fwd": 3 * MOE_GEN_LAYERS,
+                "flash_decode": 2 * MOE_GEN_LAYERS * (MAX_NEW - 1),
+                "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+        if counts != want:
+            fail(f"moe (c) {wd}: launches {counts}, expected {want}")
+        for k, n in counts.items():
+            totals[k] += n
+        m = json.loads(metrics.read_text())
+        if len(m["tokens"]) != MAX_NEW or not all(0 <= t < 32768
+                                                  for t in m["tokens"]):
+            fail(f"moe (c) {wd}: bad output {m}")
+        runs[wd] = dict(prefill_ms=m["prefill_ms"],
+                        decode_step_ms=m["decode_step_ms"],
+                        batch_decode_tokens_per_sec=m[
+                            "batch_decode_tokens_per_sec"], launches=counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        costs = _w8a16_costs(torch, G, T, n_experts=MOE_EXPERTS,
+                             n_layers=MOE_GEN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # float32 at MOE_GEN_F32_LAYERS layers: kernels against the plain path
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
+                              n_layers=MOE_GEN_F32_LAYERS, n_heads=8,
+                              n_kv_heads=8, d_ff=4096, n_experts=MOE_EXPERTS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    w = G.prepare_decode(T.init(cfg, gen, dev), cfg)
+    prompt = torch.randint(0, 32768, (8, 1024), generator=gen, device=dev)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got = G.generate(w, cfg, prompt, MAX_NEW).tolist()
+        counts = ops.launch_counts()
+        plain_cfg = G.moe_dropfree(dataclasses.replace(cfg, attn_impl="ref"))
+        want, gaps = _greedy_rows(torch, G, w, plain_cfg, prompt, MAX_NEW)
+    want_k = {"flash_fwd": cfg.n_layers,
+              "flash_decode": cfg.n_layers * (MAX_NEW - 1),
+              "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    if counts != want_k:
+        fail(f"moe (c) float32: launches {counts}, expected {want_k}")
+    rows = [_near_tie_check(f"moe (c) float32 row {i}", g, t, gp, MAX_NEW)
+            for i, (g, t, gp) in enumerate(zip(got, want, gaps))]
+    agree = sum(r["diverge"] is None for r in rows)
+    del w
+    print(f"moe (c) lm_generate --n-experts {MOE_EXPERTS}, {MOE_GEN_LAYERS} "
+          f"layers, B8 prompt 1024, {MAX_NEW} new: native prefill {runs['native']['prefill_ms']:.2f} "
+          f"ms, decode {runs['native']['decode_step_ms']:.3f} ms/step wall; "
+          f"int8 {runs['int8']['prefill_ms']:.2f}, "
+          f"{runs['int8']['decode_step_ms']:.3f}; device: prefill native "
+          f"{costs['native']['prefill_device_ms']:.3f} ms, int8 "
+          f"{costs['int8']['prefill_device_ms']:.3f}; a decode step native "
+          f"{costs['native']['decode_step_device_ms']:.4f} ms, int8 "
+          f"{costs['int8']['decode_step_device_ms']:.4f} (resident "
+          f"{costs['native']['resident_gb']:.3f} GB against "
+          f"{costs['int8']['resident_gb']:.3f}); float32 at "
+          f"{MOE_GEN_F32_LAYERS} layers: {agree} of 8 rows token-identical "
+          f"to the plain path (the others at or after a near-tie); launches "
+          f"{counts}")
+    return dict(layers=MOE_GEN_LAYERS, cli=runs, device=costs,
+                f32_agree=agree, f32_rows=rows)
+
+
+def _moe_serving(torch, ops, G, T) -> dict:
+    """(d): the SlotServer on the MoE config at SERVE_CUT_LAYERS layers,
+    float32: the paged (a) cell's 8 prompts of 64-512 tokens, 48 new, on
+    the ring, the paged engine and the ring with a self-draft (spec_gamma
+    4), each token-identical to solo generate under the near-tie rule; no
+    synchronisation in dispatch, none in admission."""
+    import numpy as np
+
+    from tony_tpu_torch.models import serving as S
+
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
+                              n_layers=SERVE_CUT_LAYERS, n_heads=8,
+                              n_kv_heads=8, d_ff=4096, n_experts=MOE_EXPERTS,
+                              dtype=torch.float32)
+    w = G.prepare_decode(T.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(25), dev), cfg)
+    rng = np.random.default_rng(61)
+    prompts = [rng.integers(0, 32768, int(n)).tolist()
+               for n in rng.integers(64, 513, PAGED_ID)]
+    with torch.no_grad():
+        solo = [_solo_greedy(torch, G, w, G.moe_dropfree(cfg), p,
+                             PAGED_ID_NEW) for p in prompts]
+    engines = {"ring": {}, "paged": dict(paged=True, kv_block=PAGED_KV_BLOCK),
+               "ring_self_draft": dict(draft=w, draft_cfg=cfg,
+                                       spec_gamma=SPEC_GAMMA)}
+    out = {}
+    for name, kw in engines.items():
+        srv = S.SlotServer(w, cfg, slots=8, max_len=1024, **kw)
+        syncs = _checked_dispatch(torch, srv)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [S.Request(prompt=p, max_new_tokens=PAGED_ID_NEW)
+                for p in prompts]
+        for r in reqs:
+            srv.submit(r)
+        done = srv.run_until_drained()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        spec = srv.stats().get("speculative")
+        srv.shutdown()
+        if any(counts.values()):
+            fail(f"moe (d) {name}: kernels launched {counts}")
+        if syncs["admission"]:
+            fail(f"moe (d) {name}: {syncs['admission']} synchronisations in "
+                 f"admission {dict(syncs['sites'])}")
+        rows = [_near_tie_check(f"moe (d) {name} request {i}",
+                                done[r.id].tokens, toks, gaps, PAGED_ID_NEW)
+                for i, (r, (toks, gaps)) in enumerate(zip(reqs, solo))]
+        agree = sum(r["diverge"] is None for r in rows)
+        out[name] = dict(agree=agree, of=len(rows), wall_s=wall,
+                         speculative=spec)
+        print(f"moe (d) {name}: {agree} of {len(rows)} token-identical to "
+              f"solo generate (the others at or after a near-tie); wall "
+              f"{wall:.2f} s; 0 syncs in dispatch and admission"
+              + (f"; acceptance EWMA {spec['acceptance_ewma']}" if spec
+                 else ""))
+    del w
+    return out
+
+
+def phase_moe(torch, ops, lm_train, lm_generate, A, G, T) -> dict:
+    """Mixture-of-Experts through the port's entry points at the flagship
+    width with MOE_EXPERTS experts (top-2, capacity factor 1.25): (a)
+    training, (b) kernels against the plain path on the loss and
+    gradients, (c) generation, native and int8, (d) both serving engines
+    and speculative serving. -> the kernels' launches of (a) and (c)."""
+    print("== main path: Mixture-of-Experts")
+    from tony_tpu_torch.parallel import expert as E
+
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    legs, seconds = {}, {}
+    for name, fn, args in (
+            ("training", _moe_train, (torch, ops, lm_train, A, E, T, totals)),
+            ("parity", _moe_parity, (torch, ops, T, E)),
+            ("generation", _moe_generate, (torch, ops, lm_generate, G, T,
+                                           totals)),
+            ("serving", _moe_serving, (torch, ops, G, T))):
+        t0 = time.perf_counter()
+        legs[name] = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    print("moe " + json.dumps(dict(
+        experts=MOE_EXPERTS, top_k=2, capacity_factor=1.25, cuts=MOE_CUTS,
+        **legs, seconds=seconds, launches=totals, card=nvidia_smi_line())))
     return totals
 
 
@@ -5886,8 +6357,9 @@ def phase_train_profile(torch, T) -> None:
     print("remat_profile " + json.dumps(rows))
 
 
-def _train_step_profile(torch, cfg, policy) -> dict:
-    name = f"training step (remat {policy or 'off'})"
+def _train_step_profile(torch, cfg, policy, batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, name=None) -> dict:
+    name = name or f"training step (remat {policy or 'off'})"
     print(f"== profile: {name}")
     from torch.profiler import ProfilerActivity, profile
 
@@ -5897,8 +6369,7 @@ def _train_step_profile(torch, cfg, policy) -> dict:
     torch.cuda.empty_cache()
     bundle = train.create_train_step(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    tokens, targets = train.synthetic_lm_batch(gen, TRAIN_BATCH, TRAIN_SEQ,
-                                               32768)
+    tokens, targets = train.synthetic_lm_batch(gen, batch, seq, 32768)
 
     def steps(n):
         for _ in range(n):
@@ -5913,22 +6384,22 @@ def _train_step_profile(torch, cfg, policy) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        steps(2)
+        steps(1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    dev_ms, top, port = _profile_rows(prof, 2)
+    dev_ms, top, port = _profile_rows(prof, 1)
     del bundle
     if not top:
         print(f"profile: {name} {wall_ms:.3f} ms wall; device time not "
               "measured (the profiler recorded no device activity)")
         return dict(wall_ms=wall_ms, device_ms=None, peak_gb=peak_gb)
-    print(f"profile: {name} B{TRAIN_BATCH} L{TRAIN_SEQ}: {wall_ms:.3f} ms "
+    print(f"profile: {name} B{batch} L{seq}: {wall_ms:.3f} ms "
           f"wall, {dev_ms:.3f} ms on the device, busy share "
           f"{dev_ms / wall_ms:.3f}, peak memory {peak_gb:.1f} GB")
-    if policy is None:
+    if policy is None and cfg.n_experts == 0:
         print("train_profile_top " + json.dumps(top))
         print("train_profile_port " + json.dumps(port))
     return dict(wall_ms=wall_ms, device_ms=dev_ms, peak_gb=peak_gb,
-                port_kernels=port)
+                port_kernels=port, top=top)
 
 
 def phase_parity(torch, G, T) -> None:
@@ -6078,12 +6549,14 @@ def main() -> int:
     hf_launches = timed("hf", phase_hf, torch, ops, lm_generate, G, serve)
     spec_launches = timed("speculative", phase_speculative, torch, ops,
                           lm_train, lm_generate, serve, G, T)
+    moe_launches = timed("moe", phase_moe, torch, ops, lm_train, lm_generate,
+                         A, G, T)
     launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
                 + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
                 + replay_launches[k] + stream_launches[k]
                 + paged_launches[k] + telemetry_launches[k]
                 + disagg_launches[k] + hf_launches[k] + spec_launches[k]
-                for k in gen_launches}
+                + moe_launches[k] for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -55,6 +55,10 @@ CASES = {
     "empty_rows": (1, 1, 300, 128, 16, True, 64, False),
     "g_lse_causal": (1, 2, 300, 300, 16, True, None, True),
     "g_lse_cross_window": (1, 1, 300, 200, 16, True, 50, True),
+    # head_dim 32, the default draft model's (the card's backward kernels
+    # take it since they were instantiated at D = 32)
+    "d32_causal": (1, 4, 256, 256, 32, True, None, False),
+    "d32_noncausal_ragged": (1, 2, 300, 300, 32, False, None, False),
 }
 
 

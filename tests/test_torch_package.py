@@ -121,7 +121,6 @@ def test_lm_generate_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,what", [
     (["--tensor-parallel", "2"], "mesh/TP"),
-    (["--n-experts", "4"], "MoE"),
 ])
 def test_lm_generate_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):

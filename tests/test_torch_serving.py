@@ -648,9 +648,6 @@ def test_journal_and_replay_arguments(model, kw, tmp_path):
 
 def test_unported_model_features_raise(model):
     _, cfg, _, params = model
-    with pytest.raises(NotImplementedError, match="MoE"):
-        S.SlotServer(params, dataclasses.replace(cfg, n_experts=4),
-                     device="cpu")
     with pytest.raises(TypeError, match="unexpected keyword"):
         S.SlotServer(params, cfg, device="cpu", no_such_option=1)
     # the off values of the not-ported arguments are accepted

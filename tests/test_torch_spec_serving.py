@@ -168,15 +168,27 @@ def test_server_builds_its_registry(target, draft):
 
 # ---------------------------------------------------- parity: both regimes
 
+PARITY_PROMPTS = _prompts(8, 3)
+PARITY_BUDGETS = [6 + (i % 5) for i in range(8)]
+
+
+@pytest.fixture(scope="module")
+def jax_spec_parity(target, draft):
+    """The JAX spec server's tokens and stats for both regimes, once."""
+    return {regime: _jax_spec(target, d, PARITY_PROMPTS, PARITY_BUDGETS,
+                              spec_gamma=2)
+            for regime, d in (("random_draft", draft), ("self_draft", target))}
+
+
 @pytest.mark.parametrize("regime", ["random_draft", "self_draft"])
-def test_spec_parity_with_jax_spec_off_and_solo(target, draft, regime):
-    prompts = _prompts(8, 3)
-    budgets = [6 + (i % 5) for i in range(8)]
+def test_spec_parity_with_jax_spec_off_and_solo(target, draft,
+                                                jax_spec_parity, regime):
+    prompts, budgets = PARITY_PROMPTS, PARITY_BUDGETS
     d = draft if regime == "random_draft" else target
     spec = _srv(target, d, spec_gamma=2)
     reqs, got = _burst(spec, prompts, budgets)
     _, plain = _burst(_srv(target), prompts, budgets)
-    jtoks, jst = _jax_spec(target, d, prompts, budgets, spec_gamma=2)
+    jtoks, jst = jax_spec_parity[regime]
     for i, c in enumerate(got):
         want = _solo(target, prompts[i], budgets[i])
         assert c.tokens == want == plain[i].tokens == jtoks[i], i

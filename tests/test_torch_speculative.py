@@ -9,8 +9,8 @@ near-tie at these widths, as in test_torch_generate.py), and the stats
 dict must equal the JAX one key for key.
 
 Also: lm_generate's speculative path with a draft that lm_train trained
-(the CLI, no --mesh), and the head_dim-32 envelope of the flash forward
-and decode kernels (a draft's heads), checked without a card."""
+(the CLI, no --mesh), and the head_dim-32 envelope of the flash forward,
+backward and decode kernels (a draft's heads), checked without a card."""
 
 import dataclasses
 import importlib
@@ -179,17 +179,18 @@ def test_lm_generate_own_trained_draft(tmp_path, capsys):
 
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
 def test_head_dim_32_envelope(d):
-    """K1's forward and K6 take head_dim 32 (the default draft's), the
-    backward kernels still 64 and 128 only; the envelope is checked before
-    the device, so a CPU tensor shows which shapes would launch."""
+    """K1's forward, the backward kernels (K3-K5) and K6 take head_dim 32
+    (the default draft's), so a draft trains on the card; the envelope is
+    checked before the device, so a CPU tensor shows which shapes would
+    launch."""
     ok = d in (32, 64, 128)
     x = torch.zeros(1, 1, 4, d)
     assert A.flash_supported(x) == ok
-    assert A.flash_supported(x, backward=True) == (d in (64, 128))
+    assert A.flash_supported(x, backward=True) == ok
     match = "same device" if ok else "head_dim in"
     with pytest.raises(ValueError, match=match):
         A._check_kernel_inputs(x, x, x)
-    with pytest.raises(ValueError, match="same device" if d in (64, 128)
+    with pytest.raises(ValueError, match="same device" if ok
                        else "backward kernel takes head_dim"):
         A._check_kernel_inputs(x, x, x, backward=True)
     q = torch.zeros(1, 2, 1, d)

@@ -305,7 +305,6 @@ def test_step_timer_records(tmp_path):
 
 @pytest.mark.parametrize("flags,what", [
     (["--mesh", "seq=2"], "mesh/TP"),
-    (["--n-experts", "4"], "MoE"),
     (["--mesh", "data=2"], "mesh/TP"),
 ])
 def test_lm_train_flags_not_yet_ported(flags, what):

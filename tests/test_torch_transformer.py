@@ -162,13 +162,29 @@ def test_init_shapes_and_scales_match_jax():
     assert torch.equal(again["unembed"], params["unembed"])
 
 
-def test_moe_raises_not_ported():
-    _, cfg = _configs()
-    moe = dataclasses.replace(cfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.init(moe, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T._mlp(moe, torch.zeros(1, 1, 32), {})
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, 2e-5),
+                                         (jnp.bfloat16, 3e-2)],
+                         ids=["float32", "bfloat16"])
+def test_moe_mlp_matches_jax(dtype, atol):
+    """One layer's MoE MLP (4 experts, top-2, capacity factor 1.25: the
+    24 tokens overflow some experts) from the same hidden states: out and
+    the aux loss against the JAX _mlp's. At bf16 the experts route on the
+    bf16-rounded router and the aux loss on the float32 one, in both
+    frameworks. JAX seed 0 and numpy seed 4 hold no router near-tie."""
+    jcfg, cfg = _configs(n_experts=4, dtype=dtype)
+    tree, params = _params(jcfg, cfg)
+    h = np.random.default_rng(4).standard_normal((2, 12, 32)).astype(
+        np.float32)
+    jh = jnp.asarray(h, dtype)
+    jlp = {n: w[0] for n, w in tree["layers"].items()}
+    want, want_aux = jT._mlp(jcfg, jh, jlp)
+    got, aux = T._mlp(cfg, torch.from_numpy(np.array(
+        jh.astype(jnp.float32))).to(cfg.dtype), T.layer_params(params, 0))
+    assert got.dtype == cfg.dtype and aux.dtype == torch.float32
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol)
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=2e-5)
 
 
 def test_from_jax_params_rejects_bad_trees():

@@ -798,8 +798,11 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// q, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D]; g (dO): [B, H, Lq, D];
-// each with any strides over (B, H, L) and unit stride over D. lse, delta:
+// q, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D]; g (dO): [B, H, Lq, D],
+// D = 32, 64 or 128 (at D = 32 a padded bf16 row is 80 bytes, so every
+// ldmatrix row address stays 16-byte aligned, and a 64-row tile is 256
+// 16-byte cp.async chunks, two a thread); each with any strides over
+// (B, H, L) and unit stride over D. lse, delta:
 // contiguous [B, H, Lq] float32. strides: 21 values, (batch, head, row) for
 // q, k, v, g, dq, dk, dv in that order. dtype: 0 = float32 (the FP32
 // kernels), 1 = bf16 (the tensor-core kernels, which also need every bf16
@@ -818,9 +821,11 @@ extern "C" int tony_flash_bwd_dkdv(const void* q, const void* k, const void* v,
     if (!aligned16(ptrs, 6, strides, 21)) return static_cast<int>(cudaErrorMisalignedAddress);
     if (D == 128) return launch_dkdv_mma<128>(a, B, s);
     if (D == 64) return launch_dkdv_mma<64>(a, B, s);
+    if (D == 32) return launch_dkdv_mma<32>(a, B, s);
   }
   if (dtype == 0 && D == 128) return launch_dkdv<float, 128>(a, B, s);
   if (dtype == 0 && D == 64) return launch_dkdv<float, 64>(a, B, s);
+  if (dtype == 0 && D == 32) return launch_dkdv<float, 32>(a, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -837,8 +842,10 @@ extern "C" int tony_flash_bwd_dq(const void* q, const void* k, const void* v,
     if (!aligned16(ptrs, 5, strides, 21)) return static_cast<int>(cudaErrorMisalignedAddress);
     if (D == 128) return launch_dq_mma<128>(a, B, s);
     if (D == 64) return launch_dq_mma<64>(a, B, s);
+    if (D == 32) return launch_dq_mma<32>(a, B, s);
   }
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(a, B, s);
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(a, B, s);
+  if (dtype == 0 && D == 32) return launch_dq<float, 32>(a, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

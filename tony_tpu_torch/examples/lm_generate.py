@@ -30,8 +30,11 @@ speculative call prefills target and draft (3 x (n_layers +
 draft_n_layers) flash forwards) and runs (gamma + 1) draft steps a round
 (flash-decode launches: draft_n_layers each).
 
-Not ported yet, each raising: ``--tensor-parallel`` > 1 and
-``--n-experts`` > 0.
+``--n-experts`` builds (or restores) the Mixture-of-Experts model; it
+must match the training run's. With ``--weight-dtype int8`` every expert's
+weights decode as int8.
+
+Not ported yet, raising: ``--tensor-parallel`` > 1.
 """
 
 from __future__ import annotations
@@ -83,7 +86,8 @@ def main(argv=None) -> int:
     parser.add_argument("--n-heads", type=int, default=8)
     parser.add_argument("--d-ff", type=int, default=1024)
     parser.add_argument("--vocab", type=int, default=4096)
-    parser.add_argument("--n-experts", type=int, default=0)
+    parser.add_argument("--n-experts", type=int, default=0,
+                        help="must match the training run's --n-experts")
     parser.add_argument("--dtype", default="bfloat16")
     parser.add_argument("--prompt", default="1 2 3 4 5 6 7 8",
                         help="whitespace-separated token ids")
@@ -130,8 +134,6 @@ def main(argv=None) -> int:
                          "(drop --tensor-parallel / --temperature)")
     if args.tensor_parallel > 1:
         _not_ported("--tensor-parallel", "mesh/TP")
-    if args.n_experts > 0:
-        _not_ported("--n-experts", "MoE")
 
     import torch
 
@@ -163,7 +165,7 @@ def main(argv=None) -> int:
             vocab_size=args.vocab, d_model=args.d_model,
             n_layers=args.n_layers, n_heads=args.n_heads,
             n_kv_heads=args.n_heads, d_ff=args.d_ff,
-            dtype=torch_dtype(args.dtype))
+            n_experts=args.n_experts, dtype=torch_dtype(args.dtype))
         params = transformer.init(cfg, gen, device)
     if args.checkpoint_dir:
         from tony_tpu_torch.train.checkpoint import restore_lm_params

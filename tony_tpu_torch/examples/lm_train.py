@@ -28,9 +28,13 @@ layer (models/transformer.py): under ``--remat-policy full`` or ``dots``
 the backward runs the flash forward again (twice a layer a step), under
 ``attn`` it keeps the forward's out and lse (once a layer a step).
 
-Not ported yet, each raising: ``--n-experts`` > 0 (MoE) and a ``--mesh``
-wider than one device (mesh/TP); a multi-process job raises in
-``train.init``.
+``--n-experts`` > 0 trains the Mixture-of-Experts model (top-2 routing,
+capacity factor 1.25, the load-balancing loss in the loss: the JAX
+package's defaults); on one device there is no expert axis to shard, so
+the JAX script's expert rules have nothing to place.
+
+Not ported yet, raising: a ``--mesh`` wider than one device (mesh/TP); a
+multi-process job raises in ``train.init``.
 """
 
 from __future__ import annotations
@@ -98,9 +102,6 @@ def main(argv=None) -> int:
                         help="default: the GPU (raises without one)")
     args = parser.parse_args(argv)
 
-    if args.n_experts > 0:
-        _not_ported("--n-experts", "MoE")
-
     import numpy as np
     import torch
 
@@ -120,8 +121,9 @@ def main(argv=None) -> int:
     cfg = transformer.TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
-        max_seq_len=args.seq_len, dtype=torch_dtype(args.dtype),
-        remat=args.remat, remat_policy=args.remat_policy,
+        max_seq_len=args.seq_len, n_experts=args.n_experts,
+        dtype=torch_dtype(args.dtype), remat=args.remat,
+        remat_policy=args.remat_policy,
     )
     bundle = train.create_train_step(cfg, mesh, device=device)
     params, opt_state = bundle.params, bundle.opt_state

@@ -55,16 +55,15 @@ def _expected_shapes(cfg: TransformerConfig) -> dict:
     L, d, h, kv, hd, f, v = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
                              cfg.vocab_size)
-    return {
-        "embed": (v, d),
-        "layers": {
-            "attn_norm": (L, d), "wq": (L, d, h, hd), "wk": (L, d, kv, hd),
-            "wv": (L, d, kv, hd), "wo": (L, h, hd, d), "mlp_norm": (L, d),
-            "w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d),
-        },
-        "final_norm": (d,),
-        "unembed": (d, v),
-    }
+    layers = {"attn_norm": (L, d), "wq": (L, d, h, hd), "wk": (L, d, kv, hd),
+              "wv": (L, d, kv, hd), "wo": (L, h, hd, d), "mlp_norm": (L, d)}
+    e = cfg.n_experts
+    if e > 0:
+        layers.update(router=(L, d, e), w_in=(L, e, d, f), w_out=(L, e, f, d))
+    else:
+        layers.update(w_gate=(L, d, f), w_up=(L, d, f), w_down=(L, f, d))
+    return {"embed": (v, d), "layers": layers, "final_norm": (d,),
+            "unembed": (d, v)}
 
 
 def _to_torch(x, device, dtype) -> torch.Tensor:
@@ -79,10 +78,9 @@ def from_jax_params(tree: dict, cfg: TransformerConfig, device,
                     dtype: torch.dtype | None = None) -> dict:
     """The JAX ``transformer.init`` tree (numpy leaves) -> the port's
     parameter dict on ``device`` in ``dtype`` (default cfg.param_dtype).
-    Raises on a missing, extra or misshapen leaf."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, "
-                                  "MoE item)")
+    Raises on a missing, extra or misshapen leaf. An MoE config
+    (``n_experts > 0``) takes the ``router``/``w_in``/``w_out`` tree in place
+    of the dense MLP's."""
     dtype = cfg.param_dtype if dtype is None else dtype
 
     def convert(node, shapes, path):

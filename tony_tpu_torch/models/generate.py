@@ -35,6 +35,14 @@ the JAX package's models/generate.py, single device).
   converted to the activation dtype for ``torch.matmul`` (exact: every
   int8 value is a bf16 value), so it halves the resident bytes of those
   matrices, not the bytes a step streams.
+- **MoE** (``n_experts > 0``): every forward routes drop-free
+  (``moe_dropfree``: capacity >= tokens, so each token's output depends on
+  it alone and the cached path equals the full forward). The decode
+  pre-cast keeps the router float32, as the JAX package's does. Native
+  weights fuse only qkv (the experts stay in the params); int8 quantizes
+  qkv, wo, the unembed and every expert's ``w_in``/``w_out`` per expert
+  and output channel, the scales applied after each expert product
+  (parallel/expert.py ``moe_ffn``).
 
 Sampling: greedy (temperature=0), temperature and top-k, scalar or one
 per row, drawn from an explicit ``torch.Generator`` by the exponential
@@ -43,7 +51,7 @@ for one sample, without its host-side validity check, which would wait
 for the card). ``stop_tokens`` gives EOS semantics with an early exit once
 every row has stopped.
 
-Not ported yet: MoE and the mesh (tensor-parallel) path.
+Not ported yet: the mesh (tensor-parallel) path.
 """
 
 from __future__ import annotations
@@ -211,9 +219,12 @@ def _prefill_cfg(cfg: TransformerConfig) -> TransformerConfig:
 
 
 def moe_dropfree(cfg: TransformerConfig) -> TransformerConfig:
-    """Decode routes B*1 tokens at a time; a capacity factor of at least
-    E/k keeps every token (the JAX package's generate.py:282). MoE itself
-    is not ported yet: its forward raises."""
+    """Decode routes B*1 tokens at a time, where the training capacity
+    (cf * tokens * k / E) would drop a token that shares an expert with
+    another; a capacity factor of at least E/k keeps every token, in decode
+    and prefill alike (the JAX package's generate.py:282). generate,
+    speculative_generate and the SlotServer all apply it: their exactness
+    against one another rests on it."""
     if cfg.n_experts <= 0:
         return cfg
     return dataclasses.replace(
@@ -230,10 +241,15 @@ def _cast_params(params, dtype):
 def _cast_decode_params(params, cfg: TransformerConfig):
     """Pre-cast f32 master weights to the activation dtype once per call:
     the same rounding as the forward's per-use casts, without re-reading
-    the f32 copy every step."""
+    the f32 copy every step. The MoE router keeps its dtype: ``_mlp``
+    reads it at float32 for the aux loss (the JAX package's
+    generate.py:300-318)."""
     if cfg.dtype == torch.float32:
         return params
-    return _cast_params(params, cfg.dtype)
+    out = _cast_params(params, cfg.dtype)
+    if cfg.n_experts > 0:
+        out["layers"]["router"] = params["layers"]["router"]
+    return out
 
 
 def _quantize_weight(w):
@@ -253,25 +269,30 @@ def _fuse_decode_weights(params, cfg: TransformerConfig,
     fused qkv and gate/up, wo as [L, h*hd, d], w_down and the unembed), each
     beside its ``<name>_s`` scales in cfg.dtype (the JAX package's
     generate.py:331-383). These live beside the cast params, which the
-    serving prefill reads."""
+    serving prefill reads.
+
+    MoE has no gate/up to fuse: native weights give ``{"wqkv"}`` only, and
+    int8 quantizes qkv, wo, the unembed and every expert's ``w_in`` [L, E,
+    d, f] and ``w_out`` [L, E, f, d], per expert and output channel."""
     if weight_dtype not in ("native", "int8"):
         raise ValueError(
             f"weight_dtype must be 'native' or 'int8', got {weight_dtype!r}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, "
-                                  "MoE item)")
     L, d = cfg.n_layers, cfg.d_model
     lp = params["layers"]
+    moe = cfg.n_experts > 0
     wqkv = torch.cat([lp["wq"].reshape(L, d, -1), lp["wk"].reshape(L, d, -1),
                       lp["wv"].reshape(L, d, -1)], dim=-1)
-    w_gu = torch.cat([lp["w_gate"], lp["w_up"]], dim=-1)
+    if not moe:
+        w_gu = torch.cat([lp["w_gate"], lp["w_up"]], dim=-1)
     if weight_dtype != "int8":
-        return {"wqkv": wqkv, "w_gu": w_gu}
+        return {"wqkv": wqkv} if moe else {"wqkv": wqkv, "w_gu": w_gu}
+    big = [("wqkv", wqkv),
+           ("wo", lp["wo"].reshape(L, cfg.n_heads * cfg.head_dim, d)),
+           ("unembed", params["unembed"])]
+    big += ([("w_in", lp["w_in"]), ("w_out", lp["w_out"])] if moe
+            else [("w_gu", w_gu), ("w_down", lp["w_down"])])
     out = {}
-    for name, w in (("wqkv", wqkv),
-                    ("wo", lp["wo"].reshape(L, cfg.n_heads * cfg.head_dim, d)),
-                    ("unembed", params["unembed"]), ("w_gu", w_gu),
-                    ("w_down", lp["w_down"])):
+    for name, w in big:
         out[name], scale = _quantize_weight(w)
         out[name + "_s"] = scale.to(cfg.dtype)
     return out
@@ -367,7 +388,7 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
             proj = torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
         x = x + proj
         hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        if fused is not None:
+        if fused is not None and "w_gu" in fused:
             gu = torch.einsum("bld,de->ble", hh, fused["w_gu"][i].to(dt))
             if w8:
                 gu = gu * fused["w_gu_s"][i]
@@ -376,6 +397,17 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
             mlp_out = torch.einsum("blf,fd->bld", F.silu(gate) * up, down)
             if w8:
                 mlp_out = mlp_out * fused["w_down_s"][i]
+        elif fused is not None and "w_in" in fused:
+            # int8 experts: the router, capacity and activation of
+            # transformer._mlp, so routing matches the native path exactly
+            from ..parallel.expert import moe_ffn
+
+            mlp_out = moe_ffn(
+                hh.reshape(b * l, cfg.d_model), lp["router"].to(dt),
+                fused["w_in"][i], fused["w_out"][i], k=cfg.expert_top_k,
+                capacity_factor=cfg.capacity_factor, activation=F.silu,
+                w_in_scale=fused["w_in_s"][i],
+                w_out_scale=fused["w_out_s"][i]).reshape(b, l, cfg.d_model)
         else:
             mlp_out, _ = transformer._mlp(cfg, hh, lp)
         x = x + mlp_out
@@ -514,6 +546,7 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
     if not cfg.causal:
         raise ValueError("generate requires causal=True (a bidirectional "
                          "encoder has no autoregressive decode)")
+    cfg = moe_dropfree(cfg)
     if weight_dtype not in ("native", "int8"):
         raise ValueError(
             f"weight_dtype must be 'native' or 'int8', got {weight_dtype!r}")

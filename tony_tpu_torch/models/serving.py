@@ -162,8 +162,12 @@ the JAX package's engines do.
   ["speculative"]`` has the counters. A round's result is read as a
   decode block's is: dispatch and admission wait for nothing.
 
-Not ported yet, each raising a named error: the mesh and its rule table,
-and MoE.
+- **MoE** (``n_experts > 0``): both engines, with or without a draft,
+  serve it through the same programs; the server's config routes
+  drop-free (``moe_dropfree``), so a token's MLP output depends on it
+  alone and padded or batched prefill rows change nothing.
+
+Not ported yet, each raising a named error: the mesh and its rule table.
 """
 
 from __future__ import annotations

@@ -15,8 +15,11 @@ sequence-parallel impls come with the mesh slice.
 The loss (``token_nll``, ``loss_fn``) dispatches on ``cfg.ce_impl``:
 blockwise cross-entropy (ops/cross_entropy.py) streams the vocabulary so the
 [B, L, V] logits never exist; dense materialises them. There is no mesh in
-this slice, so "auto" means blockwise at vocab >= 16384. MoE is not ported
-yet and raises; its config fields are kept so a config maps one to one.
+this slice, so "auto" means blockwise at vocab >= 16384.
+
+``n_experts > 0`` replaces every layer's SwiGLU MLP by the einsum-dispatch
+Mixture-of-Experts FFN (parallel/expert.py, silu experts) and adds its
+load-balancing loss times ``aux_loss_weight`` to the loss.
 
 ``remat=True`` runs each layer under ``torch.utils.checkpoint``
 (non-reentrant), with the JAX package's policies (``remat_policy``):
@@ -57,7 +60,7 @@ class TransformerConfig:
     rope_scaling: tuple | None = None
     dtype: torch.dtype = torch.bfloat16     # activation dtype
     param_dtype: torch.dtype = torch.float32
-    # MoE: n_experts=0 => dense SwiGLU MLP (MoE is not ported yet)
+    # MoE: n_experts=0 => dense SwiGLU MLP everywhere
     n_experts: int = 0
     expert_top_k: int = 2
     capacity_factor: float = 1.25
@@ -97,9 +100,6 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
     draws differ: torch and jax generators give different numbers from one
     seed; parity tests convert the JAX tree instead, models/convert.py).
     Layer params are stacked [n_layers, ...]."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, "
-                                  "MoE item)")
     pd, hd, L = cfg.param_dtype, cfg.head_dim, cfg.n_layers
 
     def dense(shape, in_size):
@@ -108,19 +108,26 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
     def ones(shape):
         return torch.ones(shape, dtype=pd, device=device)
 
+    layers = {
+        "attn_norm": ones((L, cfg.d_model)),
+        "wq": dense((L, cfg.d_model, cfg.n_heads, hd), cfg.d_model),
+        "wk": dense((L, cfg.d_model, cfg.n_kv_heads, hd), cfg.d_model),
+        "wv": dense((L, cfg.d_model, cfg.n_kv_heads, hd), cfg.d_model),
+        "wo": dense((L, cfg.n_heads, hd, cfg.d_model), cfg.n_heads * hd),
+        "mlp_norm": ones((L, cfg.d_model)),
+    }
+    e, f = cfg.n_experts, cfg.d_ff
+    if e > 0:
+        layers.update(router=dense((L, cfg.d_model, e), cfg.d_model),
+                      w_in=dense((L, e, cfg.d_model, f), cfg.d_model),
+                      w_out=dense((L, e, f, cfg.d_model), f))
+    else:
+        layers.update(w_gate=dense((L, cfg.d_model, f), cfg.d_model),
+                      w_up=dense((L, cfg.d_model, f), cfg.d_model),
+                      w_down=dense((L, f, cfg.d_model), f))
     return {
         "embed": dense((cfg.vocab_size, cfg.d_model), cfg.d_model),
-        "layers": {
-            "attn_norm": ones((L, cfg.d_model)),
-            "wq": dense((L, cfg.d_model, cfg.n_heads, hd), cfg.d_model),
-            "wk": dense((L, cfg.d_model, cfg.n_kv_heads, hd), cfg.d_model),
-            "wv": dense((L, cfg.d_model, cfg.n_kv_heads, hd), cfg.d_model),
-            "wo": dense((L, cfg.n_heads, hd, cfg.d_model), cfg.n_heads * hd),
-            "mlp_norm": ones((L, cfg.d_model)),
-            "w_gate": dense((L, cfg.d_model, cfg.d_ff), cfg.d_model),
-            "w_up": dense((L, cfg.d_model, cfg.d_ff), cfg.d_model),
-            "w_down": dense((L, cfg.d_ff, cfg.d_model), cfg.d_ff),
-        },
+        "layers": layers,
         "final_norm": ones((cfg.d_model,)),
         "unembed": dense((cfg.d_model, cfg.vocab_size), cfg.d_model),
     }
@@ -222,11 +229,23 @@ def _repeat_kv(cfg: TransformerConfig, k, v):
 
 
 def _mlp(cfg: TransformerConfig, h, lp):
-    """Dense SwiGLU MLP -> (out, aux_loss 0)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, "
-                                  "MoE item)")
+    """Post-attention MLP (dense SwiGLU, or MoE) -> (out, aux_loss).
+
+    MoE, as the JAX package's: the experts route on the router at cfg.dtype
+    (``moe_ffn`` upcasts that to float32), while the aux loss reads the
+    float32 router; at bf16 these are different numbers."""
     dt = cfg.dtype
+    if cfg.n_experts > 0:
+        from ..parallel.expert import load_balancing_loss, moe_ffn
+
+        b, l, d = h.shape
+        flat = h.reshape(b * l, d)
+        router_logits = flat.float() @ lp["router"].float()
+        out = moe_ffn(flat, lp["router"].to(dt), lp["w_in"].to(dt),
+                      lp["w_out"].to(dt), k=cfg.expert_top_k,
+                      capacity_factor=cfg.capacity_factor, activation=F.silu)
+        aux = load_balancing_loss(router_logits, cfg.expert_top_k)
+        return out.reshape(b, l, d), aux
     gate = F.silu(torch.einsum("bld,df->blf", h, lp["w_gate"].to(dt)))
     up = torch.einsum("bld,df->blf", h, lp["w_up"].to(dt))
     out = torch.einsum("blf,fd->bld", gate * up, lp["w_down"].to(dt))
@@ -350,9 +369,9 @@ def token_nll(x, unembed, targets, cfg: TransformerConfig,
 
 
 def loss_fn(params, tokens, targets, cfg: TransformerConfig):
-    """Next-token cross-entropy (+ MoE aux, 0 for the dense model); targets
-    [B, L] with -1 = pad. With blockwise CE the [B, L, V] logits never
-    exist, forward or backward."""
+    """Next-token cross-entropy (+ the MoE aux loss, 0 for a dense model);
+    targets [B, L] with -1 = pad. With blockwise CE the [B, L, V] logits
+    never exist, forward or backward."""
     x, aux = apply_hidden(params, tokens, cfg)
     return token_nll(x, params["unembed"], targets, cfg) + aux
 

@@ -30,11 +30,11 @@ import torch
 from ..parallel.ring_attention import NEG_INF
 from . import _build
 
-# dtypes and head dims the CUDA kernels are compiled for: the forward
-# takes head_dim 32 too (a small draft model's), the backward 64 and 128
+# dtypes and head dims the CUDA kernels are compiled for (head_dim 32 is
+# a small draft model's), forward and backward
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
-BWD_KERNEL_HEAD_DIMS = (64, 128)
+BWD_KERNEL_HEAD_DIMS = (32, 64, 128)
 
 # kernel launches since the last reset (see reset_launches)
 launches = 0              # flash_fwd
@@ -90,7 +90,7 @@ def _flash_fwd_reference(q, k, v, causal, scale, window):
 
 def flash_supported(q: torch.Tensor, backward: bool = False) -> bool:
     """The CUDA kernels' envelope, [B, H, L, D] layout: head dim 32, 64 or
-    128 (the backward: 64 or 128), float32 or bfloat16. (The TPU package's
+    128 (forward and backward), float32 or bfloat16. (The TPU package's
     `% 128` rule is a Mosaic tiling rule and does not apply here.)"""
     dims = BWD_KERNEL_HEAD_DIMS if backward else KERNEL_HEAD_DIMS
     return q.shape[-1] in dims and q.dtype in KERNEL_DTYPES
