@@ -179,7 +179,20 @@ and exits non-zero if any of them fails:
    step's device time, and at float32 generate's tokens against the
    plain path's up to a near-tie; (d) the SlotServer on the ring, the
    paged engine and the ring with a self-draft against solo generate;
-16. profile: a flagship decode step's and a flagship training step's
+16. mesh: (a) lm_train as a child process under the TonY env contract at
+   world 1 (TONY_COORDINATOR_ADDRESS on a free localhost port): train.init
+   joins an NCCL group and build_mesh makes the six-axis DeviceMesh, then
+   MESH_STEPS steps at the flagship width and training's shape with --mesh
+   fsdp=-1 (the sharded step) and --mesh seq=-1 (the flash ring at n = 1),
+   the flash kernels once a layer a step, the losses against the training
+   phase's first steps; (b) the flash ring's block schedule replayed in one
+   process (every rank's steps: full, diag or skip, the merge, the
+   backward with the dK/dV sums) at n = 2 and 4, bf16 at B8 H8 L2048 D128
+   and float32 at B2 H8 L1024 D128, held against the whole-sequence K1 and
+   K3-K5 and the plain versions, K1, dK/dV and dQ launched once a visible
+   step. Two ranks cannot share the card under NCCL, so no multi-rank
+   collective runs here;
+17. profile: a flagship decode step's and a flagship training step's
    (remat off and under each policy) host wall time against the device
    time torch.profiler records.
 
@@ -263,7 +276,7 @@ SERVE_PROMPT, SERVE_NEW = (64, 1536), (32, 128)
 PARITY_NEAR_TIE = 1e-3
 # checkpoints: lm_train saves every CKPT_EVERY steps; a straight run of
 # CKPT_STEPS steps against CKPT_SPLIT steps and a resumed run of the rest
-CKPT_STEPS, CKPT_EVERY, CKPT_SPLIT = 16, 5, 11
+CKPT_STEPS, CKPT_EVERY, CKPT_SPLIT = 11, 5, 6
 CKPT_ROOT = REPO / "build" / "chip_smoke" / "checkpoints"
 # speculative decoding: solo at the flagship's full width, float32, batch 1,
 # a SPEC_PROMPT-token prompt and SPEC_NEW new tokens, gamma SPEC_GAMMA;
@@ -1103,49 +1116,55 @@ def phase_bwd_kernels(torch, A) -> list:
 
 
 def _bwd_d32_times(torch, A, randn) -> dict:
-    """K3-K5 at head_dim 32, the draft-training shape (B8 H4 L512 bf16
-    causal: lm_train at lm_generate's default draft dims, batch 8 x 512):
-    each kernel and the whole backward against the bound (worked out as at
-    D = 128), the plain backward and SDPA's (fwd+bwd - fwd) ->
-    {kernel name: its row}."""
+    """K3-K5 at head_dim 32, the draft-training shape (B8 H4 L512 causal:
+    lm_train at lm_generate's default draft dims, batch 8 x 512), bf16 and
+    the float32 route: each kernel and the whole backward against the bound
+    (worked out as at D = 128, float32 products on the FP32 pipes), the
+    plain backward and SDPA's (fwd+bwd - fwd) -> {kernel name: {dtype
+    name: its row}}."""
     b, h, l, d = 8, 4, 512, 32
-    q, k, v, g = (randn(b, h, l, d) for _ in range(4))
-    out, lse = A._flash_fwd_cuda(q, k, v, True, None, None)
-    delta = A._delta(out, g, None).contiguous()
-    ms_kv = cuda_ms(lambda: A._flash_bwd_dkdv_cuda(q, k, v, g, lse, delta,
-                                                   True, None, None), 20)
-    ms_dq = cuda_ms(lambda: A._flash_bwd_dq_cuda(q, k, v, g, lse, delta,
-                                                 True, None, None), 20)
-    ms_whole = cuda_ms(lambda: A._flash_bwd_cuda(q, k, v, out, lse, g, None,
-                                                 True, None, None), 20)
-    plain = cuda_ms(lambda: A._flash_bwd_reference(q, k, v, out, lse, g, None,
-                                                   True, None, None), 5,
-                    warmup=1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.enable_grad():
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        lib_fb = cuda_ms(lambda: torch.autograd.grad(
-            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), g), 20)
-        lib_f = cuda_ms(lambda: sdpa(qg, kg, vg, is_causal=True), 20)
-    lib = lib_fb - lib_f
-    pairs = visible_pairs(l, l, True, None) * b * h
-    x, rowf = b * h * l * d * 2, b * h * l * 4
-    b_kv, by_kv = bound(8 * d * pairs, 4 * x + 2 * rowf + 2 * x,
-                        PEAK_BF16_FLOPS)
-    b_dq, by_dq = bound(6 * d * pairs, 4 * x + 2 * rowf + x, PEAK_BF16_FLOPS)
-    b_w, by_w = bound(10 * d * pairs, 5 * x + rowf + 3 * x, PEAK_BF16_FLOPS)
-    shape = f"B{b} H{h} L{l} D{d} bf16 causal"
-    print(f"time flash_bwd {shape}: dkdv {ms_kv:.4f} ms (bound {b_kv:.4f} "
-          f"{by_kv}), dq {ms_dq:.4f} ms (bound {b_dq:.4f} {by_dq}), whole "
-          f"{ms_whole:.4f} ms (plain {plain:.4f}, sdpa backward {lib:.4f} = "
-          f"{lib_fb:.4f} fwd+bwd - {lib_f:.4f} fwd, bound {b_w:.4f} {by_w})")
-    common = dict(shape=shape, whole_ms=ms_whole, whole_bound_ms=b_w,
-                  whole_bound_by=by_w, plain_ms=plain, library_ms=lib,
-                  library_fwd_bwd_ms=lib_fb, library_fwd_ms=lib_f)
-    return {"flash_bwd_dkdv": dict(common, ms=ms_kv, bound_ms=b_kv,
-                                   bound_by=by_kv),
-            "flash_bwd_dq": dict(common, ms=ms_dq, bound_ms=b_dq,
-                                 bound_by=by_dq)}
+    out_rows = {"flash_bwd_dkdv": {}, "flash_bwd_dq": {}}
+    for dt, peak in ((torch.bfloat16, PEAK_BF16_FLOPS),
+                     (torch.float32, PEAK_F32_FLOPS)):
+        q, k, v, g = (randn(b, h, l, d, dtype=dt) for _ in range(4))
+        out, lse = A._flash_fwd_cuda(q, k, v, True, None, None)
+        delta = A._delta(out, g, None).contiguous()
+        ms_kv = cuda_ms(lambda: A._flash_bwd_dkdv_cuda(
+            q, k, v, g, lse, delta, True, None, None), 20)
+        ms_dq = cuda_ms(lambda: A._flash_bwd_dq_cuda(
+            q, k, v, g, lse, delta, True, None, None), 20)
+        ms_whole = cuda_ms(lambda: A._flash_bwd_cuda(
+            q, k, v, out, lse, g, None, True, None, None), 20)
+        plain = cuda_ms(lambda: A._flash_bwd_reference(
+            q, k, v, out, lse, g, None, True, None, None), 5, warmup=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.enable_grad():
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_fb = cuda_ms(lambda: torch.autograd.grad(
+                sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), g), 20)
+            lib_f = cuda_ms(lambda: sdpa(qg, kg, vg, is_causal=True), 20)
+        lib = lib_fb - lib_f
+        pairs = visible_pairs(l, l, True, None) * b * h
+        x, rowf = b * h * l * d * q.element_size(), b * h * l * 4
+        b_kv, by_kv = bound(8 * d * pairs, 4 * x + 2 * rowf + 2 * x, peak)
+        b_dq, by_dq = bound(6 * d * pairs, 4 * x + 2 * rowf + x, peak)
+        b_w, by_w = bound(10 * d * pairs, 5 * x + rowf + 3 * x, peak)
+        name = str(dt)[6:]
+        shape = f"B{b} H{h} L{l} D{d} {name} causal"
+        print(f"time flash_bwd {shape}: dkdv {ms_kv:.4f} ms (bound "
+              f"{b_kv:.4f} {by_kv}), dq {ms_dq:.4f} ms (bound {b_dq:.4f} "
+              f"{by_dq}), whole {ms_whole:.4f} ms (plain {plain:.4f}, sdpa "
+              f"backward {lib:.4f} = {lib_fb:.4f} fwd+bwd - {lib_f:.4f} fwd, "
+              f"bound {b_w:.4f} {by_w})")
+        common = dict(shape=shape, whole_ms=ms_whole, whole_bound_ms=b_w,
+                      whole_bound_by=by_w, plain_ms=plain, library_ms=lib,
+                      library_fwd_bwd_ms=lib_fb, library_fwd_ms=lib_f)
+        out_rows["flash_bwd_dkdv"][name] = dict(common, ms=ms_kv,
+                                                bound_ms=b_kv, bound_by=by_kv)
+        out_rows["flash_bwd_dq"][name] = dict(common, ms=ms_dq, bound_ms=b_dq,
+                                              bound_by=by_dq)
+        del q, k, v, g, out, lse, delta, qg, kg, vg
+    return out_rows
 
 
 def _tree_bytes(tree) -> int:
@@ -6051,6 +6070,193 @@ def phase_moe(torch, ops, lm_train, lm_generate, A, G, T) -> dict:
     return totals
 
 
+# ------------------------------------------------------------------- mesh
+
+MESH_STEPS = 3
+MESH_MESHES = ("fsdp=-1", "seq=-1")
+MESH_LOSS_ATOL = 3e-2
+MESH_RING_N = (2, 4)
+# (shape B, H, L, D; out and lse tolerance; gradient tolerance), causal
+MESH_RING_CASES = {"bfloat16": ((8, 8, 2048, 128), (3e-2, 3e-2), (3e-2, 3e-2)),
+                   "float32": ((2, 8, 1024, 128), (2e-5, 2e-5), (1e-4, 1e-4))}
+
+# the child of the mesh phase's (a): lm_train under the TonY env contract,
+# once a mesh, its launches counted in the child
+_MESH_CHILD = r"""
+import importlib, json, sys
+import torch.distributed as dist
+from tony_tpu_torch import ops
+from tony_tpu_torch.examples import lm_train
+R = importlib.import_module("tony_tpu_torch.parallel.ring_attention")
+ring_fwd, calls = R.ring_flash_fwd_rank, []
+def counted(*args, **kwargs):
+    calls.append(1)
+    return ring_fwd(*args, **kwargs)
+R.ring_flash_fwd_rank = counted
+runs, argv = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+out = []
+for mesh, metrics in runs:
+    ops.reset_launch_counts()
+    calls.clear()
+    rc = lm_train.main(argv + ["--mesh", mesh, "--metrics-out", metrics])
+    out.append({"mesh": mesh, "rc": rc, "launches": ops.launch_counts(),
+                "ring_forwards": len(calls)})
+dist.destroy_process_group()
+print("mesh_child " + json.dumps(out))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_bootstrap(train_losses) -> dict:
+    """(a): lm_train as a child process under the TonY env contract at world
+    1 (TONY_COORDINATOR_ADDRESS on a free localhost port): train.init joins
+    an NCCL group and build_mesh makes a DeviceMesh, then MESH_STEPS steps
+    at the flagship width and training's shape with --mesh fsdp=-1 (the
+    sharded step) and --mesh seq=-1 (the flash ring at n = 1), each against
+    the training phase's first steps."""
+    out_dir = REPO / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = [(m, str(out_dir / f"mesh_{i}.json"))
+            for i, m in enumerate(MESH_MESHES)]
+    argv = FLAGSHIP + ["--batch-size", str(TRAIN_BATCH), "--seq-len",
+                       str(TRAIN_SEQ), "--steps", str(MESH_STEPS)]
+    env = dict(os.environ, TONY_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               TONY_PROCESS_ID="0", TONY_NUM_PROCESSES="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _MESH_CHILD, json.dumps(runs),
+                           json.dumps(argv)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"mesh (a): the lm_train child exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    joined = [ln for ln in proc.stdout.splitlines()
+              if ln.startswith("process 0/1:")]
+    if len(joined) != len(runs) or not all(" nccl on cuda" in ln
+                                           for ln in joined):
+        fail(f"mesh (a): expected an NCCL group a run, got {joined}")
+    child = json.loads([ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("mesh_child ")][-1][11:])
+    want = {"flash_fwd": MESH_STEPS * N_LAYERS, "flash_decode": 0,
+            "flash_bwd_dkdv": MESH_STEPS * N_LAYERS,
+            "flash_bwd_dq": MESH_STEPS * N_LAYERS}
+    totals = dict.fromkeys(want, 0)
+    rows = []
+    for (mesh, metrics), rec, line in zip(runs, child, joined):
+        # the ring's forward runs once a layer a step under seq=-1
+        rings = MESH_STEPS * N_LAYERS if mesh.startswith("seq") else 0
+        if (rec["rc"] != 0 or rec["launches"] != want
+                or rec["ring_forwards"] != rings):
+            fail(f"mesh (a) --mesh {mesh}: rc {rec['rc']}, launches "
+                 f"{rec['launches']}, ring forwards {rec['ring_forwards']}, "
+                 f"expected {want} and {rings}")
+        m = json.loads(Path(metrics).read_text())
+        losses = m["losses"]
+        err = max(abs(a - b) for a, b in zip(losses, train_losses))
+        if len(losses) != MESH_STEPS or not all(map(math.isfinite, losses)) \
+                or err > MESH_LOSS_ATOL:
+            fail(f"mesh (a) --mesh {mesh}: losses {losses} against the "
+                 f"training phase's {train_losses[:MESH_STEPS]} (atol "
+                 f"{MESH_LOSS_ATOL})")
+        for k, n in rec["launches"].items():
+            totals[k] += n
+        rows.append(dict(mesh=mesh, joined=line, mesh_sizes=m["mesh"],
+                         losses=losses, max_loss_diff=err,
+                         bitwise=losses == train_losses[:MESH_STEPS],
+                         steps_per_sec=m["steps_per_sec"],
+                         launches=rec["launches"],
+                         ring_forwards=rec["ring_forwards"]))
+        print(f"mesh (a) --mesh {mesh}: {line}; losses {losses} against "
+              f"the training phase's {train_losses[:MESH_STEPS]}: max |diff| "
+              f"{err:.3g} (atol {MESH_LOSS_ATOL}); launches "
+              f"{rec['launches']}, ring forwards {rec['ring_forwards']}")
+    return dict(runs=rows, child_wall_s=wall, launches=totals)
+
+
+def _mesh_ring_replay(torch, ops, A, R) -> list:
+    """(b): the flash ring's schedule replayed in one process
+    (replay_ring_flash: every rank's forward and backward over the blocks
+    it would receive) at n = 2 and 4, held against the whole-sequence K1
+    and K3-K5 and against the plain versions; K1, dK/dV and dQ launched
+    once a visible step."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    rows = []
+    for name, (shape, tol_o, tol_g) in MESH_RING_CASES.items():
+        dt = getattr(torch, name)
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev, dtype=dt)
+                      for _ in range(4))
+        out_k, lse_k = A._flash_fwd_cuda(q, k, v, True, None, None)
+        grads_k = A._flash_bwd_cuda(q, k, v, out_k, lse_k, g, None, True,
+                                    None, None)
+        out_p, lse_p = A._flash_fwd_reference(q, k, v, True, None, None)
+        grads_p = A._flash_bwd_reference(q, k, v, out_p, lse_p, g, None,
+                                         True, None, None)
+        want = {"kernels": dict(out=out_k, lse=lse_k, dq=grads_k[0],
+                                dk=grads_k[1], dv=grads_k[2]),
+                "plain": dict(out=out_p, lse=lse_p, dq=grads_p[0],
+                              dk=grads_p[1], dv=grads_p[2])}
+        label = "B{} H{} L{} D{}".format(*shape) + f" {name} causal"
+        for n in MESH_RING_N:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = R.replay_ring_flash(q, k, v, g, n, causal=True)
+            end.record()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            steps = n * (n + 1) // 2
+            expect = {"flash_fwd": steps, "flash_decode": 0,
+                      "flash_bwd_dkdv": steps, "flash_bwd_dq": steps}
+            if counts != expect:
+                fail(f"mesh (b) {label} n={n}: launches {counts}, expected "
+                     f"{expect}")
+            errs = {}
+            for against, ref in want.items():
+                for key, w in ref.items():
+                    tol = tol_o if key in ("out", "lse") else tol_g
+                    errs[f"{key} vs {against}"] = compare(
+                        f"mesh (b) {label} n={n} {key} vs {against}",
+                        got[key], w, tol)
+            rows.append(dict(shape=label, n=n, launches=counts,
+                             visible_steps=steps, max_abs_err=errs,
+                             tolerance={"out, lse": tol_o, "grads": tol_g},
+                             replay_ms=start.elapsed_time(end)))
+            print(f"mesh (b) {label}, ring of {n}: {steps} visible steps a "
+                  f"pass, launches {counts}; max |err| "
+                  + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+                  + f" (atol + rtol: out, lse {tol_o}, gradients {tol_g}); "
+                  f"the replay {start.elapsed_time(end):.2f} ms")
+        del q, k, v, g, out_k, lse_k, grads_k, out_p, lse_p, grads_p, want, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh(torch, ops, A, train_losses) -> dict:
+    """Multi-process training's pieces on the one card: (a) the bootstrap
+    over NCCL and the sharded step at world 1 through lm_train, (b) the
+    ring's block schedule replayed at n = 2 and 4 (several ranks cannot
+    share one card under NCCL: PERF.md). Returns (a)'s launches."""
+    print("== main path: mesh")
+    import importlib
+
+    R = importlib.import_module("tony_tpu_torch.parallel.ring_attention")
+    boot = _mesh_bootstrap(train_losses)
+    ring = _mesh_ring_replay(torch, ops, A, R)
+    print("mesh " + json.dumps(dict(bootstrap=boot, ring=ring,
+                                    card=nvidia_smi_line())))
+    return boot["launches"]
+
+
 def phase_hf(torch, ops, lm_generate, G, serve) -> dict:
     """A checkpoint in HF's layout at Llama-3.1-8B's widths (HF_CONFIG,
     HF_LAYERS layers, bf16, two shards), written here and read by the
@@ -6502,7 +6708,13 @@ def phase_profile(torch, G, T) -> None:
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    # a crash inside a native library (the profiler, CUDA) prints every
+    # thread's Python stack before the process dies
+    faulthandler.enable()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -6551,12 +6763,13 @@ def main() -> int:
                           lm_train, lm_generate, serve, G, T)
     moe_launches = timed("moe", phase_moe, torch, ops, lm_train, lm_generate,
                          A, G, T)
+    mesh_launches = timed("mesh", phase_mesh, torch, ops, A, train_losses)
     launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
                 + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
                 + replay_launches[k] + stream_launches[k]
                 + paged_launches[k] + telemetry_launches[k]
                 + disagg_launches[k] + hf_launches[k] + spec_launches[k]
-                + moe_launches[k] for k in gen_launches}
+                + moe_launches[k] + mesh_launches[k] for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

@@ -41,7 +41,14 @@ for name in ("tony_tpu_torch.train.checkpoint",
              "tony_tpu_torch.observability", "tony_tpu_torch.metrics",
              "tony_tpu_torch.events.trace",
              "tony_tpu_torch.tools.serving_ab",
-             "tony_tpu_torch.models.hf_import"):
+             "tony_tpu_torch.tools.reaper_ab",
+             "tony_tpu_torch.models.hf_import",
+             "tony_tpu_torch.parallel.mesh", "tony_tpu_torch.parallel.sharding",
+             "tony_tpu_torch.parallel.spmd",
+             "tony_tpu_torch.parallel.collectives",
+             "tony_tpu_torch.parallel.ring_attention",
+             "tony_tpu_torch.parallel.ulysses",
+             "tony_tpu_torch.train.bootstrap", "tony_tpu_torch.data.loader"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -120,7 +127,7 @@ def test_lm_generate_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--tensor-parallel", "2"], "mesh/TP"),
+    (["--tensor-parallel", "2"], "TP decode and serving"),
 ])
 def test_lm_generate_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):

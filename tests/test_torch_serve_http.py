@@ -442,7 +442,7 @@ def test_serve_prefix_cache_flags_and_stats():
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--mesh", "tensor=2"], "mesh/TP"),
+    (["--mesh", "tensor=2"], "TP decode and serving"),
 ])
 def test_cli_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):

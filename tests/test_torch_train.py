@@ -304,8 +304,8 @@ def test_step_timer_records(tmp_path):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--mesh", "seq=2"], "mesh/TP"),
-    (["--mesh", "data=2"], "mesh/TP"),
+    (["--mesh", "expert=1,pipe=2,data=1"], "pipeline schedules"),
+    (["--mesh", "expert=2,data=1"], "expert sharding"),
 ])
 def test_lm_train_flags_not_yet_ported(flags, what):
     with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):
@@ -318,7 +318,7 @@ def test_bootstrap_single_process_only(monkeypatch):
     info = ptrain.init()
     assert info["num_processes"] == 1 and info["num_devices"] >= 1
     monkeypatch.setenv("TONY_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="mesh/TP"):
+    with pytest.raises(RuntimeError, match="no rendezvous"):
         ptrain.init()
     monkeypatch.setenv("TONY_JOB_NAME", "worker")
     monkeypatch.setenv("TONY_TASK_INDEX", "3")
@@ -326,12 +326,16 @@ def test_bootstrap_single_process_only(monkeypatch):
     t = ptrain.task_info()
     assert (t["job_name"], t["task_index"], t["is_chief"]) == ("worker", 3,
                                                                True)
-    with pytest.raises(NotImplementedError, match="mesh/TP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ptrain.create_train_step(T.TransformerConfig(), {"data": 2},
                                  device="cpu")
-    assert ptrain.mesh_from_string("fsdp=-1,tensor=1")["fsdp"] == 1
+    from tony_tpu_torch.parallel import mesh_from_string, parse_mesh
+
+    assert parse_mesh("fsdp=-1,tensor=1").resolve(1)["fsdp"] == 1
     with pytest.raises(ValueError, match="unknown mesh axis"):
-        ptrain.mesh_from_string("model=2")
+        parse_mesh("model=2")
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh_from_string("data=2")
 
 
 def test_training_entry_points_need_a_card_unless_told_otherwise(monkeypatch):

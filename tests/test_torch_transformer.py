@@ -119,7 +119,7 @@ def test_rope_rejects_unknown_scaling():
 
 def test_attention_dispatch():
     """"ref" is the plain attention everywhere; the sequence-parallel impls
-    are not ported and name their ROADMAP item; bad windows raise."""
+    need a mesh, as the JAX package's do; bad windows raise."""
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 6, 2, 8))
                                 .astype(np.float32)) for _ in range(3))
@@ -128,7 +128,7 @@ def test_attention_dispatch():
         out = T._attention(q, k, v, dataclasses.replace(cfg, attn_impl=impl))
         assert out.shape == q.shape
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="requires a mesh"):
             T._attention(q, k, v, dataclasses.replace(cfg, attn_impl=impl))
     with pytest.raises(ValueError, match="unknown attn_impl"):
         T._attention(q, k, v, dataclasses.replace(cfg, attn_impl="nope"))

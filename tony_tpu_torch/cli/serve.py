@@ -284,7 +284,7 @@ def build_argparser() -> argparse.ArgumentParser:
 # flag -> (is it set off the JAX package's default?, ROADMAP.md queue-1
 # item)
 _NOT_PORTED_FLAGS = {
-    "--mesh": (lambda a: a.mesh, "mesh/TP"),
+    "--mesh": (lambda a: a.mesh, "TP decode and serving"),
 }
 
 

@@ -17,6 +17,12 @@ ENV_COORDINATOR_ADDRESS = "TONY_COORDINATOR_ADDRESS"
 ENV_PROCESS_ID = "TONY_PROCESS_ID"
 ENV_NUM_PROCESSES = "TONY_NUM_PROCESSES"
 
+# multi-slice contract: which slice this task's host belongs to and how many
+# slices the job spans (a "slice" is a node of cards for the port:
+# parallel/mesh.py build_hybrid_mesh)
+ENV_SLICE_ID = "TONY_SLICE_ID"
+ENV_NUM_SLICES = "TONY_NUM_SLICES"
+
 # preemption-drain flag file: the executor writes `$TONY_STEP_LOG<suffix>`
 # when the job is being preempted; the StepTimer polls for it and the
 # training loop exits EXIT_PREEMPTED at the next step boundary

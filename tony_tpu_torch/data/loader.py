@@ -7,14 +7,18 @@ which are numpy code).
    stream, and the same seed gives byte-identical batches to the JAX
    package's loader.
 2. **Per-process sharding.** Process p takes rows ``p::process_count`` of
-   each global batch. The port runs one process until the mesh slice, so
-   its callers pass (0, 1); the arguments are kept so the two loaders stay
-   one to one.
+   each global batch, and with ``seq_shard_count`` > 1 only its slice of
+   the sequence. ``loader_shard_info`` and ``seq_shard_info`` read both
+   from the mesh.
 3. **Host-side prefetch.** A background thread assembles the next batch
    while the device runs the current step. ``close()`` joins the thread.
 
-The JAX package's mesh helpers (``device_put_sharded_batch``,
-``loader_shard_info``, ``seq_shard_info``) come with the mesh slice.
+The port runs one process a card, so a process's place on the mesh is its
+rank's coordinate: its batch shard is its coordinate over the batch axes
+(the JAX package's ``(process_index, process_count)`` whenever those axes
+span every process, as on a data or fsdp mesh) and its sequence shard its
+coordinate on the ``act_seq`` axis. Ranks that differ only along the
+tensor axis load the same rows.
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ import queue
 import threading
 
 import numpy as np
+import torch
 
+from ..parallel.mesh import mesh_shape
+from ..parallel.sharding import DP_RULES as _DP_RULES, mesh_shards_rule
 from .dataset import TokenDataset
 
 
@@ -240,4 +247,69 @@ class PrefetchLoader:
         self._thread.join(timeout=5)
 
 
-__all__ = ["ShardedBatchLoader", "PrefetchLoader"]
+# the "batch" row of the rule tables is the one source of which mesh axes
+# consume the batch (parallel/sharding.py DP_RULES); callers with their own
+# table pass rules= so the loader and the train step cannot diverge
+BATCH_AXES = tuple(_DP_RULES["batch"])
+
+
+def sharded_batch_axes(mesh, batch_axes=BATCH_AXES, rules=None) -> tuple:
+    """The subset of the batch axes the mesh actually shards (>1 devices)."""
+    return mesh_shards_rule(mesh, rules, "batch", default=batch_axes)
+
+
+def _coord(mesh, process_index: int) -> dict:
+    """{axis: coordinate} of a rank on the mesh."""
+    where = (mesh.mesh == process_index).nonzero()
+    if where.shape[0] != 1:
+        raise ValueError(f"rank {process_index} is not on the mesh")
+    return dict(zip(mesh.mesh_dim_names, where[0].tolist()))
+
+
+def loader_shard_info(mesh, process_index: int, process_count: int,
+                      batch_axes=BATCH_AXES, rules=None) -> tuple[int, int]:
+    """(process_index, process_count) a ShardedBatchLoader should use on this
+    mesh: the rank's shard of the batch axes the mesh shards (its coordinate
+    over them, major to minor, and their size), or (0, 1) when it shards
+    none (seq/tensor-only meshes: every process loads the same full batch;
+    the loader's (seed, step) determinism makes that coordination-free)."""
+    axes = sharded_batch_axes(mesh, batch_axes, rules)
+    if not axes:
+        return 0, 1
+    if mesh.mesh.numel() != process_count:
+        raise ValueError(f"a mesh of {mesh.mesh.numel()} ranks for "
+                         f"{process_count} processes")
+    shape, coord = mesh_shape(mesh), _coord(mesh, process_index)
+    index, count = 0, 1
+    for a in axes:
+        index, count = index * shape[a] + coord[a], count * shape[a]
+    return index, count
+
+
+def seq_shard_info(mesh, process_index: int, rules=None) -> tuple[int, int]:
+    """(seq_shard_index, seq_shard_count) a ShardedBatchLoader should use on
+    this mesh, the data-plane half of ring/Ulysses sequence parallelism:
+    the rank's coordinate on the ``act_seq`` axis (default ``seq``) and its
+    size, or (0, 1) when the mesh does not shard the sequence."""
+    seq_axes = mesh_shards_rule(mesh, rules, "act_seq", default=("seq",))
+    if not seq_axes:
+        return 0, 1
+    axis = seq_axes[0]
+    return _coord(mesh, process_index)[axis], mesh_shape(mesh)[axis]
+
+
+def device_put_sharded_batch(batch, mesh, device=None):
+    """This process's [local_batch, seq] numpy arrays (what the loader gave
+    it under ``loader_shard_info``/``seq_shard_info``) as int64 tensors on
+    its card (the mesh's device type; ``device`` overrides), the block the
+    sharded train step takes."""
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh is not None and mesh.device_type == "cuda"
+                  else torch.device("cpu"))
+    return tuple(torch.from_numpy(x).to(device, torch.int64) for x in batch)
+
+
+__all__ = ["ShardedBatchLoader", "PrefetchLoader", "BATCH_AXES",
+           "sharded_batch_axes", "loader_shard_info", "seq_shard_info",
+           "device_put_sharded_batch"]

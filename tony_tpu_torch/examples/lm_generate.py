@@ -71,9 +71,9 @@ def _load_draft(args, dtype, device, gen):
     return prepare_decode(d_params, d_cfg), d_cfg
 
 
-def _not_ported(flag: str, slice_name: str):
+def _not_ported(flag: str, item: str):
     raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
-                     f"(it comes with the {slice_name} slice)")
+                     f"(ROADMAP.md queue 1, {item})")
 
 
 def main(argv=None) -> int:
@@ -133,7 +133,7 @@ def main(argv=None) -> int:
         raise SystemExit("speculative decode is single-device greedy "
                          "(drop --tensor-parallel / --temperature)")
     if args.tensor_parallel > 1:
-        _not_ported("--tensor-parallel", "mesh/TP")
+        _not_ported("--tensor-parallel", "TP decode and serving")
 
     import torch
 

@@ -1,5 +1,5 @@
-"""Train the flagship transformer on one GPU (port of the JAX package's
-examples/lm_train.py, single-device paths).
+"""Train the flagship transformer (port of the JAX package's
+examples/lm_train.py).
 
     python -m tony_tpu_torch.examples.lm_train \
         --vocab 32768 --d-model 1024 --n-layers 12 --n-heads 8 --d-ff 4096 \
@@ -30,11 +30,24 @@ the backward runs the flash forward again (twice a layer a step), under
 
 ``--n-experts`` > 0 trains the Mixture-of-Experts model (top-2 routing,
 capacity factor 1.25, the load-balancing loss in the loss: the JAX
-package's defaults); on one device there is no expert axis to shard, so
-the JAX script's expert rules have nothing to place.
+package's defaults).
 
-Not ported yet, raising: a ``--mesh`` wider than one device (mesh/TP); a
-multi-process job raises in ``train.init``.
+Under the TonY env contract (TONY_COORDINATOR_ADDRESS, TONY_PROCESS_ID,
+TONY_NUM_PROCESSES) the script joins the job through ``train.init`` (NCCL
+on the card, gloo with ``--device cpu``) and trains on ``--mesh`` over
+every rank: ``DP_RULES`` and ring attention when the mesh string names the
+``seq`` axis (``seq=-1`` included, which on one rank is a ring of one),
+else ``FSDP_TP_RULES``, with ``EP_RULES`` merged in for ``--n-experts``.
+Each rank loads its own rows and sequence slice (``loader_shard_info``,
+``seq_shard_info``; synthetic batch i is made whole on every rank and
+sliced the same way), so the losses are the one-process run's. Rank 0
+alone prints, writes ``--metrics-out`` and writes checkpoints (every rank
+takes part in a save's gather). Without the contract the script runs one
+process on one device, and ``--mesh`` must resolve to one device.
+
+Not ported yet, raising: a ``pipe`` or ``expert`` axis wider than one
+(ROADMAP.md queue 1, pipeline schedules and expert sharding), and
+Mixture-of-Experts on a mesh wider than one device.
 """
 
 from __future__ import annotations
@@ -46,17 +59,19 @@ import os
 import time
 
 
-def _not_ported(flag: str, slice_name: str):
+def _not_ported(flag: str, item: str):
     raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
-                     f"(it comes with the {slice_name} slice)")
+                     f"(ROADMAP.md queue 1, {item})")
 
 
 def _copy_into(dst: dict, src: dict) -> None:
-    """Copy a restored tree into the live one: tensors in place, Python
-    scalars (the optimizer's count) by assignment."""
+    """Copy a restored tree into the live one: tensors in place (a DTensor's
+    local block), Python scalars (the optimizer's count) by assignment."""
     for key, value in src.items():
         if isinstance(value, dict):
             _copy_into(dst[key], value)
+        elif hasattr(value, "to_local"):
+            dst[key].to_local().copy_(value.to_local())
         elif hasattr(value, "copy_"):
             dst[key].copy_(value)
         else:
@@ -69,8 +84,8 @@ def main(argv=None) -> int:
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--seq-len", type=int, default=256)
     parser.add_argument("--mesh", default="fsdp=-1",
-                        help="one device only: 'fsdp=-1' (the default) is "
-                             "the one card")
+                        help="e.g. 'data=2,fsdp=2,tensor=2' or 'seq=8' "
+                             "over the job's ranks")
     parser.add_argument("--d-model", type=int, default=256)
     parser.add_argument("--n-layers", type=int, default=4)
     parser.add_argument("--n-heads", type=int, default=8)
@@ -107,17 +122,45 @@ def main(argv=None) -> int:
 
     from tony_tpu_torch import train
     from tony_tpu_torch.constants import ENV_STEP_LOG, EXIT_PREEMPTED
+    from tony_tpu_torch.data import (
+        device_put_sharded_batch, loader_shard_info, seq_shard_info,
+    )
     from tony_tpu_torch.device import resolve_device
     from tony_tpu_torch.models import transformer
     from tony_tpu_torch.models.convert import torch_dtype
+    from tony_tpu_torch.parallel import (
+        DP_RULES, EP_RULES, FSDP_TP_RULES, merge_rules, mesh_from_string,
+        parse_mesh,
+    )
+    from tony_tpu_torch.parallel.mesh import mesh_shape
     from tony_tpu_torch.train.profiling import StepTimer, trace
 
+    spec = parse_mesh(args.mesh)
+    if spec.pipe != 1 or spec.expert != 1:
+        _not_ported(f"--mesh {args.mesh}",
+                    "pipeline schedules and expert sharding")
+    info = train.init(device=args.device)
     try:
-        mesh = train.mesh_from_string(args.mesh)
-    except NotImplementedError:
-        _not_ported(f"--mesh {args.mesh}", "mesh/TP")
-    train.init()   # raises for a multi-process job
-    device = resolve_device(args.device)
+        sizes = spec.resolve(info["num_processes"])
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from e
+    device = resolve_device(info.get("device") or args.device)
+    chief = info["process_id"] == 0
+    mesh, rules = None, None
+    use_ring = spec.seq != 1
+    if info["backend"] is not None:
+        mesh = mesh_from_string(args.mesh, device.type)
+        rules = merge_rules(DP_RULES if use_ring else FSDP_TP_RULES,
+                            EP_RULES if args.n_experts else {})
+        print(f"process {info['process_id']}/{info['num_processes']}: "
+              f"{info['backend']} on {device}, mesh {mesh_shape(mesh)}")
+    flag_group = None
+    if mesh is not None and info["num_processes"] > 1:
+        import torch.distributed as dist
+
+        # the ranks agree on a drain over gloo, on a host tensor, so the
+        # check at every step never waits for the card
+        flag_group = dist.new_group(backend="gloo")
     cfg = transformer.TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads, n_kv_heads=args.n_heads, d_ff=args.d_ff,
@@ -125,11 +168,24 @@ def main(argv=None) -> int:
         dtype=torch_dtype(args.dtype), remat=args.remat,
         remat_policy=args.remat_policy,
     )
-    bundle = train.create_train_step(cfg, mesh, device=device)
+    try:
+        bundle = train.create_train_step(
+            cfg, mesh, rules=rules, device=device,
+            sp_impl="ring" if use_ring and mesh is not None else None)
+    except NotImplementedError as e:
+        raise SystemExit(f"not yet ported: {e}") from e
     params, opt_state = bundle.params, bundle.opt_state
     n_params = transformer.num_params(params)
-    print(f"model: {n_params / 1e6:.1f}M params | mesh {mesh} | device "
-          f"{device}")
+    if chief:
+        print(f"model: {n_params / 1e6:.1f}M params | mesh {sizes} | "
+              f"ring={use_ring and mesh is not None} | device {device}")
+    # this rank's rows and sequence slice of every global batch
+    pi, pc = (loader_shard_info(mesh, info["process_id"],
+                                info["num_processes"], rules=bundle.rules)
+              if mesh is not None else (0, 1))
+    si, sc = (seq_shard_info(mesh, info["process_id"], rules=bundle.rules)
+              if mesh is not None else (0, 1))
+    cols = slice(si * args.seq_len // sc, (si + 1) * args.seq_len // sc)
 
     start_step = 0
     mgr = None
@@ -148,7 +204,8 @@ def main(argv=None) -> int:
                 _copy_into({"params": params, "opt_state": opt_state},
                            restored)
             start_step = latest + 1
-            print(f"resumed from checkpoint step {latest}")
+            if chief:
+                print(f"resumed from checkpoint step {latest}")
 
     loader = None
     if args.data:
@@ -171,27 +228,30 @@ def main(argv=None) -> int:
         val_dataset = None
         if args.eval_every > 0:
             dataset, val_dataset = dataset.split(args.eval_frac)
+        shards = dict(process_index=pi, process_count=pc,
+                      seq_shard_index=si, seq_shard_count=sc)
         loader = PrefetchLoader(ShardedBatchLoader(
             dataset, args.batch_size, args.seq_len, seed=args.data_seed,
-            start_step=start_step))
+            start_step=start_step, **shards))
         if val_dataset is not None:
             try:
                 val_loader = ShardedBatchLoader(
-                    val_dataset, args.batch_size, args.seq_len, seed=0)
+                    val_dataset, args.batch_size, args.seq_len, seed=0,
+                    **shards)
             except ValueError as e:
                 raise SystemExit(
                     f"eval split too small for evaluation ({e}); raise "
                     "--eval-frac or lower --batch-size/--seq-len") from e
 
     def to_device(batch):
-        return tuple(torch.from_numpy(x).to(device, torch.int64)
-                     for x in batch)
+        return device_put_sharded_batch(batch, mesh, device=device)
 
     def next_batch(step_i):
         if loader is None:
             gen = torch.Generator(device=device).manual_seed(step_i)
-            return train.synthetic_lm_batch(gen, args.batch_size,
-                                            args.seq_len, args.vocab)
+            tokens, targets = train.synthetic_lm_batch(
+                gen, args.batch_size, args.seq_len, args.vocab)
+            return tokens[pi::pc, cols], targets[pi::pc, cols]
         return to_device(next(loader))
 
     def run_eval(params) -> float:
@@ -202,7 +262,9 @@ def main(argv=None) -> int:
             vt, vy = to_device(val_loader.batch_at(i))
             total += float(bundle.eval_fn(params, vt, vy))
         loss = total / max(n, 1)
-        print(f"  eval: loss {loss:.4f} ppl {math.exp(min(loss, 30)):.2f}")
+        if chief:
+            print(f"  eval: loss {loss:.4f} ppl "
+                  f"{math.exp(min(loss, 30)):.2f}")
         return loss
 
     # TONY_STEP_LOG (set by the executor): the step-time JSONL the task
@@ -223,6 +285,16 @@ def main(argv=None) -> int:
         # next steps
         mgr.save_async(step_i, {"params": params, "opt_state": opt_state})
         timer.note_checkpoint(step_i)
+
+    def preempt_now() -> bool:
+        """A drain request on any rank drains every rank at this step (each
+        takes part in the save's gather)."""
+        flag = preempted["flag"] or timer.preempt_requested
+        if flag_group is None:
+            return flag
+        t = torch.tensor([int(flag)])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=flag_group)
+        return bool(t)
 
     def drain_exit(step_i: int) -> int:
         if mgr is not None:
@@ -245,9 +317,9 @@ def main(argv=None) -> int:
                     params, opt_state, tokens, targets)
                 losses.append(metrics["loss"])
                 timer.tick(train_step=step_i)
-                if preempted["flag"] or timer.preempt_requested:
+                if preempt_now():
                     return drain_exit(step_i)
-                if step_i % 20 == 0:
+                if step_i % 20 == 0 and chief:
                     loss = float(metrics["loss"])   # sync point
                     print(f"step {step_i}: loss {loss:.4f} "
                           f"({timer.steps_per_sec:.2f} steps/s)")
@@ -280,12 +352,14 @@ def main(argv=None) -> int:
         "steps_per_sec": args.steps / wall,
         "tokens_per_sec": args.steps * tokens_per_step / wall,
         "n_params": n_params,
-        "mesh": mesh,
+        "mesh": sizes,
         "losses": [float(x) for x in losses],
     }
     if last_eval is not None:
         result["eval_loss"] = last_eval
         result["eval_ppl"] = math.exp(min(last_eval, 30))
+    if not chief:
+        return 0
     print(json.dumps(result))
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

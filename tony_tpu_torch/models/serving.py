@@ -244,8 +244,8 @@ LOGPROBS_MAX = 8
 # enables, its ROADMAP.md queue-1 item). Any other value raises
 # NotImplementedError.
 _NOT_PORTED = {
-    "mesh": (None, "tensor-parallel serving", "mesh/TP"),
-    "rules": (None, "the mesh's sharding rules", "mesh/TP"),
+    "mesh": (None, "tensor-parallel serving", "TP decode and serving"),
+    "rules": (None, "the mesh's sharding rules", "TP decode and serving"),
 }
 
 

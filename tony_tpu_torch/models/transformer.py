@@ -9,13 +9,26 @@ contractions, so parameters convert with a dtype and device move
 Attention dispatch (``cfg.attn_impl``): "auto" runs the flash kernel
 (ops/attention.py, CUDA) on a CUDA tensor and the plain attention on a CPU
 tensor; "flash" asks for the flash path (the kernel on CUDA, its plain
-version on the CPU); "ref" is the plain attention everywhere. The
-sequence-parallel impls come with the mesh slice.
+version on the CPU); "ref" is the plain attention everywhere; "ring" and
+"ulysses" are sequence parallelism over the mesh's ``seq`` axis
+(parallel/ring_attention.py, parallel/ulysses.py; ``cfg.sp_kernel`` picks
+their per-block attention).
 
 The loss (``token_nll``, ``loss_fn``) dispatches on ``cfg.ce_impl``:
 blockwise cross-entropy (ops/cross_entropy.py) streams the vocabulary so the
-[B, L, V] logits never exist; dense materialises them. There is no mesh in
-this slice, so "auto" means blockwise at vocab >= 16384.
+[B, L, V] logits never exist; dense materialises them. "auto" is blockwise
+at vocab >= 16384 unless the rules shard the vocab over the mesh (then the
+vocab-parallel dense CE keeps the logits sharded).
+
+With a ``mesh`` (and its ``rules``), ``apply_hidden``, ``token_nll`` and
+``loss_fn`` are SPMD: every rank of the mesh calls them with its own blocks
+of the parameters (DTensors, or their local tensors, placed by
+parallel/sharding.py) and of the tokens ([B/batch ranks, L/seq ranks]),
+and ``loss_fn`` returns the loss of the whole batch on every rank
+(parallel/spmd.py says where the collectives go). Tensor parallelism is
+Megatron's: the heads, the MLP's hidden units and the vocabulary split
+over the ``tensor`` axis; K/V stay whole (training's rules keep "kv"
+replicated) and each rank attends with its heads' slice.
 
 ``n_experts > 0`` replaces every layer's SwiGLU MLP by the einsum-dispatch
 Mixture-of-Experts FFN (parallel/expert.py, silu experts) and adds its
@@ -42,7 +55,9 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from ..parallel.ring_attention import reference_attention
+from ..parallel.collectives import copy_to, gather_nograd, reduce_from
+from ..parallel.ring_attention import make_ring_attention, reference_attention
+from ..parallel.ulysses import make_ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +80,12 @@ class TransformerConfig:
     expert_top_k: int = 2
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
-    # "auto", "flash", "ref"; "ring"/"ulysses" come with the mesh slice
+    # "auto", "flash", "ref", or "ring" / "ulysses" (sequence-parallel over
+    # the mesh's `seq` axis)
     attn_impl: str = "auto"
+    # the ring's per-step kernel: "auto" (flash on CUDA inside the kernels'
+    # envelope, else einsum blocks), "flash" or "xla"; Ulysses' local
+    # attention: "auto" (flash on CUDA, plain on the CPU), "flash", "xla"
     sp_kernel: str = "auto"
     # sliding-window attention: each position sees its last attn_window
     # positions inclusive; 0 = full causal
@@ -133,11 +152,47 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """Mirror of init()'s tree with logical-axis tuples for the rule tables
+    (parallel/sharding.py)."""
+    layers: dict = {
+        "attn_norm": ("layers", None),
+        "wq": ("layers", "embed", "heads", None),
+        "wk": ("layers", "embed", "kv", None),
+        "wv": ("layers", "embed", "kv", None),
+        "wo": ("layers", "heads", None, "embed"),
+        "mlp_norm": ("layers", None),
+    }
+    if cfg.n_experts > 0:
+        layers.update({
+            "router": ("layers", "embed", None),
+            "w_in": ("layers", "expert", "embed", "mlp"),
+            "w_out": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        layers.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": layers,
+        "final_norm": (None,),
+        "unembed": ("embed", "vocab"),
+    }
+
+
 def num_params(params) -> int:
     n = 0
     for v in params.values():
         n += num_params(v) if isinstance(v, dict) else v.numel()
     return n
+
+
+def _local(t):
+    """A DTensor's local block; a plain tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 # ------------------------------------------------------------------- pieces
@@ -184,7 +239,7 @@ def rope(x, positions, theta, scaling=None):
     return out.to(x.dtype)
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
+def _attention(q, k, v, cfg: TransformerConfig, plan=None):
     """[B, L, H, D] in/out; dispatch on cfg.attn_impl (module docstring)."""
     impl = cfg.attn_impl
     if cfg.attn_window < 0:
@@ -194,10 +249,34 @@ def _attention(q, k, v, cfg: TransformerConfig):
     window = cfg.attn_window or None
     if window is not None and not cfg.causal:
         raise ValueError("attn_window requires causal=True")
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet: sequence parallelism "
-            "comes with the mesh slice (ROADMAP queue 1, mesh/TP item)")
+    if window is not None and impl in ("ring", "ulysses"):
+        raise ValueError(
+            f"attn_window is not supported with attn_impl={impl!r} "
+            "(sequence-parallel paths are full-causal)")
+    if impl == "ring":
+        if plan is None:
+            raise ValueError("attn_impl='ring' requires a mesh")
+        return make_ring_attention(
+            plan.mesh, plan.seq_axis or "seq", causal=cfg.causal,
+            impl=None if cfg.sp_kernel == "auto" else cfg.sp_kernel,
+        )(q, k, v)
+    if impl == "ulysses":
+        if plan is None:
+            raise ValueError("attn_impl='ulysses' requires a mesh")
+        attn_fn = None
+        if cfg.sp_kernel == "flash":
+            from ..ops.attention import attention_blhd
+
+            attn_fn = functools.partial(attention_blhd, causal=cfg.causal)
+        elif cfg.sp_kernel == "xla":
+            attn_fn = functools.partial(reference_attention,
+                                        causal=cfg.causal)
+        elif cfg.sp_kernel != "auto":
+            raise ValueError(f"sp_kernel must be 'auto', 'flash', or 'xla', "
+                             f"got {cfg.sp_kernel!r}")
+        return make_ulysses_attention(plan.mesh, plan.seq_axis or "seq",
+                                      causal=cfg.causal,
+                                      attn_fn=attn_fn)(q, k, v)
     if impl == "auto":
         impl = "flash" if q.is_cuda else "ref"
     if impl == "flash":
@@ -209,15 +288,19 @@ def _attention(q, k, v, cfg: TransformerConfig):
     return reference_attention(q, k, v, causal=cfg.causal, window=window)
 
 
-def _qkv(cfg: TransformerConfig, h, positions, lp):
-    """Projections + rope; k/v stay at n_kv_heads."""
+def _qkv(cfg: TransformerConfig, h, positions, lp, plan=None):
+    """Projections + rope; k/v stay at n_kv_heads. With the heads
+    tensor-parallel, q is this rank's heads and k/v are whole (their
+    gradient summed over the tensor axis, since each rank uses its own
+    heads' slice of them)."""
     dt = cfg.dtype
-    q = torch.einsum("bld,dhk->blhk", h, lp["wq"].to(dt))
+    group = plan.tp_group("heads") if plan is not None else None
+    q = torch.einsum("bld,dhk->blhk", copy_to(h, group), lp["wq"].to(dt))
     k = torch.einsum("bld,dhk->blhk", h, lp["wk"].to(dt))
     v = torch.einsum("bld,dhk->blhk", h, lp["wv"].to(dt))
     q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    return q, k, v
+    return q, copy_to(k, group), copy_to(v, group)
 
 
 def _repeat_kv(cfg: TransformerConfig, k, v):
@@ -228,7 +311,7 @@ def _repeat_kv(cfg: TransformerConfig, k, v):
     return k, v
 
 
-def _mlp(cfg: TransformerConfig, h, lp):
+def _mlp(cfg: TransformerConfig, h, lp, plan=None):
     """Post-attention MLP (dense SwiGLU, or MoE) -> (out, aux_loss).
 
     MoE, as the JAX package's: the experts route on the router at cfg.dtype
@@ -246,21 +329,33 @@ def _mlp(cfg: TransformerConfig, h, lp):
                       capacity_factor=cfg.capacity_factor, activation=F.silu)
         aux = load_balancing_loss(router_logits, cfg.expert_top_k)
         return out.reshape(b, l, d), aux
-    gate = F.silu(torch.einsum("bld,df->blf", h, lp["w_gate"].to(dt)))
-    up = torch.einsum("bld,df->blf", h, lp["w_up"].to(dt))
+    group = plan.tp_group("mlp") if plan is not None else None
+    hm = copy_to(h, group)
+    gate = F.silu(torch.einsum("bld,df->blf", hm, lp["w_gate"].to(dt)))
+    up = torch.einsum("bld,df->blf", hm, lp["w_up"].to(dt))
     out = torch.einsum("blf,fd->bld", gate * up, lp["w_down"].to(dt))
-    return out, torch.zeros((), dtype=torch.float32, device=h.device)
+    return (reduce_from(out, group),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
-def _layer(cfg: TransformerConfig, x, positions, lp):
-    """One decoder block; lp = this layer's params (stack dim removed)."""
+def _layer(cfg: TransformerConfig, x, positions, lp, plan=None):
+    """One decoder block; lp = this layer's params (stack dim removed; on a
+    mesh, as ``Plan.use`` gives them)."""
     dt = cfg.dtype
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, h, positions, lp)
+    q, k, v = _qkv(cfg, h, positions, lp, plan)
     k, v = _repeat_kv(cfg, k, v)
-    attn = _attention(q, k, v, cfg)
-    x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
-    mlp_out, aux = _mlp(cfg, rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp)
+    group = None
+    if plan is not None and plan.tp["heads"]:
+        hl = q.shape[2]
+        lo = plan.tp_rank("heads") * hl
+        k, v = k[:, :, lo:lo + hl], v[:, :, lo:lo + hl]
+        group = plan.tp_group("heads")
+    attn = _attention(q, k, v, cfg, plan)
+    x = x + reduce_from(torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt)),
+                        group)
+    mlp_out, aux = _mlp(cfg, rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp,
+                        plan)
     return x + mlp_out, aux
 
 
@@ -300,81 +395,153 @@ def _remat(layer_fn, policy: str):
     return run
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer i's params (the stack dim indexed away; views, no copies)."""
-    return {name: w[i] for name, w in params["layers"].items()}
+def layer_params(params: dict, i: int, plan=None, cfg=None) -> dict:
+    """Layer i's params (the stack dim indexed away; views, no copies). With
+    a plan (and the config), each as the model computes with it."""
+    if plan is None:
+        return {name: w[i] for name, w in params["layers"].items()}
+    axes = param_logical_axes(cfg)["layers"]
+    return {name: plan.use(_local(w)[i], axes[name][1:])
+            for name, w in params["layers"].items()}
 
 
-def apply_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
-    """Forward up to and including the final norm -> (hidden [B, L, D],
-    aux_loss scalar)."""
+def _plan(mesh, rules, cfg: TransformerConfig):
+    """The SPMD plan of (mesh, rules) for this model, or None."""
+    from ..parallel.spmd import plan_for
+
+    plan = plan_for(mesh, rules)
+    if plan is not None and cfg.n_experts > 0 and not plan.trivial:
+        raise NotImplementedError(
+            "Mixture-of-Experts on a mesh wider than one device is not "
+            "ported to tony_tpu_torch yet (ROADMAP.md queue 1, pipeline "
+            "schedules and expert sharding)")
+    return plan
+
+
+def _embed(params, tokens, cfg: TransformerConfig, plan):
+    """The token embeddings; vocab-parallel when the rules shard the vocab
+    (each rank looks up the ids in its rows, the sum over the tensor axis
+    fills the rest)."""
     dt = cfg.dtype
+    if plan is None:
+        return params["embed"].to(dt)[tokens]
+    emb = plan.use(_local(params["embed"]), ("vocab", "embed")).to(dt)
+    if not plan.tp["vocab"]:
+        return emb[tokens]
+    rows = emb.shape[0]
+    local = tokens - plan.tp_rank("vocab") * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], emb[local.clamp(0, rows - 1)], 0)
+    return reduce_from(x, plan.tp_group("vocab"))
+
+
+def apply_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                 mesh=None, rules=None):
+    """Forward up to and including the final norm -> (hidden [B, L, D],
+    aux_loss scalar). With a mesh: this rank's blocks (module docstring)."""
+    plan = _plan(mesh, rules, cfg)
+    tokens = _local(tokens)
     b, l = tokens.shape
-    positions = torch.arange(l, device=tokens.device).expand(b, l)
-    x = params["embed"].to(dt)[tokens]
+    # a sequence-parallel rank holds positions [r * l, (r + 1) * l)
+    offset = plan.seq_rank * l if plan is not None else 0
+    positions = (offset + torch.arange(l, device=tokens.device)).expand(b, l)
+    x = _embed(params, tokens, cfg, plan)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    layer_fn = functools.partial(_layer, cfg)
+    layer_fn = functools.partial(_layer, cfg, plan=plan)
     if cfg.remat:
         layer_fn = _remat(layer_fn, cfg.remat_policy)
     for i in range(cfg.n_layers):
-        x, a = layer_fn(x, positions, layer_params(params, i))
+        x, a = layer_fn(x, positions, layer_params(params, i, plan, cfg))
         aux = aux + a
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, _local(params["final_norm"]), cfg.norm_eps)
     return x, aux * cfg.aux_loss_weight
 
 
-def apply(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
-    """Forward pass -> (logits [B, L, V] f32, aux_loss scalar)."""
-    x, aux = apply_hidden(params, tokens, cfg)
-    logits = torch.einsum("bld,dv->blv", x, params["unembed"].to(cfg.dtype))
-    return logits.float(), aux
+def apply(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+          mesh=None, rules=None):
+    """Forward pass -> (logits [B, L, V] f32, aux_loss scalar); with a mesh,
+    this rank's rows and positions over the whole vocabulary."""
+    plan = _plan(mesh, rules, cfg)
+    x, aux = apply_hidden(params, tokens, cfg, mesh, rules)
+    w = _local(params["unembed"])
+    if plan is not None:
+        w = plan.use(w, ("embed", "vocab"))
+    logits = torch.einsum("bld,dv->blv", x, w.to(cfg.dtype)).float()
+    if plan is not None:
+        logits = gather_nograd(logits, 2, plan.tp_group("vocab"))
+    return logits, aux
 
 
-def _use_blockwise_ce(cfg: TransformerConfig) -> bool:
-    """ce_impl dispatch. With no mesh there is no vocab-sharded unembed to
-    keep sharded, so "auto" is blockwise at large vocab."""
+def _use_blockwise_ce(cfg: TransformerConfig, mesh=None, rules=None) -> bool:
+    """ce_impl dispatch: "auto" is blockwise at large vocab, except when the
+    rules shard the vocab over the mesh (the dense vocab-parallel CE keeps
+    the logits sharded there); the rules' "vocab" row decides, default
+    "tensor"."""
+    from ..parallel.sharding import mesh_shards_rule
+
     if cfg.ce_impl not in ("auto", "dense", "blockwise"):
         raise ValueError(f"ce_impl must be 'auto', 'dense', or 'blockwise', "
                          f"got {cfg.ce_impl!r}")
-    if cfg.ce_impl == "auto":
-        return cfg.vocab_size >= 16384
-    return cfg.ce_impl == "blockwise"
+    if cfg.ce_impl != "auto":
+        return cfg.ce_impl == "blockwise"
+    if mesh_shards_rule(mesh, rules, "vocab", default=("tensor",)):
+        return False
+    return cfg.vocab_size >= 16384
 
 
-def token_nll(x, unembed, targets, cfg: TransformerConfig,
-              reduction: str = "mean"):
+def token_nll(x, unembed, targets, cfg: TransformerConfig, mesh=None,
+              rules=None, reduction: str = "mean"):
     """Masked next-token NLL from final hidden states.
 
     x: [B, L, D] hidden (after the final norm), unembed: [D, V], targets:
     [B, L] int with -1 = pad (masked out here). reduction "mean" -> the
     mean over valid tokens; "sum" -> the sum (the caller divides by its own
-    count). Scalar float32."""
-    from ..ops.cross_entropy import blockwise_cross_entropy, dense_cross_entropy
+    count). Scalar float32. With a mesh: this rank's blocks in, the whole
+    batch's mean or sum out (its gradient this rank's share)."""
+    from ..ops.cross_entropy import (
+        blockwise_cross_entropy, dense_cross_entropy,
+        vocab_parallel_cross_entropy,
+    )
 
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction must be 'mean' or 'sum', got "
                          f"{reduction!r}")
+    plan = _plan(mesh, rules, cfg)
+    targets = _local(targets)
     valid = targets >= 0
     safe_targets = torch.where(valid, targets, 0).reshape(-1)
     x2 = x.reshape(-1, x.shape[-1])
-    w = unembed.to(cfg.dtype)
-    if _use_blockwise_ce(cfg):
+    w = _local(unembed)
+    if plan is not None:
+        w = plan.use(w, ("embed", "vocab"))
+    w = w.to(cfg.dtype)
+    if plan is not None and plan.tp["vocab"]:
+        nll = vocab_parallel_cross_entropy(
+            x2, w, safe_targets, plan.tp_rank("vocab") * w.shape[1],
+            plan.tp_group("vocab"))
+    elif _use_blockwise_ce(cfg, mesh, rules):
         nll = blockwise_cross_entropy(x2, w, safe_targets, cfg.ce_block_v)
     else:
         nll = dense_cross_entropy(x2, w, safe_targets)
-    nll = nll.reshape(targets.shape) * valid
+    total = (nll.reshape(targets.shape) * valid).sum()
+    count = valid.sum()
+    if plan is not None:
+        total, count = plan.global_sum(total), plan.global_count(count)
     if reduction == "sum":
-        return nll.sum()
-    return nll.sum() / valid.sum().clamp_min(1)
+        return total
+    return total / count.clamp_min(1)
 
 
-def loss_fn(params, tokens, targets, cfg: TransformerConfig):
+def loss_fn(params, tokens, targets, cfg: TransformerConfig, mesh=None,
+            rules=None):
     """Next-token cross-entropy (+ the MoE aux loss, 0 for a dense model);
     targets [B, L] with -1 = pad. With blockwise CE the [B, L, V] logits
-    never exist, forward or backward."""
-    x, aux = apply_hidden(params, tokens, cfg)
-    return token_nll(x, params["unembed"], targets, cfg) + aux
+    never exist, forward or backward. With a mesh: SPMD (module
+    docstring)."""
+    x, aux = apply_hidden(params, tokens, cfg, mesh, rules)
+    return token_nll(x, params["unembed"], targets, cfg, mesh, rules) + aux
 
 
 __all__ = ["TransformerConfig", "init", "apply", "apply_hidden", "rms_norm",
-           "rope", "num_params", "layer_params", "token_nll", "loss_fn"]
+           "rope", "num_params", "param_logical_axes", "layer_params",
+           "token_nll", "loss_fn"]

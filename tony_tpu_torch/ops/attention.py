@@ -269,6 +269,16 @@ def _flash_setup(ctx, inputs, output):
     ctx.causal, ctx.scale, ctx.window = causal, scale, window
 
 
+def flash_bwd(q, k, v, o, lse, g, g_lse, causal, scale, window=None):
+    """The flash backward -> (dq, dk, dv): the K3-K5 kernels for a CUDA
+    tensor (they launch or raise), the plain version for a CPU tensor.
+    ``o`` and ``lse`` are the forward's (ring attention passes its merged
+    out and lse: the gradient of a block is then its share of the whole
+    row's softmax); ``g_lse`` may be None."""
+    bwd = _flash_bwd_cuda if q.is_cuda else _flash_bwd_reference
+    return bwd(q, k, v, o, lse, g, g_lse, causal, scale, window)
+
+
 def _flash_backward(ctx, g_out, g_lse):
     """The flash backward kernels for a CUDA tensor, the plain version for a
     CPU tensor. A cotangent that never arrives (only out, or only lse, was
@@ -276,9 +286,8 @@ def _flash_backward(ctx, g_out, g_lse):
     q, k, v, out, lse = ctx.saved_tensors
     if g_out is None:
         g_out = torch.zeros_like(out)
-    bwd = _flash_bwd_cuda if q.is_cuda else _flash_bwd_reference
-    dq, dk, dv = bwd(q, k, v, out, lse, g_out, g_lse, ctx.causal, ctx.scale,
-                     ctx.window)
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, g_out, g_lse, ctx.causal,
+                           ctx.scale, ctx.window)
     return dq, dk, dv, None, None, None
 
 
@@ -345,5 +354,6 @@ def chunked_reference_attention(q, k, v, causal=True, q_block: int = 512):
 
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
+           "flash_bwd",
            "attention_blhd", "chunked_reference_attention", "flash_fwd", "launches", "bwd_dkdv_launches",
            "bwd_dq_launches", "reset_launches"]

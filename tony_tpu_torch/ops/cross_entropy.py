@@ -26,6 +26,9 @@ float32.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.collectives import all_reduce_, copy_to
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_V = 2048
@@ -132,4 +135,44 @@ def dense_cross_entropy(x, w, targets):
     return -logp.gather(1, targets[:, None].long())[:, 0]
 
 
-__all__ = ["blockwise_cross_entropy", "dense_cross_entropy"]
+class _VocabParallelCE(torch.autograd.Function):
+    """Softmax cross-entropy of logits split by columns over ``group``: the
+    row max, the sum of exponentials and the target's logit are each
+    all-reduced, so every rank gets the whole row's nll; the gradient of
+    this rank's columns is ``g (softmax - onehot)`` there."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, group):
+        cols = logits.shape[1]
+        m = all_reduce_(logits.amax(dim=-1), group, dist.ReduceOp.MAX)
+        sumexp = all_reduce_(torch.exp(logits - m[:, None]).sum(dim=-1),
+                             group)
+        lse = m + torch.log(sumexp)
+        local = targets - start
+        mine = (local >= 0) & (local < cols)
+        idx = local.clamp(0, cols - 1)
+        tl = torch.where(mine, logits.gather(1, idx[:, None])[:, 0], 0.0)
+        tl = all_reduce_(tl, group)
+        ctx.save_for_backward(logits, lse, idx, mine)
+        return lse - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, mine = ctx.saved_tensors
+        d = torch.exp(logits - lse[:, None])
+        d[mine, idx[mine]] -= 1.0
+        return g[:, None] * d, None, None, None
+
+
+def vocab_parallel_cross_entropy(x, w, targets, start: int, group):
+    """Per-row softmax cross-entropy of ``x @ w`` where ``w`` [D, V/n] holds
+    this rank's vocabulary columns ``[start, start + V/n)`` of a vocabulary
+    split over ``group`` (tensor parallelism; x whole on every rank) ->
+    nll [N] float32, the same on every rank of the group. The logits stay
+    split: no rank holds [N, V]. Float32 operands, as the dense path."""
+    logits = copy_to(x, group).float() @ w.float()
+    return _VocabParallelCE.apply(logits, targets.long(), start, group)
+
+
+__all__ = ["blockwise_cross_entropy", "dense_cross_entropy",
+           "vocab_parallel_cross_entropy"]

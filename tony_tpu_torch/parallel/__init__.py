@@ -1,9 +1,55 @@
-"""Parallelism for the port: the plain attention and the Mixture-of-Experts
-FFN (single device); the mesh, ring, Ulysses and expert-sharded paths come
-with the mesh slice."""
+"""Parallelism for the port: the mesh and its rule tables, the SPMD plan
+that places the collectives, ring and Ulysses sequence parallelism, the
+plain attention and the Mixture-of-Experts FFN. Pipeline schedules and an
+expert axis wider than one are not ported yet (ROADMAP.md queue 1)."""
 
+from .mesh import (
+    AXIS_ORDER,
+    MeshSpec,
+    build_hybrid_mesh,
+    build_mesh,
+    detect_num_slices,
+    mesh_from_string,
+    parse_mesh,
+    single_device_mesh,
+    slice_topology,
+)
+from .sharding import (
+    DP_RULES,
+    EP_RULES,
+    FSDP_RULES,
+    FSDP_TP_RULES,
+    SP_RULES,
+    TP_DECODE_RULES,
+    TP_RULES,
+    batch_sharding,
+    logical_to_spec,
+    merge_rules,
+    replicated,
+    shard_params,
+    sharding_for,
+    tree_shardings,
+)
+from .ring_attention import (
+    NEG_INF,
+    make_ring_attention,
+    reference_attention,
+    ring_attention,
+    ring_flash_attention,
+)
+from .ulysses import make_ulysses_attention, ulysses_attention
 from .expert import load_balancing_loss, moe_ffn, top_k_routing
-from .ring_attention import NEG_INF, reference_attention
 
-__all__ = ["NEG_INF", "reference_attention", "top_k_routing", "moe_ffn",
-           "load_balancing_loss"]
+__all__ = [
+    "AXIS_ORDER", "MeshSpec", "build_hybrid_mesh", "build_mesh",
+    "detect_num_slices", "mesh_from_string", "parse_mesh",
+    "single_device_mesh", "slice_topology",
+    "DP_RULES", "FSDP_RULES", "TP_RULES", "TP_DECODE_RULES", "FSDP_TP_RULES",
+    "SP_RULES", "EP_RULES",
+    "merge_rules", "logical_to_spec", "sharding_for", "tree_shardings",
+    "shard_params", "replicated", "batch_sharding",
+    "NEG_INF", "make_ring_attention", "reference_attention", "ring_attention",
+    "ring_flash_attention",
+    "make_ulysses_attention", "ulysses_attention",
+    "moe_ffn", "top_k_routing", "load_balancing_loss",
+]

@@ -1,0 +1,153 @@
+"""How a rule table runs on a mesh: the port's stand-in for GSPMD.
+
+The JAX package jits one global program and lets XLA place the collectives
+from the shardings. The port runs one process a card, each on its own
+blocks, and ``Plan`` says where the collectives go. From the mesh and the
+rules it reads:
+
+- the data axes: the ``batch`` rule's axes and, under sequence
+  parallelism, the ``act_seq`` axis (size > 1). Ranks along them hold
+  different tokens, so a gradient is summed over them.
+- the tensor-parallel axes: the mesh axis the ``heads``, ``mlp`` or
+  ``vocab`` rule names. A weight dimension with one of those names stays
+  this rank's shard, and the model computes on it Megatron's way
+  (collectives.copy_to / reduce_from, the vocab-parallel embedding and
+  cross-entropy).
+- every other sharded dimension (``embed`` over fsdp: FSDP, ZeRO-3) is
+  stored sharded and gathered where it is used (``use``); its gradient is
+  reduce-scattered when the gathering axis is a data axis, and sliced when
+  the ranks along it computed the same thing.
+
+After the backward, ``reduce_grads`` sums each gradient over the data axes
+that do not shard its parameter, and ``global_norm`` is the norm of the
+whole (unsharded) gradient. A step on any mesh then equals the one-device
+step up to the order of its sums.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .collectives import all_reduce_, gather_dim
+from .mesh import mesh_shape
+from .sharding import _axes, logical_to_spec, mesh_shards_rule
+
+TP_LOGICAL = ("heads", "mlp", "vocab")
+
+
+class Plan:
+    """The SPMD plan of (mesh, rules) on this rank (module docstring)."""
+
+    def __init__(self, mesh, rules: dict):
+        self.mesh, self.rules = mesh, rules
+        self.shape = mesh_shape(mesh)
+        self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        seq = rules.get("act_seq")
+        self.seq_axis = seq if isinstance(seq, str) else None
+        self.batch_axes = mesh_shards_rule(mesh, rules, "batch",
+                                           default=("data", "fsdp"))
+        self.data_axes = self.batch_axes + tuple(
+            a for a in (self.seq_axis,) if a and self.shape.get(a, 1) > 1)
+        self.tp = {}
+        for name in TP_LOGICAL:
+            axes = mesh_shards_rule(mesh, rules, name)
+            if len(axes) > 1 or (axes and axes[0] in self.data_axes):
+                raise NotImplementedError(
+                    f"rule {name!r} -> {rules.get(name)!r}: a "
+                    "tensor-parallel dimension takes one mesh axis that "
+                    "does not split the batch or the sequence")
+            self.tp[name] = axes[0] if axes else None
+
+    def group(self, axis):
+        return None if axis is None else self.mesh.get_group(axis)
+
+    def tp_group(self, name: str):
+        """The process group ``name`` ('heads', 'mlp', 'vocab') is
+        tensor-parallel over, or None."""
+        return self.group(self.tp[name])
+
+    def tp_rank(self, name: str) -> int:
+        return self.coord[self.tp[name]] if self.tp[name] else 0
+
+    @property
+    def seq_rank(self) -> int:
+        return self.coord[self.seq_axis] if self.seq_axis else 0
+
+    def _gathers(self, logical_axes):
+        """(dim, axis) of each storage-sharded dimension, minor axis
+        first."""
+        spec = logical_to_spec(logical_axes, self.rules)
+        out = []
+        for dim, entry in enumerate(spec):
+            name = logical_axes[dim]
+            for a in reversed(_axes(entry)):
+                if self.shape.get(a, 1) > 1 and self.tp.get(name) != a:
+                    out.append((dim, a))
+        return out
+
+    def use(self, w: torch.Tensor, logical_axes) -> torch.Tensor:
+        """This rank's weight as the model computes with it: every
+        storage-sharded dimension gathered, tensor-parallel ones left as
+        this rank's shard."""
+        for dim, a in self._gathers(logical_axes):
+            w = gather_dim(w, dim, self.group(a), a in self.data_axes)
+        return w
+
+    def sharding_axes(self, logical_axes) -> set:
+        """Mesh axes (size > 1) that shard a parameter's storage."""
+        spec = logical_to_spec(logical_axes, self.rules)
+        return {a for e in spec for a in _axes(e) if self.shape.get(a, 1) > 1}
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: list, axes_list: list) -> list:
+        """Sum each gradient over the data axes that do not shard its
+        parameter (in place)."""
+        for g, axes in zip(grads, axes_list):
+            for a in self.data_axes:
+                if a not in self.sharding_axes(axes):
+                    all_reduce_(g, self.group(a))
+        return grads
+
+    @torch.no_grad()
+    def global_norm(self, grads: list, axes_list: list) -> torch.Tensor:
+        """The norm of the whole gradient: each shard's sum of squares, summed
+        over the axes that shard it."""
+        buckets: dict = {}
+        for g, axes in zip(grads, axes_list):
+            key = tuple(sorted(self.sharding_axes(axes)))
+            sq = torch.linalg.vector_norm(g.float()) ** 2
+            buckets[key] = buckets.get(key, 0) + sq
+        total = 0
+        for key, sq in buckets.items():
+            sq = sq.reshape(1).clone()
+            for a in key:
+                all_reduce_(sq, self.group(a))
+            total = total + sq[0]
+        return torch.sqrt(total)
+
+    def global_sum(self, local: torch.Tensor) -> torch.Tensor:
+        """The sum of a scalar over the data axes; its gradient is the local
+        one (each rank differentiates its own share)."""
+        total = local.detach().clone().reshape(1)
+        for a in self.data_axes:
+            all_reduce_(total, self.group(a))
+        return local + (total[0] - local.detach())
+
+    def global_count(self, local: torch.Tensor) -> torch.Tensor:
+        total = local.detach().clone().reshape(1)
+        for a in self.data_axes:
+            all_reduce_(total, self.group(a))
+        return total[0]
+
+    @property
+    def trivial(self) -> bool:
+        """Every axis of size one: nothing to gather, split or reduce."""
+        return all(s == 1 for s in self.shape.values())
+
+
+def plan_for(mesh, rules):
+    """The Plan of (mesh, rules), or None without a mesh."""
+    return None if mesh is None else Plan(mesh, dict(rules or {}))
+
+
+__all__ = ["TP_LOGICAL", "Plan", "plan_for"]

@@ -30,6 +30,21 @@ state to host memory synchronously (``AdamW.step`` updates parameters and
 moments in place, so the snapshot must be a copy that the next step cannot
 touch) and hands the write to one writer thread behind a depth-1 queue. A
 writer's error is raised by the next ``save_async`` or ``wait``.
+
+A sharded state (DTensors: train/step.py on a mesh) is saved whole, in the
+same ``state.pt`` format: every rank calls ``save``/``save_async``, each
+DTensor is all-gathered over the mesh on the device one leaf at a time (a
+collective), and rank 0 alone copies the gathered leaf to host memory and
+writes; the other ranks drop it at once, so they hold no host copy and
+never wait on a copy from the card (FSDP's ``rank0_only`` full state
+dict does the same). Each rank's device memory holds one whole leaf at a
+time beside its shards. The file does not record the mesh, so it restores
+onto any mesh shape or onto one device: ``restore(template=...)`` gives a
+DTensor leaf of the template this rank's block of the saved tensor, placed
+as the template is (what the JAX package's ``sharded_restore_template``
+arranges). Every rank reads the file, so the directory must be
+one that every rank sees. (The other design, each rank writing its own
+shards, would tie a checkpoint to its mesh's shape.)
 """
 
 from __future__ import annotations
@@ -44,6 +59,10 @@ from pathlib import Path
 from typing import Any
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.collectives import gather_nograd
+from ..parallel.sharding import local_slice
 
 log = logging.getLogger(__name__)
 
@@ -57,16 +76,52 @@ def _kept_steps(root: Path) -> list[int]:
                   if p.is_dir() and p.name.isdigit())
 
 
-def _host_copy(node: Any) -> Any:
+def _is_dtensor(t) -> bool:
+    # duck-typed: importing torch.distributed.tensor is slow, and a process
+    # without a mesh never needs it
+    return hasattr(t, "placements") and hasattr(t, "to_local")
+
+
+def _spec(dt) -> tuple:
+    """A DTensor's placements as spec entries (parallel/sharding.py)."""
+    names = dt.device_mesh.mesh_dim_names
+    spec = [()] * dt.ndim
+    for name, p in zip(names, dt.placements):
+        if p.is_shard():
+            spec[p.dim] = spec[p.dim] + (name,)
+    return tuple(e or None for e in spec)
+
+
+def _gather_full(dt) -> torch.Tensor:
+    """The whole tensor of a DTensor, on every rank (a collective)."""
+    mesh, out = dt.device_mesh, dt.to_local().detach()
+    for name, p in reversed(list(zip(mesh.mesh_dim_names, dt.placements))):
+        if p.is_shard():
+            out = gather_nograd(out, p.dim, mesh.get_group(name))
+    return out
+
+
+def _writes() -> bool:
+    """Rank 0 writes (and a process outside any group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _host_copy(node: Any, keep: bool = True) -> Any:
     """A copy of the tree in host memory that shares no storage with it:
     ``Tensor.cpu()`` of a CPU tensor returns the tensor itself, and a
-    ``non_blocking`` copy from the card could be read before it lands."""
+    ``non_blocking`` copy from the card could be read before it lands.
+    A DTensor is gathered whole first (every rank must call this); without
+    ``keep`` (a rank that does not write) every tensor leaf comes back
+    None and nothing is copied to the host."""
+    if _is_dtensor(node):
+        full = _gather_full(node)
+        return full.to("cpu", copy=True) if keep else None
     if isinstance(node, torch.Tensor):
-        return node.detach().to("cpu", copy=True)
+        return node.detach().to("cpu", copy=True) if keep else None
     if isinstance(node, dict):
-        return {k: _host_copy(v) for k, v in node.items()}
+        return {k: _host_copy(v, keep) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_host_copy(v) for v in node)
+        return type(node)(_host_copy(v, keep) for v in node)
     if node is None or isinstance(node, (bool, int, float, str)):
         return node
     raise TypeError(f"cannot checkpoint a {type(node).__name__}")
@@ -91,6 +146,17 @@ def _fit(template: Any, value: Any, path: str) -> Any:
         return type(template)(_fit(t, v, f"{path}{i}.")
                               for i, (t, v) in enumerate(zip(template, value)))
     name = path[:-1] or "the root"
+    if _is_dtensor(template):
+        if not isinstance(value, torch.Tensor) or value.shape != template.shape:
+            raise ValueError(f"checkpoint leaf {name}: a tensor of shape "
+                             f"{tuple(template.shape)} expected")
+        local = template.to_local()
+        block = local_slice(value, template.device_mesh, _spec(template))
+        block = block.to(device=local.device, dtype=local.dtype, copy=True)
+        return type(template).from_local(block, template.device_mesh,
+                                  template.placements, run_check=False,
+                                  shape=template.shape,
+                                  stride=template.stride())
     if isinstance(template, torch.Tensor):
         if not isinstance(value, torch.Tensor):
             raise ValueError(f"checkpoint leaf {name}: a tensor expected, "
@@ -167,8 +233,9 @@ class CheckpointManager:
         if not self._accept(step):
             return False
         t0 = time.perf_counter()
-        host = _host_copy(state)
-        self._write(step, host, time.perf_counter() - t0)
+        host = _host_copy(state, _writes())
+        if _writes():
+            self._write(step, host, time.perf_counter() - t0)
         return True
 
     # ------------------------------------------------- overlapped save
@@ -198,8 +265,10 @@ class CheckpointManager:
         if not self._accept(step):
             return False
         t0 = time.perf_counter()
-        host = _host_copy(state)
+        host = _host_copy(state, _writes())
         snapshot_s = time.perf_counter() - t0
+        if not _writes():
+            return True
         if self._q is None:
             self._q = queue.Queue(maxsize=1)
             self._writer = threading.Thread(

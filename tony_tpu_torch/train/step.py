@@ -1,5 +1,5 @@
-"""Training step for the flagship transformer on one device (port of the
-JAX package's train/step.py).
+"""Training step for the flagship transformer (port of the JAX package's
+train/step.py).
 
 The optimizer is the JAX package's optax chain written out:
 ``clip_by_global_norm(1.0)`` then ``adamw(lr, b1=0.9, b2=0.95, eps=1e-8,
@@ -8,12 +8,21 @@ updated in place (the JAX step donates its buffers, so nothing keeps the
 old values there either). Gradients come from autograd of ``loss_fn``,
 whose attention backward runs the flash backward kernels on the card.
 
-A mesh that spans more than one device raises until the mesh slice.
+Without a mesh the step runs on one device. With one (parallel/mesh.py,
+after ``train.init()``), it is SPMD: parameters and AdamW moments are
+DTensors placed by the rule table (default ``FSDP_TP_RULES``), each rank
+computes on its own blocks (parallel/spmd.py: FSDP gathers at use,
+Megatron tensor parallelism, ring or Ulysses sequence parallelism), the
+gradients are summed over the data axes, and the loss and ``grad_norm``
+are the whole batch's, so a step on any mesh equals the one-device step up
+to the order of its sums. Each rank passes the step its own block of the
+tokens: batch over the rules' batch axes, sequence over ``act_seq`` when
+sequence-parallel (data/loader.py ``loader_shard_info`` and
+``seq_shard_info``).
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -21,33 +30,9 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer
-
-# the JAX package's mesh axes, outer to inner
-AXIS_ORDER = ("pipe", "data", "fsdp", "seq", "expert", "tensor")
-
-
-def mesh_from_string(desc: str) -> dict:
-    """'fsdp=-1' / 'data=2,tensor=4' -> {axis: size} over every axis, on
-    one device: -1 and unnamed axes are 1, and an axis wider than 1 raises
-    (the mesh is not ported yet)."""
-    sizes = dict.fromkeys(AXIS_ORDER, 1)
-    for part in desc.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        k, _, v = part.partition("=")
-        if k not in AXIS_ORDER:
-            raise ValueError(f"unknown mesh axis {k!r}; valid: {AXIS_ORDER}")
-        sizes[k] = 1 if int(v) == -1 else int(v)
-    _check_one_device(sizes)
-    return sizes
-
-
-def _check_one_device(mesh: dict) -> None:
-    if math.prod(mesh.values()) > 1:
-        raise NotImplementedError(
-            f"mesh {mesh} spans more than one device; the mesh is not ported "
-            "yet (ROADMAP queue 1, mesh/TP item)")
+from ..parallel import sharding as shlib
+from ..parallel.mesh import mesh_shape
+from ..parallel.spmd import Plan
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -82,12 +67,15 @@ class AdamW:
         return {"count": 0, "mu": zeros(params), "nu": zeros(params)}
 
     @torch.no_grad()
-    def step(self, params: dict, grads: list, state: dict) -> torch.Tensor:
+    def step(self, params: dict, grads: list, state: dict,
+             gnorm: torch.Tensor | None = None) -> torch.Tensor:
         """Apply one update to ``params`` and ``state`` in place; ``grads``
         in ``_leaves(params)`` order -> the global norm of the unclipped
-        gradients (a 0-d tensor)."""
-        gnorm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        gradients (a 0-d tensor). A sharded step passes ``gnorm``, the norm
+        of the whole gradient, since its ``grads`` are shards."""
+        if gnorm is None:
+            gnorm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads]))
         # optax: select(norm < clip, g, g / norm * clip)
         clip = torch.where(gnorm < self.grad_clip, 1.0,
                            self.grad_clip / gnorm)
@@ -117,32 +105,149 @@ class TrainStepBundle:
     step_fn: Callable
     params: Any
     opt_state: Any
-    mesh: dict
+    mesh: Any
     config: transformer.TransformerConfig
     optimizer: AdamW
     # (params, tokens, targets) -> scalar loss with no optimizer update
     eval_fn: Callable = None
+    rules: dict | None = None
+    # the rule table's DTensor placements of the params (and moments), and
+    # of the [B, L] token blocks
+    param_shardings: Any = None
+    tok_sharding: Any = None
 
 
-def create_train_step(cfg: transformer.TransformerConfig, mesh: dict | None = None,
+def _local_tree(tree, grad: bool = False):
+    """A tree of DTensors -> the same tree of their local tensors (sharing
+    storage: an in-place update of one is an update of the other); with
+    ``grad``, each a new leaf that requires grad."""
+    return {k: _local_tree(v, grad) if isinstance(v, dict)
+            else (v.to_local().detach().requires_grad_(True) if grad
+                  else v.to_local())
+            for k, v in tree.items()}
+
+
+def _check_mesh(mesh) -> None:
+    shape = mesh_shape(mesh)
+    for axis, item in (("pipe", "pipeline schedules"),
+                       ("expert", "expert sharding")):
+        if shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"a {axis!r} mesh axis of {shape[axis]} is not ported to "
+                f"tony_tpu_torch yet (ROADMAP.md queue 1, pipeline schedules "
+                f"and expert sharding: {item})")
+
+
+def create_train_step(cfg: transformer.TransformerConfig, mesh=None,
+                      rules: dict | None = None,
                       generator: torch.Generator | None = None,
                       optimizer: AdamW | None = None, device=None,
-                      params: dict | None = None) -> TrainStepBundle:
-    """Parameters (``params``, or ``transformer.init`` from ``generator``,
-    default seed 0), optimizer state and the step on one device."""
-    mesh = dict(mesh) if mesh is not None else mesh_from_string("")
-    _check_one_device(mesh)
+                      params: dict | None = None,
+                      sp_impl: str | None = None) -> TrainStepBundle:
+    """Parameters (``params``, the same full tree on every rank, or
+    ``transformer.init`` from ``generator``, default seed 0), optimizer
+    state and the step; on one device without ``mesh``, else sharded by
+    ``rules`` over the mesh (module docstring).
+
+    ``sp_impl`` picks the sequence-parallel attention when the mesh has a
+    ``seq`` axis wider than one: "ring" (K/V P2P ring) or "ulysses"
+    (all-to-all head sharding); default "ring". Either adds the rule
+    ``act_seq -> seq``.
+
+    ``step_fn`` and ``eval_fn`` compute with the trees they are given (the
+    bundle's, or one restored from a checkpoint with the bundle's as its
+    template) and update those in place."""
+    if mesh is None:
+        return _create_local(cfg, generator, optimizer, device, params)
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a DeviceMesh (parallel.build_mesh), "
+                        f"got {type(mesh).__name__}")
+    _check_mesh(mesh)
+    rules = dict(rules if rules is not None else shlib.FSDP_TP_RULES)
+    if sp_impl is None and mesh_shape(mesh).get("seq", 1) > 1:
+        sp_impl = "ring"
+    if sp_impl is not None and sp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_impl {sp_impl!r}")
+    if sp_impl:
+        cfg = transformer.TransformerConfig(
+            **{**cfg.__dict__, "attn_impl": sp_impl})
+        rules.setdefault("act_seq", "seq")
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else torch.device("cpu"))
     device = resolve_device(device)
     if params is None:
         generator = generator or torch.Generator(device=device).manual_seed(0)
         params = transformer.init(cfg, generator, device)
-    leaves = [p for _, p in _leaves(params)]
-    for p in leaves:
+    axes_tree = transformer.param_logical_axes(cfg)
+    params = shlib.shard_params(mesh, params, axes_tree, rules)
+    shardings = shlib.tree_shardings(mesh, axes_tree, rules)
+    flat_axes = dict(_leaves(axes_tree))
+    leaf_axes = [flat_axes[n] for n, _ in _leaves(params)]
+    optimizer = optimizer or make_optimizer()
+    opt_state = _sharded_moments(params, mesh, shardings)
+    plan = Plan(mesh, rules)
+    seq_axis = rules.get("act_seq") if sp_impl else None
+    tok_sharding = shlib.spec_to_placements(
+        (rules.get("batch"), seq_axis), mesh.mesh_dim_names)
+
+    def step(params, opt_state, tokens, targets):
+        # this rank's blocks, as leaves that take gradients (sharing the
+        # DTensors' storage, so the update below lands in ``params``)
+        local = _local_tree(params, grad=True)
+        leaves = [p for _, p in _leaves(local)]
+        loss = transformer.loss_fn(local, tokens, targets, cfg, mesh, rules)
+        grads = list(torch.autograd.grad(loss, leaves))
+        plan.reduce_grads(grads, leaf_axes)
+        gnorm = plan.global_norm(grads, leaf_axes)
+        state = {"count": opt_state["count"],
+                 "mu": _local_tree(opt_state["mu"]),
+                 "nu": _local_tree(opt_state["nu"])}
+        optimizer.step(local, grads, state, gnorm=gnorm)
+        opt_state["count"] = state["count"]
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def eval_loss(params, tokens, targets):
+        return transformer.loss_fn(_local_tree(params), tokens, targets, cfg,
+                                   mesh, rules)
+
+    return TrainStepBundle(step_fn=step, params=params, opt_state=opt_state,
+                           mesh=mesh, config=cfg, optimizer=optimizer,
+                           eval_fn=eval_loss, rules=rules,
+                           param_shardings=shardings,
+                           tok_sharding=tok_sharding)
+
+
+def _sharded_moments(params: dict, mesh, shardings: dict) -> dict:
+    """AdamW's state with its moments placed as the parameters are (FSDP
+    shards the moments for free, ZeRO-style)."""
+    from torch.distributed.tensor import DTensor
+
+    def zeros(tree, placements):
+        return {k: zeros(v, placements[k]) if isinstance(v, dict)
+                else DTensor.from_local(torch.zeros_like(v.to_local()), mesh,
+                                        placements[k], run_check=False,
+                                        shape=v.shape, stride=v.stride())
+                for k, v in tree.items()}
+
+    return {"count": 0, "mu": zeros(params, shardings),
+            "nu": zeros(params, shardings)}
+
+
+def _create_local(cfg, generator, optimizer, device, params) -> TrainStepBundle:
+    """The one-device step: parameters and moments plain tensors."""
+    device = resolve_device(device)
+    if params is None:
+        generator = generator or torch.Generator(device=device).manual_seed(0)
+        params = transformer.init(cfg, generator, device)
+    for _, p in _leaves(params):
         p.requires_grad_(True)
     optimizer = optimizer or make_optimizer()
     opt_state = optimizer.init(params)
 
     def step(params, opt_state, tokens, targets):
+        leaves = [p.requires_grad_(True) for _, p in _leaves(params)]
         loss = transformer.loss_fn(params, tokens, targets, cfg)
         grads = torch.autograd.grad(loss, leaves)
         gnorm = optimizer.step(params, grads, opt_state)
@@ -153,16 +258,18 @@ def create_train_step(cfg: transformer.TransformerConfig, mesh: dict | None = No
         return transformer.loss_fn(params, tokens, targets, cfg)
 
     return TrainStepBundle(step_fn=step, params=params, opt_state=opt_state,
-                           mesh=mesh, config=cfg, optimizer=optimizer,
+                           mesh=None, config=cfg, optimizer=optimizer,
                            eval_fn=eval_loss)
 
 
-def make_forward(cfg: transformer.TransformerConfig) -> Callable:
-    """Inference forward (logits only)."""
+def make_forward(cfg: transformer.TransformerConfig, mesh=None,
+                 rules: dict | None = None) -> Callable:
+    """Inference forward (logits only); with a mesh, SPMD over this rank's
+    blocks (logits over the whole vocabulary)."""
 
     @torch.no_grad()
     def fwd(params, tokens):
-        return transformer.apply(params, tokens, cfg)[0]
+        return transformer.apply(params, tokens, cfg, mesh, rules)[0]
 
     return fwd
 
@@ -181,4 +288,4 @@ def synthetic_lm_batch(generator: torch.Generator, batch: int, seq: int,
 
 
 __all__ = ["AdamW", "TrainStepBundle", "create_train_step", "make_forward",
-           "make_optimizer", "mesh_from_string", "synthetic_lm_batch"]
+           "make_optimizer", "synthetic_lm_batch"]
