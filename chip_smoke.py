@@ -100,7 +100,7 @@ and exits non-zero if any of them fails:
    ring layout is rotated by design, reported beside the ring engine
    against itself one block on); (b) run A's 24 requests at float32 (4
    layers) through both engines, equal up to the ring's first near-tie,
-   then at bf16 through serve's app, ring and --paged-kv in turn: every
+   then at bf16 through serve's app with --paged-kv: every
    request done, throughput, latency, a block's dispatch, wall and device
    time, the gather's and the scatter's device time against their bytes
    bound, no synchronisation in dispatch, peak device memory; (c) 16
@@ -192,7 +192,20 @@ and exits non-zero if any of them fails:
    K3-K5 and the plain versions, K1, dK/dV and dQ launched once a visible
    step. Two ranks cannot share the card under NCCL, so no multi-rank
    collective runs here;
-17. profile: a flagship decode step's and a flagship training step's
+17. tp (tensor-parallel decode and serving): (a) a child under the TonY
+   env contract at world 1 over an NCCL group of one: lm_generate
+   --tensor-parallel 1 on generation's request 0 (bf16, 12 layers) against
+   that request's tokens, float32 generate(mesh=) against generate without
+   a mesh, serve --mesh tensor=1 on run A's greedy requests (float32,
+   SERVE_CUT_LAYERS) against the meshless serve up to its first near tie,
+   with no synchronisation in dispatch or admission, and the turn
+   exchange's host time; (b) a tensor
+   axis of t = 2 and 4 replayed in one process (every rank's forward, the
+   collectives in memory) at the flagship's widths, float32, its logits
+   against the whole model's kernels and plain path (TP_LOGITS_ATOL), K1
+   and K6 on each rank's heads at t times the whole's launches; K6 timed
+   at 8, 4 and 2 kv heads;
+18. profile: a flagship decode step's and a flagship training step's
    (remat off and under each policy) host wall time against the device
    time torch.profiler records.
 
@@ -232,8 +245,10 @@ N_LAYERS = 12
 # the serve apps of the replay, streaming, paged (b)-(d), telemetry and
 # disaggregation phases: the flagship's widths at SERVE_CUT_LAYERS layers.
 # They check the engine and the host (replay, streams, the pool, the
-# counters), not the model's depth; the serving phase keeps all 12
-SERVE_CUT_LAYERS = 4
+# counters), not the model's depth; the serving phase keeps all 12 (4
+# until the tp phase needed the time: their blocks are host-bound, and the
+# host's dispatch grows with the layers)
+SERVE_CUT_LAYERS = 2
 MAX_NEW = 64
 MAX_LEN = 4160                # the longest prompt (4096) + MAX_NEW
 SHALLOW = FLAGSHIP + ["--n-layers", str(SERVE_CUT_LAYERS)]
@@ -356,8 +371,9 @@ PAGED_BURST, PAGED_BURST_LEN, PAGED_INTERLEAVES = 8, 1536, (0, 256)
 PAGED_STREAMS, PAGED_STREAM_LEN, PAGED_STREAM_NEW = 8, 256, 384
 PAGED_TRIE_BLOCKS = 512
 # (b)'s float32 run A through both engines: the flagship's widths at this
-# depth (12 until the disaggregation phase needed the time)
-PAGED_F32_LAYERS = 4
+# depth (12 until the disaggregation phase needed the time, 4 until the tp
+# phase did)
+PAGED_F32_LAYERS = 2
 # telemetry: /metrics scraped every TELEMETRY_SCRAPE_S seconds during run A;
 # a burst of TELEMETRY_BURST against --max-queue TELEMETRY_MAX_QUEUE; an
 # autoscale hint of TELEMETRY_HINT_S seconds
@@ -3680,10 +3696,10 @@ def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
     """(b) and (c): run A's requests at float32 (PAGED_F32_LAYERS layers)
     through the
     ring and the paged engine (up to the ring's first near-tie); at bf16
-    through serve's app with its defaults, ring then --paged-kv, and then
+    through serve's app with its defaults and --paged-kv, and then
     --paged-kv on PAGED_OVER_SLOTS slots over the same pool; each with its
-    throughput, latency, syncs and peak device memory, and the paged ones
-    with the gather's and the scatter's device time."""
+    throughput, latency, syncs and peak device memory, the gather's and
+    the scatter's device time."""
     rng, lens, news, sampled, payloads = _serve_payloads()
     dev = torch.device("cuda")
     cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
@@ -3732,10 +3748,6 @@ def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
     ops.reset_launch_counts()
     # each engine goes before the next is built: a burst's peak device
     # memory is its own engine's alone
-    srv, ring = _paged_http(torch, serve, payloads, ["--seed", "21"],
-                            "paged (b, ring)")
-    ring["block_device_ms_warm"] = _block_device_ms(torch, S, srv, rng)
-    del srv
     srv, paged = _paged_http(torch, serve, payloads,
                              ["--seed", "21", "--paged-kv"], "paged (b)")
     costs = _paged_block_costs(torch, S, srv, rng, "paged (b)")
@@ -3751,34 +3763,28 @@ def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
     counts = ops.launch_counts()
     if any(counts.values()):
         fail(f"paged (b, c): kernels launched {counts}, expected none")
-    bf16_equal = sum(a == b for a, b in zip(ring["tokens"], paged["tokens"]))
-    for rec in (ring, paged, over):
+    for rec in (paged, over):
         del rec["tokens"]
     print(f"paged (b, bf16, {SERVE_CUT_LAYERS} layers, serve's defaults + "
           f"--paged-kv, "
           f"{paged['pool_blocks_total']} blocks of {PAGED_KV_BLOCK}): run "
           f"A's {SERVE_REQUESTS} requests {SERVE_REQUESTS} of "
-          f"{SERVE_REQUESTS} done, {bf16_equal} equal the ring run's (bf16); "
-          f"{paged['output_tokens_per_s']:.1f} output tokens/s (ring in "
-          f"turn {ring['output_tokens_per_s']:.1f}, the serving phase at "
-          f"{N_LAYERS} layers {run_a['output_tokens_per_s']:.1f}); latency p50 "
+          f"{SERVE_REQUESTS} done; "
+          f"{paged['output_tokens_per_s']:.1f} output tokens/s (the serving "
+          f"phase at {N_LAYERS} layers {run_a['output_tokens_per_s']:.1f}); "
+          f"latency p50 "
           f"{paged['latency_s_p50']:.3f} s, max {paged['latency_s_max']:.3f}"
-          f" s (ring {ring['latency_s_p50']:.3f}, "
-          f"{ring['latency_s_max']:.3f}); a block's host dispatch "
-          f"{paged['block_dispatch_ms_p50']:.2f} ms (ring "
-          f"{ring['block_dispatch_ms_p50']:.2f}, run A at {N_LAYERS} layers "
-          f"{run_a['block_dispatch_ms_p50']:.2f}); a block's wall "
+          f" s; a block's host dispatch "
+          f"{paged['block_dispatch_ms_p50']:.2f} ms (run A at {N_LAYERS} "
+          f"layers {run_a['block_dispatch_ms_p50']:.2f}); a block's wall "
           f"{costs['block']['wall_ms']:.2f} ms and device "
-          f"{costs['block']['device_ms_warm']} ms (ring in turn "
-          f"{ring['block_device_ms_warm']}; run A "
+          f"{costs['block']['device_ms_warm']} ms (run A "
           f"{run_a['block_wall_ms']:.2f}, {run_a['block_device_ms']}); "
           f"synchronisations 0 in dispatch, {paged['admission_syncs']} in "
-          f"admission (ring {ring['admission_syncs']}); peak device memory "
+          f"admission; peak device memory "
           f"{paged['peak_bytes']} bytes, {paged['base_bytes']} of them "
-          f"allocated before the app (ring {ring['peak_bytes']}, "
-          f"{ring['base_bytes']}); "
-          f"{paged['prefill_calls']} prefill calls (ring "
-          f"{ring['prefill_calls']}); launches {counts}")
+          f"allocated before the app; "
+          f"{paged['prefill_calls']} prefill calls; launches {counts}")
     print(f"paged (c, {PAGED_OVER_SLOTS} slots on the same "
           f"{over['pool_blocks_total']} blocks): {SERVE_REQUESTS} of "
           f"{SERVE_REQUESTS} done, {over['admission_defers']} admissions "
@@ -3793,7 +3799,7 @@ def _paged_serving(torch, ops, S, G, T, serve, run_a) -> dict:
           f"app); {nvidia_smi_line()}")
     return dict(float32=dict(equal=f32_equal, rows=[
         r for r in f32 if not r["equal"] or r.get("near_ties")
-        or r.get("sampled")]), bf16_equal_ring=bf16_equal, ring=ring,
+        or r.get("sampled")]),
         paged=paged, paged_costs=costs, over=over, over_costs=over_costs,
         launches=counts)
 
@@ -4171,8 +4177,9 @@ def _paged_replay(torch, G, T, S) -> dict:
 def phase_paged(torch, ops, run_a, prefix_admit) -> dict:
     """Paged KV and the admission tiers (SlotServer(paged=True), serve's
     --paged-kv flags): (a) token identity with the ring engine in five
-    modes at float32 and bf16; (b) run A's requests with --paged-kv
-    beside the ring; (c) PAGED_OVER_SLOTS slots on the same pool; (d) the
+    modes at float32 and bf16; (b) run A's requests through both engines
+    at float32 and with --paged-kv at bf16; (c) PAGED_OVER_SLOTS slots on
+    the same pool; (d) the
     class tiers and interleaved prefill; (e) the paged prefix cache; (f)
     replay. Returns the kernels' launches (none: the paged engine runs the
     ring engine's einsum programs on a gathered view)."""
@@ -4511,12 +4518,15 @@ def _device_time_checks(name, stats, samples, drained) -> dict:
 
 def _reaper_host_cost(torch) -> dict:
     """What the tracker's wait costs the host, on a kernel that keeps the
-    card busy about a second (``torch.cuda._sleep``): a pure-Python loop's
-    time while the reaper waits, against the same loop with the reaper
-    idle (the wait must release the interpreter lock), and the process's
-    CPU seconds a wall second while this thread sleeps and the reaper
-    waits (a blocking event's wait sleeps; a spinning one burns a core).
-    A default, spinning CUDA event's wait is measured beside it."""
+    card busy (``torch.cuda._sleep``): a pure-Python loop's time while the
+    reaper waits, against the same loop with the reaper idle (the wait
+    must release the interpreter lock), the best of three runs on each
+    side, the sides in turns (idle, waiting, waiting, idle, idle, waiting:
+    a slow stretch of the host falls on both; a single waiting run against
+    a best of three idle ones read the host's noise as a cost), and the
+    process's CPU seconds a wall second while this thread sleeps and the
+    reaper waits (a blocking event's wait sleeps; a spinning one burns a
+    core). A default, spinning CUDA event's wait is measured beside it."""
     from tony_tpu_torch.models.serving import _Fence
     from tony_tpu_torch.observability import DispatchTracker
 
@@ -4527,38 +4537,57 @@ def _reaper_host_cost(torch) -> dict:
             x += i
         return time.perf_counter() - t0
 
+    def waiting(tr, blocking, seconds):
+        """Queue a sleep kernel of ``seconds`` and have the reaper wait on
+        an event behind it."""
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(seconds * 2e9))
+        ev = torch.cuda.Event(blocking=blocking)
+        ev.record()
+        tr.track("sleep", _Fence(ev))
+        time.sleep(0.05)
+        if tr.in_flight != 1:
+            fail("reaper cost: the reaper is not waiting")
+
+    def drained(tr) -> bool:
+        """Whether the reaper was still waiting; then wait for it."""
+        still = tr.in_flight == 1
+        if not tr.drain(timeout=30):
+            fail("reaper cost: the sleep kernel never became ready")
+        return still
+
     def during(blocking):
         tr = DispatchTracker()
+        idle, busy, still = [], [], True
         try:
-            torch.cuda.synchronize()
-            torch.cuda._sleep(int(1.2 * 2e9))
-            ev = torch.cuda.Event(blocking=blocking)
-            ev.record()
-            tr.track("sleep", _Fence(ev))
-            time.sleep(0.05)
-            if tr.in_flight != 1:
-                fail("reaper cost: the reaper is not waiting")
-            loop_s = loop()
+            for side in ("idle", "waiting", "waiting", "idle", "idle",
+                         "waiting"):
+                if side == "idle":
+                    idle.append(loop())
+                    continue
+                # a loop takes about 0.13 s: the kernel outlasts it
+                waiting(tr, blocking, 0.6)
+                busy.append(loop())
+                still &= drained(tr)
+            waiting(tr, blocking, 0.6)
             c0, w0 = time.process_time(), time.perf_counter()
             time.sleep(0.2)
             cpu_share = (time.process_time() - c0) / (time.perf_counter()
                                                       - w0)
-            still = tr.in_flight == 1
-            if not tr.drain(timeout=30):
-                fail("reaper cost: the sleep kernel never became ready")
-            return loop_s, cpu_share, still
+            still &= drained(tr)
+            return min(idle), min(busy), cpu_share, still
         finally:
             tr.shutdown()
 
-    idle = min(loop() for _ in range(3))
-    loop_b, cpu_b, still_b = during(True)
-    loop_s, cpu_s, still_s = during(False)
+    idle, loop_b, cpu_b, still_b = during(True)
+    idle_s, loop_s, cpu_s, still_s = during(False)
     out = dict(loop_idle_s=idle, loop_waiting_s=loop_b,
                loop_ratio=loop_b / idle, cpu_share_blocking=cpu_b,
-               cpu_share_spinning=cpu_s, loop_ratio_spinning=loop_s / idle,
+               cpu_share_spinning=cpu_s, loop_ratio_spinning=loop_s / idle_s,
                measured_while_waiting=still_b and still_s)
     print(f"reaper cost: a Python loop {loop_b * 1e3:.1f} ms while the "
           f"reaper waits on a blocking event, {idle * 1e3:.1f} ms idle "
+          f"(best of three each, in turns) "
           f"(ratio {out['loop_ratio']:.3f}; beside a spinning event "
           f"{out['loop_ratio_spinning']:.3f}); process CPU a wall second "
           f"while the reaper waits: {cpu_b:.3f} (spinning event "
@@ -6257,6 +6286,297 @@ def phase_mesh(torch, ops, A, train_losses) -> dict:
     return boot["launches"]
 
 
+# the tp phase: (a) a child under the TonY env contract at world 1 over an
+# NCCL group of one: lm_generate --tensor-parallel 1 on the generation
+# phase's request 0 (bf16, 12 layers); generate(mesh=) at float32 on
+# TP_F32 (batch, prompt, new) against generate without a mesh; serve --mesh
+# tensor=1 on run A's greedy requests at float32 and SERVE_CUT_LAYERS
+# against the meshless serve. (b) the tensor axis's arithmetic replayed in
+# one process at t = TP_REPLAY_T, float32 at the flagship's widths and
+# TP_REPLAY_LAYERS layers: TP_REPLAY_SHAPE (batch, prompt, fed steps)
+TP_F32 = (2, 1024, 32)
+TP_REPLAY_T = (2, 4)
+TP_REPLAY_LAYERS = 2
+TP_REPLAY_SHAPE = (2, 1024, 16)
+# float32 logits of the replay against the whole model (kernels, and the
+# plain path): the tensor axis only reorders float32 sums (wo over heads,
+# w_down over d_ff, K6's split over fewer heads), rounding errors of about
+# 1e-6 relative on logits of size about 1; 1e-3 leaves a 100x margin
+# (PERF.md)
+TP_LOGITS_ATOL = 1e-3
+
+_TP_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+import chip_smoke as C
+from tony_tpu_torch import ops
+from tony_tpu_torch.cli import serve
+from tony_tpu_torch.examples import lm_generate
+from tony_tpu_torch.models import generate as G, transformer as T
+from tony_tpu_torch.parallel import MeshSpec, build_mesh
+args = json.loads(sys.argv[2])
+out = {}
+ops.reset_launch_counts()
+out["bf16"] = {"rc": lm_generate.main(args["gen_argv"]),
+               "launches": ops.launch_counts(),
+               "backend": dist.get_backend()}
+dev = torch.device("cuda")
+cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=12,
+                          n_heads=8, n_kv_heads=8, d_ff=4096,
+                          dtype=torch.float32)
+gen = torch.Generator(device=dev).manual_seed(5)
+params = T.init(cfg, gen, dev)
+b, lp, n = args["f32"]
+prompt = torch.randint(0, 32768, (b, lp), generator=gen, device=dev)
+mesh = build_mesh(MeshSpec(fsdp=1, tensor=1), "cuda")
+ops.reset_launch_counts()
+tp = G.generate(G.prepare_decode(params, cfg, mesh=mesh), cfg, prompt, n,
+                mesh=mesh)
+launches = ops.launch_counts()
+plain = G.generate(params, cfg, prompt, n)
+out["f32"] = {"equal": bool(torch.equal(tp, plain)), "launches": launches,
+              "rows": tp.shape[0]}
+del params, tp, plain
+torch.cuda.empty_cache()
+rng, lens, news, sampled, payloads = C._serve_payloads()
+greedy = [dict(p, logprobs=2) for i, p in enumerate(payloads)
+          if i not in sampled]
+runs = {}
+for name, extra in (("meshless", []), ("mesh", ["--mesh", "tensor=1"])):
+    app, httpd, url = C._serve_app(serve, args["serve_argv"] + extra)
+    eng = getattr(app.server, "_engine", app.server)
+    syncs = C._checked_dispatch(torch, eng)
+    res = C._post_all(url, greedy)
+    stats = app.stats()
+    C._stop_app(app, httpd)
+    runs[name] = {"tokens": [r[1]["tokens"] for r in res],
+                  "gaps": [[e["top"][1][0] - e["top"][1][1]
+                            for e in r[1]["logprobs"]] for r in res],
+                  "admission_syncs": syncs["admission"],
+                  "sites": dict(syncs["sites"]),
+                  "blocks": stats["blocks_dispatched"],
+                  "lockstep": stats.get("lockstep"),
+                  "world": stats.get("world"), "mesh": stats.get("mesh")}
+out["serve"] = runs
+dist.destroy_process_group()
+print("tp_child " + json.dumps(out))
+"""
+
+
+def _tp_world_one(torch) -> dict:
+    """(a): the child of _TP_CHILD under TONY_COORDINATOR_ADDRESS /
+    TONY_PROCESS_ID=0 / TONY_NUM_PROCESSES=1 -> its record and the K1 and
+    K6 launches it counted."""
+    out_dir = REPO / "build" / "chip_smoke"
+    req0 = json.loads((out_dir / "request0.json").read_text())
+    b, lp, extra = REQUESTS[0]
+    gen_argv = FLAGSHIP + ["--batch", str(b), "--prompt-len", str(lp),
+                           "--max-new", str(MAX_NEW), "--max-len",
+                           str(MAX_LEN), "--seed", "0", "--tensor-parallel",
+                           "1", "--metrics-out",
+                           str(out_dir / "tp_request0.json")] + extra
+    serve_argv = SHALLOW + ["--dtype", "float32", "--port", "0"]
+    env = dict(os.environ, TONY_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               TONY_PROCESS_ID="0", TONY_NUM_PROCESSES="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _TP_CHILD, str(REPO), json.dumps(dict(
+            gen_argv=gen_argv, serve_argv=serve_argv, f32=list(TP_F32)))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"tp (a): the child exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    child = json.loads([ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("tp_child ")][-1][9:])
+    bf16, f32, runs = child["bf16"], child["f32"], child["serve"]
+    tp0 = json.loads((out_dir / "tp_request0.json").read_text())
+    want_bf16 = {"flash_fwd": 3 * N_LAYERS,
+                 "flash_decode": 2 * N_LAYERS * (MAX_NEW - 1),
+                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    if (bf16["rc"] != 0 or bf16["backend"] != "nccl"
+            or bf16["launches"] != want_bf16
+            or tp0["tokens"] != req0["tokens"]):
+        fail(f"tp (a) bf16: rc {bf16['rc']} over {bf16['backend']}, "
+             f"launches {bf16['launches']} (expected {want_bf16}), tokens "
+             f"{tp0['tokens'][:8]}... against the generation phase's "
+             f"{req0['tokens'][:8]}...")
+    n_new = TP_F32[2]
+    want_f32 = {"flash_fwd": N_LAYERS,
+                "flash_decode": N_LAYERS * (n_new - 1),
+                "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    if not f32["equal"] or f32["launches"] != want_f32:
+        fail(f"tp (a) float32: tokens equal {f32['equal']}, launches "
+             f"{f32['launches']} (expected {want_f32})")
+    mesh, plain = runs["mesh"], runs["meshless"]
+    for name, rec in runs.items():
+        if rec["admission_syncs"]:
+            fail(f"tp (a) serve {name}: {rec['admission_syncs']} syncs in "
+                 f"admission ({rec['sites']})")
+    if mesh["world"] != 1:
+        fail(f"tp (a) serve --mesh tensor=1: world {mesh['world']}")
+    # the two serves batch their arrivals differently, and a float32
+    # product of another shape may round a near tie the other way
+    parity = [_near_tie_check(f"tp (a) serve --mesh tensor=1 request {i}",
+                              got, want, gaps, len(want))
+              for i, (got, want, gaps) in enumerate(zip(
+                  mesh["tokens"], plain["tokens"], plain["gaps"]))]
+    same = sum(r["diverge"] is None for r in parity)
+    ls = mesh["lockstep"]
+    print(f"tp (a): lm_generate --tensor-parallel 1 over {bf16['backend']} "
+          f"at world 1: request 0's tokens equal the generation phase's "
+          f"({len(req0['tokens'])}), launches {bf16['launches']}; float32 "
+          f"generate(mesh=) B{TP_F32[0]} x {TP_F32[1]} + {n_new} equal to "
+          f"generate without a mesh, launches {f32['launches']}; serve "
+          f"--mesh tensor=1 at float32, {SERVE_CUT_LAYERS} layers: "
+          f"{len(mesh['tokens'])} greedy requests equal to the meshless "
+          f"serve's up to its first near-tie ({same} exactly), "
+          f"{mesh['blocks']} blocks, 0 syncs in dispatch and "
+          f"admission; the turn exchange's host time p50 "
+          f"{ls['exchange_s_p50'] * 1e3:.3f} ms, max "
+          f"{ls['exchange_s_max'] * 1e3:.3f} ms over {ls['turns']} turns; "
+          f"the child {wall:.1f} s")
+    launches = {k: bf16["launches"][k] + f32["launches"][k]
+                for k in want_bf16}
+    return dict(bf16=bf16, f32=f32, serve={k: {n: v for n, v in r.items()
+                                                if n not in ("tokens", "gaps")}
+                                            for k, r in runs.items()},
+                serve_parity=parity,
+                child_wall_s=wall, launches=launches)
+
+
+def _tp_replay(torch, ops, A, DA, G, T, R) -> dict:
+    """(b): every rank of a tensor axis of t = 2 and 4 replayed in one
+    process (tp_replay.replay_tp_decode: the multi-process path's own
+    forward, the collectives in memory) at the flagship's widths, float32,
+    against the whole model with the kernels and on the plain path, the
+    same tokens fed to each; each rank's K1 and K6 calls recorded by their
+    head counts."""
+    import dataclasses
+
+    dev = torch.device("cuda")
+    cfg = T.TransformerConfig(vocab_size=32768, d_model=1024,
+                              n_layers=TP_REPLAY_LAYERS, n_heads=8,
+                              n_kv_heads=8, d_ff=4096, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = T.init(cfg, gen, dev)
+    b, lp, n = TP_REPLAY_SHAPE
+    prompt = torch.randint(0, 32768, (b, lp), generator=gen, device=dev)
+    max_len = lp + n + 1
+    toks = G.generate(params, cfg, prompt, n + 1)
+    fed = toks[:, :n]
+    heads = {"flash_fwd": collections.Counter(),
+             "flash_decode": collections.Counter()}
+    fwd, dec = A._flash_fwd_cuda, DA._decode_cuda
+
+    def fwd_rec(q, *a, **kw):
+        heads["flash_fwd"][q.shape[1]] += 1
+        return fwd(q, *a, **kw)
+
+    def dec_rec(q, *a, **kw):
+        heads["flash_decode"][q.shape[1]] += 1
+        return dec(q, *a, **kw)
+
+    A._flash_fwd_cuda, DA._decode_cuda = fwd_rec, dec_rec
+    try:
+        ops.reset_launch_counts()
+        whole = R.decode_logits(params, cfg, prompt, fed, max_len)
+        torch.cuda.synchronize()
+        whole_counts = ops.launch_counts()
+        plain = R.decode_logits(params, dataclasses.replace(
+            cfg, attn_impl="ref"), prompt, fed, max_len)
+        rows = []
+        for t in TP_REPLAY_T:
+            for c in heads.values():
+                c.clear()
+            ops.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = R.replay_tp_decode(params, cfg, prompt, fed, t, max_len)
+            end.record()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = {k: t * v for k, v in whole_counts.items()}
+            if counts != want:
+                fail(f"tp (b) t={t}: launches {counts}, expected {want}")
+            want_heads = {"flash_fwd": {8 // t: t * whole_counts["flash_fwd"]},
+                          "flash_decode": {8 // t: t * whole_counts[
+                              "flash_decode"]}}
+            if {k: dict(v) for k, v in heads.items()} != want_heads:
+                fail(f"tp (b) t={t}: kernel calls by head count "
+                     f"{dict(heads)}, expected {want_heads}")
+            if not all(torch.equal(x, y) for r in got[1:]
+                       for x, y in zip(r, got[0])):
+                fail(f"tp (b) t={t}: the ranks' logits differ")
+            errs = {"kernels": max(float((x - y).abs().max())
+                                   for x, y in zip(got[0], whole)),
+                    "plain": max(float((x - y).abs().max())
+                                 for x, y in zip(got[0], plain))}
+            for against, e in errs.items():
+                if not e <= TP_LOGITS_ATOL:
+                    fail(f"tp (b) t={t}: logits max |err| {e:.3g} against "
+                         f"the whole model ({against}), atol "
+                         f"{TP_LOGITS_ATOL}")
+            ties = []
+            for r in range(b):
+                gaps = [float(w[r].topk(2).values[0] - w[r].topk(2).values[1])
+                        for w in whole]
+                ties.append(_near_tie_check(
+                    f"tp (b) t={t} row {r}",
+                    [int(x[r].argmax()) for x in got[0]],
+                    [int(x[r].argmax()) for x in whole], gaps, n + 1))
+            rows.append(dict(t=t, launches=counts, kernel_heads={
+                k: dict(v) for k, v in heads.items()}, max_abs_err=errs,
+                tolerance=TP_LOGITS_ATOL, near_ties=ties,
+                replay_ms=start.elapsed_time(end)))
+            print(f"tp (b) t={t}: launches {counts} (t x the whole model's "
+                  f"{whole_counts}), K1 on {8 // t} heads and K6 on "
+                  f"{8 // t} kv heads a rank; float32 logits of {n + 1} "
+                  f"steps max |err| {errs['kernels']:.3g} against the whole "
+                  f"model's kernels, {errs['plain']:.3g} against its plain "
+                  f"path (atol {TP_LOGITS_ATOL}); greedy tokens equal up "
+                  f"to the top-2-gap rule; the replay "
+                  f"{start.elapsed_time(end):.1f} ms")
+    finally:
+        A._flash_fwd_cuda, DA._decode_cuda = fwd, dec
+    del params, whole, plain, got
+    torch.cuda.empty_cache()
+    # K6 at a rank's kv heads beside the whole model's, at the decode
+    # table's shape (B8, 2081 of 4160 positions, bf16)
+    k6 = {}
+    for kvh in (8, 4, 2):
+        q = torch.randn(8, kvh, 1, 128, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        ck, cv = (torch.randn(8, kvh, 4160, 128, generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        k6[kvh] = cuda_ms(lambda: DA.flash_decode(q, ck, cv, 2080), 200)
+        del q, ck, cv
+    print(f"tp (b) K6 B8 D128 bf16, 2081 of 4160 positions: "
+          + ", ".join(f"{h} kv heads {ms:.4f} ms" for h, ms in k6.items())
+          + f"; {nvidia_smi_line()}")
+    return dict(rows=rows, k6_ms=k6)
+
+
+def phase_tp(torch, ops, A, DA, G, T) -> dict:
+    """Tensor-parallel decode and serving on the one card: (a) the NCCL
+    path at world 1 through lm_generate, generate and serve, (b) the
+    tensor axis's arithmetic replayed at t = 2 and 4 (two NCCL ranks cannot
+    share one card: PERF.md). Returns (a)'s launches."""
+    print("== main path: tp")
+    import importlib
+
+    R = importlib.import_module("tony_tpu_torch.parallel.tp_replay")
+    world_one = _tp_world_one(torch)
+    with torch.no_grad():
+        replay = _tp_replay(torch, ops, A, DA, G, T, R)
+    print("tp " + json.dumps(dict(world_one=world_one, replay=replay,
+                                  card=nvidia_smi_line())))
+    return world_one["launches"]
+
+
 def phase_hf(torch, ops, lm_generate, G, serve) -> dict:
     """A checkpoint in HF's layout at Llama-3.1-8B's widths (HF_CONFIG,
     HF_LAYERS layers, bf16, two shards), written here and read by the
@@ -6764,12 +7084,14 @@ def main() -> int:
     moe_launches = timed("moe", phase_moe, torch, ops, lm_train, lm_generate,
                          A, G, T)
     mesh_launches = timed("mesh", phase_mesh, torch, ops, A, train_losses)
+    tp_launches = timed("tp", phase_tp, torch, ops, A, DA, G, T)
     launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
                 + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
                 + replay_launches[k] + stream_launches[k]
                 + paged_launches[k] + telemetry_launches[k]
                 + disagg_launches[k] + hf_launches[k] + spec_launches[k]
-                + moe_launches[k] + mesh_launches[k] for k in gen_launches}
+                + moe_launches[k] + mesh_launches[k] + tp_launches[k]
+                for k in gen_launches}
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

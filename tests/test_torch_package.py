@@ -42,9 +42,12 @@ for name in ("tony_tpu_torch.train.checkpoint",
              "tony_tpu_torch.events.trace",
              "tony_tpu_torch.tools.serving_ab",
              "tony_tpu_torch.tools.reaper_ab",
+             "tony_tpu_torch.tools.tp_mesh_cost",
              "tony_tpu_torch.models.hf_import",
              "tony_tpu_torch.parallel.mesh", "tony_tpu_torch.parallel.sharding",
              "tony_tpu_torch.parallel.spmd",
+             "tony_tpu_torch.parallel.lockstep",
+             "tony_tpu_torch.parallel.tp_replay",
              "tony_tpu_torch.parallel.collectives",
              "tony_tpu_torch.parallel.ring_attention",
              "tony_tpu_torch.parallel.ulysses",
@@ -127,10 +130,14 @@ def test_lm_generate_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--tensor-parallel", "2"], "TP decode and serving"),
+    (["--tensor-parallel", "2", "--draft-checkpoint-dir", "/nonexistent"],
+     "TP decode and serving"),
 ])
 def test_lm_generate_flags_not_yet_ported(flags, what):
-    with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):
+    """Flags whose ROADMAP.md queue-1 item (``what``) is ported now raise
+    the JAX package's refusals: tensor-parallel decode with a draft."""
+    with pytest.raises(SystemExit,
+                       match="single-device greedy.*--tensor-parallel"):
         lm_generate.main(["--device", "cpu"] + flags)
 
 

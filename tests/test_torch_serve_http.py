@@ -445,8 +445,14 @@ def test_serve_prefix_cache_flags_and_stats():
     (["--mesh", "tensor=2"], "TP decode and serving"),
 ])
 def test_cli_flags_not_yet_ported(flags, what):
-    with pytest.raises(SystemExit, match=f"not yet ported.*{what}"):
-        serve.main(TINY_FLAGS + flags)
+    """Flags whose ROADMAP.md queue-1 item (``what``) is ported now raise
+    the JAX package's refusals: ``--mesh`` serves one model without a
+    draft."""
+    for extra in (["--model", "a=random:1", "--model", "b=random:2"],
+                  ["--draft-model", "random:5"]):
+        with pytest.raises(SystemExit,
+                           match="--mesh serves a single model without"):
+            serve.main(TINY_FLAGS + flags + extra)
 
 
 def _wait(pred, timeout=60.0):

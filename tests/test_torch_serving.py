@@ -614,11 +614,41 @@ def test_submit_rejections(model):
     assert srv.progress(rid) == {"tokens": [3], "prompt_tokens": 1}
 
 
+def _mesh_shape(**sizes):
+    """A mesh's shape and this rank's coordinates alone: what the checks
+    made before any placement read."""
+    import types
+
+    from tony_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    return types.SimpleNamespace(
+        mesh_dim_names=AXIS_ORDER,
+        mesh=torch.empty([sizes.get(a, 1) for a in AXIS_ORDER]),
+        get_coordinate=lambda: [0] * len(AXIS_ORDER))
+
+
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"rules": {}}],
                          ids=lambda kw: next(iter(kw)))
 def test_not_ported_arguments_raise(model, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        _port_server(model, **kw)
+    """``mesh=`` and ``rules=`` are ported; the JAX package's refusals on a
+    tensor-parallel mesh stand: a draft (``mesh``) and int8 weights
+    (``rules``, the rule table that shards the heads)."""
+    from tony_tpu_torch.models.generate import DecodeWeights
+    from tony_tpu_torch.parallel import TP_DECODE_RULES
+
+    _, cfg, _, params = model
+    mesh = _mesh_shape(tensor=2)
+    if "mesh" in kw:
+        prep = DecodeWeights(params=params, fused=None, mesh=mesh,
+                             rules=TP_DECODE_RULES)
+        with pytest.raises(ValueError,
+                           match="speculative serving is single-device"):
+            S.SlotServer(prep, cfg, slots=2, max_len=64, device="cpu",
+                         draft=params, draft_cfg=cfg)
+    else:
+        with pytest.raises(ValueError, match="weight_dtype='int8'"):
+            _port_server(model, mesh=mesh, rules=TP_DECODE_RULES,
+                         weight_dtype="int8")
 
 
 @pytest.mark.parametrize("kw", [{"journal": "file"}, {"replay": False}],

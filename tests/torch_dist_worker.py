@@ -166,8 +166,264 @@ def _lm_train(inp: dict, rank: int, world: int) -> dict:
     return {"rc": lm_train.main(inp["argv"])}
 
 
+def _tp_generate(inp: dict, rank: int, world: int) -> dict:
+    """models/generate.py on ``inp["mesh"]`` from the converted parameters:
+    each case of ``inp["cases"]`` (name -> generate's keyword arguments,
+    "prepared" for weights from prepare_decode on the mesh, "seed" for a
+    sampling generator, "continue" for a second turn on the returned
+    cache) -> its tokens (and steps). ``inp["rules"]`` replaces
+    TP_DECODE_RULES."""
+    from tony_tpu_torch.models.convert import config_from_fields
+    from tony_tpu_torch.models.generate import generate, prepare_decode
+    from tony_tpu_torch.parallel import TP_DECODE_RULES, mesh_from_string
+
+    cfg = config_from_fields(inp["cfg"])
+    mesh = mesh_from_string(inp["mesh"], "cpu")
+    prep = prepare_decode(inp["params"], cfg, mesh=mesh,
+                          rules=inp.get("rules", TP_DECODE_RULES))
+    out = {"unfused": prep.fused is None,
+           "wk": str(prep.params["layers"]["wk"].placements),
+           "wk_local": tuple(prep.params["layers"]["wk"].to_local().shape)}
+    for name, kw in inp["cases"].items():
+        kw = dict(kw)
+        params = prep if kw.pop("prepared", False) else inp["params"]
+        seed = kw.pop("seed", None)
+        if seed is not None:
+            kw["generator"] = torch.Generator().manual_seed(seed)
+        turn2 = kw.pop("continue", None)
+        res = generate(params, cfg, inp["prompt"], kw.pop("n"), mesh=mesh,
+                       **kw)
+        if turn2 is not None:
+            toks, cache = res
+            out[name + "_cache"] = tuple(cache.k.shape)
+            res = (toks, generate(params, cfg, turn2, kw.get("n2", 4),
+                                  mesh=mesh, cache=cache,
+                                  return_cache=True)[0])
+        out[name] = res
+    return out
+
+
+def _tp_serve(inp: dict, rank: int, world: int) -> dict:
+    """SlotServer on ``inp["mesh"]`` for each run of ``inp["runs"]`` (name
+    -> {"kw": SlotServer keyword arguments, "raw": pass the converted
+    parameters with ``mesh=`` instead of weights from prepare_decode on the
+    mesh, "prompts", "budgets"}) through ``run_until_drained`` -> each
+    run's tokens in request order, stats and host digest; and the errors of
+    the mesh's rejections (``rejections``)."""
+    from tony_tpu_torch.models.convert import config_from_fields
+    from tony_tpu_torch.models.generate import prepare_decode
+    from tony_tpu_torch.models.serving import Request, SlotServer
+    from tony_tpu_torch.parallel import mesh_from_string
+
+    cfg = config_from_fields(inp["cfg"])
+    mesh = mesh_from_string(inp["mesh"], "cpu")
+    prep = prepare_decode(inp["params"], cfg, mesh=mesh)
+    out = {"fused": prep.fused}
+    for name, run in inp["runs"].items():
+        if run.get("raw"):
+            srv = SlotServer(inp["params"], cfg, device="cpu", mesh=mesh,
+                             **run["kw"])
+        else:
+            srv = SlotServer(prep, cfg, device="cpu", **run["kw"])
+        reqs = [Request(prompt=p, max_new_tokens=b)
+                for p, b in zip(run["prompts"], run["budgets"])]
+        for r in reqs:
+            srv.submit(r)
+        done = srv.run_until_drained()
+        if srv._paged:
+            srv._allocator.check()
+        out[name] = {"tokens": [done[r.id].tokens for r in reqs],
+                     "stats": srv.stats(), "digest": srv.host_digest()}
+    errors = {}
+    for name, make in (
+            ("slots", lambda: SlotServer(prep, cfg, slots=3, max_len=64,
+                                         device="cpu")),
+            ("meshless", lambda: SlotServer(prepare_decode(inp["params"],
+                                                           cfg),
+                                            cfg, slots=4, max_len=64,
+                                            device="cpu", mesh=mesh)),
+            ("draft", lambda: SlotServer(prep, cfg, slots=4, max_len=64,
+                                         device="cpu", draft=inp["params"],
+                                         draft_cfg=cfg)),
+            ("int8", lambda: SlotServer(inp["params"], cfg, slots=4,
+                                        max_len=64, device="cpu", mesh=mesh,
+                                        weight_dtype="int8"))):
+        try:
+            make()
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+    out["rejections"] = errors
+    return out
+
+
+def http_requests(url: str, reqs: list) -> list:
+    """Each of ``reqs`` ((kind, body): "generate" buffered, "sse" streamed
+    on /generate, "v1" on /v1/completions) posted at once, one thread a
+    request -> each answer's tokens (the /v1 text's ids), in order."""
+    import json
+    import threading
+    import urllib.request
+
+    out = [None] * len(reqs)
+
+    def post(i, kind, body):
+        path = {"generate": "/generate", "sse": "/generate?stream=true",
+                "v1": "/v1/completions"}[kind]
+        req = urllib.request.Request(url + path,
+                                     data=json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                raw = r.read().decode()
+        except Exception as e:
+            out[i] = f"{type(e).__name__}: {e}"
+            return
+        if kind == "generate":
+            out[i] = json.loads(raw)["tokens"]
+        elif kind == "v1":
+            out[i] = [int(t) for t in
+                      json.loads(raw)["choices"][0]["text"].split()]
+        else:
+            toks = []
+            for line in raw.splitlines():
+                if line.startswith("data: ") and '"tokens"' in line:
+                    toks += json.loads(line[6:])["tokens"]
+            out[i] = toks
+
+    threads = [threading.Thread(target=post, args=(i, k, b))
+               for i, (k, b) in enumerate(reqs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def serve_and_ask(argv: list, reqs: list) -> dict:
+    """``serve``'s app from ``argv`` on an ephemeral port in this process:
+    ``reqs`` answered (``http_requests``), then /stats -> both."""
+    import json
+    import threading
+    import urllib.request
+
+    from tony_tpu_torch.api.openai import TokenCodec
+    from tony_tpu_torch.cli import serve
+
+    args = serve.build_argparser().parse_args(argv)
+    app = serve.build_app(args)
+    if isinstance(app, serve.Follower):
+        return {"reason": app.run()}
+    app.start()
+    httpd = serve.make_httpd(app, "127.0.0.1", 0, TokenCodec(
+        args.text_codec, vocab_size=app.server.cfg.vocab_size))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        answers = http_requests(url, reqs)
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        app.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+    return {"answers": answers, "stats": stats, "status": app.status,
+            "error": app.error}
+
+
+def _serve_mesh(inp: dict, rank: int, world: int) -> dict:
+    """``serve --mesh`` on every rank (``inp["argv"]``): rank 0 answers
+    ``inp["reqs"]`` over HTTP; the others follow. ``inp["env"]`` [rank]
+    sets a rank's environment first (a chaos hook); ``inp["tamper"]``
+    makes rank 1's host digest lie. Each rank also reports the sockets its
+    Python code bound."""
+    import socket
+
+    for k, v in inp.get("env", {}).get(rank, {}).items():
+        os.environ[k] = v
+    binds = []
+    bind = socket.socket.bind
+
+    def counting_bind(self, addr):
+        binds.append(addr)
+        return bind(self, addr)
+
+    socket.socket.bind = counting_bind
+    if rank and inp.get("tamper"):
+        from tony_tpu_torch.models.serving import SlotServer
+
+        real = SlotServer.host_digest
+        SlotServer.host_digest = lambda self: dict(real(self), queued=-1)
+    try:
+        out = serve_and_ask(inp["argv"], inp["reqs"])
+    except Exception as e:
+        out = {"raised": f"{type(e).__name__}: {e}"}
+    out["binds"] = len(binds)
+    return out
+
+
+def shed_under_deadlines(argv: list, prompts: list) -> dict:
+    """``serve``'s app from ``argv`` (with ``--max-queue 4``) fed before
+    its loop starts: request 0 already past its queue deadline, 1 and 2
+    interactive, 3 of the batch tier. The batch tier's limit (2) is full,
+    so 3's submit sweeps 0 out as expired and is shed all the same. Then
+    the loop serves 1 and 2, and request 4 after them -> each request's
+    outcome (tokens, or the error's name), the app's status and the
+    engine's host digest at the end. On a mesh's other ranks: the
+    follower's reason and digest."""
+    from tony_tpu_torch.cli import serve
+
+    args = serve.build_argparser().parse_args(argv)
+    app = serve.build_app(args)
+    if isinstance(app, serve.Follower):
+        reason = app.run()
+        return {"reason": reason, "digest": app.server.host_digest()}
+    out, waits = [], []
+    for i, (timeout, prio) in enumerate(((-1.0, "interactive"),
+                                         (60.0, "interactive"),
+                                         (60.0, "interactive"),
+                                         (60.0, "batch"))):
+        try:
+            waits.append(app.submit_async(prompts[i], 6, timeout=timeout,
+                                          priority=prio))
+        except Exception as e:
+            out.append(type(e).__name__)
+            waits.append(None)
+    app.start()
+    try:
+        waits.append(app.submit_async(prompts[4], 6))
+        for w in waits:
+            if w is None:
+                continue
+            rid, ev = w
+            assert ev.wait(60), f"request {rid} was not answered"
+            try:
+                out.append(app.take_result(rid).tokens)
+            except Exception as e:
+                out.append(type(e).__name__)
+    finally:
+        app.shutdown()
+    return {"outcomes": out, "status": app.status, "error": app.error,
+            "shed": app.server.shed_requests,
+            "expired": app.server.expired_requests,
+            "digest": app.server.host_digest()}
+
+
+def _serve_mesh_shed(inp: dict, rank: int, world: int) -> dict:
+    return shed_under_deadlines(inp["argv"], inp["prompts"])
+
+
+def _lm_generate(inp: dict, rank: int, world: int) -> dict:
+    """examples/lm_generate.py's main with ``inp["argv"]`` on every rank."""
+    from tony_tpu_torch.examples import lm_generate
+
+    return {"rc": lm_generate.main(inp["argv"])}
+
+
 TASKS = {"attention": _attention, "train": _train,
-         "restore_step": _restore_step, "lm_train": _lm_train}
+         "restore_step": _restore_step, "lm_train": _lm_train,
+         "tp_generate": _tp_generate, "tp_serve": _tp_serve,
+         "serve_mesh": _serve_mesh, "serve_mesh_shed": _serve_mesh_shed,
+         "lm_generate": _lm_generate}
 
 
 def main() -> int:

@@ -116,7 +116,16 @@ draft window, else it is autotuned up to ``--spec-gamma-max``. Every
 request's tokens are the spec-off server's; /stats' ``speculative`` and
 the ``serving_spec_*`` families count the rounds and the acceptance.
 
-Not ported yet, raising a named error: ``--mesh``. /metrics has no
+Tensor-parallel serving: ``--mesh data=2,tensor=2`` (``axis=size``
+pairs, unnamed axes 1) serves one model without a draft from a job of as
+many processes under the TONY_* contract (``train.init``: NCCL on the
+cards, gloo with ``--device cpu``). The weights are prepared once onto
+the mesh (``TP_DECODE_RULES``) and every rank runs its own engine on its
+blocks, kept in step by parallel/lockstep.py: rank 0 binds ``--port``
+(the serving job passes ``$TONY_SERVE_PORT``) and owns HTTP, admission,
+the journal, traces and streams; the other ranks bind nothing and follow
+its turns. /stats gains ``world`` and ``lockstep`` (the turn exchange's
+host seconds); the engine's ``mesh`` is the mesh's shape. /metrics has no
 compile families (ROADMAP.md queue 1).
 """
 
@@ -275,24 +284,75 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--draft-n-layers", type=int, default=2)
     p.add_argument("--draft-n-heads", type=int, default=4)
     p.add_argument("--draft-d-ff", type=int, default=256)
-    # not ported yet: raises in check_ported unless left at the JAX
-    # package's default
-    p.add_argument("--mesh", default="")
+    p.add_argument("--mesh", default="",
+                   help="tensor-parallel serving over the job's processes, "
+                        "e.g. 'tensor=2' or 'data=2,tensor=2' (module "
+                        "docstring)")
     return p
 
 
-# flag -> (is it set off the JAX package's default?, ROADMAP.md queue-1
-# item)
-_NOT_PORTED_FLAGS = {
-    "--mesh": (lambda a: a.mesh, "TP decode and serving"),
-}
+def build_serving_mesh(spec_str: str, device_type: str):
+    """'data=2,tensor=2' -> a mesh over every process of the job (the JAX
+    package's cli/serve.py:231-264). Unnamed axes are 1 (no wildcard -1: a
+    server's parallelism is exactly what the operator asked for); the
+    sizes' product must be the job's process count."""
+    import math
+
+    import torch.distributed as dist
+
+    from ..parallel.mesh import AXIS_ORDER, MeshSpec, build_mesh
+
+    sizes = {}
+    for part in spec_str.split(","):
+        axis, sep, val = part.strip().partition("=")
+        if not sep or axis not in AXIS_ORDER:
+            raise SystemExit(
+                f"--mesh: expected axis=size pairs over {AXIS_ORDER}, "
+                f"got {part!r}")
+        try:
+            size = int(val)
+        except ValueError:
+            size = 0
+        if size < 1:
+            raise SystemExit(
+                f"--mesh: axis size must be a positive integer, "
+                f"got {part!r}")
+        if axis in sizes:
+            raise SystemExit(
+                f"--mesh: axis {axis!r} given twice — a duplicate would "
+                "silently serve with only the last value")
+        sizes[axis] = size
+    n = math.prod(sizes.values())
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n > world:
+        raise SystemExit(
+            f"--mesh needs {n} processes, only {world} in the job")
+    if n < world:
+        raise SystemExit(
+            f"--mesh covers {n} processes, the job has {world}")
+    return build_mesh(MeshSpec(**{**{a: 1 for a in AXIS_ORDER}, **sizes}),
+                      device_type)
 
 
-def check_ported(args) -> None:
-    for flag, (is_set, item) in _NOT_PORTED_FLAGS.items():
-        if is_set(args):
-            raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
-                             f"(ROADMAP.md queue 1, {item})")
+def _join_mesh(args):
+    """``--mesh``: join the job, build the mesh and the ranks' lockstep ->
+    (mesh, Lockstep); ``args.device`` becomes this rank's device."""
+    from .. import train
+    from ..parallel.lockstep import Lockstep
+
+    if len(args.model or []) > 1 or args.draft_model:
+        raise SystemExit(
+            "--mesh serves a single model without a draft (tensor-parallel "
+            "speculative/multi-model serving is not wired)")
+    info = train.init(device=args.device)
+    if info["backend"] is None:
+        raise SystemExit("--mesh needs the job's process group: run under "
+                         "the TONY_* env contract (TONY_COORDINATOR_ADDRESS,"
+                         " TONY_PROCESS_ID, TONY_NUM_PROCESSES)")
+    args.device = info["device"]
+    mesh = build_serving_mesh(args.mesh, "cpu" if info["backend"] == "gloo"
+                              else "cuda")
+    return mesh, Lockstep()
 
 
 def load_model(args):
@@ -415,14 +475,21 @@ def build_engines(args) -> dict:
     from ..models.generate import prepare_decode
     from ..models.serving import SlotServer
 
-    check_ported(args)
+    mesh = lockstep = None
+    if args.mesh:
+        mesh, lockstep = _join_mesh(args)
     registry, names, _ = build_registry(args)
     for entry in registry:
         if entry.name in names:     # a draft stays raw: its engine casts it
+            # on a mesh: placed once and the whole masters dropped, so the
+            # server holds one sharded copy
             entry.weights = prepare_decode(entry.weights, entry.cfg,
-                                           weight_dtype=args.weight_dtype)
+                                           weight_dtype=args.weight_dtype,
+                                           mesh=mesh)
+    args.lockstep = lockstep
+    follower = lockstep is not None and not lockstep.leader
     journal, recovered = None, []
-    if args.trace_dir and not args.no_replay:
+    if args.trace_dir and not args.no_replay and not follower:
         from pathlib import Path
 
         from ..events.journal import JOURNAL_FILE, RequestJournal
@@ -444,7 +511,9 @@ def build_engines(args) -> dict:
         prefix_cache_blocks=args.prefix_cache_blocks,
         cache_prompts=not args.no_cache_prompts,
         max_queue=args.max_queue, batch_queue_frac=args.batch_queue_frac,
-        journal=journal, replay=not args.no_replay, paged=args.paged_kv,
+        # a follower replays nothing itself: rank 0's reset sends the queue
+        journal=journal, replay=not (args.no_replay or follower),
+        paged=args.paged_kv,
         kv_block=args.kv_block, kv_pool_blocks=args.kv_pool_blocks,
         prefill_interleave=args.prefill_interleave,
         class_budgets=budgets or None, role=args.role,
@@ -477,14 +546,36 @@ def build_server(args):
     return next(iter(build_engines(args).values()))
 
 
-def build_app(args) -> "ServeApp":
-    """The ServeApp over ``build_engines(args)`` (not started)."""
-    return ServeApp(build_engines(args),
+def build_app(args) -> "ServeApp | Follower":
+    """The ServeApp over ``build_engines(args)`` (not started); with
+    ``--mesh``, on a rank other than 0, the ``Follower`` of rank 0's."""
+    engines = build_engines(args)
+    lockstep = args.lockstep
+    if lockstep is not None and not lockstep.leader:
+        return Follower(next(iter(engines.values())), lockstep)
+    return ServeApp(engines,
                     max_loop_restarts=args.loop_max_restarts,
                     loop_backoff_s=args.loop_backoff_s,
                     trace_dir=args.trace_dir,
                     journal_checkpoint_s=(0.0 if args.no_replay
-                                          else args.journal_checkpoint_s))
+                                          else args.journal_checkpoint_s),
+                    lockstep=lockstep)
+
+
+class Follower:
+    """A ``serve --mesh`` rank other than 0: no front door; its engine
+    follows rank 0's turns (parallel/lockstep.py) until rank 0 stops."""
+
+    def __init__(self, server, lockstep):
+        self.server, self.lockstep = server, lockstep
+
+    def run(self) -> str:
+        from ..parallel.lockstep import follow
+
+        try:
+            return follow(self.server, self.lockstep)
+        finally:
+            self.server.shutdown()
 
 
 # beside requests.trace.jsonl under --trace-dir: the latency histograms'
@@ -545,7 +636,7 @@ class ServeApp:
 
     def __init__(self, server, *, max_loop_restarts: int = 3,
                  loop_backoff_s: float = 0.5, trace_dir: str = "",
-                 journal_checkpoint_s: float = 1.0):
+                 journal_checkpoint_s: float = 1.0, lockstep=None):
         from ..train.profiling import StepTimer
 
         if isinstance(server, dict):
@@ -555,6 +646,16 @@ class ServeApp:
         else:
             self.engines = {
                 str(getattr(server, "model", None) or "default"): server}
+        # a mesh's rank 0 (parallel/lockstep.py): the one engine recorded
+        # for the followers, every turn exchanged with them
+        self.lockstep = lockstep
+        if lockstep is not None:
+            from ..parallel.lockstep import Leader
+
+            if len(self.engines) != 1:
+                raise ValueError("a mesh serves one model")
+            name, eng = next(iter(self.engines.items()))
+            self.engines = {name: Leader(eng, lockstep)}
         # the default model (a nameless request's, and the name /v1
         # responses carry then) and its engine
         self.default_model = next(iter(self.engines))
@@ -714,13 +815,27 @@ class ServeApp:
             ev.set()
 
     def _loop(self):
-        while not self.stop.is_set():
-            try:
-                self._serve()
-                return                  # clean stop
-            except Exception as e:
-                if not self._recover(e):
-                    return              # terminally down
+        from ..parallel.lockstep import LockstepMismatch
+
+        try:
+            while not self.stop.is_set():
+                try:
+                    self._serve()
+                    return                  # clean stop
+                except LockstepMismatch as e:
+                    # a rank's host state diverged: nothing to re-arm
+                    print(f"serving loop failed: {e}", flush=True)
+                    with self.lock:
+                        self.status = "down"
+                        self.error = f"{type(e).__name__}: {e}"
+                        self._fail_pending(e)
+                    return
+                except Exception as e:
+                    if not self._recover(e):
+                        return              # terminally down
+        finally:
+            if self.lockstep is not None:
+                self.lockstep.close(self.error or "")
 
     def _serve(self):
         """The inner serving loop; any exception out of here is a step
@@ -732,39 +847,26 @@ class ServeApp:
         delivered first) nor starves the engines after it: they still
         step, then the first failure goes to _recover, which resets that
         engine alone."""
+        from ..parallel.lockstep import run_turn
+
         def dispatches():
             return tuple((e.admission_dispatches, e.blocks_dispatched)
                          for e in self.engines.values())
 
         while not self.stop.is_set():
-            done = {}
-            step_exc = failed_eng = None
             with self.lock:
-                busy = False
                 before = dispatches()
                 now = time.monotonic()
                 ckpt_due = bool(self.journal_checkpoint_s and now
                                 - self._last_checkpoint
                                 >= self.journal_checkpoint_s)
-                for eng in self.engines.values():
-                    if eng.idle:
-                        continue
-                    busy = True
-                    self._stepping = eng
-                    try:
-                        eng.step()
-                        # in predictive mode drain_completed reads the
-                        # device, so drain only when something is known
-                        # to be finished
-                        if eng.completions_ready:
-                            done.update(eng.drain_completed())
-                        elif ckpt_due:
-                            eng.checkpoint_progress()
-                            if eng.completions_ready:
-                                done.update(eng.drain_completed())
-                    except Exception as e:
-                        if step_exc is None:
-                            step_exc, failed_eng = e, eng
+                if self.lockstep is not None:
+                    # the followers' turn: the ops since the last one, this
+                    # instant, the checkpoint flag; raises on a rank's
+                    # failure
+                    self.lockstep.lead(self.server, now, ckpt_due)
+                busy, done, step_exc, failed_eng = run_turn(self.engines,
+                                                            ckpt_due)
                 if step_exc is None:
                     self._stepping = None
                     if busy:
@@ -1464,6 +1566,9 @@ class ServeApp:
         # beside the engine's stream counters
         out["stream_disconnects"] = self.stream_disconnects
         out["pid"] = os.getpid()
+        if self.lockstep is not None:
+            out["world"] = self.lockstep.world
+            out["lockstep"] = self.lockstep.stats()
         # the disaggregation role the fleet router reads; an engine without
         # one (a test stand-in) serves both
         out["role"] = out.get("role") or getattr(self.server, "role", "both")
@@ -2023,6 +2128,12 @@ def main(argv=None) -> int:
 
     args = build_argparser().parse_args(argv)
     app = build_app(args)
+    if isinstance(app, Follower):
+        # a mesh rank other than 0: no port, rank 0's turns until it stops
+        reason = app.run()
+        print(f"rank {app.lockstep.rank}: serving stopped"
+              + (f" ({reason})" if reason else ""), flush=True)
+        return 0
     app.start()
     httpd = make_httpd(app, args.host, args.port,
                        TokenCodec(args.text_codec,

@@ -34,7 +34,15 @@ draft_n_layers) flash forwards) and runs (gamma + 1) draft steps a round
 must match the training run's. With ``--weight-dtype int8`` every expert's
 weights decode as int8.
 
-Not ported yet, raising: ``--tensor-parallel`` > 1.
+``--tensor-parallel N`` decodes tensor-parallel over a job of N
+processes under the TONY_* contract (``train.init``: NCCL on the cards,
+gloo with ``--device cpu``), as ``lm_train --mesh`` trains: the mesh is
+``fsdp=1,tensor=N`` over the job, a checkpoint is restored into DTensor
+templates placed by ``TP_DECODE_RULES`` (each rank keeps its block of
+each leaf as it is drawn, so the whole model is never on one card), and
+every rank runs generate on its heads (models/generate.py). Rank 0 alone
+prints and writes ``--metrics-out``. Under the contract, N = 1 runs the
+same path on a one-process group. Without the flag no job is joined.
 """
 
 from __future__ import annotations
@@ -71,9 +79,30 @@ def _load_draft(args, dtype, device, gen):
     return prepare_decode(d_params, d_cfg), d_cfg
 
 
-def _not_ported(flag: str, item: str):
-    raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
-                     f"(ROADMAP.md queue 1, {item})")
+def _tp_mesh(args):
+    """``--tensor-parallel``: join the job and build its ``fsdp=1,tensor=N``
+    mesh -> (mesh or None, whether this rank reports). ``args.device``
+    becomes this rank's device."""
+    from tony_tpu_torch import train
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh
+
+    info = train.init(device=args.device)
+    if info["backend"] is None:
+        if args.tensor_parallel > 1:
+            raise SystemExit(
+                f"--tensor-parallel {args.tensor_parallel} needs a job of as "
+                "many processes under the TONY_* env contract "
+                "(TONY_COORDINATOR_ADDRESS, TONY_PROCESS_ID, "
+                "TONY_NUM_PROCESSES)")
+        return None, True
+    if info["num_processes"] != args.tensor_parallel:
+        raise SystemExit(
+            f"--tensor-parallel {args.tensor_parallel} over a job of "
+            f"{info['num_processes']} processes: give one process a rank")
+    args.device = info["device"]
+    mesh = build_mesh(MeshSpec(fsdp=1, tensor=args.tensor_parallel),
+                      "cpu" if info["backend"] == "gloo" else "cuda")
+    return mesh, info["process_id"] == 0
 
 
 def main(argv=None) -> int:
@@ -110,7 +139,10 @@ def main(argv=None) -> int:
                         help="whitespace-separated token ids that end a "
                              "sequence (EOS)")
     parser.add_argument("--pad-id", type=int, default=0)
-    parser.add_argument("--tensor-parallel", type=int, default=1)
+    parser.add_argument("--tensor-parallel", type=int, default=None,
+                        help="N: decode over a job of N processes under "
+                             "the TONY_* contract (default: no job, one "
+                             "device)")
     parser.add_argument("--hf-checkpoint", default="")
     parser.add_argument("--draft-hf-checkpoint", default="")
     parser.add_argument("--draft-checkpoint-dir", default="")
@@ -129,11 +161,10 @@ def main(argv=None) -> int:
         raise SystemExit("--draft-hf-checkpoint and --draft-checkpoint-dir "
                          "are exclusive")
     speculative = bool(args.draft_hf_checkpoint or args.draft_checkpoint_dir)
-    if speculative and (args.temperature > 0 or args.tensor_parallel > 1):
+    if speculative and (args.temperature > 0
+                        or (args.tensor_parallel or 1) > 1):
         raise SystemExit("speculative decode is single-device greedy "
                          "(drop --tensor-parallel / --temperature)")
-    if args.tensor_parallel > 1:
-        _not_ported("--tensor-parallel", "TP decode and serving")
 
     import torch
 
@@ -142,6 +173,8 @@ def main(argv=None) -> int:
     from tony_tpu_torch.models.convert import torch_dtype
     from tony_tpu_torch.models.generate import generate, prepare_decode
 
+    mesh, chief = ((None, True) if args.tensor_parallel is None
+                   or speculative else _tp_mesh(args))
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     hf_load_s = None
@@ -166,7 +199,14 @@ def main(argv=None) -> int:
             n_layers=args.n_layers, n_heads=args.n_heads,
             n_kv_heads=args.n_heads, d_ff=args.d_ff,
             n_experts=args.n_experts, dtype=torch_dtype(args.dtype))
-        params = transformer.init(cfg, gen, device)
+        place = None
+        if mesh is not None:
+            from tony_tpu_torch.parallel import TP_DECODE_RULES, block_placer
+
+            # each rank keeps its block of each leaf as it is drawn: the
+            # templates a checkpoint restores into, or the random init
+            place = block_placer(mesh, TP_DECODE_RULES)
+        params = transformer.init(cfg, gen, device, place=place)
     if args.checkpoint_dir:
         from tony_tpu_torch.train.checkpoint import restore_lm_params
 
@@ -185,7 +225,8 @@ def main(argv=None) -> int:
             raise SystemExit(f"prompt ids out of vocab range: {bad}")
         prompt = torch.tensor([prompt_ids], dtype=torch.int64, device=device)
     stop_tokens = tuple(int(t) for t in args.stop_tokens.split())
-    prepared = prepare_decode(params, cfg, weight_dtype=args.weight_dtype)
+    prepared = prepare_decode(params, cfg, weight_dtype=args.weight_dtype,
+                              mesh=mesh)
     del params
     draft = None
     if speculative:
@@ -215,7 +256,7 @@ def main(argv=None) -> int:
             prepared, cfg, prompt, max_new, temperature=args.temperature,
             top_k=args.top_k, generator=sample_gen, kv_dtype=args.kv_dtype,
             max_len=args.max_len or None, stop_tokens=stop_tokens,
-            pad_id=args.pad_id, return_steps=True)
+            pad_id=args.pad_id, return_steps=True, mesh=mesh)
         sync()
         return out, steps
 
@@ -261,6 +302,7 @@ def main(argv=None) -> int:
         "weight_dtype": args.weight_dtype,
         "stop_tokens": list(stop_tokens),
         "hf_load_s": hf_load_s,
+        "tensor_parallel": args.tensor_parallel or 1,
     }
     if draft is not None:
         d_cfg = draft[1]
@@ -270,6 +312,8 @@ def main(argv=None) -> int:
             "draft": {"d_model": d_cfg.d_model, "n_layers": d_cfg.n_layers,
                       "n_heads": d_cfg.n_heads, "d_ff": d_cfg.d_ff,
                       "head_dim": d_cfg.head_dim}}
+    if not chief:
+        return 0
     print(" ".join(str(t) for t in tokens))
     print(f"# {n_generated} tokens in {wall:.2f}s "
           f"({result['decode_tokens_per_sec']:.1f} tok/s), prefill "

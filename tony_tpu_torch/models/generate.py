@@ -51,21 +51,39 @@ for one sample, without its host-side validity check, which would wait
 for the card). ``stop_tokens`` gives EOS semantics with an early exit once
 every row has stopped.
 
-Not ported yet: the mesh (tensor-parallel) path.
+**Tensor-parallel decode** (``mesh=``, ``rules=``; the JAX package's
+generate.py:653-744 and :994-1040): ``prepare_decode`` places every
+parameter by ``transformer.param_logical_axes`` x the rule table
+(``TP_DECODE_RULES`` by default: heads, kv heads, the MLP's hidden units
+and the vocabulary over ``tensor``) as DTensors, skips the qkv and
+gate/up fusion under a sharded tensor axis and refuses int8 weights
+there. One process a card: each rank runs the loop on its blocks
+(parallel/spmd.py ``Plan``). The KV cache on a rank is ``[L, B / t_batch,
+kvH / t_kv, M, D]``; q and K/V are its heads, ``wo`` and ``w_down`` give
+partial sums reduced over ``tensor``, the embedding is vocab-parallel and
+the logits are gathered over the vocabulary before sampling. A rank's
+attention tensors are ordinary local tensors, so the prefill runs K1 on
+its heads and a lockstep decode step K6 on its kv heads. The prompt's
+rows split over the batch axes and every rank returns the whole
+``[B, T]``. Sampling is mesh-invariant: every rank draws the global
+``[B, V]`` exponentials from the same generator state and keeps its rows,
+so a sampled mesh decode equals the one-device one at the same seed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel.collectives import all_reduce_, gather_nograd, reduce_from
 from ..parallel.ring_attention import NEG_INF
+from ..parallel.spmd import rule_size
 from . import transformer
-from .transformer import TransformerConfig, layer_params, rms_norm
+from .transformer import TransformerConfig, _local, layer_params, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,13 +99,16 @@ class KVCache:
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               kv_dtype: str = "native", device=None) -> KVCache:
+               kv_dtype: str = "native", device=None,
+               n_kv_heads: int | None = None) -> KVCache:
     """kv_dtype "native" stores cfg.dtype (exact); "int8" stores symmetric
     int8 with per-token-per-head bf16 scales (half the bytes, within int8
     resolution). Head-major: each head's [M, D] history is contiguous.
-    ``device`` None means the card (resolve_device)."""
+    ``device`` None means the card (resolve_device); ``n_kv_heads`` (a
+    tensor-parallel rank's share) defaults to the model's."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.n_layers, batch, n_kv_heads or cfg.n_kv_heads, max_len,
+             cfg.head_dim)
     if kv_dtype == "int8":
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -120,10 +141,11 @@ class PrefixPool:
 
 
 def init_prefix_pool(cfg: TransformerConfig, n_blocks: int, chunk: int,
-                     kv_dtype: str = "native", device=None) -> PrefixPool:
+                     kv_dtype: str = "native", device=None,
+                     n_kv_heads: int | None = None) -> PrefixPool:
     """The prefix pool (device memory: n_blocks x the KV bytes of ``chunk``
     positions over every layer); the same dtype rules as init_cache."""
-    cache = init_cache(cfg, n_blocks, chunk, kv_dtype, device)
+    cache = init_cache(cfg, n_blocks, chunk, kv_dtype, device, n_kv_heads)
     return PrefixPool(k=cache.k, v=cache.v, k_scale=cache.k_scale,
                       v_scale=cache.v_scale)
 
@@ -155,6 +177,18 @@ def _takes_decode_kernel(cfg, l_new: int, on_cuda: bool, cache_len,
             and cfg.attn_impl != "ref")
 
 
+def _layer_cache_heads(ck, cv, k_scale, v_scale, layer_idx, kv_sel):
+    """Layer ``layer_idx``'s cache at the kv heads ``kv_sel`` (one per
+    query head of this rank: the heads split over the tensor axis while
+    the cache keeps every kv head), as contiguous copies."""
+    ck, cv = ck[layer_idx].index_select(1, kv_sel), \
+        cv[layer_idx].index_select(1, kv_sel)
+    if k_scale is not None:
+        k_scale = k_scale[layer_idx].index_select(1, kv_sel)
+        v_scale = v_scale[layer_idx].index_select(1, kv_sel)
+    return ck, cv, k_scale, v_scale
+
+
 def _cached_attention(cfg, q, ck, cv, cache_len, l_new: int,
                       k_scale=None, v_scale=None, ring_offsets=None,
                       allow_kernel=True, layer_idx=None):
@@ -169,7 +203,7 @@ def _cached_attention(cfg, q, ck, cv, cache_len, l_new: int,
     logical positions per row (the JAX package's generate.py:237-258)."""
     b, l, h, d = q.shape
     kvh = ck.shape[1 if layer_idx is None else 2]
-    rep = h // kvh
+    rep = h // kvh          # a rank's heads: its kv heads times the model's
     if _takes_decode_kernel(cfg, l, q.is_cuda, cache_len, ring_offsets,
                             allow_kernel):
         from ..ops.decode_attention import flash_decode
@@ -232,9 +266,23 @@ def moe_dropfree(cfg: TransformerConfig) -> TransformerConfig:
                                  cfg.n_experts / cfg.expert_top_k))
 
 
+def _cast_leaf(w, dtype):
+    """A float32 leaf at ``dtype``; a DTensor casts its local block and
+    keeps its placement."""
+    if w.dtype != torch.float32:
+        return w
+    if not hasattr(w, "to_local"):
+        return w.to(dtype)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(w.to_local().to(dtype), w.device_mesh,
+                              w.placements, run_check=False, shape=w.shape,
+                              stride=w.stride())
+
+
 def _cast_params(params, dtype):
     return {name: (_cast_params(w, dtype) if isinstance(w, dict)
-                   else (w.to(dtype) if w.dtype == torch.float32 else w))
+                   else _cast_leaf(w, dtype))
             for name, w in params.items()}
 
 
@@ -298,9 +346,41 @@ def _fuse_decode_weights(params, cfg: TransformerConfig,
     return out
 
 
+def _attn_out(attn, wo, cfg: TransformerConfig, plan):
+    """The attention's output projection; a rank's heads give a partial
+    sum, reduced over the tensor axis."""
+    out = torch.einsum("blhk,hkd->bld", attn, wo.to(cfg.dtype))
+    return out if plan is None else reduce_from(out, plan.tp_group("heads"))
+
+
+def _unembed(x, params, cfg: TransformerConfig, plan, eq: str):
+    """float32 logits over the whole vocabulary: a rank's vocabulary
+    columns, gathered over the tensor axis."""
+    w = _local(params["unembed"])
+    if plan is not None:
+        w = plan.use(w, ("embed", "vocab"))
+    logits = torch.einsum(eq, x, w.to(cfg.dtype)).float()
+    if plan is None:
+        return logits
+    return gather_nograd(logits, logits.dim() - 1, plan.tp_group("vocab"))
+
+
+def _replicated_kv_heads(cfg: TransformerConfig, plan, n_q_heads: int,
+                         device):
+    """The cache's kv head each of this rank's query heads reads, when the
+    heads split over the tensor axis and the kv heads do not (the rules'
+    "kv" replicated); else None."""
+    if plan is None or plan.tp["heads"] is None or plan.tp["kv"] is not None:
+        return None
+    rep = cfg.n_heads // cfg.n_kv_heads
+    first = plan.tp_rank("heads") * n_q_heads
+    return torch.arange(first, first + n_q_heads, device=device) // rep
+
+
 def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
                         fused: dict | None = None, prefill: bool = False,
-                        all_logits: bool = False, ring: tuple | None = None):
+                        all_logits: bool = False, ring: tuple | None = None,
+                        plan=None):
     """Run L new tokens (absolute positions cache.length..+L-1) through the
     stack, writing their K/V into the cache IN PLACE -> (last-position
     logits [B, V] f32, or [B, L, V] with ``all_logits``; the cache with its
@@ -317,7 +397,10 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
     is causal attention within the block and runs through the model's own
     dispatch (the flash kernel on CUDA), instead of scoring against the
     whole max_len buffer. A multi-token chunk into a non-empty cache
-    passes prefill=False and takes the general cached-attention path."""
+    passes prefill=False and takes the general cached-attention path.
+
+    ``plan`` (a mesh's, parallel/spmd.py): this rank's blocks, as the
+    module docstring says."""
     dt = cfg.dtype
     b, l = tokens.shape
     start = cache.length
@@ -341,7 +424,7 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
         positions = (start + torch.arange(
             l, device=tokens.device)).expand(b, l)
         span = slice(start, start + l)
-    x = params["embed"].to(dt)[tokens]
+    x = transformer._embed(params, tokens, cfg, plan)
 
     hd = cfg.head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -349,8 +432,9 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
     w8 = fused is not None and "wqkv_s" in fused    # int8 decode weights
     ck, cv = cache.k, cache.v
     int8_cache = ck.dtype == torch.int8
+    kv_sel = None
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = layer_params(params, i, plan, cfg)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         if fused is not None:
             qkv = torch.einsum("bld,de->ble", h, fused["wqkv"][i].to(dt))
@@ -362,7 +446,9 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
             q = transformer.rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = transformer.rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         else:
-            q, k, v = transformer._qkv(cfg, h, positions, lp)
+            q, k, v = transformer._qkv(cfg, h, positions, lp, plan)
+            if i == 0:
+                kv_sel = _replicated_kv_heads(cfg, plan, q.shape[2], q.device)
         k_hm = k.transpose(1, 2)    # [B, kvH, L, D] head-major
         v_hm = v.transpose(1, 2)
         if int8_cache:
@@ -375,8 +461,13 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
         ck[i, :, :, span] = k_w     # in place (slice assignment casts)
         cv[i, :, :, span] = v_w
         if prefill:
-            kr, vr = transformer._repeat_kv(cfg, k, v)
+            kr, vr = transformer._rank_kv(cfg, k, v, q.shape[2], plan)
             attn = transformer._attention(q, kr, vr, p_cfg)
+        elif kv_sel is not None:
+            sk, sv, sks, svs = _layer_cache_heads(
+                ck, cv, cache.k_scale, cache.v_scale, i, kv_sel)
+            attn = _cached_attention(cfg, q, sk, sv, start, l, sks, svs,
+                                     ring_offsets=ring_offsets)
         else:
             attn = _cached_attention(cfg, q, ck, cv, start, l,
                                      cache.k_scale, cache.v_scale,
@@ -385,7 +476,7 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
             proj = torch.einsum("ble,ed->bld", attn.reshape(b, l, nq),
                                 fused["wo"][i].to(dt)) * fused["wo_s"][i]
         else:
-            proj = torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
+            proj = _attn_out(attn, lp["wo"], cfg, plan)
         x = x + proj
         hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if fused is not None and "w_gu" in fused:
@@ -409,29 +500,39 @@ def _forward_with_cache(params, cfg: TransformerConfig, tokens, cache: KVCache,
                 w_in_scale=fused["w_in_s"][i],
                 w_out_scale=fused["w_out_s"][i]).reshape(b, l, cfg.d_model)
         else:
-            mlp_out, _ = transformer._mlp(cfg, hh, lp)
+            mlp_out, _ = transformer._mlp(cfg, hh, lp, plan)
         x = x + mlp_out
 
-    x_out = rms_norm(x if all_logits else x[:, -1], params["final_norm"],
-                     cfg.norm_eps)
+    x_out = rms_norm(x if all_logits else x[:, -1],
+                     _local(params["final_norm"]), cfg.norm_eps)
     eq = "bld,dv->blv" if all_logits else "bd,dv->bv"
     if w8:
         logits = (torch.einsum(eq, x_out, fused["unembed"].to(dt))
                   * fused["unembed_s"][0]).float()
     else:
-        logits = torch.einsum(eq, x_out, params["unembed"].to(dt)).float()
+        logits = _unembed(x_out, params, cfg, plan, eq)
     return logits, dataclasses.replace(cache, length=start + l)
 
 
-def _draw(probs, generator):
+def _draw(probs, generator, rows=None):
     """One draw per row of ``probs`` [B, V]: argmax(p / q) with q ~ Exp(1),
     the exponential trick torch.multinomial runs for one sample, without
-    its host-side check of the probabilities (a wait for the card)."""
-    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    its host-side check of the probabilities (a wait for the card).
+    ``rows=(first, total)``: ``probs`` are rows first.. of a [total, V]
+    batch split over ranks; the draw makes the whole batch's q and keeps
+    these rows, so every split draws what one device would."""
+    if rows is None:
+        q = torch.empty_like(probs).exponential_(1, generator=generator)
+    else:
+        first, total = rows
+        q = torch.empty((total,) + tuple(probs.shape[1:]), dtype=probs.dtype,
+                        device=probs.device).exponential_(
+            1, generator=generator)[first:first + probs.shape[0]]
     return (probs / q).argmax(dim=-1).to(torch.int32)
 
 
-def sample_token(logits, generator=None, temperature=0.0, top_k=0):
+def sample_token(logits, generator=None, temperature=0.0, top_k=0,
+                 rows=None):
     """logits [B, V] -> token ids [B] int32. temperature=0 => greedy;
     otherwise a draw from ``generator`` (on logits' device) over the
     temperature-scaled, optionally top-k-filtered distribution.
@@ -441,7 +542,8 @@ def sample_token(logits, generator=None, temperature=0.0, top_k=0):
     the others sample. ``top_k`` likewise: an int applies one threshold to
     every row; a [B] int tensor gives each row its own k (k <= 0 keeps
     every value) by a per-row k-th-value threshold from one full sort (the
-    JAX package's generate.py:585-622)."""
+    JAX package's generate.py:585-622). ``rows`` places a batch shard in
+    the whole batch (``_draw``)."""
     per_row = torch.is_tensor(temperature)
     if per_row:
         scaled = logits / temperature.clamp_min(1e-6)[:, None]
@@ -460,7 +562,7 @@ def sample_token(logits, generator=None, temperature=0.0, top_k=0):
     elif top_k > 0:
         kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
         scaled = torch.where(scaled >= kth, scaled, NEG_INF)
-    sampled = _draw(torch.softmax(scaled, dim=-1), generator)
+    sampled = _draw(torch.softmax(scaled, dim=-1), generator, rows)
     if not per_row:
         return sampled
     return torch.where(temperature > 0, sampled,
@@ -470,21 +572,111 @@ def sample_token(logits, generator=None, temperature=0.0, top_k=0):
 class DecodeWeights(NamedTuple):
     """Decode-ready weights built once by ``prepare_decode``: pre-cast and
     pre-fused, so repeated generate calls make no per-call weight copies.
-    Pass in place of raw params."""
+    Pass in place of raw params. ``mesh`` and ``rules`` are what the
+    weights were placed by (None without a mesh); generate and the
+    SlotServer take the rules from here and refuse another mesh."""
     params: dict
     fused: dict | None
     weight_dtype: str = "native"
+    mesh: Any = None
+    rules: Any = None
+
+
+def _validate_decode_mesh(cfg: TransformerConfig, mesh, rules) -> None:
+    """Head counts must divide their sharding axes: a split head has no
+    layout (the [M, D] cache block and the per-head softmax are atomic)
+    (the JAX package's generate.py:671-690)."""
+    t_kv = rule_size(mesh, rules, "kv")
+    if cfg.n_kv_heads % t_kv:
+        raise ValueError(
+            f"mesh-sharded decode: n_kv_heads={cfg.n_kv_heads} is not "
+            f"divisible by the 'kv' mesh axes (size {t_kv}) — a GQA model "
+            "with fewer kv heads than the tensor axis cannot shard its KV "
+            "cache. Shrink the tensor axis, or set rules['kv'] = None to "
+            "replicate the cache.")
+    t_h = rule_size(mesh, rules, "heads")
+    if cfg.n_heads % t_h:
+        raise ValueError(
+            f"mesh-sharded decode: n_heads={cfg.n_heads} is not divisible "
+            f"by the 'heads' mesh axes (size {t_h})")
+
+
+def _full(w):
+    """A DTensor's whole value (a collective); a plain tensor as it is."""
+    return w.full_tensor() if hasattr(w, "full_tensor") else w
+
+
+def _place(mesh, params, cfg: TransformerConfig, rules):
+    """Every parameter as a DTensor placed by the rule table. A DTensor
+    already placed so (a checkpoint restored into such templates) is kept;
+    any other leaf is made whole first and sliced (parallel/sharding.py
+    ``shard_params``)."""
+    from ..parallel.sharding import (
+        logical_to_spec, shard_params, spec_to_placements,
+    )
+
+    logical = transformer.param_logical_axes(cfg)
+
+    def walk(tree, axes):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], axes[k]) for k in tree}
+        want = spec_to_placements(logical_to_spec(axes, rules),
+                                  mesh.mesh_dim_names)
+        if (hasattr(tree, "placements") and tree.device_mesh == mesh
+                and tuple(tree.placements) == want):
+            return tree
+        return shard_params(mesh, _full(tree), axes, rules)
+
+    return walk(params, logical)
 
 
 def prepare_decode(params, cfg: TransformerConfig, *,
-                   weight_dtype: str = "native") -> DecodeWeights:
+                   weight_dtype: str = "native", mesh=None,
+                   rules=None) -> DecodeWeights:
     """Cast f32 masters to cfg.dtype and fuse qkv / gate-up ONCE, outside
     generate (``weight_dtype="int8"``: also quantize the decode matrices).
     A caller that then drops its f32 masters holds the cast params and the
-    fused (or quantized) matrices."""
-    params = _cast_decode_params(params, cfg)
-    fused = _fuse_decode_weights(params, cfg, weight_dtype)
-    return DecodeWeights(params=params, fused=fused, weight_dtype=weight_dtype)
+    fused (or quantized) matrices.
+
+    With a ``mesh``, every parameter is placed by the rule table
+    (``TP_DECODE_RULES`` by default) as a DTensor holding this rank's
+    block. Under a sharded tensor axis (heads, kv or mlp split) the fusion
+    is skipped and int8 weights are refused: the w8a16 path streams the
+    fused layout (the JAX package's generate.py:694-744)."""
+    if weight_dtype not in ("native", "int8"):
+        raise ValueError(
+            f"weight_dtype must be 'native' or 'int8', got {weight_dtype!r}")
+    if mesh is None:
+        params = _cast_decode_params(params, cfg)
+        fused = _fuse_decode_weights(params, cfg, weight_dtype)
+        return DecodeWeights(params=params, fused=fused,
+                             weight_dtype=weight_dtype)
+    if rules is None:
+        from ..parallel.sharding import TP_DECODE_RULES
+
+        rules = TP_DECODE_RULES
+    rules = dict(rules)
+    _validate_decode_mesh(cfg, mesh, rules)
+    sharded_tp = any(rule_size(mesh, rules, r) > 1
+                     for r in ("heads", "kv", "mlp"))
+    if sharded_tp and weight_dtype == "int8":
+        raise ValueError(
+            "weight_dtype='int8' decode is single-device: the w8a16 path "
+            "streams the fused qkv/gate-up layout, which conflicts with "
+            "head/mlp-sharded weights")
+    transformer._plan(mesh, rules, cfg)      # refuses MoE on a wide mesh
+    params = _cast_decode_params(_place(mesh, params, cfg, rules), cfg)
+    fused = None
+    if not sharded_tp:
+        whole = _map_tree(params, _full)
+        fused = _fuse_decode_weights(whole, cfg, weight_dtype)
+    return DecodeWeights(params=params, fused=fused,
+                         weight_dtype=weight_dtype, mesh=mesh, rules=rules)
+
+
+def _map_tree(params, fn):
+    return {k: (_map_tree(v, fn) if isinstance(v, dict) else fn(v))
+            for k, v in params.items()}
 
 
 def _check_continuation(cache: KVCache, b, lp_len, max_new_tokens, max_len,
@@ -522,7 +714,8 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
              kv_dtype: str = "native", max_len: int | None = None,
              weight_dtype: str = "native", stop_tokens: tuple = (),
              pad_id: int = 0, return_steps: bool = False,
-             cache: KVCache | None = None, return_cache: bool = False):
+             cache: KVCache | None = None, return_cache: bool = False,
+             mesh=None, rules=None):
     """Generate max_new_tokens continuations -> [B, max_new_tokens] int32,
     on the device of ``prompt`` (the params must be there too).
 
@@ -540,7 +733,15 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
     emitted tokens; pass it back as ``cache=`` with only the NEW tokens as
     the prompt. The passed cache is updated IN PLACE (clone its tensors
     first to fan several continuations out of one prefix), so ``cache=``
-    requires ``return_cache=True``."""
+    requires ``return_cache=True``.
+
+    ``mesh`` (and ``rules``, default the prepared weights' or
+    ``TP_DECODE_RULES``): every rank of the mesh calls generate with the
+    whole prompt; it decodes its rows (the batch must divide the batch
+    axes) on its heads and returns the whole ``[B, T]`` (module
+    docstring). Prepared weights must have been placed on the same mesh
+    ("mesh mismatch" otherwise). A returned cache, and ``cache=``, is the
+    rank's shard."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if not cfg.causal:
@@ -554,6 +755,52 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     b, lp_len = prompt.shape
+    if mesh is not None:
+        if rules is None and isinstance(params, DecodeWeights):
+            rules = params.rules
+        if rules is None:
+            from ..parallel.sharding import TP_DECODE_RULES
+
+            rules = TP_DECODE_RULES
+        _validate_decode_mesh(cfg, mesh, rules)
+        t_b = rule_size(mesh, rules, "batch")
+        if b % t_b:
+            raise ValueError(
+                f"mesh-sharded decode: batch {b} is not divisible by the "
+                f"'batch' mesh axes (size {t_b})")
+    if isinstance(params, DecodeWeights):
+        if weight_dtype != "native" and weight_dtype != params.weight_dtype:
+            raise ValueError(
+                f"weight_dtype={weight_dtype!r} requested but the prepared "
+                f"weights were built with {params.weight_dtype!r} — pass "
+                "weight_dtype to prepare_decode instead")
+        prep_mesh = params.mesh
+        if (mesh is None) != (prep_mesh is None) or (
+                mesh is not None and mesh != prep_mesh):
+            raise ValueError(
+                "mesh mismatch: prepared weights were built "
+                + ("without a mesh" if prep_mesh is None
+                   else "for a different mesh")
+                + (" but generate was called with one" if prep_mesh is None
+                   else f" ({prep_mesh} != {mesh})")
+                + " — rebuild with prepare_decode(..., mesh=...) matching "
+                "the generate call")
+        prepared = params
+    else:
+        prepared = prepare_decode(params, cfg, weight_dtype=weight_dtype,
+                                  mesh=mesh, rules=rules)
+    w, fused = prepared.params, prepared.fused
+    plan = transformer._plan(mesh, prepared.rules, cfg)
+    rows = None             # (first row, B) of this rank's batch shard
+    n_kv = None
+    if plan is not None:
+        b_loc = b // plan.batch_size
+        first = plan.batch_rank * b_loc
+        if plan.batch_size > 1:
+            rows = (first, b)
+            prompt = prompt[first:first + b_loc]
+        n_kv = cfg.n_kv_heads // rule_size(mesh, prepared.rules, "kv")
+        b = b_loc
     if cache is not None:
         max_len, kv_dtype = _check_continuation(
             cache, b, lp_len, max_new_tokens, max_len, kv_dtype, return_cache)
@@ -563,24 +810,14 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
         raise ValueError(f"max_len={max_len} < prompt ({lp_len}) + "
                          f"max_new_tokens ({max_new_tokens})")
 
-    if isinstance(params, DecodeWeights):
-        if weight_dtype != "native" and weight_dtype != params.weight_dtype:
-            raise ValueError(
-                f"weight_dtype={weight_dtype!r} requested but the prepared "
-                f"weights were built with {params.weight_dtype!r} — pass "
-                "weight_dtype to prepare_decode instead")
-        prepared = params
-    else:
-        prepared = prepare_decode(params, cfg, weight_dtype=weight_dtype)
-    w, fused = prepared.params, prepared.fused
-
     if cache is None:
-        cache = init_cache(cfg, b, max_len, kv_dtype, device)
+        cache = init_cache(cfg, b, max_len, kv_dtype, device, n_kv)
         logits, cache = _forward_with_cache(w, cfg, prompt, cache, fused,
-                                            prefill=True)
+                                            prefill=True, plan=plan)
     else:
-        logits, cache = _forward_with_cache(w, cfg, prompt, cache, fused)
-    tok = sample_token(logits, generator, temperature, top_k)
+        logits, cache = _forward_with_cache(w, cfg, prompt, cache, fused,
+                                            plan=plan)
+    tok = sample_token(logits, generator, temperature, top_k, rows)
     out = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32,
                      device=device)
     out[:, 0] = tok
@@ -589,10 +826,11 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
     finished = torch.isin(tok, stops)
     steps = 0
     while steps < max_new_tokens - 1:
-        if stop_tokens and bool(finished.all()):
+        if stop_tokens and _all_finished(finished, plan):
             break
-        logits, cache = _forward_with_cache(w, cfg, tok[:, None], cache, fused)
-        nxt = sample_token(logits, generator, temperature, top_k)
+        logits, cache = _forward_with_cache(w, cfg, tok[:, None], cache, fused,
+                                            plan=plan)
+        nxt = sample_token(logits, generator, temperature, top_k, rows)
         if stop_tokens:
             # finished rows emit pad and stay finished
             nxt = torch.where(finished, torch.full_like(nxt, pad_id), nxt)
@@ -601,15 +839,28 @@ def generate(params, cfg: TransformerConfig, prompt: torch.Tensor,
         out[:, steps] = nxt
         tok = nxt
 
+    if return_cache:
+        # ingest the final emitted token so the cache holds the whole
+        # conversation so far
+        _, cache = _forward_with_cache(w, cfg, tok[:, None], cache, fused,
+                                       plan=plan)
+    if rows is not None:
+        out = plan.gather_batch(out).reshape(-1, max_new_tokens)
     result = (out,)
     if return_steps:
         result += (steps,)
     if return_cache:
-        # ingest the final emitted token so the cache holds the whole
-        # conversation so far
-        _, cache = _forward_with_cache(w, cfg, tok[:, None], cache, fused)
         result += (cache,)
     return result if len(result) > 1 else out
+
+
+def _all_finished(finished, plan) -> bool:
+    """Every row stopped, on every batch shard (a host read)."""
+    done = finished.all().to(torch.int32).reshape(1)
+    if plan is not None:
+        for a in plan.batch_axes:
+            all_reduce_(done, plan.group(a), torch.distributed.ReduceOp.MIN)
+    return bool(done[0])
 
 
 __all__ = ["KVCache", "init_cache", "PrefixPool", "init_prefix_pool",

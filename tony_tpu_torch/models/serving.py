@@ -167,7 +167,24 @@ the JAX package's engines do.
   drop-free (``moe_dropfree``), so a token's MLP output depends on it
   alone and padded or batched prefill rows change nothing.
 
-Not ported yet, each raising a named error: the mesh and its rule table.
+- **Tensor-parallel serving** (``mesh=``, ``rules=``, or weights from
+  ``prepare_decode(mesh=)``; the JAX package's serving.py:1692-1816): one
+  process a card, each rank running this engine on its blocks
+  (parallel/spmd.py ``Plan``; the forward's collectives as
+  models/generate.py's). The ring cache holds the rank's kv heads, and
+  with the batch axes wider than one the rank's ``slots / t_batch`` slots
+  (the per-slot state too): the prefill programs run the rank's rows, a
+  decode block samples the whole pool's draws and keeps its rows, and its
+  packed result is gathered over the batch axes where the host reads it.
+  The prefix and paged pools split their block axis over the batch axes
+  as the ring splits its slots. The paged allocator gives a slot blocks
+  of its own rank's share, and a slot's trie hits stop at another share's
+  block, so the paged gather and scatter stay on the rank; the prefix
+  pool's copies into and out of another rank's blocks go through
+  ``Plan.from_owners`` (a gather over the batch axes). The host state
+  (queue, trie, allocator, tables) is the whole pool's and the same on
+  every rank; parallel/lockstep.py keeps the ranks in step. Speculation, a disaggregated role and MoE on a wide mesh are
+  refused, int8 weights under a sharded tensor axis too.
 """
 
 from __future__ import annotations
@@ -203,14 +220,18 @@ from ..observability import (
     TraceContext,
 )
 from . import transformer
+from ..parallel.spmd import rule_size
 from .generate import (
     DecodeWeights,
     KVCache,
     PrefixPool,
+    _attn_out,
     _cached_attention,
     _cast_decode_params,
     _forward_with_cache,
+    _replicated_kv_heads,
     _quantize_kv,
+    _validate_decode_mesh,
     init_cache,
     init_prefix_pool,
     moe_dropfree,
@@ -238,22 +259,6 @@ PRIORITY_CLASSES = ("interactive", "batch")
 # per-request logprobs cap: a decode block carries this many top entries
 # whenever any busy slot asked for logprobs
 LOGPROBS_MAX = 8
-
-# The JAX package's SlotServer arguments the port does not have yet:
-# name -> (the value that means "off": the JAX package's default, what it
-# enables, its ROADMAP.md queue-1 item). Any other value raises
-# NotImplementedError.
-_NOT_PORTED = {
-    "mesh": (None, "tensor-parallel serving", "TP decode and serving"),
-    "rules": (None, "the mesh's sharding rules", "TP decode and serving"),
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tony_tpu_torch yet (ROADMAP.md queue 1, "
-        f"{item})")
-
 
 def _normalize_stop(stop) -> list[tuple[int, ...]]:
     """Validate/normalize Request.stop: a list of token-id sequences
@@ -410,7 +415,8 @@ def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 @torch.no_grad()
 def _prefill_batch(params, cfg: TransformerConfig, cache: KVCache,
                    state: _SlotState, tokens, slots, starts, offsets,
-                   n_valids, last_tokens, targets, temps, topks, fin) -> None:
+                   n_valids, last_tokens, targets, temps, topks, fin, *,
+                   plan=None, slot_range=None) -> None:
     """Feed chunk tokens [K, C] into K slots' cache rows, in place: row r
     writes slot ``slots[r]`` at logical positions ``starts[r]..`` (ring
     index (offset + p) mod M), only its first ``n_valids[r]`` positions;
@@ -426,7 +432,22 @@ def _prefill_batch(params, cfg: TransformerConfig, cache: KVCache,
     serving.py:829). The JAX package pads K to a power of two and
     diverts the writes of padding rows and pad tails out of bounds; here
     rows are only the requests that have a chunk this round, and only the
-    valid (row, position) pairs are written."""
+    valid (row, position) pairs are written.
+
+    ``plan``: a mesh rank's heads (module docstring); ``slot_range`` =
+    (first, count) of the slots a batch-split rank holds: the rows of other
+    slots are dropped and the rest address the rank's local rows."""
+    if slot_range is not None:
+        lo, n = slot_range
+        sl = np.asarray(slots, np.int64)
+        keep = (sl >= lo) & (sl < lo + n)
+        if not keep.any():
+            return
+        tokens, slots = np.asarray(tokens)[keep], sl[keep] - lo
+        starts, offsets, n_valids, last_tokens, targets, temps, topks, fin = (
+            np.asarray(a)[keep] for a in (starts, offsets, n_valids,
+                                          last_tokens, targets, temps,
+                                          topks, fin))
     dev, dt = cache.k.device, cfg.dtype
     # final rows first, so the commit below is a slice of the row table
     order = np.argsort(~np.asarray(fin, bool), kind="stable")
@@ -451,12 +472,13 @@ def _prefill_batch(params, cfg: TransformerConfig, cache: KVCache,
     p_row, p_j, p_slot, p_ring = pairs.unbind(0)
 
     positions = starts_d[:, None] + torch.arange(l, device=dev)
-    x = params["embed"].to(dt)[tok]
+    x = transformer._embed(params, tok, cfg, plan)
     int8_cache = cache.k.dtype == torch.int8
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = layer_params(params, i, plan, cfg)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = transformer._qkv(cfg, h, positions, lp)
+        q, k, v = transformer._qkv(cfg, h, positions, lp, plan)
+        kv_sel = _replicated_kv_heads(cfg, plan, q.shape[2], dev)
         k_hm, v_hm = k.transpose(1, 2), v.transpose(1, 2)   # [K, kvH, C, D]
         ck, cv = cache.k[i], cache.v[i]
         row_ks = row_vs = None
@@ -469,11 +491,17 @@ def _prefill_batch(params, cfg: TransformerConfig, cache: KVCache,
                 cache.v_scale[i][slots_d]
         ck[p_slot, :, p_ring] = k_hm[p_row, :, p_j].to(ck.dtype)
         cv[p_slot, :, p_ring] = v_hm[p_row, :, p_j].to(cv.dtype)
-        attn = _cached_attention(cfg, q, ck[slots_d], cv[slots_d], starts_d,
-                                 l, row_ks, row_vs, ring_offsets=offsets_d)
-        x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt))
+        rk, rv = ck[slots_d], cv[slots_d]
+        if kv_sel is not None:          # every kv head cached, heads split
+            rk, rv = rk.index_select(1, kv_sel), rv.index_select(1, kv_sel)
+            if row_ks is not None:
+                row_ks = row_ks.index_select(1, kv_sel)
+                row_vs = row_vs.index_select(1, kv_sel)
+        attn = _cached_attention(cfg, q, rk, rv, starts_d, l, row_ks, row_vs,
+                                 ring_offsets=offsets_d)
+        x = x + _attn_out(attn, lp["wo"], cfg, plan)
         hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        mlp_out, _ = transformer._mlp(cfg, hh, lp)
+        mlp_out, _ = transformer._mlp(cfg, hh, lp, plan)
         x = x + mlp_out
     # tensor values and index_fill_ only: a Python scalar assigned through
     # a tensor index reaches the card by a copy that waits for it
@@ -490,20 +518,22 @@ def _prefill_batch(params, cfg: TransformerConfig, cache: KVCache,
 def _prefill_chunk(params, cfg: TransformerConfig, cache: KVCache,
                    state: _SlotState, tokens, slot: int, start: int,
                    offset: int, n_valid: int, last_token: int, target: int,
-                   temp: float, topk: int, *, finalize: bool) -> None:
+                   temp: float, topk: int, *, finalize: bool, plan=None,
+                   slot_range=None) -> None:
     """One slot's chunk ([C] host tokens, valid up to ``n_valid``): the
     one-row case of ``_prefill_batch`` (the JAX package's
     serving.py:721)."""
     _prefill_batch(params, cfg, cache, state, np.asarray(tokens)[None],
                    [slot], [start], [offset], [n_valid], [last_token],
-                   [target], [temp], [topk], [finalize])
+                   [target], [temp], [topk], [finalize], plan=plan,
+                   slot_range=slot_range)
 
 
 @torch.no_grad()
 def _decode_block(params, fused, cfg: TransformerConfig, cache: KVCache,
                   state: _SlotState, cursor: int, generator, *, block: int,
                   stop_arr, pad_id: int, top_k: int, per_row_topk: bool,
-                  all_greedy: bool, lp_k: int = 0):
+                  all_greedy: bool, lp_k: int = 0, plan=None, rows=None):
     """``block`` single-token decode steps for ALL slots -> (cache, packed).
     The cache's K/V are written in place; ``state.tokens`` and
     ``state.active`` are rebound to the block's final values. Per-row
@@ -517,17 +547,21 @@ def _decode_block(params, fused, cfg: TransformerConfig, cache: KVCache,
     ``lp_k`` > 0 widens it to [S, block+2+block*(2*lp_k+1)]: each step's
     chosen-token logprob (float32 bits as int32), the top-``lp_k`` ids and
     their logprobs (bits), read off the same logits row the token was
-    sampled from (the JAX package's serving.py:937)."""
+    sampled from (the JAX package's serving.py:937).
+
+    ``plan``: a mesh rank's heads; ``rows`` = (first slot, slots) of a
+    batch-split rank: its draws are its rows of the whole pool's, and
+    ``packed`` is gathered over the batch axes (the whole pool's)."""
     m_cap = cache.k.shape[3]
     tokens, active = state.tokens, state.active
     emitted, chosen, top_ids, top_vals = [], [], [], []
     for _ in range(block):
         logits, new_cache = _forward_with_cache(
             params, cfg, tokens[:, None], cache, fused,
-            ring=(cursor, state.offsets))
+            ring=(cursor, state.offsets), plan=plan)
         nxt = sample_token(logits, generator,
                            0.0 if all_greedy else state.temps,
-                           state.topks if per_row_topk else top_k)
+                           state.topks if per_row_topk else top_k, rows)
         emitted.append(torch.where(active, nxt, pad_id).to(torch.int32))
         if lp_k:
             # the model's own distribution, before temperature and top-k
@@ -554,7 +588,10 @@ def _decode_block(params, fused, cfg: TransformerConfig, cache: KVCache,
                  torch.stack(top_ids, 1).reshape(s, block * lp_k),
                  torch.stack(top_vals, 1).float().reshape(s, block * lp_k)
                  .view(torch.int32)]
-    return cache, torch.cat(cols, dim=1)
+    packed = torch.cat(cols, dim=1)
+    if rows is not None:
+        packed = plan.gather_batch(packed).reshape(rows[1], -1)
+    return cache, packed
 
 
 def _spec_rows_forward(params, cfg: TransformerConfig, tokens, cache: KVCache,
@@ -693,6 +730,46 @@ def _spec_block(params, draft_params, cfg: TransformerConfig,
                        dim=1)
     return (dataclasses.replace(cache, length=new_len),
             dataclasses.replace(draft_cache, length=new_len.clone()), packed)
+
+
+class _BatchShard:
+    """A mesh whose batch axes are wider than one splits the slot pool and
+    the KV pools' block axes in contiguous shares, in batch-rank order:
+    this rank holds slots [lo, lo + s_n) and, of a pool of N blocks,
+    blocks [rank * N / n, (rank + 1) * N / n). ``exchange`` moves what
+    other ranks hold in the prefix pool: every rank offers its candidates
+    for the items and each item comes from its owner
+    (``Plan.from_owners``). The paged pool needs no exchange: its slots'
+    blocks are their own rank's (``BlockAllocator`` shares)."""
+
+    def __init__(self, plan, slots: int):
+        self.plan = plan
+        self.n, self.rank = plan.batch_size, plan.batch_rank
+        self.s_n = slots // self.n
+        self.lo = self.rank * self.s_n
+
+    def mine(self, slots) -> np.ndarray:
+        slots = np.asarray(slots, np.int64)
+        return (slots >= self.lo) & (slots < self.lo + self.s_n)
+
+    def exchange(self, t: torch.Tensor, owner: torch.Tensor, dim: int):
+        """``t`` with each index along ``dim`` from the rank ``owner``
+        [size of dim] names."""
+        view = [1] * t.dim()
+        view[dim] = -1
+        return self.plan.from_owners(t, owner.view(view))
+
+
+def _pool_tensors(pool) -> list:
+    return [t for t in (pool.k, pool.v, pool.k_scale, pool.v_scale)
+            if t is not None]
+
+
+def _with_tensors(pool, ts: list):
+    """``pool`` (a PrefixPool or a KVCache) over the tensors ``ts``, in
+    ``_pool_tensors`` order."""
+    names = ("k", "v", "k_scale", "v_scale")[:len(ts)]
+    return dataclasses.replace(pool, **dict(zip(names, ts)))
 
 
 class _Fence:
@@ -850,15 +927,18 @@ class PrefixCache:
         self._tick += 1
         node.tick = self._tick
 
-    def lookup(self, body: np.ndarray) -> list[_PrefixNode]:
+    def lookup(self, body: np.ndarray, share: int | None = None
+               ) -> list[_PrefixNode]:
         """The longest cached chunk-aligned prefix of ``body`` -> its node
         path (blocks in ``node.block``). Counts a hit or a miss and touches
-        the path's LRU clocks; takes no references (``acquire`` does)."""
+        the path's LRU clocks; takes no references (``acquire`` does).
+        ``share`` (paged, a batch-split mesh): the path stops at a block
+        outside the allocator's ``share``, which the slot cannot read."""
         node, path = self.root, []
         c = self.chunk
         for c0 in range(0, len(body) - c + 1, c):
             child = node.children.get(body[c0:c0 + c].tobytes())
-            if child is None:
+            if child is None or not self._in(child.block, share):
                 break
             path.append(child)
             node = child
@@ -880,15 +960,19 @@ class PrefixCache:
                 raise RuntimeError("prefix-cache reference underflow")
             n.refs -= 1
 
-    def _evict_one(self) -> int | None:
+    def _in(self, block: int, share: int | None) -> bool:
+        return share is None or self._allocator.share_of(block) == share
+
+    def _evict_one(self, share: int | None = None) -> int | None:
         """Free the least recently used unreferenced leaf's block (ticks
         are unique, so the choice is deterministic). With an allocator the
         node's reference on the block passes to the caller (reuse or
         ``reclaim``), and a leaf whose block a slot table also holds is
-        skipped."""
+        skipped; ``share``: a leaf whose block is in the share."""
         victim = None
         for node in self._owned:
-            if node.children or node.refs > 0:
+            if node.children or node.refs > 0 or not self._in(node.block,
+                                                              share):
                 continue
             if (self._allocator is not None
                     and self._allocator.refs[node.block] > 1):
@@ -912,16 +996,16 @@ class PrefixCache:
             return self._free.pop()
         return self._evict_one()
 
-    def reclaim(self, n: int) -> int:
-        """Paged mode: give up to ``n`` blocks back to the allocator by
-        evicting unreferenced leaves the trie alone holds -> how many. An
-        admission short of pool blocks calls it: cached prefixes yield to
-        live requests."""
+    def reclaim(self, n: int, share: int | None = None) -> int:
+        """Paged mode: give up to ``n`` blocks (of ``share``) back to the
+        allocator by evicting unreferenced leaves the trie alone holds ->
+        how many. An admission short of pool blocks calls it: cached
+        prefixes yield to live requests."""
         if self._allocator is None:
             raise RuntimeError("reclaim needs an allocator")
         got = 0
         while got < n:
-            block = self._evict_one()
+            block = self._evict_one(share)
             if block is None:
                 break
             self._allocator.unref(block)
@@ -1050,14 +1134,25 @@ class BlockAllocator:
     ``class_budgets`` caps the blocks a class may hold exclusively at once
     (``alloc_for`` debits, ``credit`` returns); blocks shared through the
     trie are free to every class. A class over its budget defers at
-    admission instead of starving the other tier of blocks."""
+    admission instead of starving the other tier of blocks.
 
-    def __init__(self, n_blocks: int, class_budgets: dict | None = None):
+    ``shares`` > 1 (a batch-split mesh, whose ranks each hold a contiguous
+    share of the pool's blocks, the pad block last in the last share):
+    a free list a share, and a slot's blocks come from its rank's share
+    (``alloc_for(share=)``), so a rank reads and writes its slots' blocks
+    without asking another rank."""
+
+    def __init__(self, n_blocks: int, class_budgets: dict | None = None,
+                 shares: int = 1):
         if n_blocks < 1:
             raise ValueError(f"paged KV pool needs >= 1 block, "
                              f"got {n_blocks}")
         self.n_blocks = n_blocks
-        self._free = list(range(n_blocks - 1, -1, -1))
+        self.per_share = -(-(n_blocks + 1) // shares)
+        # each share's list pops its lowest block first
+        self._free_by = [
+            list(range(min((s + 1) * self.per_share, n_blocks) - 1,
+                       s * self.per_share - 1, -1)) for s in range(shares)]
         self.refs = np.zeros(n_blocks, np.int32)
         self.class_budgets: dict[str, int] = {}
         for cls, cap in (class_budgets or {}).items():
@@ -1070,32 +1165,45 @@ class BlockAllocator:
         self.peak_used = 0
 
     @property
+    def _free(self) -> list:
+        """Every free block (the shares' lists, in share order)."""
+        return [b for free in self._free_by for b in free]
+
+    @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        return sum(len(free) for free in self._free_by)
 
     @property
     def used_blocks(self) -> int:
-        return self.n_blocks - len(self._free)
+        return self.n_blocks - self.free_blocks
+
+    def share_of(self, block: int) -> int:
+        return block // self.per_share
+
+    def free_in(self, share: int) -> int:
+        return len(self._free_by[share])
 
     def take(self) -> int | None:
         """One block debited to no class (the trie's growth), refcount 1."""
-        if not self._free:
+        if not self._free_by[0]:
             return None
-        block = self._free.pop()
+        block = self._free_by[0].pop()
         self.refs[block] = 1
         self.peak_used = max(self.peak_used, self.used_blocks)
         return block
 
-    def alloc_for(self, cls: str, n: int) -> list | None:
-        """``n`` fresh blocks (refcount 1 each) debited to class ``cls``,
-        all or nothing: None when the free list or the class's budget is
-        short (the caller defers the admission; nothing is half-admitted)."""
+    def alloc_for(self, cls: str, n: int, share: int = 0) -> list | None:
+        """``n`` fresh blocks (refcount 1 each) of ``share`` debited to
+        class ``cls``, all or nothing: None when the share's free list or
+        the class's budget is short (the caller defers the admission;
+        nothing is half-admitted)."""
         budget = self.class_budgets.get(cls)
         if budget is not None and self.class_used.get(cls, 0) + n > budget:
             return None
-        if len(self._free) < n:
+        free = self._free_by[share]
+        if len(free) < n:
             return None
-        blocks = [self._free.pop() for _ in range(n)]
+        blocks = [free.pop() for _ in range(n)]
         for block in blocks:
             self.refs[block] = 1
         if cls in self.class_used:
@@ -1113,7 +1221,7 @@ class BlockAllocator:
             raise RuntimeError("paged-KV block refcount underflow")
         self.refs[block] -= 1
         if self.refs[block] == 0:
-            self._free.append(block)
+            self._free_by[self.share_of(block)].append(block)
 
     def credit(self, cls: str, n: int) -> None:
         """Give ``n`` exclusively held blocks back to ``cls``'s budget (the
@@ -1129,6 +1237,9 @@ class BlockAllocator:
         free = set(self._free)
         if len(free) != len(self._free):
             raise RuntimeError("duplicate blocks on the free list")
+        if any(self.share_of(b) != sh for sh, lst in enumerate(self._free_by)
+               for b in lst):
+            raise RuntimeError("a block on another share's free list")
         for block in range(self.n_blocks):
             if (block in free) != (self.refs[block] == 0) \
                     or self.refs[block] < 0:
@@ -1538,14 +1649,7 @@ class SlotServer:
                  role: str = "both", registry: ModelRegistry | None = None,
                  draft=None, draft_cfg: TransformerConfig | None = None,
                  spec_gamma: int = 0, spec_gamma_max: int = 4, device=None,
-                 **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"SlotServer() got an unexpected keyword "
-                                f"argument {name!r}")
-            off, what, item = _NOT_PORTED[name]
-            if value != off:
-                raise _not_ported(f"{what} ({name}=)", item)
+                 mesh=None, rules=None):
         # the model registry (models/registry.py): this server serves one
         # named entry (its slot pool has that entry's shapes), and a
         # speculative pair is two entries. A (params, cfg) pair is
@@ -1573,16 +1677,32 @@ class SlotServer:
             raise ValueError("serving requires a causal model")
         self.device = resolve_device(device)
         if isinstance(params, DecodeWeights):
+            if params.mesh is not None:
+                if mesh is not None and mesh != params.mesh:
+                    raise ValueError(
+                        "mesh mismatch: the prepared weights were built for "
+                        "a different mesh than the SlotServer's")
+                mesh = params.mesh
+                if rules is None:
+                    rules = params.rules
+            elif mesh is not None:
+                raise ValueError(
+                    "prepared weights were built without a mesh but the "
+                    "SlotServer got one — rebuild with "
+                    "prepare_decode(..., mesh=...)")
             prepared = params
             weight_dtype = params.weight_dtype
         else:
-            prepared = prepare_decode(params, cfg, weight_dtype=weight_dtype)
+            prepared = prepare_decode(params, cfg, weight_dtype=weight_dtype,
+                                      mesh=mesh, rules=rules)
+            rules = prepared.rules
         if prepared.params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"the weights are on {prepared.params['embed'].device}, the "
                 f"server on {self.device}")
         self._params, self._fused = prepared.params, prepared.fused
         self.cfg = moe_dropfree(cfg)
+        self._init_mesh(mesh, rules, slots)
         self._init_draft(draft, draft_cfg, weight_dtype, temperature)
         self.slots = slots
         self.max_len = max_len
@@ -1619,6 +1739,13 @@ class SlotServer:
             if not self.kv_pool_blocks:
                 # the ring's device bytes
                 self.kv_pool_blocks = slots * (max_len // self.kv_block)
+            if self._shard is not None:
+                # the block axis splits over the batch axes as the slots
+                # do: round up so the blocks and the pad block divide (a
+                # default pool then holds every rank's slots in its share)
+                t_b = self._shard.n
+                self.kv_pool_blocks = -(-(self.kv_pool_blocks + 1)
+                                        // t_b) * t_b - 1
         elif self.prefill_interleave:
             raise ValueError("prefill_interleave requires paged=True (the "
                              "ring engine prefills whole admissions)")
@@ -1632,6 +1759,12 @@ class SlotServer:
         if self.role == "prefill" and not self._paged:
             raise ValueError("role='prefill' requires paged=True (the "
                              "transfer unit is the paged KV block)")
+        if (self.role != "both" and self._plan is not None
+                and not self._plan.trivial):
+            raise ValueError(
+                f"role={self.role!r} serves one device: the KV transfer "
+                "moves whole blocks, which a mesh wider than one device "
+                "splits over its ranks")
         if self.role == "prefill" and self._spec:
             raise ValueError(
                 "role='prefill' is incompatible with speculative serving (a "
@@ -1738,12 +1871,23 @@ class SlotServer:
         self.dispatch_tracker = DispatchTracker()
         # ServeApp.shutdown(drain=True) parks admission
         self.pause_admission = False
+        # a mesh's ranks in lockstep (parallel/lockstep.py): the turn's
+        # instant every rank decides deadlines by (None: this host's
+        # clock), and the chaos hooks' mid-decode crash raised at the end
+        # of the step instead of inside it
+        self.turn_now: float | None = None
+        self.defer_faults = False
+        self._pending_fault: Exception | None = None
         self._init_device_state()
         # the chunk-aligned prefix cache (module docstring); a request id ->
         # its matched trie path, referenced until its completion is
         # processed
         self.cache_prompts = bool(cache_prompts)
         self._prefix_blocks = int(prefix_cache_blocks)
+        if self._shard is not None and self._prefix_blocks:
+            # whole shards of the block axis
+            t_b = self._shard.n
+            self._prefix_blocks = -(-self._prefix_blocks // t_b) * t_b
         self._prefix_cache: PrefixCache | None = None
         self._pool: PrefixPool | None = None
         self._draft_pool: PrefixPool | None = None
@@ -1755,6 +1899,34 @@ class SlotServer:
         self._init_host_state()
         self._queue: collections.deque[Request] = collections.deque()
         self._done: dict[int, Completion] = {}
+
+    def _init_mesh(self, mesh, rules, slots: int) -> None:
+        """The mesh's plan on this rank (the JAX package's
+        serving.py:1766-1780): the head counts divide their axes, the
+        slots the batch axes; a batch-split rank holds ``_shard``'s
+        slots."""
+        self._mesh, self._rules = mesh, rules
+        self._plan = self._shard = None
+        self._n_kv = None               # this rank's kv heads
+        if mesh is None:
+            return
+        _validate_decode_mesh(self.cfg, mesh, rules)
+        t_b = rule_size(mesh, rules, "batch")
+        if slots % t_b:
+            raise ValueError(
+                f"mesh-sharded serving: slots={slots} is not divisible by "
+                f"the 'batch' mesh axes (size {t_b}) — the slot pool is the "
+                "batch dimension of every decode block")
+        self._plan = transformer._plan(mesh, rules, self.cfg)
+        self._n_kv = self.cfg.n_kv_heads // rule_size(mesh, rules, "kv")
+        if t_b > 1:
+            self._shard = _BatchShard(self._plan, slots)
+
+    @property
+    def _slot_range(self):
+        """(first, count) of this rank's slots on a batch-split mesh."""
+        return None if self._shard is None else (self._shard.lo,
+                                                  self._shard.s_n)
 
     def _init_draft(self, draft, draft_cfg, weight_dtype: str,
                     temperature: float) -> None:
@@ -1784,7 +1956,15 @@ class SlotServer:
                                    source="inline")
         self.registry.get(self.model).draft = self.draft_model
         if isinstance(draft_w, DecodeWeights):
+            if draft_w.mesh is not None:
+                raise ValueError("speculative serving is single-device; "
+                                 "prepare the draft without a mesh")
             draft_w = draft_w.params
+        if self._mesh is not None:
+            raise ValueError(
+                "speculative serving is single-device (the per-row-position "
+                "propose/verify programs are not mesh-threaded); serve the "
+                "draft pair without a mesh")
         if weight_dtype != "native":
             raise ValueError(
                 "speculative serving requires weight_dtype='native': the "
@@ -1827,12 +2007,15 @@ class SlotServer:
         which each dispatch's view carries (the pool is
         ``_init_paged_state``'s)."""
         s, dev = self.slots, self.device
+        if self._shard is not None:
+            s = self._shard.s_n             # this rank's slots
         lens = torch.zeros(s, dtype=torch.int32, device=dev)
         if self._paged:
             self._cache = None
             self._d_lens = lens
         else:
-            cache = init_cache(self.cfg, s, self.max_len, self.kv_dtype, dev)
+            cache = init_cache(self.cfg, s, self.max_len, self.kv_dtype, dev,
+                               self._n_kv)
             self._cache = dataclasses.replace(cache, length=lens)
         # speculative serving: the draft mirrors the slot pool with its own
         # cache (its config's shapes), at the target's per-row lengths:
@@ -1857,11 +2040,20 @@ class SlotServer:
             temps=torch.zeros(s, dtype=torch.float32, device=dev),
             topks=torch.zeros(s, **zeros))
 
+    @property
+    def _batch_split(self) -> int:
+        return 1 if self._shard is None else self._shard.n
+
+    def _share(self, slot: int) -> int:
+        """The paged pool's share ``slot``'s blocks come from: its batch
+        rank on a batch-split mesh, else 0 (the whole pool)."""
+        return 0 if self._shard is None else slot // self._shard.s_n
+
     def _init_prefix_pool(self) -> None:
         """(Re)create the prefix pool's device blocks and an empty trie."""
-        self._pool = init_prefix_pool(self.cfg, self._prefix_blocks,
-                                      self.prefill_chunk, self.kv_dtype,
-                                      self.device)
+        self._pool = init_prefix_pool(
+            self.cfg, self._prefix_blocks // self._batch_split,
+            self.prefill_chunk, self.kv_dtype, self.device, self._n_kv)
         self._prefix_cache = PrefixCache(self._prefix_blocks,
                                          self.prefill_chunk)
         # speculative serving: the draft's K/V rides the same trie, each
@@ -1879,8 +2071,9 @@ class SlotServer:
         stays zero), its allocator, the slots' tables, offsets and floors,
         and the trie on the allocator."""
         n = self.kv_pool_blocks
-        self._kv_pool = init_prefix_pool(self.cfg, n + 1, self.kv_block,
-                                         self.kv_dtype, self.device)
+        self._kv_pool = init_prefix_pool(
+            self.cfg, (n + 1) // self._batch_split, self.kv_block,
+            self.kv_dtype, self.device, self._n_kv)
         # speculative serving: the draft's K/V in a mirror pool of the same
         # block geometry: one allocator owns both, a slot's table indexes
         # both, and a trie node's block is valid in both
@@ -1888,7 +2081,8 @@ class SlotServer:
             init_prefix_pool(self._draft_cfg, n + 1, self.kv_block,
                              self.kv_dtype, self.device)
             if self._spec else None)
-        self._allocator = BlockAllocator(n, self._class_budgets)
+        self._allocator = BlockAllocator(n, self._class_budgets,
+                                         shares=self._batch_split)
         self._np_tables = np.full(
             (self.slots, self.max_len // self.kv_block), n, np.int32)
         # host mirrors of the ring offsets, and each slot's floor: the
@@ -2108,7 +2302,7 @@ class SlotServer:
     def _sweep_expired(self) -> None:
         """Queued requests past their deadline complete "expired" and
         never take a slot."""
-        now = time.monotonic()
+        now = time.monotonic() if self.turn_now is None else self.turn_now
         if not any(r.deadline is not None and now > r.deadline
                    for r in self._queue):
             return
@@ -2173,7 +2367,7 @@ class SlotServer:
             return False
         if self._predictive and not self._model_active[slot]:
             return False        # already decoded to completion on device
-        _cancel_slot(self._state.active, slot)
+        self._cancel_on_device(slot)
         self._model_active[slot] = False
         self.cancelled_requests += 1
         ev = ("cancel", (slot, request_id))
@@ -2182,6 +2376,26 @@ class SlotServer:
         else:                   # nothing in flight: applies now
             self._apply_cancel((slot, request_id))
         return True
+
+    def _cancel_on_device(self, slot: int) -> None:
+        """``_cancel_slot`` on the rank that holds ``slot``."""
+        if self._shard is None:
+            _cancel_slot(self._state.active, slot)
+        elif self._shard.mine([slot])[0]:
+            _cancel_slot(self._state.active, slot - self._shard.lo)
+
+    def host_digest(self) -> dict:
+        """The host state every rank of a mesh keeps alike
+        (parallel/lockstep.py compares it): which request each slot
+        serves, the paged allocator's free blocks, the queue's length and
+        the completions not yet drained."""
+        return {
+            "slots": sorted(self._slot_of.items()),
+            "free_blocks": (list(self._allocator._free) if self._paged
+                            else None),
+            "queued": len(self._queue),
+            "done": sorted(self._done),
+        }
 
     def reset(self) -> list[int]:
         """Re-arm the serving state after a loop failure without touching
@@ -2241,6 +2455,7 @@ class SlotServer:
             self._init_prefix_pool()
         self._init_host_state()
         self._queue.extendleft(reversed(replay_reqs))
+        self._pending_fault = None
         self.resets += 1
         return failed
 
@@ -2581,6 +2796,11 @@ class SlotServer:
                 "prefill_interleave": self.prefill_interleave,
                 "pending_prefill": len(self._pending_prefill),
             }
+        if self._mesh is not None:
+            # a mesh's shape (serve --mesh; the JAX package serves one
+            # process and has no such key)
+            out["mesh"] = dict(zip(self._mesh.mesh_dim_names,
+                                   self._mesh.mesh.shape))
         return out
 
     def _pool_state_counts(self) -> dict:
@@ -2736,7 +2956,11 @@ class SlotServer:
         of the suffix prefill whose attention reads them."""
         rows = [(a.slot, n.block, ci, a.offset)
                 for a in admissions for ci, n in enumerate(a.hit_path)]
-        if rows:
+        if rows and self._shard is not None:
+            self._copy_prefix_sharded(np.asarray(rows, np.int64))
+            self.prefix_copy_dispatches += 1
+            self._track("prefix_copy")
+        elif rows:
             staged = _stage(np.asarray(rows, np.int64).T, self.device)
             _copy_prefix_blocks(self._pool, self._cache, staged)
             self.prefix_copy_dispatches += 1
@@ -2764,7 +2988,11 @@ class SlotServer:
             for ci, node in self._prefix_cache.insert(a.body):
                 rows.append((a.slot, node.block, ci, a.offset))
                 created.append(node)
-        if rows:
+        if rows and self._shard is not None:
+            self._insert_prefix_sharded(np.asarray(rows, np.int64))
+            self.prefix_insert_dispatches += 1
+            self._track("prefix_insert")
+        elif rows:
             staged = _stage(np.asarray(rows, np.int64).T, self.device)
             _insert_prefix_blocks(self._pool, self._cache, staged)
             self.prefix_insert_dispatches += 1
@@ -2776,6 +3004,46 @@ class SlotServer:
                 self._track("draft_prefix_insert")
         # the insert references protected the new blocks until their copy
         self._prefix_cache.release(created)
+
+    def _copy_prefix_sharded(self, rows: np.ndarray) -> None:
+        """``_copy_prefix_blocks`` on a batch-split mesh: each row's pool
+        block comes from the rank holding it, and each rank writes the
+        rows of its own slots."""
+        sh, dev = self._shard, self.device
+        slot, block = rows[:, 0], rows[:, 1]
+        nb = self._pool.k.shape[1]
+        local = _stage(block % nb, dev)
+        owner = _stage(block // nb, dev)
+        src = _with_tensors(self._pool, [
+            sh.exchange(t[:, local], owner, 1)
+            for t in _pool_tensors(self._pool)])
+        mine = np.nonzero(sh.mine(slot))[0]
+        if mine.size:
+            at = np.stack([slot[mine] - sh.lo, mine, rows[mine, 2],
+                           rows[mine, 3]])
+            _copy_prefix_blocks(src, self._cache, _stage(at, dev))
+
+    def _insert_prefix_sharded(self, rows: np.ndarray) -> None:
+        """``_insert_prefix_blocks`` on a batch-split mesh: each row's K/V
+        comes from the rank holding its slot, and each rank writes the
+        blocks it holds."""
+        sh, dev = self._shard, self.device
+        slot, block = rows[:, 0], rows[:, 1]
+        n_rows = rows.shape[0]
+        at = np.stack([np.clip(slot - sh.lo, 0, sh.s_n - 1),
+                       np.arange(n_rows), rows[:, 2], rows[:, 3]])
+        cand = _with_tensors(self._pool, [
+            t.new_zeros((t.shape[0], n_rows) + tuple(t.shape[2:]))
+            for t in _pool_tensors(self._pool)])
+        _insert_prefix_blocks(cand, self._cache, _stage(at, dev))
+        owner = _stage(slot // sh.s_n, dev)
+        got = [sh.exchange(t, owner, 1) for t in _pool_tensors(cand)]
+        nb = self._pool.k.shape[1]
+        mine = np.nonzero(block // nb == sh.rank)[0]
+        if mine.size:
+            src, dst = _stage(mine, dev), _stage(block[mine] % nb, dev)
+            for t, g in zip(_pool_tensors(self._pool), got):
+                t[:, dst] = g[:, src]
 
     def _chunk(self, adm: _Admission, c0: int) -> tuple[np.ndarray, int]:
         n_valid = max(0, min(self.prefill_chunk, adm.body.size - c0))
@@ -2791,7 +3059,8 @@ class SlotServer:
             _prefill_chunk(self._params, self.cfg, self._cache, self._state,
                            chunk, adm.slot, c0, adm.offset, n_valid,
                            adm.last, adm.target, adm.temp, adm.topk,
-                           finalize=c0 == adm.chunk_starts[-1])
+                           finalize=c0 == adm.chunk_starts[-1],
+                           plan=self._plan, slot_range=self._slot_range)
             self.admission_dispatches += 1
             self._track("prefill")
 
@@ -2809,7 +3078,8 @@ class SlotServer:
                 [a.offset for a in rows], [n for _, n in chunks],
                 [a.last for a in rows], [a.target for a in rows],
                 [a.temp for a in rows], [a.topk for a in rows],
-                [r == len(a.chunk_starts) - 1 for a in rows])
+                [r == len(a.chunk_starts) - 1 for a in rows],
+                plan=self._plan, slot_range=self._slot_range)
             self.admission_dispatches += 1
             self._track("prefill")
 
@@ -2925,9 +3195,20 @@ class SlotServer:
         pool = self._draft_kv_pool if draft else self._kv_pool
         base = blk * (pool.k.shape[2] * self.kv_block) + row
         self.paged_gather_dispatches += 1
-        return _gather_paged_view(pool, _stage(base, self.device),
-                                  self._d_draft_lens if draft
-                                  else self._d_lens)
+        lens = self._d_draft_lens if draft else self._d_lens
+        if self._shard is not None:
+            # a batch-split mesh: this rank's slots, whose blocks all lie in
+            # its share (BlockAllocator shares). A pad entry reads the
+            # share's last block: the pad itself on the last rank, stale
+            # rows elsewhere, which the mask weighs 0 as a ring's
+            sh, nb = self._shard, pool.k.shape[1]
+            mine = slice(sh.lo, sh.lo + sh.s_n)
+            local = np.minimum(blk[mine] - sh.rank * nb, nb - 1)
+            if (local < 0).any():
+                raise RuntimeError("paged KV gather: a slot's table holds "
+                                   "another rank's block")
+            base = local * (pool.k.shape[2] * self.kv_block) + row[mine]
+        return _gather_paged_view(pool, _stage(base, self.device), lens)
 
     def _scatter_view(self, view: KVCache, ring_ids: np.ndarray,
                       n_valids: np.ndarray, floors: np.ndarray,
@@ -2956,6 +3237,12 @@ class SlotServer:
             # two slots' writes to one block: a host bookkeeping fault,
             # raised before the card sees a racy index_copy_
             raise RuntimeError("paged KV scatter: a pool row targeted twice")
+        if self._shard is not None:
+            # this rank's slots' rows, into its share's blocks (gather)
+            sh = self._shard
+            rows = rows[:, (s_idx >= sh.lo) & (s_idx < sh.lo + sh.s_n)]
+            rows[0] -= sh.lo * (kvh * self.max_len)
+            rows[1] -= sh.rank * pool.k.shape[1] * (kvh * self.kv_block)
         if rows.shape[1]:
             _scatter_paged_rows(pool, view,
                                 _stage(rows.astype(np.int64), self.device))
@@ -3004,25 +3291,27 @@ class SlotServer:
         target = body.size + req.max_new_tokens - len(resume or ())
         # every logical position the request can write, up front
         cap_blocks = max(1, -(-target // B))
-        path = (self._prefix_cache.lookup(body)
+        share = self._share(slot)
+        path = (self._prefix_cache.lookup(body, share)
                 if self._prefix_cache is not None else [])
         n_new = cap_blocks - len(path)
         cls = req.priority
         alloc = self._allocator
-        blocks = alloc.alloc_for(cls, n_new)
+        blocks = alloc.alloc_for(cls, n_new, share)
         if blocks is None:
             budget = alloc.class_budgets.get(cls)
             if budget is not None and \
                     alloc.class_used.get(cls, 0) + n_new > budget:
                 return "budget"
-            short = n_new - alloc.free_blocks
+            short = n_new - alloc.free_in(share)
             if self._prefix_cache is not None and short > 0:
                 # cached prefixes yield to live admissions; a reclaim may
                 # evict nodes of the matched path, so look it up again
-                self._prefix_cache.reclaim(short)
-                path = self._prefix_cache.lookup(body) if path else []
+                self._prefix_cache.reclaim(short, share)
+                path = (self._prefix_cache.lookup(body, share) if path
+                        else [])
                 n_new = cap_blocks - len(path)
-                blocks = alloc.alloc_for(cls, n_new)
+                blocks = alloc.alloc_for(cls, n_new, share)
             if blocks is None:
                 return "pool"
         del self._queue[qidx]
@@ -3120,7 +3409,8 @@ class SlotServer:
         _prefill_chunk(self._params, self.cfg, view, self._state, chunk,
                        adm.slot, c0, adm.offset, n_valid, adm.last,
                        adm.target, adm.temp, adm.topk,
-                       finalize=final and self.role != "prefill")
+                       finalize=final and self.role != "prefill",
+                       plan=self._plan, slot_range=self._slot_range)
         self._track("prefill")
         ring_ids = np.zeros((self.slots, C), np.int64)
         ring_ids[adm.slot] = (adm.offset + c0 + np.arange(C)) % self.max_len
@@ -3380,12 +3670,13 @@ class SlotServer:
         cap_blocks = max(1, -(-target // B))
         cls = req.priority
         alloc = self._allocator
-        blocks = alloc.alloc_for(cls, cap_blocks)
+        share = self._share(slot)
+        blocks = alloc.alloc_for(cls, cap_blocks, share)
         if blocks is None:
-            short = cap_blocks - alloc.free_blocks
+            short = cap_blocks - alloc.free_in(share)
             if self._prefix_cache is not None and short > 0:
-                self._prefix_cache.reclaim(short)
-                blocks = alloc.alloc_for(cls, cap_blocks)
+                self._prefix_cache.reclaim(short, share)
+                blocks = alloc.alloc_for(cls, cap_blocks, share)
             if blocks is None:
                 self.admission_defers += 1
                 err = QueueFullError(f"pool blocks short for KV import "
@@ -3487,7 +3778,10 @@ class SlotServer:
             stop_arr=self._stop_arr, pad_id=self.pad_id, top_k=self.top_k,
             # _host_busy never goes False while a row is active on device
             per_row_topk=bool((self._np_topks[busy] != self.top_k).any()),
-            all_greedy=not (self._np_temps[busy] > 0).any(), lp_k=lp_k)
+            all_greedy=not (self._np_temps[busy] > 0).any(), lp_k=lp_k,
+            plan=self._plan,
+            rows=None if self._shard is None else (self._shard.lo,
+                                                   self.slots))
         if self._paged:
             self._d_lens = cache.length
             window = (self._cursor + np.arange(self.block_size)) % self.max_len
@@ -3603,8 +3897,11 @@ class SlotServer:
         if self.blocks_dispatched in self._chaos_crash_blocks:
             self._chaos_crash_blocks.discard(self.blocks_dispatched)
             self.chaos_faults_injected += 1
-            raise RuntimeError("chaos: injected mid-decode loop crash at "
-                               f"block {self.blocks_dispatched}")
+            fault = RuntimeError("chaos: injected mid-decode loop crash at "
+                                 f"block {self.blocks_dispatched}")
+            if not self.defer_faults:
+                raise fault
+            self._pending_fault = fault
 
     def _process(self, count: int) -> None:
         """Read + bookkeep the oldest ``count`` in-flight blocks, each from
@@ -3719,7 +4016,7 @@ class SlotServer:
                     # a processed block shows it inactive
                     self._complete_slot(slot, req, "stop", lag)
                     if active[slot]:
-                        _cancel_slot(self._state.active, int(slot))
+                        self._cancel_on_device(int(slot))
                         self._stop_cancelled.add(int(slot))
                     self._model_active[slot] = False
                     continue
@@ -3791,6 +4088,14 @@ class SlotServer:
             for r in self._pipeline for kind, _ in r["events"])
 
     def step(self) -> None:
+        """One scheduling turn (``_step``); a deferred chaos fault is
+        raised at its end."""
+        self._step()
+        if self._pending_fault is not None:
+            fault, self._pending_fault = self._pending_fault, None
+            raise fault
+
+    def _step(self) -> None:
         """One scheduling turn.
 
         Predictive mode (no stop tokens): admission comes off the exact

@@ -28,7 +28,9 @@ and ``loss_fn`` returns the loss of the whole batch on every rank
 (parallel/spmd.py says where the collectives go). Tensor parallelism is
 Megatron's: the heads, the MLP's hidden units and the vocabulary split
 over the ``tensor`` axis; K/V stay whole (training's rules keep "kv"
-replicated) and each rank attends with its heads' slice.
+replicated) and each rank attends with its heads' slice. Decode's table
+(``TP_DECODE_RULES``) splits the kv heads as well: each rank then
+computes its own K/V heads (models/generate.py).
 
 ``n_experts > 0`` replaces every layer's SwiGLU MLP by the einsum-dispatch
 Mixture-of-Experts FFN (parallel/expert.py, silu experts) and adds its
@@ -114,41 +116,54 @@ def _dense_init(generator, shape, in_axis_size, dtype, device):
 
 
 def init(cfg: TransformerConfig, generator: torch.Generator,
-         device) -> dict:
+         device, place=None) -> dict:
     """Random parameters with the JAX package's shapes and scales (the
     draws differ: torch and jax generators give different numbers from one
     seed; parity tests convert the JAX tree instead, models/convert.py).
-    Layer params are stacked [n_layers, ...]."""
+    Layer params are stacked [n_layers, ...]. ``place(leaf, logical_axes)``
+    maps each leaf as soon as it is drawn (``sharding.block_placer``: a
+    rank keeps its block, so at most one whole leaf is ever on the card,
+    never the whole tree); the draws are the same with or without it."""
     pd, hd, L = cfg.param_dtype, cfg.head_dim, cfg.n_layers
+    ax = param_logical_axes(cfg)
+    lx = ax["layers"]
+    put = place or (lambda t, axes: t)
 
-    def dense(shape, in_size):
-        return _dense_init(generator, shape, in_size, pd, device)
+    def dense(axes, shape, in_size):
+        return put(_dense_init(generator, shape, in_size, pd, device), axes)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=pd, device=device)
+    def ones(axes, shape):
+        return put(torch.ones(shape, dtype=pd, device=device), axes)
 
     layers = {
-        "attn_norm": ones((L, cfg.d_model)),
-        "wq": dense((L, cfg.d_model, cfg.n_heads, hd), cfg.d_model),
-        "wk": dense((L, cfg.d_model, cfg.n_kv_heads, hd), cfg.d_model),
-        "wv": dense((L, cfg.d_model, cfg.n_kv_heads, hd), cfg.d_model),
-        "wo": dense((L, cfg.n_heads, hd, cfg.d_model), cfg.n_heads * hd),
-        "mlp_norm": ones((L, cfg.d_model)),
+        "attn_norm": ones(lx["attn_norm"], (L, cfg.d_model)),
+        "wq": dense(lx["wq"], (L, cfg.d_model, cfg.n_heads, hd), cfg.d_model),
+        "wk": dense(lx["wk"], (L, cfg.d_model, cfg.n_kv_heads, hd),
+                    cfg.d_model),
+        "wv": dense(lx["wv"], (L, cfg.d_model, cfg.n_kv_heads, hd),
+                    cfg.d_model),
+        "wo": dense(lx["wo"], (L, cfg.n_heads, hd, cfg.d_model),
+                    cfg.n_heads * hd),
+        "mlp_norm": ones(lx["mlp_norm"], (L, cfg.d_model)),
     }
     e, f = cfg.n_experts, cfg.d_ff
     if e > 0:
-        layers.update(router=dense((L, cfg.d_model, e), cfg.d_model),
-                      w_in=dense((L, e, cfg.d_model, f), cfg.d_model),
-                      w_out=dense((L, e, f, cfg.d_model), f))
+        layers.update(
+            router=dense(lx["router"], (L, cfg.d_model, e), cfg.d_model),
+            w_in=dense(lx["w_in"], (L, e, cfg.d_model, f), cfg.d_model),
+            w_out=dense(lx["w_out"], (L, e, f, cfg.d_model), f))
     else:
-        layers.update(w_gate=dense((L, cfg.d_model, f), cfg.d_model),
-                      w_up=dense((L, cfg.d_model, f), cfg.d_model),
-                      w_down=dense((L, f, cfg.d_model), f))
+        layers.update(
+            w_gate=dense(lx["w_gate"], (L, cfg.d_model, f), cfg.d_model),
+            w_up=dense(lx["w_up"], (L, cfg.d_model, f), cfg.d_model),
+            w_down=dense(lx["w_down"], (L, f, cfg.d_model), f))
     return {
-        "embed": dense((cfg.vocab_size, cfg.d_model), cfg.d_model),
+        "embed": dense(ax["embed"], (cfg.vocab_size, cfg.d_model),
+                       cfg.d_model),
         "layers": layers,
-        "final_norm": ones((cfg.d_model,)),
-        "unembed": dense((cfg.d_model, cfg.vocab_size), cfg.d_model),
+        "final_norm": ones(ax["final_norm"], (cfg.d_model,)),
+        "unembed": dense(ax["unembed"], (cfg.d_model, cfg.vocab_size),
+                         cfg.d_model),
     }
 
 
@@ -290,16 +305,21 @@ def _attention(q, k, v, cfg: TransformerConfig, plan=None):
 
 def _qkv(cfg: TransformerConfig, h, positions, lp, plan=None):
     """Projections + rope; k/v stay at n_kv_heads. With the heads
-    tensor-parallel, q is this rank's heads and k/v are whole (their
-    gradient summed over the tensor axis, since each rank uses its own
-    heads' slice of them)."""
+    tensor-parallel, q is this rank's heads; k/v are this rank's kv heads
+    when the rules shard "kv" too (decode's table), else whole (training's:
+    their gradient summed over the tensor axis, since each rank uses its
+    own heads' slice of them)."""
     dt = cfg.dtype
     group = plan.tp_group("heads") if plan is not None else None
-    q = torch.einsum("bld,dhk->blhk", copy_to(h, group), lp["wq"].to(dt))
-    k = torch.einsum("bld,dhk->blhk", h, lp["wk"].to(dt))
-    v = torch.einsum("bld,dhk->blhk", h, lp["wv"].to(dt))
+    kv_local = plan is not None and plan.tp["kv"] is not None
+    hq = copy_to(h, group)
+    q = torch.einsum("bld,dhk->blhk", hq, lp["wq"].to(dt))
+    k = torch.einsum("bld,dhk->blhk", hq if kv_local else h, lp["wk"].to(dt))
+    v = torch.einsum("bld,dhk->blhk", hq if kv_local else h, lp["wv"].to(dt))
     q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    if kv_local:
+        return q, k, v
     return q, copy_to(k, group), copy_to(v, group)
 
 
@@ -308,6 +328,18 @@ def _repeat_kv(cfg: TransformerConfig, k, v):
         rep = cfg.n_heads // cfg.n_kv_heads
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
+    return k, v
+
+
+def _rank_kv(cfg: TransformerConfig, k, v, n_q_heads: int, plan=None):
+    """K/V repeated to the query heads this rank attends with: every head
+    without a plan or with the kv heads split as the query heads are; this
+    rank's slice of the repeated whole when the heads are split and the kv
+    heads are not."""
+    k, v = _repeat_kv(cfg, k, v)
+    if k.shape[2] != n_q_heads:
+        lo = plan.tp_rank("heads") * n_q_heads
+        k, v = k[:, :, lo:lo + n_q_heads], v[:, :, lo:lo + n_q_heads]
     return k, v
 
 
@@ -344,13 +376,8 @@ def _layer(cfg: TransformerConfig, x, positions, lp, plan=None):
     dt = cfg.dtype
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, h, positions, lp, plan)
-    k, v = _repeat_kv(cfg, k, v)
-    group = None
-    if plan is not None and plan.tp["heads"]:
-        hl = q.shape[2]
-        lo = plan.tp_rank("heads") * hl
-        k, v = k[:, :, lo:lo + hl], v[:, :, lo:lo + hl]
-        group = plan.tp_group("heads")
+    k, v = _rank_kv(cfg, k, v, q.shape[2], plan)
+    group = plan.tp_group("heads") if plan is not None else None
     attn = _attention(q, k, v, cfg, plan)
     x = x + reduce_from(torch.einsum("blhk,hkd->bld", attn, lp["wo"].to(dt)),
                         group)

@@ -1,7 +1,9 @@
 """Parallelism for the port: the mesh and its rule tables, the SPMD plan
 that places the collectives, ring and Ulysses sequence parallelism, the
-plain attention and the Mixture-of-Experts FFN. Pipeline schedules and an
-expert axis wider than one are not ported yet (ROADMAP.md queue 1)."""
+plain attention and the Mixture-of-Experts FFN; the rank-replicated
+serving loop of tensor-parallel serving (lockstep.py) and a tensor axis
+replayed in one process (tp_replay.py). Pipeline schedules and an expert
+axis wider than one are not ported yet (ROADMAP.md queue 1)."""
 
 from .mesh import (
     AXIS_ORDER,
@@ -23,6 +25,7 @@ from .sharding import (
     TP_DECODE_RULES,
     TP_RULES,
     batch_sharding,
+    block_placer,
     logical_to_spec,
     merge_rules,
     replicated,
@@ -47,7 +50,7 @@ __all__ = [
     "DP_RULES", "FSDP_RULES", "TP_RULES", "TP_DECODE_RULES", "FSDP_TP_RULES",
     "SP_RULES", "EP_RULES",
     "merge_rules", "logical_to_spec", "sharding_for", "tree_shardings",
-    "shard_params", "replicated", "batch_sharding",
+    "block_placer", "shard_params", "replicated", "batch_sharding",
     "NEG_INF", "make_ring_attention", "reference_attention", "ring_attention",
     "ring_flash_attention",
     "make_ulysses_attention", "ulysses_attention",

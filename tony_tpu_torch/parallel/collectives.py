@@ -8,20 +8,125 @@ The tensor-parallel pair is Megatron's: ``copy_to`` (identity forward,
 all-reduce of the gradient) goes before a product whose weight is split on
 its output features, ``reduce_from`` (all-reduce forward, identity
 backward) after a product whose weight is split on its input features.
+
+A ``ReplayGroup`` stands in for a process group when a group's ranks are
+replayed in one process (parallel/tp_replay.py): the same collectives
+then meet in memory instead of on a transport.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.distributed as dist
 
 
+# a replayed rank waits at most this long for its turn (a rank stuck in
+# a kernel or a deadlocked replay fails instead of hanging)
+REPLAY_TURN_TIMEOUT_S = 600.0
+
+
+class ReplayGroup:
+    """``t`` ranks of a group as threads of one process, one running at a
+    time: a rank runs until a collective, leaves its part and hands the
+    turn to the next rank; the last to arrive combines the parts (a sum in
+    float32, or a concatenation) and hands the turn back to the first, and
+    each rank takes the result when its turn comes again. ``run`` starts
+    the ranks. A rank that raises stops the others."""
+
+    def __init__(self, t: int):
+        self.t = t
+        self._cond = threading.Condition()
+        self._turn = 0
+        self._parts: list = [None] * t
+        self._result = None
+        self._error: BaseException | None = None
+        self._local = threading.local()
+
+    @property
+    def rank(self) -> int:
+        return self._local.rank
+
+    def _wait_turn(self, rank: int) -> None:
+        if not self._cond.wait_for(
+                lambda: self._turn == rank or self._error is not None,
+                timeout=REPLAY_TURN_TIMEOUT_S):
+            raise TimeoutError(f"replay rank {rank} waited "
+                               f"{REPLAY_TURN_TIMEOUT_S} s for its turn")
+        if self._error is not None:
+            raise RuntimeError("another replay rank failed") from self._error
+
+    def _pass(self, rank: int) -> None:
+        self._turn = (rank + 1) % self.t
+        self._cond.notify_all()
+
+    def _collect(self, x: torch.Tensor, combine):
+        rank = self.rank
+        with self._cond:
+            self._parts[rank] = x
+            if rank == self.t - 1:
+                self._result = combine(self._parts)
+                self._parts = [None] * self.t
+            self._pass(rank)
+            self._wait_turn(rank)
+            return self._result
+
+    def all_reduce_(self, t: torch.Tensor, op) -> torch.Tensor:
+        if op not in (dist.ReduceOp.SUM, None):
+            raise NotImplementedError(f"replayed all-reduce of {op}")
+        total = self._collect(t, lambda ps: torch.stack(
+            [p.float() for p in ps]).sum(0))
+        return t.copy_(total)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along dimension 0."""
+        return self._collect(x, lambda ps: torch.cat(ps, 0))
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on every rank, in turns -> the results by rank."""
+        out: list = [None] * self.t
+
+        def body(rank):
+            self._local.rank = rank
+            with self._cond:
+                try:
+                    self._wait_turn(rank)
+                except BaseException:
+                    return
+            try:
+                out[rank] = fn(rank)
+            except BaseException as e:
+                with self._cond:
+                    self._error = self._error or e
+                    self._cond.notify_all()
+                return
+            with self._cond:
+                self._pass(rank)
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.t)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if self._error is not None:
+            raise self._error
+        return out
+
+
 def group_size(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, ReplayGroup):
+        return group.t
+    return dist.get_world_size(group)
 
 
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In-place all-reduce, no autograd; a no-op on a group of one."""
+    if isinstance(group, ReplayGroup):
+        return group.all_reduce_(t, op)
     if group_size(group) > 1:
         dist.all_reduce(t, op=op, group=group)
     return t
@@ -61,9 +166,12 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
 def _gather(x, dim, group):
     n = group_size(group)
     x = x.contiguous()
-    parts = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                        dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(parts, x, group=group)
+    if isinstance(group, ReplayGroup):
+        parts = group.all_gather(x)
+    else:
+        parts = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                            dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(parts, x, group=group)
     if dim == 0:
         return parts
     return torch.cat(parts.chunk(n, 0), dim=dim)
@@ -187,5 +295,5 @@ def ring_shift(ring: Ring, *xs):
     return _Shift.apply(ring, *xs)
 
 
-__all__ = ["group_size", "all_reduce_", "copy_to", "reduce_from",
+__all__ = ["ReplayGroup", "group_size", "all_reduce_", "copy_to", "reduce_from",
            "gather_dim", "gather_nograd", "all_to_all", "Ring", "ring_shift"]

@@ -159,9 +159,10 @@ def local_slice(full: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
     return out
 
 
-def shard_params(mesh, params: Any, logical_tree: Any, rules: Rules) -> Any:
-    """A full parameter tree (the same on every rank) -> a tree of DTensors
-    placed by ``rules``; each holds a copy of this rank's block."""
+def block_placer(mesh, rules: Rules):
+    """``place(full, logical_axes)`` -> a DTensor placed by ``rules`` that
+    holds a copy of this rank's block of ``full`` (the same on every rank);
+    no communication."""
     from torch.distributed.tensor import DTensor
 
     def place(t, axes):
@@ -172,7 +173,13 @@ def shard_params(mesh, params: Any, logical_tree: Any, rules: Rules) -> Any:
                 local, mesh, spec_to_placements(spec, mesh.mesh_dim_names),
                 run_check=False, shape=t.shape, stride=t.stride())
 
-    return _tree_map(place, params, logical_tree)
+    return place
+
+
+def shard_params(mesh, params: Any, logical_tree: Any, rules: Rules) -> Any:
+    """A full parameter tree (the same on every rank) -> a tree of DTensors
+    placed by ``rules``; each holds a copy of this rank's block."""
+    return _tree_map(block_placer(mesh, rules), params, logical_tree)
 
 
 def replicated(mesh):
@@ -204,6 +211,6 @@ __all__ = [
     "Rules", "DP_RULES", "FSDP_RULES", "TP_RULES", "FSDP_TP_RULES",
     "TP_DECODE_RULES", "SP_RULES", "EP_RULES", "merge_rules",
     "logical_to_spec", "spec_to_placements", "sharding_for",
-    "tree_shardings", "local_slice", "shard_params", "replicated",
+    "tree_shardings", "local_slice", "block_placer", "shard_params",
     "batch_sharding", "mesh_shards_rule",
 ]

@@ -8,11 +8,13 @@ rules it reads:
 - the data axes: the ``batch`` rule's axes and, under sequence
   parallelism, the ``act_seq`` axis (size > 1). Ranks along them hold
   different tokens, so a gradient is summed over them.
-- the tensor-parallel axes: the mesh axis the ``heads``, ``mlp`` or
-  ``vocab`` rule names. A weight dimension with one of those names stays
-  this rank's shard, and the model computes on it Megatron's way
+- the tensor-parallel axes: the mesh axis the ``heads``, ``kv``, ``mlp``
+  or ``vocab`` rule names. A weight dimension with one of those names
+  stays this rank's shard, and the model computes on it Megatron's way
   (collectives.copy_to / reduce_from, the vocab-parallel embedding and
-  cross-entropy).
+  cross-entropy). Training's tables keep ``kv`` replicated; decode's
+  (``TP_DECODE_RULES``) put it on ``tensor``, so ``wk``/``wv`` and the KV
+  cache hold this rank's kv heads.
 - every other sharded dimension (``embed`` over fsdp: FSDP, ZeRO-3) is
   stored sharded and gathered where it is used (``use``); its gradient is
   reduce-scattered when the gathering axis is a data axis, and sliced when
@@ -26,13 +28,15 @@ step up to the order of its sums.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .collectives import all_reduce_, gather_dim
+from .collectives import all_reduce_, gather_dim, gather_nograd
 from .mesh import mesh_shape
 from .sharding import _axes, logical_to_spec, mesh_shards_rule
 
-TP_LOGICAL = ("heads", "mlp", "vocab")
+TP_LOGICAL = ("heads", "kv", "mlp", "vocab")
 
 
 class Plan:
@@ -62,7 +66,7 @@ class Plan:
         return None if axis is None else self.mesh.get_group(axis)
 
     def tp_group(self, name: str):
-        """The process group ``name`` ('heads', 'mlp', 'vocab') is
+        """The process group ``name`` ('heads', 'kv', 'mlp', 'vocab') is
         tensor-parallel over, or None."""
         return self.group(self.tp[name])
 
@@ -140,6 +144,45 @@ class Plan:
         return total[0]
 
     @property
+    def batch_size(self) -> int:
+        """How many blocks the batch splits into (the batch axes' product)."""
+        return math.prod(self.shape[a] for a in self.batch_axes)
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's block of the batch: its coordinates on the batch
+        axes, major to minor."""
+        r = 0
+        for a in self.batch_axes:
+            r = r * self.shape[a] + self.coord[a]
+        return r
+
+    def gather_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Every batch rank's ``x`` (same shape and dtype on each), stacked
+        on a new leading dimension in batch-rank order; no autograd. The
+        bytes move as they are (any dtype)."""
+        y = x.contiguous()
+        raw = y.view(torch.uint8) if y.dtype != torch.bool else \
+            y.to(torch.uint8)
+        parts = raw.reshape((1,) + tuple(raw.shape))
+        for a in reversed(self.batch_axes):      # minor axis first
+            parts = gather_nograd(parts, 0, self.group(a))
+        if y.dtype == torch.bool:
+            return parts.bool()
+        return parts.view(y.dtype).reshape((-1,) + tuple(y.shape))
+
+    def from_owners(self, x: torch.Tensor, owner: torch.Tensor,
+                    ) -> torch.Tensor:
+        """Each element of ``x`` from the batch rank that holds it: every
+        rank passes its candidates (valid where it owns the element,
+        anything elsewhere) and ``owner``, broadcastable to ``x``'s shape,
+        names the owning batch rank of each. A gather of the batch ranks'
+        candidates, so every rank gets the same tensor."""
+        parts = self.gather_batch(x)
+        idx = owner.to(torch.int64).expand(x.shape).unsqueeze(0)
+        return parts.gather(0, idx)[0]
+
+    @property
     def trivial(self) -> bool:
         """Every axis of size one: nothing to gather, split or reduce."""
         return all(s == 1 for s in self.shape.values())
@@ -150,4 +193,11 @@ def plan_for(mesh, rules):
     return None if mesh is None else Plan(mesh, dict(rules or {}))
 
 
-__all__ = ["TP_LOGICAL", "Plan", "plan_for"]
+def rule_size(mesh, rules, name: str) -> int:
+    """The product of the mesh-axis sizes that shard rule-table row
+    ``name`` (the JAX package's generate.py ``_rule_size``)."""
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in mesh_shards_rule(mesh, rules, name))
+
+
+__all__ = ["TP_LOGICAL", "Plan", "plan_for", "rule_size"]
