@@ -204,8 +204,25 @@ and exits non-zero if any of them fails:
    collectives in memory) at the flagship's widths, float32, its logits
    against the whole model's kernels and plain path (TP_LOGITS_ATOL), K1
    and K6 on each rank's heads at t times the whole's launches; K6 timed
-   at 8, 4 and 2 kv heads;
-18. profile: a flagship decode step's and a flagship training step's
+   at 8, 4 and 2 kv heads, each beside its plain version and SDPA;
+18. pipeline (pipeline schedules and expert sharding): (a)
+   create_pipeline_train_step's GPipe, 1F1B and circular schedules with
+   their stages replayed in one process (every stage's own code, the
+   ring's sends in memory) at the flagship's widths, bf16, 12 layers, B8
+   x 2048: GPipe and 1F1B at S = 2 and 4, circular at S = 2, V = 2 and S =
+   4, V = 3, one step each against the one-device step (loss within
+   PIPE_BF16_LOSS_ATOL), K1 launched L·M times over the stages (2·L·M
+   under 1F1B's recompute) and K3-K5 L·M times, wall and device ms; (b)
+   the same at float32, 4 layers, B2 x 1024: loss within
+   PIPE_F32_LOSS_RTOL, parameters after the step within
+   PIPE_F32_PARAM_ATOL; (c) MoE (8 experts, top-2, capacity factor 1.25)
+   at float32, 2 layers: the training step's loss and gradients replayed
+   at expert=2 and at data=2 (the routing the global batch's) against one
+   device, and decode replayed at tensor=2,expert=2 (K1 and K6 on each
+   rank's heads) up to the first near tie; (d) an NCCL group of one in
+   this process: the pipelined step at pipe=1 and a MoE step at expert=1
+   against one device. PIPE_CUTS lists the depth cuts;
+19. profile: a flagship decode step's and a flagship training step's
    (remat off and under each policy) host wall time against the device
    time torch.profiler records.
 
@@ -275,7 +292,7 @@ KERNEL_PATH_ATOL = 0.1
 # of magnitude up to about 10
 BWD_BF16_TOL = (1e-2, 1e-2)
 BWD_F32_TOL = (1e-3, 1e-4)
-TRAIN_STEPS = 30
+TRAIN_STEPS = 20
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 # remat: lm_train --remat under each policy for REMAT_STEPS steps at the
 # training path's shape, against the training phase's first steps
@@ -304,8 +321,8 @@ SPEC_TRAIN_DRAFT = ["--d-model", "128", "--n-layers", "2", "--n-heads", "4",
                     "--d-ff", "512"]
 SPEC_CLI_NEW = 32
 # spec serving: the paged (a) cell's prompts at SERVE_CUT_LAYERS, 48 new;
-# multi-model at the checkpoint's depth, 24 new
-SPEC_SERVE_NEW, MULTI_NEW = 48, 24
+# multi-model at the checkpoint's depth, 16 new
+SPEC_SERVE_NEW, MULTI_NEW = 48, 16
 # the MoE phase: the flagship's widths with MOE_EXPERTS experts (top-2,
 # capacity factor 1.25: the JAX package's defaults, transformer.py:50-53).
 # (a) lm_train at MOE_TRAIN_LAYERS layers, batch MOE_BATCH x MOE_SEQ,
@@ -316,15 +333,15 @@ SPEC_SERVE_NEW, MULTI_NEW = 48, 24
 MOE_EXPERTS = 8
 MOE_FLAGS = FLAGSHIP + ["--n-experts", str(MOE_EXPERTS)]
 MOE_TRAIN_LAYERS, MOE_BATCH, MOE_SEQ, MOE_STEPS = 6, 4, 1024, 6
-MOE_GEN_LAYERS, MOE_GEN_F32_LAYERS = 6, 4
-MOE_CUTS = ["(a) training: 12 -> 6 layers", "(c) generation: 12 -> 6 layers"]
+MOE_GEN_LAYERS, MOE_GEN_F32_LAYERS = 4, 4
+MOE_CUTS = ["(a) training: 12 -> 6 layers", "(c) generation: 12 -> 4 layers"]
 # (b): a token whose top-3 router probabilities lie closer than this may
 # route differently on the two paths (float32 summation order)
 MOE_ROUTE_NEAR_TIE = 1e-4
 MOE_PARITY_LOSS_ATOL, MOE_PARITY_GRAD_RTOL = 1e-4, 1e-4
 # the elastic drill on the card: steps, and the step after which the
 # preemption flag file is dropped
-ELASTIC_STEPS, ELASTIC_FLAG_AT = 40, 10
+ELASTIC_STEPS, ELASTIC_FLAG_AT = 25, 10
 # the prefix-cache cell: the pool's blocks (prefill chunks of 128), the
 # shared prefix, requests, their suffixes' length range and new tokens
 PREFIX_BLOCKS = 64
@@ -5407,11 +5424,11 @@ def _spec_solo(torch, ops, G, T, totals) -> dict:
                          f"expected {want_k}")
                 row.update(st, target_forwards=st["rounds"] + 1)
             out[name] = row
-        # host-clock ms a token, in turns: plain, random, self, self,
-        # random, plain (each ends in a synchronize)
+        # host-clock ms a token, one timed run each (each ends in a
+        # synchronize; the alternated second runs went for the pipeline
+        # phase's seconds)
         ms = {k: [] for k in runs}
-        for name in ("plain", "random_draft", "self_draft", "self_draft",
-                     "random_draft", "plain"):
+        for name in ("plain", "random_draft", "self_draft"):
             t0 = time.perf_counter()
             runs[name]()
             torch.cuda.synchronize()
@@ -6294,7 +6311,7 @@ def phase_mesh(torch, ops, A, train_losses) -> dict:
 # against the meshless serve. (b) the tensor axis's arithmetic replayed in
 # one process at t = TP_REPLAY_T, float32 at the flagship's widths and
 # TP_REPLAY_LAYERS layers: TP_REPLAY_SHAPE (batch, prompt, fed steps)
-TP_F32 = (2, 1024, 32)
+TP_F32 = (2, 1024, 16)
 TP_REPLAY_T = (2, 4)
 TP_REPLAY_LAYERS = 2
 TP_REPLAY_SHAPE = (2, 1024, 16)
@@ -6545,19 +6562,28 @@ def _tp_replay(torch, ops, A, DA, G, T, R) -> dict:
     del params, whole, plain, got
     torch.cuda.empty_cache()
     # K6 at a rank's kv heads beside the whole model's, at the decode
-    # table's shape (B8, 2081 of 4160 positions, bf16)
+    # table's shape (B8, 2081 of 4160 positions, bf16), each with its
+    # plain version's and scaled_dot_product_attention's time
     k6 = {}
     for kvh in (8, 4, 2):
         q = torch.randn(8, kvh, 1, 128, generator=gen, device=dev,
                         dtype=torch.bfloat16)
         ck, cv = (torch.randn(8, kvh, 4160, 128, generator=gen, device=dev,
                               dtype=torch.bfloat16) for _ in range(2))
-        k6[kvh] = cuda_ms(lambda: DA.flash_decode(q, ck, cv, 2080), 200)
+        k6[kvh] = dict(
+            ms=cuda_ms(lambda: DA.flash_decode(q, ck, cv, 2080), 200),
+            plain_ms=cuda_ms(lambda: DA._flash_decode_reference(
+                q, ck, cv, 2080), 6, warmup=1),
+            library_ms=cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, ck[:, :, :2081], cv[:, :, :2081]), 48))
         del q, ck, cv
     print(f"tp (b) K6 B8 D128 bf16, 2081 of 4160 positions: "
-          + ", ".join(f"{h} kv heads {ms:.4f} ms" for h, ms in k6.items())
+          + ", ".join(f"{h} kv heads {r['ms']:.4f} ms (plain "
+                      f"{r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f})"
+                      for h, r in k6.items())
           + f"; {nvidia_smi_line()}")
-    return dict(rows=rows, k6_ms=k6)
+    return dict(rows=rows, k6=k6)
 
 
 def phase_tp(torch, ops, A, DA, G, T) -> dict:
@@ -6574,6 +6600,389 @@ def phase_tp(torch, ops, A, DA, G, T) -> dict:
         replay = _tp_replay(torch, ops, A, DA, G, T, R)
     print("tp " + json.dumps(dict(world_one=world_one, replay=replay,
                                   card=nvidia_smi_line())))
+    return world_one["launches"]
+
+
+# -------------------------------------------------------------- pipeline
+
+# the pipeline phase. (a) create_pipeline_train_step's three schedules with
+# their stages replayed in one process (collectives.ReplayWorld: every
+# stage's own code, the ring's sends in memory) at the flagship's widths,
+# bf16, PIPE_LAYERS layers, PIPE_BATCH: (schedule, S, V, M) of PIPE_BF16,
+# each one step against the one-device step from the same parameters; (b)
+# the same at float32, PIPE_F32_LAYERS layers, PIPE_F32_BATCH; (c) MoE
+# (MOE_EXPERTS experts, top-2, capacity factor 1.25), float32,
+# PIPE_MOE_LAYERS layers, PIPE_MOE_BATCH: the training step's loss and
+# gradients replayed at expert=2 and at data=2 (the routing the global
+# batch's, tokens dropped), generate replayed at tensor=2,expert=2 over
+# PIPE_MOE_GEN (batch, prompt, fed steps); (d) the NCCL group of one in
+# process: the pipelined step at pipe=1 and an MoE step at expert=1.
+# Depth is the flagship's in (a); (b)-(d) are cut to the layers named
+PIPE_LAYERS, PIPE_BATCH = N_LAYERS, (8, 2048)
+PIPE_BF16 = (("gpipe", 2, 1, 4), ("gpipe", 4, 1, 4), ("1f1b", 2, 1, 4),
+             ("1f1b", 4, 1, 4), ("circular", 2, 2, 4),
+             ("circular", 4, 3, 8))
+PIPE_BF16_LOSS_ATOL = 3e-2
+PIPE_F32_LAYERS, PIPE_F32_BATCH = 4, (2, 1024)
+PIPE_F32 = (("gpipe", 4, 1, 2), ("1f1b", 4, 1, 2), ("circular", 2, 2, 2))
+PIPE_F32_LOSS_RTOL, PIPE_F32_PARAM_ATOL = 2e-5, 1e-4
+PIPE_MOE_LAYERS, PIPE_MOE_BATCH = 2, (2, 512)
+PIPE_MOE_LOSS_ATOL, PIPE_MOE_GRAD_ATOL = 2e-5, 1e-4
+PIPE_MOE_GEN = (2, 512, 16)
+PIPE_CUTS = ["(b) float32: 12 -> 4 layers", "(c) MoE: 12 -> 2 layers",
+             "(d) world 1: (b)'s model"]
+
+
+def _pipe_cfg(T, torch, layers, dtype, experts=0):
+    return T.TransformerConfig(vocab_size=32768, d_model=1024,
+                               n_layers=layers, n_heads=8, n_kv_heads=8,
+                               d_ff=4096, dtype=dtype, n_experts=experts,
+                               capacity_factor=1.25)
+
+
+def _pipe_one_device(torch, ST, cfg, params, tok, tgt) -> tuple:
+    """One step of the one-device bundle -> (metrics, parameters after)."""
+    b = ST.create_train_step(cfg, device="cuda",
+                             params=_clone_tree(torch, params))
+    p, _, m = b.step_fn(b.params, b.opt_state, tok, tgt)
+    return ({k: float(v) for k, v in m.items()},
+            _clone_tree(torch, p))
+
+
+def _pipe_replay(torch, ops, PS, cfg, params, tok, tgt, schedule, s, v, m,
+                 timed_step: bool):
+    """One step of create_pipeline_train_step with its S stages replayed
+    -> (each stage's metrics and parameters after it, its launches; with
+    ``timed_step`` a second step's wall and device ms: CUDA events around
+    the replayed step, the host's gaps between launches included)."""
+    from tony_tpu_torch.parallel.collectives import ReplayWorld
+    from tony_tpu_torch.parallel.tp_replay import ReplayMesh
+
+    world = ReplayWorld(s)
+    bundles: list = [None] * s
+
+    def first(r):
+        b = PS.create_pipeline_train_step(
+            cfg, ReplayMesh(world, r, {"pipe": s}), m, schedule=schedule,
+            num_chunks=v, params=params, device="cuda")
+        bundles[r] = b
+        p, _, met = b.step_fn(b.params, b.opt_state, tok, tgt)
+        return ({k: float(x) for k, x in met.items()},
+                None if timed_step else _clone_tree(torch, p))
+
+    ops.reset_launch_counts()
+    out = world.run(first)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = dev_ms = None
+    if timed_step:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        world.run(lambda r: bundles[r].step_fn(
+            bundles[r].params, bundles[r].opt_state, tok, tgt))
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        dev_ms = start.elapsed_time(end)
+    del bundles
+    return out, counts, wall, dev_ms
+
+
+def _pipe_schedules(torch, ops, T, ST, PS, dtype, layers, batch, table,
+                    seed) -> list:
+    """(a) or (b): each schedule of ``table`` replayed against the
+    one-device step -> rows."""
+    dev = torch.device("cuda")
+    f32 = dtype == torch.float32
+    cfg = _pipe_cfg(T, torch, layers, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init(cfg, gen, dev)
+    tok, tgt = ST.synthetic_lm_batch(gen, *batch, cfg.vocab_size)
+    tok, tgt = tok.contiguous(), tgt.contiguous()
+    ops.reset_launch_counts()
+    one, after = _pipe_one_device(torch, ST, cfg, params, tok, tgt)
+    torch.cuda.synchronize()
+    one_launches = ops.launch_counts()
+    one_ms = None
+    if not f32:
+        # the one-device step's second step, timed as the replays' are
+        b = ST.create_train_step(cfg, device="cuda",
+                                 params=_clone_tree(torch, params))
+        b.step_fn(b.params, b.opt_state, tok, tgt)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        b.step_fn(b.params, b.opt_state, tok, tgt)
+        end.record()
+        torch.cuda.synchronize()
+        one_ms = ((time.perf_counter() - t0) * 1e3, start.elapsed_time(end))
+        del b
+        torch.cuda.empty_cache()
+    rows = []
+    for schedule, s, v, m in table:
+        torch.cuda.reset_peak_memory_stats()
+        stages, counts, wall, dev_ms = _pipe_replay(
+            torch, ops, PS, cfg, params, tok, tgt, schedule, s, v, m,
+            timed_step=not f32)
+        k1 = (2 if schedule == "1f1b" else 1) * layers * m
+        want = {"flash_fwd": k1, "flash_decode": 0,
+                "flash_bwd_dkdv": layers * m, "flash_bwd_dq": layers * m}
+        name = f"{'f32' if f32 else 'bf16'} {schedule} S={s}" + (
+            f" V={v}" if schedule == "circular" else "") + f" M={m}"
+        if counts != want:
+            fail(f"pipeline {name}: launches {counts}, expected {want}")
+        row = dict(name=name, launches=counts, step_wall_ms=wall,
+                   step_device_ms=dev_ms,
+                   one_device_step_ms=one_ms and dict(wall=one_ms[0],
+                                                      device=one_ms[1]))
+        losses = [met["loss"] for met, _ in stages]
+        row["loss"], row["one_device_loss"] = losses[0], one["loss"]
+        if len(set(losses)) != 1:
+            fail(f"pipeline {name}: the stages' losses differ: {losses}")
+        err = abs(losses[0] - one["loss"])
+        if f32:
+            if not err <= PIPE_F32_LOSS_RTOL * abs(one["loss"]):
+                fail(f"pipeline {name}: loss {losses[0]!r} against the "
+                     f"one-device {one['loss']!r} (rtol "
+                     f"{PIPE_F32_LOSS_RTOL})")
+            perr = 0.0
+            for stage, (_, p) in enumerate(stages):
+                want_l = PS.stage_layers(after["layers"], s, stage, schedule,
+                                         v)
+                for k, w in want_l.items():
+                    perr = max(perr, float((p["layers"][k] - w).abs().max()))
+                for k in ("embed", "final_norm", "unembed"):
+                    perr = max(perr, float((p[k] - after[k]).abs().max()))
+            row["param_max_abs_err"] = perr
+            if not perr <= PIPE_F32_PARAM_ATOL:
+                fail(f"pipeline {name}: parameters after one step max "
+                     f"|err| {perr:.3g} against the one-device step (atol "
+                     f"{PIPE_F32_PARAM_ATOL})")
+        elif not err <= PIPE_BF16_LOSS_ATOL:
+            fail(f"pipeline {name}: loss {losses[0]!r} against the "
+                 f"one-device {one['loss']!r} (atol {PIPE_BF16_LOSS_ATOL})")
+        row["loss_abs_err"] = err
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"pipeline {name}: loss {losses[0]:.6f} against one device "
+              f"{one['loss']:.6f} (|err| {err:.3g}"
+              + (f", parameters after a step max |err| "
+                 f"{row['param_max_abs_err']:.3g}" if f32 else "")
+              + f"), launches {counts} summed over the stages"
+              + (f"; a second step {wall:.1f} ms wall, {dev_ms:.1f} ms "
+                 f"between events (one device: {one_ms[0]:.1f} and "
+                 f"{one_ms[1]:.1f})" if wall is not None else ""))
+        rows.append(row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, after
+    return rows, one_launches
+
+
+def _moe_replay_grads(torch, ST, T, cfg, params, tok, tgt, shape, rules):
+    """The MoE training step's loss and gradients (the step's own: the
+    loss on the rank's tokens, its backward, the sums over the data axes)
+    with the ranks of ``shape`` replayed -> each rank's (loss, {name:
+    gradient}, its mesh)."""
+    from tony_tpu_torch.parallel.collectives import ReplayWorld
+    from tony_tpu_torch.parallel.spmd import Plan
+    from tony_tpu_torch.parallel.tp_replay import ReplayMesh
+
+    world = ReplayWorld(math.prod(shape.values()))
+
+    def rank(r):
+        mesh = ReplayMesh(world, r, shape)
+        b = ST.create_train_step(cfg, mesh, rules=rules, device="cuda",
+                                 params=_clone_tree(torch, params))
+        plan = Plan(mesh, b.rules)
+        n, i = plan.batch_size, plan.batch_rank
+        rows = tok.shape[0] // n
+        local = ST._local_tree(b.params, grad=True)
+        names = [k for k, _ in ST._leaves(local)]
+        loss = T.loss_fn(local, tok[i * rows:(i + 1) * rows],
+                         tgt[i * rows:(i + 1) * rows], b.config, mesh,
+                         b.rules)
+        grads = list(torch.autograd.grad(loss, [p for _, p in
+                                               ST._leaves(local)]))
+        axes = dict(ST._leaves(T.param_logical_axes(cfg)))
+        plan.reduce_grads(grads, [axes[k] for k in names])
+        return float(loss), dict(zip(names, grads)), mesh, b.rules
+
+    return world.run(rank)
+
+
+def _pipe_moe(torch, ops, T, ST, G, R) -> dict:
+    """(c): the MoE step's loss and gradients at expert=2 and data=2, and
+    MoE decode at tensor=2,expert=2, against one device."""
+    from tony_tpu_torch.parallel import (
+        EP_RULES, FSDP_TP_RULES, TP_DECODE_RULES, merge_rules,
+    )
+    from tony_tpu_torch.parallel.sharding import local_slice, logical_to_spec
+
+    dev = torch.device("cuda")
+    cfg = _pipe_cfg(T, torch, PIPE_MOE_LAYERS, torch.float32, MOE_EXPERTS)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    params = T.init(cfg, gen, dev)
+    tok, tgt = (x.contiguous() for x in ST.synthetic_lm_batch(
+        gen, *PIPE_MOE_BATCH, cfg.vocab_size))
+    leaves = {k: p.detach().clone().requires_grad_(True)
+              for k, p in ST._leaves(params)}
+    tree = {"embed": leaves["embed"], "final_norm": leaves["final_norm"],
+            "unembed": leaves["unembed"],
+            "layers": {k.split(".", 1)[1]: p for k, p in leaves.items()
+                       if k.startswith("layers.")}}
+    loss = T.loss_fn(tree, tok, tgt, cfg)
+    want = dict(zip(leaves, torch.autograd.grad(loss, list(
+        leaves.values()))))
+    one_loss = float(loss.detach())
+    axes = dict(ST._leaves(T.param_logical_axes(cfg)))
+    rules = merge_rules(FSDP_TP_RULES, EP_RULES)
+    out = {"one_device_loss": one_loss, "meshes": {}}
+    for name, shape in (("expert=2", {"expert": 2}), ("data=2", {"data": 2})):
+        res = _moe_replay_grads(torch, ST, T, cfg, params, tok, tgt, shape,
+                                rules)
+        gerr, lerr = 0.0, 0.0
+        for loss_r, grads, mesh, rls in res:
+            lerr = max(lerr, abs(loss_r - one_loss))
+            for k, g in grads.items():
+                w = local_slice(want[k], mesh, logical_to_spec(axes[k], rls))
+                gerr = max(gerr, float((g - w).abs().max()))
+        if not (lerr <= PIPE_MOE_LOSS_ATOL and gerr <= PIPE_MOE_GRAD_ATOL):
+            fail(f"pipeline (c) MoE {name}: loss |err| {lerr:.3g} (atol "
+                 f"{PIPE_MOE_LOSS_ATOL}), gradients max |err| {gerr:.3g} "
+                 f"(atol {PIPE_MOE_GRAD_ATOL}) against one device")
+        out["meshes"][name] = dict(loss_abs_err=lerr, grad_max_abs_err=gerr)
+        print(f"pipeline (c) MoE step {name}: loss {res[0][0]:.6f} against "
+              f"one device {one_loss:.6f} (|err| {lerr:.3g}), gradients "
+              f"max |err| {gerr:.3g}")
+        del res
+    del leaves, tree, want
+    torch.cuda.empty_cache()
+    # decode: drop-free routing, the experts split over expert=2 and the
+    # heads over tensor=2, against the whole model with the kernels
+    dec = G.moe_dropfree(cfg)
+    b, lp, n = PIPE_MOE_GEN
+    prompt = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        toks = G.generate(params, cfg, prompt, n + 1)
+        fed = toks[:, :n]
+        ops.reset_launch_counts()
+        whole = R.decode_logits(params, dec, prompt, fed, lp + n + 1)
+        torch.cuda.synchronize()
+        whole_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        got = R.replay_tp_decode(params, dec, prompt, fed, 2, lp + n + 1,
+                                 rules=merge_rules(TP_DECODE_RULES, EP_RULES),
+                                 shape={"tensor": 2, "expert": 2})
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    want_counts = {k: 4 * v for k, v in whole_counts.items()}
+    if counts != want_counts:
+        fail(f"pipeline (c) MoE decode: launches {counts}, expected "
+             f"{want_counts} (each rank's K1 and K6)")
+    err = max(float((x - y).abs().max()) for x, y in zip(got[0], whole))
+    ties = []
+    for r in range(b):
+        gaps = [float(w[r].topk(2).values[0] - w[r].topk(2).values[1])
+                for w in whole]
+        ties.append(_near_tie_check(
+            f"pipeline (c) MoE decode row {r}",
+            [int(x[r].argmax()) for x in got[0]],
+            [int(x[r].argmax()) for x in whole], gaps, n + 1))
+    out["decode"] = dict(launches=counts, whole_launches=whole_counts,
+                         logits_max_abs_err=err, near_ties=ties)
+    print(f"pipeline (c) MoE decode at tensor=2,expert=2 (B{b} x {lp} + "
+          f"{n}): greedy tokens equal the meshless path's up to the top-2-"
+          f"gap rule, float32 logits max |err| {err:.3g}, launches {counts} "
+          f"(4 x the whole model's {whole_counts})")
+    del params, whole, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_world_one(torch, ops, T, ST, PS) -> dict:
+    """(d): an NCCL group of one in this process: the pipelined step at
+    pipe=1 and an MoE step at expert=1, each against the one-device step.
+    -> the record, with the launches of both steps."""
+    import torch.distributed as dist
+
+    from tony_tpu_torch.parallel import (
+        EP_RULES, FSDP_TP_RULES, MeshSpec, build_mesh, merge_rules,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = build_mesh(MeshSpec(fsdp=1), "cuda")
+        out, launches = {}, None
+        cases = (("pipe=1 gpipe", _pipe_cfg(T, torch, PIPE_F32_LAYERS,
+                                             torch.float32)),
+                 ("expert=1 MoE", _pipe_cfg(T, torch, PIPE_MOE_LAYERS,
+                                            torch.float32, MOE_EXPERTS)))
+        for name, cfg in cases:
+            gen = torch.Generator(device=dev).manual_seed(5)
+            params = T.init(cfg, gen, dev)
+            tok, tgt = (x.contiguous() for x in ST.synthetic_lm_batch(
+                gen, *PIPE_F32_BATCH, cfg.vocab_size))
+            one, _ = _pipe_one_device(torch, ST, cfg, params, tok, tgt)
+            ops.reset_launch_counts()
+            if cfg.n_experts:
+                b = ST.create_train_step(cfg, mesh, rules=merge_rules(
+                    FSDP_TP_RULES, EP_RULES), params=params, device=dev)
+                _, _, met = b.step_fn(b.params, b.opt_state, tok, tgt)
+            else:
+                b = PS.create_pipeline_train_step(cfg, mesh, 2,
+                                                  params=params, device=dev)
+                _, _, met = b.step_fn(b.params, b.opt_state, tok, tgt)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            loss = float(met["loss"])
+            if not abs(loss - one["loss"]) <= PIPE_F32_LOSS_RTOL * abs(
+                    one["loss"]):
+                fail(f"pipeline (d) {name} over nccl: loss {loss!r} against "
+                     f"one device {one['loss']!r}")
+            if counts["flash_fwd"] == 0 or counts["flash_bwd_dq"] == 0:
+                fail(f"pipeline (d) {name}: launches {counts}")
+            out[name] = dict(loss=loss, one_device_loss=one["loss"],
+                             launches=counts, backend=dist.get_backend())
+            launches = counts if launches is None else {
+                k: launches[k] + counts[k] for k in counts}
+            print(f"pipeline (d) {name} over {dist.get_backend()} at world "
+                  f"1: loss {loss:.6f} against one device "
+                  f"{one['loss']:.6f}, launches {counts}")
+            del params, b
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = launches
+    return out
+
+
+def phase_pipeline(torch, ops, G, T) -> dict:
+    """Pipeline schedules and expert sharding on the one card: (a), (b) the
+    schedules replayed at bf16 and float32, (c) MoE's step and decode on
+    replayed meshes, (d) the NCCL group of one (several NCCL ranks cannot
+    share one card: PERF.md). Returns (d)'s launches."""
+    print("== main path: pipeline")
+    import importlib
+
+    R = importlib.import_module("tony_tpu_torch.parallel.tp_replay")
+    PS = importlib.import_module("tony_tpu_torch.train.pipeline_step")
+    ST = importlib.import_module("tony_tpu_torch.train.step")
+    torch.cuda.reset_peak_memory_stats()
+    bf16, bf16_one = _pipe_schedules(torch, ops, T, ST, PS, torch.bfloat16,
+                                     PIPE_LAYERS, PIPE_BATCH, PIPE_BF16, 61)
+    f32, _ = _pipe_schedules(torch, ops, T, ST, PS, torch.float32,
+                             PIPE_F32_LAYERS, PIPE_F32_BATCH, PIPE_F32, 67)
+    moe = _pipe_moe(torch, ops, T, ST, G, R)
+    world_one = _pipe_world_one(torch, ops, T, ST, PS)
+    print("pipeline " + json.dumps(dict(
+        bf16=bf16, one_device_bf16_launches=bf16_one, f32=f32, moe=moe,
+        world_one=world_one, cuts=PIPE_CUTS, card=nvidia_smi_line())))
     return world_one["launches"]
 
 
@@ -7085,13 +7494,23 @@ def main() -> int:
                          A, G, T)
     mesh_launches = timed("mesh", phase_mesh, torch, ops, A, train_losses)
     tp_launches = timed("tp", phase_tp, torch, ops, A, DA, G, T)
+    pipe_launches = timed("pipeline", phase_pipeline, torch, ops, G, T)
     launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
                 + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
                 + replay_launches[k] + stream_launches[k]
                 + paged_launches[k] + telemetry_launches[k]
                 + disagg_launches[k] + hf_launches[k] + spec_launches[k]
                 + moe_launches[k] + mesh_launches[k] + tp_launches[k]
-                for k in gen_launches}
+                + pipe_launches[k] for k in gen_launches}
+    print("launches_by_phase " + json.dumps(dict(
+        generation=gen_launches, training=train_launches,
+        remat=remat_launches, serving=serve_launches,
+        checkpoint=ckpt_launches, prefix_cache=prefix_launches,
+        replay=replay_launches, streaming=stream_launches,
+        paged=paged_launches, telemetry=telemetry_launches,
+        disagg=disagg_launches, hf=hf_launches, speculative=spec_launches,
+        moe=moe_launches, mesh=mesh_launches, tp=tp_launches,
+        pipeline=pipe_launches)))
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

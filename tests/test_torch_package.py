@@ -43,6 +43,7 @@ for name in ("tony_tpu_torch.train.checkpoint",
              "tony_tpu_torch.tools.serving_ab",
              "tony_tpu_torch.tools.reaper_ab",
              "tony_tpu_torch.tools.tp_mesh_cost",
+             "tony_tpu_torch.tools.train_mesh_cost",
              "tony_tpu_torch.models.hf_import",
              "tony_tpu_torch.parallel.mesh", "tony_tpu_torch.parallel.sharding",
              "tony_tpu_torch.parallel.spmd",
@@ -51,6 +52,9 @@ for name in ("tony_tpu_torch.train.checkpoint",
              "tony_tpu_torch.parallel.collectives",
              "tony_tpu_torch.parallel.ring_attention",
              "tony_tpu_torch.parallel.ulysses",
+             "tony_tpu_torch.parallel.pipeline",
+             "tony_tpu_torch.parallel.expert",
+             "tony_tpu_torch.train.pipeline_step",
              "tony_tpu_torch.train.bootstrap", "tony_tpu_torch.data.loader"):
     assert name in names, name
 for name in names:

@@ -58,6 +58,32 @@ def run_ranks(task: str, world: int, inputs: dict, tmp_path: Path,
             for r in range(world)]
 
 
+def in_background(fn):
+    """Run ``fn`` in a thread (a launch of ranks while the caller computes
+    its references) -> a callable that joins it and returns its result,
+    or raises its error."""
+    import threading
+
+    box = {}
+
+    def body():
+        try:
+            box["out"] = fn()
+        except BaseException as e:        # re-raised in the joiner
+            box["err"] = e
+
+    th = threading.Thread(target=body)
+    th.start()
+
+    def join():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
+
+
 # ------------------------------------------------------------------ tasks
 
 def _attention(inp: dict, rank: int, world: int) -> dict:
@@ -181,9 +207,12 @@ def _tp_generate(inp: dict, rank: int, world: int) -> dict:
     mesh = mesh_from_string(inp["mesh"], "cpu")
     prep = prepare_decode(inp["params"], cfg, mesh=mesh,
                           rules=inp.get("rules", TP_DECODE_RULES))
-    out = {"unfused": prep.fused is None,
-           "wk": str(prep.params["layers"]["wk"].placements),
-           "wk_local": tuple(prep.params["layers"]["wk"].to_local().shape)}
+    out = {"unfused": prep.fused is None}
+    for name in ("wk", "w_in"):
+        if name in prep.params["layers"]:
+            w = prep.params["layers"][name]
+            out[name] = str(w.placements)
+            out[name + "_local"] = tuple(w.to_local().shape)
     for name, kw in inp["cases"].items():
         kw = dict(kw)
         params = prep if kw.pop("prepared", False) else inp["params"]
@@ -209,7 +238,8 @@ def _tp_serve(inp: dict, rank: int, world: int) -> dict:
     parameters with ``mesh=`` instead of weights from prepare_decode on the
     mesh, "prompts", "budgets"}) through ``run_until_drained`` -> each
     run's tokens in request order, stats and host digest; and the errors of
-    the mesh's rejections (``rejections``)."""
+    the mesh's rejections (``rejections``). ``inp["rules"]`` replaces
+    TP_DECODE_RULES."""
     from tony_tpu_torch.models.convert import config_from_fields
     from tony_tpu_torch.models.generate import prepare_decode
     from tony_tpu_torch.models.serving import Request, SlotServer
@@ -217,12 +247,13 @@ def _tp_serve(inp: dict, rank: int, world: int) -> dict:
 
     cfg = config_from_fields(inp["cfg"])
     mesh = mesh_from_string(inp["mesh"], "cpu")
-    prep = prepare_decode(inp["params"], cfg, mesh=mesh)
+    prep = prepare_decode(inp["params"], cfg, mesh=mesh,
+                          rules=inp.get("rules"))
     out = {"fused": prep.fused}
     for name, run in inp["runs"].items():
         if run.get("raw"):
             srv = SlotServer(inp["params"], cfg, device="cpu", mesh=mesh,
-                             **run["kw"])
+                             rules=inp.get("rules"), **run["kw"])
         else:
             srv = SlotServer(prep, cfg, device="cpu", **run["kw"])
         reqs = [Request(prompt=p, max_new_tokens=b)
@@ -419,11 +450,120 @@ def _lm_generate(inp: dict, rank: int, world: int) -> dict:
     return {"rc": lm_generate.main(inp["argv"])}
 
 
+def _stack_fn(stack, x):
+    """The schedule tests' stage: tanh(x @ w + b) over the stage's run of
+    layers, with sum(y * y) as each layer's aux."""
+    aux = torch.zeros(())
+    for i in range(stack["w"].shape[0]):
+        x = torch.tanh(x @ stack["w"][i] + stack["b"][i])
+        aux = aux + (x * x).sum()
+    return x, aux
+
+
+def _pipeline_fns(inp: dict, rank: int, world: int) -> dict:
+    """parallel/pipeline.py's schedules on this rank's block: GPipe on
+    ``pipe=4`` and ``pipe=1``, circular at each M of ``inp["circular"]``
+    (the whole stack in; its gradient's sum over ranks is the stack's),
+    1F1B's loss and gradients."""
+    from tony_tpu_torch.parallel import (
+        make_pipeline, make_pipeline_1f1b, make_pipeline_circular,
+        mesh_from_string,
+    )
+
+    mesh4 = mesh_from_string("pipe=4", "cpu")
+    g = inp["gpipe"]
+    out = {"gpipe": make_pipeline(
+        mesh4, lambda p, x: torch.tanh(x @ p["w"] + p["b"]), 4)(
+        {k: v[rank:rank + 1] for k, v in g["stacked"].items()}, g["batch"])}
+    mesh1 = mesh_from_string("pipe=1,data=4", "cpu")
+    out["single"] = make_pipeline(mesh1, lambda p, x: x * p["s"], 2)(
+        {"s": torch.full((1,), 3.0)}, torch.ones(4, 2))
+    for m, c in inp["circular"].items():
+        stacked = {k: v.clone().requires_grad_(True)
+                   for k, v in c["stacked"].items()}
+        fn = make_pipeline_circular(mesh4, lambda p, x: _stack_fn(p, x)[0],
+                                    m, 2)
+        y = fn(stacked, c["batch"])
+        (y ** 2).sum().backward()
+        out[f"circular{m}"] = {"out": y.detach(),
+                               "grads": {k: v.grad for k, v in
+                                         stacked.items()}}
+    f = inp["1f1b"]
+    fn = make_pipeline_1f1b(
+        mesh4, _stack_fn, lambda hp, y, t: ((y @ hp["wo"] - t) ** 2).mean(),
+        8, aux_weight=f["aux_w"])
+    loss, ds, dh, dx = fn({k: v[rank:rank + 1] for k, v in
+                           f["stacked"].items()}, f["hp"], f["batch"],
+                          f["targets"])
+    out["1f1b"] = {"loss": float(loss), "ds": ds, "dh": dh, "dx": dx}
+    return out
+
+
+def _pipeline_step(inp: dict, rank: int, world: int) -> dict:
+    """train/pipeline_step.py on each case of ``inp["cases"]`` (name ->
+    mesh, cfg fields, schedule, chunks, M, steps): the bundle's loss before
+    any step, each step's loss and grad norm, and this rank's parameters
+    after the first step."""
+    from tony_tpu_torch.models.convert import config_from_fields
+    from tony_tpu_torch.parallel import mesh_from_string
+    from tony_tpu_torch.train.pipeline_step import create_pipeline_train_step
+
+    out = {}
+    for name, c in inp["cases"].items():
+        cfg = config_from_fields(c["cfg"])
+        mesh = mesh_from_string(c["mesh"], "cpu")
+        bundle = create_pipeline_train_step(
+            cfg, mesh, c["m"], schedule=c["schedule"],
+            num_chunks=c.get("chunks", 2), device="cpu",
+            params=c["params"])
+        tokens, targets = c["tokens"], c["targets"]
+        res = {"loss": float(bundle.loss_fn(bundle.params, tokens, targets)),
+               "metrics": []}
+        params, opt = bundle.params, bundle.opt_state
+        for i in range(c["steps"]):
+            params, opt, m = bundle.step_fn(params, opt, tokens, targets)
+            res["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                res["params"] = {k: (v.clone() if not isinstance(v, dict)
+                                     else {n: w.clone()
+                                           for n, w in v.items()})
+                                 for k, v in params.items()}
+        out[name] = res
+    return out
+
+
+def _moe_ffn(inp: dict, rank: int, world: int) -> dict:
+    """parallel/expert.py's moe_ffn with the experts over ``inp["mesh"]``'s
+    ``expert`` axis: this rank's experts, every token."""
+    from tony_tpu_torch.parallel import EP_RULES, mesh_from_string
+    from tony_tpu_torch.parallel.expert import moe_ffn
+    from tony_tpu_torch.parallel.spmd import Plan
+
+    mesh = mesh_from_string(inp["mesh"], "cpu")
+    plan = Plan(mesh, EP_RULES)
+    ep = plan.shape["expert"]
+    e = inp["w_in"].shape[0] // ep
+    lo = plan.ep_rank * e
+    out = moe_ffn(inp["x"], inp["router"], inp["w_in"][lo:lo + e],
+                  inp["w_out"][lo:lo + e], k=2, capacity_factor=4.0,
+                  plan=plan, shape=(1, inp["x"].shape[0]))
+    return {"out": out, "experts": e}
+
+
+def _multi(inp: dict, rank: int, world: int) -> dict:
+    """Several tasks in one launch: ``inp["tasks"]`` name -> (task, its
+    inputs)."""
+    return {name: TASKS[task](sub, rank, world)
+            for name, (task, sub) in inp["tasks"].items()}
+
+
 TASKS = {"attention": _attention, "train": _train,
          "restore_step": _restore_step, "lm_train": _lm_train,
          "tp_generate": _tp_generate, "tp_serve": _tp_serve,
          "serve_mesh": _serve_mesh, "serve_mesh_shed": _serve_mesh_shed,
-         "lm_generate": _lm_generate}
+         "lm_generate": _lm_generate, "pipeline_fns": _pipeline_fns,
+         "pipeline_step": _pipeline_step, "moe_ffn": _moe_ffn,
+         "multi": _multi}
 
 
 def main() -> int:

@@ -1581,13 +1581,19 @@ class ServeApp:
         ``<trace_dir>/profiles/serve_<unix time>_<N>s/``. Runs on the HTTP
         handler's thread while the serving loop keeps dispatching: the
         card's kernels are recorded process-wide, host operations only on
-        the threads the profiler sees. One capture at a time
-        (BlockingIOError otherwise); RuntimeError without a trace
-        directory; ValueError outside (0, 120]."""
+        the threads the profiler sees. The profiler starts and stops
+        between the loop's turns (under its lock), never while a turn
+        launches kernels: a capture on the card crashed the process
+        natively three times, each while the paged engine dispatched.
+        One capture at a time (BlockingIOError otherwise); RuntimeError
+        without a trace directory; ValueError outside (0, 120]."""
+        from contextlib import ExitStack
         from pathlib import Path
 
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
         from .. import constants as c
-        from ..train.profiling import trace
 
         if not self.trace_dir:
             raise RuntimeError("profiling needs --trace-dir (nowhere to "
@@ -1599,8 +1605,20 @@ class ServeApp:
         try:
             out_dir = (Path(self.trace_dir) / c.PROFILE_DIR_NAME
                        / f"serve_{int(time.time())}_{seconds:g}s")
-            with trace(out_dir):
+            out_dir.mkdir(parents=True, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            prof, running = profile(activities=activities), ExitStack()
+            with self.lock:
+                running.enter_context(prof)
+            try:
                 time.sleep(seconds)
+            finally:
+                with self.lock:
+                    running.close()
+            prof.export_chrome_trace(str(out_dir
+                                         / f"trace.{os.getpid()}.json"))
             files = sorted(str(f.relative_to(out_dir))
                            for f in out_dir.rglob("*") if f.is_file())
             return {"dir": str(out_dir), "seconds": seconds, "files": files}

@@ -45,9 +45,10 @@ alone prints, writes ``--metrics-out`` and writes checkpoints (every rank
 takes part in a save's gather). Without the contract the script runs one
 process on one device, and ``--mesh`` must resolve to one device.
 
-Not ported yet, raising: a ``pipe`` or ``expert`` axis wider than one
-(ROADMAP.md queue 1, pipeline schedules and expert sharding), and
-Mixture-of-Experts on a mesh wider than one device.
+``--mesh expert=N --n-experts E`` splits the experts over the ``expert``
+axis (the routing is the global batch's); a ``pipe`` axis replicates the
+step over its ranks, as in the JAX package's script (the pipeline
+schedules are train/pipeline_step.py's, which neither script drives).
 """
 
 from __future__ import annotations
@@ -57,11 +58,6 @@ import json
 import math
 import os
 import time
-
-
-def _not_ported(flag: str, item: str):
-    raise SystemExit(f"{flag} is not yet ported to tony_tpu_torch "
-                     f"(ROADMAP.md queue 1, {item})")
 
 
 def _copy_into(dst: dict, src: dict) -> None:
@@ -136,9 +132,6 @@ def main(argv=None) -> int:
     from tony_tpu_torch.train.profiling import StepTimer, trace
 
     spec = parse_mesh(args.mesh)
-    if spec.pipe != 1 or spec.expert != 1:
-        _not_ported(f"--mesh {args.mesh}",
-                    "pipeline schedules and expert sharding")
     info = train.init(device=args.device)
     try:
         sizes = spec.resolve(info["num_processes"])

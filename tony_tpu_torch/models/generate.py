@@ -65,7 +65,10 @@ the logits are gathered over the vocabulary before sampling. A rank's
 attention tensors are ordinary local tensors, so the prefill runs K1 on
 its heads and a lockstep decode step K6 on its kv heads. The prompt's
 rows split over the batch axes and every rank returns the whole
-``[B, T]``. Sampling is mesh-invariant: every rank draws the global
+``[B, T]``. A MoE model's experts split over the ``expert`` axis
+(``merge_rules(TP_DECODE_RULES, EP_RULES)``); drop-free routing needs no
+view of the other ranks' tokens (parallel/expert.py). Sampling is
+mesh-invariant: every rank draws the global
 ``[B, V]`` exponentials from the same generator state and keeps its rows,
 so a sampled mesh decode equals the one-device one at the same seed.
 """
@@ -664,7 +667,7 @@ def prepare_decode(params, cfg: TransformerConfig, *,
             "weight_dtype='int8' decode is single-device: the w8a16 path "
             "streams the fused qkv/gate-up layout, which conflicts with "
             "head/mlp-sharded weights")
-    transformer._plan(mesh, rules, cfg)      # refuses MoE on a wide mesh
+    transformer._plan(mesh, rules, cfg)      # checks the rule table
     params = _cast_decode_params(_place(mesh, params, cfg, rules), cfg)
     fused = None
     if not sharded_tp:

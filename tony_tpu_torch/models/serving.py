@@ -183,8 +183,11 @@ the JAX package's engines do.
   pool's copies into and out of another rank's blocks go through
   ``Plan.from_owners`` (a gather over the batch axes). The host state
   (queue, trie, allocator, tables) is the whole pool's and the same on
-  every rank; parallel/lockstep.py keeps the ranks in step. Speculation, a disaggregated role and MoE on a wide mesh are
-  refused, int8 weights under a sharded tensor axis too.
+  every rank; parallel/lockstep.py keeps the ranks in step. A MoE
+  model's experts split over the ``expert`` axis (``EP_RULES`` merged
+  into the rules) through ``transformer._mlp``'s plan. Speculation and a
+  disaggregated role are refused, int8 weights under a sharded tensor
+  axis too.
 """
 
 from __future__ import annotations

@@ -34,7 +34,10 @@ computes its own K/V heads (models/generate.py).
 
 ``n_experts > 0`` replaces every layer's SwiGLU MLP by the einsum-dispatch
 Mixture-of-Experts FFN (parallel/expert.py, silu experts) and adds its
-load-balancing loss times ``aux_loss_weight`` to the loss.
+load-balancing loss times ``aux_loss_weight`` to the loss. On a mesh the
+experts split over the ``expert`` axis (EP_RULES) and their hidden units
+over the ``mlp`` rule's axis, and the routing and the load-balancing loss
+are the global batch's, as the JAX package's GSPMD program computes them.
 
 ``remat=True`` runs each layer under ``torch.utils.checkpoint``
 (non-reentrant), with the JAX package's policies (``remat_policy``):
@@ -348,7 +351,8 @@ def _mlp(cfg: TransformerConfig, h, lp, plan=None):
 
     MoE, as the JAX package's: the experts route on the router at cfg.dtype
     (``moe_ffn`` upcasts that to float32), while the aux loss reads the
-    float32 router; at bf16 these are different numbers."""
+    float32 router; at bf16 these are different numbers. With a plan, the
+    rank's experts and tokens (parallel/expert.py)."""
     dt = cfg.dtype
     if cfg.n_experts > 0:
         from ..parallel.expert import load_balancing_loss, moe_ffn
@@ -358,8 +362,9 @@ def _mlp(cfg: TransformerConfig, h, lp, plan=None):
         router_logits = flat.float() @ lp["router"].float()
         out = moe_ffn(flat, lp["router"].to(dt), lp["w_in"].to(dt),
                       lp["w_out"].to(dt), k=cfg.expert_top_k,
-                      capacity_factor=cfg.capacity_factor, activation=F.silu)
-        aux = load_balancing_loss(router_logits, cfg.expert_top_k)
+                      capacity_factor=cfg.capacity_factor, activation=F.silu,
+                      plan=plan, shape=(b, l))
+        aux = load_balancing_loss(router_logits, cfg.expert_top_k, plan)
         return out.reshape(b, l, d), aux
     group = plan.tp_group("mlp") if plan is not None else None
     hm = copy_to(h, group)
@@ -436,13 +441,7 @@ def _plan(mesh, rules, cfg: TransformerConfig):
     """The SPMD plan of (mesh, rules) for this model, or None."""
     from ..parallel.spmd import plan_for
 
-    plan = plan_for(mesh, rules)
-    if plan is not None and cfg.n_experts > 0 and not plan.trivial:
-        raise NotImplementedError(
-            "Mixture-of-Experts on a mesh wider than one device is not "
-            "ported to tony_tpu_torch yet (ROADMAP.md queue 1, pipeline "
-            "schedules and expert sharding)")
-    return plan
+    return plan_for(mesh, rules)
 
 
 def _embed(params, tokens, cfg: TransformerConfig, plan):

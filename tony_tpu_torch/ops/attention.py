@@ -96,9 +96,17 @@ def flash_supported(q: torch.Tensor, backward: bool = False) -> bool:
     return q.shape[-1] in dims and q.dtype in KERNEL_DTYPES
 
 
+def _kstrides(t) -> list:
+    """t's (B, H, L) strides as the kernels take them: a size-1
+    dimension's stride is arbitrary (a microbatch of one row's gradient
+    can carry a batch stride of 1) and only its element 0 is read, so it
+    is passed as 0."""
+    return [0 if n == 1 else x for n, x in zip(t.shape[:3], t.stride()[:3])]
+
+
 def _aligned16(t):
     return t.data_ptr() % 16 == 0 and all(
-        x * t.element_size() % 16 == 0 for x in t.stride()[:3])
+        x * t.element_size() % 16 == 0 for x in _kstrides(t))
 
 
 def _check_kernel_inputs(q, k, v, backward: bool = False):
@@ -146,8 +154,8 @@ def _flash_fwd_cuda(q, k, v, causal, scale, window, out=None):
     fn = _build.kernel("tony_flash_fwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), b, h, lq, lk, d, KERNEL_DTYPES[q.dtype],
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3], scale, int(causal), int(window or 0),
+             *_kstrides(q), *_kstrides(k), *_kstrides(v),
+             *_kstrides(out), scale, int(causal), int(window or 0),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_fwd", err)
     launches += 1
@@ -197,7 +205,7 @@ def _bwd_args(q, k, v, g, dq, dk, dv, causal, scale, window):
     """The arguments both backward kernels share after their pointers."""
     b, h, lq, d = q.shape
     strides = (ctypes.c_longlong * 21)(*(
-        x for t in (q, k, v, g, dq, dk, dv) for x in t.stride()[:3]))
+        x for t in (q, k, v, g, dq, dk, dv) for x in _kstrides(t)))
     scale = (d ** -0.5) if scale is None else float(scale)
     return (b, h, lq, k.shape[2], d, KERNEL_DTYPES[q.dtype], strides, scale,
             int(causal), int(window or 0),
@@ -239,7 +247,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, g_lse, causal, scale, window):
     if g.dtype != q.dtype or g.shape != q.shape:
         raise ValueError(f"dO must match q: got {g.dtype} {tuple(g.shape)}, "
                          f"q {q.dtype} {tuple(q.shape)}")
-    if g.stride(-1) != 1:
+    if g.stride(-1) != 1 or (g.dtype == torch.bfloat16
+                             and not _aligned16(g)):
         # e.g. the expanded all-zero-stride cotangent of out.sum()
         g = g.contiguous()
     delta = _delta(o, g, g_lse).contiguous()

@@ -1,9 +1,10 @@
 """Parallelism for the port: the mesh and its rule tables, the SPMD plan
 that places the collectives, ring and Ulysses sequence parallelism, the
-plain attention and the Mixture-of-Experts FFN; the rank-replicated
-serving loop of tensor-parallel serving (lockstep.py) and a tensor axis
-replayed in one process (tp_replay.py). Pipeline schedules and an expert
-axis wider than one are not ported yet (ROADMAP.md queue 1)."""
+plain attention, pipeline schedules over the ``pipe`` axis (GPipe,
+circular, 1F1B) and the Mixture-of-Experts FFN with its experts over the
+``expert`` axis; the rank-replicated serving loop of tensor-parallel
+serving (lockstep.py) and a mesh's ranks replayed in one process
+(tp_replay.py, collectives.ReplayWorld)."""
 
 from .mesh import (
     AXIS_ORDER,
@@ -41,6 +42,10 @@ from .ring_attention import (
     ring_flash_attention,
 )
 from .ulysses import make_ulysses_attention, ulysses_attention
+from .pipeline import (
+    make_pipeline, make_pipeline_1f1b, make_pipeline_circular,
+    make_pipeline_stacked, stack_stage_params,
+)
 from .expert import load_balancing_loss, moe_ffn, top_k_routing
 
 __all__ = [
@@ -54,5 +59,7 @@ __all__ = [
     "NEG_INF", "make_ring_attention", "reference_attention", "ring_attention",
     "ring_flash_attention",
     "make_ulysses_attention", "ulysses_attention",
+    "make_pipeline", "make_pipeline_1f1b", "make_pipeline_circular",
+    "make_pipeline_stacked", "stack_stage_params",
     "moe_ffn", "top_k_routing", "load_balancing_loss",
 ]

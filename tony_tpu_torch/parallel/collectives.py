@@ -27,26 +27,41 @@ import torch.distributed as dist
 REPLAY_TURN_TIMEOUT_S = 600.0
 
 
-class ReplayGroup:
-    """``t`` ranks of a group as threads of one process, one running at a
-    time: a rank runs until a collective, leaves its part and hands the
-    turn to the next rank; the last to arrive combines the parts (a sum in
-    float32, or a concatenation) and hands the turn back to the first, and
-    each rank takes the result when its turn comes again. ``run`` starts
-    the ranks. A rank that raises stops the others."""
+class ReplayWorld:
+    """``n`` ranks as threads of one process, one running at a time. A rank
+    runs until a collective of one of its groups (``group(ranks)``), leaves
+    its part there and hands the turn on; the last of the group's ranks to
+    arrive combines the parts, and each rank takes the result when its turn
+    comes again. A rank whose collective is still open passes its turn, so
+    ranks in different groups interleave as their programs allow; if every
+    unfinished rank waits on an open collective, the replay raises (a
+    deadlock). ``run`` starts the ranks, each running its backward passes
+    on its own thread (``set_multithreading_enabled(False)``), so a
+    collective inside a backward takes its turn like any other. A rank
+    that raises stops the others."""
 
-    def __init__(self, t: int):
-        self.t = t
+    def __init__(self, n: int):
+        self.n = n
         self._cond = threading.Condition()
         self._turn = 0
-        self._parts: list = [None] * t
-        self._result = None
+        self._open: dict = {}
+        self._waiting: set = set()
+        self._finished: set = set()
+        self._groups: dict = {}
         self._error: BaseException | None = None
         self._local = threading.local()
 
     @property
     def rank(self) -> int:
         return self._local.rank
+
+    def group(self, ranks) -> "ReplayGroup":
+        """The group of these world ranks (one object per set of ranks, so
+        its collectives are numbered alike on each of them)."""
+        ranks = tuple(ranks)
+        if ranks not in self._groups:
+            self._groups[ranks] = ReplayGroup(self, ranks)
+        return self._groups[ranks]
 
     def _wait_turn(self, rank: int) -> None:
         if not self._cond.wait_for(
@@ -58,34 +73,45 @@ class ReplayGroup:
             raise RuntimeError("another replay rank failed") from self._error
 
     def _pass(self, rank: int) -> None:
-        self._turn = (rank + 1) % self.t
+        nxt = rank
+        for _ in range(self.n):
+            nxt = (nxt + 1) % self.n
+            if nxt not in self._finished:
+                break
+        self._turn = nxt
         self._cond.notify_all()
 
-    def _collect(self, x: torch.Tensor, combine):
+    def _collect(self, group: "ReplayGroup", x, combine):
         rank = self.rank
         with self._cond:
-            self._parts[rank] = x
-            if rank == self.t - 1:
-                self._result = combine(self._parts)
-                self._parts = [None] * self.t
-            self._pass(rank)
-            self._wait_turn(rank)
-            return self._result
-
-    def all_reduce_(self, t: torch.Tensor, op) -> torch.Tensor:
-        if op not in (dist.ReduceOp.SUM, None):
-            raise NotImplementedError(f"replayed all-reduce of {op}")
-        total = self._collect(t, lambda ps: torch.stack(
-            [p.float() for p in ps]).sum(0))
-        return t.copy_(total)
-
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along dimension 0."""
-        return self._collect(x, lambda ps: torch.cat(ps, 0))
+            key = (group.ranks, group._seq[rank])
+            group._seq[rank] += 1
+            slot = self._open.setdefault(key, {"parts": {}, "taken": 0})
+            slot["parts"][rank] = x
+            if len(slot["parts"]) == group.t:
+                slot["result"] = combine([slot["parts"][r]
+                                          for r in group.ranks])
+                self._waiting -= set(group.ranks)
+            while "result" not in slot:
+                self._waiting.add(rank)
+                if self._waiting >= set(range(self.n)) - self._finished:
+                    raise RuntimeError(
+                        f"replay deadlock: ranks {sorted(self._waiting)} "
+                        "all wait on open collectives")
+                self._pass(rank)
+                self._wait_turn(rank)
+            slot["taken"] += 1
+            if slot["taken"] == group.t:
+                del self._open[key]
+            return slot["result"]
 
     def run(self, fn) -> list:
-        """``fn(rank)`` on every rank, in turns -> the results by rank."""
-        out: list = [None] * self.t
+        """``fn(rank)`` on every rank, in turns -> the results by rank. A
+        world runs again after a run has ended (its groups keep counting
+        their collectives alike on every rank)."""
+        self._turn, self._error = 0, None
+        self._finished, self._waiting = set(), set()
+        out: list = [None] * self.n
 
         def body(rank):
             self._local.rank = rank
@@ -95,17 +121,22 @@ class ReplayGroup:
                 except BaseException:
                     return
             try:
-                out[rank] = fn(rank)
+                # a rank's backward runs on its own thread (on CUDA the
+                # engine's device thread would run every rank's, and a
+                # collective inside one would stall the others)
+                with torch.autograd.set_multithreading_enabled(False):
+                    out[rank] = fn(rank)
             except BaseException as e:
                 with self._cond:
                     self._error = self._error or e
                     self._cond.notify_all()
                 return
             with self._cond:
+                self._finished.add(rank)
                 self._pass(rank)
 
         threads = [threading.Thread(target=body, args=(r,), daemon=True)
-                   for r in range(self.t)]
+                   for r in range(self.n)]
         for th in threads:
             th.start()
         for th in threads:
@@ -115,12 +146,69 @@ class ReplayGroup:
         return out
 
 
+class ReplayGroup:
+    """A process group of replayed ranks (``ReplayWorld.group``), or with
+    an int ``t``, a world of ``t`` ranks and the group of all of them. Its
+    collectives: an all-reduce (a sum in float32, or a maximum), an
+    all-gather (a concatenation) and a ring shift; each rank's part is
+    combined in memory."""
+
+    def __init__(self, world, ranks=None):
+        if isinstance(world, int):
+            world, ranks = ReplayWorld(world), range(world)
+            world._groups[tuple(ranks)] = self
+        self.world, self.ranks = world, tuple(ranks)
+        self.t = len(self.ranks)
+        self._seq = dict.fromkeys(self.ranks, 0)
+
+    @property
+    def rank(self) -> int:
+        """The calling thread's rank within the group."""
+        return self.ranks.index(self.world.rank)
+
+    def all_reduce_(self, t: torch.Tensor, op) -> torch.Tensor:
+        """A sum (in float32) or a maximum, in place."""
+        if op in (dist.ReduceOp.SUM, None):
+            total = self.world._collect(self, t, lambda ps: torch.stack(
+                [p.float() for p in ps]).sum(0))
+        elif op == dist.ReduceOp.MAX:
+            total = self.world._collect(self, t, lambda ps: torch.stack(
+                list(ps)).amax(0))
+        else:
+            raise NotImplementedError(f"replayed all-reduce of {op}")
+        return t.copy_(total)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along dimension 0."""
+        return self.world._collect(self, x, lambda ps: torch.cat(ps, 0))
+
+    def shift(self, tensors, backward: bool = False) -> tuple:
+        """``Ring.shift`` in memory: the previous rank's tensors (the next
+        rank's with ``backward``), copied."""
+        parts = self.world._collect(self, tuple(tensors), list)
+        src = (self.rank + (1 if backward else -1)) % self.t
+        return tuple(x.clone() for x in parts[src])
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on every rank of the world (whose group this is)."""
+        return self.world.run(fn)
+
+
 def group_size(group) -> int:
     if group is None:
         return 1
     if isinstance(group, ReplayGroup):
         return group.t
     return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group`` (0 without one)."""
+    if group is None:
+        return 0
+    if isinstance(group, ReplayGroup):
+        return group.rank
+    return dist.get_rank(group)
 
 
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -186,9 +274,12 @@ class _GatherDim(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         n, dim = group_size(ctx.group), ctx.dim
+        rank = group_rank(ctx.group)
         if not ctx.reduce_grad:
-            rank = dist.get_rank(ctx.group)
             return g.chunk(n, dim)[rank].contiguous(), None, None, None
+        if isinstance(ctx.group, ReplayGroup):
+            total = all_reduce_(g.contiguous().clone(), ctx.group)
+            return total.chunk(n, dim)[rank].contiguous(), None, None, None
         parts = torch.cat(g.chunk(n, dim), 0).contiguous()
         out = torch.empty_like(parts.chunk(n, 0)[0])
         dist.reduce_scatter_tensor(out, parts, group=ctx.group)
@@ -248,8 +339,9 @@ class Ring:
     def __init__(self, group):
         self.group = group
         self.n = group_size(group)
-        self.rank = dist.get_rank(group) if group is not None else 0
-        if self.n > 1:
+        self.rank = group_rank(group)
+        self.replay = isinstance(group, ReplayGroup)
+        if self.n > 1 and not self.replay:
             self.next = dist.get_global_rank(group, (self.rank + 1) % self.n)
             self.prev = dist.get_global_rank(group, (self.rank - 1) % self.n)
 
@@ -258,6 +350,8 @@ class Ring:
         received tensors. ``backward`` sends to the previous rank instead."""
         if self.n == 1:
             return lambda: tuple(tensors)
+        if self.replay:
+            return lambda: self.group.shift(tensors, backward)
         dst, src = (self.prev, self.next) if backward else (self.next,
                                                            self.prev)
         send = [t.contiguous() for t in tensors]
@@ -295,5 +389,5 @@ def ring_shift(ring: Ring, *xs):
     return _Shift.apply(ring, *xs)
 
 
-__all__ = ["ReplayGroup", "group_size", "all_reduce_", "copy_to", "reduce_from",
+__all__ = ["ReplayWorld", "ReplayGroup", "group_size", "group_rank", "all_reduce_", "copy_to", "reduce_from",
            "gather_dim", "gather_nograd", "all_to_all", "Ring", "ring_shift"]

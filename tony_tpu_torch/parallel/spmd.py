@@ -15,6 +15,11 @@ rules it reads:
   cross-entropy). Training's tables keep ``kv`` replicated; decode's
   (``TP_DECODE_RULES``) put it on ``tensor``, so ``wk``/``wv`` and the KV
   cache hold this rank's kv heads.
+- the expert axis: the mesh axis the ``expert`` rule names (EP_RULES).
+  A rank keeps its ``E / ep`` experts of ``w_in``/``w_out`` and computes
+  with them alone; the MoE output is summed over the axis
+  (parallel/expert.py), and an expert weight's gradient is its own (not
+  reduced over the axis). The expert axis may not split the batch.
 - every other sharded dimension (``embed`` over fsdp: FSDP, ZeRO-3) is
   stored sharded and gathered where it is used (``use``); its gradient is
   reduce-scattered when the gathering axis is a data axis, and sliced when
@@ -61,6 +66,13 @@ class Plan:
                     "tensor-parallel dimension takes one mesh axis that "
                     "does not split the batch or the sequence")
             self.tp[name] = axes[0] if axes else None
+        ep = mesh_shards_rule(mesh, rules, "expert")
+        if len(ep) > 1 or (ep and ep[0] in self.data_axes):
+            raise NotImplementedError(
+                f"rule 'expert' -> {rules.get('expert')!r}: the expert "
+                "dimension takes one mesh axis that does not split the "
+                "batch or the sequence")
+        self.ep_axis = ep[0] if ep else None
 
     def group(self, axis):
         return None if axis is None else self.mesh.get_group(axis)
@@ -74,6 +86,15 @@ class Plan:
         return self.coord[self.tp[name]] if self.tp[name] else 0
 
     @property
+    def ep_group(self):
+        """The process group the experts are split over, or None."""
+        return self.group(self.ep_axis)
+
+    @property
+    def ep_rank(self) -> int:
+        return self.coord[self.ep_axis] if self.ep_axis else 0
+
+    @property
     def seq_rank(self) -> int:
         return self.coord[self.seq_axis] if self.seq_axis else 0
 
@@ -85,14 +106,15 @@ class Plan:
         for dim, entry in enumerate(spec):
             name = logical_axes[dim]
             for a in reversed(_axes(entry)):
-                if self.shape.get(a, 1) > 1 and self.tp.get(name) != a:
+                if (self.shape.get(a, 1) > 1 and self.tp.get(name) != a
+                        and not (name == "expert" and a == self.ep_axis)):
                     out.append((dim, a))
         return out
 
     def use(self, w: torch.Tensor, logical_axes) -> torch.Tensor:
         """This rank's weight as the model computes with it: every
-        storage-sharded dimension gathered, tensor-parallel ones left as
-        this rank's shard."""
+        storage-sharded dimension gathered, tensor-parallel and expert
+        ones left as this rank's shard."""
         for dim, a in self._gathers(logical_axes):
             w = gather_dim(w, dim, self.group(a), a in self.data_axes)
         return w
@@ -130,18 +152,16 @@ class Plan:
         return torch.sqrt(total)
 
     def global_sum(self, local: torch.Tensor) -> torch.Tensor:
-        """The sum of a scalar over the data axes; its gradient is the local
-        one (each rank differentiates its own share)."""
-        total = local.detach().clone().reshape(1)
-        for a in self.data_axes:
-            all_reduce_(total, self.group(a))
-        return local + (total[0] - local.detach())
+        """The sum of a tensor over the data axes; its gradient is the
+        local one (each rank differentiates its own share)."""
+        return local + (self.global_count(local) - local.detach())
 
     def global_count(self, local: torch.Tensor) -> torch.Tensor:
-        total = local.detach().clone().reshape(1)
+        """The sum over the data axes, without autograd."""
+        total = local.detach().clone().reshape(-1)
         for a in self.data_axes:
             all_reduce_(total, self.group(a))
-        return total[0]
+        return total.reshape(local.shape)
 
     @property
     def batch_size(self) -> int:

@@ -18,7 +18,11 @@ are the whole batch's, so a step on any mesh equals the one-device step up
 to the order of its sums. Each rank passes the step its own block of the
 tokens: batch over the rules' batch axes, sequence over ``act_seq`` when
 sequence-parallel (data/loader.py ``loader_shard_info`` and
-``seq_shard_info``).
+``seq_shard_info``). A MoE model's experts split over the ``expert`` axis
+under ``EP_RULES`` (merged into the rules). No rule names ``pipe``: a
+``pipe`` axis wider than one replicates the step over its ranks, exactly
+as the JAX package's ``create_train_step`` does; the pipeline schedules
+are train/pipeline_step.py's.
 """
 
 from __future__ import annotations
@@ -118,24 +122,16 @@ class TrainStepBundle:
 
 
 def _local_tree(tree, grad: bool = False):
-    """A tree of DTensors -> the same tree of their local tensors (sharing
-    storage: an in-place update of one is an update of the other); with
-    ``grad``, each a new leaf that requires grad."""
-    return {k: _local_tree(v, grad) if isinstance(v, dict)
-            else (v.to_local().detach().requires_grad_(True) if grad
-                  else v.to_local())
+    """A tree of DTensors (or of a replayed mesh's plain blocks) -> the
+    same tree of their local tensors (sharing storage: an in-place update
+    of one is an update of the other); with ``grad``, each a new leaf that
+    requires grad."""
+    def local(v):
+        v = v.to_local() if hasattr(v, "to_local") else v
+        return v.detach().requires_grad_(True) if grad else v
+
+    return {k: _local_tree(v, grad) if isinstance(v, dict) else local(v)
             for k, v in tree.items()}
-
-
-def _check_mesh(mesh) -> None:
-    shape = mesh_shape(mesh)
-    for axis, item in (("pipe", "pipeline schedules"),
-                       ("expert", "expert sharding")):
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"a {axis!r} mesh axis of {shape[axis]} is not ported to "
-                f"tony_tpu_torch yet (ROADMAP.md queue 1, pipeline schedules "
-                f"and expert sharding: {item})")
 
 
 def create_train_step(cfg: transformer.TransformerConfig, mesh=None,
@@ -156,13 +152,16 @@ def create_train_step(cfg: transformer.TransformerConfig, mesh=None,
 
     ``step_fn`` and ``eval_fn`` compute with the trees they are given (the
     bundle's, or one restored from a checkpoint with the bundle's as its
-    template) and update those in place."""
+    template) and update those in place.
+
+    On a replayed mesh (parallel/tp_replay.py ``ReplayMesh``: a mesh's
+    ranks as threads of one process) the parameters and moments are plain
+    tensors holding the rank's blocks: a DTensor needs a DeviceMesh."""
     if mesh is None:
         return _create_local(cfg, generator, optimizer, device, params)
     if not hasattr(mesh, "mesh_dim_names"):
         raise TypeError(f"mesh must be a DeviceMesh (parallel.build_mesh), "
                         f"got {type(mesh).__name__}")
-    _check_mesh(mesh)
     rules = dict(rules if rules is not None else shlib.FSDP_TP_RULES)
     if sp_impl is None and mesh_shape(mesh).get("seq", 1) > 1:
         sp_impl = "ring"
@@ -172,7 +171,8 @@ def create_train_step(cfg: transformer.TransformerConfig, mesh=None,
         cfg = transformer.TransformerConfig(
             **{**cfg.__dict__, "attn_impl": sp_impl})
         rules.setdefault("act_seq", "seq")
-    if device is None:
+    replay = mesh.device_type == "replay"
+    if device is None and not replay:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if mesh.device_type == "cuda" else torch.device("cpu"))
     device = resolve_device(device)
@@ -180,12 +180,21 @@ def create_train_step(cfg: transformer.TransformerConfig, mesh=None,
         generator = generator or torch.Generator(device=device).manual_seed(0)
         params = transformer.init(cfg, generator, device)
     axes_tree = transformer.param_logical_axes(cfg)
-    params = shlib.shard_params(mesh, params, axes_tree, rules)
-    shardings = shlib.tree_shardings(mesh, axes_tree, rules)
+    optimizer = optimizer or make_optimizer()
+    if replay:
+        params = shlib._tree_map(
+            lambda t, axes: shlib.local_slice(
+                t.detach(), mesh,
+                shlib.logical_to_spec(axes, rules)).clone(),
+            params, axes_tree)
+        shardings = None
+        opt_state = optimizer.init(params)
+    else:
+        params = shlib.shard_params(mesh, params, axes_tree, rules)
+        shardings = shlib.tree_shardings(mesh, axes_tree, rules)
+        opt_state = _sharded_moments(params, mesh, shardings)
     flat_axes = dict(_leaves(axes_tree))
     leaf_axes = [flat_axes[n] for n, _ in _leaves(params)]
-    optimizer = optimizer or make_optimizer()
-    opt_state = _sharded_moments(params, mesh, shardings)
     plan = Plan(mesh, rules)
     seq_axis = rules.get("act_seq") if sp_impl else None
     tok_sharding = shlib.spec_to_placements(
