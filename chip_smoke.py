@@ -179,9 +179,11 @@ and exits non-zero if any of them fails:
    step's device time, and at float32 generate's tokens against the
    plain path's up to a near-tie; (d) the SlotServer on the ring, the
    paged engine and the ring with a self-draft against solo generate;
-16. mesh: (a) lm_train as a child process under the TonY env contract at
-   world 1 (TONY_COORDINATOR_ADDRESS on a free localhost port): train.init
-   joins an NCCL group and build_mesh makes the six-axis DeviceMesh, then
+16. mesh: (a) lm_train as a child launched by the port's own launcher, a
+   one-worker TonY job (TonyClient -> driver -> executor -> the torch
+   runtime, which hands the child rank 0's registered address as
+   TONY_COORDINATOR_ADDRESS): the job SUCCEEDED, train.init joins an NCCL
+   group and build_mesh makes the six-axis DeviceMesh, then
    MESH_STEPS steps at the flagship width and training's shape with --mesh
    fsdp=-1 (the sharded step) and --mesh seq=-1 (the flash ring at n = 1),
    the flash kernels once a layer a step, the losses against the training
@@ -192,14 +194,14 @@ and exits non-zero if any of them fails:
    K3-K5 and the plain versions, K1, dK/dV and dQ launched once a visible
    step. Two ranks cannot share the card under NCCL, so no multi-rank
    collective runs here;
-17. tp (tensor-parallel decode and serving): (a) a child under the TonY
-   env contract at world 1 over an NCCL group of one: lm_generate
-   --tensor-parallel 1 on generation's request 0 (bf16, 12 layers) against
-   that request's tokens, float32 generate(mesh=) against generate without
-   a mesh, serve --mesh tensor=1 on run A's greedy requests (float32,
-   SERVE_CUT_LAYERS) against the meshless serve up to its first near tie,
-   with no synchronisation in dispatch or admission, and the turn
-   exchange's host time; (b) a tensor
+17. tp (tensor-parallel decode and serving): (a) a child launched as a
+   one-worker TonY job (as mesh (a)) at world 1 over an NCCL group of one:
+   lm_generate --tensor-parallel 1 on generation's request 0 (bf16, 12
+   layers) against that request's tokens, float32 generate(mesh=) against
+   generate without a mesh, serve --mesh tensor=1 on run A's greedy
+   requests (float32, SERVE_CUT_LAYERS) against the meshless serve up to
+   its first near tie, with no synchronisation in dispatch or admission,
+   and the turn exchange's host time; (b) a tensor
    axis of t = 2 and 4 replayed in one process (every rank's forward, the
    collectives in memory) at the flagship's widths, float32, its logits
    against the whole model's kernels and plain path (TP_LOGITS_ATOL), K1
@@ -222,7 +224,18 @@ and exits non-zero if any of them fails:
    rank's heads) up to the first near tie; (d) an NCCL group of one in
    this process: the pipelined step at pipe=1 and a MoE step at expert=1
    against one device. PIPE_CUTS lists the depth cuts;
-19. profile: a flagship decode step's and a flagship training step's
+19. launch (the port's launch path: TonyClient -> driver -> executor ->
+   runtime): (a) mnist_cuda.json, examples/mnist.py as a one-worker job:
+   SUCCEEDED, its final loss and accuracy, an NCCL group of one, and the
+   executor's TaskMonitor push carrying the card's utilisation and memory
+   (nvidia-smi); (b) serve_cuda.json at SERVE_CUT_LAYERS layers, float32:
+   the replica's published serve_port answers paged (a)'s 8 prompts (48
+   new) token-equal to an in-process serve app up to its first near tie,
+   then client.stop() leaves no process behind; (c) a worker exiting 1
+   fails its job, and one past tony.task.executor.execution-timeout-ms is
+   killed; (a)-(c) run at once; the phase's seconds, the driver's start-up
+   (submit -> driver.json) and the executors' (launched -> registered);
+20. profile: a flagship decode step's and a flagship training step's
    (remat off and under each policy) host wall time against the device
    time torch.profiler records.
 
@@ -245,6 +258,7 @@ import json
 import math
 import os
 import re
+import shlex
 import shutil
 import struct
 import subprocess
@@ -332,16 +346,17 @@ SPEC_SERVE_NEW, MULTI_NEW = 48, 16
 # budget: widths, shapes and checks are the flagship's
 MOE_EXPERTS = 8
 MOE_FLAGS = FLAGSHIP + ["--n-experts", str(MOE_EXPERTS)]
-MOE_TRAIN_LAYERS, MOE_BATCH, MOE_SEQ, MOE_STEPS = 6, 4, 1024, 6
-MOE_GEN_LAYERS, MOE_GEN_F32_LAYERS = 4, 4
-MOE_CUTS = ["(a) training: 12 -> 6 layers", "(c) generation: 12 -> 4 layers"]
+MOE_TRAIN_LAYERS, MOE_BATCH, MOE_SEQ, MOE_STEPS = 4, 4, 1024, 6
+MOE_GEN_LAYERS, MOE_GEN_F32_LAYERS = 2, 2
+MOE_CUTS = ["(a) training: 12 -> 6 -> 4 layers",
+            "(c) generation: 12 -> 4 -> 2 layers"]
 # (b): a token whose top-3 router probabilities lie closer than this may
 # route differently on the two paths (float32 summation order)
 MOE_ROUTE_NEAR_TIE = 1e-4
 MOE_PARITY_LOSS_ATOL, MOE_PARITY_GRAD_RTOL = 1e-4, 1e-4
 # the elastic drill on the card: steps, and the step after which the
 # preemption flag file is dropped
-ELASTIC_STEPS, ELASTIC_FLAG_AT = 25, 10
+ELASTIC_STEPS, ELASTIC_FLAG_AT = 15, 10
 # the prefix-cache cell: the pool's blocks (prefill chunks of 128), the
 # shared prefix, requests, their suffixes' length range and new tokens
 PREFIX_BLOCKS = 64
@@ -424,7 +439,7 @@ HF_CONFIG = dict(
     rms_norm_eps=1e-5, tie_word_embeddings=False, attention_bias=False,
     mlp_bias=False, hidden_act="silu", torch_dtype="bfloat16",
     bos_token_id=128000, eos_token_id=128001)
-HF_LAYERS, HF_REQUESTS, HF_NEW = 4, 8, 32
+HF_LAYERS, HF_REQUESTS, HF_NEW = 2, 8, 32
 # training parity at flagship width and 2 layers, bf16 on the card against
 # float32 on the CPU: weights and activations round to bf16 (2^-9 relative)
 # at every cast of a two-layer forward and backward, so a gradient may move
@@ -3399,6 +3414,15 @@ PAGED_MODES = {           # mode -> (both engines' options, the paged one's)
 }
 
 
+def _paged_prompts() -> list:
+    """Paged (a)'s PAGED_ID prompts of 64-512 tokens, drawn from seed 61."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    return [rng.integers(0, 32768, int(n)).tolist()
+            for n in rng.integers(64, 513, PAGED_ID)]
+
+
 def _paged_identity(torch, G, T, S) -> list:
     """(a): the flagship widths at 2 layers, float32 and bf16, PAGED_ID
     requests through 3 slots on the paged engine (kv_block PAGED_KV_BLOCK)
@@ -3414,12 +3438,8 @@ def _paged_identity(torch, G, T, S) -> list:
     That mode is held token-identical at float32; at bf16 it is reported,
     beside a control: the ring engine against itself with its cursor
     started one block later."""
-    import numpy as np
-
     dev = torch.device("cuda")
-    rng = np.random.default_rng(61)
-    plain = [rng.integers(0, 32768, int(n)).tolist()
-             for n in rng.integers(64, 513, PAGED_ID)]
+    plain = _paged_prompts()
     shared = _prefix_prompts(63)[:PAGED_ID]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -3856,8 +3876,8 @@ def _paged_tiers(torch, S, serve) -> dict:
             refusals.append((req.priority, queued.count("batch")))
             raise
 
-    def tracked_alloc(cls, n):
-        got = alloc_for(cls, n)
+    def tracked_alloc(cls, n, *share):
+        got = alloc_for(cls, n, *share)
         peak_batch[0] = max(peak_batch[0], alloc.class_used["batch"])
         return got
 
@@ -6118,7 +6138,7 @@ def phase_moe(torch, ops, lm_train, lm_generate, A, G, T) -> dict:
 
 # ------------------------------------------------------------------- mesh
 
-MESH_STEPS = 3
+MESH_STEPS = 2
 MESH_MESHES = ("fsdp=-1", "seq=-1")
 MESH_LOSS_ATOL = 3e-2
 MESH_RING_N = (2, 4)
@@ -6126,8 +6146,166 @@ MESH_RING_N = (2, 4)
 MESH_RING_CASES = {"bfloat16": ((8, 8, 2048, 128), (3e-2, 3e-2), (3e-2, 3e-2)),
                    "float32": ((2, 8, 1024, 128), (2e-5, 2e-5), (1e-4, 1e-4))}
 
-# the child of the mesh phase's (a): lm_train under the TonY env contract,
-# once a mesh, its launches counted in the child
+# ------------------------------------------------------- the port's launcher
+
+LAUNCH_DIR = REPO / "build" / "chip_smoke" / "launch"
+CONFIGS = REPO / "tony_tpu_torch" / "examples" / "configs"
+
+
+def _job_conf(name: str, conf_files=(), **extra):
+    """A job's TonyConf: ``conf_files`` and ``extra`` over the port's
+    defaults, its staging and history under LAUNCH_DIR/<name>, the
+    driver's monitor and the executors' barrier poll at 100 ms."""
+    from tony_tpu_torch.conf import TonyConf
+
+    root = LAUNCH_DIR / name
+    shutil.rmtree(root, ignore_errors=True)
+    conf = TonyConf.resolve([str(f) for f in conf_files], include_site=False)
+    settings = {"tony.staging.dir": str(root / "staging"),
+                "tony.history.intermediate": str(root / "history"),
+                "tony.am.monitor-interval-ms": 100,
+                "tony.task.registration-poll-interval-ms": 100,
+                "tony.execution.env": "PYTHONUNBUFFERED=1"}
+    for k, v in {**settings, **extra}.items():
+        conf.set(k, v)
+    return conf
+
+
+class _Job:
+    """One TonY job through the port's TonyClient, submitted at
+    construction: the client stages it and starts the driver (python -S -m
+    tony_tpu_torch.driver), which launches an executor a task (python -S
+    -m tony_tpu_torch.executor), whose runtime forks the task's command.
+    The client monitors it from then on, on a thread of its own, so it
+    acknowledges the job's end as soon as it comes. ``driver_s``: submit ->
+    the driver's driver.json (its start-up)."""
+
+    def __init__(self, conf):
+        import threading
+
+        from tony_tpu_torch.client import TonyClient
+
+        self.client = TonyClient(conf, poll_interval_s=0.1)
+        self.t0 = time.perf_counter()
+        self.client.submit()
+        info = Path(self.client.job_dir) / "driver.json"
+        while not info.exists():
+            if self.client._driver_proc.poll() is not None:
+                fail(f"launch: the driver exited "
+                     f"{self.client._driver_proc.returncode}: "
+                     f"{self.log('driver.log')}")
+            time.sleep(0.005)
+        self.driver_s = time.perf_counter() - self.t0
+        self.status = self.error = None
+        self._thread = threading.Thread(target=self._monitor, daemon=True)
+        self._thread.start()
+
+    def _monitor(self) -> None:
+        try:
+            self.status = self.client.monitor().value
+        except Exception as e:      # re-raised by wait()
+            self.error = e
+        self.wall_s = time.perf_counter() - self.t0
+
+    def wait(self, want: str | None = "SUCCEEDED") -> str:
+        """The job's end -> its status; fails unless it is ``want``."""
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        if want is not None and self.status != want:
+            fail(f"launch: job {self.client.app_id} ended {self.status}, "
+                 f"expected {want} ({self.client.final_state.get('message')})"
+                 f": {self.log('logs/worker_0.stderr')}")
+        return self.status
+
+    def stop(self) -> None:
+        """Stop the job through its driver (every executor's process group
+        with it) and wait for the driver."""
+        self.client.stop()
+        self.client._driver_proc.wait(timeout=60)
+
+    def log(self, rel: str = "logs/worker_0.stdout") -> str:
+        path = Path(self.client.job_dir) / rel
+        return path.read_text()[-6000:] if path.exists() else ""
+
+    def history(self) -> tuple:
+        """-> (the jhist events, the sealed task traces)."""
+        root = Path(str(self.client.conf.get("tony.history.intermediate")))
+        d = root / self.client.app_id
+        (jhist,) = d.glob("*.jhist")
+        events = [json.loads(ln) for ln in jhist.read_text().splitlines()]
+        traces = [json.loads(ln) for ln in
+                  (d / "tasks.trace.jsonl").read_text().splitlines()]
+        return events, traces
+
+    def executor_s(self) -> dict:
+        """task -> launched -> registered on the driver's clock (the
+        executor's start-up: interpreter, conf, port, registration)."""
+        out = {}
+        for tr in self.history()[1]:
+            t = {n: v for n, v in tr["spans"]}
+            out[tr["id"]] = round(t["registered"] - t["launched"], 3)
+        return out
+
+    def task_metrics(self, task_id: str = "worker:0") -> dict:
+        """The executor's last TaskMonitor push, from TASK_FINISHED."""
+        for e in self.history()[0]:
+            if (e["type"] == "TASK_FINISHED"
+                    and e["payload"]["task_id"] == task_id):
+                return {m["name"]: m["value"]
+                        for m in e["payload"]["metrics"]}
+        return {}
+
+    def address(self, task_id: str = "worker:0") -> str:
+        """The task's registered host:port."""
+        (info,) = [i for i in self.client.task_infos
+                   if i.task_id == task_id]
+        return f"{info.host}:{info.port}"
+
+    def record(self) -> dict:
+        return dict(app_id=self.client.app_id, status=self.status,
+                    driver_s=round(self.driver_s, 3),
+                    executor_s=self.executor_s(),
+                    wall_s=round(self.wall_s, 2))
+
+
+_CONTRACT = ("TONY_COORDINATOR_ADDRESS", "TONY_PROCESS_ID",
+             "TONY_NUM_PROCESSES")
+
+
+def _launched_child(name: str, script: str, args: list,
+                    timeout_s: int) -> tuple:
+    """``script`` (a Python program's text) run as a one-worker TonY job on
+    the card through the port's launcher, with ``args`` -> (its standard
+    output, the job's record). The child prints the runtime's contract as
+    ``<name>_env {...}``; the coordinator must be the worker's registered
+    address (rank 0's), the world one."""
+    path = REPO / "build" / "chip_smoke" / f"{name}_child.py"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(f"import json as _j, os as _o\n"
+                    f"print('{name}_env ' + _j.dumps({{k: _o.environ.get(k) "
+                    f"for k in {_CONTRACT!r}}}), flush=True)\n" + script)
+    command = " ".join([sys.executable, str(path)]
+                       + [shlex.quote(a) for a in args])
+    job = _Job(_job_conf(name, **{"tony.worker.instances": 1,
+                                  "tony.worker.chips": 1,
+                                  "tony.worker.command": command,
+                                  "tony.application.timeout-ms":
+                                      timeout_s * 1000}))
+    job.wait()
+    out = (Path(job.client.job_dir) / "logs" / "worker_0.stdout").read_text()
+    env = json.loads([ln for ln in out.splitlines()
+                      if ln.startswith(f"{name}_env ")][-1].split(" ", 1)[1])
+    want = {"TONY_COORDINATOR_ADDRESS": job.address(), "TONY_PROCESS_ID": "0",
+            "TONY_NUM_PROCESSES": "1"}
+    if env != want:
+        fail(f"{name}: the runtime's contract {env}, expected {want} (rank "
+             f"0's registered address)")
+    return out, dict(job.record(), contract=env)
+
+
+# the child of the mesh phase's (a): lm_train launched by the port's
+# launcher, once a mesh, its launches counted in the child
 _MESH_CHILD = r"""
 import importlib, json, sys
 import torch.distributed as dist
@@ -6161,34 +6339,28 @@ def _free_port() -> int:
 
 
 def _mesh_bootstrap(train_losses) -> dict:
-    """(a): lm_train as a child process under the TonY env contract at world
-    1 (TONY_COORDINATOR_ADDRESS on a free localhost port): train.init joins
-    an NCCL group and build_mesh makes a DeviceMesh, then MESH_STEPS steps
-    at the flagship width and training's shape with --mesh fsdp=-1 (the
-    sharded step) and --mesh seq=-1 (the flash ring at n = 1), each against
-    the training phase's first steps."""
+    """(a): lm_train as a child launched by the port's launcher, a
+    one-worker TonY job at world 1 (the torch runtime hands it rank 0's
+    registered address as its coordinator): train.init joins an NCCL group
+    and build_mesh makes a DeviceMesh, then MESH_STEPS steps at the
+    flagship width and training's shape with --mesh fsdp=-1 (the sharded
+    step) and --mesh seq=-1 (the flash ring at n = 1), each against the
+    training phase's first steps."""
     out_dir = REPO / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     runs = [(m, str(out_dir / f"mesh_{i}.json"))
             for i, m in enumerate(MESH_MESHES)]
     argv = FLAGSHIP + ["--batch-size", str(TRAIN_BATCH), "--seq-len",
                        str(TRAIN_SEQ), "--steps", str(MESH_STEPS)]
-    env = dict(os.environ, TONY_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
-               TONY_PROCESS_ID="0", TONY_NUM_PROCESSES="1")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _MESH_CHILD, json.dumps(runs),
-                           json.dumps(argv)], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=400)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"mesh (a): the lm_train child exited {proc.returncode}: "
-             f"{proc.stderr[-3000:]}")
-    joined = [ln for ln in proc.stdout.splitlines()
+    stdout, job = _launched_child("mesh", _MESH_CHILD,
+                                  [json.dumps(runs), json.dumps(argv)], 400)
+    wall = job["wall_s"]
+    joined = [ln for ln in stdout.splitlines()
               if ln.startswith("process 0/1:")]
     if len(joined) != len(runs) or not all(" nccl on cuda" in ln
                                            for ln in joined):
         fail(f"mesh (a): expected an NCCL group a run, got {joined}")
-    child = json.loads([ln for ln in proc.stdout.splitlines()
+    child = json.loads([ln for ln in stdout.splitlines()
                         if ln.startswith("mesh_child ")][-1][11:])
     want = {"flash_fwd": MESH_STEPS * N_LAYERS, "flash_decode": 0,
             "flash_bwd_dkdv": MESH_STEPS * N_LAYERS,
@@ -6223,7 +6395,13 @@ def _mesh_bootstrap(train_losses) -> dict:
               f"the training phase's {train_losses[:MESH_STEPS]}: max |diff| "
               f"{err:.3g} (atol {MESH_LOSS_ATOL}); launches "
               f"{rec['launches']}, ring forwards {rec['ring_forwards']}")
-    return dict(runs=rows, child_wall_s=wall, launches=totals)
+    print(f"mesh (a): launched as job {job['app_id']}: {job['status']}, the "
+          f"driver up in {job['driver_s']:.3f} s, the executor registered "
+          f"{job['executor_s']['worker:0']:.3f} s after its launch, the "
+          f"coordinator rank 0's registered address "
+          f"{job['contract']['TONY_COORDINATOR_ADDRESS']}; the job "
+          f"{wall:.1f} s")
+    return dict(runs=rows, child_wall_s=wall, launches=totals, job=job)
 
 
 def _mesh_ring_replay(torch, ops, A, R) -> list:
@@ -6383,8 +6561,9 @@ print("tp_child " + json.dumps(out))
 
 
 def _tp_world_one(torch) -> dict:
-    """(a): the child of _TP_CHILD under TONY_COORDINATOR_ADDRESS /
-    TONY_PROCESS_ID=0 / TONY_NUM_PROCESSES=1 -> its record and the K1 and
+    """(a): the child of _TP_CHILD launched by the port's launcher, a
+    one-worker TonY job (the torch runtime's TONY_COORDINATOR_ADDRESS,
+    TONY_PROCESS_ID=0, TONY_NUM_PROCESSES=1) -> its record and the K1 and
     K6 launches it counted."""
     out_dir = REPO / "build" / "chip_smoke"
     req0 = json.loads((out_dir / "request0.json").read_text())
@@ -6395,18 +6574,10 @@ def _tp_world_one(torch) -> dict:
                            "1", "--metrics-out",
                            str(out_dir / "tp_request0.json")] + extra
     serve_argv = SHALLOW + ["--dtype", "float32", "--port", "0"]
-    env = dict(os.environ, TONY_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
-               TONY_PROCESS_ID="0", TONY_NUM_PROCESSES="1")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", _TP_CHILD, str(REPO), json.dumps(dict(
-            gen_argv=gen_argv, serve_argv=serve_argv, f32=list(TP_F32)))],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=400)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"tp (a): the child exited {proc.returncode}: "
-             f"{proc.stderr[-3000:]}")
-    child = json.loads([ln for ln in proc.stdout.splitlines()
+    stdout, job = _launched_child("tp", _TP_CHILD, [str(REPO), json.dumps(dict(
+        gen_argv=gen_argv, serve_argv=serve_argv, f32=list(TP_F32)))], 400)
+    wall = job["wall_s"]
+    child = json.loads([ln for ln in stdout.splitlines()
                         if ln.startswith("tp_child ")][-1][9:])
     bf16, f32, runs = child["bf16"], child["f32"], child["serve"]
     tp0 = json.loads((out_dir / "tp_request0.json").read_text())
@@ -6454,14 +6625,15 @@ def _tp_world_one(torch) -> dict:
           f"admission; the turn exchange's host time p50 "
           f"{ls['exchange_s_p50'] * 1e3:.3f} ms, max "
           f"{ls['exchange_s_max'] * 1e3:.3f} ms over {ls['turns']} turns; "
-          f"the child {wall:.1f} s")
+          f"launched as job {job['app_id']} ({job['status']}, the "
+          f"coordinator rank 0's registered address), the job {wall:.1f} s")
     launches = {k: bf16["launches"][k] + f32["launches"][k]
                 for k in want_bf16}
     return dict(bf16=bf16, f32=f32, serve={k: {n: v for n, v in r.items()
                                                 if n not in ("tokens", "gaps")}
                                             for k, r in runs.items()},
                 serve_parity=parity,
-                child_wall_s=wall, launches=launches)
+                child_wall_s=wall, launches=launches, job=job)
 
 
 def _tp_replay(torch, ops, A, DA, G, T, R) -> dict:
@@ -6986,6 +7158,221 @@ def phase_pipeline(torch, ops, G, T) -> dict:
     return world_one["launches"]
 
 
+# the launch phase: MNIST's steps (mnist_cuda.json's 500 cut for the
+# script's time), its loss after them on its synthetic blobs (a float32 MLP
+# reaches ~1e-6 within a hundred Adam steps at lr 1e-3), the memory its
+# process adds to the card (a CUDA context is about 500 MB), and the
+# execution timeout given a worker that sleeps
+LAUNCH_MNIST_STEPS = 200
+LAUNCH_MNIST_LOSS, LAUNCH_MNIST_ACC = 1e-2, 0.99
+LAUNCH_CHILD_MB = 100
+LAUNCH_TIMEOUT_MS = 2000
+
+
+def _python(command: str) -> str:
+    """A job file's command with its leading ``python`` as this
+    interpreter."""
+    return (sys.executable + command[len("python"):]
+            if command.startswith("python ") else command)
+
+
+def _card_memory_mb() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True, timeout=60,
+        check=True).stdout
+    return float(out.split()[0])
+
+
+def _launch_mnist(job, metrics: Path, base_mb: float) -> dict:
+    """(a)'s checks once its job ended: the loss, the accuracy, the NCCL
+    group of one, the TaskMonitor's push of the card."""
+    job.wait()
+    m = json.loads(metrics.read_text())
+    out = job.log()
+    pushed = job.task_metrics()
+    if (not math.isfinite(m["final_loss"])
+            or m["final_loss"] > LAUNCH_MNIST_LOSS
+            or m["accuracy"] < LAUNCH_MNIST_ACC):
+        fail(f"launch (a): MNIST loss {m['final_loss']}, accuracy "
+             f"{m['accuracy']} (want <= {LAUNCH_MNIST_LOSS}, >= "
+             f"{LAUNCH_MNIST_ACC})")
+    if (m["process"]["backend"] != "nccl"
+            or m["process"]["num_processes"] != 1
+            or "process 0/1: nccl on cuda:0, data shard 0 of 1" not in out):
+        fail(f"launch (a): expected an NCCL group of one: {m['process']}")
+    card = {k: pushed.get(f"max_{k}") for k in (
+        "gpu_utilization_pct", "gpu_memory_used_mb", "gpu_memory_total_mb",
+        "gpu_index")}
+    if (None in card.values() or card["gpu_index"] != 0
+            or card["gpu_memory_used_mb"] < base_mb + LAUNCH_CHILD_MB):
+        fail(f"launch (a): the TaskMonitor pushed {card} (the card held "
+             f"{base_mb} MB before the job; want the child's "
+             f"{LAUNCH_CHILD_MB}+ MB on card 0)")
+    return dict(job.record(), final_loss=m["final_loss"],
+                accuracy=m["accuracy"], steps_per_sec=m["steps_per_sec"],
+                time_to_first_step_s=m["time_to_first_step_s"],
+                child_s={k: round(m[k], 2) for k in (
+                    "import_s", "backend_and_data_s",
+                    "compile_first_block_s")},
+                card_before_mb=base_mb, pushed_card=card,
+                heartbeat_rtt_ms={k: pushed.get(f"{k}_heartbeat_rtt_ms")
+                                  for k in ("max", "avg")})
+
+
+def _proc_children(pid: int) -> list:
+    path = Path(f"/proc/{pid}/task/{pid}/children")
+    return [int(p) for p in path.read_text().split()] if path.exists() else []
+
+
+def _serve_checks(serve, job, spec, cut) -> tuple:
+    """(b)'s requests: the in-process serve's answers, then the replica's
+    once it published its port -> (the port, seconds to serving, the
+    near-tie rows)."""
+    flags = shlex.split(spec.command)
+    argv = flags[flags.index("tony_tpu_torch.cli.serve") + 1:] + cut
+    argv[argv.index("--port") + 1] = "0"
+    payloads = [dict(prompt=p, max_new_tokens=PAGED_ID_NEW, logprobs=2,
+                     timeout_s=600.0) for p in _paged_prompts()]
+    app, httpd, url = _serve_app(serve, argv)
+    want = _post_all(url, payloads)
+    _stop_app(app, httpd)
+    rpc = job.client._connect()
+    deadline = time.monotonic() + 300
+    while True:
+        (info,) = rpc.call("get_task_infos")
+        if info["ports"]:
+            break
+        if time.monotonic() > deadline or info["status"] in (
+                "FAILED", "KILLED", "SUCCEEDED"):
+            fail(f"launch (b): the replica published no serve_port: {info} "
+                 f"{job.log(f'logs/{spec.name}_0.stderr')}")
+        time.sleep(0.1)
+    ready_s = time.perf_counter() - job.t0
+    port = info["ports"]["serve_port"]
+    if port != info["port"] or info["ports"]["metrics_port"] != port:
+        fail(f"launch (b): published ports {info['ports']} against the "
+             f"registered port {info['port']}")
+    got = _post_all(f"http://{info['host']}:{port}/generate", payloads)
+    parity = [_near_tie_check(
+        f"launch (b) request {i}", g[1]["tokens"], w[1]["tokens"],
+        [e["top"][1][0] - e["top"][1][1] for e in w[1]["logprobs"]],
+        PAGED_ID_NEW) for i, (g, w) in enumerate(zip(got, want))]
+    return port, ready_s, parity
+
+
+def _launch_serving(serve) -> dict:
+    """(b): serve_cuda.json's replica at SERVE_CUT_LAYERS layers, float32,
+    against the same argv served in this process; then client.stop()."""
+    from tony_tpu_torch.cluster.provisioner import _pid_alive
+
+    cut = ["--n-layers", str(SERVE_CUT_LAYERS), "--dtype", "float32"]
+    conf = _job_conf("serve", [CONFIGS / "serve_cuda.json"],
+                     **{"tony.serving.healthz-interval-ms": 200})
+    (spec,) = conf.role_specs()
+    conf.set(f"tony.{spec.name}.command",
+             _python(spec.command) + " " + " ".join(cut))
+    job = _Job(conf)
+    try:
+        port, ready_s, parity = _serve_checks(serve, job, spec, cut)
+    except BaseException:
+        job.stop()
+        raise
+    journal = [json.loads(ln) for ln in (Path(job.client.job_dir)
+               / "driver.journal.jsonl").read_text().splitlines()]
+    pids = [json.loads((Path(job.client.job_dir) / "driver.json")
+                       .read_text())["pid"]]
+    pids += [r["pid"] for r in journal if r["op"] == "launch"]
+    pids += [c for pid in pids[1:] for c in _proc_children(pid)]
+    names = {}
+    for pid in pids:
+        try:
+            names[pid] = Path(f"/proc/{pid}/cmdline").read_bytes().replace(
+                b"\0", b" ").decode()[:80]
+        except OSError:
+            names[pid] = "?"
+    t0 = time.perf_counter()
+    job.stop()
+    while any(map(_pid_alive, pids)) and time.perf_counter() - t0 < 60:
+        time.sleep(0.05)
+    left = [p for p in pids if _pid_alive(p)]
+    if left:
+        fail(f"launch (b): processes {[names[p] for p in left]} outlived "
+             f"client.stop()")
+    return dict(app_id=job.client.app_id, driver_s=round(job.driver_s, 3),
+                ready_s=round(ready_s, 2),
+                serve_port=port, requests=len(parity),
+                equal=sum(r["diverge"] is None for r in parity),
+                parity=parity, stop_s=round(time.perf_counter() - t0, 2),
+                processes=names)
+
+
+def phase_launch(torch, ops, serve) -> dict:
+    """The port's launch path on the card (TonyClient -> driver ->
+    executor -> runtime): (a) mnist_cuda.json, (b) serve_cuda.json's
+    replica against an in-process serve up to the first near tie, then
+    stopped, (c) a failing and a timed-out worker fail their jobs; the
+    three at once. Returns this process's launches (none: MNIST and the
+    serving engines run no kernel)."""
+    print("== main path: launch")
+    ops.reset_launch_counts()
+    conf = _job_conf("mnist", [CONFIGS / "mnist_cuda.json"],
+                     **{"tony.task.metrics-interval-ms": 250})
+    (spec,) = conf.role_specs()
+    metrics = LAUNCH_DIR / "mnist" / "metrics.json"
+    conf.set("tony.worker.command", _python(spec.command) + f" --steps "
+             f"{LAUNCH_MNIST_STEPS} --metrics-out {metrics}")
+    torch.cuda.empty_cache()
+    base_mb = _card_memory_mb()
+    jobs = []
+    try:
+        jobs.append(_Job(conf))
+        jobs.append(_Job(_job_conf("exit1", **{
+            "tony.worker.instances": 1, "tony.worker.command":
+                f"{sys.executable} -c 'raise SystemExit(1)'"})))
+        jobs.append(_Job(_job_conf("timeout", **{
+            "tony.worker.instances": 1, "tony.worker.command": "sleep 600",
+            "tony.task.executor.execution-timeout-ms": LAUNCH_TIMEOUT_MS})))
+        mnist, failing, slow = jobs
+        b = _launch_serving(serve)
+        failing.wait("FAILED")
+        slow.wait("FAILED")
+        codes = [j.client.task_infos[0].exit_code for j in (failing, slow)]
+        if codes != [1, 256 - 9] or slow.wall_s > 30:
+            fail(f"launch (c): exit codes {codes} (want 1 and the "
+                 f"SIGKILLed child's 247), the timed-out job "
+                 f"{slow.wall_s:.1f} s")
+        a = _launch_mnist(mnist, metrics, base_mb)
+    except BaseException:
+        for job in jobs:        # no job outlives a failed phase
+            if job.client._driver_proc.poll() is None:
+                job.stop()
+        raise
+    c = dict(exit1=failing.record(), timeout=slow.record())
+    launches = ops.launch_counts()
+    print(f"launch (a): mnist_cuda.json {a['status']} in {a['wall_s']} s "
+          f"(driver up {a['driver_s']} s, executor registered "
+          f"{a['executor_s']['worker:0']} s after launch), final loss "
+          f"{a['final_loss']:.3g}, accuracy {a['accuracy']}, "
+          f"{a['steps_per_sec']:.0f} steps/s, the child's first block "
+          f"{a['time_to_first_step_s']:.1f} s ({a['child_s']}); the "
+          f"TaskMonitor pushed "
+          f"{a['pushed_card']}; heartbeat RTT {a['heartbeat_rtt_ms']} ms")
+    print(f"launch (b): serve_cuda.json's replica serving in {b['ready_s']} "
+          f"s on port {b['serve_port']} (driver up {b['driver_s']} s): "
+          f"{b['equal']} of {b['requests']} requests token-equal to the "
+          f"in-process serve, the rest up to its first near tie; "
+          f"client.stop() left none of {len(b['processes'])} processes "
+          f"after {b['stop_s']} s")
+    print(f"launch (c): exit 1 -> FAILED in {c['exit1']['wall_s']} s; "
+          f"execution timeout {LAUNCH_TIMEOUT_MS} ms -> FAILED (247) in "
+          f"{c['timeout']['wall_s']} s")
+    print("launch " + json.dumps(dict(mnist=a, serving=b, failures=c,
+                                      launches=launches,
+                                      card=nvidia_smi_line())))
+    return launches
+
+
 def phase_hf(torch, ops, lm_generate, G, serve) -> dict:
     """A checkpoint in HF's layout at Llama-3.1-8B's widths (HF_CONFIG,
     HF_LAYERS layers, bf16, two shards), written here and read by the
@@ -7495,13 +7882,14 @@ def main() -> int:
     mesh_launches = timed("mesh", phase_mesh, torch, ops, A, train_losses)
     tp_launches = timed("tp", phase_tp, torch, ops, A, DA, G, T)
     pipe_launches = timed("pipeline", phase_pipeline, torch, ops, G, T)
+    launch_launches = timed("launch", phase_launch, torch, ops, serve)
     launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
                 + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
                 + replay_launches[k] + stream_launches[k]
                 + paged_launches[k] + telemetry_launches[k]
                 + disagg_launches[k] + hf_launches[k] + spec_launches[k]
                 + moe_launches[k] + mesh_launches[k] + tp_launches[k]
-                + pipe_launches[k] for k in gen_launches}
+                + pipe_launches[k] + launch_launches[k] for k in gen_launches}
     print("launches_by_phase " + json.dumps(dict(
         generation=gen_launches, training=train_launches,
         remat=remat_launches, serving=serve_launches,
@@ -7510,7 +7898,7 @@ def main() -> int:
         paged=paged_launches, telemetry=telemetry_launches,
         disagg=disagg_launches, hf=hf_launches, speculative=spec_launches,
         moe=moe_launches, mesh=mesh_launches, tp=tp_launches,
-        pipeline=pipe_launches)))
+        pipeline=pipe_launches, launch=launch_launches)))
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched {name}")

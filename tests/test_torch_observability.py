@@ -385,17 +385,28 @@ def test_trace_file_lines_match_jax(tmp_path):
 # --------------------------------------------------------------------------
 
 def test_metrics_names_rendered_and_documented():
-    """The port's metric-name constants are the JAX package's, name for
-    name and value for value; the JAX serving names it lacks are exactly
-    the left-out families above; every constant is rendered by the port's
-    serve and named in README.md's port section, with every left-out
-    family."""
+    """The port's serving metric-name constants are the JAX package's, name
+    for name and value for value; the JAX serving names it lacks are
+    exactly the left-out families above; every one is rendered by the
+    port's serve and named in README.md's port section, with every
+    left-out family. The launch path's names (the driver's families, the
+    executor's accumulator) are the JAX package's too, and every driver
+    family is rendered by the port's driver."""
     from pathlib import Path
 
     import tony_tpu_torch.cli.serve as serve_mod
+    import tony_tpu_torch.driver as driver_mod
 
-    ours = {k: v for k, v in vars(pmetrics).items()
-            if k.isupper() and isinstance(v, str)}
+    names = {k: v for k, v in vars(pmetrics).items()
+             if k.isupper() and isinstance(v, str)}
+    ours = {k: v for k, v in names.items() if k.startswith("SERVING_")}
+    launch = {k: v for k, v in names.items()
+              if not k.startswith(("SERVING_", "GPU_"))}
+    assert launch and all(getattr(jmetrics, k) == v
+                          for k, v in launch.items())
+    driver_src = inspect.getsource(driver_mod)
+    assert not [k for k in launch if k.startswith("DRIVER_")
+                and k not in driver_src]
     ref = {k: v for k, v in vars(jmetrics).items()
            if k.isupper() and isinstance(v, str) and k.startswith("SERVING_")}
     assert ours and all(ref[k] == v for k, v in ours.items())

@@ -55,7 +55,20 @@ for name in ("tony_tpu_torch.train.checkpoint",
              "tony_tpu_torch.parallel.pipeline",
              "tony_tpu_torch.parallel.expert",
              "tony_tpu_torch.train.pipeline_step",
-             "tony_tpu_torch.train.bootstrap", "tony_tpu_torch.data.loader"):
+             "tony_tpu_torch.train.bootstrap", "tony_tpu_torch.data.loader",
+             "tony_tpu_torch.client", "tony_tpu_torch.driver",
+             "tony_tpu_torch.executor", "tony_tpu_torch.cli.main",
+             "tony_tpu_torch.conf", "tony_tpu_torch.conf.keys",
+             "tony_tpu_torch.session", "tony_tpu_torch.scheduler",
+             "tony_tpu_torch.rpc.server", "tony_tpu_torch.rpc.client",
+             "tony_tpu_torch.rpc.protocol",
+             "tony_tpu_torch.runtimes.torch_runtime",
+             "tony_tpu_torch.runtimes.serving",
+             "tony_tpu_torch.cluster.provisioner",
+             "tony_tpu_torch.events.driver_journal",
+             "tony_tpu_torch.events.handler",
+             "tony_tpu_torch.utils.shipping", "tony_tpu_torch.utils.ports",
+             "tony_tpu_torch.models.mnist", "tony_tpu_torch.examples.mnist"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -70,6 +83,37 @@ def test_package_imports_with_jax_and_tony_tpu_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 12     # every module was imported
+
+
+_LAUNCHER_IMPORT = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import tony_tpu_torch.client, tony_tpu_torch.driver, tony_tpu_torch.executor
+import tony_tpu_torch.cli.main
+assert "torch" not in sys.modules, sorted(sys.modules)
+from tony_tpu_torch import resolve_device      # lazy: this imports torch
+print("ok" if "torch" in sys.modules else "lazy import missed")
+"""
+
+
+@pytest.mark.parametrize("site", [True, False], ids=["site", "no_site"])
+def test_launch_path_imports_no_torch(site):
+    """The client, the driver and the executor import no torch (so no
+    launcher process can hold a CUDA context), with site-packages as a user
+    runs the CLI and without them as the client starts the driver and the
+    provisioner the executor (``python -S``); the package's
+    ``resolve_device`` is still importable, lazily."""
+    argv = [sys.executable] + ([] if site else ["-S"])
+    proc = subprocess.run(argv + ["-c", _LAUNCHER_IMPORT, str(REPO)],
+                          cwd="/", capture_output=True, text=True,
+                          timeout=120)
+    if site:
+        assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
+            proc.stderr
+    else:
+        # without site-packages the launcher imports; torch cannot
+        assert "No module named 'torch'" in proc.stderr, proc.stderr
+        assert "AssertionError" not in proc.stderr
 
 
 def test_source_names_neither_jax_nor_the_jax_package():

@@ -16,9 +16,22 @@ Ported so far, for the flagship decoder-only transformer on one device:
   blockwise cross-entropy;
 - serving (``models.serving`` ``SlotServer``, ``cli.serve``): the
   continuous-batching ring engine behind an HTTP front door, which runs
-  the einsum attention path (no kernel), as the JAX package's does.
+  the einsum attention path (no kernel), as the JAX package's does;
+- the launch path (``client``, ``driver``, ``executor``, ``cli.main``):
+  the JAX package's control plane, its own copy, with a torch runtime
+  that hands each rank the rendezvous ``train.init()`` joins.
+
+The control plane imports no torch: ``resolve_device`` is imported at first
+use, so ``python -S -m tony_tpu_torch.driver`` (no site-packages) starts
+and no launcher process holds a CUDA context.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

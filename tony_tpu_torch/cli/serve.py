@@ -2142,9 +2142,17 @@ def make_httpd(app: ServeApp, host: str, port: int,
 def main(argv=None) -> int:
     import signal
 
+    from .. import constants as c
     from ..api.openai import TokenCodec
 
-    args = build_argparser().parse_args(argv)
+    # conf-templated flags (runtimes/serving.py exports them from the
+    # tony.serving.* keys): prepended, so explicit flags override them
+    extra = os.environ.get(c.ENV_SERVE_EXTRA_FLAGS, "").split()
+    if argv is None:
+        import sys
+
+        argv = sys.argv[1:]
+    args = build_argparser().parse_args(extra + list(argv))
     app = build_app(args)
     if isinstance(app, Follower):
         # a mesh rank other than 0: no port, rank 0's turns until it stops

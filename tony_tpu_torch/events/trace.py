@@ -1,5 +1,8 @@
-"""Request-trace JSONL beside the request journal (the port's own copy of
-the JAX package's events/trace.py writer and reader).
+"""Request-trace and task-trace JSONL (the port's own copy of the JAX
+package's events/trace.py writer and reader).
+
+A driver writes one line per sealed task trace (observability.py
+``TaskTrace``) to ``tasks.trace.jsonl`` beside the job's history.
 
 One line per terminated request: its ``RequestTrace.to_dict()``
 (observability.py), ``{"id", "spans": [[name, t], ...], "attrs": {...}}``,
@@ -21,6 +24,7 @@ from pathlib import Path
 log = logging.getLogger(__name__)
 
 TRACE_FILE = "requests.trace.jsonl"
+TASK_TRACE_FILE = "tasks.trace.jsonl"
 
 
 class TraceWriter:
@@ -68,4 +72,4 @@ def read_traces(path: str | Path) -> list[dict]:
     return out
 
 
-__all__ = ["TRACE_FILE", "TraceWriter", "read_traces"]
+__all__ = ["TASK_TRACE_FILE", "TRACE_FILE", "TraceWriter", "read_traces"]

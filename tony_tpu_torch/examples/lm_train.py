@@ -299,6 +299,10 @@ def main(argv=None) -> int:
 
     metrics = None
     losses = []
+    # [step, seconds since the loop began] at each step the chief syncs on
+    # (its loss print): the steady step time is the wall after the first
+    # such point over the steps after it
+    sync_points = []
     last_eval = None
     last_eval_step = -1
     t0 = time.time()
@@ -314,6 +318,7 @@ def main(argv=None) -> int:
                     return drain_exit(step_i)
                 if step_i % 20 == 0 and chief:
                     loss = float(metrics["loss"])   # sync point
+                    sync_points.append([step_i, time.time() - t0])
                     print(f"step {step_i}: loss {loss:.4f} "
                           f"({timer.steps_per_sec:.2f} steps/s)")
                 if (mgr is not None and step_i % args.checkpoint_every == 0
@@ -347,6 +352,8 @@ def main(argv=None) -> int:
         "n_params": n_params,
         "mesh": sizes,
         "losses": [float(x) for x in losses],
+        "wall_s": wall,
+        "sync_points": sync_points,
     }
     if last_eval is not None:
         result["eval_loss"] = last_eval

@@ -53,6 +53,8 @@ __all__ = ["TRACE_HEADER", "TRACE_ID_RESPONSE_HEADER", "TraceContext",
 
 # terminal span names: exactly one ends every trace
 TERMINAL_SPANS = ("finished", "cancelled", "expired", "shed", "failed")
+# a job task's terminal spans (TaskTrace, the driver's clock)
+TASK_TERMINAL_SPANS = ("finished", "failed", "killed", "heartbeat_expired")
 
 
 class Histogram:
@@ -289,6 +291,20 @@ class RequestTrace:
         return {"id": self.id,
                 "spans": [[n, round(t, 6)] for n, t in self.spans],
                 "attrs": dict(self.attrs)}
+
+
+class TaskTrace(RequestTrace):
+    """One job task's lifecycle spans, id ``role:index``, on the DRIVER's
+    monotonic clock: ``requested -> allocated -> launched -> registered ->
+    first_heartbeat -> running`` (running: the gang barrier opened for the
+    task), the executor's spans (``work_dir_ready``, ``child_spawned``,
+    ``child_exited``: wall-clock instants re-anchored at receipt), a
+    ``restarted`` mark per spent restart-budget unit (the attempt chain
+    repeats after it), and one terminal of TASK_TERMINAL_SPANS."""
+
+    __slots__ = ()
+
+    TERMINALS = TASK_TERMINAL_SPANS
 
 
 # histogram name -> HELP text; the keys are the ServingTelemetry
