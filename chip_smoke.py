@@ -325,9 +325,10 @@ PARITY_NEAR_TIE = 1e-3
 CKPT_STEPS, CKPT_EVERY, CKPT_SPLIT = 11, 5, 6
 CKPT_ROOT = REPO / "build" / "chip_smoke" / "checkpoints"
 # speculative decoding: solo at the flagship's full width, float32, batch 1,
-# a SPEC_PROMPT-token prompt and SPEC_NEW new tokens, gamma SPEC_GAMMA;
-# lm_generate's default draft dims (head_dim 32: K1 and K6 at D = 32)
-SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 1024, 64, 4
+# a SPEC_PROMPT-token prompt and SPEC_NEW new tokens (64 until PR 21, cut
+# for the observability checks' time), gamma SPEC_GAMMA; lm_generate's
+# default draft dims (head_dim 32: K1 and K6 at D = 32)
+SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 1024, 32, 4
 SPEC_DRAFT = dict(d_model=128, n_layers=2, n_heads=4, d_ff=512)
 # the CLI's own-trained draft at lm_generate's default draft dims (head_dim
 # 32: its training runs K3-K5 at D = 32)
@@ -448,6 +449,9 @@ HF_LAYERS, HF_REQUESTS, HF_NEW = 2, 8, 32
 TRAIN_PARITY_LOSS_ATOL = 0.05
 TRAIN_PARITY_GRAD_RTOL = 0.1
 # the bf16 attention kernels (the tensor-core route) and their designs
+# the training profiles' depth under a remat policy (12 until PR 21, cut
+# for the observability checks' time; remat off stays at 12)
+TRAIN_PROFILE_REMAT_LAYERS = 6
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
                "flash_bwd_dq_mma_kernel")
 DESIGNS = {
@@ -633,9 +637,15 @@ def phase_card(build) -> dict:
     print(f"kernels built in {secs:.1f} s (nvcc, one process per source, "
           "in parallel)")
     report = {}
+    # one cuobjdump a library, all at once
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        sass = dict(zip(build.SOURCES, pool.map(
+            lambda name: sass_hmma(build._lib_path(name)), build.SOURCES)))
     for name in build.SOURCES:
         regs = ptxas_report(build.build_log(name))
-        hmma = sass_hmma(build._lib_path(name))
+        hmma = sass[name]
         for fn, (n_regs, st, ld) in sorted(regs.items()):
             report[fn] = (n_regs, st, ld, hmma.get(fn, 0))
             print(f"ptxas {name}: {fn}: {n_regs} registers, spill stores "
@@ -1547,6 +1557,7 @@ def phase_serving(torch, ops) -> tuple:
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         health = app.health()
+        builds = _build_families(app)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1579,7 +1590,8 @@ def phase_serving(torch, ops) -> tuple:
         admission_dispatches=srv.admission_dispatches - before[0],
         decode_blocks=srv.blocks_dispatched - before[1],
         block_dispatch_ms_p50=_quantiles(disp)["p50"],
-        admission_syncs=syncs["admission"], launches=counts)
+        admission_syncs=syncs["admission"], launches=counts,
+        kernel_builds=builds)
     print(f"serving run A: {SERVE_REQUESTS} requests ({SERVE_SAMPLED} "
           f"sampled), {run_a['prompt_tokens']} prompt and {out_tokens} output "
           f"tokens in {wall:.3f} s: {run_a['requests_per_s']:.3f} requests/s, "
@@ -1591,6 +1603,11 @@ def phase_serving(torch, ops) -> tuple:
           f"synchronisations: 0 in the blocks' dispatch, "
           f"{syncs['admission']} in admission "
           f"{dict(syncs['sites'])}; launches {counts}")
+    print(f"serving run A /metrics: serving_kernel_builds_total "
+          f"{builds['total']} (this process's libraries {builds['noted']}, "
+          f"{builds['seconds']:.3f} s of nvcc and loads), "
+          f"serving_kernel_builds_post_warm_total {builds['post_warm']} "
+          f"after the warm-up line")
 
     # ---- one decode block: wall time against device time, 8 busy slots
     blk = _profile_block(torch, S, srv, rng, "serving")
@@ -1642,6 +1659,30 @@ def phase_serving(torch, ops) -> tuple:
                  launches=counts_b)
     print("serving " + json.dumps(dict(run_a=run_a, run_b=run_b)))
     return {k: counts[k] + counts_b[k] for k in counts}, run_a
+
+
+def _build_families(app) -> dict:
+    """(c) of the observability hooks: run A's /metrics build families
+    after warm-up. Every kernel library this process built or loaded is
+    counted, none after the warm-up line (training's first measured step
+    or the first delivered completion, whichever came first), and /stats'
+    ``compile`` says the same."""
+    from tony_tpu_torch.ops import _build
+
+    _, samples = _exposition(app.prometheus_metrics())
+    total = samples["serving_kernel_builds_total"]
+    post = samples["serving_kernel_builds_post_warm_total"]
+    count = samples["serving_kernel_build_seconds_count"]
+    comp = app.stats()["compile"]
+    noted = _build.noted()
+    if (post != 0 or total != len(noted) or not comp["warm"]
+            or comp["kernel_builds"] != total or count != total):
+        fail(f"serving run A /metrics: kernel builds {total} (libraries "
+             f"{noted}), {post} after warm-up, the histogram's count "
+             f"{count}, /stats {comp}: expected every library once and "
+             "none after warm-up")
+    return dict(total=int(total), post_warm=int(post), noted=noted,
+                seconds=comp["kernel_build_time_s"])
 
 
 def _serve_payloads():
@@ -4964,6 +5005,58 @@ def phase_telemetry(torch, ops, run_a, base_block) -> dict:
     return counts
 
 
+def _disagg_prompts() -> list:
+    """The disaggregated (a) cell's DISAGG_F32 prompts of 64-512 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(71)
+    return [rng.integers(0, 32768, int(n)).tolist()
+            for n in rng.integers(64, 513, DISAGG_F32)]
+
+
+def _kv_heads_roundtrip(torch, S) -> list:
+    """The mesh handoff's assembly and split on the card: a one-device
+    pool (the flagship's 8 kv heads, 2 layers, 6 blocks of PAGED_KV_BLOCK
+    rows, bf16 and int8 with its scales) sliced along its heads as t = 2
+    and 4 tensor ranks hold it; each slice's snapshot of the same blocks,
+    joined, is the pool's own payload byte for byte, and the join splits
+    back into each slice."""
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    shape = (2, 6, 8, PAGED_KV_BLOCK, 128)
+    ids = [4, 0, 5]
+    rows = []
+    for kind in ("bfloat16", "int8"):
+        if kind == "int8":
+            bufs = [torch.randint(-127, 128, shape, generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                    for _ in range(2)]
+            bufs += [torch.rand(shape[:4], generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(2)]
+        else:
+            bufs = [torch.randn(shape, generator=gen, device="cuda",
+                                dtype=torch.bfloat16) for _ in range(2)]
+        pool = S._with_tensors(S.PrefixPool(k=bufs[0], v=bufs[1]), bufs)
+        meta = dict(model="default", kv_block=PAGED_KV_BLOCK,
+                    kv_dtype="int8" if kind == "int8" else "native",
+                    body_len=3 * PAGED_KV_BLOCK - 1, entry={})
+        whole = S._payload(S._snapshot_kv_blocks(pool, ids).wait(), **meta)
+        for t in (2, 4):
+            parts = [S._snapshot_kv_blocks(S._with_tensors(
+                pool, S.split_kv_heads(bufs, r, t)), ids).wait()
+                for r in range(t)]
+            joined = S.join_kv_heads(parts)
+            equal = S._payload(joined, **meta) == whole
+            back = all(torch.equal(a, b) for r in range(t) for a, b in
+                       zip(S.split_kv_heads(joined, r, t), parts[r]))
+            if not (equal and back):
+                fail(f"disagg: the kv heads' join at t={t} ({kind}) gives "
+                     f"the one-device payload: {equal}; the split gives "
+                     f"back each slice: {back}")
+            rows.append(dict(kind=kind, t=t, payload_equal=equal,
+                             split_back=back))
+    return rows
+
+
 def _disagg_identity(torch, G, T, S) -> list:
     """(a): the flagship widths at 2 layers, float32, DISAGG_F32 requests
     through a prefill replica (one slot on a pool of one request's
@@ -4977,9 +5070,7 @@ def _disagg_identity(torch, G, T, S) -> list:
     import numpy as np
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(71)
-    prompts = [rng.integers(0, 32768, int(n)).tolist()
-               for n in rng.integers(64, 513, DISAGG_F32)]
+    prompts = _disagg_prompts()
     cfg = T.TransformerConfig(vocab_size=32768, d_model=1024, n_layers=2,
                               n_heads=8, n_kv_heads=8, d_ff=4096,
                               dtype=torch.float32)
@@ -5259,6 +5350,11 @@ def phase_disagg(torch, ops) -> dict:
     ops.reset_launch_counts()
     rows = _disagg_identity(torch, G, T, S)
     counts_a = ops.launch_counts()
+    heads = _kv_heads_roundtrip(torch, S)
+    print(f"disagg (a): a one-device pool's slices along its 8 kv heads as "
+          f"tensor ranks hold them (t = 2 and 4, bf16 and int8 with its "
+          f"scales) join into its own payload byte for byte and split back "
+          f"into each slice: {len(heads)} of {len(heads)} cases")
     b = _disagg_http(torch, ops, serve)
     seconds = time.perf_counter() - t0
     for r in rows:
@@ -5301,7 +5397,7 @@ def phase_disagg(torch, ops) -> dict:
           f"0 in dispatch, in admission {b['admission_syncs']}; the phase "
           f"{seconds:.1f} s; {nvidia_smi_line()}")
     counts = {k: counts_a[k] + b["launches"][k] for k in counts_a}
-    print("disagg " + json.dumps(dict(identity=rows, http=b,
+    print("disagg " + json.dumps(dict(identity=rows, http=b, heads=heads,
                                       seconds=seconds, launches=counts,
                                       card=nvidia_smi_line())))
     return counts
@@ -6140,6 +6236,11 @@ def phase_moe(torch, ops, lm_train, lm_generate, A, G, T) -> dict:
 
 MESH_STEPS = 2
 MESH_MESHES = ("fsdp=-1", "seq=-1")
+# the on-demand capture of mesh (a)'s first run: the steps it adds, and
+# the window the smoke asks the driver for (the loop's end stops it
+# sooner). The StepTimer writes a record a step, so the flag is read at
+# the first measured step and the capture takes the steps after it
+MESH_PROFILE_STEPS, MESH_PROFILE_S = 2, 2.0
 MESH_LOSS_ATOL = 3e-2
 MESH_RING_N = (2, 4)
 # (shape B, H, L, D; out and lse tolerance; gradient tolerance), causal
@@ -6274,12 +6375,13 @@ _CONTRACT = ("TONY_COORDINATOR_ADDRESS", "TONY_PROCESS_ID",
 
 
 def _launched_child(name: str, script: str, args: list,
-                    timeout_s: int) -> tuple:
+                    timeout_s: int, on_submit=None) -> tuple:
     """``script`` (a Python program's text) run as a one-worker TonY job on
     the card through the port's launcher, with ``args`` -> (its standard
     output, the job's record). The child prints the runtime's contract as
     ``<name>_env {...}``; the coordinator must be the worker's registered
-    address (rank 0's), the world one."""
+    address (rank 0's), the world one. ``on_submit(job)`` runs while the
+    job does; its result is the record's ``on_submit``."""
     path = REPO / "build" / "chip_smoke" / f"{name}_child.py"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(f"import json as _j, os as _o\n"
@@ -6292,6 +6394,7 @@ def _launched_child(name: str, script: str, args: list,
                                   "tony.worker.command": command,
                                   "tony.application.timeout-ms":
                                       timeout_s * 1000}))
+    extra = on_submit(job) if on_submit is not None else None
     job.wait()
     out = (Path(job.client.job_dir) / "logs" / "worker_0.stdout").read_text()
     env = json.loads([ln for ln in out.splitlines()
@@ -6301,7 +6404,9 @@ def _launched_child(name: str, script: str, args: list,
     if env != want:
         fail(f"{name}: the runtime's contract {env}, expected {want} (rank "
              f"0's registered address)")
-    return out, dict(job.record(), contract=env)
+    return out, dict(job.record(), contract=env, on_submit=extra,
+                     job_dir=str(job.client.job_dir),
+                     task_metrics=job.task_metrics())
 
 
 # the child of the mesh phase's (a): lm_train launched by the port's
@@ -6319,13 +6424,20 @@ def counted(*args, **kwargs):
 R.ring_flash_fwd_rank = counted
 runs, argv = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 out = []
-for mesh, metrics in runs:
+for mesh, metrics, steps in runs:
     ops.reset_launch_counts()
     calls.clear()
-    rc = lm_train.main(argv + ["--mesh", mesh, "--metrics-out", metrics])
+    rc = lm_train.main(argv + ["--mesh", mesh, "--metrics-out", metrics,
+                               "--steps", str(steps)])
     out.append({"mesh": mesh, "rc": rc, "launches": ops.launch_counts(),
                 "ring_forwards": len(calls)})
 dist.destroy_process_group()
+# the libraries this process built or loaded, and its device-memory peak
+import torch
+from tony_tpu_torch.ops import _build
+print("mesh_child_memory " + json.dumps({
+    "libraries": _build.noted(),
+    "peak_mb": torch.cuda.max_memory_allocated() / 2**20}), flush=True)
 print("mesh_child " + json.dumps(out))
 """
 
@@ -6348,12 +6460,14 @@ def _mesh_bootstrap(train_losses) -> dict:
     training phase's first steps."""
     out_dir = REPO / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    runs = [(m, str(out_dir / f"mesh_{i}.json"))
+    runs = [(m, str(out_dir / f"mesh_{i}.json"),
+             MESH_STEPS + (MESH_PROFILE_STEPS if i == 0 else 0))
             for i, m in enumerate(MESH_MESHES)]
     argv = FLAGSHIP + ["--batch-size", str(TRAIN_BATCH), "--seq-len",
-                       str(TRAIN_SEQ), "--steps", str(MESH_STEPS)]
+                       str(TRAIN_SEQ), "--step-log-every", "1"]
     stdout, job = _launched_child("mesh", _MESH_CHILD,
-                                  [json.dumps(runs), json.dumps(argv)], 400)
+                                  [json.dumps(runs), json.dumps(argv)], 400,
+                                  on_submit=_ask_for_a_capture)
     wall = job["wall_s"]
     joined = [ln for ln in stdout.splitlines()
               if ln.startswith("process 0/1:")]
@@ -6362,14 +6476,15 @@ def _mesh_bootstrap(train_losses) -> dict:
         fail(f"mesh (a): expected an NCCL group a run, got {joined}")
     child = json.loads([ln for ln in stdout.splitlines()
                         if ln.startswith("mesh_child ")][-1][11:])
-    want = {"flash_fwd": MESH_STEPS * N_LAYERS, "flash_decode": 0,
-            "flash_bwd_dkdv": MESH_STEPS * N_LAYERS,
-            "flash_bwd_dq": MESH_STEPS * N_LAYERS}
-    totals = dict.fromkeys(want, 0)
+    totals = dict.fromkeys(("flash_fwd", "flash_decode", "flash_bwd_dkdv",
+                            "flash_bwd_dq"), 0)
     rows = []
-    for (mesh, metrics), rec, line in zip(runs, child, joined):
+    for (mesh, metrics, steps), rec, line in zip(runs, child, joined):
+        want = {"flash_fwd": steps * N_LAYERS, "flash_decode": 0,
+                "flash_bwd_dkdv": steps * N_LAYERS,
+                "flash_bwd_dq": steps * N_LAYERS}
         # the ring's forward runs once a layer a step under seq=-1
-        rings = MESH_STEPS * N_LAYERS if mesh.startswith("seq") else 0
+        rings = steps * N_LAYERS if mesh.startswith("seq") else 0
         if (rec["rc"] != 0 or rec["launches"] != want
                 or rec["ring_forwards"] != rings):
             fail(f"mesh (a) --mesh {mesh}: rc {rec['rc']}, launches "
@@ -6378,21 +6493,21 @@ def _mesh_bootstrap(train_losses) -> dict:
         m = json.loads(Path(metrics).read_text())
         losses = m["losses"]
         err = max(abs(a - b) for a, b in zip(losses, train_losses))
-        if len(losses) != MESH_STEPS or not all(map(math.isfinite, losses)) \
+        if len(losses) != steps or not all(map(math.isfinite, losses)) \
                 or err > MESH_LOSS_ATOL:
             fail(f"mesh (a) --mesh {mesh}: losses {losses} against the "
-                 f"training phase's {train_losses[:MESH_STEPS]} (atol "
+                 f"training phase's {train_losses[:steps]} (atol "
                  f"{MESH_LOSS_ATOL})")
         for k, n in rec["launches"].items():
             totals[k] += n
         rows.append(dict(mesh=mesh, joined=line, mesh_sizes=m["mesh"],
                          losses=losses, max_loss_diff=err,
-                         bitwise=losses == train_losses[:MESH_STEPS],
+                         bitwise=losses == train_losses[:steps],
                          steps_per_sec=m["steps_per_sec"],
                          launches=rec["launches"],
                          ring_forwards=rec["ring_forwards"]))
         print(f"mesh (a) --mesh {mesh}: {line}; losses {losses} against "
-              f"the training phase's {train_losses[:MESH_STEPS]}: max |diff| "
+              f"the training phase's {train_losses[:steps]}: max |diff| "
               f"{err:.3g} (atol {MESH_LOSS_ATOL}); launches "
               f"{rec['launches']}, ring forwards {rec['ring_forwards']}")
     print(f"mesh (a): launched as job {job['app_id']}: {job['status']}, the "
@@ -6401,7 +6516,92 @@ def _mesh_bootstrap(train_losses) -> dict:
           f"coordinator rank 0's registered address "
           f"{job['contract']['TONY_COORDINATOR_ADDRESS']}; the job "
           f"{wall:.1f} s")
-    return dict(runs=rows, child_wall_s=wall, launches=totals, job=job)
+    capture = _capture_checks(job, stdout, runs[0][2])
+    return dict(runs=rows, child_wall_s=wall, launches=totals, job=job,
+                capture=capture)
+
+
+def _ask_for_a_capture(job) -> dict:
+    """(b) of the observability hooks: once mesh (a)'s task runs, ask its
+    driver for a MESH_PROFILE_S capture with the client-signed
+    request_task_profile RPC (queued False while the task has no
+    container). The command rides the next heartbeat answer to the
+    executor, whose flag the child's StepTimer reads at its first
+    record."""
+    t0 = time.perf_counter()
+    while job._thread.is_alive() and time.perf_counter() - t0 < 300:
+        if job.client.request_profile("worker:0", MESH_PROFILE_S):
+            return dict(queued_after_s=round(time.perf_counter() - t0, 3))
+        time.sleep(0.2)
+    fail("mesh (a): request_task_profile never queued a capture")
+
+
+def _capture_checks(job, stdout: str, steps: int) -> dict:
+    """(b) and (c) on mesh (a)'s job: the flag was written (the
+    executor's relay) and consumed, the trace under logs/profiles/ names
+    K1's and K3-K5's mma kernels, and the step times of the first run
+    around the capture are printed; the step log's last record counts
+    the kernel libraries the child built or loaded, none after its
+    warm-up line, and the TaskMonitor's pushed device-memory peak is
+    within 1% of the child's own at its end."""
+    logs = Path(job["job_dir"]) / "logs"
+    flag = logs / ("worker_0.steps.jsonl.profile")
+    relayed = "profile command relayed" in (logs / "worker_0.stderr"
+                                            ).read_text()
+    traces = sorted((logs / "profiles").glob("worker_0_*/trace.*.json"))
+    if flag.exists() or not relayed or len(traces) != 1:
+        fail(f"mesh (b): the flag {'left behind' if flag.exists() else 'consumed'}"
+             f", relayed by the executor: {relayed}, traces {traces}")
+    text = traces[0].read_text()
+    events = json.loads(text)["traceEvents"]
+    kernels = collections.Counter(
+        k for e in events if e.get("cat") == "kernel"
+        for k in MMA_KERNELS if k in e.get("name", ""))
+    if set(kernels) != set(MMA_KERNELS):
+        fail(f"mesh (b): the capture's kernels {dict(kernels)}, expected "
+             f"each of {MMA_KERNELS}")
+    records = [json.loads(ln) for ln in
+               (logs / "worker_0.steps.jsonl").read_text().splitlines()]
+    # the first run's records: steps 1 .. steps - 1, its flag read at the
+    # first, the capture taking the steps after it
+    first = records[:steps - 1]
+    step_ms = {r["train_step"]: r["mean_step_s"] * 1e3 for r in first}
+    mem = json.loads([ln for ln in stdout.splitlines()
+                      if ln.startswith("mesh_child_memory ")][-1][18:])
+    last = records[-1]
+    pushed = job["task_metrics"].get("max_gpu_memory_peak_mb")
+    if (last["kernel_builds"] != len(mem["libraries"])
+            or last["kernel_builds_post_warm"] != 0):
+        fail(f"mesh (c): the step log's kernel_builds "
+             f"{last['kernel_builds']} ({last['kernel_builds_post_warm']} "
+             f"after warm-up) against the child's libraries "
+             f"{mem['libraries']}")
+    if pushed is None or abs(pushed - mem["peak_mb"]) > 0.01 * mem["peak_mb"]:
+        fail(f"mesh (c): the TaskMonitor pushed gpu_memory_peak_mb {pushed} "
+             f"against the child's max_memory_allocated {mem['peak_mb']:.1f}"
+             " MiB (1%)")
+    before = [v for k, v in step_ms.items() if k < 2]
+    during = [v for k, v in step_ms.items() if k >= 2]
+    print(f"mesh (b): a {MESH_PROFILE_S} s capture asked for "
+          f"{job['on_submit']['queued_after_s']:.3f} s after submit rode a "
+          f"heartbeat to the executor's flag (consumed) and the child's "
+          f"torch.profiler: {traces[0].name}, {len(text)} bytes, "
+          f"{len(events)} events, kernels {dict(kernels)}; the first run's "
+          f"step ms (host, a record a step) "
+          + ", ".join(f"step {k} {v:.1f}" for k, v in step_ms.items())
+          + f": captured {during} against {before} before the capture")
+    print(f"mesh (c): the step log's kernel_builds {last['kernel_builds']} "
+          f"= the child's libraries {mem['libraries']}, "
+          f"{last['kernel_builds_post_warm']} after warm-up; the "
+          f"TaskMonitor's pushed gpu_memory_peak_mb {pushed:.1f} against "
+          f"the child's max_memory_allocated {mem['peak_mb']:.1f} MiB at its "
+          f"end ({abs(pushed - mem['peak_mb']) / mem['peak_mb']:.2%})")
+    return dict(trace=traces[0].name, trace_bytes=len(text),
+                events=len(events), kernels=dict(kernels), step_ms=step_ms,
+                captured_ms=during, before_ms=before,
+                kernel_builds=last["kernel_builds"],
+                libraries=mem["libraries"], pushed_peak_mb=pushed,
+                child_peak_mb=mem["peak_mb"])
 
 
 def _mesh_ring_replay(torch, ops, A, R) -> list:
@@ -6490,6 +6690,9 @@ def phase_mesh(torch, ops, A, train_losses) -> dict:
 # one process at t = TP_REPLAY_T, float32 at the flagship's widths and
 # TP_REPLAY_LAYERS layers: TP_REPLAY_SHAPE (batch, prompt, fed steps)
 TP_F32 = (2, 1024, 16)
+# of run A's 20 greedy requests, those the serve --mesh tensor=1 check
+# sends (all 20 until the disaggregated handoff beside it needed the time)
+TP_SERVE_REQUESTS = 12
 TP_REPLAY_T = (2, 4)
 TP_REPLAY_LAYERS = 2
 TP_REPLAY_SHAPE = (2, 1024, 16)
@@ -6537,7 +6740,7 @@ del params, tp, plain
 torch.cuda.empty_cache()
 rng, lens, news, sampled, payloads = C._serve_payloads()
 greedy = [dict(p, logprobs=2) for i, p in enumerate(payloads)
-          if i not in sampled]
+          if i not in sampled][:args["serve_requests"]]
 runs = {}
 for name, extra in (("meshless", []), ("mesh", ["--mesh", "tensor=1"])):
     app, httpd, url = C._serve_app(serve, args["serve_argv"] + extra)
@@ -6555,6 +6758,40 @@ for name, extra in (("meshless", []), ("mesh", ["--mesh", "tensor=1"])):
                   "lockstep": stats.get("lockstep"),
                   "world": stats.get("world"), "mesh": stats.get("mesh")}
 out["serve"] = runs
+# a prefill role on the mesh hands the disaggregated (a) cell's requests
+# off to a meshless decode role; a meshless solo paged serve beside them
+prompts = C._disagg_prompts()
+disagg = {}
+for name, extra in (("prefill", ["--mesh", "tensor=1", "--role", "prefill"]),
+                    ("decode", ["--role", "decode"]), ("solo", [])):
+    app, httpd, url = C._serve_app(serve, args["serve_argv"] + ["--paged-kv"]
+                                   + extra)
+    eng = getattr(app.server, "_engine", app.server)
+    syncs = C._checked_dispatch(torch, eng)
+    if name == "decode":
+        bodies, url = handoffs, url.replace("/generate", "/kv/import")
+    else:
+        bodies = [dict(prompt=p, max_new_tokens=C.DISAGG_NEW, logprobs=2)
+                  for p in prompts]
+    res = C._post_all(url, bodies)
+    stats = app.stats()
+    C._stop_app(app, httpd)
+    rec = {"admission_syncs": syncs["admission"], "role": stats["role"],
+           "world": stats.get("world"),
+           "exports": stats["paged_kv"]["kv_exports"],
+           "imports": stats["paged_kv"]["kv_imports"],
+           "s": [r[2] for r in res]}
+    if name == "prefill":
+        handoffs = [r[1].get("handoff") for r in res]
+        rec["reasons"] = [r[1]["finish_reason"] for r in res]
+        rec["payload_bytes"] = [len(json.dumps(h)) for h in handoffs]
+    else:
+        rec["tokens"] = [r[1]["tokens"] for r in res]
+    if name == "solo":
+        rec["gaps"] = [[e["top"][1][0] - e["top"][1][1]
+                        for e in r[1]["logprobs"]] for r in res]
+    disagg[name] = rec
+out["disagg"] = disagg
 dist.destroy_process_group()
 print("tp_child " + json.dumps(out))
 """
@@ -6575,11 +6812,13 @@ def _tp_world_one(torch) -> dict:
                            str(out_dir / "tp_request0.json")] + extra
     serve_argv = SHALLOW + ["--dtype", "float32", "--port", "0"]
     stdout, job = _launched_child("tp", _TP_CHILD, [str(REPO), json.dumps(dict(
-        gen_argv=gen_argv, serve_argv=serve_argv, f32=list(TP_F32)))], 400)
+        gen_argv=gen_argv, serve_argv=serve_argv, f32=list(TP_F32),
+        serve_requests=TP_SERVE_REQUESTS))], 400)
     wall = job["wall_s"]
     child = json.loads([ln for ln in stdout.splitlines()
                         if ln.startswith("tp_child ")][-1][9:])
     bf16, f32, runs = child["bf16"], child["f32"], child["serve"]
+    disagg = _tp_disagg_checks(child["disagg"])
     tp0 = json.loads((out_dir / "tp_request0.json").read_text())
     want_bf16 = {"flash_fwd": 3 * N_LAYERS,
                  "flash_decode": 2 * N_LAYERS * (MAX_NEW - 1),
@@ -6632,8 +6871,46 @@ def _tp_world_one(torch) -> dict:
     return dict(bf16=bf16, f32=f32, serve={k: {n: v for n, v in r.items()
                                                 if n not in ("tokens", "gaps")}
                                             for k, r in runs.items()},
-                serve_parity=parity,
+                serve_parity=parity, disagg=disagg,
                 child_wall_s=wall, launches=launches, job=job)
+
+
+def _tp_disagg_checks(d) -> dict:
+    """(a)'s handoff: serve --mesh tensor=1 --role prefill at world 1 ->
+    a meshless serve --role decode, the disaggregated (a) cell's requests
+    at float32 and SERVE_CUT_LAYERS layers, against a meshless solo paged
+    serve: every request prefilled and handed off, the roles on /stats
+    as given, the decode role's tokens the solo's up to its first
+    near-tie, no synchronisation in admission."""
+    pre, dec, solo = d["prefill"], d["decode"], d["solo"]
+    n = len(solo["tokens"])
+    if (pre["reasons"] != ["prefilled"] * n or pre["role"] != "prefill"
+            or pre["world"] != 1 or dec["role"] != "decode"
+            or pre["exports"] != n or dec["imports"] != n):
+        fail(f"tp (a) disagg: prefill {pre['reasons']} role {pre['role']} "
+             f"world {pre['world']} exports {pre['exports']}; decode role "
+             f"{dec['role']} imports {dec['imports']} (expected {n})")
+    for name, rec in d.items():
+        if rec["admission_syncs"]:
+            fail(f"tp (a) disagg {name}: {rec['admission_syncs']} syncs in "
+                 "admission")
+    parity = [_near_tie_check(f"tp (a) disagg request {i}", got, want, gaps,
+                              DISAGG_NEW)
+              for i, (got, want, gaps) in enumerate(zip(
+                  dec["tokens"], solo["tokens"], solo["gaps"]))]
+    same = sum(r["diverge"] is None for r in parity)
+    print(f"tp (a) disagg: serve --mesh tensor=1 --role prefill (world "
+          f"{pre['world']}) -> serve --role decode without a mesh, {n} "
+          f"requests of 64-512 tokens, {DISAGG_NEW} new, float32, "
+          f"{SERVE_CUT_LAYERS} layers: {n} prefilled and imported, tokens "
+          f"equal to the solo paged serve's up to its first near-tie "
+          f"({same} exactly); payload bytes {sum(pre['payload_bytes'])}; "
+          f"the prefill leg p50 {_quantiles(pre['s'])['p50']:.3f} s, the "
+          f"decode leg p50 {_quantiles(dec['s'])['p50']:.3f} s; 0 syncs in "
+          f"dispatch and admission")
+    return dict(requests=n, exactly_equal=same, parity=parity,
+                payload_bytes=pre["payload_bytes"],
+                prefill_s=pre["s"], decode_s=dec["s"], solo_s=solo["s"])
 
 
 def _tp_replay(torch, ops, A, DA, G, T, R) -> dict:
@@ -7673,8 +7950,12 @@ def phase_train_profile(torch, T) -> None:
                                max_seq_len=TRAIN_SEQ)
     rows = {}
     for policy in (None,) + REMAT_POLICIES:
-        cfg = dataclasses.replace(base, remat=policy is not None,
-                                  remat_policy=policy or "full")
+        # the remat policies at TRAIN_PROFILE_REMAT_LAYERS (the remat
+        # phase runs them at the flagship's depth)
+        cfg = dataclasses.replace(
+            base, remat=policy is not None, remat_policy=policy or "full",
+            n_layers=N_LAYERS if policy is None
+            else TRAIN_PROFILE_REMAT_LAYERS)
         rows[policy or "off"] = _train_step_profile(torch, cfg, policy)
     print("remat_profile " + json.dumps(rows))
 
@@ -7699,7 +7980,8 @@ def _train_step_profile(torch, cfg, policy, batch=TRAIN_BATCH,
         torch.cuda.synchronize()
 
     steps(1)                                    # warm
-    n = 3
+    # timed steps (3 until the observability checks needed the time)
+    n = 2
     t0 = time.perf_counter()
     steps(n)
     wall_ms = (time.perf_counter() - t0) * 1e3 / n

@@ -517,8 +517,7 @@ def test_unported_driver_chaos_rpc_and_provisioner_raise(tmp_path):
     svc = pdriver.DriverService(None)
     for method, item in (("roll_task", "router"),
                          ("preempt_task", "elastic"),
-                         ("notify_preemption", "elastic"),
-                         ("request_task_profile", "observability")):
+                         ("notify_preemption", "elastic")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(svc, method)("worker:0")
     conf.set("tony.cluster.provisioner", "tpu-pod")

@@ -160,10 +160,11 @@ def test_loss_and_gradients_match_jax(train_moe, policy):
 
 @pytest.fixture(scope="module")
 def train_ref(gen_moe):
-    """A batch of 8 x 16 (numpy seed 3, next-token targets) and the JAX
-    loss and gradient norm of GEN_MOE on it."""
+    """A batch of 4 x 16 (numpy seed 3, next-token targets; 8 x 16 until
+    the per-test time budget needed it) and the JAX loss and gradient norm
+    of GEN_MOE on it."""
     jcfg, _, tree, _ = gen_moe["target"]
-    tokens = _ids(3, 8, 16, 128)
+    tokens = _ids(3, 4, 16, 128)
     targets = np.roll(tokens, -1, axis=1)
     loss, grads = jax.value_and_grad(jT.loss_fn)(
         tree, jnp.asarray(tokens), jnp.asarray(targets), jcfg)
@@ -173,7 +174,7 @@ def train_ref(gen_moe):
 
 def test_moe_model_trains(gen_moe, train_ref):
     """test_models.py:107's counterpart on one device (its model, GEN_MOE):
-    eight steps on one batch of 8 x 16 lower the loss by more than 0.05;
+    eight steps on one batch of 4 x 16 lower the loss by more than 0.05;
     the first step's loss and gradient norm are the JAX loss_fn's."""
     _, cfg, tree, _ = gen_moe["target"]
     tokens, targets, want_loss, want_norm = train_ref
@@ -407,8 +408,17 @@ ENGINES = {"ring": {}, "paged": dict(paged=True, kv_block=4),
            "ring_self_draft": "self", "paged_self_draft": "self_paged"}
 
 
+@pytest.fixture(scope="module")
+def port_solo_served(gen_moe):
+    """The port's solo generate for PROMPTS, once for every engine."""
+    _, cfg, _, params = gen_moe["target"]
+    return [G.generate(params, cfg, torch.from_numpy(p).long()[None],
+                       b)[0].tolist() for p, b in zip(PROMPTS, BUDGETS)]
+
+
 @pytest.mark.parametrize("engine", sorted(ENGINES))
-def test_slot_server_matches_jax_server_and_solo(gen_moe, served, engine):
+def test_slot_server_matches_jax_server_and_solo(gen_moe, served,
+                                                 port_solo_served, engine):
     """The SlotServer on an MoE config, ring and paged, with and without a
     self-draft (spec_gamma 3): every request's greedy tokens equal the JAX
     SlotServer's and solo generate's (the port's and the JAX one's)."""
@@ -429,9 +439,7 @@ def test_slot_server_matches_jax_server_and_solo(gen_moe, served, engine):
     got = [done[r.id].tokens for r in reqs]
     srv.shutdown()
     assert got == want_srv == want_solo
-    port_solo = [G.generate(params, cfg, torch.from_numpy(p).long()[None],
-                            b)[0].tolist() for p, b in zip(PROMPTS, BUDGETS)]
-    assert got == port_solo
+    assert got == port_solo_served
     if "draft" in engine:
         st = srv.stats()["speculative"]
         assert st["rounds"] > 0 and st["accepted_tokens"] > 0

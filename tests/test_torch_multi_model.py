@@ -259,8 +259,11 @@ def _shape(v, path="", out=None):
 # /stats keys of one side only (as test_torch_serving_telemetry.py's
 # lists), here also inside each model's payload
 PORT_ONLY = {"torch_device", "replay", "decode_block_dispatch_ms_p50",
-             "journal.compactions"}
-JAX_ONLY = {"compile"}
+             "journal.compactions", "compile.kernel_builds",
+             "compile.kernel_nvcc_builds", "compile.kernel_build_time_s",
+             "compile.kernel_builds_post_warm"}
+JAX_ONLY = {"compile.compiles", "compile.compile_time_s",
+            "compile.recompiles_post_warm"}
 
 
 def test_stats_keys_and_types_equal_jax_multi_model_app(models):

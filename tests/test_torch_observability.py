@@ -33,14 +33,28 @@ from tony_tpu_torch.observability import (
     TraceContext,
 )
 
-# /metrics families of the JAX package's serve that the port leaves out,
-# each with the ROADMAP.md queue-1 item that brings it (README.md names
-# the same set):
+# /metrics families of the JAX package's serve that the port renders under
+# other names (README.md names the same set): the XLA compile counters are
+# the kernel-library build counters, serving_kernel_build_seconds,
+# serving_kernel_builds_total and serving_kernel_builds_post_warm_total
 LEFT_OUT_FAMILIES = {
-    # item 9, observability hooks: compile counters as CUDA-graph captures
     "serving_xla_compile_seconds", "serving_xla_compiles_total",
     "serving_xla_recompiles_post_warm_total",
 }
+# each left-out family's counterpart in the port's serve
+RENAMED_FAMILIES = {
+    "serving_xla_compile_seconds": "serving_kernel_build_seconds",
+    "serving_xla_compiles_total": "serving_kernel_builds_total",
+    "serving_xla_recompiles_post_warm_total":
+        "serving_kernel_builds_post_warm_total",
+}
+# the executor accumulator's names for the training child's build counters,
+# against the JAX package's XLA compile counters they stand in for
+KERNEL_FOR_XLA = {
+    "KERNEL_BUILDS": ("kernel_builds", "XLA_COMPILES"),
+    "KERNEL_BUILD_TIME_S": ("kernel_build_time_s", "XLA_COMPILE_TIME_S"),
+    "KERNEL_BUILDS_POST_WARM": ("kernel_builds_post_warm",
+                                "XLA_RECOMPILES_POST_WARM")}
 
 # one exposition line: a comment, or name{labels} value
 _PROM_LINE = re.compile(
@@ -390,8 +404,10 @@ def test_metrics_names_rendered_and_documented():
     exactly the left-out families above; every one is rendered by the
     port's serve and named in README.md's port section, with every
     left-out family. The launch path's names (the driver's families, the
-    executor's accumulator) are the JAX package's too, and every driver
-    family is rendered by the port's driver."""
+    executor's accumulator) are the JAX package's too, but for the build
+    counters, which stand in for the XLA compile counters name for name
+    (``KERNEL_FOR_XLA``), and every driver family is rendered by the
+    port's driver."""
     from pathlib import Path
 
     import tony_tpu_torch.cli.serve as serve_mod
@@ -401,9 +417,15 @@ def test_metrics_names_rendered_and_documented():
              if k.isupper() and isinstance(v, str)}
     ours = {k: v for k, v in names.items() if k.startswith("SERVING_")}
     launch = {k: v for k, v in names.items()
-              if not k.startswith(("SERVING_", "GPU_"))}
+              if not k.startswith(("SERVING_", "GPU_", "KERNEL_"))}
     assert launch and all(getattr(jmetrics, k) == v
                           for k, v in launch.items())
+    kernel = {k for k in names if k.startswith("KERNEL_")}
+    assert kernel == set(KERNEL_FOR_XLA)
+    for k, (value, x) in KERNEL_FOR_XLA.items():
+        assert names[k] == value
+        assert (value in pmetrics._COUNTER_NOTES) == \
+            (getattr(jmetrics, x) in jmetrics._COUNTER_NOTES)
     driver_src = inspect.getsource(driver_mod)
     assert not [k for k in launch if k.startswith("DRIVER_")
                 and k not in driver_src]

@@ -89,7 +89,14 @@ _LAUNCHER_IMPORT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
 import tony_tpu_torch.client, tony_tpu_torch.driver, tony_tpu_torch.executor
-import tony_tpu_torch.cli.main
+import tony_tpu_torch.cli.main, tony_tpu_torch.metrics, tony_tpu_torch.rpc
+from tony_tpu_torch.driver import Driver, DriverService
+from tony_tpu_torch.executor import Heartbeater, write_profile_flag
+from tony_tpu_torch.observability import COMPILE_TELEMETRY
+# the profile relay and the build counters the launcher carries
+assert callable(Driver.request_profile) and callable(write_profile_flag)
+assert callable(DriverService.request_task_profile)
+assert COMPILE_TELEMETRY.snapshot()["kernel_builds"] == 0
 assert "torch" not in sys.modules, sorted(sys.modules)
 from tony_tpu_torch import resolve_device      # lazy: this imports torch
 print("ok" if "torch" in sys.modules else "lazy import missed")

@@ -90,26 +90,44 @@ def _jax_serve_all(model, prompts, budgets, **kw):
     return [done[r.id].tokens for r in reqs], srv
 
 
+def _hit_path_requests():
+    prompts = _templated(6, 101)
+    prompts.append(np.concatenate([TEMPLATE, TEMPLATE[:1]]))
+    return prompts, [5 + (i % 3) for i in range(len(prompts))]
+
+
+@pytest.fixture(scope="module")
+def hit_path_refs(model):
+    """The JAX SlotServer's completions and stats with its prefix cache,
+    under either admission policy, and solo generate's, once."""
+    prompts, budgets = _hit_path_requests()
+    jax_ = {}
+    for batched in (True, False):
+        toks, jsrv = _jax_serve_all(model, prompts, budgets,
+                                    prefix_cache_blocks=8,
+                                    batched_admission=batched)
+        jax_[batched] = toks, jsrv.stats()
+    return jax_, [_solo(model, p, b) for p, b in zip(prompts, budgets)]
+
+
 @pytest.mark.parametrize("batched", [True, False],
                          ids=["batched", "per_slot"])
-def test_prefix_cache_hit_path_token_identical(model, batched):
+def test_prefix_cache_hit_path_token_identical(model, hit_path_refs,
+                                               batched):
     """Completions with the cache on equal the cold engine's, the JAX
     SlotServer's with its prefix cache, and solo generate, the prompt
     whose body is exactly the cached prefix (nothing left to prefill)
     included; the counters match the JAX server's."""
-    prompts = _templated(6, 101)
-    prompts.append(np.concatenate([TEMPLATE, TEMPLATE[:1]]))
-    budgets = [5 + (i % 3) for i in range(len(prompts))]
+    prompts, budgets = _hit_path_requests()
     kw = dict(batched_admission=batched)
     cold, cold_srv = _serve_all(model, prompts, budgets, **kw)
     warm, srv = _serve_all(model, prompts, budgets, prefix_cache_blocks=8,
                            **kw)
-    jwarm, jsrv = _jax_serve_all(model, prompts, budgets,
-                                 prefix_cache_blocks=8, **kw)
+    (jwarm, jst), solo = hit_path_refs[0][batched], hit_path_refs[1]
     assert warm == cold == jwarm
-    for toks, p, b in zip(warm, prompts, budgets):
-        assert toks == _solo(model, p, b)
-    st, jst = srv.stats(), jsrv.stats()
+    for toks, want in zip(warm, solo):
+        assert toks == want
+    st = srv.stats()
     assert st["prefix_cache"] == jst["prefix_cache"]
     assert st["prefill_tokens_reused"] == jst["prefill_tokens_reused"] >= \
         4 * TEMPLATE.size

@@ -380,18 +380,37 @@ def test_batched_admission_makes_fewer_calls(model):
     assert counts[True] < counts[False], counts
 
 
-def test_slot_server_eos_matches_jax(model):
+EOS_SERVER = dict(slots=2, max_len=64, block_size=4, prefill_chunk=8,
+                  pad_id=255)
+
+
+@pytest.fixture(scope="module")
+def eos_reference(model):
+    """The EOS requests, their stop token (the port's solo fourth token of
+    the first), the JAX SlotServer's completions and JAX generate's
+    streams with it, once."""
+    jcfg, _, tree, _ = model
+    prompts = _prompts(6, seed=11)
+    stop = _port_solo(model, prompts[0], 10)[3]
+    jsrv = JSlotServer(tree, jcfg, stop_tokens=(stop,), **EOS_SERVER)
+    jreqs = [JRequest(prompt=p, max_new_tokens=10) for p in prompts]
+    for r in jreqs:
+        jsrv.submit(r)
+    jdone = jsrv.run_until_drained()
+    solo = [_jax_solo(model, p, 10, stop_tokens=(stop,), pad_id=255)
+            for p in prompts]
+    return prompts, stop, [jdone[r.id] for r in jreqs], solo
+
+
+def test_slot_server_eos_matches_jax(model, eos_reference):
     """Stop tokens end requests mid-block (EOS mode: blocks read behind
     the pipeline lag); streams end with the stop token, as the JAX
     SlotServer's and JAX generate(stop_tokens=..., pad_id=...)'s do."""
-    prompts = _prompts(6, seed=11)
-    stop = _port_solo(model, prompts[0], 10)[3]
-    got, want, _ = _serve(model, prompts, [10] * 6, slots=2, max_len=64,
-                          block_size=4, prefill_chunk=8, stop_tokens=(stop,),
-                          pad_id=255)
+    prompts, stop, want, solo = eos_reference
+    got, _, _ = _serve(model, prompts, [10] * 6, jax_too=False,
+                       stop_tokens=(stop,), **EOS_SERVER)
     saw_stop = False
-    for g, w, p in zip(got, want, prompts):
-        ref = _jax_solo(model, p, 10, stop_tokens=(stop,), pad_id=255)
+    for g, w, ref in zip(got, want, solo):
         if stop in ref:
             ref = ref[:ref.index(stop) + 1]
             saw_stop = True

@@ -27,7 +27,8 @@ import jax
 import numpy as np
 import pytest
 
-from test_torch_observability import _PROM_LINE, LEFT_OUT_FAMILIES
+from test_torch_observability import (_PROM_LINE, LEFT_OUT_FAMILIES,
+                                      RENAMED_FAMILIES)
 from tony_tpu import observability as jobs
 from tony_tpu.cli.serve import ServeApp as JServeApp
 from tony_tpu.models import serving as jS
@@ -396,15 +397,16 @@ def _family_set(app, prompt):
 def test_metrics_families_equal_jax_serve(model, paged):
     """One request through the port's ServeApp and through the JAX
     package's, for the same engine mode: the port's exposition parses
-    strictly, and its family set is the JAX serve's less exactly the
-    left-out families. Paged: the pool's families equal /stats'
-    ``paged_kv``."""
+    strictly, and its family set is the JAX serve's with exactly the
+    left-out families renamed (the XLA compile counters as kernel-library
+    builds). Paged: the pool's families equal /stats' ``paged_kv``."""
     kw = dict(paged=True, kv_block=4) if paged else {}
     prompt = _prompt(7, seed=17)
     app = ServeApp(_srv(model, **kw))
     text, ours = _family_set(app, prompt)
     _, ref = _family_set(JServeApp(_jsrv(model, **kw)), prompt)
-    assert ours == ref - LEFT_OUT_FAMILIES
+    assert ours == (ref - LEFT_OUT_FAMILIES) | {
+        RENAMED_FAMILIES[f] for f in ref & LEFT_OUT_FAMILIES}
     assert ref & LEFT_OUT_FAMILIES, "the JAX serve renders them"
     assert any(f.startswith("serving_kv_pool") for f in ours) is paged
     if paged:
@@ -427,9 +429,14 @@ PORT_ONLY_STATS = {
     "replay",               # replay on or off, also under "journal"
     "decode_block_dispatch_ms_p50",     # a block's host dispatch
     "journal.compactions",  # the journal file's rewrites
+    # the kernel-library builds, and of them nvcc's ...
+    "compile.kernel_builds", "compile.kernel_nvcc_builds",
+    "compile.kernel_build_time_s", "compile.kernel_builds_post_warm",
 }
 JAX_ONLY_STATS = {
-    "compile",              # ROADMAP queue 1 item 9, compile counters
+    # ... where the JAX serve counts XLA compiles
+    "compile.compiles", "compile.compile_time_s",
+    "compile.recompiles_post_warm",
 }
 
 

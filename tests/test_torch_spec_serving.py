@@ -180,18 +180,28 @@ def jax_spec_parity(target, draft):
             for regime, d in (("random_draft", draft), ("self_draft", target))}
 
 
+@pytest.fixture(scope="module")
+def port_parity_refs(target):
+    """The port's spec-off server and solo generate on the parity
+    requests, once for both regimes."""
+    _, plain = _burst(_srv(target), PARITY_PROMPTS, PARITY_BUDGETS)
+    solo = [_solo(target, p, b) for p, b in zip(PARITY_PROMPTS,
+                                                PARITY_BUDGETS)]
+    return [c.tokens for c in plain], solo
+
+
 @pytest.mark.parametrize("regime", ["random_draft", "self_draft"])
 def test_spec_parity_with_jax_spec_off_and_solo(target, draft,
-                                                jax_spec_parity, regime):
+                                                jax_spec_parity,
+                                                port_parity_refs, regime):
     prompts, budgets = PARITY_PROMPTS, PARITY_BUDGETS
     d = draft if regime == "random_draft" else target
     spec = _srv(target, d, spec_gamma=2)
     reqs, got = _burst(spec, prompts, budgets)
-    _, plain = _burst(_srv(target), prompts, budgets)
+    plain, solo = port_parity_refs
     jtoks, jst = jax_spec_parity[regime]
     for i, c in enumerate(got):
-        want = _solo(target, prompts[i], budgets[i])
-        assert c.tokens == want == plain[i].tokens == jtoks[i], i
+        assert c.tokens == solo[i] == plain[i] == jtoks[i], i
         assert c.finish_reason == "length"
     st = spec.stats()["speculative"]
     for k in ("rounds", "proposed_tokens", "accepted_tokens",
@@ -209,15 +219,23 @@ def test_spec_parity_with_jax_spec_off_and_solo(target, draft,
     spec.shutdown()
 
 
-def test_spec_eos_matches_generate(target, draft):
+@pytest.fixture(scope="module")
+def eos_refs(target):
+    """The EOS requests, their stop token (solo's fifth token of the
+    first) and solo generate's streams with it."""
     prompts = _prompts(6, 11)
-    solo = [_solo(target, p, 10) for p in prompts]
-    stop = solo[0][4]
+    stop = _solo(target, prompts[0], 10)[4]
+    return prompts, stop, [_solo(target, p, 10, stop_tokens=(stop,))
+                           for p in prompts]
+
+
+def test_spec_eos_matches_generate(target, draft, eos_refs):
+    prompts, stop, solo = eos_refs
     spec = _srv(target, draft, spec_gamma=2, stop_tokens=(stop,))
     _, got = _burst(spec, prompts, [10] * 6)
     stopped = 0
     for i, c in enumerate(got):
-        want = _solo(target, prompts[i], 10, stop_tokens=(stop,))
+        want = solo[i]
         if stop in want:                # generate pads past the stop
             want = want[:want.index(stop) + 1]
             stopped += 1

@@ -299,7 +299,8 @@ def test_step_timer_records(tmp_path):
     recs = [json.loads(line) for line in log.read_text().splitlines()]
     assert [r["step"] for r in recs] == [2, 4, 6]
     assert set(recs[0]) == {"step", "mean_step_s", "steps_per_sec", "p50_s",
-                            "p99_s", "ts", "train_step"}
+                            "p99_s", "ts", "train_step", "kernel_builds",
+                            "kernel_build_time_s", "kernel_builds_post_warm"}
     assert recs[-1]["train_step"] == 5 and timer.steps_per_sec > 0
 
 

@@ -550,6 +550,115 @@ def _moe_ffn(inp: dict, rank: int, world: int) -> dict:
     return {"out": out, "experts": e}
 
 
+def _disagg_mesh(inp: dict, rank: int, world: int) -> dict:
+    """Disaggregated roles on meshes, each run of ``inp["runs"]`` (name ->
+    {"mesh", "kw": SlotServer keyword arguments, "kind", ...}) an engine
+    on its mesh in lockstep (parallel/lockstep.py: rank 0 leads, the
+    others follow). Kinds: "prefill" submits ``prompts`` with ``budgets``
+    and exports every payload through JSON; "decode" imports
+    ``payloads`` and decodes them; "refuse" imports ``torn`` (each must
+    raise ValueError on rank 0), then ``payloads`` until one raises
+    QueueFullError. Rank 0 returns each run's results, every rank its
+    host digest and allocator check; "alone" (name -> {"mesh", "kw",
+    "payloads"}) imports on every rank without the lockstep until
+    QueueFullError -> its index and Retry-After."""
+    import json
+    import time
+
+    from tony_tpu_torch.models.convert import config_from_fields
+    from tony_tpu_torch.models.generate import prepare_decode
+    from tony_tpu_torch.models.serving import (QueueFullError, Request,
+                                               SlotServer)
+    from tony_tpu_torch.parallel import mesh_from_string
+    from tony_tpu_torch.parallel.lockstep import (Leader, Lockstep, follow,
+                                                  run_turn)
+
+    cfg = config_from_fields(inp["cfg"])
+    meshes, out = {}, {}
+
+    def engine(run):
+        key = run["mesh"]
+        if key not in meshes:
+            mesh = mesh_from_string(key, "cpu")
+            meshes[key] = prepare_decode(inp["params"], cfg, mesh=mesh)
+        return SlotServer(meshes[key], cfg, device="cpu", **run["kw"])
+
+    for name, run in inp.get("runs", {}).items():
+        eng = engine(run)
+        ls = Lockstep()
+        res = {}
+        if rank:
+            follow(eng, ls)
+        else:
+            lead, done = Leader(eng, ls), {}
+
+            def turn():
+                ls.lead(eng, time.monotonic(), False)
+                _, got, exc, _ = run_turn({"e": lead}, False)
+                if exc is not None:
+                    raise exc
+                done.update(got)
+
+            if run["kind"] == "prefill":
+                reqs = [Request(prompt=p, max_new_tokens=b)
+                        for p, b in zip(run["prompts"], run["budgets"])]
+                for r in reqs:
+                    lead.submit(r)
+                while any(r.id not in done or len(eng._exports[r.id].parts)
+                          < eng._exports[r.id].n_parts for r in reqs):
+                    turn()
+                res["reasons"] = [done[r.id].finish_reason for r in reqs]
+                res["payloads"] = [json.loads(json.dumps(
+                    eng.export_blocks(r.id, timeout_s=0))) for r in reqs]
+            elif run["kind"] == "decode":
+                rids = [lead.import_blocks(pl) for pl in run["payloads"]]
+                while not all(r in done for r in rids):
+                    turn()
+                res["tokens"] = [done[r].tokens for r in rids]
+                res["imports"] = eng.kv_imports
+            else:
+                errs = []
+                for bad in run["torn"]:
+                    try:
+                        lead.import_blocks(bad)
+                        errs.append(None)
+                    except ValueError as e:
+                        errs.append(str(e))
+                    turn()
+                res["torn"] = errs
+                res["rejects"] = eng.kv_import_rejects
+                rids = []
+                for pl in run["payloads"]:
+                    try:
+                        rids.append(lead.import_blocks(pl))
+                    except QueueFullError as e:
+                        res["full_at"] = len(rids)
+                        res["retry_after_s"] = e.retry_after_s
+                        break
+                while not all(r in done for r in rids):
+                    turn()
+                res["tokens"] = [done[r].tokens for r in rids]
+            ls.close()
+        eng._allocator.check()
+        res["digest"] = eng.host_digest()
+        eng.shutdown()
+        out[name] = res
+    for name, run in inp.get("alone", {}).items():
+        eng = engine(run)
+        res = {"full_at": None}
+        for i, pl in enumerate(run["payloads"]):
+            try:
+                eng.import_blocks(pl)
+            except QueueFullError as e:
+                res.update(full_at=i, retry_after_s=e.retry_after_s)
+                break
+        eng._allocator.check()
+        res["digest"] = eng.host_digest()
+        eng.shutdown()
+        out[name] = res
+    return out
+
+
 def _multi(inp: dict, rank: int, world: int) -> dict:
     """Several tasks in one launch: ``inp["tasks"]`` name -> (task, its
     inputs)."""
@@ -563,7 +672,7 @@ TASKS = {"attention": _attention, "train": _train,
          "serve_mesh": _serve_mesh, "serve_mesh_shed": _serve_mesh_shed,
          "lm_generate": _lm_generate, "pipeline_fns": _pipeline_fns,
          "pipeline_step": _pipeline_step, "moe_ffn": _moe_ffn,
-         "multi": _multi}
+         "disagg_mesh": _disagg_mesh, "multi": _multi}
 
 
 def main() -> int:

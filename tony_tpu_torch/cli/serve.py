@@ -125,8 +125,19 @@ blocks, kept in step by parallel/lockstep.py: rank 0 binds ``--port``
 (the serving job passes ``$TONY_SERVE_PORT``) and owns HTTP, admission,
 the journal, traces and streams; the other ranks bind nothing and follow
 its turns. /stats gains ``world`` and ``lockstep`` (the turn exchange's
-host seconds); the engine's ``mesh`` is the mesh's shape. /metrics has no
-compile families (ROADMAP.md queue 1).
+host seconds); the engine's ``mesh`` is the mesh's shape. ``--role
+prefill|decode`` composes with ``--mesh``: rank 0's /generate answers a
+prefill role's handoff assembled from every rank's kv heads, and its
+/kv/import hands each rank its heads (models/serving.py); the payload is
+a one-device replica's, so any topology hands off to any other.
+
+Kernel-library builds: /metrics renders ``serving_kernel_build_seconds``
+(the nvcc or load seconds of each kernel library this process made
+ready), ``serving_kernel_builds_total`` and
+``serving_kernel_builds_post_warm_total`` (those after the first
+delivered completion, which should stay 0), and /stats their snapshot as
+``compile`` (observability.py ``CompileTelemetry``: the counterparts of
+the JAX package's ``serving_xla_*`` families).
 """
 
 from __future__ import annotations
@@ -637,6 +648,7 @@ class ServeApp:
     def __init__(self, server, *, max_loop_restarts: int = 3,
                  loop_backoff_s: float = 0.5, trace_dir: str = "",
                  journal_checkpoint_s: float = 1.0, lockstep=None):
+        from ..observability import COMPILE_TELEMETRY
         from ..train.profiling import StepTimer
 
         if isinstance(server, dict):
@@ -697,7 +709,12 @@ class ServeApp:
         # what is left of it
         self._autoscale_hint: tuple[float, float] = (0.0, 0.0)
         self.metrics = _metrics.MetricsAccumulator()
-        self._turn_timer = StepTimer()
+        # the loop's turns tick before any request made a kernel ready: the
+        # warm-up line is the first delivered completion (_deliver)
+        self._turn_timer = StepTimer(compile_warm_on_step=False)
+        # the kernel libraries this process built or loaded
+        # (observability.CompileTelemetry, fed by ops/_build.py)
+        self.compile_telemetry = COMPILE_TELEMETRY
         self.trace_dir = trace_dir
         self._trace_writer = None
         # one profiler capture at a time (torch.profiler is process-wide)
@@ -896,6 +913,10 @@ class ServeApp:
                 time.sleep(0)
 
     def _deliver(self, done: dict) -> None:
+        # the first delivered completion ran every kernel the serving path
+        # needs: a library made ready after it counts as post warm-up
+        # (idempotent: only the first call draws the line)
+        self.compile_telemetry.mark_warm()
         with self.lock:
             for rid, comp in done.items():
                 ev = self._events.pop(rid, None)
@@ -1461,6 +1482,20 @@ class ServeApp:
                       dev.get("reap_errors", 0),
                       "tracked fences whose wait raised (died with a "
                       "failed dispatch)")
+        # the kernel libraries this process built or loaded: nonzero
+        # post-warm builds in steady state mean a request paid for one
+        ct = self.compile_telemetry
+        comp = st["compile"]
+        r.histogram("serving_kernel_build_seconds", ct.hist_copy(),
+                    "nvcc seconds of each kernel library this process "
+                    "built, or the seconds of its load from the build "
+                    "directory")
+        r.counter("serving_kernel_builds_total", comp["kernel_builds"],
+                  "kernel libraries this process built or loaded")
+        r.counter("serving_kernel_builds_post_warm_total",
+                  comp["kernel_builds_post_warm"],
+                  "kernel libraries built or loaded after the first "
+                  "delivered completion")
         for entry in st.get("metrics", []):
             r.gauge("serving_task_metric", entry["value"],
                     "MetricsAccumulator snapshot (max_/avg_ per gauge)",
@@ -1573,6 +1608,8 @@ class ServeApp:
         # one (a test stand-in) serves both
         out["role"] = out.get("role") or getattr(self.server, "role", "both")
         out["metrics"] = self.metrics.snapshot()
+        # the kernel-build counters /metrics renders
+        out["compile"] = self.compile_telemetry.snapshot()
         return out
 
     def capture_profile(self, seconds: float) -> dict:

@@ -296,6 +296,18 @@ class TonyClient:
         status = self.monitor()
         return 0 if status == JobStatus.SUCCEEDED else 1
 
+    def request_profile(self, task_id: str, seconds: float = 5.0) -> bool:
+        """Ask the driver for an on-demand profiler capture of ``task_id``
+        (the client-signed ``request_task_profile`` RPC) -> whether it was
+        queued: False while the task has no container yet or is over. The
+        trace lands under the job's ``logs/profiles/``."""
+        rpc = self._connect()
+        try:
+            return bool(rpc.call("request_task_profile", task_id=task_id,
+                                 seconds=float(seconds)))
+        finally:
+            rpc.close()
+
     def stop(self) -> None:
         """Force-kill the application (reference forceKillApplication via the
         shutdown hook in ClusterSubmitter.java:49-84): the driver's SIGTERM

@@ -66,8 +66,15 @@ DRIVER_JOURNAL_FILE = "driver.journal.jsonl"  # the control-plane journal
 # for it and the training loop exits EXIT_PREEMPTED at the next step
 # boundary
 PREEMPT_REQUEST_SUFFIX = ".preempt"
+# on-demand profiler capture: the executor writes `$TONY_STEP_LOG<suffix>`
+# (JSON {"seconds": N, "out_dir": path}, through a temporary file and a
+# rename, so the child never reads a torn request) when the driver relays
+# a profile command on a heartbeat's answer; the training child's
+# StepTimer polls for it at record cadence, captures a torch.profiler
+# trace for N seconds into out_dir and deletes the flag
+PROFILE_REQUEST_SUFFIX = ".profile"
 # serve's GET /debug/profile writes its captures under
-# <trace-dir>/<PROFILE_DIR_NAME>/
+# <trace-dir>/<PROFILE_DIR_NAME>/, a job's under logs/<PROFILE_DIR_NAME>/
 PROFILE_DIR_NAME = "profiles"
 
 # ---- fault-injection hooks (production code paths keyed off env vars)

@@ -18,9 +18,13 @@ Capacity comes from a Provisioner; the "container" is an executor process
 runs under ``python -S`` and imports no torch: it never holds a CUDA
 context.
 
-Every other feature of the JAX driver raises at ``prepare`` when its conf
-key is set (``check_ported``), naming its ROADMAP.md queue 1 item, and its
-RPC methods refuse by name; nothing falls back quietly.
+An operator asks a running task for a profiler capture with the
+client-only ``request_task_profile`` RPC (or GET /profile on the metrics
+port while token auth is off); the command rides the task's next
+heartbeat answer. Every other feature of the JAX driver raises at
+``prepare`` when its conf key is set (``check_ported``), naming its
+ROADMAP.md queue 1 item, and its RPC methods refuse by name; nothing
+falls back quietly.
 """
 
 from __future__ import annotations
@@ -78,7 +82,6 @@ AUTOSCALE = "the autoscaler, the arbiter and the metrics hub/SLOs"
 ELASTIC = "elastic resize, donation, preemption and chaos"
 ROUTER = "the router, its role and HA"
 PORTAL = "the portal, notebook, proxy and native/"
-OBSERVABILITY = "observability hooks"
 
 # conf keys whose (truthy) value turns on a feature the port's driver
 # does not have: key -> the item it waits for
@@ -181,12 +184,21 @@ class DriverService:
         return payload
 
     def heartbeat(self, task_id: str):
+        """True, or a one-shot dict when a command waits for this task:
+        ``{"profile": {"seconds": N}}`` (``Driver.request_profile``). The
+        heartbeat is the one driver -> executor channel at steady state,
+        so commands ride its answer (the JAX package's driver.py:156;
+        its ``"preempt"`` command waits for the elastic item)."""
         d = self._d
         prev = d.heartbeats.get(task_id)
         now = time.time()
         d.heartbeats[task_id] = now
         d._on_heartbeat(task_id, prev, now)
-        return True
+        cmd: dict[str, Any] = {}
+        prof = d.take_profile_command(task_id)
+        if prof:
+            cmd["profile"] = prof
+        return cmd or True
 
     def register_execution_result(self, task_id: str, exit_code: int) -> str:
         log.info("%s reported exit code %d", task_id, exit_code)
@@ -234,7 +246,10 @@ class DriverService:
 
     def request_task_profile(self, task_id: str,
                              seconds: float = 5.0) -> bool:
-        raise _not_ported("request_task_profile", OBSERVABILITY)
+        """Queue an on-demand profiler capture of ``task_id``'s training
+        child (``Driver.request_profile``); client-only under token
+        auth."""
+        return self._d.request_profile(task_id, seconds)
 
     # ---------------------------------------------------------------- client
     def get_task_infos(self):
@@ -283,6 +298,10 @@ class Driver:
         self.client_signal = threading.Event()
         self.finalized = False
         self._stop_requested = threading.Event()
+        # on-demand profile commands waiting for their task's next
+        # heartbeat (request_profile), at most one a task
+        self._profile_cmds: dict[str, dict] = {}
+        self._profile_lock = threading.Lock()
         self.mode = DistributedMode(
             str(conf.get(keys.APPLICATION_DISTRIBUTED_MODE, "GANG")).upper())
 
@@ -312,7 +331,10 @@ class Driver:
         if token:
             roles = {"client": derive_role_key(token, "client"),
                      "executor": self.executor_token}
-            acl = {"finish_application": {"client"}}
+            # aiming the profiler is an operator action, as ending the
+            # job is: an executor key must not aim it at its peers
+            acl = {"finish_application": {"client"},
+                   "request_task_profile": {"client"}}
         self.rpc_server = RpcServer(
             host=str(conf.get(keys.AM_RPC_HOST, "127.0.0.1")), port=0,
             token=token, roles=roles, acl=acl)
@@ -660,7 +682,8 @@ class Driver:
                 log.debug("metrics: " + fmt, *args)
 
             def do_GET(self):
-                if self.path.partition("?")[0] == "/metrics":
+                route = self.path.partition("?")[0]
+                if route == "/metrics":
                     try:
                         body = driver.render_metrics().encode()
                         code, ctype = 200, PROM_CONTENT_TYPE
@@ -668,6 +691,9 @@ class Driver:
                         log.exception("metrics render failed")
                         body, code, ctype = (
                             f"error: {e}".encode(), 500, "text/plain")
+                elif route == "/profile":
+                    body, code = driver._profile_route(self.path)
+                    ctype = "application/json"
                 else:
                     body, code, ctype = b"not found", 404, "text/plain"
                 self.send_response(code)
@@ -685,6 +711,28 @@ class Driver:
             return
         threading.Thread(target=self._metrics_httpd.serve_forever,
                          name="driver-metrics", daemon=True).start()
+
+    def _profile_route(self, path: str) -> tuple[bytes, int]:
+        """GET /profile?task=worker:0&seconds=5 (the JAX package's
+        driver.py:1130): the command ``request_task_profile`` queues, for
+        local use. Only while token auth is off: with auth on, this
+        unauthenticated route would hand any peer on the network the
+        action the RPC's ACL keeps for the client (403)."""
+        from urllib.parse import parse_qs, urlparse
+
+        if self.token:
+            return json.dumps(
+                {"error": "token auth is on: use the client-authenticated "
+                 "request_task_profile RPC"}).encode(), 403
+        qs = parse_qs(urlparse(path).query)
+        task_id = qs.get("task", [""])[0]
+        try:
+            ok = self.request_profile(task_id,
+                                      float(qs.get("seconds", ["5"])[0]))
+        except (ValueError, TypeError) as e:
+            return json.dumps({"error": str(e)}).encode(), 400
+        return (json.dumps({"queued": ok, "task": task_id}).encode(),
+                200 if ok else 404)
 
     @property
     def metrics_port(self) -> int | None:
@@ -760,6 +808,12 @@ class Driver:
                         "heartbeat staleness behind the role's freshest "
                         "beat (liveness straggler gauge)",
                         labels={"role": role, "stat": stat})
+        # every pushed metric, the children's kernel-library builds and
+        # device-memory peak included. The driver's own build histogram
+        # (the JAX package's driver_xla_compile_seconds, for user code the
+        # driver runs: preprocess, notebook) waits for ROADMAP.md queue 1
+        # item "the portal, notebook, proxy and native/", whose code it
+        # would count
         for task_id in sorted(self.metrics):
             for entry in self.metrics[task_id]:
                 name, value = entry.get("name"), entry.get("value")
@@ -777,6 +831,33 @@ class Driver:
                     entry.get("value"), (int, float)):
                 return float(entry["value"])
         return None
+
+    # ------------------------------------------------- on-demand profiling
+    def request_profile(self, task_id: str, seconds: float = 5.0) -> bool:
+        """Queue a profiler capture of ``seconds`` for ``task_id`` (the JAX
+        package's driver.py:2913): it rides the task's next heartbeat
+        answer, the executor writes the ``$TONY_STEP_LOG.profile`` flag,
+        and the training child's StepTimer captures. False for an unknown
+        or terminal task, and for a NEW or REQUESTED one, which has no
+        container to beat (the command would wait for whatever attempt
+        launches, long after it was asked for). A second request before
+        the first is picked up replaces it."""
+        seconds = float(seconds)
+        if not 0 < seconds <= 120:
+            raise ValueError("seconds must be in (0, 120]")
+        task = self.session.get_task_by_id(task_id)
+        if (task is None or task.status.is_terminal()
+                or task.status in (TaskStatus.NEW, TaskStatus.REQUESTED)):
+            return False
+        with self._profile_lock:
+            self._profile_cmds[task_id] = {"seconds": seconds}
+        log.info("queued a %gs profile capture for %s", seconds, task_id)
+        return True
+
+    def take_profile_command(self, task_id: str) -> dict | None:
+        """Pop ``task_id``'s waiting profile command (the heartbeat's)."""
+        with self._profile_lock:
+            return self._profile_cmds.pop(task_id, None)
 
     # ------------------------------------------------------------ completion
     def _on_container_completed(self, handle: ContainerHandle,

@@ -99,6 +99,10 @@ def main(argv=None) -> int:
     parser.add_argument("--checkpoint-every", type=int, default=50)
     parser.add_argument("--profile-dir", default="")
     parser.add_argument("--metrics-out", default="")
+    parser.add_argument("--step-log-every", type=int, default=50,
+                        help="steps between the StepTimer's records in "
+                             "$TONY_STEP_LOG (an on-demand profile request "
+                             "is read at each record)")
     parser.add_argument("--data", default="",
                         help="token .bin file; empty = synthetic")
     parser.add_argument("--data-seed", type=int, default=0)
@@ -262,7 +266,8 @@ def main(argv=None) -> int:
 
     # TONY_STEP_LOG (set by the executor): the step-time JSONL the task
     # monitor samples; standalone runs leave it off
-    timer = StepTimer(os.environ.get(ENV_STEP_LOG) or None)
+    timer = StepTimer(os.environ.get(ENV_STEP_LOG) or None,
+                      window=max(1, args.step_log_every), device=device)
 
     # preemption drain: a SIGTERM, or the executor's flag file, checkpoints
     # at the next step boundary and exits EXIT_PREEMPTED, so the relaunch
@@ -330,6 +335,8 @@ def main(argv=None) -> int:
                     last_eval = run_eval(params)
                     last_eval_step = step_i
     finally:
+        # a profile capture the loop outlived is written now
+        timer.close()
         signal.signal(signal.SIGTERM, old_handler)
         if loader is not None:
             loader.close()

@@ -11,11 +11,13 @@ construction and the user process to the runtime task adapter (main:
 188-237), and reports the exit code (registerExecutionResult:315-322).
 
 It runs as ``python -S -m tony_tpu_torch.executor`` and imports no torch:
-the user process it forks owns the card. Not ported from the JAX executor:
-warm-pool adoption (executor.py:497-516), the checkpoint prestage, the
-preemption drain and profile relays, and the driver-outage ride-through
-with endpoint re-resolution (driver recovery); each waits for its
-ROADMAP.md queue 1 item. A driver that stops answering for
+the user process it forks owns the card. A profile command on a
+heartbeat's answer becomes the ``$TONY_STEP_LOG.profile`` flag file
+(``write_profile_flag``), which the training child's StepTimer polls. Not
+ported from the JAX executor: warm-pool adoption (executor.py:497-516),
+the checkpoint prestage, the preemption drain relay, and the
+driver-outage ride-through with endpoint re-resolution (driver
+recovery); each waits for its ROADMAP.md queue 1 item. A driver that stops answering for
 ``tony.task.driver-outage-grace-ms`` takes this executor and its child
 down.
 
@@ -25,6 +27,7 @@ reference's TEST_* hooks (Constants.java:124-130, TaskExecutor.java:328-386).
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import random
@@ -43,6 +46,34 @@ from .rpc import RpcClient
 log = logging.getLogger(__name__)
 
 
+def write_profile_flag(step_log: str | None, cmd: dict) -> str | None:
+    """Relay a driver's profile command to the training child (the JAX
+    package's executor.py:57): write ``$TONY_STEP_LOG.profile`` through a
+    temporary file and a rename, with the capture's seconds and where its
+    trace goes, ``logs/profiles/<task>_<unix time>/`` beside the step log.
+    -> the flag's path, or None without a step log (nothing would poll
+    the flag)."""
+    if not step_log:
+        log.warning("profile command dropped: no step log configured")
+        return None
+    stem = os.path.basename(step_log).partition(".")[0]
+    out_dir = os.path.join(os.path.dirname(step_log), c.PROFILE_DIR_NAME,
+                           f"{stem}_{int(time.time())}")
+    flag = step_log + c.PROFILE_REQUEST_SUFFIX
+    tmp = flag + ".tmp"
+    try:
+        payload = {"seconds": float(cmd.get("seconds", 5.0)),
+                   "out_dir": out_dir}
+        with open(tmp, "w") as f:
+            f.write(json.dumps(payload))
+        os.replace(tmp, flag)
+    except (OSError, TypeError, ValueError, AttributeError) as e:
+        log.warning("could not write the profile flag: %s", e)
+        return None
+    log.info("profile command relayed via %s -> %s", flag, out_dir)
+    return flag
+
+
 class Heartbeater(threading.Thread):
     """Reference TaskExecutor.Heartbeater:324-364, with the skip-N-
     heartbeats fault hook. Doubles as the driver-death watchdog: a beat the
@@ -51,11 +82,13 @@ class Heartbeater(threading.Thread):
     budget spent calls ``on_driver_lost``. Each wait is jittered ±10% so a
     gang's beats do not land on the driver in one burst. ``monitor`` (the
     TaskMonitor) receives each beat's round trip and the missed-beat
-    count."""
+    count. The driver's commands ride a beat's answer: a dict instead of
+    the plain True, whose ``"profile"`` goes to ``on_command`` (a raising
+    callback never stops the beat: the beat is the liveness signal)."""
 
     def __init__(self, client: RpcClient, task_id: str, interval_s: float,
                  max_failures: int = 30, on_driver_lost=None, monitor=None,
-                 outage_grace_s: float = 30.0):
+                 on_command=None, outage_grace_s: float = 30.0):
         super().__init__(name="heartbeater", daemon=True)
         self._client = client
         self._task_id = task_id
@@ -64,6 +97,7 @@ class Heartbeater(threading.Thread):
         self._max_failures = max_failures
         self._on_driver_lost = on_driver_lost
         self._monitor = monitor
+        self._on_command = on_command
         self._outage_grace_s = max(0.0, float(outage_grace_s))
         self._rng = random.Random()     # urandom-seeded: per-process phase
         self.missed = 0
@@ -92,10 +126,18 @@ class Heartbeater(threading.Thread):
                 continue
             try:
                 t0 = time.monotonic()
-                self._client.call("heartbeat", task_id=self._task_id)
+                result = self._client.call("heartbeat",
+                                           task_id=self._task_id)
                 self._note(HEARTBEAT_RTT_MS,
                            (time.monotonic() - t0) * 1000.0)
                 failures, outage_t = 0, None
+                cmd = (result.get("profile") if isinstance(result, dict)
+                       else None)
+                if cmd and self._on_command is not None:
+                    try:
+                        self._on_command(cmd)
+                    except Exception:
+                        log.exception("heartbeat command failed")
             except RpcError as e:
                 # the driver answered and refused: this executor is
                 # disowned, the classic budget
@@ -281,6 +323,10 @@ class Executor:
             max_failures=max(
                 3, self.conf.get_int(keys.TASK_MAX_MISSED_HEARTBEATS, 25)),
             on_driver_lost=_die_with_driver, monitor=monitor,
+            # a driver's profile command -> the $TONY_STEP_LOG.profile flag
+            # the training child's StepTimer polls
+            on_command=lambda cmd: write_profile_flag(
+                self._step_log_path(), cmd),
             outage_grace_s=self.conf.get_int(
                 keys.TASK_DRIVER_OUTAGE_GRACE_MS, 30000) / 1000)
         heartbeater.start()

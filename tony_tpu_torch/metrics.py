@@ -10,8 +10,8 @@ snapshot is the running total.
 ``TaskMonitor`` samples the user process tree's RSS from /proc, the task's
 card through ``nvidia-smi`` (``sample_gpu_metrics``, the counterpart of the
 JAX package's libtpu duty cycle and HBM sampler) and the training child's
-StepTimer JSONL, and pushes max and mean to the driver over the metrics
-RPC. It imports no torch: the executor never holds a CUDA context.
+StepTimer JSONL (step times, kernel-library builds, the device-memory
+peak), and pushes max and mean to the driver over the metrics RPC. It imports no torch: the executor never holds a CUDA context.
 """
 
 from __future__ import annotations
@@ -35,6 +35,11 @@ GPU_UTILIZATION = "gpu_utilization_pct"
 GPU_MEMORY_USED = "gpu_memory_used_mb"
 GPU_MEMORY_TOTAL = "gpu_memory_total_mb"
 GPU_INDEX = "gpu_index"
+# the training child's device-memory peak (torch.cuda.max_memory_allocated,
+# MiB), sampled from its StepTimer records: the counterpart of the JAX
+# package's tpu_hbm_peak_mb; absent (never 0) when the child trains on the
+# CPU
+GPU_MEMORY_PEAK = "gpu_memory_peak_mb"
 
 # serving-load gauges, fed by cli/serve.ServeApp once a scheduling turn
 SERVING_ACTIVE_SLOTS = "serving_active_slots"
@@ -140,9 +145,20 @@ STEPS_PER_SEC = "steps_per_sec"
 TRAIN_STEP = "train_step"
 CKPT_STEP = "ckpt_step"
 CKPT_UNIX_TS = "ckpt_unix_ts"
+# the kernel libraries the training child built with nvcc or loaded
+# (observability.CompileTelemetry's snapshot in every StepTimer record),
+# their seconds, and those after its first measured step: the
+# counterparts of the JAX package's xla_compiles, xla_compile_time_s and
+# xla_recompiles_post_warm. A nonzero post-warm count on a steady-state
+# job is a library built mid-run
+KERNEL_BUILDS = "kernel_builds"
+KERNEL_BUILD_TIME_S = "kernel_build_time_s"
+KERNEL_BUILDS_POST_WARM = "kernel_builds_post_warm"
 # cumulative totals: set semantics (latest total) in the accumulator
-_COUNTER_NOTES = frozenset({HEARTBEATS_MISSED, TRAIN_STEP, CKPT_STEP,
-                            CKPT_UNIX_TS, GPU_INDEX, GPU_MEMORY_TOTAL})
+_COUNTER_NOTES = frozenset({HEARTBEATS_MISSED, KERNEL_BUILDS,
+                            KERNEL_BUILD_TIME_S, KERNEL_BUILDS_POST_WARM,
+                            TRAIN_STEP, CKPT_STEP, CKPT_UNIX_TS, GPU_INDEX,
+                            GPU_MEMORY_TOTAL})
 
 
 def _proc_tree_rss_mb(root_pid: int) -> float:
@@ -343,6 +359,11 @@ class TaskMonitor:
                              ("p50_s", STEP_TIME_P50_S),
                              ("p99_s", STEP_TIME_P99_S),
                              ("steps_per_sec", STEPS_PER_SEC),
+                             ("kernel_builds", KERNEL_BUILDS),
+                             ("kernel_build_time_s", KERNEL_BUILD_TIME_S),
+                             ("kernel_builds_post_warm",
+                              KERNEL_BUILDS_POST_WARM),
+                             ("gpu_memory_peak_mb", GPU_MEMORY_PEAK),
                              ("train_step", TRAIN_STEP),
                              ("last_ckpt_step", CKPT_STEP),
                              ("last_ckpt_ts", CKPT_UNIX_TS)):

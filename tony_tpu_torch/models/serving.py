@@ -139,6 +139,16 @@ requests, from a file-backed journal.
   byte, so a payload crosses frameworks. The export enqueues a copy of the
   blocks into pinned memory behind a CUDA event and serializes only when
   the payload is asked for, so nothing in dispatch waits for the card.
+  On a mesh a payload is still the one-device pool's (every kv head in
+  its head order, the blocks in table order, int8 scales split along the
+  same head axis): each rank holding a slice of the request's heads
+  (``join_kv_heads`` / ``split_kv_heads``) snapshots it, a follower's
+  slice travels to rank 0 on the lockstep's gloo group at a later turn,
+  once its copy's event is done (``take_export_parts``), and rank 0
+  assembles them in ``export_blocks``. An import hands every rank the
+  whole payload; each writes its own heads, on a batch-split mesh only
+  the ranks of the share that owns the slot. So any topology hands off
+  to any other.
 
 ``weight_dtype="int8"`` (w8a16): the decode blocks run the int8 fused
 matrices (models/generate.py), the prefill programs the cast weights, as
@@ -185,9 +195,8 @@ the JAX package's engines do.
   (queue, trie, allocator, tables) is the whole pool's and the same on
   every rank; parallel/lockstep.py keeps the ranks in step. A MoE
   model's experts split over the ``expert`` axis (``EP_RULES`` merged
-  into the rules) through ``transformer._mlp``'s plan. Speculation and a
-  disaggregated role are refused, int8 weights under a sharded tensor
-  axis too.
+  into the rules) through ``transformer._mlp``'s plan. Speculation is
+  refused, int8 weights under a sharded tensor axis too.
 """
 
 from __future__ import annotations
@@ -1015,6 +1024,26 @@ class PrefixCache:
             got += 1
         return got
 
+    def reclaimable(self, share: int | None = None) -> int:
+        """How many blocks ``reclaim`` could give back now, evicting
+        nothing: the nodes (of ``share``) whose whole subtree is
+        unreferenced and held by the trie alone."""
+        count = 0
+
+        def free_subtree(node) -> bool:
+            nonlocal count
+            ok = all([free_subtree(ch) for ch in node.children.values()])
+            if node is self.root:
+                return False
+            if (ok and node.refs == 0 and self._in(node.block, share)
+                    and self._allocator.refs[node.block] <= 1):
+                count += 1
+                return True
+            return False
+
+        free_subtree(self.root)
+        return count
+
     def adopt(self, body: np.ndarray, blocks: dict) -> int:
         """Paged mode's insert, with no device copy: record a slot's own
         freshly prefilled blocks in the trie. ``blocks`` maps a chunk
@@ -1555,6 +1584,39 @@ def deserialize_kv_blocks(payload: dict) -> tuple:
             ks, vs)
 
 
+def split_kv_heads(bufs: list, part: int, n_parts: int) -> list:
+    """Slice ``part`` of ``n_parts`` of transfer buffers [k, v(, k_scale,
+    v_scale)] along their kv-head axis (dim 2 of [L, n, kvH, B(, D)]): the
+    heads a rank of a kv axis of ``n_parts`` holds, in the one-device
+    pool's head order. Views; the whole buffers when ``n_parts`` is 1."""
+    if n_parts == 1:
+        return list(bufs)
+    heads = bufs[0].shape[2]
+    if heads % n_parts:
+        raise ValueError(f"{heads} kv heads do not split over {n_parts} "
+                         "ranks")
+    w = heads // n_parts
+    return [t.narrow(2, part * w, w) for t in bufs]
+
+
+def join_kv_heads(parts: list) -> list:
+    """The inverse of ``split_kv_heads``: each rank's buffers, in kv-rank
+    order -> the one-device pool's buffers (every head, in order)."""
+    if len(parts) == 1:
+        return list(parts[0])
+    return [torch.cat(ts, dim=2) for ts in zip(*parts)]
+
+
+@dataclass
+class _Export:
+    """A prefilled request's payload on its way out: its metadata, the
+    rank parts (kv-rank -> ``_KVSnapshot``) that have arrived, and how
+    many make the whole."""
+    meta: dict
+    parts: dict
+    n_parts: int
+
+
 @dataclass
 class _KVImport:
     """A payload decoded, verified against an engine and staged in host
@@ -1762,12 +1824,6 @@ class SlotServer:
         if self.role == "prefill" and not self._paged:
             raise ValueError("role='prefill' requires paged=True (the "
                              "transfer unit is the paged KV block)")
-        if (self.role != "both" and self._plan is not None
-                and not self._plan.trivial):
-            raise ValueError(
-                f"role={self.role!r} serves one device: the KV transfer "
-                "moves whole blocks, which a mesh wider than one device "
-                "splits over its ranks")
         if self.role == "prefill" and self._spec:
             raise ValueError(
                 "role='prefill' is incompatible with speculative serving (a "
@@ -1776,11 +1832,15 @@ class SlotServer:
         # a prefill role's finished payloads awaiting pickup, oldest
         # evicted first (an unclaimed one costs the decode side a
         # re-prefill, never a request); the stash and the counters are
-        # shared with the HTTP threads that export and import
-        self._exports: collections.OrderedDict[int, tuple] = \
+        # shared with the HTTP threads that export and import, and a
+        # waiting export is woken when a follower's part arrives. A mesh
+        # follower keeps only its own parts until they travel
+        self._exports: collections.OrderedDict[int, _Export] = \
             collections.OrderedDict()
         self._exports_cap = 64
-        self._transfer_lock = threading.Lock()
+        self._parts_out: collections.OrderedDict[int, tuple] = \
+            collections.OrderedDict()
+        self._transfer_lock = threading.Condition()
         self.kv_exports = 0             # payloads snapshot
         self.kv_imports = 0             # payloads installed
         self.kv_import_rejects = 0      # damaged or unfit payloads refused
@@ -1911,6 +1971,12 @@ class SlotServer:
         self._mesh, self._rules = mesh, rules
         self._plan = self._shard = None
         self._n_kv = None               # this rank's kv heads
+        # the KV transfer's view of the rank: which slice of the kv heads
+        # its pools hold (of how many), whether it sends that slice of an
+        # export (one rank a slice: every coordinate off the batch and kv
+        # axes 0) and whether it is rank 0, which assembles the payload
+        self._kv_part, self._kv_parts = 0, 1
+        self._kv_sender = self._front = True
         if mesh is None:
             return
         _validate_decode_mesh(self.cfg, mesh, rules)
@@ -1920,10 +1986,18 @@ class SlotServer:
                 f"mesh-sharded serving: slots={slots} is not divisible by "
                 f"the 'batch' mesh axes (size {t_b}) — the slot pool is the "
                 "batch dimension of every decode block")
-        self._plan = transformer._plan(mesh, rules, self.cfg)
+        self._plan = plan = transformer._plan(mesh, rules, self.cfg)
         self._n_kv = self.cfg.n_kv_heads // rule_size(mesh, rules, "kv")
         if t_b > 1:
             self._shard = _BatchShard(self._plan, slots)
+        kv_axis = plan.tp["kv"]
+        if kv_axis is not None:
+            self._kv_part = plan.coord[kv_axis]
+            self._kv_parts = plan.shape[kv_axis]
+        self._kv_sender = all(
+            c_ == 0 for a, c_ in plan.coord.items()
+            if a not in plan.batch_axes and a != kv_axis)
+        self._front = all(c_ == 0 for c_ in plan.coord.values())
 
     @property
     def _slot_range(self):
@@ -3512,29 +3586,89 @@ class SlotServer:
         }
         meta = dict(model=self.model, kv_block=B, kv_dtype=self.kv_dtype,
                     body_len=int(body.size), entry=entry)
-        snap = _snapshot_kv_blocks(self._kv_pool, ids)
+        # on a mesh the ranks of the slot's share hold its blocks, each its
+        # slice of the heads; one rank a slice snapshots it
+        share = self._share(slot)
+        holds = self._kv_sender and (self._shard is None
+                                     or self._shard.rank == share)
+        snap = None
+        if holds:
+            if self._shard is not None:
+                nb = self._kv_pool.k.shape[1]
+                ids = [b - share * nb for b in ids]
+            snap = _snapshot_kv_blocks(self._kv_pool, ids)
+        rid = int(req.id)
         with self._transfer_lock:
-            self._exports[int(req.id)] = (snap, meta)
             self.kv_exports += 1
-            while len(self._exports) > self._exports_cap:
-                self._exports.popitem(last=False)
+            if self._front:
+                self._exports[rid] = _Export(
+                    meta, {self._kv_part: snap} if holds else {},
+                    self._kv_parts)
+                while len(self._exports) > self._exports_cap:
+                    self._exports.popitem(last=False)
+            elif holds:
+                self._parts_out[rid] = (self._kv_part, snap)
         if tr is not None:
             tr.attrs["exported_blocks"] = n_blocks
 
-    def export_blocks(self, request_id: int) -> dict:
+    def export_blocks(self, request_id: int, timeout_s: float = 30.0
+                      ) -> dict:
         """Pop a prefilled request's transfer payload, encoded now (base64
         and the checksum, after waiting for its copy to the host). Safe
         from another thread than the serving loop's, without the serving
-        lock. KeyError when the request never finished its prefill here or
-        the stash aged it out: the caller re-prefills from the prompt on
-        a decode replica instead."""
+        lock. On a mesh, rank 0 assembles the ranks' slices of the heads
+        (``join_kv_heads``), waiting up to ``timeout_s`` for the
+        followers' to arrive (each at a turn after its copy is done).
+        KeyError when the request never finished its prefill here, the
+        stash aged it out or its slices did not all come: the caller
+        re-prefills from the prompt on a decode replica instead."""
+        rid = int(request_id)
+        deadline = time.monotonic() + timeout_s
         with self._transfer_lock:
-            item = self._exports.pop(int(request_id), None)
-        if item is None:
+            item = self._exports.get(rid)
+            while item is not None and len(item.parts) < item.n_parts:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._transfer_lock.wait(left)
+                item = self._exports.get(rid)
+            if item is None:
+                raise KeyError(f"no KV export payload for request {rid}")
+            del self._exports[rid]
+        if len(item.parts) < item.n_parts:
             raise KeyError(
-                f"no KV export payload for request {int(request_id)}")
-        snap, meta = item
-        return _payload(snap.wait(), **meta)
+                f"KV export of request {rid} is not complete: "
+                f"{len(item.parts)} of {item.n_parts} ranks' kv heads "
+                f"arrived within {timeout_s} s")
+        host = join_kv_heads([item.parts[p].wait()
+                              for p in range(item.n_parts)])
+        return _payload(host, **item.meta)
+
+    def take_export_parts(self) -> dict:
+        """A mesh follower's finished export slices, popped for the next
+        lockstep message -> {request id: (kv part, host buffers)}. Never
+        waits for the card: a slice whose copy's event is not done yet
+        (``query``) stays for a later turn."""
+        out = {}
+        with self._transfer_lock:
+            for rid, (part, snap) in list(self._parts_out.items()):
+                if snap.ready is not None and not snap.ready.query():
+                    continue
+                out[rid] = (part, snap.host)
+                del self._parts_out[rid]
+        return out
+
+    def add_export_parts(self, parts: dict) -> None:
+        """Rank 0: a follower's slices (``take_export_parts``) join their
+        exports; a slice of an export the stash aged out is dropped."""
+        if not parts:
+            return
+        with self._transfer_lock:
+            for rid, (part, host) in parts.items():
+                item = self._exports.get(int(rid))
+                if item is not None:
+                    item.parts[int(part)] = _KVSnapshot(list(host))
+            self._transfer_lock.notify_all()
 
     def prepare_import(self, payload) -> _KVImport:
         """Decode and verify a transfer payload against this engine, and
@@ -3577,13 +3711,14 @@ class SlotServer:
                 f"engine's {self.kv_dtype!r}")
         k, v, ks, vs = deserialize_kv_blocks(payload)
         pk = self._kv_pool.k
-        if k.shape[0] != pk.shape[0] or k.shape[2:] != pk.shape[2:] \
-                or k.dtype != pk.dtype:
+        # a payload holds every kv head, whatever slice this rank's pool
+        # holds
+        want = (pk.shape[0], self.cfg.n_kv_heads, *pk.shape[3:])
+        if (k.shape[0], *k.shape[2:]) != want or k.dtype != pk.dtype:
             raise ValueError(
                 f"KV transfer block shape {tuple(k.shape[0:1] + k.shape[2:])}"
                 f"/{_WIRE_NAMES.get(k.dtype)} does not match this pool's "
-                f"{tuple(pk.shape[0:1] + pk.shape[2:])}/"
-                f"{_WIRE_NAMES.get(pk.dtype)}")
+                f"{want}/{_WIRE_NAMES.get(pk.dtype)}")
         if (ks is None) != (self._kv_pool.k_scale is None):
             raise ValueError("KV transfer scales do not match this pool")
         entry = payload.get("entry")
@@ -3630,7 +3765,8 @@ class SlotServer:
         return _KVImport(k=k, v=v, ks=ks, vs=vs, entry=entry, prompt=prompt,
                          max_new=max_new, emitted=emitted, n_blocks=n_blocks)
 
-    def import_blocks(self, payload, trace=None) -> int:
+    def import_blocks(self, payload, trace=None,
+                      request_id: int | None = None) -> int:
         """Install a prefill replica's exported blocks and resume the
         request here, decode only: fresh blocks from this pool, the
         payload written in (``_write_pool_blocks``), the table row
@@ -3643,7 +3779,12 @@ class SlotServer:
         blocks are free now: a handoff is never queued. ``trace`` (a
         ``TraceContext`` or its dict, from the transport's header) puts
         the decode leg in the caller's trace; without it the entry's
-        ``"trace"`` is the parent. -> the new request id."""
+        ``"trace"`` is the parent. On a mesh every rank imports the whole
+        payload (rank 0 decides, parallel/lockstep.py sends it on with
+        ``request_id``, the id rank 0 gave it); each writes its own slice
+        of the heads, on a batch-split mesh only the ranks of the share
+        that owns the slot. A refusal changes no host state. -> the new
+        request id."""
         prep = (payload if isinstance(payload, _KVImport)
                 else self.prepare_import(payload))
         entry, emitted, max_new = prep.entry, prep.emitted, prep.max_new
@@ -3657,7 +3798,8 @@ class SlotServer:
             logprobs=int(entry.get("logprobs") or 0),
             priority=(entry.get("priority")
                       if entry.get("priority") in PRIORITY_CLASSES
-                      else "interactive"))
+                      else "interactive"),
+            **({} if request_id is None else {"id": int(request_id)}))
         slot = next((s for s in range(self.slots)
                      if self._free_for_admission(s)), None)
         if slot is None:
@@ -3674,19 +3816,25 @@ class SlotServer:
         cls = req.priority
         alloc = self._allocator
         share = self._share(slot)
+        # funded or refused before anything changes: a refusal on a
+        # mesh's rank 0 never reaches the followers, so it must leave the
+        # host state (the trie, the free lists) as it found it
+        short = cap_blocks - alloc.free_in(share)
+        budget = alloc.class_budgets.get(cls)
+        if (budget is not None
+                and alloc.class_used.get(cls, 0) + cap_blocks > budget) \
+                or (short > 0 and (
+                    self._prefix_cache is None
+                    or self._prefix_cache.reclaimable(share) < short)):
+            self.admission_defers += 1
+            err = QueueFullError(f"pool blocks short for KV import "
+                                 f"({cap_blocks} needed)")
+            err.retry_after_s = self.estimate_retry_after()
+            err.priority = cls
+            raise err
+        if short > 0:
+            self._prefix_cache.reclaim(short, share)
         blocks = alloc.alloc_for(cls, cap_blocks, share)
-        if blocks is None:
-            short = cap_blocks - alloc.free_in(share)
-            if self._prefix_cache is not None and short > 0:
-                self._prefix_cache.reclaim(short, share)
-                blocks = alloc.alloc_for(cls, cap_blocks, share)
-            if blocks is None:
-                self.admission_defers += 1
-                err = QueueFullError(f"pool blocks short for KV import "
-                                     f"({cap_blocks} needed)")
-                err.retry_after_s = self.estimate_retry_after()
-                err.priority = cls
-                raise err
         # validated and funded: install
         tr = RequestTrace(req.id)
         tr.mark("submitted")
@@ -3705,8 +3853,21 @@ class SlotServer:
         if emitted:
             tr.attrs["resume_tokens"] = len(emitted)
         self._traces[req.id] = tr
-        _write_pool_blocks(self._kv_pool, blocks[:prep.n_blocks], prep.k,
-                           prep.v, prep.ks, prep.vs)
+        mine = self._shard is None or self._shard.rank == share
+        if mine:
+            bufs = [prep.k, prep.v] + ([prep.ks, prep.vs]
+                                       if prep.ks is not None else [])
+            bufs = split_kv_heads(bufs, self._kv_part, self._kv_parts)
+            if self.device.type == "cuda":
+                # host memory the copies need not wait for: pinned, whole
+                bufs = [t if t.is_pinned() and t.is_contiguous()
+                        else t.contiguous().pin_memory() for t in bufs]
+            ids = blocks[:prep.n_blocks]
+            if self._shard is not None:
+                nb = self._kv_pool.k.shape[1]
+                ids = [b - share * nb for b in ids]
+            _write_pool_blocks(self._kv_pool, ids, *bufs,
+                               *([None, None] if len(bufs) == 2 else []))
         for stale in [r for r, s in self._slot_of.items() if s == slot]:
             del self._slot_of[stale]
         self._free_slot_blocks(slot)
@@ -3728,8 +3889,11 @@ class SlotServer:
         self._np_temps[slot] = temp
         self._np_topks[slot] = topk
         self._np_lp[slot] = req.logprobs
-        _activate_slot(self._state, self._d_lens, slot, int(full[-1]),
-                       target, offset, body.size, temp, topk)
+        if mine:
+            lo = 0 if self._shard is None else self._shard.lo
+            _activate_slot(self._state, self._d_lens, slot - lo,
+                           int(full[-1]), target, offset, body.size, temp,
+                           topk)
         self._model_len[slot] = body.size
         self._model_active[slot] = True
         self._model_target[slot] = target
@@ -4177,4 +4341,5 @@ __all__ = ["Request", "Completion", "SlotServer", "QueueFullError",
            "PrefixCache", "BlockAllocator",
            "COMPLETION_FINISH_REASONS", "FINISH_REASONS", "PRIORITY_CLASSES",
            "LOGPROBS_MAX", "KV_TRANSFER_VERSION", "KV_IMPORT_KEYS",
-           "KV_ENTRY_KEYS", "serialize_kv_blocks", "deserialize_kv_blocks"]
+           "KV_ENTRY_KEYS", "serialize_kv_blocks", "deserialize_kv_blocks",
+           "split_kv_heads", "join_kv_heads"]

@@ -29,9 +29,10 @@ classes, with its semantics and bucket bounds).
   hot path. A tracked object only needs ``block_until_ready()``; the
   serving engine hands it a fence over a CUDA event recorded behind the
   dispatch (models/serving.py ``_Fence``).
-
-Compile counters (the JAX package's ``CompileTelemetry``) are not ported
-(ROADMAP.md queue 1: observability hooks).
+- ``CompileTelemetry``: the kernel libraries a process built with nvcc or
+  loaded from the build directory (ops/_build.py feeds
+  ``COMPILE_TELEMETRY``), their seconds, and how many came after the
+  warm-up line: the counterpart of the JAX package's XLA compile counters.
 """
 
 from __future__ import annotations
@@ -39,17 +40,20 @@ from __future__ import annotations
 import bisect
 import collections
 import hashlib
+import logging
 import math
 import os
 import re
 import threading
 import time
 
+log = logging.getLogger(__name__)
+
 __all__ = ["TRACE_HEADER", "TRACE_ID_RESPONSE_HEADER", "TraceContext",
            "TERMINAL_SPANS", "Histogram", "RequestTrace",
            "TELEMETRY_HISTOGRAMS", "ServingTelemetry",
            "ServiceRateEstimator", "PromRenderer", "PROM_CONTENT_TYPE",
-           "DispatchTracker"]
+           "DispatchTracker", "CompileTelemetry", "COMPILE_TELEMETRY"]
 
 # terminal span names: exactly one ends every trace
 TERMINAL_SPANS = ("finished", "cancelled", "expired", "shed", "failed")
@@ -621,6 +625,99 @@ class DispatchTracker:
             h.restore(st)
             out[k] = h
         return out
+
+
+# what ops/_build.py notes for a kernel library: compiled by nvcc in this
+# process, or loaded from build/kernels/ where an earlier process left it
+KERNEL_EVENTS = ("build", "load")
+
+
+class CompileTelemetry:
+    """Kernel-library build visibility (the JAX package's
+    observability.py:719 ``CompileTelemetry``, with its API and histogram
+    bounds). The port compiles no XLA programs: what it compiles is its
+    kernel libraries, each built by nvcc at first use or loaded from the
+    build directory. ``ops/_build.py`` notes each library once a process
+    (``note("build", nvcc seconds)`` or ``note("load", seconds)``), so
+    ``builds`` counts the libraries this process built or loaded.
+    ``mark_warm()`` draws the warm-up line (a training loop's first
+    measured step, serve's first delivered completion): a library made
+    ready after it cost a request or a step its seconds, and
+    ``storm_threshold`` of them log one loud warning."""
+
+    def __init__(self, storm_threshold: int = 8):
+        # nvcc runs seconds to minutes: wider buckets than the latency
+        # histograms' 120 s ceiling
+        self.hist = Histogram(lo=1e-3, hi=600.0)
+        self.builds = 0
+        self.nvcc_builds = 0
+        self.build_time_s = 0.0
+        self.storm_threshold = storm_threshold
+        self._warm_at: int | None = None
+        self._storm_warned = False
+        self._lock = threading.Lock()
+
+    def note(self, event: str, duration_s: float) -> None:
+        if event not in KERNEL_EVENTS:
+            return
+        with self._lock:
+            self.builds += 1
+            self.nvcc_builds += event == "build"
+            self.build_time_s += duration_s
+            self.hist.observe(duration_s)
+            storm = (self._warm_at is not None
+                     and not self._storm_warned
+                     and self.builds - self._warm_at
+                     >= self.storm_threshold)
+            if storm:
+                self._storm_warned = True
+        if storm:
+            log.warning(
+                "kernel build storm: %d kernel libraries built or loaded "
+                "after warm-up (%.1fs in all): a steady-state workload "
+                "should need no new library", self.builds - self._warm_at,
+                self.build_time_s)
+
+    def mark_warm(self) -> None:
+        """Draw the warm-up line (idempotent: only the first call
+        counts)."""
+        with self._lock:
+            if self._warm_at is None:
+                self._warm_at = self.builds
+
+    @property
+    def recompiles_post_warm(self) -> int:
+        """Libraries built or loaded after the warm-up line."""
+        with self._lock:
+            if self._warm_at is None:
+                return 0
+            return self.builds - self._warm_at
+
+    def hist_copy(self) -> Histogram:
+        """A consistent copy of the build-seconds histogram, safe to
+        render while a build thread feeds the original."""
+        with self._lock:
+            state = self.hist.state()
+        h = Histogram(lo=1e-3, hi=600.0)
+        h.restore(state)
+        return h
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "kernel_builds": self.builds,
+                "kernel_nvcc_builds": self.nvcc_builds,
+                "kernel_build_time_s": round(self.build_time_s, 3),
+                "kernel_builds_post_warm": (
+                    self.builds - self._warm_at
+                    if self._warm_at is not None else 0),
+                "warm": self._warm_at is not None,
+            }
+
+
+# the process's instance: ops/_build.py feeds it, every StepTimer and
+# ServeApp reads it
+COMPILE_TELEMETRY = CompileTelemetry()
 
 
 _NAME_OK = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*$")

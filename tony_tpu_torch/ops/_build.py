@@ -6,7 +6,9 @@ plain C interface, compiled for ``sm_90a`` at first use into
 carries a hash of its source and of every header in ``csrc``, so an edited
 source or header is rebuilt and a stale library is never loaded.
 ``build_all`` starts one nvcc per source, all at once, and waits for them
-together.
+together. Each library a process makes ready is noted once in
+``observability.COMPILE_TELEMETRY``: a build with its nvcc seconds, or a
+load of a library an earlier process built with the seconds of the load.
 
 Nothing here runs at import: the tests import every module on machines
 with no nvcc and no card.
@@ -19,8 +21,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+
+from ..observability import COMPILE_TELEMETRY
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -49,6 +54,23 @@ SIGNATURES = {
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
+# the libraries this process built or loaded, each noted once
+_noted: set = set()
+_noted_lock = threading.Lock()
+
+
+def _note(name: str, event: str, seconds: float) -> None:
+    with _noted_lock:
+        if name in _noted:
+            return
+        _noted.add(name)
+    COMPILE_TELEMETRY.note(event, seconds)
+
+
+def noted() -> list:
+    """The kernel libraries this process built or loaded, by name."""
+    with _noted_lock:
+        return sorted(_noted)
 
 
 def _nvcc() -> str:
@@ -70,7 +92,9 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+def _start(name: str) -> tuple | None:
+    """nvcc started on ``name``'s source -> (process, temporary output,
+    library path, start instant), or None when the library is built."""
     out = _lib_path(name)
     if out.exists():
         return None
@@ -79,18 +103,21 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     log = out.with_suffix(".log")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     with open(log, "w") as f:
         proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
 def _finish(name: str, job) -> None:
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     rc = proc.wait()
+    seconds = time.perf_counter() - t0
     log = out.with_suffix(".log").read_text()
     if rc != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {rc}):\n{log}")
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    _note(name, "build", seconds)
 
 
 def build_all() -> float:
@@ -120,7 +147,9 @@ def kernel(symbol: str):
             job = _start(name)
             if job is not None:
                 _finish(name, job)
+            t0 = time.perf_counter()
             lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            _note(name, "load", time.perf_counter() - t0)
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -135,4 +164,5 @@ def check(name: str, err: int) -> None:
                            f"cudaError {err}")
 
 
-__all__ = ["build_all", "build_log", "kernel", "check", "BUILD_DIR"]
+__all__ = ["build_all", "build_log", "kernel", "check", "noted",
+           "BUILD_DIR"]

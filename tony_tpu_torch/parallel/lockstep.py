@@ -10,8 +10,12 @@ them so.
   streams: ``Leader`` wraps its engine and records every host operation
   that changes what the engine dispatches (a submit, refused or not, with
   rank 0's clock: a full queue sweeps its expired requests before it
-  sheds; a cancel, a reset and the queue it left, ``fail_queued``,
-  ``pause_admission``). Once a turn it
+  sheds; a KV import rank 0 accepted, with the whole payload and the id
+  it gave the request; a cancel, a reset and the queue it left,
+  ``fail_queued``, ``pause_admission``). Rank 0 decides an import alone
+  (a damaged payload, no free slot, a pool that cannot fund the blocks):
+  a refused import changes no host state and never reaches a follower.
+  Once a turn it
   sends them in one message with its ``now`` (every time-based decision:
   queue deadlines) and whether the turn is a journal checkpoint. Every
   rank applies them in order through the same ``SlotServer`` methods, then
@@ -24,6 +28,12 @@ them so.
   free blocks, the queue's length); a follower whose own differs raises
   ``LockstepMismatch``, naming the first difference, and tells rank 0,
   which goes down.
+- **A prefill role's exports gather on rank 0.** A follower holding a
+  slice of a prefilled request's kv heads sends it with its message of a
+  later turn, once the slice's copy to the host is done (its event is
+  queried, never waited on): ``SlotServer.take_export_parts`` on the
+  follower, ``add_export_parts`` on rank 0, whose ``export_blocks``
+  assembles the payload.
 - **A failure on any rank is seen by every rank.** The exchange carries
   each rank's status, so it is a gather, not a broadcast. After a failed
   turn no rank steps; rank 0 resets its engine (the serving loop's
@@ -127,6 +137,9 @@ class Lockstep:
         failed, ``LockstepMismatch`` when a follower's state diverged."""
         msgs = self.exchange({"now": now, "ckpt_due": ckpt_due,
                               "digest": engine.host_digest()})
+        for m in msgs[1:]:
+            if m.get("kv_parts"):
+                engine.add_export_parts(m["kv_parts"])
         fatal = [m["fatal"] for m in msgs[1:] if m.get("fatal")]
         if fatal:
             raise LockstepMismatch("; ".join(fatal))
@@ -165,6 +178,11 @@ def _apply(engine, op: str, args) -> None:
                 raise LockstepMismatch(
                     f"rank 0's submit of request {request.id} raised "
                     f"{raised}; this rank's did not")
+    elif op == "import":
+        # rank 0 accepted it: the same slot and blocks here, this rank's
+        # slice of the heads, the id rank 0 gave the request
+        prepared, request_id = args
+        engine.import_blocks(prepared, request_id=request_id)
     elif op == "cancel":
         engine.cancel(args[0])
     elif op == "reset":
@@ -189,7 +207,9 @@ def follow(engine, lockstep: Lockstep) -> str:
     engine.defer_faults = True
     status = None
     while True:
-        msgs = lockstep.exchange({"status": status})
+        # the export slices whose copies to the host are done ride along
+        msgs = lockstep.exchange({"status": status,
+                                  "kv_parts": engine.take_export_parts()})
         lead = msgs[0]
         if lead.get("stop"):
             return lead.get("reason", "")
@@ -262,6 +282,16 @@ class Leader:
             raise
         finally:
             self._lockstep.record("submit", snap, now, raised)
+
+    def import_blocks(self, payload, trace=None) -> int:
+        """The import, recorded only once rank 0 accepted it: validation
+        (``prepare_import``), the slot and the pool's funding are decided
+        here before anything changes, so a refusal stays on rank 0."""
+        prepared = (self._engine.prepare_import(payload)
+                    if isinstance(payload, dict) else payload)
+        rid = self._engine.import_blocks(prepared, trace=trace)
+        self._lockstep.record("import", prepared, rid)
+        return rid
 
     def cancel(self, request_id: int) -> bool:
         self._lockstep.record("cancel", request_id)

@@ -15,7 +15,8 @@ service (rpc/MetricsRpc.java), carried as framed JSON over TCP:
                                           skips the fence)
   get_cluster_spec(task_id)            -> cluster_spec | None
   get_task_infos()                     -> [TaskInfo]
-  heartbeat(task_id)                   -> True
+  heartbeat(task_id)                   -> True | {"profile": {...}}
+                                          (a one-shot command for the task)
   register_execution_result(task_id, exit_code) -> str
   register_tensorboard_url(url)        -> bool
   register_callback_info(task_id, payload) -> bool   (runtime rendezvous data)
@@ -23,12 +24,17 @@ service (rpc/MetricsRpc.java), carried as framed JSON over TCP:
   update_metrics(task_id, metrics, spans=None) -> bool
   get_metrics(task_id)                 -> [MetricSample]
   publish_ports(task_id, ports)        -> bool (named service ports)
-  request_task_profile, preempt_task, notify_preemption, roll_task
+  request_task_profile(task_id, seconds=5.0) -> bool (client only under
+                                          token auth: queue an on-demand
+                                          profiler capture)
+  preempt_task, notify_preemption, roll_task
                                        -> refused by the port's driver, each
                                           naming its ROADMAP.md item
 
-The JAX package's driver piggybacks commands (profile, preempt) on the
-heartbeat RESPONSE; the port's driver answers ``True``.
+The driver piggybacks its commands on the heartbeat RESPONSE, as the JAX
+package's does: ``{"profile": {"seconds": N}}`` in place of ``True``, which
+the executor's Heartbeater relays to the training child (the JAX driver's
+``"preempt"`` command waits for the elastic item).
 
 ``update_metrics`` additionally carries executor-side lifecycle spans
 ([name, unix_ts] pairs: work_dir_ready, child_spawned, child_exited) that

@@ -3,6 +3,7 @@ those of one device, measured across cards.
 
     python -m tony_tpu_torch.tools.tp_mesh_cost \
         [--meshes 'tensor=4;data=2,tensor=2;data=4'] [--layers 4] \
+        [--handoffs 'tensor=4>one;one>data=2,tensor=2;tensor=4>tensor=4'] \
         [--device cpu] [--out FILE]
 
 For each mesh, one process a rank under the TonY env contract (a free
@@ -33,6 +34,19 @@ Each mesh reports:
   ``tony_tpu_torch`` first on ``PYTHONPATH``), the tool times that
   tree's engine, so two designs compare in one run on the same cards.
 
+Then the disaggregated handoffs (``--handoffs``, ``source>destination``
+pairs, ``one`` for one card, ``''`` for none): a prefill role on the
+source serves the requests (greedy, ``--new`` new each) and exports every
+payload (on a mesh rank 0 assembles the ranks' kv heads, which travel on
+the lockstep's gloo group), the payloads go through a file as JSON, and a
+decode role on the destination imports and decodes them. Each reports
+``tokens_equal`` against the one-card solo paged engine, ``payload_bytes``
+(the JSON), on the prefill side ``prefill_s`` (submit to every payload's
+heads on rank 0) and ``export_s`` (the ``export_blocks`` calls: the
+assembly, base64 and checksum), on the decode side ``import_s`` (the
+``prepare_import`` and ``import_blocks`` calls) and ``decode_s`` (the
+first import to the last completion).
+
 Prints one JSON line, ``tp_mesh_cost {...}``, with the card's name and
 power limit beside the numbers on the cards.
 """
@@ -41,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import socket
 import subprocess
@@ -152,11 +167,96 @@ def _gather_costs(engine, dev, sync, reps: int) -> dict:
     }
 
 
-def _engine(args, weights, cfg, dev, mesh=None):
+def _engine(args, weights, cfg, dev, mesh=None, role="both"):
     from tony_tpu_torch.models.serving import SlotServer
 
     return SlotServer(weights, cfg, slots=args.slots, max_len=args.max_len,
-                      paged=True, device=dev, mesh=mesh)
+                      paged=True, device=dev, mesh=mesh, role=role)
+
+
+def _prefill_side(engine, prompts: list, new: int, sync, turn=None) -> dict:
+    """A prefill role's requests through ``engine`` -> the payloads and the
+    side's seconds (module docstring). ``turn`` (a mesh's rank 0): one
+    lockstep turn -> the completions it drained; else the engine's own
+    drain. The payloads wait until every rank's heads are in."""
+    from tony_tpu_torch.models.serving import Request
+
+    sync()
+    t0 = time.perf_counter()
+    reqs = [Request(prompt=p, max_new_tokens=new) for p in prompts]
+    for r in reqs:
+        engine.submit(r)
+    if turn is None:
+        done = engine.run_until_drained()
+    else:
+        done = {}
+        while any(r.id not in done or len(engine._exports[r.id].parts)
+                  < engine._exports[r.id].n_parts for r in reqs):
+            done.update(turn())
+    prefill_s = time.perf_counter() - t0
+    if any(done[r.id].finish_reason != "prefilled" for r in reqs):
+        raise RuntimeError("a prefill-role request did not end prefilled")
+    t0 = time.perf_counter()
+    payloads = [engine.export_blocks(r.id, timeout_s=0) for r in reqs]
+    export_s = time.perf_counter() - t0
+    return {"payloads": payloads, "prefill_s": prefill_s,
+            "export_s": export_s,
+            "payload_bytes": sum(len(json.dumps(p)) for p in payloads)}
+
+
+def _decode_side(engine, payloads: list, sync, turn=None) -> dict:
+    """A decode role's imports of ``payloads`` -> their tokens and the
+    side's seconds (module docstring)."""
+    sync()
+    t0 = time.perf_counter()
+    import_s, rids = 0.0, []
+    for pl in payloads:
+        t1 = time.perf_counter()
+        rids.append(engine.import_blocks(engine.prepare_import(pl)))
+        import_s += time.perf_counter() - t1
+    if turn is None:
+        done = engine.run_until_drained()
+    else:
+        done = {}
+        while not all(r in done for r in rids):
+            done.update(turn())
+    sync()
+    return {"tokens": [done[r].tokens for r in rids], "import_s": import_s,
+            "decode_s": time.perf_counter() - t0}
+
+
+def _rank_handoff(args, engine, sync) -> dict:
+    """``--role``'s side of a handoff on this rank, in lockstep: rank 0
+    leads (parallel/lockstep.py) and returns the side's record (the
+    prefill side writes its payloads to ``--payloads``), the others
+    follow."""
+    from tony_tpu_torch.parallel.lockstep import (Leader, Lockstep, follow,
+                                                  run_turn)
+
+    ls = Lockstep()
+    if not ls.leader:
+        follow(engine, ls)
+        return {}
+    lead = Leader(engine, ls)
+
+    def turn():
+        ls.lead(engine, time.monotonic(), False)
+        _, done, exc, _ = run_turn({"e": lead}, False)
+        if exc is not None:
+            raise exc
+        return done
+
+    try:
+        if args.role == "prefill":
+            rec = _prefill_side(lead, _prompts(args, engine.cfg.vocab_size),
+                                args.new, sync, turn)
+            Path(args.payloads).write_text(json.dumps(rec.pop("payloads")))
+        else:
+            rec = _decode_side(lead, json.loads(
+                Path(args.payloads).read_text()), sync, turn)
+    finally:
+        ls.close()
+    return rec
 
 
 def _rank(args) -> dict:
@@ -175,8 +275,12 @@ def _rank(args) -> dict:
     cfg = _cfg(args)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init(cfg, gen, dev, place=block_placer(mesh, TP_DECODE_RULES))
-    engine = _engine(args, prepare_decode(params, cfg, mesh=mesh), cfg, dev)
+    engine = _engine(args, prepare_decode(params, cfg, mesh=mesh), cfg, dev,
+                     role=args.role)
     del params
+    if args.role != "both":
+        return dict(_rank_handoff(args, engine, sync),
+                    rank=info["process_id"], backend=info["backend"])
     prompts = _prompts(args, cfg.vocab_size)
     _serve(engine, prompts[:2], 4, sync)            # warm-up
     tokens, wall = _serve(engine, prompts, args.new, sync)
@@ -194,8 +298,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _job(args, mesh: str, world: int, tmp: Path) -> list:
-    """The ranks of ``mesh`` -> each rank's record (rank order)."""
+def _job(args, mesh: str, world: int, tmp: Path, extra=()) -> list:
+    """The ranks of ``mesh`` -> each rank's record (rank order); ``extra``
+    goes on every rank's command line."""
     port = _free_port()
     procs = []
     for r in range(world):
@@ -205,7 +310,7 @@ def _job(args, mesh: str, world: int, tmp: Path) -> list:
             env["OMP_NUM_THREADS"] = "1"
         argv = [sys.executable, "-m", "tony_tpu_torch.tools.tp_mesh_cost",
                 "--as-rank", "--mesh", mesh, "--out",
-                str(tmp / f"{r}.json")] + _passed(args)
+                str(tmp / f"{r}.json")] + _passed(args) + list(extra)
         procs.append(subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
     errs = []
@@ -244,7 +349,8 @@ def _card() -> str | None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--meshes", default="tensor=4;data=2,tensor=2;data=4")
+    p.add_argument("--meshes", default="tensor=4;data=2,tensor=2;data=4",
+                   help="the meshes served beside one card ('': none)")
     p.add_argument("--layers", type=int, default=4)
     p.add_argument("--requests", type=int, default=16)
     p.add_argument("--new", type=int, default=32)
@@ -258,7 +364,15 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="default: the cards (rank r on card r)")
     p.add_argument("--out", default="")
+    p.add_argument("--handoffs",
+                   default="tensor=4>one;one>data=2,tensor=2;"
+                           "tensor=4>tensor=4",
+                   help="source>destination pairs of the disaggregated "
+                        "handoffs ('one': one card; '': none)")
     p.add_argument("--mesh", default="")
+    p.add_argument("--role", default="both",
+                   choices=("both", "prefill", "decode"))
+    p.add_argument("--payloads", default="")
     p.add_argument("--as-rank", action="store_true")
     args = p.parse_args(argv)
     if args.as_rank:
@@ -276,11 +390,12 @@ def main(argv=None) -> int:
     dev, sync = _device(args)
     cfg = _cfg(args)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    engine = _engine(args, prepare_decode(T.init(cfg, gen, dev), cfg), cfg,
-                     dev)
+    one = prepare_decode(T.init(cfg, gen, dev), cfg)
+    engine = _engine(args, one, cfg, dev)
     prompts = _prompts(args, cfg.vocab_size)
     _serve(engine, prompts[:2], 4, sync)
     want, one_s = _serve(engine, prompts, args.new, sync)
+    engine.shutdown()
     del engine
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -289,7 +404,7 @@ def main(argv=None) -> int:
               "requests": len(prompts), "new": args.new,
               "slots": args.slots, "max_len": args.max_len,
               "one_device_serve_s": one_s, "meshes": {}}
-    for mesh in args.meshes.split(";"):
+    for mesh in [m for m in args.meshes.split(";") if m]:
         spec = parse_mesh(mesh)
         world = 1
         for v in vars(spec).values():
@@ -303,6 +418,39 @@ def main(argv=None) -> int:
             "world": world, "backend": ranks[0]["backend"],
             "tokens_equal": sum(a == b for a, b in zip(toks[0], want)),
             "ranks": ranks}
+    handoffs = [h for h in args.handoffs.split(";") if h]
+    if handoffs:
+        result["handoffs"] = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            for i, pair in enumerate(handoffs):
+                src, dst = pair.split(">")
+                rec = {}
+                path = tmp / f"payloads_{i}.json"
+                for side, where in (("prefill", src), ("decode", dst)):
+                    if where == "one":
+                        eng = _engine(args, one, cfg, dev, role=side)
+                        if side == "prefill":
+                            r = _prefill_side(eng, prompts, args.new, sync)
+                            path.write_text(json.dumps(r.pop("payloads")))
+                        else:
+                            r = _decode_side(eng, json.loads(
+                                path.read_text()), sync)
+                        eng.shutdown()
+                        del eng
+                    else:
+                        world = math.prod(max(1, int(v)) for v in
+                                          vars(parse_mesh(where)).values())
+                        r = _job(args, where, world, tmp, [
+                            "--role", side, "--payloads", str(path)])[0]
+                    rec[side] = dict(r, on=where)
+                toks = rec["decode"].pop("tokens")
+                rec["tokens_equal"] = sum(a == b for a, b in zip(toks, want))
+                rec["requests"] = len(toks)
+                result["handoffs"][pair] = rec
+                print(f"handoff {pair}: {rec['tokens_equal']} of "
+                      f"{len(toks)} requests equal to one card's solo paged "
+                      f"engine; {json.dumps(rec)}", flush=True)
     line = "tp_mesh_cost " + json.dumps(result)
     print(line)
     if args.out:

@@ -3,11 +3,19 @@
 ``trace`` captures a ``torch.profiler`` trace (Chrome trace JSON, viewable in
 Perfetto) into a directory. ``StepTimer`` writes the same JSONL step records
 as the JAX package's, with its checkpoint-recency fields
-(``note_checkpoint``), and polls the executor's preemption flag file; its
-histogram is observability.py's. ``serve``'s loop times its scheduling
-turns with it too (``reset_interval`` skips the idle gaps). Not ported
-yet: the XLA compile counters and the on-demand profiler capture (ROADMAP
-queue 1, observability item).
+(``note_checkpoint``), the process's kernel-library build counters
+(observability.py ``COMPILE_TELEMETRY``: ``kernel_builds``,
+``kernel_build_time_s``, ``kernel_builds_post_warm``, the counterparts of
+the JAX package's ``xla_*`` keys) and, given a CUDA device, the device's
+memory peak (``gpu_memory_peak_mb``: ``torch.cuda.max_memory_allocated``
+in MiB; the key is left out on the CPU). It polls the executor's
+preemption flag file, and at record cadence the profile flag
+(``<step log>.profile``, JSON ``{"seconds": N, "out_dir": path}``): a
+``torch.profiler`` capture of the CPU and, on a card, CUDA activity for N
+seconds, written as Chrome-trace JSON into ``out_dir``. ``serve``'s loop
+times its scheduling turns with it too (``reset_interval`` skips the idle
+gaps; ``compile_warm_on_step=False``: serve draws the warm-up line at its
+first delivered completion).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from pathlib import Path
 import torch
 
 from .. import constants as c
-from ..observability import Histogram
+from ..observability import COMPILE_TELEMETRY, Histogram
 
 log = logging.getLogger(__name__)
 
@@ -46,18 +54,64 @@ def trace(log_dir: str | Path, enabled: bool = True):
     prof.export_chrome_trace(str(Path(log_dir) / f"trace.{os.getpid()}.json"))
 
 
+# the on-demand capture in progress: (torch.profiler.profile, its out_dir)
+_capture: tuple | None = None
+
+
+def _start_profiler(log_dir: str) -> None:
+    """Start a ``torch.profiler`` capture of the CPU and, when CUDA is up,
+    the card into ``log_dir`` (``_stop_profiler`` writes it). One seam, so
+    tests can stub the profiler."""
+    global _capture
+    from torch.profiler import ProfilerActivity, profile
+
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    _capture = (prof, log_dir)
+
+
+def _stop_profiler() -> None:
+    """Stop the capture and write ``<out_dir>/trace.<pid>.json``. On the
+    card the work queued so far finishes first, so the trace holds every
+    kernel the captured steps launched."""
+    global _capture
+    prof, log_dir = _capture
+    _capture = None
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    prof.stop()
+    prof.export_chrome_trace(str(Path(log_dir) / f"trace.{os.getpid()}.json"))
+
+
 class StepTimer:
     """Rolling step-time stats written as JSONL every ``window`` steps.
     Durations come from ``time.monotonic()``; the record's ``ts`` is wall
-    clock and only labels the line."""
+    clock and only labels the line. ``compile_warm_on_step`` (default
+    True): the first measured step draws the process's kernel-build
+    warm-up line (a training loop has then run every kernel it needs).
+    ``device``: the training's device; a CUDA device adds its memory peak
+    to every record."""
 
-    def __init__(self, out_path: str | Path | None = None, window: int = 50):
+    def __init__(self, out_path: str | Path | None = None, window: int = 50,
+                 compile_warm_on_step: bool = True, device=None):
         self._out = Path(out_path) if out_path else None
         self._window = window
+        self._compile_warm_on_step = compile_warm_on_step
+        self._compile = COMPILE_TELEMETRY
+        self._device = (torch.device(device) if device is not None
+                        else None)
         self._t_last: float | None = None
         self._times: list[float] = []
         self.hist = Histogram()
         self.step = 0
+        # the on-demand capture: `<out_path>.profile` is the flag file the
+        # executor writes, polled at record cadence, never per step
+        self._profile_stop_t: float | None = None
+        self._atexit_armed = False
         # preemption drain: the executor drops `<out_path>.preempt`; the
         # poll is time-gated (every ~0.25 s), never per step
         self.preempt_requested = False
@@ -77,8 +131,12 @@ class StepTimer:
             if len(self._times) > self._window:
                 self._times.pop(0)
             self.hist.observe(dt)
+            if self._compile_warm_on_step:
+                self._compile.mark_warm()
         self._t_last = now
         self.step += 1
+        if self._profile_stop_t is not None and now >= self._profile_stop_t:
+            self._finish_profile()
         if now - self._preempt_poll_t >= 0.25:
             self._preempt_poll_t = now
             self._poll_preempt_flag()
@@ -92,6 +150,14 @@ class StepTimer:
                 "ts": time.time(),
                 **extra,
             }
+            snap = self._compile.snapshot()
+            for key in ("kernel_builds", "kernel_build_time_s",
+                        "kernel_builds_post_warm"):
+                rec[key] = snap[key]
+            if self._device is not None and self._device.type == "cuda":
+                rec["gpu_memory_peak_mb"] = round(
+                    torch.cuda.max_memory_allocated(self._device) / 2**20,
+                    3)
             if self._ckpt_step is not None:
                 rec["last_ckpt_step"] = self._ckpt_step
                 rec["last_ckpt_ts"] = self._ckpt_ts
@@ -103,6 +169,7 @@ class StepTimer:
                     f.write(json.dumps(rec) + "\n")
             except OSError as e:
                 log.warning("step log write failed: %s", e)
+            self._poll_profile_flag()
         return dt
 
     def note_checkpoint(self, step: int) -> None:
@@ -132,6 +199,70 @@ class StepTimer:
             pass
         log.warning("preemption notice received: exit at this step boundary")
         self.preempt_requested = True
+
+    # ------------------------------------------- on-demand profiler capture
+    @property
+    def _flag_path(self) -> Path | None:
+        """``<step log>.profile``: the executor relays a driver's profile
+        command into this process through it."""
+        if self._out is None:
+            return None
+        return self._out.with_name(self._out.name + c.PROFILE_REQUEST_SUFFIX)
+
+    def _poll_profile_flag(self) -> None:
+        flag = self._flag_path
+        if flag is None or self._profile_stop_t is not None:
+            return
+        try:
+            if not flag.exists():
+                return
+            req = json.loads(flag.read_text())
+            flag.unlink()
+            # inside the tolerant block: JSON that is not an object, or a
+            # seconds that is not a number, is dropped as a torn flag is
+            seconds = float(req.get("seconds", 5.0))
+            out_dir = str(req.get("out_dir")
+                          or self._out.parent / c.PROFILE_DIR_NAME
+                          / f"step{self.step}")
+        except (OSError, ValueError, TypeError, AttributeError) as e:
+            # a torn or unreadable request must not stop training; the
+            # flag goes, so it cannot wedge the next request
+            log.warning("profile request unreadable: %s", e)
+            try:
+                flag.unlink()
+            except OSError:
+                pass
+            return
+        try:
+            _start_profiler(out_dir)
+        except Exception:
+            log.exception("profiler capture failed to start")
+            return
+        self._profile_stop_t = time.monotonic() + max(0.0, seconds)
+        # the loop may end inside the window: close() (called at the
+        # loop's end, and at exit) writes what was captured
+        if not self._atexit_armed:
+            import atexit
+
+            atexit.register(self.close)
+            self._atexit_armed = True
+        log.info("profiler capture started (%.1fs) -> %s", seconds, out_dir)
+
+    def _finish_profile(self) -> None:
+        self._profile_stop_t = None
+        try:
+            _stop_profiler()
+            log.info("profiler capture finished")
+        except Exception:
+            log.exception("profiler capture failed to stop")
+
+    def close(self) -> None:
+        """Stop a capture in progress early, so its trace is written
+        (idempotent): at the training loop's end and at exit, a window
+        that outlives the loop still gives a trace of what ran."""
+        if self._profile_stop_t is not None:
+            log.info("capture window outlived the loop: stopping early")
+            self._finish_profile()
 
     def reset_interval(self) -> None:
         """Forget the last tick's instant (the rolling window stays): a
