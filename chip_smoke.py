@@ -49,10 +49,8 @@ and exits non-zero if any of them fails:
    resumed losses must repeat the straight run's, to the bit when two
    straight runs agree to the bit); lm_generate and serve's app restored
    from that directory against generate on the parameters the run held
-   at its last step; the elastic-training drill preempted by its flag
-   file and relaunched (continuous steps, the straight run's final
-   value); the checkpoint's bytes, the loop's stall inside save_async, the
-   writer's time and the restore time;
+   at its last step; the checkpoint's bytes, the loop's stall inside
+   save_async, the writer's time and the restore time;
 7. main path, prefix cache: serve's app at the flagship width with the
    CLI's defaults and --prefix-cache-blocks PREFIX_BLOCKS, 16 requests
    sharing a 1024-token prefix posted cold, then again (every full chunk
@@ -233,8 +231,25 @@ and exits non-zero if any of them fails:
    new) token-equal to an in-process serve app up to its first near tie,
    then client.stop() leaves no process behind; (c) a worker exiting 1
    fails its job, and one past tony.task.executor.execution-timeout-ms is
-   killed; (a)-(c) run at once; the phase's seconds, the driver's start-up
-   (submit -> driver.json) and the executors' (launched -> registered);
+   killed; (d) elastic training: two world-1 lm_train workers on the card
+   (the flagship's widths at ELASTIC_CUT_LAYERS layers, B8 x 2048, a
+   checkpoint every ELASTIC_SAVE_EVERY steps, each worker its own
+   directory) through the driver's chaos preemption at step
+   ELASTIC_PREEMPT_AT (the child drains into a budget-free relaunch), a
+   SIGKILL of worker:1's child past its restart budget of 0 (detach,
+   worker:0 drained by the executor's SIGTERM relay, generation 1) and its
+   rejoin after the retry (generation 2, the checkpoint prestaged): the
+   job SUCCEEDS, no step log skips a step, recomputed steps repeat their
+   losses to the bit (when the two workers' first steps agree to the bit),
+   /metrics reads 2 resizes and 1 preemption, the journal and the traces
+   hold their records, the prestaged bytes are the checkpoint's, K1 and
+   K3-K5 launch ELASTIC_CUT_LAYERS times a step, and no process is left;
+   beside them the elastic_train drill: preempted by its flag file and
+   relaunched, continuous steps, the straight run's final value; (d) is
+   submitted before the tp phase and runs beside it, the pipeline phase
+   and (a)-(c) and the drill, which run at once; the phase's seconds,
+   the driver's start-up (submit -> driver.json) and the executors'
+   (launched -> registered);
 20. profile: a flagship decode step's and a flagship training step's
    (remat off and under each policy) host wall time against the device
    time torch.profiler records.
@@ -2105,13 +2120,6 @@ def phase_checkpoint(torch, ops, lm_train, lm_generate, train_losses) -> dict:
     del app, w32, params, held
     torch.cuda.empty_cache()
 
-    # ---- the elastic drill on the card
-    drill = _elastic_drill(root / "elastic")
-    print(f"checkpoints: elastic drill: drained at step "
-          f"{drill['drained_at']} (kept {drill['kept']}), relaunched at "
-          f"{drill['resumed_at']}, {drill['recomputed']} steps recomputed, "
-          f"final {drill['final']} equal to the straight run's; "
-          f"{drill['wall_s']:.1f} s")
     # the resumed run's directory stays for the speculative phase, which
     # serves and drafts against it and then deletes the tree
     for sub in root.iterdir():
@@ -2126,7 +2134,7 @@ def phase_checkpoint(torch, ops, lm_train, lm_generate, train_losses) -> dict:
         checkpoint_bytes=ckpt_bytes, save_async_stall_ms=stall_ms,
         writer_s=write_s, snapshot_s=[r["snapshot_s"] for r in saves],
         restore_s=restore_s, generate_tokens_equal=True,
-        serve_parity=rows, elastic=drill, launches=totals,
+        serve_parity=rows, launches=totals,
         card=nvidia_smi_line())))
     return totals
 
@@ -7444,6 +7452,15 @@ LAUNCH_MNIST_STEPS = 200
 LAUNCH_MNIST_LOSS, LAUNCH_MNIST_ACC = 1e-2, 0.99
 LAUNCH_CHILD_MB = 100
 LAUNCH_TIMEOUT_MS = 2000
+# launch (d), the elastic job: the flagship's depth cut 12 -> 2 for the
+# drill's seconds (ELASTIC_CUT_LAYERS), the steps the job trains (every
+# attempt to the last), the save interval, the chaos preemption's step,
+# the seed whose choice preempts worker:0 (random.Random(1)), the rescale
+# retry, the drain grace
+ELASTIC_CUT_LAYERS = 2
+ELASTIC_TOTAL_STEPS, ELASTIC_SAVE_EVERY = 16, 4
+ELASTIC_PREEMPT_AT, ELASTIC_CHAOS_SEED = 6, 1
+ELASTIC_RETRY_MS, ELASTIC_GRACE_MS = 3000, 10000
 
 
 def _python(command: str) -> str:
@@ -7584,13 +7601,291 @@ def _launch_serving(serve) -> dict:
                 processes=names)
 
 
-def phase_launch(torch, ops, serve) -> dict:
+class _Background:
+    """fn(*args) on a thread; result() joins it and re-raises its
+    failure."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self._out, self._err = None, None
+        self._thread = threading.Thread(target=self._run, args=(fn, args),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self._out = fn(*args)
+        except BaseException as e:      # re-raised by result()
+            self._err = e
+
+    def result(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def _elastic_job():
+    """(d)'s job, submitted: two world-1 workers (the generic runtime
+    exports no world size), each lm_train under the elastic_cost child
+    wrapper (a line a step with its loss) on the card, each with its own
+    checkpoint directory; the driver's chaos preemption armed by the
+    environment it starts with."""
+    root = LAUNCH_DIR / "elastic"
+    ckpt = root / "ckpt_$TONY_TASK_INDEX"
+    argv = (FLAGSHIP + ["--n-layers", str(ELASTIC_CUT_LAYERS),
+                        "--batch-size", str(TRAIN_BATCH), "--seq-len",
+                        str(TRAIN_SEQ), "--device", "cuda",
+                        "--step-log-every", "1", "--checkpoint-every",
+                        str(ELASTIC_SAVE_EVERY), "--checkpoint-dir",
+                        str(ckpt)])
+    command = " ".join([sys.executable, "-m",
+                        "tony_tpu_torch.tools.elastic_cost", "--child",
+                        "--total-steps", str(ELASTIC_TOTAL_STEPS),
+                        "--hold-file", str(root / "hold_$TONY_TASK_INDEX"),
+                        "--"] + argv)
+    conf = _job_conf("elastic", **{
+        "tony.worker.instances": 2, "tony.worker.command": command,
+        "tony.application.framework": "generic",
+        "tony.worker.max-restarts": 0,
+        "tony.train.elastic-enabled": True,
+        "tony.train.elastic-min-instances": 1,
+        "tony.train.rescale-retry-ms": ELASTIC_RETRY_MS,
+        "tony.train.checkpoint-dir": str(ckpt),
+        "tony.task.preempt-grace-ms": ELASTIC_GRACE_MS,
+        "tony.task.heartbeat-interval-ms": 250,
+        "tony.task.metrics-interval-ms": 250,
+        "tony.application.timeout-ms": 600 * 1000})
+    chaos = {"TONY_TEST_DRIVER_PREEMPT_AT_STEP": str(ELASTIC_PREEMPT_AT),
+             "TONY_TEST_DRIVER_CHAOS_SEED": str(ELASTIC_CHAOS_SEED)}
+    os.environ.update(chaos)
+    try:
+        return _Job(conf)
+    finally:       # only this job's driver is started with them
+        for k in chaos:
+            os.environ.pop(k, None)
+
+
+def _elastic_drive(job) -> dict:
+    """(d)'s sequence, driven from here while the job runs: once the
+    chaos preemption drained worker:0 (its first attempt ends 79),
+    worker:1's child is held at its next step boundary (its hold file) so
+    that it cannot finish while worker:0 relaunches; once worker:0's new
+    attempt steps, worker:1's child is SIGKILLed (its budget is 0: the
+    resize down) and its newest checkpoint recorded (the rejoin's
+    prestage must read it). The driver's /metrics is scraped until the
+    job ends."""
+    import signal
+    import urllib.request
+
+    from tony_tpu_torch.tools.elastic_cost import parse_child
+
+    logs = Path(job.client.job_dir) / "logs"
+    hold = LAUNCH_DIR / "elastic" / "hold_1"
+    info = json.loads((Path(job.client.job_dir) / "driver.json").read_text())
+    url = f"http://127.0.0.1:{info['metrics_port']}/metrics"
+    out = dict(metrics="", killed=None, held=None)
+    deadline = time.monotonic() + 400
+
+    def attempts(i):
+        path = logs / f"worker_{i}.stdout"
+        return parse_child(path.read_text()) if path.exists() else []
+
+    while job._thread.is_alive():
+        if time.monotonic() > deadline:
+            job.stop()
+            fail(f"launch (d): the elastic job did not end: {out}")
+        w0, w1 = attempts(0), attempts(1)
+        if out["held"] is None and w1 and w1[0]["end"]:
+            fail(f"launch (d): worker:1's first attempt ended "
+                 f"{w1[0]['end']} before worker:0 was preempted")
+        if (out["held"] is None and w0 and w0[0]["end"]
+                and w1 and w1[-1]["end"] is None):
+            if w0[0]["end"]["rc"] != 79:
+                fail(f"launch (d): worker:0's first attempt ended "
+                     f"{w0[0]['end']}, expected the chaos drain (79)")
+            hold.write_text("")
+            out["held"] = dict(pid=w1[-1]["pid"],
+                                  step=w1[-1]["steps"][-1][0]
+                                  if w1[-1]["steps"] else None)
+        if (out["held"] is not None and out["killed"] is None
+                and len(w0) > 1 and w0[1]["steps"]):
+            os.kill(out["held"]["pid"], signal.SIGKILL)
+            out["killed"] = dict(t=time.time(), worker0_step=w0[1]["steps"]
+                                 [-1][0], worker1_step=w1[-1]["steps"][-1][0]
+                                 if w1[-1]["steps"] else None)
+            time.sleep(0.5)     # its writer thread is gone with it
+            hold.unlink()       # the rejoin must not wait
+            root = LAUNCH_DIR / "elastic" / "ckpt_1"
+            step = max(int(p.name) for p in root.iterdir()
+                       if p.name.isdigit())
+            out["ckpt_1"] = dict(step=step, bytes=sum(
+                f.stat().st_size for f in (root / str(step)).rglob("*")
+                if f.is_file()))
+        try:
+            with urllib.request.urlopen(url, timeout=2) as r:
+                out["metrics"] = r.read().decode()
+        except OSError:
+            pass
+        time.sleep(0.2)
+    return out
+
+
+def _elastic_checks(job, drive: dict) -> tuple:
+    """(d)'s checks once its job ended -> (its record, the kernels'
+    launches over the attempts that ended on their own)."""
+    from tony_tpu_torch.cluster.provisioner import _pid_alive
+    from tony_tpu_torch.tools.elastic_cost import continuity, parse_child
+
+    job.wait()
+    jd = Path(job.client.job_dir)
+    if drive["killed"] is None:
+        fail(f"launch (d): worker:1 was never killed: {drive}")
+    workers = {i: parse_child((jd / "logs" / f"worker_{i}.stdout")
+                              .read_text()) for i in (0, 1)}
+    checks, launches = {}, dict.fromkeys(
+        ("flash_fwd", "flash_decode", "flash_bwd_dkdv", "flash_bwd_dq"), 0)
+    # the steps: none skipped, every worker to the last, and each attempt
+    # that ended on its own launched K1 and K3-K5 once a layer a step
+    recomputed, losses = {}, {}
+    for i, atts in workers.items():
+        seq = [s for a in atts for s in a["steps"]]
+        steps = [s for s, _, _ in seq]
+        try:
+            recomputed[i] = continuity(steps)
+        except AssertionError as e:
+            fail(f"launch (d): worker:{i}: {e}")
+        if steps[0] != 0 or steps[-1] != ELASTIC_TOTAL_STEPS - 1:
+            fail(f"launch (d): worker:{i} stepped {steps}")
+        for s, loss, _ in seq:
+            losses.setdefault(i, {}).setdefault(s, []).append(loss)
+        for a in atts:
+            if a["end"] is None:
+                continue
+            n = len(a["steps"]) * ELASTIC_CUT_LAYERS
+            want = {"flash_fwd": n, "flash_decode": 0, "flash_bwd_dkdv": n,
+                    "flash_bwd_dq": n}
+            if a["end"]["launches"] != want:
+                fail(f"launch (d): worker:{i}'s attempt launched "
+                     f"{a['end']['launches']}, expected {want}")
+            for k, v in want.items():
+                launches[k] += v
+    checks["continuous_steps"] = recomputed
+    # two straight runs: the workers' first attempts share the seed, the
+    # data and the steps, so they tell whether the card repeats a run to
+    # the bit; recomputed steps are then held to the bit, else within the
+    # spread the two runs show
+    shared = sorted(set(losses[0]) & set(losses[1]))
+    spread = max(abs(losses[0][s][0] - losses[1][s][0]) for s in shared)
+    worst = max(abs(x - v[0]) for w in losses.values() for v in w.values()
+                for x in v)
+    redone = sum(len(v) - 1 for w in losses.values() for v in w.values())
+    if worst > spread or (spread == 0 and worst != 0) or not redone:
+        fail(f"launch (d): recomputed losses differ by {worst} (the two "
+             f"workers' straight runs by {spread}; {redone} recomputed)")
+    checks["recomputed_losses"] = dict(bitwise=worst == 0, spread=spread,
+                                       recomputed=redone)
+    # the driver's counters, the journal, the traces
+    m = drive["metrics"]
+    if ("driver_gang_resizes_total 2" not in m
+            or "driver_preemptions_total 1" not in m
+            or "driver_task_restarts_total 0" not in m):
+        fail(f"launch (d): /metrics read "
+             f"{[ln for ln in m.splitlines() if '_total' in ln]}")
+    checks["metrics"] = "2 resizes, 1 preemption, 0 restarts"
+    journal = [json.loads(ln) for ln in
+               (jd / "driver.journal.jsonl").read_text().splitlines()]
+    got = [(r["op"], r.get("kind"), r.get("task"), r.get("gen"))
+           for r in journal if r["op"] in ("detach", "reattach",
+                                           "generation", "ledger")]
+    want = [("ledger", "preempt", "worker:0", None),
+            ("detach", None, "worker:1", None),
+            ("generation", None, None, 1),
+            ("ledger", "resize", "worker:0", None),
+            ("reattach", None, "worker:1", None),
+            ("generation", None, None, 2)]
+    it = iter(got)
+    if not all(w in it for w in want):
+        fail(f"launch (d): the journal's records {got}, expected {want} "
+             f"in order")
+    checks["journal"] = got
+    _, traces = job.history()
+    tr = {t["id"]: t for t in traces}
+    names = {k: [n for n, _ in v["spans"]] for k, v in tr.items()}
+    a1 = tr["worker:1"]["attrs"]
+    if (not {"preempting", "preempted", "resized"} <= set(names["worker:0"])
+            or names["worker:0"].count("resized") != 2
+            or names["worker:1"].count("resized") != 2
+            or "ckpt_prestaged" not in names["worker:1"]
+            or tr["worker:0"]["attrs"].get("gang_generation") != 2):
+        fail(f"launch (d): trace marks {names}")
+    checks["traces"] = {k: [n for n in v if n in (
+        "preempting", "preempted", "resized", "ckpt_prestaged")]
+        for k, v in names.items()}
+    if (a1.get("prestage_step"), a1.get("prestage_bytes")) != (
+            drive["ckpt_1"]["step"], drive["ckpt_1"]["bytes"]):
+        fail(f"launch (d): prestaged step {a1.get('prestage_step')}, "
+             f"{a1.get('prestage_bytes')} bytes; worker:1's newest "
+             f"checkpoint {drive['ckpt_1']}")
+    checks["prestage"] = dict(step=a1["prestage_step"],
+                              bytes=a1["prestage_bytes"],
+                              s=a1["prestage_s"])
+    # no process left behind: the driver, every executor, every child
+    pids = [json.loads((jd / "driver.json").read_text())["pid"]]
+    pids += [r["pid"] for r in journal if r["op"] == "launch"]
+    pids += [a["pid"] for atts in workers.values() for a in atts]
+    t0 = time.perf_counter()
+    while any(map(_pid_alive, pids)) and time.perf_counter() - t0 < 60:
+        time.sleep(0.05)
+    left = [p for p in pids if _pid_alive(p)]
+    if left:
+        fail(f"launch (d): processes {left} outlived the job")
+    checks["processes_left"] = 0
+    rec = dict(job.record(), checks=checks, killed=drive["killed"],
+               held=drive["held"],
+               attempts={i: [dict(world=a["world"], gen=a["gen"],
+                                  first=a["steps"][0][0] if a["steps"]
+                                  else None,
+                                  last=a["steps"][-1][0] if a["steps"]
+                                  else None,
+                                  rc=a["end"]["rc"] if a["end"] else None,
+                                  peak_mb=a["end"]["peak_mb"] if a["end"]
+                                  else None)
+                             for a in atts] for i, atts in workers.items()})
+    return rec, launches
+
+
+class _EarlyElastic:
+    """Launch (d), submitted before the tp phase: its children start up,
+    train and relaunch beside the tp and pipeline phases and launch
+    (a)-(c), which the launch phase then checks it after. Its sequence
+    runs on a thread of its own from its submit on (its steps must be
+    watched while the other phases run); its kernels' launches are its
+    children's own counts. ``base_mb``: the card's memory before it (and
+    before every job of the launch phase)."""
+
+    def __init__(self, torch):
+        torch.cuda.empty_cache()
+        self.base_mb = _card_memory_mb()
+        self.t0 = time.perf_counter()
+        self.job = _elastic_job()
+        self.drive = _Background(_elastic_drive, self.job)
+
+    def stop(self) -> None:
+        """No job outlives a failed phase."""
+        if self.job.client._driver_proc.poll() is None:
+            self.job.stop()
+
+
+def phase_launch(torch, ops, serve, early: _EarlyElastic) -> dict:
     """The port's launch path on the card (TonyClient -> driver ->
     executor -> runtime): (a) mnist_cuda.json, (b) serve_cuda.json's
     replica against an in-process serve up to the first near tie, then
-    stopped, (c) a failing and a timed-out worker fail their jobs; the
-    three at once. Returns this process's launches (none: MNIST and the
-    serving engines run no kernel)."""
+    stopped, (c) a failing and a timed-out worker fail their jobs, (d) the
+    elastic job (``early``: submitted before the tp phase); (a)-(c) at
+    once, beside (d)'s end. Returns the launches of (d)'s children (MNIST
+    and the serving engines run no kernel)."""
     print("== main path: launch")
     ops.reset_launch_counts()
     conf = _job_conf("mnist", [CONFIGS / "mnist_cuda.json"],
@@ -7600,9 +7895,10 @@ def phase_launch(torch, ops, serve) -> dict:
     conf.set("tony.worker.command", _python(spec.command) + f" --steps "
              f"{LAUNCH_MNIST_STEPS} --metrics-out {metrics}")
     torch.cuda.empty_cache()
-    base_mb = _card_memory_mb()
-    jobs = []
+    elastic, drive, base_mb = early.job, early.drive, early.base_mb
+    jobs = [elastic]
     try:
+        drill = _Background(_elastic_drill, LAUNCH_DIR / "elastic_drill")
         jobs.append(_Job(conf))
         jobs.append(_Job(_job_conf("exit1", **{
             "tony.worker.instances": 1, "tony.worker.command":
@@ -7610,7 +7906,7 @@ def phase_launch(torch, ops, serve) -> dict:
         jobs.append(_Job(_job_conf("timeout", **{
             "tony.worker.instances": 1, "tony.worker.command": "sleep 600",
             "tony.task.executor.execution-timeout-ms": LAUNCH_TIMEOUT_MS})))
-        mnist, failing, slow = jobs
+        _, mnist, failing, slow = jobs
         b = _launch_serving(serve)
         failing.wait("FAILED")
         slow.wait("FAILED")
@@ -7620,13 +7916,17 @@ def phase_launch(torch, ops, serve) -> dict:
                  f"SIGKILLed child's 247), the timed-out job "
                  f"{slow.wall_s:.1f} s")
         a = _launch_mnist(mnist, metrics, base_mb)
+        d, d_launches = _elastic_checks(elastic, drive.result())
+        d["phase_s"] = round(time.perf_counter() - early.t0, 1)
+        drill = drill.result()
     except BaseException:
         for job in jobs:        # no job outlives a failed phase
             if job.client._driver_proc.poll() is None:
                 job.stop()
         raise
     c = dict(exit1=failing.record(), timeout=slow.record())
-    launches = ops.launch_counts()
+    launches = {k: n + d_launches[k]
+                for k, n in ops.launch_counts().items()}
     print(f"launch (a): mnist_cuda.json {a['status']} in {a['wall_s']} s "
           f"(driver up {a['driver_s']} s, executor registered "
           f"{a['executor_s']['worker:0']} s after launch), final loss "
@@ -7644,7 +7944,24 @@ def phase_launch(torch, ops, serve) -> dict:
     print(f"launch (c): exit 1 -> FAILED in {c['exit1']['wall_s']} s; "
           f"execution timeout {LAUNCH_TIMEOUT_MS} ms -> FAILED (247) in "
           f"{c['timeout']['wall_s']} s")
+    ck = d["checks"]
+    print(f"launch (d): elastic job {d['status']} in {d['wall_s']} s "
+          f"({d['phase_s']} s from its submit before the tp phase); "
+          f"passed: continuous steps "
+          f"(recomputed {ck['continuous_steps']}), recomputed losses "
+          f"{'bit-equal' if ck['recomputed_losses']['bitwise'] else 'within the straight runs spread'} "
+          f"({ck['recomputed_losses']}), /metrics {ck['metrics']}, the "
+          f"journal {ck['journal']}, trace marks {ck['traces']}, prestaged "
+          f"{ck['prestage']} = worker:1's newest checkpoint, "
+          f"{ck['processes_left']} processes left, launches {d_launches}; "
+          f"attempts {d['attempts']}")
+    print(f"launch: the elastic_train drill: drained at step "
+          f"{drill['drained_at']} (kept {drill['kept']}), relaunched at "
+          f"{drill['resumed_at']}, {drill['recomputed']} steps recomputed, "
+          f"final {drill['final']} equal to the straight run's; "
+          f"{drill['wall_s']:.1f} s")
     print("launch " + json.dumps(dict(mnist=a, serving=b, failures=c,
+                                      elastic=d, elastic_drill=drill,
                                       launches=launches,
                                       card=nvidia_smi_line())))
     return launches
@@ -8162,9 +8479,15 @@ def main() -> int:
     moe_launches = timed("moe", phase_moe, torch, ops, lm_train, lm_generate,
                          A, G, T)
     mesh_launches = timed("mesh", phase_mesh, torch, ops, A, train_losses)
-    tp_launches = timed("tp", phase_tp, torch, ops, A, DA, G, T)
-    pipe_launches = timed("pipeline", phase_pipeline, torch, ops, G, T)
-    launch_launches = timed("launch", phase_launch, torch, ops, serve)
+    # launch (d) runs from here on, beside the tp and pipeline phases
+    early = _EarlyElastic(torch)
+    try:
+        tp_launches = timed("tp", phase_tp, torch, ops, A, DA, G, T)
+        pipe_launches = timed("pipeline", phase_pipeline, torch, ops, G, T)
+    except BaseException:
+        early.stop()
+        raise
+    launch_launches = timed("launch", phase_launch, torch, ops, serve, early)
     launches = {k: gen_launches[k] + train_launches[k] + remat_launches[k]
                 + serve_launches[k] + ckpt_launches[k] + prefix_launches[k]
                 + replay_launches[k] + stream_launches[k]

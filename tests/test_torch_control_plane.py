@@ -482,9 +482,6 @@ def test_task_monitor_pushes_rss_heartbeats_and_step_records(tmp_path,
     ("tony.quota.pool-slots", 4, "autoscaler"),
     ("tony.slo.avail.objective", "availability", "metrics hub/SLOs"),
     ("tony.worker.priority-class", "batch", "arbiter"),
-    ("tony.train.elastic-enabled", True, "elastic resize"),
-    ("tony.train.straggler-restart-factor", 2.5, "elastic resize"),
-    ("tony.train.checkpoint-dir", "/ckpt", "elastic resize"),
     ("tony.application.enable-preprocess", True, "the portal"),
 ])
 def test_unported_driver_features_raise_naming_their_item(tmp_path, key,
@@ -511,15 +508,13 @@ def test_unported_driver_features_raise_naming_their_item(tmp_path, key,
 
 def test_unported_driver_chaos_rpc_and_provisioner_raise(tmp_path):
     conf = pconf.TonyConf({"tony.worker.instances": 1})
-    with pytest.raises(NotImplementedError, match="driver chaos"):
+    with pytest.raises(NotImplementedError,
+                       match="driver chaos.*queue 1: driver recovery"):
         pdriver.check_ported(conf, environ={
-            "TONY_TEST_DRIVER_KILL_RATE": "0.1"})
+            "TONY_TEST_DRIVER_SIGKILL_AT_STEP": "5"})
     svc = pdriver.DriverService(None)
-    for method, item in (("roll_task", "router"),
-                         ("preempt_task", "elastic"),
-                         ("notify_preemption", "elastic")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(svc, method)("worker:0")
+    with pytest.raises(NotImplementedError, match="router"):
+        svc.roll_task("worker:0")
     conf.set("tony.cluster.provisioner", "tpu-pod")
     with pytest.raises(NotImplementedError, match="GPU-node provisioner"):
         create_provisioner(conf)

@@ -68,6 +68,8 @@ for name in ("tony_tpu_torch.train.checkpoint",
              "tony_tpu_torch.events.driver_journal",
              "tony_tpu_torch.events.handler",
              "tony_tpu_torch.utils.shipping", "tony_tpu_torch.utils.ports",
+             "tony_tpu_torch.utils.prestage",
+             "tony_tpu_torch.tools.elastic_cost",
              "tony_tpu_torch.models.mnist", "tony_tpu_torch.examples.mnist"):
     assert name in names, name
 for name in names:
@@ -91,11 +93,18 @@ sys.path.insert(0, sys.argv[1])
 import tony_tpu_torch.client, tony_tpu_torch.driver, tony_tpu_torch.executor
 import tony_tpu_torch.cli.main, tony_tpu_torch.metrics, tony_tpu_torch.rpc
 from tony_tpu_torch.driver import Driver, DriverService
-from tony_tpu_torch.executor import Heartbeater, write_profile_flag
+from tony_tpu_torch.executor import (Executor, Heartbeater,
+                                     write_preempt_flag, write_profile_flag)
 from tony_tpu_torch.observability import COMPILE_TELEMETRY
-# the profile relay and the build counters the launcher carries
+from tony_tpu_torch.utils.prestage import prestage_checkpoint
+# the profile relay, the drain relay, the prestage walk and the build
+# counters the launcher carries
 assert callable(Driver.request_profile) and callable(write_profile_flag)
 assert callable(DriverService.request_task_profile)
+assert callable(Driver.preempt_task) and callable(Driver._try_rescale_up)
+assert callable(write_preempt_flag) and callable(Executor._prestage)
+assert callable(Executor._on_preempt_notice)
+assert prestage_checkpoint("/nonexistent/ckpt") is None
 assert COMPILE_TELEMETRY.snapshot()["kernel_builds"] == 0
 assert "torch" not in sys.modules, sorted(sys.modules)
 from tony_tpu_torch import resolve_device      # lazy: this imports torch

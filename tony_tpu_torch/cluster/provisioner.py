@@ -62,6 +62,13 @@ class Provisioner:
     def stop_container(self, handle: ContainerHandle) -> None:
         raise NotImplementedError
 
+    def kill_container(self, handle: ContainerHandle) -> None:
+        """Hard-kill one container with no drain grace: the driver's chaos
+        kill and the tests model abrupt host death (SIGKILL), unlike
+        stop_container's SIGTERM-then-escalate. The default falls back to
+        the graceful stop for provisioners without a harder hammer."""
+        self.stop_container(handle)
+
     def stop_all(self) -> None:
         raise NotImplementedError
 
@@ -151,6 +158,17 @@ class LocalProvisioner(Provisioner):
             return
         except subprocess.TimeoutExpired:
             pass
+        try:
+            os.killpg(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+    def kill_container(self, handle: ContainerHandle) -> None:
+        """SIGKILL the whole process group at once (abrupt host death);
+        the watcher thread reports the completion like any crash."""
+        pid = self._group_pid(handle)
+        if not pid:
+            return
         try:
             os.killpg(pid, signal.SIGKILL)
         except (ProcessLookupError, PermissionError):

@@ -45,6 +45,11 @@ ENV_SERVE_PORT = "TONY_SERVE_PORT"        # serving job type: the HTTP port a
 ENV_SERVE_EXTRA_FLAGS = "TONY_SERVE_EXTRA_FLAGS"  # conf-templated serve
                                           # flags (tony.serving.* keys);
                                           # cli/serve.py prepends them
+ENV_PRESTAGE_CKPT = "TONY_PRESTAGE_CKPT"  # set on an elastic rejoin: the
+                                          # executor reads the newest
+                                          # checkpoint under this dir
+                                          # ($VARS expanded) before it
+                                          # registers (utils/prestage.py)
 
 # ---- the distributed runtime contract (runtimes/torch_runtime.py exports
 # it; train/bootstrap.py init() reads it)
@@ -88,11 +93,15 @@ TEST_COMPLETION_DELAY_MS = "TONY_TEST_COMPLETION_NOTIFICATION_DELAY_MS"
 TEST_ALLOCATION_HOLD = "TONY_TEST_ALLOCATION_HOLD"          # "role#idx" never gets
                                                             # capacity (the allocation
                                                             # timeout's deadlock breaker)
-# the JAX package's driver chaos knobs; the port's driver refuses them
-# (ROADMAP.md queue 1, elastic resize, donation, preemption and chaos)
+# seeded driver chaos, read once by the driver: the chance a monitor tick
+# SIGKILLs a running container, one preemption drain once the gang's
+# pushed train step reaches N, the chance a heartbeat is dropped, and the
+# seed. The driver's SIGKILL of itself at a step is refused (ROADMAP.md
+# queue 1, driver recovery: it needs `driver --recover`)
 TEST_DRIVER_KILL_RATE = "TONY_TEST_DRIVER_KILL_RATE"
 TEST_DRIVER_PREEMPT_AT_STEP = "TONY_TEST_DRIVER_PREEMPT_AT_STEP"
 TEST_DRIVER_HEARTBEAT_DROP_RATE = "TONY_TEST_DRIVER_HEARTBEAT_DROP_RATE"
+TEST_DRIVER_CHAOS_SEED = "TONY_TEST_DRIVER_CHAOS_SEED"
 TEST_DRIVER_SIGKILL_AT_STEP = "TONY_TEST_DRIVER_SIGKILL_AT_STEP"
 
 # serving-side chaos hooks (models/serving.py SlotServer; read once at

@@ -21,10 +21,28 @@ context.
 An operator asks a running task for a profiler capture with the
 client-only ``request_task_profile`` RPC (or GET /profile on the metrics
 port while token auth is off); the command rides the task's next
-heartbeat answer. Every other feature of the JAX driver raises at
-``prepare`` when its conf key is set (``check_ported``), naming its
-ROADMAP.md queue 1 item, and its RPC methods refuse by name; nothing
-falls back quietly.
+heartbeat answer.
+
+Elastic training, as the JAX package's driver: a preemption notice
+(client-only ``preempt_task``, the chaos knob, or an executor's own
+``notify_preemption``) rides the heartbeat answer as ``{"preempt":
+...}``, the child checkpoints and exits, and the task relaunches without
+spending its restart budget (trace mark ``preempted``). With
+``tony.train.elastic-enabled`` a non-chief worker lost past its budget is
+detached instead of failing the job: the survivors drain (SIGTERM, which
+the executor relays) and re-register into a new gang generation at the
+smaller world size (trace mark ``resized``); every
+``tony.train.rescale-retry-ms`` the slot is tried again, and the
+rejoining executor prestages ``tony.train.checkpoint-dir``. A straggler
+(``tony.train.straggler-restart-factor``) is restarted on the budget. The
+chaos knobs ``TONY_TEST_DRIVER_KILL_RATE``, ``_PREEMPT_AT_STEP`` and
+``_HEARTBEAT_DROP_RATE`` are seeded by ``_CHAOS_SEED``.
+
+Every other feature of the JAX driver raises at ``prepare`` when its
+conf key is set (``check_ported``), naming its ROADMAP.md queue 1 item,
+and its RPC methods refuse by name; nothing falls back quietly. Donation
+(the arbiter's drain, ``_initiate_donation``) comes with the autoscaler,
+``TONY_TEST_DRIVER_SIGKILL_AT_STEP`` with driver recovery.
 """
 
 from __future__ import annotations
@@ -58,14 +76,18 @@ from .metrics import (
     CKPT_UNIX_TS,
     DRIVER_CHECKPOINT_AGE_S,
     DRIVER_GANG_LAUNCH_SECONDS,
+    DRIVER_GANG_RESIZES_TOTAL,
     DRIVER_HEARTBEAT_EXPIRED_TOTAL,
     DRIVER_HEARTBEAT_INTERVAL_SECONDS,
+    DRIVER_PREEMPTIONS_TOTAL,
     DRIVER_STRAGGLER_HEARTBEAT_S,
     DRIVER_STRAGGLER_REGISTRATION_S,
     DRIVER_TASK_METRIC,
     DRIVER_TASK_RESTARTS_TOTAL,
     DRIVER_TASK_SERVICE_PORT,
     DRIVER_TASKS,
+    STEP_TIME_P50_S,
+    TRAIN_STEP,
 )
 from .observability import PROM_CONTENT_TYPE, Histogram, PromRenderer, TaskTrace
 from .rpc import RpcServer
@@ -89,13 +111,11 @@ _REFUSED_KEYS = {
     keys.WARMPOOL_SIZE: WARM_POOL,
     keys.AUTOSCALE_ENABLED: AUTOSCALE,
     keys.QUOTA_POOL_SLOTS: AUTOSCALE,
-    keys.TRAIN_ELASTIC_ENABLED: ELASTIC,
-    keys.TRAIN_STRAGGLER_RESTART_FACTOR: ELASTIC,
-    keys.TRAIN_CKPT_DIR: ELASTIC,
     keys.APPLICATION_ENABLE_PREPROCESS: PORTAL,
 }
-_CHAOS_ENV = (c.TEST_DRIVER_KILL_RATE, c.TEST_DRIVER_PREEMPT_AT_STEP,
-              c.TEST_DRIVER_HEARTBEAT_DROP_RATE, c.TEST_DRIVER_SIGKILL_AT_STEP)
+# driver chaos the port does not have: the driver's SIGKILL of itself at a
+# step needs ``driver --recover`` to pick the job up again
+_CHAOS_ENV = {c.TEST_DRIVER_SIGKILL_AT_STEP: RECOVERY}
 
 
 def _not_ported(feature: str, item: str) -> NotImplementedError:
@@ -120,9 +140,9 @@ def check_ported(conf: TonyConf, environ=None) -> None:
             raise _not_ported(
                 f"role {spec.name}'s arbiter tier (priority-class "
                 f"{spec.priority_class!r}, quota {spec.quota})", AUTOSCALE)
-    for name in _CHAOS_ENV:
+    for name, item in _CHAOS_ENV.items():
         if environ.get(name):
-            raise _not_ported(f"driver chaos ({name})", ELASTIC)
+            raise _not_ported(f"driver chaos ({name})", item)
 
 
 def _lag_stats(rel: list[float]) -> dict[str, float]:
@@ -185,11 +205,16 @@ class DriverService:
 
     def heartbeat(self, task_id: str):
         """True, or a one-shot dict when a command waits for this task:
-        ``{"profile": {"seconds": N}}`` (``Driver.request_profile``). The
-        heartbeat is the one driver -> executor channel at steady state,
-        so commands ride its answer (the JAX package's driver.py:156;
-        its ``"preempt"`` command waits for the elastic item)."""
+        ``{"profile": {"seconds": N}}`` (``Driver.request_profile``) and/or
+        ``{"preempt": {"grace_ms": N}}`` (``Driver.preempt_task``: drain
+        at the next step boundary and exit). The heartbeat is the one
+        driver -> executor channel at steady state, so commands ride its
+        answer (the JAX package's driver.py:156)."""
         d = self._d
+        if d._chaos_hb_drop and d._chaos_rng.random() < d._chaos_hb_drop:
+            # chaos: the beat is lost in transit; the caller counts a
+            # miss and the driver records nothing
+            raise RuntimeError("chaos: heartbeat dropped")
         prev = d.heartbeats.get(task_id)
         now = time.time()
         d.heartbeats[task_id] = now
@@ -198,6 +223,9 @@ class DriverService:
         prof = d.take_profile_command(task_id)
         if prof:
             cmd["profile"] = prof
+        pre = d.take_preempt_command(task_id)
+        if pre:
+            cmd["preempt"] = pre
         return cmd or True
 
     def register_execution_result(self, task_id: str, exit_code: int) -> str:
@@ -239,10 +267,17 @@ class DriverService:
         raise _not_ported("roll_task", ROUTER)
 
     def preempt_task(self, task_id: str) -> bool:
-        raise _not_ported("preempt_task", ELASTIC)
+        """Relay a preemption notice to one RUNNING task (client-only
+        under token auth): it rides the task's next heartbeat answer, the
+        executor drops the ``$TONY_STEP_LOG.preempt`` flag, the child
+        checkpoints at its next step boundary and exits, and the driver
+        relaunches it without spending the restart budget."""
+        return self._d.preempt_task(task_id)
 
     def notify_preemption(self, task_id: str) -> bool:
-        raise _not_ported("notify_preemption", ELASTIC)
+        """An executor reports that it received a preemption signal (a
+        SIGTERM to its host): its coming exit relaunches budget-free."""
+        return self._d.note_preemption(task_id, source="executor")
 
     def request_task_profile(self, task_id: str,
                              seconds: float = 5.0) -> bool:
@@ -334,7 +369,8 @@ class Driver:
             # aiming the profiler is an operator action, as ending the
             # job is: an executor key must not aim it at its peers
             acl = {"finish_application": {"client"},
-                   "request_task_profile": {"client"}}
+                   "request_task_profile": {"client"},
+                   "preempt_task": {"client"}}
         self.rpc_server = RpcServer(
             host=str(conf.get(keys.AM_RPC_HOST, "127.0.0.1")), port=0,
             token=token, roles=roles, acl=acl)
@@ -371,6 +407,59 @@ class Driver:
         self._exec_spans_seen: dict[str, set] = {}    # per-attempt dedupe
         self._attempt_wall: dict[str, float] = {}     # restart wall fence
         self._metrics_httpd = None
+
+        # ---- elastic, preemption-tolerant training. Ledgers of
+        # deliberate exits, each discharged by the task's container
+        # completion into a budget-free relaunch: tasks mid-preemption
+        # drain (and the notices waiting for a heartbeat), survivors
+        # mid-resize drain. Detached slots wait for the rescale timer.
+        self._preempts: set[str] = set()
+        self._preempt_cmds: set[str] = set()
+        self._preempt_count = 0
+        self._resizes: set[str] = set()
+        self._resize_count = 0
+        self._detach_t: dict[str, float] = {}    # task -> detach monotime
+        # stops the driver itself made (chaos or fault-injection kill,
+        # heartbeat expiry, straggler): the dying executor's SIGTERM relay
+        # reports a "preemption", which must not relabel a deliberate
+        # kill as budget-free. Cleared when the next attempt launches.
+        self._driver_stops: set[str] = set()
+        self._elastic = conf.get_bool(keys.TRAIN_ELASTIC_ENABLED, False)
+        self._elastic_min = conf.get_int(keys.TRAIN_ELASTIC_MIN_INSTANCES, 1)
+        self._rescale_retry_s = conf.get_int(
+            keys.TRAIN_RESCALE_RETRY_MS, 30000) / 1000
+        # straggler action: consecutive slow checks a task
+        self._straggler_factor = float(
+            conf.get(keys.TRAIN_STRAGGLER_RESTART_FACTOR, 0) or 0)
+        self._straggler_grace = max(
+            1, conf.get_int(keys.TRAIN_STRAGGLER_GRACE_CHECKS, 3))
+        self._straggler_strikes: dict[str, int] = {}
+        self._straggler_check_t = 0.0
+        # seeded driver chaos (TONY_TEST_DRIVER_*), read once so a run's
+        # fault sequence repeats from its seed
+        import random
+
+        def _env_num(name, cast, lo=None, hi=None):
+            try:
+                v = cast(os.environ.get(name, "0") or 0)
+            except ValueError:
+                log.error("bad %s value; chaos knob disabled", name)
+                return cast(0)
+            return v if lo is None else min(hi, max(lo, v))
+
+        self._chaos_kill_rate = _env_num(c.TEST_DRIVER_KILL_RATE, float,
+                                         0.0, 1.0)
+        self._chaos_hb_drop = _env_num(c.TEST_DRIVER_HEARTBEAT_DROP_RATE,
+                                       float, 0.0, 1.0)
+        self._chaos_preempt_at = _env_num(c.TEST_DRIVER_PREEMPT_AT_STEP, int)
+        self._chaos_preempt_fired = False
+        self._chaos_rng = random.Random(
+            _env_num(c.TEST_DRIVER_CHAOS_SEED, int))
+        if (self._chaos_kill_rate or self._chaos_hb_drop
+                or self._chaos_preempt_at):
+            log.warning("driver chaos armed: kill_rate=%s hb_drop=%s "
+                        "preempt_at_step=%s", self._chaos_kill_rate,
+                        self._chaos_hb_drop, self._chaos_preempt_at)
 
     # ------------------------------------------------------------- lifecycle
     def run(self) -> JobStatus:
@@ -447,6 +536,8 @@ class Driver:
             task = self.session.get_task(spec.name, index)
             if task is None or task.status.is_terminal():
                 continue
+            if task.task_id in self.session.detached:
+                continue    # only a capacity return launches it
             task.status = TaskStatus.REQUESTED
             self._trace_mark(task.task_id, "requested", role=spec.name)
             if hold == f"{spec.name}#{index}":
@@ -742,9 +833,10 @@ class Driver:
     def render_metrics(self) -> str:
         """The driver /metrics payload: per-role gang-launch histograms,
         the heartbeat inter-arrival histogram, restart/expiry counters,
-        task-state gauges, the per-role straggler gauges, checkpoint age,
-        published service ports, and every executor-pushed metric as a
-        labeled gauge."""
+        preemption and resize counters, task-state gauges (``detached``
+        beside the statuses), the per-role straggler gauges, checkpoint
+        age, published service ports, and every executor-pushed metric as
+        a labeled gauge."""
         r = PromRenderer()
         roles = sorted(self.session.role_specs)
         now_wall = time.time()
@@ -752,7 +844,8 @@ class Driver:
         for task_id, last in list(self.heartbeats.items()):
             task = self.session.get_task_by_id(task_id)
             if (task is None or task.status.is_terminal()
-                    or task.exit_code is not None):
+                    or task.exit_code is not None
+                    or task_id in self.session.detached):
                 continue
             beats[task_id] = last
         with self._tt_lock:
@@ -770,10 +863,19 @@ class Driver:
             r.counter(DRIVER_HEARTBEAT_EXPIRED_TOTAL, self._hb_expired_count,
                       "tasks deemed dead after missing the heartbeat "
                       "budget")
+            r.counter(DRIVER_PREEMPTIONS_TOTAL, self._preempt_count,
+                      "preemption drains relayed or reported "
+                      "(budget-free relaunches)")
+            r.counter(DRIVER_GANG_RESIZES_TOTAL, self._resize_count,
+                      "elastic gang re-formations (down on worker loss "
+                      "past its budget, up when capacity returned)")
             reg = dict(self._reg_t)
         counts: dict[str, int] = {}
         for t in self.session.all_tasks():
             counts[t.status.value] = counts.get(t.status.value, 0) + 1
+        # detached is a formation state, not a status: a slot can be
+        # RUNNING and detached mid-drain, so it is a series of its own
+        counts["detached"] = len(self.session.detached)
         for status in sorted(counts):
             r.gauge(DRIVER_TASKS, counts[status], "tasks by state",
                     labels={"state": status})
@@ -900,10 +1002,24 @@ class Driver:
             task.exit_code = exit_code
             self.heartbeats.pop(task_id, None)
             return
-        if (exit_code != 0 and not task.status.is_terminal()
-                and not self._stop_requested.is_set()
-                and self._try_restart_task(task_id, exit_code)):
-            return
+        if not task.status.is_terminal() and not self._stop_requested.is_set():
+            # a resize drain and a preemption drain are ledgered,
+            # deliberate exits (any exit code): budget-free relaunches.
+            # Failures then take the budgeted restart, and a loss past the
+            # budget tries the elastic resize before the completion policy
+            # may fail the job. (The JAX driver's ladder also discharges
+            # scale-downs, donations and rolls: they come with the
+            # autoscaler and the router.)
+            if self._discharge_resize(task_id):
+                return
+            if self._discharge_preempt(task_id, exit_code):
+                return
+            if exit_code != 0 and self._try_restart_task(task_id, exit_code):
+                return
+            if (exit_code != 0 and self._elastic_candidate(task_id)
+                    and self._resize_down(task_id,
+                                          cause=f"exited {exit_code}")):
+                return
         already_terminal = task.status.is_terminal()
         name, _, idx = task_id.partition(":")
         self.session.on_task_completed(name, int(idx), exit_code)
@@ -932,6 +1048,12 @@ class Driver:
         used = self._restarts.get(task_id, 0)
         if used >= spec.max_restarts:
             return False
+        # a failure restart supersedes a pending preempt or resize entry:
+        # a stale one would make the next crash a budget-free relaunch
+        self._preempts.discard(task_id)
+        self._preempt_cmds.discard(task_id)
+        self._resizes.discard(task_id)
+        self._straggler_strikes.pop(task_id, None)
         self._restarts[task_id] = used + 1
         self._jrec("restarts", task=task_id, used=used + 1)
         log.warning("task %s %s; restarting (%d/%d)", task_id,
@@ -958,16 +1080,27 @@ class Driver:
                    host=handle.host, t=time.time(),
                    log_path=str(handle.extra.get("log_path", "")))
 
-    def _relaunch_task(self, task_id: str, spec: RoleSpec, idx: int) -> None:
+    def _relaunch_task(self, task_id: str, spec: RoleSpec, idx: int,
+                       extra_env: dict[str, str] | None = None) -> None:
         """Launch a fresh attempt of an existing task: new container, fresh
-        liveness, stale published ports dropped."""
+        liveness, stale published ports dropped. ``extra_env`` rides this
+        attempt only (the rejoin's TONY_PRESTAGE_CKPT)."""
         task = self.session.get_task_by_id(task_id)
         task.status = TaskStatus.REQUESTED
         task.exit_code = None  # re-arm heartbeat liveness
+        # a clean slate: a deliberate-stop mark or a late preemption
+        # notice of the superseded attempt (its notify can straggle behind
+        # its own exit) must not reach the replacement, whose first real
+        # crash would escape the budget
+        self._driver_stops.discard(task_id)
+        self._preempts.discard(task_id)
+        self._preempt_cmds.discard(task_id)
         task.ports.clear()     # the old attempt's endpoints are dead
         task.launch_path = ""
         self._trace_mark(task_id, "requested")
         env = self._task_env(spec, idx)
+        if extra_env:
+            env.update(extra_env)
         env[c.ENV_TASK_ATTEMPT] = str(self._bump_attempt(task_id))
         with self._restart_lock:
             handle = self.provisioner.launch(
@@ -1030,6 +1163,11 @@ class Driver:
                 if (task is None or task.status.is_terminal()
                         or task.exit_code is not None):
                     continue
+                if task_id in self.session.detached:
+                    # a detached slot's zombie executor may still beat on
+                    # its way down: no longer liveness-tracked
+                    self.heartbeats.pop(task_id, None)
+                    continue
                 if now - last <= hb_expiry_s:
                     continue
                 with self._restart_lock:
@@ -1047,6 +1185,7 @@ class Driver:
                     # container's completion read as superseded
                     old = self._handles.pop(task_id, None)
                     self.heartbeats.pop(task_id, None)
+                    self._driver_stops.add(task_id)
                 # stop BEFORE launching the replacement: the hung process
                 # still holds its card
                 if old is not None:
@@ -1056,6 +1195,11 @@ class Driver:
                             task_id, c.EXIT_KILLED,
                             cause=f"missed {max_missed} heartbeats")):
                     continue
+                # past its budget: an elastic job re-forms the gang from
+                # the survivors instead of failing
+                if (self._elastic_candidate(task_id)
+                        and self._resize_down(task_id, cause=msg)):
+                    continue
                 self._seal_task_trace(task_id, "heartbeat_expired",
                                       reason=msg)
                 self.session._fail(msg)
@@ -1064,6 +1208,14 @@ class Driver:
                 self._jrec("terminal", task=task_id,
                            status=task.status.value, exit_code=c.EXIT_KILLED)
 
+            # 2b. stragglers: restarted on the budget
+            self._check_stragglers(now)
+            # 2c. elastic scale-up: retry detached slots whose timer ran
+            if self._elastic:
+                self._try_rescale_up()
+            # 2d. seeded chaos (TONY_TEST_DRIVER_*)
+            self._chaos_tick()
+
             # 3. registration timeout (reference :1314-1334)
             for task_id, launched in list(self._launch_ms.items()):
                 task = self.session.get_task_by_id(task_id)
@@ -1071,9 +1223,15 @@ class Driver:
                     continue
                 if (task.status == TaskStatus.ALLOCATED
                         and now_ms() - launched > reg_timeout_ms):
-                    self.session._fail(
-                        f"task {task_id} failed to register within "
-                        f"{reg_timeout_ms}ms")
+                    reg_msg = (f"task {task_id} failed to register within "
+                               f"{reg_timeout_ms}ms")
+                    # capacity that launches but never answers detaches
+                    # like any other loss
+                    if (self._elastic_candidate(task_id)
+                            and self._resize_down(task_id, cause=reg_msg)):
+                        self._launch_ms.pop(task_id, None)
+                        continue
+                    self.session._fail(reg_msg)
 
             # 4. runtime health (gang allocation deadlock breaker)
             if not self.runtime_driver.is_healthy(self.conf):
@@ -1101,7 +1259,363 @@ class Driver:
     def _kill_task(self, task_id: str) -> None:
         handle = self._handles.get(task_id)
         if handle is not None:
+            self._driver_stops.add(task_id)
             self.provisioner.stop_container(handle)
+
+    # ------------------------------------------------------ preemption drain
+    def preempt_task(self, task_id: str) -> bool:
+        """Relay a preemption notice (the preempt_task RPC, chaos): queue
+        a one-shot ``preempt`` command on the task's heartbeat answer.
+        The executor drops the drain flag, the child checkpoints at its
+        next step boundary and exits, and the completion relaunches
+        budget-free with a ``preempted`` trace mark. False for an unknown,
+        not yet running or terminal task."""
+        task = self.session.get_task_by_id(task_id)
+        if task is None or task.status != TaskStatus.RUNNING:
+            return False
+        with self._restart_lock:
+            if task_id not in self._handles:
+                return False
+            first = task_id not in self._preempts
+            self._preempts.add(task_id)
+            self._preempt_cmds.add(task_id)
+        self._jrec("ledger", kind="preempt", task=task_id, cmd=True)
+        if first:
+            with self._tt_lock:
+                self._preempt_count += 1
+            self._trace_mark(task_id, "preempting", preempt_source="driver")
+        log.warning("preempting %s: drain notice queued on its heartbeat",
+                    task_id)
+        return True
+
+    def note_preemption(self, task_id: str, source: str = "executor") -> bool:
+        """The task's own executor reports an external preemption signal:
+        nothing to relay (it is already draining its child), the pending
+        exit is marked budget-free."""
+        task = self.session.get_task_by_id(task_id)
+        if (task is None or task.status.is_terminal()
+                or self._stop_requested.is_set()):
+            return False
+        with self._restart_lock:
+            if task_id in self._resizes or task_id in self._driver_stops:
+                # the driver sent this SIGTERM itself (a resize drain or
+                # a deliberate kill): the exit is accounted for already
+                return True
+            first = task_id not in self._preempts
+            self._preempts.add(task_id)
+        self._jrec("ledger", kind="preempt", task=task_id, cmd=False)
+        if first:
+            with self._tt_lock:
+                self._preempt_count += 1
+            self._trace_mark(task_id, "preempting", preempt_source=source)
+            log.warning("%s reports a preemption (%s); its exit is "
+                        "budget-free", task_id, source)
+        return True
+
+    def take_preempt_command(self, task_id: str) -> dict | None:
+        """Pop ``task_id``'s waiting preempt relay (the heartbeat's)."""
+        with self._restart_lock:
+            if task_id not in self._preempt_cmds:
+                return None
+            self._preempt_cmds.discard(task_id)
+        return {"grace_ms": self.conf.get_int(
+            keys.TASK_PREEMPT_GRACE_MS, 3000)}
+
+    def _discharge_preempt(self, task_id: str, exit_code: int) -> bool:
+        """Container completion of a preempted task (a commanded drain, a
+        self-reported preemption, or an uncommanded EXIT_PREEMPTED: the
+        child drained on its own notice): relaunch without charging the
+        budget, trace-marked ``preempted``. The caller holds the restart
+        lock, and the superseded-container guard already made this the
+        current attempt's completion, so a racing heartbeat-expiry
+        restart cannot spend twice."""
+        commanded = task_id in self._preempts
+        if not commanded and (exit_code != c.EXIT_PREEMPTED
+                              or task_id in self._driver_stops):
+            return False
+        if exit_code == 0:
+            # training finished before (or despite) the notice: a real
+            # completion, final
+            self._preempts.discard(task_id)
+            self._preempt_cmds.discard(task_id)
+            return False
+        if not commanded:
+            # self-initiated: counted here (the others at notice time)
+            with self._tt_lock:
+                self._preempt_count += 1
+        self._preempts.discard(task_id)
+        self._preempt_cmds.discard(task_id)
+        name, _, idx = task_id.partition(":")
+        spec = self.session.role_specs.get(name)
+        if spec is None:
+            return False
+        self._clear_attempt_state(task_id)
+        self._trace_mark(task_id, "preempted", exit_code=exit_code)
+        log.info("relaunching preempted %s (budget-free)", task_id)
+        self._relaunch_task(task_id, spec, int(idx))
+        return True
+
+    # --------------------------------------------------- elastic gang resize
+    def _elastic_candidate(self, task_id: str) -> bool:
+        """May this task, lost past its budget, be detached instead of
+        failing the job? Elastic on, the job live, the task a tracked
+        non-chief, and the role's survivors at or above the floor."""
+        if not self._elastic or self._stop_requested.is_set():
+            return False
+        task = self.session.get_task_by_id(task_id)
+        if task is None or task_id in self.session.detached:
+            return False
+        if task.name in self.session.untracked:
+            return False
+        if self.session.is_chief(task.name, task.index):
+            # the chief carries the completion policy and rank 0's
+            # coordinator: its loss stays fatal
+            return False
+        survivors = [t for t in self.session.active_tasks()
+                     if t.name == task.name and t.task_id != task_id
+                     and not t.status.is_terminal()]
+        return len(survivors) >= self._elastic_min
+
+    def _drain_survivors(self, task_id: str) -> list:
+        """Mark every other RUNNING active task mid-resize and take its
+        handle (caller holds the restart lock) -> (survivors, handles).
+        The JAX driver drains only the lost task's priority class; the
+        port refuses every class but the default (check_ported), so that
+        is every task."""
+        survivors = [t.task_id for t in self.session.active_tasks()
+                     if t.status == TaskStatus.RUNNING
+                     and t.task_id != task_id]
+        handles = []
+        for tid in survivors:
+            self._resizes.add(tid)
+            self.heartbeats.pop(tid, None)
+            h = self._handles.get(tid)
+            if h is not None:
+                handles.append(h)
+        # the straggler ledger is attempt-scoped
+        self._straggler_strikes.clear()
+        return survivors, handles
+
+    def _stop_off_lock(self, handles, name: str) -> None:
+        """Stop containers each on a thread of its own, off the lock: a
+        slow drain costs its own grace, not a stall of every other
+        completion."""
+        for h in handles:
+            threading.Thread(target=self.provisioner.stop_container,
+                             args=(h,), name=f"{name}-{h.role}:{h.index}",
+                             daemon=True).start()
+
+    def _resize_down(self, task_id: str, cause: str) -> bool:
+        """A worker is gone past its restart budget: detach it, bump the
+        gang generation, and drain every surviving RUNNING task so the
+        gang re-forms from its checkpoints at the smaller world size (the
+        survivors' relaunches are budget-free). The slot is tried again
+        every rescale-retry-ms (_try_rescale_up)."""
+        with self._restart_lock:
+            if self._stop_requested.is_set():
+                return False
+            if not self.session.detach_task(task_id):
+                return False
+            old = self._handles.pop(task_id, None)
+            self.heartbeats.pop(task_id, None)
+            self._preempts.discard(task_id)
+            self._preempt_cmds.discard(task_id)
+            self._detach_t[task_id] = time.monotonic()
+            gen = self.session.begin_generation()
+            with self._tt_lock:
+                self._resize_count += 1
+            survivors, handles = self._drain_survivors(task_id)
+        self._jrec("detach", task=task_id)
+        self._jrec("generation", gen=gen)
+        for tid in survivors:
+            self._jrec("ledger", kind="resize", task=tid)
+        log.warning("elastic resize DOWN to generation %d: %s lost (%s); "
+                    "draining %d survivors to re-form at the smaller world "
+                    "size", gen, task_id, cause, len(survivors))
+        self._trace_mark(task_id, "resized", gang_generation=gen,
+                         resize="detached", resize_cause=cause)
+        for tid in survivors:
+            self._trace_mark(tid, "resized", gang_generation=gen,
+                             resize="down", lost=task_id)
+            self.metrics.pop(tid, None)   # stale step stats
+        self._stop_off_lock(([old] if old is not None else []) + handles,
+                            "resize-drain")
+        return True
+
+    def _discharge_resize(self, task_id: str) -> bool:
+        """Container completion of a survivor draining for a resize: a
+        budget-free relaunch into the new generation. The caller holds
+        the restart lock."""
+        if task_id not in self._resizes:
+            return False
+        self._resizes.discard(task_id)
+        # the drain's SIGTERM looks like a cloud preemption to the
+        # executor, which reports it: the resize owns this exit, and a
+        # stale preempt entry would relaunch the next real completion too
+        self._preempts.discard(task_id)
+        self._preempt_cmds.discard(task_id)
+        name, _, idx = task_id.partition(":")
+        spec = self.session.role_specs.get(name)
+        if spec is None:
+            return False
+        self._clear_attempt_state(task_id)
+        self._relaunch_task(task_id, spec, int(idx))
+        return True
+
+    def _try_rescale_up(self) -> None:
+        """Monitor hook: a detached slot whose retry timer ran is
+        re-attached; the survivors drain again and the whole gang
+        re-registers at the restored world size. The rejoining executor
+        prestages ``tony.train.checkpoint-dir``. If the provisioner still
+        cannot place it (its launch raises), the slot detaches again and
+        the timer re-arms."""
+        if not self._detach_t or self._stop_requested.is_set():
+            return
+        now = time.monotonic()
+        task_id = next((t for t, t0 in self._detach_t.items()
+                        if now - t0 >= self._rescale_retry_s), None)
+        if task_id is None:
+            return
+        name, _, idx = task_id.partition(":")
+        spec = self.session.role_specs.get(name)
+        with self._restart_lock:
+            if self._stop_requested.is_set():
+                return
+            self._detach_t.pop(task_id, None)
+            if spec is None or not self.session.reattach_task(task_id):
+                return
+            gen = self.session.begin_generation()
+            with self._tt_lock:
+                self._resize_count += 1
+            # the returned slot is fresh capacity: its budget starts over
+            self._restarts.pop(task_id, None)
+            survivors, handles = self._drain_survivors(task_id)
+        self._jrec("reattach", task=task_id)
+        self._jrec("generation", gen=gen)
+        for tid in survivors:
+            self._jrec("ledger", kind="resize", task=tid)
+        log.warning("elastic resize UP to generation %d: re-adding %s; "
+                    "draining %d survivors to re-form at the restored world "
+                    "size", gen, task_id, len(survivors))
+        self._trace_mark(task_id, "resized", gang_generation=gen,
+                         resize="rejoined")
+        for tid in survivors:
+            self._trace_mark(tid, "resized", gang_generation=gen,
+                             resize="up", rejoined=task_id)
+            self.metrics.pop(tid, None)
+        ckpt_dir = str(self.conf.get(keys.TRAIN_CKPT_DIR, "") or "")
+        extra_env = {c.ENV_PRESTAGE_CKPT: ckpt_dir} if ckpt_dir else None
+        try:
+            with self._restart_lock:
+                self._clear_attempt_state(task_id)
+                self._relaunch_task(task_id, spec, int(idx),
+                                    extra_env=extra_env)
+        except Exception as e:
+            # capacity still gone: the survivors re-register into the
+            # current generation, which excludes the re-detached slot
+            log.warning("rescale-up launch of %s failed (%s); staying at "
+                        "the smaller world size", task_id, e)
+            with self._restart_lock:
+                self.session.detach_task(task_id)
+                self._detach_t[task_id] = time.monotonic()
+            self._jrec("detach", task=task_id)
+        self._stop_off_lock(handles, "resize-drain")
+
+    # ------------------------------------------------------------ stragglers
+    def _check_stragglers(self, now: float) -> None:
+        """Per role, compare each RUNNING task's pushed step-time p50 with
+        the role's median; a non-chief slower than
+        ``tony.train.straggler-restart-factor`` times it for
+        ``straggler-grace-checks`` checks in a row is restarted through
+        the normal budget (a fresh process, the cure for a degraded
+        host). A factor of 1 or less turns it off."""
+        if self._straggler_factor <= 1.0 or self._stop_requested.is_set():
+            return
+        if now - self._straggler_check_t < 2.0:   # pushes come every ~5 s
+            return
+        self._straggler_check_t = now
+        metric = f"max_{STEP_TIME_P50_S}"
+        for role in self.session.role_specs:
+            p50s: dict[str, float] = {}
+            for t in self.session.active_tasks():
+                if t.name != role or t.status != TaskStatus.RUNNING:
+                    continue
+                v = self._pushed_metric(t.task_id, metric)
+                if v is not None and v > 0:
+                    p50s[t.task_id] = v
+            if len(p50s) < 2:
+                continue
+            median = float(statistics.median(p50s.values()))
+            if median <= 0:
+                continue
+            for task_id, p50 in p50s.items():
+                name, _, idx = task_id.partition(":")
+                if p50 <= self._straggler_factor * median:
+                    self._straggler_strikes.pop(task_id, None)
+                    continue
+                if self.session.is_chief(name, int(idx)):
+                    continue    # rank 0's restart tears down everyone's
+                strikes = self._straggler_strikes.get(task_id, 0) + 1
+                self._straggler_strikes[task_id] = strikes
+                if strikes < self._straggler_grace:
+                    continue
+                spec = self.session.role_specs.get(name)
+                if (spec is None
+                        or self._restarts.get(task_id, 0) >= spec.max_restarts):
+                    continue    # no budget left: tolerate the laggard
+                cause = (f"straggler: step p50 {p50:.3f}s vs role median "
+                         f"{median:.3f}s (factor {self._straggler_factor})")
+                # the stop and the restart run under the restart lock, so
+                # a concurrent exit's restart cannot strand a stopped task
+                with self._restart_lock:
+                    if self._restarts.get(task_id, 0) >= spec.max_restarts:
+                        continue
+                    old = self._handles.pop(task_id, None)
+                    self.heartbeats.pop(task_id, None)
+                    self._driver_stops.add(task_id)
+                    self.metrics.pop(task_id, None)
+                    self._straggler_strikes.pop(task_id, None)
+                    if old is not None:
+                        self.provisioner.stop_container(old)
+                    self._try_restart_task(task_id, c.EXIT_KILLED,
+                                           cause=cause)
+                return      # one restart a check: the median moves
+
+    # ---------------------------------------------------------- driver chaos
+    def _chaos_tick(self) -> None:
+        """Seeded fault injection, one decision a monitor tick: a SIGKILL
+        of a random running container (``TONY_TEST_DRIVER_KILL_RATE``),
+        and one preemption drain once the gang's pushed training step
+        reaches ``TONY_TEST_DRIVER_PREEMPT_AT_STEP``."""
+        if self._stop_requested.is_set():
+            return
+        if self._chaos_kill_rate and (
+                self._chaos_rng.random() < self._chaos_kill_rate):
+            with self._restart_lock:
+                live = sorted(t.task_id for t in self.session.active_tasks()
+                              if t.status == TaskStatus.RUNNING
+                              and t.task_id in self._handles
+                              and t.task_id not in self._resizes)
+                victim = self._chaos_rng.choice(live) if live else None
+                handle = self._handles.get(victim) if victim else None
+            if handle is not None:
+                log.warning("chaos: SIGKILLing %s (%s)", victim,
+                            handle.container_id)
+                self.provisioner.kill_container(handle)
+        if self._chaos_preempt_at and not self._chaos_preempt_fired:
+            steps = [self._pushed_metric(t.task_id, f"max_{TRAIN_STEP}")
+                     for t in self.session.active_tasks()]
+            top = max((s for s in steps if s is not None), default=0)
+            if top >= self._chaos_preempt_at:
+                live = sorted(t.task_id for t in self.session.active_tasks()
+                              if t.status == TaskStatus.RUNNING
+                              and t.task_id in self._handles)
+                if live:
+                    victim = self._chaos_rng.choice(live)
+                    self._chaos_preempt_fired = True
+                    log.warning("chaos: preempting %s at observed step %d",
+                                victim, int(top))
+                    self.preempt_task(victim)
 
     # ----------------------------------------------------------------- retry
     def reset(self) -> None:
@@ -1133,6 +1647,10 @@ class Driver:
         self._launch_ms.clear()
         self._restarts.clear()
         self.metrics.clear()
+        for ledger in (self._preempts, self._preempt_cmds, self._resizes,
+                       self._detach_t, self._driver_stops,
+                       self._straggler_strikes):
+            ledger.clear()
 
     # ------------------------------------------------------------------ stop
     def stop(self) -> None:

@@ -318,7 +318,7 @@ def main(argv=None) -> int:
                 params, opt_state, metrics = bundle.step_fn(
                     params, opt_state, tokens, targets)
                 losses.append(metrics["loss"])
-                timer.tick(train_step=step_i)
+                timer.tick(train_step=step_i, loss=metrics["loss"])
                 if preempt_now():
                     return drain_exit(step_i)
                 if step_i % 20 == 0 and chief:

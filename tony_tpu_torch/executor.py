@@ -11,15 +11,23 @@ construction and the user process to the runtime task adapter (main:
 188-237), and reports the exit code (registerExecutionResult:315-322).
 
 It runs as ``python -S -m tony_tpu_torch.executor`` and imports no torch:
-the user process it forks owns the card. A profile command on a
-heartbeat's answer becomes the ``$TONY_STEP_LOG.profile`` flag file
-(``write_profile_flag``), which the training child's StepTimer polls. Not
-ported from the JAX executor: warm-pool adoption (executor.py:497-516),
-the checkpoint prestage, the preemption drain relay, and the
-driver-outage ride-through with endpoint re-resolution (driver
-recovery); each waits for its ROADMAP.md queue 1 item. A driver that stops answering for
-``tony.task.driver-outage-grace-ms`` takes this executor and its child
-down.
+the user process it forks owns the card. The driver's commands ride a
+heartbeat's answer and become flag files beside ``$TONY_STEP_LOG``, which
+the training child's StepTimer polls: ``profile`` -> ``.profile``
+(``write_profile_flag``), ``preempt`` -> ``.preempt``
+(``write_preempt_flag``: the child checkpoints at its next step boundary
+and exits EXIT_PREEMPTED). A SIGTERM to this executor (a cloud preemption,
+or the driver draining a survivor for an elastic resize) is relayed the
+same way, with ``notify_preemption`` to the driver, for every framework
+but ``serving``, whose child drains itself; a grace watchdog terminates a
+child that does not drain. An elastic rejoin (``$TONY_PRESTAGE_CKPT``)
+reads the newest checkpoint before it registers (utils/prestage.py).
+
+Not ported from the JAX executor: warm-pool adoption (executor.py:497-516,
+ROADMAP.md queue 1's warm pool item) and the driver-outage ride-through
+with endpoint re-resolution and its drain (driver recovery). A driver that
+stops answering for ``tony.task.driver-outage-grace-ms`` takes this
+executor and its child down.
 
 Fault-injection hooks are production code paths keyed off env vars, like the
 reference's TEST_* hooks (Constants.java:124-130, TaskExecutor.java:328-386).
@@ -46,31 +54,69 @@ from .rpc import RpcClient
 log = logging.getLogger(__name__)
 
 
+def _write_flag_file(step_log: str, suffix: str, payload: dict,
+                     label: str) -> str | None:
+    """Write ``<step_log><suffix>`` through a temporary file and a rename,
+    so the training child's StepTimer never reads a torn request. One
+    writer for every flag kind."""
+    flag = step_log + suffix
+    tmp = flag + ".tmp"
+    try:
+        with open(tmp, "w") as f:
+            f.write(json.dumps(payload))
+        os.replace(tmp, flag)
+    except (OSError, TypeError, ValueError) as e:
+        log.warning("could not write the %s flag: %s", label, e)
+        return None
+    return flag
+
+
 def write_profile_flag(step_log: str | None, cmd: dict) -> str | None:
     """Relay a driver's profile command to the training child (the JAX
-    package's executor.py:57): write ``$TONY_STEP_LOG.profile`` through a
-    temporary file and a rename, with the capture's seconds and where its
-    trace goes, ``logs/profiles/<task>_<unix time>/`` beside the step log.
-    -> the flag's path, or None without a step log (nothing would poll
-    the flag)."""
+    package's executor.py:57): ``$TONY_STEP_LOG.profile`` with the
+    capture's seconds and where its trace goes, ``logs/profiles/<task>_
+    <unix time>/`` beside the step log. -> the flag's path, or None
+    without a step log (nothing would poll the flag)."""
     if not step_log:
         log.warning("profile command dropped: no step log configured")
         return None
     stem = os.path.basename(step_log).partition(".")[0]
     out_dir = os.path.join(os.path.dirname(step_log), c.PROFILE_DIR_NAME,
                            f"{stem}_{int(time.time())}")
-    flag = step_log + c.PROFILE_REQUEST_SUFFIX
-    tmp = flag + ".tmp"
     try:
         payload = {"seconds": float(cmd.get("seconds", 5.0)),
                    "out_dir": out_dir}
-        with open(tmp, "w") as f:
-            f.write(json.dumps(payload))
-        os.replace(tmp, flag)
-    except (OSError, TypeError, ValueError, AttributeError) as e:
+    except (TypeError, ValueError, AttributeError) as e:
         log.warning("could not write the profile flag: %s", e)
         return None
-    log.info("profile command relayed via %s -> %s", flag, out_dir)
+    flag = _write_flag_file(step_log, c.PROFILE_REQUEST_SUFFIX, payload,
+                            "profile")
+    if flag:
+        log.info("profile command relayed via %s -> %s", flag, out_dir)
+    return flag
+
+
+def write_preempt_flag(step_log: str | None, cmd: dict) -> str | None:
+    """Relay a preemption drain notice to the training child (the JAX
+    package's executor.py:85): ``$TONY_STEP_LOG.preempt`` with the grace
+    and the notice's time. The child checkpoints at its next step
+    boundary and exits EXIT_PREEMPTED; the driver relaunches it without
+    spending the restart budget. -> the flag's path, or None without a
+    step log (the grace watchdog then does the draining)."""
+    if not step_log:
+        log.warning("preempt notice: no step log configured; relying on "
+                    "the grace watchdog")
+        return None
+    try:
+        payload = {"grace_ms": float(cmd.get("grace_ms", 3000)),
+                   "ts": time.time()}
+    except (TypeError, ValueError, AttributeError) as e:
+        log.warning("could not write the preempt flag: %s", e)
+        return None
+    flag = _write_flag_file(step_log, c.PREEMPT_REQUEST_SUFFIX, payload,
+                            "preempt")
+    if flag:
+        log.info("preempt notice relayed via %s", flag)
     return flag
 
 
@@ -83,12 +129,14 @@ class Heartbeater(threading.Thread):
     gang's beats do not land on the driver in one burst. ``monitor`` (the
     TaskMonitor) receives each beat's round trip and the missed-beat
     count. The driver's commands ride a beat's answer: a dict instead of
-    the plain True, whose ``"profile"`` goes to ``on_command`` (a raising
-    callback never stops the beat: the beat is the liveness signal)."""
+    the plain True, whose ``"profile"`` goes to ``on_command`` and whose
+    ``"preempt"`` goes to ``on_preempt`` (a raising callback never stops
+    the beat: the beat is the liveness signal)."""
 
     def __init__(self, client: RpcClient, task_id: str, interval_s: float,
                  max_failures: int = 30, on_driver_lost=None, monitor=None,
-                 on_command=None, outage_grace_s: float = 30.0):
+                 on_command=None, on_preempt=None,
+                 outage_grace_s: float = 30.0):
         super().__init__(name="heartbeater", daemon=True)
         self._client = client
         self._task_id = task_id
@@ -98,6 +146,7 @@ class Heartbeater(threading.Thread):
         self._on_driver_lost = on_driver_lost
         self._monitor = monitor
         self._on_command = on_command
+        self._on_preempt = on_preempt
         self._outage_grace_s = max(0.0, float(outage_grace_s))
         self._rng = random.Random()     # urandom-seeded: per-process phase
         self.missed = 0
@@ -131,13 +180,15 @@ class Heartbeater(threading.Thread):
                 self._note(HEARTBEAT_RTT_MS,
                            (time.monotonic() - t0) * 1000.0)
                 failures, outage_t = 0, None
-                cmd = (result.get("profile") if isinstance(result, dict)
-                       else None)
-                if cmd and self._on_command is not None:
-                    try:
-                        self._on_command(cmd)
-                    except Exception:
-                        log.exception("heartbeat command failed")
+                if isinstance(result, dict):
+                    for key, cb in (("profile", self._on_command),
+                                    ("preempt", self._on_preempt)):
+                        cmd = result.get(key)
+                        if cmd and cb is not None:
+                            try:
+                                cb(cmd)
+                            except Exception:
+                                log.exception("heartbeat command failed")
             except RpcError as e:
                 # the driver answered and refused: this executor is
                 # disowned, the classic budget
@@ -187,6 +238,8 @@ class Executor:
             self.attempt = int(env.get(c.ENV_TASK_ATTEMPT, "-1") or -1)
         except ValueError:
             self.attempt = -1
+        # one drain watchdog an attempt (_arm_drain_watchdog)
+        self._drain_armed = False
 
         # remote-host localization: when the client's job dir isn't visible
         # here (no shared FS) — or localization is forced — fetch + unpack
@@ -287,6 +340,105 @@ class Executor:
         except ValueError:
             log.error("bad skew spec: %s", spec)
 
+    # -------------------------------------------------------- preempt drain
+    def _arm_drain_watchdog(self, ctx_holder: dict, grace_s: float) -> None:
+        """Give the training child ``grace_s`` to checkpoint at a step
+        boundary and exit on its own; terminate it after. Armed once an
+        attempt: a repeated notice must not stack timers."""
+        if self._drain_armed:
+            return
+        self._drain_armed = True
+
+        def _enforce():
+            proc = getattr(ctx_holder.get("ctx"), "child_process", None)
+            if proc is not None and proc.poll() is None:
+                log.warning("preempt drain grace (%.1fs) expired; "
+                            "terminating the child", grace_s)
+                proc.terminate()
+                try:
+                    proc.wait(timeout=2)
+                except Exception:
+                    proc.kill()
+
+        t = threading.Timer(grace_s, _enforce)
+        t.daemon = True
+        t.start()
+
+    def _on_preempt_notice(self, ctx_holder: dict, cmd: dict,
+                           notify_driver: bool = False) -> None:
+        """Drain on a preemption notice (the heartbeat's ``preempt``
+        command, or a SIGTERM to this executor): drop the flag the child's
+        StepTimer polls and arm the grace watchdog for a child that never
+        polls. With ``notify_driver`` (the SIGTERM path, which the driver
+        may not know of) report the preemption, so the coming exit is
+        relaunched without spending the budget."""
+        try:
+            grace_s = max(0.1, float(cmd.get("grace_ms", 3000)) / 1000)
+        except (TypeError, ValueError, AttributeError):
+            grace_s = 3.0
+        write_preempt_flag(self._step_log_path(), cmd)
+        self._arm_drain_watchdog(ctx_holder, grace_s)
+        if not notify_driver:
+            return
+
+        def _notify():
+            # a fast client of its own: the shared one retries for about
+            # a minute, and a notice that straggles long past this
+            # executor's exit could mark the replacement attempt as
+            # preempting (the driver fences that on relaunch too)
+            token = os.environ.get(c.ENV_TOKEN, "")
+            nrpc = RpcClient(self.driver_host, self.driver_port,
+                             token=token, max_retries=3,
+                             role="executor" if token else "")
+            try:
+                nrpc.call("notify_preemption", task_id=self.task_id)
+            except Exception as e:
+                log.warning("could not report the preemption: %s", e)
+            finally:
+                nrpc.close()
+
+        threading.Thread(target=_notify, name="preempt-notify",
+                         daemon=True).start()
+
+    def _clear_stale_preempt_flag(self) -> None:
+        """A drain notice relayed to the previous attempt, whose child
+        died before it polled (a SIGTERM during its start-up), is still on
+        disk: left there, it would drain this attempt at its first step."""
+        step_log = self._step_log_path()
+        if not step_log:
+            return
+        try:
+            os.unlink(step_log + c.PREEMPT_REQUEST_SUFFIX)
+            log.info("removed a superseded attempt's preempt flag")
+        except FileNotFoundError:
+            pass
+        except OSError as e:
+            log.warning("could not remove a stale preempt flag: %s", e)
+
+    def _prestage(self, monitor) -> None:
+        """An elastic rejoin carries ``$TONY_PRESTAGE_CKPT``: read the
+        newest checkpoint under it ($VARS expanded, e.g. a per-task
+        ``ckpt_$TONY_TASK_INDEX``) before registering, so the barrier
+        opens onto a worker whose checkpoint bytes are local. A failure
+        leaves the child a cold restore."""
+        directory = os.environ.get(c.ENV_PRESTAGE_CKPT, "")
+        if not directory:
+            return
+        from .utils.prestage import prestage_checkpoint
+
+        t0 = time.monotonic()
+        staged = prestage_checkpoint(os.path.expandvars(directory))
+        if staged is None:
+            return
+        monitor.add_span("ckpt_prestaged", attrs={
+            "prestage_step": staged["step"],
+            "prestage_files": staged["files"],
+            "prestage_bytes": staged["bytes"],
+            "prestage_s": round(time.monotonic() - t0, 3)})
+        log.info("prestaged checkpoint step %s (%d files, %d bytes) in "
+                 "%.2fs before registration", staged["step"],
+                 staged["files"], staged["bytes"], time.monotonic() - t0)
+
     # -------------------------------------------------------------------- run
     def run(self) -> int:
         if os.environ.get(c.TEST_TASK_EXECUTOR_CRASH):
@@ -327,10 +479,43 @@ class Executor:
             # the training child's StepTimer polls
             on_command=lambda cmd: write_profile_flag(
                 self._step_log_path(), cmd),
+            # a driver's preempt command -> the .preempt flag and the
+            # grace watchdog (the driver already knows: no notice back)
+            on_preempt=lambda cmd: self._on_preempt_notice(
+                ctx_holder, cmd if isinstance(cmd, dict) else {}),
             outage_grace_s=self.conf.get_int(
                 keys.TASK_DRIVER_OUTAGE_GRACE_MS, 30000) / 1000)
         heartbeater.start()
 
+        # the preemption relay: a SIGTERM to this process while a child
+        # runs (a cloud preemption, the driver's resize drain) becomes a
+        # drain, so the checkpoint is at most a step boundary old.
+        # Serving keeps main()'s prompt exit: its child drains itself on
+        # the group's SIGTERM
+        if self.framework != "serving":
+            grace_ms = self.conf.get_int(keys.TASK_PREEMPT_GRACE_MS, 3000)
+
+            def _on_term(signum, frame):
+                proc = getattr(ctx_holder.get("ctx"), "child_process", None)
+                if proc is None or proc.poll() is not None:
+                    sys.exit(c.EXIT_KILLED)     # nothing to drain
+                log.warning("SIGTERM: draining the training child "
+                            "(preemption relay, %.1fs grace)",
+                            grace_ms / 1000)
+                self._on_preempt_notice(ctx_holder, {"grace_ms": grace_ms},
+                                        notify_driver=True)
+                # no exit: run() returns the child's code once it drained
+
+            try:
+                signal.signal(signal.SIGTERM, _on_term)
+            except ValueError:
+                # not the main thread (embedded use): the heartbeat's
+                # command path still drains
+                log.warning("cannot install the SIGTERM drain relay off "
+                            "the main thread")
+
+        self._clear_stale_preempt_flag()
+        self._prestage(monitor)
         payload = self.register_and_get_cluster_spec()
         monitor.start()
 

@@ -132,6 +132,11 @@ DRIVER_TASKS = "driver_tasks"
 DRIVER_TASK_METRIC = "driver_task_metric"
 DRIVER_TASK_SERVICE_PORT = "driver_task_service_port"
 DRIVER_CHECKPOINT_AGE_S = "driver_checkpoint_age_s"
+# elastic training: preemption drains relayed or reported (budget-free
+# relaunches) and gang resizes (down on a worker lost past its budget, up
+# when capacity returns)
+DRIVER_PREEMPTIONS_TOTAL = "driver_preemptions_total"
+DRIVER_GANG_RESIZES_TOTAL = "driver_gang_resizes_total"
 
 # executor-accumulator names (ride update_metrics pushes; on the driver's
 # /metrics as driver_task_metric{name="max_..."} and in TASK_FINISHED)
@@ -312,9 +317,15 @@ class TaskMonitor:
             else:
                 self._acc.observe(name, value)
 
-    def add_span(self, name: str, t: float | None = None) -> None:
+    def add_span(self, name: str, t: float | None = None,
+                 attrs: dict | None = None) -> None:
+        """An executor-side lifecycle span at wall-clock ``t``; ``attrs``
+        (scalars) land on the task's trace beside it."""
+        span = [name, time.time() if t is None else t]
+        if attrs:
+            span.append(dict(attrs))
         with self._mlock:
-            self._spans.append([name, time.time() if t is None else t])
+            self._spans.append(span)
 
     def start(self) -> None:
         self._thread = threading.Thread(

@@ -1,7 +1,7 @@
-"""In-driver job state: the task table, cluster spec, and completion policy
-(the port's own copy of the JAX package's session.py, without its elastic
-formation state: detached slots and gang re-formation wait for ROADMAP.md
-queue 1's elastic item, restore_formation for driver recovery).
+"""In-driver job state: the task table, cluster spec, completion policy and
+the elastic formation (detached slots, gang generations): the port's own
+copy of the JAX package's session.py. ``restore_formation`` waits for
+ROADMAP.md queue 1's driver recovery item.
 
 Mirrors the reference's TonySession (tony-core/.../TonySession.java): role ->
 task array, cluster-spec aggregation from registered workers
@@ -77,9 +77,14 @@ class Session:
             for s in self.role_specs.values()
         }
         self._registered: set[str] = set()
-        # which gang formation the cluster spec describes (the JAX
-        # package's elastic resize bumps it; the port's stays 0)
+        # elastic resize state: which gang formation is current (bumped
+        # per resize; every active task must re-register into the new
+        # generation before the barrier opens) and which task slots are
+        # DETACHED: lost beyond their restart budget and awaiting
+        # capacity. Detached tasks are invisible to the cluster spec, the
+        # gang barrier and the completion policy.
         self.gang_generation = 0
+        self.detached: set[str] = set()
 
         self.untracked: set[str] = conf.untracked_roles()
         self.stop_on_failure: set[str] = set(
@@ -107,8 +112,18 @@ class Session:
         return [t for ts in self.tasks.values() for t in ts]
 
     def tracked_tasks(self) -> list[Task]:
-        """Tasks the completion policy watches."""
-        return [t for t in self.all_tasks() if t.name not in self.untracked]
+        """Tasks the completion policy watches. A detached (elastically
+        removed) task is excluded: the job's outcome is decided by the
+        formation that is actually training."""
+        return [t for t in self.all_tasks()
+                if t.name not in self.untracked
+                and t.task_id not in self.detached]
+
+    def active_tasks(self) -> list[Task]:
+        """Non-detached tasks: the current gang formation's membership
+        (terminal tasks included; callers filter by status)."""
+        return [t for t in self.all_tasks()
+                if t.task_id not in self.detached]
 
     def task_infos(self) -> list[TaskInfo]:
         return [t.to_info() for t in self.all_tasks()]
@@ -120,6 +135,10 @@ class Session:
         with self._lock:
             task = self.get_task_by_id(task_id)
             if task is None:
+                return None
+            if task_id in self.detached:
+                # a detached slot's zombie executor must not register
+                # itself back into the gang
                 return None
             task.host, task.port = host, port
             if not task.status.is_terminal():
@@ -144,6 +163,36 @@ class Session:
             task.container_id = container_id
             if task.status in (TaskStatus.NEW, TaskStatus.REQUESTED):
                 task.status = TaskStatus.ALLOCATED
+
+    # ------------------------------------------------------- elastic resize
+    def begin_generation(self) -> int:
+        """Start a new gang formation: every active task must re-register
+        before the barrier opens again (the driver drains and relaunches
+        the survivors around this). -> the new generation."""
+        with self._lock:
+            self.gang_generation += 1
+            self._registered.clear()
+            return self.gang_generation
+
+    def detach_task(self, task_id: str) -> bool:
+        """Remove a lost task from the gang without failing the job: it
+        leaves the cluster spec, the barrier predicate and the tracked
+        set until capacity returns (reattach_task)."""
+        with self._lock:
+            if self.get_task_by_id(task_id) is None:
+                return False
+            self.detached.add(task_id)
+            self._registered.discard(task_id)
+            return True
+
+    def reattach_task(self, task_id: str) -> bool:
+        """Bring a detached slot back into the gang (capacity returned);
+        the caller relaunches it and bumps the generation."""
+        with self._lock:
+            if task_id not in self.detached:
+                return False
+            self.detached.discard(task_id)
+            return True
 
     # ---------------------------------------------------------- service ports
     def set_task_ports(self, task_id: str, ports: dict[str, int]) -> bool:
@@ -179,6 +228,8 @@ class Session:
             names = set(roles) if roles is not None else set(self.tasks)
             for name in names:
                 for task in self.tasks.get(name, []):
+                    if task.task_id in self.detached:
+                        continue    # elastically removed: not gang-gated
                     if task.task_id not in self._registered:
                         return False
             return True
@@ -203,10 +254,10 @@ class Session:
 
     def registered_tasks(self, role: str) -> list[Task]:
         """The registered tasks of one role in index order — the
-        identity-preserving companion of cluster_spec(): rank assignment
-        keys off real task ids (runtimes/torch_runtime.py), so a
-        registered list with gaps (a task yet to register under FCFS)
-        still ranks by identity."""
+        identity-preserving companion of cluster_spec(): a resized gang's
+        address list is compacted (detached slots removed), so position in
+        it is not the task index, and rank assignment keys off real task
+        ids (runtimes/torch_runtime.py)."""
         with self._lock:
             return [t for t in self.tasks.get(role, [])
                     if t.task_id in self._registered]
@@ -229,6 +280,10 @@ class Session:
             task.exit_code = exit_code
             task.status = TaskStatus.SUCCEEDED if exit_code == 0 else TaskStatus.FAILED
             if exit_code == 0:
+                return
+            if task.task_id in self.detached:
+                # an elastically removed slot's late container exit is
+                # already accounted for by the resize: no short-circuit
                 return
             # Failure short-circuits:
             if name in self.untracked:

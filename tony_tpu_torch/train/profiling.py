@@ -122,7 +122,9 @@ class StepTimer:
         self._ckpt_ts: float | None = None
 
     def tick(self, **extra) -> float | None:
-        """Call once per training step; returns the last step's duration."""
+        """Call once per training step; returns the last step's duration.
+        ``extra`` rides the step's record; a tensor (a step's loss) is read
+        to the host only when a record is written."""
         now = time.monotonic()
         dt = None
         if self._t_last is not None:
@@ -148,7 +150,8 @@ class StepTimer:
                 "p50_s": round(self.hist.quantile(0.5), 6),
                 "p99_s": round(self.hist.quantile(0.99), 6),
                 "ts": time.time(),
-                **extra,
+                **{k: float(v) if isinstance(v, torch.Tensor) else v
+                   for k, v in extra.items()},
             }
             snap = self._compile.snapshot()
             for key in ("kernel_builds", "kernel_build_time_s",
