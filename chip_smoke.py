@@ -8,7 +8,8 @@ and exits non-zero if any of them fails:
 
 1. card: the GPU's name and power limit, the kernels' build time, ptxas's
    registers and spills for each kernel, and a check of the compiled SASS:
-   every bf16 attention kernel must run on the tensor cores (HMMA);
+   every bf16 attention kernel must run on the tensor cores (HMMA for the
+   forward's mma.sync, HGMMA for the backward's wgmma);
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the flagship's shapes and at the edge cases, with its time beside the
    plain version's, a PyTorch library call's and the card's bound (the
@@ -467,20 +468,32 @@ TRAIN_PARITY_GRAD_RTOL = 0.1
 # the training profiles' depth under a remat policy (12 until PR 21, cut
 # for the observability checks' time; remat off stays at 12)
 TRAIN_PROFILE_REMAT_LAYERS = 6
-MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
-               "flash_bwd_dq_mma_kernel")
+# each bf16 attention kernel and the SASS instruction it must contain:
+# mma.sync is HMMA, wgmma HGMMA
+MMA_SASS = {"flash_fwd_mma_kernel": "HMMA",
+            "flash_bwd_dkdv_wgmma_kernel": "HGMMA",
+            "flash_bwd_dq_wgmma_kernel": "HGMMA"}
+MMA_KERNELS = tuple(MMA_SASS)
 DESIGNS = {
     "flash_fwd": "bf16: mma.sync m16n8k16 bf16 (f32 accumulate), ldmatrix "
                  "from padded bf16 tiles, cp.async x2 stages of 32-key K/V "
                  "tiles; 128 q rows a CTA, 4 warps; P kept in registers. "
                  "f32: FMA on the FP32 pipes",
-    "flash_bwd_dkdv": "bf16: mma.sync m16n8k16 bf16, keys as M (S^T = K Q^T, "
-                      "dP^T = V dO^T), P^T and dS^T kept in registers as A "
-                      "operands, cp.async x2 Q/dO/lse/delta stages; 64 keys "
-                      "a CTA, 4 warps. f32: FMA on the FP32 pipes",
-    "flash_bwd_dq": "bf16: mma.sync m16n8k16 bf16, dS kept in registers as "
-                    "the A operand of dS K, cp.async x2 K/V stages; 64 q rows "
-                    "a CTA, 4 warps. f32: FMA on the FP32 pipes",
+    "flash_bwd_dkdv": "bf16: wgmma m64nNk16 bf16 (f32 accumulate), keys as "
+                      "M (S^T = K Q^T, dP^T = V dO^T from swizzled shared "
+                      "tiles), P^T and dS^T kept in registers as the A "
+                      "operands of dV += P^T dO and dK += dS^T Q (dO, Q read "
+                      "MN-major); TMA x3 stages of 64-row Q/dO tiles from a "
+                      "producer warp (lse, delta beside them); 128 keys a "
+                      "CTA, two consumer warpgroups at 240 registers. f32: "
+                      "FMA on the FP32 pipes",
+    "flash_bwd_dq": "bf16: wgmma m64nNk16 bf16, S and dP from swizzled "
+                    "shared tiles, dS kept in registers as the A operand of "
+                    "dS K (K read MN-major); delta = rowsum(dO O) - g_lse "
+                    "computed in its prologue and written for the dK/dV "
+                    "kernel; TMA x3 stages of 64-key K/V tiles; 128 q rows a "
+                    "CTA, two consumer warpgroups. f32: FMA on the FP32 "
+                    "pipes, delta from the caller",
     "flash_decode": "one launch: chunks split evenly over the SMs, one CTA "
                     "(8 warps) each, two an SM; 2-stage ring of 16 KB K + 16 "
                     "KB V tiles by 16-byte cp.async; online softmax "
@@ -625,8 +638,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def sass_hmma(lib: Path) -> dict:
-    """{kernel label: HMMA instructions in its SASS} for one built library,
-    by cuobjdump --dump-sass."""
+    """{kernel label: {"HMMA": n, "HGMMA": n}, the tensor-core instructions
+    in its SASS} for one built library, by cuobjdump --dump-sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -635,16 +648,18 @@ def sass_hmma(lib: Path) -> dict:
         m = re.search(r"Function : (\w+)", line)
         if m:
             fn = _kernel_label(m.group(1))
-            counts[fn] = 0
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn and "HGMMA" in line:
+            counts[fn]["HGMMA"] += 1
         elif fn and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn]["HMMA"] += 1
     return counts
 
 
 def phase_card(build) -> dict:
     """Build the kernels; check that every bf16 attention kernel is on the
     tensor cores -> {kernel label: (registers, spill stores, spill loads,
-    HMMA count)}."""
+    HMMA count, HGMMA count)}."""
     print("== card")
     print(f"card: {nvidia_smi_line()}")
     secs = build.build_all()
@@ -662,15 +677,19 @@ def phase_card(build) -> dict:
         regs = ptxas_report(build.build_log(name))
         hmma = sass[name]
         for fn, (n_regs, st, ld) in sorted(regs.items()):
-            report[fn] = (n_regs, st, ld, hmma.get(fn, 0))
+            tc = hmma.get(fn, {})
+            report[fn] = (n_regs, st, ld, tc.get("HMMA", 0),
+                          tc.get("HGMMA", 0))
             print(f"ptxas {name}: {fn}: {n_regs} registers, spill stores "
-                  f"{st} B, spill loads {ld} B; SASS HMMA {hmma.get(fn, 0)}")
-    for kern in MMA_KERNELS:
+                  f"{st} B, spill loads {ld} B; SASS HMMA {tc.get('HMMA', 0)}"
+                  f", HGMMA {tc.get('HGMMA', 0)}")
+    for kern, instr in MMA_SASS.items():
         found = {fn: r for fn, r in report.items() if fn.startswith(kern + "<")}
+        col = 3 if instr == "HMMA" else 4
         # every one at head_dim 32 (a draft's heads), 64 and 128
         n_dims = 3
-        if len(found) != n_dims or not all(r[3] > 0 for r in found.values()):
-            fail(f"{kern}: expected HMMA instructions in all {n_dims} head "
+        if len(found) != n_dims or not all(r[col] > 0 for r in found.values()):
+            fail(f"{kern}: expected {instr} instructions in all {n_dims} head "
                  f"dims' SASS, found {found}")
     return report
 
@@ -1068,11 +1087,20 @@ def phase_bwd_kernels(torch, A) -> list:
          False, 1),
         ("f32 D32 non-causal ragged L777", 2, 4, 777, 777, 32, torch.float32,
          False, None, False, 2),
+        # Lq not a multiple of the dQ kernel's 128-row tile
+        ("causal L1000", 2, 4, 1000, 1000, 128, bf16, True, None, True, 2),
+        # one row of a microbatch: B1 H1, whose size-1 dimensions carry a
+        # stride of 1 that the wrappers pass as 0 (a fault K4's launcher had)
+        ("one row B1 H1 L300", 1, 1, 300, 300, 128, bf16, True, None, False,
+         1),
     ]
     for label, b, h, lq, lk, d, dt, causal, window, with_glse, rows in cases:
         q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), \
             randn(b, h, lk, d, dtype=dt)
         g = randn(b, h, lq, d, dtype=dt)
+        if label.startswith("one row"):
+            q, k, v, g = (t.as_strided(t.shape, (1, 1) + t.stride()[2:])
+                          for t in (q, k, v, g))
         g_lse = randn(b, h, lq, dtype=torch.float32) if with_glse else None
         out, lse = A._flash_fwd_cuda(q, k, v, causal, None, window)
         dq, dk, dv = A._flash_bwd_cuda(q, k, v, out, lse, g, g_lse, causal,
@@ -1096,6 +1124,23 @@ def phase_bwd_kernels(torch, A) -> list:
             # keys past the last query row are seen by no query
             if not ((dk[:, :, lq:] == 0).all() and (dv[:, :, lq:] == 0).all()):
                 fail("flash_bwd_dkdv: a key no query sees must get dk = dv = 0")
+        if dt == bf16 and label in ("causal L1024", "g_lse causal L1024",
+                                    "bf16 D32 causal L1024"):
+            # no atomics: a second launch on the same inputs gives the same
+            # bits; and the delta the dQ kernel wrote against _delta
+            again = A._flash_bwd_cuda(q, k, v, out, lse, g, g_lse, causal,
+                                      None, window)
+            for nm, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+                if not torch.equal(x, y):
+                    fail(f"flash_bwd {label}: two launches give different "
+                         f"{nm}")
+            delta = torch.empty_like(lse)
+            A._flash_bwd_dq_cuda(q, k, v, out, g, lse, g_lse, delta, causal,
+                                 None, window)
+            e_dl = compare(f"flash_bwd_dq {label} delta", delta,
+                           A._delta(out, g, g_lse), BWD_F32_TOL)
+            print(f"flash_bwd {label}: two launches bit-equal; the dQ "
+                  f"kernel's delta max|err| {e_dl:.3g} (f32 tolerance)")
         errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
         errs["flash_bwd_dkdv"] = max(errs["flash_bwd_dkdv"], e_kv)
         print(f"flash_bwd {label} {str(dt)[6:]}: max|err| dq {e_dq:.3g}, "
@@ -1123,11 +1168,12 @@ def phase_bwd_kernels(torch, A) -> list:
     b, h, l, d = TRAIN_BATCH, 8, TRAIN_SEQ, 128
     q, k, v, g = (randn(b, h, l, d) for _ in range(4))
     out, lse = A._flash_fwd_cuda(q, k, v, True, None, None)
-    delta = A._delta(out, g, None).contiguous()
+    delta = torch.empty_like(lse)
+    # the dQ kernel writes delta, which the dK/dV kernel then reads
+    ms_dq = cuda_ms(lambda: A._flash_bwd_dq_cuda(q, k, v, out, g, lse, None,
+                                                 delta, True, None, None), 10)
     ms_kv = cuda_ms(lambda: A._flash_bwd_dkdv_cuda(q, k, v, g, lse, delta,
                                                    True, None, None), 10)
-    ms_dq = cuda_ms(lambda: A._flash_bwd_dq_cuda(q, k, v, g, lse, delta,
-                                                 True, None, None), 10)
     ms_whole = cuda_ms(lambda: A._flash_bwd_cuda(q, k, v, out, lse, g, None,
                                                  True, None, None), 10)
     plain = cuda_ms(lambda: A._flash_bwd_reference(q, k, v, out, lse, g, None,
@@ -1145,7 +1191,9 @@ def phase_bwd_kernels(torch, A) -> list:
     rowf = b * h * l * 4             # one float32 [B, H, L] tensor
     b_kv, by_kv = bound(8 * d * pairs, 4 * x + 2 * rowf + 2 * x,
                         PEAK_BF16_FLOPS)
-    b_dq, by_dq = bound(6 * d * pairs, 4 * x + 2 * rowf + x, PEAK_BF16_FLOPS)
+    # dQ: q, k, v, dO and out read, lse read, delta and dq written
+    b_dq, by_dq = bound(6 * d * pairs + 2 * d * b * h * l,
+                        5 * x + 2 * rowf + x, PEAK_BF16_FLOPS)
     # the whole backward: K3's work, five products per visible pair, on
     # q, k, v, out, dO and lse in and dq, dk, dv out
     b_w, by_w = bound(10 * d * pairs, 5 * x + rowf + 3 * x, PEAK_BF16_FLOPS)
@@ -1201,10 +1249,12 @@ def _bwd_d32_times(torch, A, randn) -> dict:
                      (torch.float32, PEAK_F32_FLOPS)):
         q, k, v, g = (randn(b, h, l, d, dtype=dt) for _ in range(4))
         out, lse = A._flash_fwd_cuda(q, k, v, True, None, None)
-        delta = A._delta(out, g, None).contiguous()
-        ms_kv = cuda_ms(lambda: A._flash_bwd_dkdv_cuda(
-            q, k, v, g, lse, delta, True, None, None), 20)
+        # bf16: the dQ kernel writes delta (float32: delta is its input)
+        delta = (torch.empty_like(lse) if dt == torch.bfloat16
+                 else A._delta(out, g, None).contiguous())
         ms_dq = cuda_ms(lambda: A._flash_bwd_dq_cuda(
+            q, k, v, out, g, lse, None, delta, True, None, None), 20)
+        ms_kv = cuda_ms(lambda: A._flash_bwd_dkdv_cuda(
             q, k, v, g, lse, delta, True, None, None), 20)
         ms_whole = cuda_ms(lambda: A._flash_bwd_cuda(
             q, k, v, out, lse, g, None, True, None, None), 20)
@@ -1220,7 +1270,11 @@ def _bwd_d32_times(torch, A, randn) -> dict:
         pairs = visible_pairs(l, l, True, None) * b * h
         x, rowf = b * h * l * d * q.element_size(), b * h * l * 4
         b_kv, by_kv = bound(8 * d * pairs, 4 * x + 2 * rowf + 2 * x, peak)
-        b_dq, by_dq = bound(6 * d * pairs, 4 * x + 2 * rowf + x, peak)
+        if dt == torch.bfloat16:   # out read and delta written in the dQ kernel
+            b_dq, by_dq = bound(6 * d * pairs + 2 * d * b * h * l,
+                                5 * x + 2 * rowf + x, peak)
+        else:
+            b_dq, by_dq = bound(6 * d * pairs, 4 * x + 2 * rowf + x, peak)
         b_w, by_w = bound(10 * d * pairs, 5 * x + rowf + 3 * x, peak)
         name = str(dt)[6:]
         shape = f"B{b} H{h} L{l} D{d} {name} causal"
@@ -6547,7 +6601,7 @@ def _ask_for_a_capture(job) -> dict:
 def _capture_checks(job, stdout: str, steps: int) -> dict:
     """(b) and (c) on mesh (a)'s job: the flag was written (the
     executor's relay) and consumed, the trace under logs/profiles/ names
-    K1's and K3-K5's mma kernels, and the step times of the first run
+    K1's mma and K3-K5's wgmma kernels, and the step times of the first run
     around the capture are printed; the step log's last record counts
     the kernel libraries the child built or loaded, none after its
     warm-up line, and the TaskMonitor's pushed device-memory peak is
@@ -8509,12 +8563,13 @@ def main() -> int:
             fail(f"the main path never launched {name}")
     for r in records:
         r["launches"] = launches[r["name"]]
-        mma = (f"{r['name']}_mma_kernel<128>" if r["name"] != "flash_decode"
-               else "flash_decode_kernel<bf16,bf16,128,1>")
+        mma = {"flash_decode": "flash_decode_kernel<bf16,bf16,128,1>",
+               "flash_fwd": "flash_fwd_mma_kernel<128>"}.get(
+                   r["name"], f"{r['name']}_wgmma_kernel<128>")
         if mma in compiled:
-            n_regs, st, ld, hmma = compiled[mma]
+            n_regs, st, ld, hmma, hgmma = compiled[mma]
             r.update(registers_d128_bf16=n_regs, spill_bytes_d128_bf16=st + ld,
-                     hmma_d128_bf16=hmma)
+                     hmma_d128_bf16=hmma, hgmma_d128_bf16=hgmma)
     timed("parity", phase_parity, torch, G, T)
     timed("train_parity", phase_train_parity, torch, T)
     timed("serving_parity", phase_serving_parity, torch, G, T)
@@ -8526,7 +8581,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "design", "tflops", "registers_d128_bf16",
-            "spill_bytes_d128_bf16", "hmma_d128_bf16", "d32")
+            "spill_bytes_d128_bf16", "hmma_d128_bf16", "hgmma_d128_bf16",
+            "d32")
     for r in records:
         r["kernel_ms"] = r["ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("library",)

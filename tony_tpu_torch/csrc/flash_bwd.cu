@@ -7,16 +7,16 @@
 // on-chip memory size; here it is two kernels, because on this card a block
 // cannot carry a dQ sum across other blocks without atomics:
 //
-// - flash_bwd_dkdv: one CTA per (batch*head, 64-row key tile). K, V stay in
+// - flash_bwd_dq: one CTA per (batch*head, 128-row query tile). Q and dO stay
+//   in shared memory; the CTA sweeps the key tiles with the forward's causal
+//   and window bounds, the last q tiles (which sweep the most) first, and
+//   keeps dQ in float32 registers. It runs first and also writes delta.
+// - flash_bwd_dkdv: one CTA per (batch*head, 128-key tile). K, V stay in
 //   shared memory; the CTA sweeps the q tiles from the causal diagonal down to
 //   the window's upper bound (the TPU kv sweep's bounds) and keeps dK, dV in
 //   float32 registers.
-// - flash_bwd_dq: one CTA per (batch*head, 64-row query tile). Q and dO stay in
-//   shared memory; the CTA sweeps the key tiles with the forward's causal and
-//   window bounds, the last q tiles (which sweep the most) first, and keeps dQ
-//   in float32 registers.
 //
-// No atomics, so the gradients are the same from run to run.
+// No atomics, so dq, dk and dv are the same bits from run to run.
 //
 // What each tile computes (the TPU package's `_bwd_tile`), with the mask built
 // from absolute indices counted from 0 for both Q and K (causal col <= row,
@@ -34,33 +34,46 @@
 // operations on the tensor cores. The split recomputes S and dP in both
 // kernels: 14 D flops a visible (q, k) pair against the function's 10 D.
 //
-// bf16 (the *_mma kernels): every product runs on the tensor cores, as
-// mma.sync m16n8k16 with bf16 operands and float32 accumulators; 4 warps a
-// CTA, 16 rows of the CTA's resident tile a warp. Tiles are bf16 in shared
-// memory with rows padded by 8 elements (ldmatrix reads free of bank
-// conflicts); the swept tiles come in by cp.async, 16 bytes a thread (lse and
-// delta 4 bytes), in two stages, so the next tile loads while this one
-// computes (one __syncthreads a tile). p = exp2(s * scale * log2(e) -
-// lse * log2(e)) is one FFMA and one exp2, selected to 0 where masked. Unlike
-// the forward, the backward tests the mask on every entry: a mask-free path
-// for the interior tiles cost registers here and was slower on the H100.
+// bf16 (the *_wgmma kernels, helpers in hopper.cuh): every product is a
+// warpgroup MMA (wgmma m64nNk16, bf16 operands, float32 accumulators), the
+// only way to the card's full tensor-core rate. A CTA is three warpgroups:
+// two consumers, each owning 64 rows of the CTA's resident tile, and a
+// producer whose one thread keeps a 3-stage ring of the swept tiles in
+// flight by TMA (4-D tensor maps over the [B, H, L, D] strides, built on the
+// host at each call and passed as __grid_constant__ parameters; rows past L
+// arrive as zeros). Tiles land swizzled (128-byte spans, 64-byte at D = 32)
+// and wgmma reads them in place, K-major or MN-major, so no operand is
+// transposed or copied. Full and empty mbarriers hand each stage from the
+// producer to the consumers and back; setmaxnreg gives the consumers 240
+// registers a thread and the producer 24 (the launch bound is 168: 384
+// threads, three warps on each of the SM's four register files). Nothing
+// in these kernels may trap: a __trap() in a barrier wait made ptxas drop
+// the setmaxnreg budgets, so the consumers ran at 168 registers, spilled
+// their accumulators and had their wgmma serialized (ptxas's C7512).
+// - dQ: S = Q K^T and dP = dO V^T (64 x 64 each: 64-key tiles, faster than
+//   128 on the H100), as two wgmma groups, so P = exp2(S * scale * log2 e -
+//   lse * log2 e) is computed while dP's products run; dS = P (dP - delta)
+//   in the accumulators, rounded to bf16 in registers, where the
+//   accumulator's layout is the A operand's: dQ += dS K with A from
+//   registers and K read MN-major. The prologue computes delta =
+//   rowsum(dO * O) - g_lse in float32 for the CTA's rows (dO from the
+//   resident tile, O, bf16 or float32, read once from global memory), uses
+//   it and writes it to a [B, H, Lq] buffer for the dK/dV kernel, launched
+//   after it on the stream.
 // - dK/dV: the keys are the M dimension. S^T = K Q^T and dP^T = V dO^T put
-//   P^T and dS^T = P^T * (dP^T - delta) in the accumulator layout, whose C
-//   fragments, rounded to bf16, are directly the A operands of dV += P^T dO
-//   and dK += dS^T Q (dO and Q by ldmatrix.trans). No p or ds tile exists in
-//   shared memory. This kernel is where registers run out: at D = 128 the
-//   dK and dV accumulators are 128 floats a thread (16 keys x 128 dims
-//   each). So the q tile is taken 32 rows at a time, one chunk after the
-//   other (S^T and dP^T: 32 floats), and the global sources of the swept
-//   tiles are recomputed at each prefetch instead of kept as 64-bit pointers:
-//   ptxas then fits the D = 128 kernel in its 255 registers with no spill.
-//   With the chunks unrolled, or the pointers kept, it spills; 16-row chunks
-//   are slower. PERF.md has ptxas's report and each alternative's time on
-//   the H100 (tony_tpu_torch/tools/kernel_variants.py).
-// - dQ: S = Q K^T and dP = dO V^T as fragments (Q, dO the A operands, K, V
-//   the B operands by plain ldmatrix); dS is repacked in registers as the A
-//   operand of dQ += dS K, with K by ldmatrix.trans. No spill at D = 128.
-// Shared memory: 103 KB (dK/dV) and 102 KB (dQ) at D = 128, two CTAs an SM.
+//   P^T and dS^T in the accumulators; rounded to bf16 they are the A
+//   operands of dV += P^T dO (issued while dS^T is computed) and dK += dS^T
+//   Q (dO and Q read MN-major). The producer warp also brings each q tile's
+//   lse and delta (plain loads, 0 for rows past Lq). At D = 128 a consumer
+//   thread holds 128 floats of dK/dV and 64 of S^T/dP^T: the 240 registers.
+// The mask is applied only on the tiles at a boundary (the causal diagonal,
+// the window's edge, the ragged ends of Lq and Lk); interior tiles take the
+// exp2 alone. Outputs are staged as bf16 in the consumer's own rows of its
+// resident tile and leave as 16-byte stores of whole rows. PERF.md has each
+// kernel's time against its bound and SDPA's, and the variants measured
+// slower and dropped: a cp.async producer instead of TMA, 128-key dQ tiles,
+// and leaving a tile's dQ, or dV and dK, product running into the next tile
+// (ptxas then waited on the accumulators itself, C7514).
 //
 // float32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): the products on the
 // FP32 pipes (tensor-core TF32 would round the operands beyond the float32
@@ -69,9 +82,10 @@
 // (tr + 16 i, tc + 16 c) for c < D / 16. Tiles sit in shared memory in float32
 // with an odd row stride (D + 1, 64 + 1), so column walks hit distinct banks;
 // p and ds go through shared memory. Shared memory: 166 KB (dK/dV kernel) and
-// 149 KB (dQ kernel) at D = 128, one CTA an SM.
+// 149 KB (dQ kernel) at D = 128, one CTA an SM. delta comes from the caller.
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -391,387 +405,585 @@ int launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16 on the tensor cores (see the note at the top)
+// ---- bf16 on Hopper's tensor cores (see the note at the top)
 
-constexpr int MR = 64;          // rows of a resident tile and of a swept tile
-constexpr int MTHREADS = 128;   // 4 warps, 16 resident rows each
-constexpr int QC = 32;          // q rows of a dK/dV kernel's tile taken at a time
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int WG = 128;                  // threads of a warpgroup
+constexpr int HTHREADS = 3 * WG;         // two consumer warpgroups, then the producer's
+constexpr int BR = 64;                   // rows of a consumer's tile and of a TMA box
+constexpr int DQ_ROWS = 2 * BR;          // q rows of a dQ CTA
+constexpr int DQ_KEYS = 64;              // keys of a dQ kernel's K/V tile
+constexpr int DKV_KEYS = 2 * BR;         // keys of a dK/dV CTA
+constexpr int DKV_ROWS = BR;             // q rows of a dK/dV kernel's Q/dO tile
+constexpr int STAGES = 3;                // the ring of swept tiles
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 
-template <int D>
-constexpr int mma_dkdv_smem() { return 6 * MR * (D + 8) * 2 + 4 * MR * 4; }
+struct alignas(64) HopperArgs {
+  CUtensorMap tq, tk, tv, tg;  // Q, K, V, dO (boxes of 64 rows of one span)
+  const void* o;       // bf16, or float32 (ring attention's merged out)
+  int o_f32;
+  const float* lse;
+  const float* g_lse;  // nullable
+  float* delta;        // written by the dQ kernel, read by the dK/dV kernel
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int H, Lq, Lk;
+  long long dq_sb, dq_sh, dq_sl;
+  long long dk_sb, dk_sh, dk_sl;
+  long long dv_sb, dv_sh, dv_sl;
+  long long o_sb, o_sh, o_sl;
+  float scale;
+  int causal;
+  int window;  // 0 = none
+};
 
-template <int D>
-constexpr int mma_dq_smem() { return 6 * MR * (D + 8) * 2; }
+__device__ __forceinline__ bool sees(int row, int col, const HopperArgs& a) {
+  return row < a.Lq && col < a.Lk && (!a.causal || col <= row) &&
+         (a.window <= 0 || col > row - a.window);
+}
 
-// P^T = exp2(S^T * sl2 - lse2) on the dK/dV kernel's fragment, in place: this
-// lane holds keys key0 and key0 + 8 at q rows row0 + 8 n + {0, 1}, whose lse
-// are lse_r[8 n + {0, 1}]. Entries a row does not see are selected to 0 (a
-// row with no visible key has lse NEG_INF, so its exp2 overflows).
-template <int NC>
-__device__ __forceinline__ void p_from_scores(float (&s)[NC][4], const float* lse_r, float sl2,
-                                              int key0, int row0, const BwdArgs& a) {
+// 2^x on the special-function unit, a denormal result flushed to 0 (a p that
+// small adds nothing to a row's sum); faster than exp2f on the H100
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The consumer's 64 x N score tile in place, p = exp2(s * sl2 - lse2), with
+// p selected to 0 where the pair is not visible (MASK: only on the tiles at
+// a boundary). Accumulator entry (row i, column c) is the pair (query, key)
+// that pair(i, c) gives; consts(i, c) gives its row's lse2 and delta.
+template <bool MASK, int N, typename Consts, typename Pair>
+__device__ __forceinline__ void probs(float (&s)[N / 2], float sl2, Consts consts, Pair pair,
+                                      const HopperArgs& a) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int n = 0; n < NC; ++n)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int row = row0 + n * 8 + e;
-      const float lse2 = lse_r[n * 8 + e] * LOG2E;
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float& x = s[n][2 * hf + e];
-        const float p = exp2f(fmaf(x, sl2, -lse2));
-        x = visible(row, key0 + 8 * hf, a) ? p : 0.f;
+      for (int e = 0; e < 2; ++e) {
+        float lse2, dl;
+        consts(i, j * 8 + 2 * t + e, lse2, dl);
+        float& x = s[4 * j + 2 * i + e];
+        const float p = exp2_ftz(fmaf(x, sl2, -lse2));
+        if (MASK) {
+          int qrow, key;
+          pair(g + 8 * i, j * 8 + 2 * t + e, qrow, key);
+          x = sees(qrow, key, a) ? p : 0.f;
+        } else {
+          x = p;
+        }
       }
-    }
+}
+
+// ds = p * (dp - delta), into dp
+template <int N, typename Consts>
+__device__ __forceinline__ void grads(const float (&p)[N / 2], float (&dp)[N / 2],
+                                      Consts consts) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float lse2, dl;
+        consts(i, j * 8 + 2 * t + e, lse2, dl);
+        const int idx = 4 * j + 2 * i + e;
+        dp[idx] = p[idx] * (dp[idx] - dl);
+      }
 }
 
 template <int D>
-__global__ void __launch_bounds__(MTHREADS, 2) flash_bwd_dkdv_mma_kernel(BwdArgs a) {
-  constexpr int DP = D + 8;     // padded row stride of every tile (elements)
-  constexpr int TILE = MR * DP;
-  constexpr int KD = D / 16;    // k16 steps over the head dim
-  constexpr int NO = D / 8;     // n8 tiles of a dK or dV row
-  constexpr int NC = QC / 8;    // n8 tiles of q rows in a chunk
-  extern __shared__ __align__(128) unsigned char smem_mma[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [MR][DP]
-  __nv_bfloat16* vs = ks + TILE;                                    // [MR][DP]
-  __nv_bfloat16* qs = vs + TILE;                                    // [2][MR][DP]
-  __nv_bfloat16* gs = qs + 2 * TILE;                                // [2][MR][DP] dO
-  float* lse_s = reinterpret_cast<float*>(gs + 2 * TILE);           // [2][MR]
-  float* delta_s = lse_s + 2 * MR;                                  // [2][MR]
+constexpr int dq_wgmma_smem() {
+  // Q and dO resident, K and V stages, delta of the CTA's rows, barriers,
+  // and the slack that aligns the tiles to 1024 bytes
+  return 2 * DQ_ROWS * D * 2 + 2 * STAGES * DQ_KEYS * D * 2 + DQ_ROWS * 4 +
+         (1 + 2 * STAGES) * 8 + 1024;
+}
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.y * MR;
-  const int kr0 = k0 + warp * 16;  // the warp's first key
-  const int bh = blockIdx.x;
+template <int D>
+constexpr int dkdv_wgmma_smem() {
+  return 2 * DKV_KEYS * D * 2 + 2 * STAGES * DKV_ROWS * D * 2 + 2 * STAGES * DKV_ROWS * 4 +
+         (1 + 2 * STAGES) * 8 + 1024;
+}
 
-  // q tile j into stage st: Q and dO by 16-byte copies, lse and delta by
-  // 4-byte ones (threads 0-63 and 64-127); rows past Lq read as 0. The
-  // sources are recomputed from the kernel arguments at each call, so no
-  // 64-bit pointer stays live (in registers) across the sweep.
-  auto load_q = [&](int st, int j) {
-    const int bhj = static_cast<int>(opaque(bh)), b = bhj / a.H, h = bhj % a.H;
-    const int q0 = j * MR;
-    cp_tile<MR, D, MTHREADS>(qs + st * TILE,
-                             static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh,
-                             a.q_sl, q0, a.Lq);
-    cp_tile<MR, D, MTHREADS>(gs + st * TILE,
-                             static_cast<const __nv_bfloat16*>(a.g) + b * a.g_sb + h * a.g_sh,
-                             a.g_sl, q0, a.Lq);
-    const int r = tid % MR, row = q0 + r;
-    const float* src = (tid < MR ? a.lse : a.delta) + static_cast<long long>(bhj) * a.Lq;
-    float* dst = (tid < MR ? lse_s : delta_s) + st * MR + r;
-    cp_async4(smem_u32(dst), row < a.Lq ? src + row : src, row < a.Lq ? 4 : 0);
-  };
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ HopperArgs a) {
+  using T = SwTile<D>;
+  constexpr int QT = DQ_ROWS * D * 2;  // bytes of the resident Q (and dO) tile
+  constexpr int KT = DQ_KEYS * D * 2;  // bytes of a K (and V) stage
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  unsigned char* sp = smem_raw + (base - raw);  // generic pointer to `base`
+  const uint32_t qs = base, gs = qs + QT, ks = gs + QT, vs = ks + STAGES * KT;
+  float* delta_s = reinterpret_cast<float*>(sp + (vs + STAGES * KT - base));
+  const uint32_t bar_res = vs + STAGES * KT + DQ_ROWS * 4;
+  const uint32_t bar_full = bar_res + 8, bar_empty = bar_full + 8 * STAGES;
 
-  // q tiles that can see this key tile: from the causal diagonal down; a
-  // window also ends the sweep (rows past col + window - 1 see none of it)
-  const int nq = (a.Lq + MR - 1) / MR;
-  const int lo = a.causal ? k0 / MR : 0;
-  const int hi = a.window > 0 ? min(nq, (k0 + MR - 1 + a.window + MR - 1) / MR) : nq;
+  // the warpgroup index broadcast from lane 0, so the compiler sees the
+  // role branch below as warp-uniform (else setmaxnreg cannot take effect)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = __shfl_sync(0xffffffffu, tid / WG, 0);
+  const bool producer = wg == 2;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  // causal: the last q tiles sweep the most key tiles, so they start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_ROWS;
+  // key tiles this q tile can see: the forward's causal hi and window lo
+  const int nk = (a.Lk + DQ_KEYS - 1) / DQ_KEYS;
+  const int hi = a.causal ? min(nk, (q0 + DQ_ROWS + DQ_KEYS - 1) / DQ_KEYS) : nk;
+  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) / DQ_KEYS : 0;
+  const int n = max(hi - lo, 0);
 
-  {
-    const int b = bh / a.H, h = bh % a.H;
-    cp_tile<MR, D, MTHREADS>(ks, static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh,
-                             a.k_sl, k0, a.Lk);
-    cp_tile<MR, D, MTHREADS>(vs, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh,
-                             a.v_sl, k0, a.Lk);
+  if (tid == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * WG / 32);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
   }
-  if (lo < hi) load_q(0, lo);
-  cp_async_commit();
+  __syncthreads();
 
-  float dk[NO][4], dv[NO][4];
+  if (producer) {  // the producer: Q and dO once, then the K/V ring
+    warpgroup_regs_dec<PRODUCER_REGS>();
+    const int ptid = tid - 2 * WG;
+    if (ptid == 0) {
+      mbar_arrive_expect_tx(bar_res, 2 * QT);
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+      for (int span = 0; span < T::SPANS; ++span)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const float sl2 = a.scale * LOG2E;
-  // this lane's ldmatrix row addresses inside the tiles (elements)
-  const int ka_off = (warp * 16 + a_row(lane)) * DP + a_col(lane);  // K, V as A
-  const int qb_off = b_row(lane) * DP + b_col(lane);   // Q, dO as B, n = q rows
-  const int qt_off = bt_row(lane) * DP + bt_col(lane);  // Q, dO as B, k = q rows
-
-  for (int j = lo; j < hi; ++j) {
-    const int st = (j - lo) & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile j has landed; every warp is done with stage st ^ 1
-    if (j + 1 < hi) load_q(st ^ 1, j + 1);
-    cp_async_commit();
-
-    const int q0 = j * MR;
-    // a warp none of whose keys this tile's rows see skips it
-    if (kr0 >= a.Lk || (a.causal && kr0 > q0 + MR - 1) ||
-        (a.window > 0 && q0 >= kr0 + 15 + a.window))
-      continue;
-    const uint32_t kbase = opaque(smem_u32(ks)), vbase = opaque(smem_u32(vs));
-    const uint32_t qbase = opaque(smem_u32(qs + st * TILE));
-    const uint32_t gbase = opaque(smem_u32(gs + st * TILE));
-    const float* lse_t = lse_s + st * MR;
-    const float* delta_t = delta_s + st * MR;
-
-#pragma unroll 1  // chunk by chunk: unrolled, the chunks overlap and spill
-    for (int c = 0; c < MR / QC; ++c) {  // QC q rows at a time
-      const int c0 = c * QC;
-      // S^T = K Q^T and dP^T = V dO^T: this lane holds keys g, g + 8 of the
-      // warp at q rows c0 + 8 n + 2 t + {0, 1}
-      float s[NC][4], dp[NC][4];
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, kbase + (ka_off + kk * 16) * 2);
-        ldmatrix_x4(va, vbase + (ka_off + kk * 16) * 2);
-#pragma unroll
-        for (int np = 0; np < NC / 2; ++np) {
-          uint32_t qb[4], gb[4];
-          const int off = qb_off + (c0 + np * 16) * DP + kk * 16;
-          ldmatrix_x4(qb, qbase + off * 2);
-          mma_bf16(s[2 * np], ka, qb[0], qb[1]);
-          mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
-          ldmatrix_x4(gb, gbase + off * 2);
-          mma_bf16(dp[2 * np], va, gb[0], gb[1]);
-          mma_bf16(dp[2 * np + 1], va, gb[2], gb[3]);
+        for (int rb = 0; rb < DQ_ROWS / BR; ++rb) {
+          const uint32_t off = (span * DQ_ROWS + rb * BR) * T::ROW_BYTES;
+          tma_load_4d(qs + off, &a.tq, bar_res, span * T::COLS, q0 + rb * BR, h, b);
+          tma_load_4d(gs + off, &a.tg, bar_res, span * T::COLS, q0 + rb * BR, h, b);
         }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % STAGES, round = i / STAGES;
+        if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
+        const int k0 = (lo + i) * DQ_KEYS;
+        mbar_arrive_expect_tx(bar_full + 8 * st, 2 * KT);
+#pragma unroll
+        for (int span = 0; span < T::SPANS; ++span)
+#pragma unroll
+          for (int rb = 0; rb < DQ_KEYS / BR; ++rb) {
+            const uint32_t off = st * KT + (span * DQ_KEYS + rb * BR) * T::ROW_BYTES;
+            tma_load_4d(ks + off, &a.tk, bar_full + 8 * st, span * T::COLS, k0 + rb * BR, h, b);
+            tma_load_4d(vs + off, &a.tv, bar_full + 8 * st, span * T::COLS, k0 + rb * BR, h, b);
+          }
       }
-      // P^T, in place
-      p_from_scores(s, lse_t + c0 + 2 * t, sl2, kr0 + g, q0 + c0 + 2 * t, a);
-      // dV += P^T dO: P^T from registers (bf16), dO by ldmatrix.trans
+    }
+  } else {  // consumer wg: q rows r0 .. r0 + 63
+    warpgroup_regs_inc<CONSUMER_REGS>();
+    const int ctid = tid % WG, warp = ctid / 32, g = lane / 4;
+    const int r0 = q0 + wg * BR;
+    mbar_wait(bar_res, 0);
+
+    // delta = rowsum(dO * O) - g_lse, float32: two threads a row, half of D
+    // each, dO from the resident tile and O (bf16 or float32) from global
+    // memory
+    {
+      const int r = ctid / 2, half = ctid % 2, row = r0 + r;
+      float acc = 0.f;
+      if (row < a.Lq) {
+        const long long at = b * a.o_sb + h * a.o_sh + row * a.o_sl;
 #pragma unroll
-      for (int kq = 0; kq < NC / 2; ++kq) {
-        uint32_t pa[4];
-        c_to_a(pa, s[2 * kq], s[2 * kq + 1]);
+        for (int c = half * (D / 2); c < (half + 1) * (D / 2); c += 8) {
+          float of[8];
+          if (a.o_f32) {
+            const float4* o4 =
+                reinterpret_cast<const float4*>(static_cast<const float*>(a.o) + at + c);
+            const float4 x = o4[0], y = o4[1];
+            of[0] = x.x; of[1] = x.y; of[2] = x.z; of[3] = x.w;
+            of[4] = y.x; of[5] = y.y; of[6] = y.z; of[7] = y.w;
+          } else {
+            const uint4 ov = *reinterpret_cast<const uint4*>(
+                static_cast<const __nv_bfloat16*>(a.o) + at + c);
+            const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
 #pragma unroll
-        for (int np = 0; np < NO / 2; ++np) {
-          uint32_t gb[4];
-          ldmatrix_x4_trans(gb, gbase + (qt_off + (c0 + kq * 16) * DP + np * 16) * 2);
-          mma_bf16(dv[2 * np], pa, gb[0], gb[1]);
-          mma_bf16(dv[2 * np + 1], pa, gb[2], gb[3]);
-        }
-      }
-      // dS^T = P^T (dP^T - delta)
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(o2[e]);
+              of[2 * e] = f.x;
+              of[2 * e + 1] = f.y;
+            }
+          }
+          const uint4 gv = *reinterpret_cast<const uint4*>(
+              sp + (gs - base) + T::template offset<DQ_ROWS>(wg * BR + r, c));
+          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float dl = delta_t[c0 + n * 8 + 2 * t + e];
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int i = 2 * hf + e;
-            dp[n][i] = s[n][i] * (dp[n][i] - dl);
+          for (int e = 0; e < 4; ++e) {
+            const float2 gf = __bfloat1622float2(g2[e]);
+            acc = fmaf(gf.x, of[2 * e], acc);
+            acc = fmaf(gf.y, of[2 * e + 1], acc);
           }
         }
-      // dK += dS^T Q: dS^T from registers (bf16), Q by ldmatrix.trans
-#pragma unroll
-      for (int kq = 0; kq < NC / 2; ++kq) {
-        uint32_t da[4];
-        c_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-        for (int np = 0; np < NO / 2; ++np) {
-          uint32_t qb[4];
-          ldmatrix_x4_trans(qb, qbase + (qt_off + (c0 + kq * 16) * DP + np * 16) * 2);
-          mma_bf16(dk[2 * np], da, qb[0], qb[1]);
-          mma_bf16(dk[2 * np + 1], da, qb[2], qb[3]);
-        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (row < a.Lq && a.g_lse != nullptr)
+        acc -= a.g_lse[static_cast<long long>(bh) * a.Lq + row];
+      if (half == 0) {
+        delta_s[wg * BR + r] = acc;
+        if (row < a.Lq) a.delta[static_cast<long long>(bh) * a.Lq + row] = acc;
       }
     }
-  }
-  cp_async_wait<0>();
+    named_sync(1 + wg, WG);
 
-  // every key row is written, zeros included (a key no query sees)
-  const int b = bh / a.H, h = bh % a.H;
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk) + b * a.dk_sb + h * a.dk_sh;
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv) + b * a.dv_sb + h * a.dv_sh;
+    // lse (log2 units) and delta of this thread's accumulator rows g, g + 8
+    float lse2[2], dl[2];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int key = kr0 + g + 8 * hf;
-    if (key >= a.Lk) continue;
-    __nv_bfloat16* dkr = dkg + key * a.dk_sl + 2 * t;
-    __nv_bfloat16* dvr = dvg + key * a.dv_sl + 2 * t;
+    for (int i = 0; i < 2; ++i) {
+      const int rl = warp * 16 + g + 8 * i, row = r0 + rl;
+      lse2[i] = row < a.Lq ? a.lse[static_cast<long long>(bh) * a.Lq + row] * LOG2E : 0.f;
+      dl[i] = delta_s[wg * BR + rl];
+    }
+    const auto row_consts = [&](int i, int, float& l2, float& d) {
+      l2 = lse2[i];
+      d = dl[i];
+    };
+
+    float dq[D / 2], s[DQ_KEYS / 2], dp[DQ_KEYS / 2];
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(dkr + n * 8) =
-          pack_bf16(dk[n][2 * hf] * a.scale, dk[n][2 * hf + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvr + n * 8) = pack_bf16(dv[n][2 * hf], dv[n][2 * hf + 1]);
+    for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < DQ_KEYS / 2; ++x) s[x] = dp[x] = 0.f;
+    const float sl2 = a.scale * LOG2E;
+
+    for (int i = 0; i < n; ++i) {
+      const int st = i % STAGES;
+      mbar_wait(bar_full + 8 * st, (i / STAGES) & 1);
+      const int k0 = (lo + i) * DQ_KEYS;
+      // a consumer none of whose rows sees a key of this tile skips it
+      const bool skip = r0 >= a.Lq || (a.causal && k0 > r0 + BR - 1) ||
+                        (a.window > 0 && k0 + DQ_KEYS - 1 <= r0 - a.window);
+      if (!skip) {
+        const uint32_t kst = ks + st * KT, vst = vs + st * KT;
+        // S = Q K^T and dP = dO V^T, K-major operands from shared memory, as
+        // two groups: P is computed while dP's products still run
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<DQ_KEYS>::template ss<0>(s, desc_kmajor<D, DQ_ROWS>(qs, wg * BR, kk),
+                                         desc_kmajor<D, DQ_KEYS>(kst, 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<DQ_KEYS>::template ss<0>(dp, desc_kmajor<D, DQ_ROWS>(gs, wg * BR, kk),
+                                         desc_kmajor<D, DQ_KEYS>(vst, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        // the mask only where some pair of the tile is not visible
+        const bool edge = r0 + BR > a.Lq || k0 + DQ_KEYS > a.Lk ||
+                          (a.causal && k0 + DQ_KEYS - 1 > r0) ||
+                          (a.window > 0 && k0 <= r0 + BR - 1 - a.window);
+        const auto pair = [&](int rl, int c, int& qrow, int& key) {
+          qrow = r0 + warp * 16 + rl;
+          key = k0 + c;
+        };
+        if (edge)
+          probs<true, DQ_KEYS>(s, sl2, row_consts, pair, a);
+        else
+          probs<false, DQ_KEYS>(s, sl2, row_consts, pair, a);
+        wgmma_wait<0>();
+        fence_regs(dp);
+        grads<DQ_KEYS>(s, dp, row_consts);
+        // dQ += dS K: dS from registers (bf16), K read MN-major
+        uint32_t da[DQ_KEYS / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DQ_KEYS / 16; ++kk) acc_to_a(da[kk], dp, kk);
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+          Wgmma<D>::template rs<1>(dq, da[kk], desc_mnmajor<D, DQ_KEYS>(kst, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(da);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // every query row is written, zeros included (a row that sees no key):
+    // dQ * scale in bf16 into this consumer's rows of the Q tile (which only
+    // its own products read), then 16-byte stores of whole rows
+    const int t = lane % 4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(
+            sp + T::template offset<DQ_ROWS>(wg * BR + warp * 16 + g + 8 * i, 8 * j + 2 * t)) =
+            pack_bf16(dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);
+    named_sync(1 + wg, WG);
+    __nv_bfloat16* dqg = a.dq + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+    for (int e = ctid; e < BR * D / 8; e += WG) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8, row = r0 + r;
+      if (row < a.Lq)
+        *reinterpret_cast<uint4*>(dqg + row * a.dq_sl + c) =
+            *reinterpret_cast<const uint4*>(sp + T::template offset<DQ_ROWS>(wg * BR + r, c));
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(MTHREADS, 2) flash_bwd_dq_mma_kernel(BwdArgs a) {
-  constexpr int DP = D + 8;     // padded row stride of every tile (elements)
-  constexpr int TILE = MR * DP;
-  constexpr int KD = D / 16;    // k16 steps over the head dim
-  constexpr int NS = MR / 8;    // n8 tiles of a score row
-  constexpr int NO = D / 8;     // n8 tiles of a dQ row
-  extern __shared__ __align__(128) unsigned char smem_mma[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [MR][DP]
-  __nv_bfloat16* gs = qs + TILE;                                    // [MR][DP] dO
-  __nv_bfloat16* ks = gs + TILE;                                    // [2][MR][DP]
-  __nv_bfloat16* vs = ks + 2 * TILE;                                // [2][MR][DP]
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ HopperArgs a) {
+  using T = SwTile<D>;
+  constexpr int KT = DKV_KEYS * D * 2;  // bytes of the resident K (and V) tile
+  constexpr int QT = DKV_ROWS * D * 2;  // bytes of a Q (and dO) stage
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  unsigned char* sp = smem_raw + (base - raw);
+  const uint32_t ks = base, vs = ks + KT, qs = vs + KT, gs = qs + STAGES * QT;
+  float* lse_s = reinterpret_cast<float*>(sp + (gs + STAGES * QT - base));  // [STAGES][64]
+  float* delta_s = lse_s + STAGES * DKV_ROWS;                               // [STAGES][64]
+  const uint32_t bar_res = gs + STAGES * QT + 2 * STAGES * DKV_ROWS * 4;
+  const uint32_t bar_full = bar_res + 8, bar_empty = bar_full + 8 * STAGES;
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  // causal: the last q tiles sweep the most key tiles, so they start first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * MR;
-  const int r0 = q0 + warp * 16;  // the warp's first q row
-  const int bh = blockIdx.x;
-  const int b = bh / a.H, h = bh % a.H;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const __nv_bfloat16* gg = static_cast<const __nv_bfloat16*>(a.g) + b * a.g_sb + h * a.g_sh;
+  // the warpgroup index broadcast from lane 0, so the compiler sees the
+  // role branch below as warp-uniform (else setmaxnreg cannot take effect)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = __shfl_sync(0xffffffffu, tid / WG, 0);
+  const bool producer = wg == 2;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * DKV_KEYS;
+  // q tiles that can see this key tile: from the causal diagonal down; a
+  // window also ends the sweep (rows past col + window - 1 see none of it)
+  const int nq = (a.Lq + DKV_ROWS - 1) / DKV_ROWS;
+  const int lo = a.causal ? k0 / DKV_ROWS : 0;
+  const int hi = a.window > 0
+                     ? min(nq, (k0 + DKV_KEYS - 1 + a.window + DKV_ROWS - 1) / DKV_ROWS)
+                     : nq;
+  const int n = max(hi - lo, 0);
 
-  // key tiles this q tile can see: the forward's causal hi and window lo
-  const int nk = (a.Lk + MR - 1) / MR;
-  const int hi = a.causal ? min(nk, (q0 + MR + MR - 1) / MR) : nk;
-  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) / MR : 0;
-
-  cp_tile<MR, D, MTHREADS>(qs, qg, a.q_sl, q0, a.Lq);
-  cp_tile<MR, D, MTHREADS>(gs, gg, a.g_sl, q0, a.Lq);
-  if (lo < hi) {
-    cp_tile<MR, D, MTHREADS>(ks, kg, a.k_sl, lo * MR, a.Lk);
-    cp_tile<MR, D, MTHREADS>(vs, vg, a.v_sl, lo * MR, a.Lk);
-  }
-  cp_async_commit();
-
-  // lse (log2 units) and delta of this lane's rows g and g + 8
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = r0 + g + 8 * hf;
-    const long long at = static_cast<long long>(bh) * a.Lq + row;
-    lse2[hf] = row < a.Lq ? a.lse[at] * LOG2E : 0.f;
-    dl[hf] = row < a.Lq ? a.delta[at] : 0.f;
-  }
-
-  float dq[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  const float sl2 = a.scale * LOG2E;
-  // this lane's ldmatrix row addresses inside the tiles (elements)
-  const int qa_off = (warp * 16 + a_row(lane)) * DP + a_col(lane);  // Q, dO as A
-  const int kb_off = b_row(lane) * DP + b_col(lane);    // K, V as B, n = keys
-  const int kt_off = bt_row(lane) * DP + bt_col(lane);  // K as B, k = keys
-
-  for (int j = lo; j < hi; ++j) {
-    const int st = (j - lo) & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile j has landed; every warp is done with stage st ^ 1
-    if (j + 1 < hi) {
-      cp_tile<MR, D, MTHREADS>(ks + (st ^ 1) * TILE, kg, a.k_sl, (j + 1) * MR, a.Lk);
-      cp_tile<MR, D, MTHREADS>(vs + (st ^ 1) * TILE, vg, a.v_sl, (j + 1) * MR, a.Lk);
+  if (tid == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer warp's 32 arrivals, after its plain stores of lse and delta
+      mbar_init(bar_full + 8 * s, 32);
+      mbar_init(bar_empty + 8 * s, 2 * WG / 32);
     }
-    cp_async_commit();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    const int k0 = j * MR;
-    // a warp none of whose rows sees a key of this tile skips it
-    if (r0 >= a.Lq || (a.causal && k0 > r0 + 15) ||
-        (a.window > 0 && k0 + MR - 1 <= r0 - a.window))
-      continue;
-    const uint32_t qbase = opaque(smem_u32(qs)), gbase = opaque(smem_u32(gs));
-    const uint32_t kbase = opaque(smem_u32(ks + st * TILE));
-    const uint32_t vbase = opaque(smem_u32(vs + st * TILE));
-
-    // S = Q K^T and dP = dO V^T: this lane holds rows g, g + 8 of the warp
-    // at keys 8 n + 2 t + {0, 1}
-    float s[NS][4], dp[NS][4];
+  if (producer) {  // the producer: K and V once, then the Q/dO/lse/delta ring
+    warpgroup_regs_dec<PRODUCER_REGS>();
+    const int ptid = tid - 2 * WG;
+    if (ptid == 0) {
+      mbar_arrive_expect_tx(bar_res, 2 * KT);
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+      for (int span = 0; span < T::SPANS; ++span)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], ga[4];
-      ldmatrix_x4(qa, qbase + (qa_off + kk * 16) * 2);
-      ldmatrix_x4(ga, gbase + (qa_off + kk * 16) * 2);
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kb[4], vb[4];
-        const int off = kb_off + np * 16 * DP + kk * 16;
-        ldmatrix_x4(kb, kbase + off * 2);
-        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
-        ldmatrix_x4(vb, vbase + off * 2);
-        mma_bf16(dp[2 * np], ga, vb[0], vb[1]);
-        mma_bf16(dp[2 * np + 1], ga, vb[2], vb[3]);
-      }
+        for (int rb = 0; rb < DKV_KEYS / BR; ++rb) {
+          const uint32_t off = (span * DKV_KEYS + rb * BR) * T::ROW_BYTES;
+          tma_load_4d(ks + off, &a.tk, bar_res, span * T::COLS, k0 + rb * BR, h, b);
+          tma_load_4d(vs + off, &a.tv, bar_res, span * T::COLS, k0 + rb * BR, h, b);
+        }
     }
-    // P, in place; masked entries select their p to 0
+    if (ptid < 32) {
+      const long long rows0 = static_cast<long long>(bh) * a.Lq;
+      for (int i = 0; i < n; ++i) {
+        const int st = i % STAGES, round = i / STAGES;
+        if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
+        const int q0 = (lo + i) * DKV_ROWS;
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+        for (int r = lane; r < DKV_ROWS; r += 32) {
+          const int row = q0 + r;
+          lse_s[st * DKV_ROWS + r] = row < a.Lq ? a.lse[rows0 + row] : 0.f;
+          delta_s[st * DKV_ROWS + r] = row < a.Lq ? a.delta[rows0 + row] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(bar_full + 8 * st, 2 * QT);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = r0 + g + 8 * hf;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * hf + e];
-          const float p = exp2f(fmaf(x, sl2, -lse2[hf]));
-          x = visible(row, k0 + n * 8 + 2 * t + e, a) ? p : 0.f;
+          for (int span = 0; span < T::SPANS; ++span) {
+            const uint32_t off = st * QT + span * DKV_ROWS * T::ROW_BYTES;
+            tma_load_4d(qs + off, &a.tq, bar_full + 8 * st, span * T::COLS, q0, h, b);
+            tma_load_4d(gs + off, &a.tg, bar_full + 8 * st, span * T::COLS, q0, h, b);
+          }
+        } else {
+          mbar_arrive(bar_full + 8 * st);
         }
       }
-    // dS = P (dP - delta), into s
+    }
+  } else {  // consumer wg: keys kw0 .. kw0 + 63
+    warpgroup_regs_inc<CONSUMER_REGS>();
+    const int ctid = tid % WG, warp = ctid / 32, g = lane / 4, t = lane % 4;
+    const int kw0 = k0 + wg * BR;
+    mbar_wait(bar_res, 0);
+
+    float dk[D / 2], dv[D / 2], s[DKV_ROWS / 2], dp[DKV_ROWS / 2];
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - dl[e / 2];
-    // dQ += dS K: dS from registers (bf16), K by ldmatrix.trans
+    for (int x = 0; x < DKV_ROWS / 2; ++x) s[x] = dp[x] = 0.f;
+    const float sl2 = a.scale * LOG2E;
+
+    for (int i = 0; i < n; ++i) {
+      const int st = i % STAGES;
+      mbar_wait(bar_full + 8 * st, (i / STAGES) & 1);
+      const int q0 = (lo + i) * DKV_ROWS;
+      // a consumer none of whose keys this tile's rows see skips it
+      const bool skip = kw0 >= a.Lk || (a.causal && kw0 > q0 + DKV_ROWS - 1) ||
+                        (a.window > 0 && q0 >= kw0 + BR - 1 + a.window);
+      if (!skip) {
+        const uint32_t qst = qs + st * QT, gst = gs + st * QT;
+        // S^T = K Q^T and dP^T = V dO^T, K-major operands from shared memory,
+        // as two groups; then dV += P^T dO runs while dS^T is computed
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < MR / 16; ++kk) {
-      uint32_t da[4];
-      c_to_a(da, s[2 * kk], s[2 * kk + 1]);
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<DKV_ROWS>::template ss<0>(s, desc_kmajor<D, DKV_KEYS>(ks, wg * BR, kk),
+                                          desc_kmajor<D, DKV_ROWS>(qst, 0, kk), kk > 0);
+        wgmma_commit();
 #pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, kbase + (kt_off + kk * 16 * DP + np * 16) * 2);
-        mma_bf16(dq[2 * np], da, kb[0], kb[1]);
-        mma_bf16(dq[2 * np + 1], da, kb[2], kb[3]);
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<DKV_ROWS>::template ss<0>(dp, desc_kmajor<D, DKV_KEYS>(vs, wg * BR, kk),
+                                          desc_kmajor<D, DKV_ROWS>(gst, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        // P^T: accumulator rows are keys, columns are q rows
+        const float* lse_t = lse_s + st * DKV_ROWS;
+        const float* delta_t = delta_s + st * DKV_ROWS;
+        const auto col_consts = [&](int, int c, float& l2, float& d) {
+          l2 = lse_t[c] * LOG2E;
+          d = delta_t[c];
+        };
+        const bool edge = kw0 + BR > a.Lk || q0 + DKV_ROWS > a.Lq ||
+                          (a.causal && kw0 + BR - 1 > q0) ||
+                          (a.window > 0 && q0 + DKV_ROWS - 1 >= kw0 + a.window);
+        const auto pair = [&](int rl, int c, int& qrow, int& key) {
+          qrow = q0 + c;
+          key = kw0 + warp * 16 + rl;
+        };
+        if (edge)
+          probs<true, DKV_ROWS>(s, sl2, col_consts, pair, a);
+        else
+          probs<false, DKV_ROWS>(s, sl2, col_consts, pair, a);
+        // dV += P^T dO: P^T from registers (bf16), dO read MN-major
+        uint32_t pa[DKV_ROWS / 16][4], da[DKV_ROWS / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DKV_ROWS / 16; ++kk) acc_to_a(pa[kk], s, kk);
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DKV_ROWS / 16; ++kk)
+          Wgmma<D>::template rs<1>(dv, pa[kk], desc_mnmajor<D, DKV_ROWS>(gst, kk), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T has landed (groups complete in order)
+        fence_regs(dp);
+        grads<DKV_ROWS>(s, dp, col_consts);
+        // dK += dS^T Q: dS^T from registers (bf16), Q read MN-major
+#pragma unroll
+        for (int kk = 0; kk < DKV_ROWS / 16; ++kk) acc_to_a(da[kk], dp, kk);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DKV_ROWS / 16; ++kk)
+          Wgmma<D>::template rs<1>(dk, da[kk], desc_mnmajor<D, DKV_ROWS>(qst, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // every key row is written, zeros included (a key no query sees): dK *
+    // scale and dV in bf16 into this consumer's rows of the K and V tiles,
+    // then 16-byte stores of whole rows
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t off =
+            T::template offset<DKV_KEYS>(wg * BR + warp * 16 + g + 8 * i, 8 * j + 2 * t);
+        *reinterpret_cast<uint32_t*>(sp + off) =
+            pack_bf16(dk[4 * j + 2 * i] * a.scale, dk[4 * j + 2 * i + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(sp + (vs - base) + off) =
+            pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
+    named_sync(1 + wg, WG);
+    __nv_bfloat16* dkg = a.dk + b * a.dk_sb + h * a.dk_sh;
+    __nv_bfloat16* dvg = a.dv + b * a.dv_sb + h * a.dv_sh;
+#pragma unroll
+    for (int e = ctid; e < BR * D / 8; e += WG) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8, key = kw0 + r;
+      if (key < a.Lk) {
+        const uint32_t off = T::template offset<DKV_KEYS>(wg * BR + r, c);
+        *reinterpret_cast<uint4*>(dkg + key * a.dk_sl + c) =
+            *reinterpret_cast<const uint4*>(sp + off);
+        *reinterpret_cast<uint4*>(dvg + key * a.dv_sl + c) =
+            *reinterpret_cast<const uint4*>(sp + (vs - base) + off);
       }
     }
-  }
-  cp_async_wait<0>();
-
-  // every query row is written, zeros included (a row that sees no key)
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = r0 + g + 8 * hf;
-    if (row >= a.Lq) continue;
-    __nv_bfloat16* dqr = dqg + row * a.dq_sl + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(dqr + n * 8) =
-          pack_bf16(dq[n][2 * hf] * a.scale, dq[n][2 * hf + 1] * a.scale);
   }
 }
 
+// The bf16 kernels' arguments; builds the four tensor maps. strides: 24
+// values, (batch, head, row) of q, k, v, g, dq, dk, dv, o. -> 0, or the
+// cudaError_t to return.
+int make_hopper_args(HopperArgs& a, const void* q, const void* k, const void* v, const void* g,
+                     const void* o, int o_f32, const void* lse, const void* g_lse, void* delta,
+                     void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk, int D,
+                     const long long* st, float scale, int causal, int window) {
+  a.o = o;
+  a.o_f32 = o_f32;
+  a.lse = static_cast<const float*>(lse);
+  a.g_lse = static_cast<const float*>(g_lse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.H = H; a.Lq = Lq; a.Lk = Lk;
+  a.dq_sb = st[12]; a.dq_sh = st[13]; a.dq_sl = st[14];
+  a.dk_sb = st[15]; a.dk_sh = st[16]; a.dk_sl = st[17];
+  a.dv_sb = st[18]; a.dv_sh = st[19]; a.dv_sl = st[20];
+  a.o_sb = st[21]; a.o_sh = st[22]; a.o_sl = st[23];
+  a.scale = scale; a.causal = causal; a.window = window;
+  if (tma_map_bhld(&a.tq, q, B, H, Lq, D, st[0], st[1], st[2]) ||
+      tma_map_bhld(&a.tk, k, B, H, Lk, D, st[3], st[4], st[5]) ||
+      tma_map_bhld(&a.tv, v, B, H, Lk, D, st[6], st[7], st[8]) ||
+      tma_map_bhld(&a.tg, g, B, H, Lq, D, st[9], st[10], st[11]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
 template <int D>
-int launch_dkdv_mma(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int smem = mma_dkdv_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch_dq_wgmma(const HopperArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = dq_wgmma_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B * a.H, (a.Lk + MR - 1) / MR);
-  flash_bwd_dkdv_mma_kernel<D><<<grid, MTHREADS, smem, stream>>>(a);
+  dim3 grid(B * a.H, (a.Lq + DQ_ROWS - 1) / DQ_ROWS);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, HTHREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_dq_mma(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int smem = mma_dq_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch_dkdv_wgmma(const HopperArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = dkdv_wgmma_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B * a.H, (a.Lq + MR - 1) / MR);
-  flash_bwd_dq_mma_kernel<D><<<grid, MTHREADS, smem, stream>>>(a);
+  dim3 grid(B * a.H, (a.Lk + DKV_KEYS - 1) / DKV_KEYS);
+  flash_bwd_dkdv_wgmma_kernel<D><<<grid, HTHREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -798,31 +1010,37 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// q, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D]; g (dO): [B, H, Lq, D],
-// D = 32, 64 or 128 (at D = 32 a padded bf16 row is 80 bytes, so every
-// ldmatrix row address stays 16-byte aligned, and a 64-row tile is 256
-// 16-byte cp.async chunks, two a thread); each with any strides over
-// (B, H, L) and unit stride over D. lse, delta:
-// contiguous [B, H, Lq] float32. strides: 21 values, (batch, head, row) for
-// q, k, v, g, dq, dk, dv in that order. dtype: 0 = float32 (the FP32
-// kernels), 1 = bf16 (the tensor-core kernels, which also need every bf16
-// pointer and every stride 16-byte aligned).
-// Each returns the cudaError_t of its launch (0 on success).
+// q, dq: [B, H, Lq, D]; k, v, dk, dv: [B, H, Lk, D]; g (dO), o: [B, H, Lq, D],
+// D = 32, 64 or 128; each with any strides over (B, H, L) and unit stride
+// over D. lse, delta, g_lse: contiguous [B, H, Lq] float32. strides: 24
+// values, (batch, head, row) for q, k, v, g, dq, dk, dv, o in that order.
+// dtype: 0 = float32 (the FP32 kernels; delta is an input, o and g_lse are
+// not read), 1 = bf16 (the wgmma kernels, which need every pointer and
+// stride 16-byte aligned; tony_flash_bwd_dq writes delta from o, bf16 or,
+// with o_f32, float32, and g_lse, which may be null, and tony_flash_bwd_dkdv
+// reads it, so the dQ kernel runs first). Each returns the cudaError_t of
+// its launch (0 on success).
 extern "C" int tony_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                    const void* g, const void* lse, const void* delta,
                                    void* dk, void* dv, int B, int H, int Lq, int Lk,
                                    int D, int dtype, const long long* strides,
                                    float scale, int causal, int window, void* stream) {
-  const BwdArgs a = make_args(q, k, v, g, lse, delta, nullptr, dk, dv, H, Lq, Lk,
-                              strides, scale, causal, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const void* ptrs[6] = {q, k, v, g, dk, dv};
     if (!aligned16(ptrs, 6, strides, 21)) return static_cast<int>(cudaErrorMisalignedAddress);
-    if (D == 128) return launch_dkdv_mma<128>(a, B, s);
-    if (D == 64) return launch_dkdv_mma<64>(a, B, s);
-    if (D == 32) return launch_dkdv_mma<32>(a, B, s);
+    if (D != 32 && D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+    HopperArgs a;
+    const int err = make_hopper_args(a, q, k, v, g, nullptr, 0, lse, nullptr,
+                                     const_cast<void*>(delta), nullptr, dk, dv, B, H, Lq, Lk,
+                                     D, strides, scale, causal, window);
+    if (err != 0) return err;
+    if (D == 128) return launch_dkdv_wgmma<128>(a, B, s);
+    if (D == 64) return launch_dkdv_wgmma<64>(a, B, s);
+    return launch_dkdv_wgmma<32>(a, B, s);
   }
+  const BwdArgs a = make_args(q, k, v, g, lse, delta, nullptr, dk, dv, H, Lq, Lk,
+                              strides, scale, causal, window);
   if (dtype == 0 && D == 128) return launch_dkdv<float, 128>(a, B, s);
   if (dtype == 0 && D == 64) return launch_dkdv<float, 64>(a, B, s);
   if (dtype == 0 && D == 32) return launch_dkdv<float, 32>(a, B, s);
@@ -830,20 +1048,30 @@ extern "C" int tony_flash_bwd_dkdv(const void* q, const void* k, const void* v,
 }
 
 extern "C" int tony_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* g, const void* lse, const void* delta,
-                                 void* dq, int B, int H, int Lq, int Lk, int D,
-                                 int dtype, const long long* strides, float scale,
-                                 int causal, int window, void* stream) {
-  const BwdArgs a = make_args(q, k, v, g, lse, delta, dq, nullptr, nullptr, H, Lq, Lk,
-                              strides, scale, causal, window);
+                                 const void* o, const void* g, const void* lse,
+                                 const void* g_lse, void* delta, void* dq, int B, int H,
+                                 int Lq, int Lk, int D, int dtype, int o_f32,
+                                 const long long* strides, float scale, int causal, int window,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const void* ptrs[5] = {q, k, v, g, dq};
-    if (!aligned16(ptrs, 5, strides, 21)) return static_cast<int>(cudaErrorMisalignedAddress);
-    if (D == 128) return launch_dq_mma<128>(a, B, s);
-    if (D == 64) return launch_dq_mma<64>(a, B, s);
-    if (D == 32) return launch_dq_mma<32>(a, B, s);
+    const void* ptrs[6] = {q, k, v, g, dq, o};
+    if (!aligned16(ptrs, 6, strides, 21)) return static_cast<int>(cudaErrorMisalignedAddress);
+    // O's strides in its own element size (4 floats or 8 bf16 to 16 bytes)
+    const long long o_st[3] = {strides[21] * (o_f32 ? 2 : 1), strides[22] * (o_f32 ? 2 : 1),
+                               strides[23] * (o_f32 ? 2 : 1)};
+    if (!aligned16(ptrs, 0, o_st, 3)) return static_cast<int>(cudaErrorMisalignedAddress);
+    if (D != 32 && D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+    HopperArgs a;
+    const int err = make_hopper_args(a, q, k, v, g, o, o_f32, lse, g_lse, delta, dq, nullptr,
+                                     nullptr, B, H, Lq, Lk, D, strides, scale, causal, window);
+    if (err != 0) return err;
+    if (D == 128) return launch_dq_wgmma<128>(a, B, s);
+    if (D == 64) return launch_dq_wgmma<64>(a, B, s);
+    return launch_dq_wgmma<32>(a, B, s);
   }
+  const BwdArgs a = make_args(q, k, v, g, lse, delta, dq, nullptr, nullptr, H, Lq, Lk,
+                              strides, scale, causal, window);
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(a, B, s);
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(a, B, s);
   if (dtype == 0 && D == 32) return launch_dq<float, 32>(a, B, s);

@@ -49,7 +49,7 @@ SIGNATURES = {
     "tony_flash_bwd_dkdv": (
         "flash_bwd", [_P] * 8 + [_I] * 6 + [_LP, _F, _I, _I, _P]),
     "tony_flash_bwd_dq": (
-        "flash_bwd", [_P] * 7 + [_I] * 6 + [_LP, _F, _I, _I, _P]),
+        "flash_bwd", [_P] * 9 + [_I] * 7 + [_LP, _F, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

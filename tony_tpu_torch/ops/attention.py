@@ -4,17 +4,22 @@ ops/attention.py).
 [B, H, L, D] layout, out and per-row logsumexp. On a CUDA tensor the work
 runs in hand-written kernels: the forward in ``csrc/flash_fwd.cu`` (one
 kernel for the TPU package's streaming and VMEM-resident tiers), the
-backward in ``csrc/flash_bwd.cu`` (a dK/dV kernel and a dQ kernel, for the
+backward in ``csrc/flash_bwd.cu`` (a dQ kernel and a dK/dV kernel, for the
 TPU package's three backward tiers). Each source holds two routes, chosen
-by dtype inside the C entry point: bfloat16 runs on the tensor cores
-(mma.sync with bf16 operands and float32 accumulators; it needs every
-pointer and (B, H, L) stride 16-byte aligned), float32 on the FP32 pipes
-(tensor-core TF32 would round its operands). On a CPU tensor the same
-operator (``flash_fwd``, a ``torch.library`` custom op with its backward
-registered) runs ``_flash_fwd_reference`` and ``_flash_bwd_reference``,
-the plain PyTorch versions of the same functions, so the CPU tests
-exercise the backward that the card's kernels are held against. A CUDA
-tensor outside the kernels' envelope raises: there is no fallback.
+by dtype inside the C entry point: bfloat16 runs on the tensor cores (the
+forward with mma.sync, the backward with Hopper's warpgroup MMA fed by TMA;
+both take bf16 operands into float32 accumulators and need every pointer
+and (B, H, L) stride 16-byte aligned), float32 on the FP32 pipes
+(tensor-core TF32 would round its operands). The bf16 backward runs the dQ
+kernel first: it also computes delta = rowsum(dO * O) - g_lse in float32
+and writes it for the dK/dV kernel, so no PyTorch op runs between the two
+launches; the float32 route computes delta with ``_delta`` first. On a CPU
+tensor the same operator (``flash_fwd``, a ``torch.library`` custom op with
+its backward registered) runs ``_flash_fwd_reference`` and
+``_flash_bwd_reference``, the plain PyTorch versions of the same functions,
+so the CPU tests exercise the backward that the card's kernels are held
+against. A CUDA tensor outside the kernels' envelope raises: there is no
+fallback.
 
 The lse output is differentiable: the backward folds its cotangent into
 ``delta`` (the JAX package's ``_flash_bwd``), as ring attention needs.
@@ -201,11 +206,11 @@ def _grad_like(t):
     return out
 
 
-def _bwd_args(q, k, v, g, dq, dk, dv, causal, scale, window):
+def _bwd_args(q, k, v, g, dq, dk, dv, o, causal, scale, window):
     """The arguments both backward kernels share after their pointers."""
     b, h, lq, d = q.shape
-    strides = (ctypes.c_longlong * 21)(*(
-        x for t in (q, k, v, g, dq, dk, dv) for x in _kstrides(t)))
+    strides = (ctypes.c_longlong * 24)(*(
+        x for t in (q, k, v, g, dq, dk, dv, o) for x in _kstrides(t)))
     scale = (d ** -0.5) if scale is None else float(scale)
     return (b, h, lq, k.shape[2], d, KERNEL_DTYPES[q.dtype], strides, scale,
             int(causal), int(window or 0),
@@ -214,48 +219,73 @@ def _bwd_args(q, k, v, g, dq, dk, dv, causal, scale, window):
 
 def _flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, causal, scale, window):
     """Launch the dK/dV kernel -> (dk, dv). ``g`` has unit stride over D;
-    ``lse`` and ``delta`` are contiguous float32 [B, H, Lq]."""
+    ``lse`` and ``delta`` are contiguous float32 [B, H, Lq]; for bf16,
+    ``delta`` is the one the dQ kernel wrote."""
     global bwd_dkdv_launches
     dk, dv = _grad_like(k), _grad_like(v)
     err = _build.kernel("tony_flash_bwd_dkdv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_bwd_args(q, k, v, g, q, dk, dv, causal, scale, window))
+        *_bwd_args(q, k, v, g, q, dk, dv, q, causal, scale, window))
     _build.check("flash_bwd_dkdv", err)
     bwd_dkdv_launches += 1
     return dk, dv
 
 
-def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, window):
-    """Launch the dQ kernel -> dq (same inputs as the dK/dV kernel)."""
+def _flash_bwd_dq_cuda(q, k, v, o, g, lse, g_lse, delta, causal, scale,
+                       window):
+    """Launch the dQ kernel -> dq. bf16: the kernel also computes delta =
+    rowsum(dO * O) - g_lse (``o`` bf16 or float32, with unit stride over D
+    and 16-byte aligned; ``g_lse`` contiguous float32 [B, H, Lq] or None)
+    and writes it into ``delta``, a contiguous float32 [B, H, Lq] buffer;
+    float32: ``delta`` is the input ``_delta`` computed, and ``o`` and
+    ``g_lse`` are not read."""
     global bwd_dq_launches
     dq = _grad_like(q)
+    args = _bwd_args(q, k, v, g, dq, k, v, o, causal, scale, window)
     err = _build.kernel("tony_flash_bwd_dq")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_bwd_args(q, k, v, g, dq, k, v, causal, scale, window))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), *args[:6],
+        int(o.dtype == torch.float32), *args[6:])
     _build.check("flash_bwd_dq", err)
     bwd_dq_launches += 1
     return dq
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, g, g_lse, causal, scale, window):
-    """csrc/flash_bwd.cu: the dK/dV kernel, then the dQ kernel. delta is
-    computed here with PyTorch ops, as the TPU package computes it outside
-    its kernels."""
+    """csrc/flash_bwd.cu. bf16: the dQ kernel, which also writes delta, then
+    the dK/dV kernel, on the current stream with no synchronisation between
+    them. float32: delta by ``_delta`` (as the TPU package computes it
+    outside its kernels), then the two FP32 kernels."""
     _check_kernel_inputs(q, k, v, backward=True)
     if g.dtype != q.dtype or g.shape != q.shape:
         raise ValueError(f"dO must match q: got {g.dtype} {tuple(g.shape)}, "
                          f"q {q.dtype} {tuple(q.shape)}")
+    if o.shape != q.shape:
+        raise ValueError(f"out must match q: got {tuple(o.shape)}, "
+                         f"q {tuple(q.shape)}")
+    # e.g. the expanded all-zero-stride cotangent of out.sum()
     if g.stride(-1) != 1 or (g.dtype == torch.bfloat16
                              and not _aligned16(g)):
-        # e.g. the expanded all-zero-stride cotangent of out.sum()
         g = g.contiguous()
-    delta = _delta(o, g, g_lse).contiguous()
     lse = lse.float().contiguous()
+    if q.dtype == torch.bfloat16:
+        # ring attention's merged out is float32: the kernel reads it as is
+        if o.dtype not in (torch.bfloat16, torch.float32):
+            o = o.float()
+        if o.stride(-1) != 1 or not _aligned16(o):
+            o = o.contiguous()
+        g_lse = None if g_lse is None else g_lse.float().contiguous()
+        delta = torch.empty_like(lse)
+        dq = _flash_bwd_dq_cuda(q, k, v, o, g, lse, g_lse, delta, causal,
+                                scale, window)
+    else:
+        delta = _delta(o, g, g_lse).contiguous()
+        dq = _flash_bwd_dq_cuda(q, k, v, o, g, lse, None, delta, causal,
+                                scale, window)
     dk, dv = _flash_bwd_dkdv_cuda(q, k, v, g, lse, delta, causal, scale,
                                   window)
-    dq = _flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, window)
     return dq, dk, dv
 
 

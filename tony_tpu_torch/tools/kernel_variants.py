@@ -5,13 +5,20 @@
 Each variant is a kernel source from ``tony_tpu_torch/csrc`` with textual
 substitutions (a tile size, a loop's unroll, a compile-time switch). All
 are compiled with the port's own nvcc flags, one nvcc per variant in
-parallel, into ``build/variants/<name>/``; ptxas's registers and spills are
-printed for each; each is held against the plain PyTorch version at the
-edge cases at ``chip_smoke.py``'s tolerances, then timed in alternating
+parallel, into ``build/variants/<name>/``; ptxas's registers and spills,
+and its wgmma and setmaxnreg notes, are printed for each; each is held
+against the plain PyTorch version at the edge cases at
+``chip_smoke.py``'s tolerances, then timed in alternating
 order (A B B A ...) with CUDA events, so that the comparison is made on one
-card within one call. The attention variants: edge cases causal, window,
-ragged cross attention, rows with no visible key, D = 64; timed at B8 H8
-L2048 D128 bf16 causal. The decode variants: edge cases an unaligned
+card within one call; a variant that fails to build or to agree is
+reported and left out of the timing. The attention variants: edge cases
+causal, window, ragged cross attention, rows with no visible key (with
+g_lse), D = 64, D = 32 with g_lse at Lq 1000, and a B1 H1 batch; a
+backward variant's delta is held against ``_delta`` too, and a second
+launch must give the same bits. Timed at B8 H8 L2048 D128 bf16 causal, a
+backward whole and kernel by kernel. ``products`` runs each ``wgmma``
+form of the backward alone (``csrc/hopper_check.cu``) against
+``torch.matmul``. The decode variants: edge cases an unaligned
 window, a tail tile, rep 8, D = 64, int8 and float32 caches, the whole
 output and the float32 partials; timed at the four shapes of
 ``DECODE_SHAPES`` (B8 kvH8 rep1 D128 bf16 over 2081 of 4160 positions first),
@@ -68,34 +75,6 @@ _FWD_NO_SPILL = {
         "h * a.o_sh + row * a.o_sl + 2 * t;",
 }
 
-# the dK/dV kernel with the swept tiles' sources kept as 64-bit pointers
-# across the sweep (the committed kernel recomputes them at each prefetch)
-_BWD_POINTERS_KEPT = {
-    """  auto load_q = [&](int st, int j) {
-    const int bhj = static_cast<int>(opaque(bh)), b = bhj / a.H, h = bhj % a.H;
-    const int q0 = j * MR;
-    cp_tile<MR, D, MTHREADS>(qs + st * TILE,
-                             static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh,
-                             a.q_sl, q0, a.Lq);
-    cp_tile<MR, D, MTHREADS>(gs + st * TILE,
-                             static_cast<const __nv_bfloat16*>(a.g) + b * a.g_sb + h * a.g_sh,
-                             a.g_sl, q0, a.Lq);
-    const int r = tid % MR, row = q0 + r;
-    const float* src = (tid < MR ? a.lse : a.delta) + static_cast<long long>(bhj) * a.Lq;""":
-    """  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
-                             (bh / a.H) * a.q_sb + (bh % a.H) * a.q_sh;
-  const __nv_bfloat16* gg = static_cast<const __nv_bfloat16*>(a.g) +
-                             (bh / a.H) * a.g_sb + (bh % a.H) * a.g_sh;
-  const float* lseg = a.lse + static_cast<long long>(bh) * a.Lq;
-  const float* deltag = a.delta + static_cast<long long>(bh) * a.Lq;
-  auto load_q = [&](int st, int j) {
-    const int q0 = j * MR;
-    cp_tile<MR, D, MTHREADS>(qs + st * TILE, qg, a.q_sl, q0, a.Lq);
-    cp_tile<MR, D, MTHREADS>(gs + st * TILE, gg, a.g_sl, q0, a.Lq);
-    const int r = tid % MR, row = q0 + r;
-    const float* src = tid < MR ? lseg : deltag;""",
-}
-
 # the decode kernel's compile-time switches, as committed
 _STAGES = "constexpr int STAGES = 2;"
 _TILE = "constexpr int TILE_BYTES = 16384;"
@@ -109,12 +88,13 @@ VARIANTS = {
     "fwd_mask_every_tile": ("flash_fwd", {"softmax_step<false>(":
                                           "softmax_step<true>("}),
     "bwd": ("flash_bwd", {}),
-    "bwd_pointers_kept": ("flash_bwd", _BWD_POINTERS_KEPT),
-    "bwd_chunk_16": ("flash_bwd", {"constexpr int QC = 32;":
-                                   "constexpr int QC = 16;"}),
-    "bwd_chunks_unrolled": ("flash_bwd", {
-        "#pragma unroll 1  // chunk by chunk: unrolled, the chunks overlap "
-        "and spill": "#pragma unroll"}),
+    # 128-key K/V tiles in the dQ kernel, against 64 (in two stages: three
+    # of them and the resident Q, dO pass the 227 KB a CTA can hold at D128)
+    "bwd_dq_keys_128": ("flash_bwd", {
+        "constexpr int DQ_KEYS = 64;": "constexpr int DQ_KEYS = 128;",
+        "constexpr int STAGES = 3;": "constexpr int STAGES = 2;"}),
+    # each wgmma product of the bf16 backward alone, against torch.matmul
+    "products": ("hopper_check", {}),
     "decode": ("flash_decode", {}),
     "decode_stages_3": ("flash_decode", {_STAGES: _STAGES[:-2] + "3;"}),
     "decode_stages_4": ("flash_decode", {_STAGES: _STAGES[:-2] + "4;"}),
@@ -173,16 +153,69 @@ def _fwd(lib, q, k, v, causal, window):
     return out, lse
 
 
-def _bwd(lib, q, k, v, g, lse, delta, causal, window):
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    rest = A._bwd_args(q, k, v, g, dq, dk, dv, causal, None, window)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
-    _build.check("variant flash_bwd_dkdv", _fn(lib, "tony_flash_bwd_dkdv")(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *rest))
+def _bwd_dq(lib, q, k, v, o, g, lse, g_lse, delta, causal, window):
+    """A variant's dQ kernel -> dq (for bf16 it writes ``delta``)."""
+    dq = torch.empty_like(q)
+    args = A._bwd_args(q, k, v, g, dq, k, v, o, causal, None, window)
     _build.check("variant flash_bwd_dq", _fn(lib, "tony_flash_bwd_dq")(
-        *ptrs, dq.data_ptr(), *rest))
-    return dq, dk, dv
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), *args[:6],
+        int(o.dtype == torch.float32), *args[6:]))
+    return dq
+
+
+def _bwd_dkdv(lib, q, k, v, g, lse, delta, causal, window):
+    """A variant's dK/dV kernel -> (dk, dv)."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    args = A._bwd_args(q, k, v, g, q, dk, dv, q, causal, None, window)
+    _build.check("variant flash_bwd_dkdv", _fn(lib, "tony_flash_bwd_dkdv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *args))
+    return dk, dv
+
+
+def _bwd(lib, q, k, v, o, g, lse, g_lse, causal, window):
+    """The backward's call sequence on a variant's library -> (dq, dk, dv,
+    delta): for bf16 the dQ kernel (which writes delta), then the dK/dV
+    kernel; for float32 delta by ``_delta`` first."""
+    bf16 = q.dtype == torch.bfloat16
+    delta = torch.empty_like(lse) if bf16 else A._delta(o, g, g_lse).contiguous()
+    dq = _bwd_dq(lib, q, k, v, o, g, lse, g_lse, delta, causal, window)
+    return (dq, *_bwd_dkdv(lib, q, k, v, g, lse, delta, causal, window), delta)
+
+
+def _products(lib) -> bool:
+    """Each wgmma form of the bf16 backward alone (csrc/hopper_check.cu)
+    against torch.matmul in float32: K-major A and B from shared memory,
+    and A from registers with B read MN-major, at D = 32, 64, 128 and N =
+    64, 128 -> whether all agree."""
+    fn = lib.tony_hopper_product_check
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ok = True
+    for mode in (0, 1):
+        for d in (32, 64, 128):
+            for n in (64, 128):
+                a = torch.randn((64, d), generator=gen, device="cuda").bfloat16()
+                b = torch.randn((n, d), generator=gen, device="cuda").bfloat16()
+                p = torch.randn((64, n), generator=gen, device="cuda")
+                c = torch.full((64, n if mode == 0 else d), float("nan"),
+                               device="cuda")
+                err = fn(mode, d, n, a.data_ptr(), b.data_ptr(), p.data_ptr(),
+                         c.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                want = (a.float() @ b.float().T if mode == 0
+                        else p.bfloat16().float() @ b.float())
+                e = float((c - want).abs().max()) if err == 0 else float("nan")
+                good = err == 0 and e <= 1e-3 * float(want.abs().max())
+                ok &= good
+                print(f"products {'ss K-major' if mode == 0 else 'rs MN-major'}"
+                      f" D{d} N{n}: {'ok' if good else 'WRONG'} (launch {err},"
+                      f" max|err| {e:.3g})")
+    return ok
 
 
 def _decode_cases(C, name, lib, geometry, gen):
@@ -281,58 +314,88 @@ def main(argv=None) -> int:
         return 2
     names = list(argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
     jobs = {n: _build_variant(n, *VARIANTS[n]) for n in names}
-    libs = {}
+    libs, failed = {}, []
     for name, proc in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            print(f"nvcc failed for {name}:\n{log[-6000:]}")
+            failed.append(name)
+            continue
         for fn, (regs, st, ld) in sorted(C.ptxas_report(log).items()):
-            if "mma" in fn or "decode" in fn:
+            if "mma" in fn or "decode" in fn or "product" in fn:
                 print(f"ptxas {name}: {fn}: {regs} registers, spill stores "
                       f"{st} B, spill loads {ld} B")
+        for line in log.splitlines():
+            if "warning" in line or "setmaxnreg" in line or "C75" in line:
+                print(f"nvcc {name}: {line.strip()}")
+        (OUT / name / "nvcc.log").write_text(log)
         libs[name] = ctypes.CDLL(str(OUT / name / "lib.so"))
     kind = {n: VARIANTS[n][0] for n in libs}
+    for name in [n for n in libs if kind[n] == "hopper_check"]:
+        if not _products(libs.pop(name)):
+            failed.append(name)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
-    cases = [  # (label, B, H, Lq, Lk, D, causal, window)
-        ("causal L2048", 2, 8, 2048, 2048, 128, True, None),
-        ("window 256", 2, 8, 2048, 2048, 128, True, 256),
-        ("cross ragged Lq1024 Lk700", 2, 8, 1024, 700, 128, False, None),
-        ("empty rows Lq1024 Lk300 w128", 1, 4, 1024, 300, 128, True, 128),
-        ("D64 causal L777", 2, 4, 777, 777, 64, True, None),
+    cases = [  # (label, B, H, Lq, Lk, D, causal, window, g_lse)
+        ("causal L2048", 2, 8, 2048, 2048, 128, True, None, False),
+        ("window 256", 2, 8, 2048, 2048, 128, True, 256, False),
+        ("cross ragged Lq1024 Lk700", 2, 8, 1024, 700, 128, False, None,
+         False),
+        ("empty rows Lq1024 Lk300 w128", 1, 4, 1024, 300, 128, True, 128,
+         True),
+        ("D64 causal L777", 2, 4, 777, 777, 64, True, None, False),
+        ("D32 causal L1000 g_lse", 2, 4, 1000, 1000, 32, True, None, True),
+        ("B1 H1 L300", 1, 1, 300, 300, 128, True, None, False),
     ]
     times = {n: [] for n in libs}
     with torch.no_grad():
         attn = [n for n in libs if kind[n] != "flash_decode"]
-        for label, b, h, lq, lk, d, causal, window in cases if attn else ():
+        for label, b, h, lq, lk, d, causal, window, with_glse in \
+                cases if attn else ():
             q, k, v, g = randn(b, h, lq, d), randn(b, h, lk, d), \
                 randn(b, h, lk, d), randn(b, h, lq, d)
+            g_lse = randn(b, h, lq, dtype=torch.float32) if with_glse else None
             out, lse = A._flash_fwd_reference(q, k, v, causal, None, window)
-            want = A._flash_bwd_reference(q, k, v, out, lse, g, None, causal,
+            want = A._flash_bwd_reference(q, k, v, out, lse, g, g_lse, causal,
                                           None, window)
-            delta = A._delta(out, g, None).contiguous()
-            for name in attn:
+            want_delta = A._delta(out, g, g_lse)
+            for name in list(attn):
                 lib = libs[name]
-                if kind[name] == "flash_fwd":
-                    got_out, got_lse = _fwd(lib, q, k, v, causal, window)
-                    e = C.compare(f"{name} {label} out", got_out, out,
-                                  C.BF16_TOL)
-                    C.compare(f"{name} {label} lse", got_lse, lse, C.LSE_TOL)
-                else:
-                    got = _bwd(lib, q, k, v, g, lse, delta, causal, window)
-                    e = max(C.compare(f"{name} {label} d{n}", x, w,
-                                      C.BWD_BF16_TOL)
-                            for n, x, w in zip("qkv", got, want))
+                try:
+                    if kind[name] == "flash_fwd":
+                        got_out, got_lse = _fwd(lib, q, k, v, causal, window)
+                        e = C.compare(f"{name} {label} out", got_out, out,
+                                      C.BF16_TOL)
+                        C.compare(f"{name} {label} lse", got_lse, lse,
+                                  C.LSE_TOL)
+                    else:
+                        *got, delta = _bwd(lib, q, k, v, out, g, lse, g_lse,
+                                           causal, window)
+                        torch.cuda.synchronize()
+                        e = max(C.compare(f"{name} {label} d{n}", x, w,
+                                          C.BWD_BF16_TOL)
+                                for n, x, w in zip("qkv", got, want))
+                        C.compare(f"{name} {label} delta", delta, want_delta,
+                                  C.BWD_F32_TOL)
+                        again = _bwd(lib, q, k, v, out, g, lse, g_lse, causal,
+                                     window)
+                        if not all(torch.equal(x, y)
+                                   for x, y in zip(got, again[:3])):
+                            raise RuntimeError("two launches differ")
+                except Exception as exc:  # report, drop it from the timing
+                    print(f"{name} {label}: FAILED: {exc}")
+                    torch.cuda.synchronize()
+                    attn.remove(name)
+                    failed.append(name)
+                    continue
                 print(f"{name} {label}: max|err| {e:.3g}")
         if attn:
             q, k, v, g = (randn(8, 8, 2048, 128) for _ in range(4))
             out, lse = A._flash_fwd_cuda(q, k, v, True, None, None)
-            delta = A._delta(out, g, None).contiguous()
             for order in (attn, attn[::-1]) * 2:
                 for name in order:
                     lib = libs[name]
@@ -341,9 +404,21 @@ def main(argv=None) -> int:
                             lambda: _fwd(lib, q, k, v, True, None), 20))
                     else:
                         times[name].append(C.cuda_ms(
-                            lambda: _bwd(lib, q, k, v, g, lse, delta, True,
-                                         None), 20))
-            del q, k, v, g, out, lse, delta
+                            lambda: _bwd(lib, q, k, v, out, g, lse, None,
+                                         True, None), 20))
+                        delta = torch.empty_like(lse)
+                        parts = (
+                            ("dq (writes delta)", lambda: _bwd_dq(
+                                lib, q, k, v, out, g, lse, None, delta, True,
+                                None)),
+                            ("dkdv", lambda: _bwd_dkdv(
+                                lib, q, k, v, g, lse, delta, True, None)))
+                        for part, fn in parts:
+                            key = (f"{name} {part}", "B8 H8 L2048 D128 bf16 "
+                                   "causal")
+                            times[key] = times.get(key, []) + [
+                                C.cuda_ms(fn, 20)]
+            del q, k, v, g, out, lse
 
         dec = [n for n in libs if kind[n] == "flash_decode"]
         entries = {n: _fn(libs[n], "tony_flash_decode") for n in dec}
@@ -373,6 +448,9 @@ def main(argv=None) -> int:
         print(f"time {name} {shape}: " + " ".join(f"{x:.4f}" for x in t)
               + f" ms (min {min(t):.4f})")
     print(C.nvidia_smi_line())
+    if failed:
+        print(f"kernel_variants: failed: {sorted(set(failed))}")
+        return 1
     return 0
 
 
